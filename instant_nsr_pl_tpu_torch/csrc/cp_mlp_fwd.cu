@@ -1,0 +1,184 @@
+// Fused CP-encode -> basis -> bf16 ReLU MLP forward (the NeRF density head).
+//
+// Replaces: instant_nsr_pl_tpu/ops/cp_mlp_pallas.py cp_mlp_apply -> _fwd_impl
+// -> _fwd_kernel (pallas_call at :267), forward only (the serving path needs
+// neither the vsave nor the hsave residual, so only `out` is written).
+//
+// What it computes, per sample x (already contracted into [0,1]^3), scale s
+// and axis a:
+//   p = clip(x_a, 0, 1) * (R_s - 1), i0 = min(floor(p), R_s - 2), f = p - i0
+//   v_a = bf16(1 - f) * L_{s,a}[i0] + bf16(f) * L_{s,a}[i0 + 1]   (f32 sum)
+//   prod_s = bf16((v_x * v_y) * v_z)                               (C values)
+//   enc[s*F + j] = sum_c B_s[c][j] * prod_s[c]                     (f32 sum)
+// then the packed MLP of mlp_common.cuh. Lines and basis are bf16. This is
+// exactly the TPU kernel's dense (C, R) x (R, BN) "tent" matmul: the tent
+// column has its two non-zeros at i0 and i0+1 with those bf16 weights (also
+// on an interior knot, where f = 0, and at p = R-1, where f = 1), and both
+// products are exact in f32, so v matches to the bit.
+//
+// What bounds it on an H100: neither HBM nor arithmetic at this size. The
+// function must move ~76 B per sample (12 B in, 64 B out at D = 16), about
+// 6 us at 3.35 TB/s for 262,144 samples, and does ~12k flops per sample on
+// the CUDA cores. The TPU needed the dense tent matmul because it has no
+// vector gather; Hopper has one, so each thread reads its 2 x 3 x S line rows
+// (C bf16 = 128 B each at C = 64) straight from global memory through L1/L2:
+// the tables (48 KB coarse, 768 KB fine at the bench shape) stay resident in
+// the 50 MB L2, and row reads are 16-byte vector loads. The basis and the
+// packed MLP are widened to f32 in shared memory once per block and read as
+// warp-wide broadcasts. A thread per sample keeps every intermediate in
+// registers, so nothing but x and out touches device memory. Tensor cores,
+// TMA and pipelining are left for a later change.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (explicit
+// fmaf only, so elementwise rounding follows the plain PyTorch version).
+
+#include <cstdint>
+
+#include "mlp_common.cuh"
+
+namespace insr {
+
+constexpr int kMaxScales = 4;
+constexpr int kCpBlock = 128;
+
+struct LineTables {
+  const __nv_bfloat16* ptr[kMaxScales];  // per scale: (3, R_s, C) bf16
+  int res[kMaxScales];
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// Element k (0..7) of eight packed bf16 values.
+__device__ __forceinline__ float bf16_at(const uint4& q, int k) {
+  const uint32_t w = k < 2 ? q.x : k < 4 ? q.y : k < 6 ? q.z : q.w;
+  return (k & 1) ? bf16_hi(w) : bf16_lo(w);
+}
+
+template <int C, int F, int S, int W, int NH, int D>
+__global__ void __launch_bounds__(kCpBlock)
+    cp_mlp_fwd_kernel(const float* __restrict__ x, long long n,
+                      LineTables lines, const __nv_bfloat16* __restrict__ basis,
+                      const __nv_bfloat16* __restrict__ ws,
+                      const float* __restrict__ bs, float* __restrict__ out) {
+  constexpr int E = S * F;
+  constexpr int ROWS = E + NH * W;
+  constexpr int OUT4 = round_up4(D);
+  static_assert(C % 8 == 0 && F % 4 == 0 && W % 4 == 0, "layout");
+
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* b_s = w_s + ROWS * W;
+  float* basis_s = b_s + (NH + 1) * W;  // (S, C, F)
+  load_bf16_to_shared(ws, ROWS * W, w_s);
+  load_f32_to_shared(bs, (NH + 1) * W, b_s);
+  load_bf16_to_shared(basis, S * C * F, basis_s);
+  __syncthreads();
+
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const float u[3] = {x[3 * i], x[3 * i + 1], x[3 * i + 2]};
+    float enc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) enc[e] = 0.0f;
+
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = lines.res[s];
+      const uint4* row0[3];
+      const uint4* row1[3];
+      float w0[3], w1[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float p = fminf(fmaxf(u[a], 0.0f), 1.0f) * static_cast<float>(r - 1);
+        const float i0 = fminf(floorf(p), static_cast<float>(r - 2));
+        const float f = p - i0;
+        w0[a] = bf16_round(1.0f - f);
+        w1[a] = bf16_round(f);
+        const __nv_bfloat16* base =
+            lines.ptr[s] + (static_cast<long long>(a) * r + static_cast<int>(i0)) * C;
+        row0[a] = reinterpret_cast<const uint4*>(base);
+        row1[a] = reinterpret_cast<const uint4*>(base + C);
+      }
+#pragma unroll
+      for (int c8 = 0; c8 < C / 8; ++c8) {
+        uint4 q0[3], q1[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          q0[a] = __ldg(row0[a] + c8);
+          q1[a] = __ldg(row1[a] + c8);
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float v[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            v[a] = fmaf(w1[a], bf16_at(q1[a], k), w0[a] * bf16_at(q0[a], k));
+          }
+          const float prod = bf16_round((v[0] * v[1]) * v[2]);
+          const float4* brow =
+              reinterpret_cast<const float4*>(basis_s + (s * C + c8 * 8 + k) * F);
+#pragma unroll
+          for (int j4 = 0; j4 < F / 4; ++j4) {
+            const float4 bv = brow[j4];
+            float* e4 = enc + s * F + 4 * j4;
+            e4[0] = fmaf(bv.x, prod, e4[0]);
+            e4[1] = fmaf(bv.y, prod, e4[1]);
+            e4[2] = fmaf(bv.z, prod, e4[2]);
+            e4[3] = fmaf(bv.w, prod, e4[3]);
+          }
+        }
+      }
+    }
+
+    float o[OUT4];
+    mlp_forward<E, W, NH, OUT4>(w_s, b_s, enc, o);
+    store_row<D, OUT4>(out + i * D, o);
+  }
+}
+
+template <int C, int F, int S, int W, int NH, int D>
+int launch_cp(const float* x, long long n, const LineTables& lines,
+              const void* basis, const void* ws, const float* bs, float* out,
+              cudaStream_t stream) {
+  constexpr int ROWS = S * F + NH * W;
+  const size_t smem =
+      sizeof(float) * (ROWS * W + (NH + 1) * W + S * C * F);
+  return launch(cp_mlp_fwd_kernel<C, F, S, W, NH, D>, n, kCpBlock, smem,
+                stream, x, n, lines,
+                static_cast<const __nv_bfloat16*>(basis),
+                static_cast<const __nv_bfloat16*>(ws), bs, out);
+}
+
+}  // namespace insr
+
+// Returns cudaGetLastError() after the launch, or -1 when no instantiation
+// matches the shape (the Python wrapper lists the supported ones).
+extern "C" int cp_mlp_fwd(const float* x, long long n, const void* const* line_ptrs,
+                          const int* res, int n_scales, const void* basis,
+                          const void* ws, const float* bs, float* out, int c,
+                          int f, int w, int n_hidden, int d, void* stream) {
+  insr::LineTables lines{};
+  if (n_scales < 1 || n_scales > insr::kMaxScales) return -1;
+  for (int s = 0; s < n_scales; ++s) {
+    lines.ptr[s] = static_cast<const __nv_bfloat16*>(line_ptrs[s]);
+    lines.res[s] = res[s];
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_CP_CASE(C_, F_, S_, W_, NH_, D_)                                 \
+  if (c == C_ && f == F_ && n_scales == S_ && w == W_ && n_hidden == NH_ &&   \
+      d == D_)                                                                \
+    return insr::launch_cp<C_, F_, S_, W_, NH_, D_>(x, n, lines, basis, ws,  \
+                                                    bs, out, st);
+  INSR_CP_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head
+  INSR_CP_CASE(16, 8, 2, 32, 1, 16)   // the small test model
+  INSR_CP_CASE(16, 8, 2, 32, 2, 16)
+#undef INSR_CP_CASE
+  return -1;
+}

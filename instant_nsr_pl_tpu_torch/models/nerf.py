@@ -1,0 +1,144 @@
+"""Instant-NGP style NeRF renderer, eval path.
+
+Port of ``instant_nsr_pl_tpu/models/nerf.py:37-250`` (reference
+models/nerf.py:14-161) for bounded scenes: AABB contraction, a 128^3
+occupancy grid, uniform stepping ``1.732 * 2r / num_samples``, the
+static-capacity packed march of ``ops/marching.py`` and compositing on the
+packed buffer. The occupancy update, stratified sampling and the training
+outputs belong to the training slice; unbounded scenes (learned background)
+to a later one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from instant_nsr_pl_tpu_torch.device import resolve_device
+from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType
+from instant_nsr_pl_tpu_torch.ops.marching import (
+    OccGridSpec,
+    march_rays,
+    occupancy_grid_init,
+    packed_positions,
+)
+from instant_nsr_pl_tpu_torch.ops.ray import ray_aabb_intersect
+from instant_nsr_pl_tpu_torch.ops.rendering import (
+    accumulate_along_rays,
+    render_weight_from_density,
+)
+from instant_nsr_pl_tpu_torch.registry import models
+
+
+@models.register("nerf")
+class NeRFModel:
+    def __init__(self, config):
+        if config.get("learned_background", False):
+            raise NotImplementedError(
+                "learned_background (unbounded scenes) comes with a later slice of the port"
+            )
+        self.config = config
+        self.radius = float(config.radius)
+        self.geometry = models.make(config.geometry.name, config.geometry)
+        self.texture = models.make(config.texture.name, config.texture)
+        self.num_samples_per_ray = int(config.num_samples_per_ray)
+
+        self.occupancy_grid_res = 128
+        self.render_step_size = 1.732 * 2.0 * self.radius / self.num_samples_per_ray
+        self.contraction_type = ContractionType.AABB
+        self.geometry.contraction_type = self.contraction_type
+
+        self.grid_prune = bool(config.get("grid_prune", True))
+        self.occ_spec = OccGridSpec(
+            resolution=self.occupancy_grid_res,
+            radius=self.radius,
+            contraction_type=self.contraction_type,
+        )
+        # strided occupancy probing: one dilated-grid probe per group of k
+        # samples, k bounded so a group stays within one dilation radius
+        cell = 2.0 * self.radius / self.occupancy_grid_res
+        auto = int(2.0 * cell / self.render_step_size)
+        self.occ_stride = int(config.get("grid_lookup_stride", min(8, max(1, auto))))
+        while self.num_samples_per_ray % self.occ_stride:
+            self.occ_stride -= 1
+        self.group_compact = bool(config.get("march_group_compact", True))
+
+    def packed_group(self, capacity: int) -> int:
+        """Block size of the packed buffer: k when the group-compacted march
+        guarantees single-ray aligned k-blocks, else 1."""
+        if (
+            self.group_compact
+            and self.grid_prune
+            and self.occ_stride > 1
+            and capacity % self.occ_stride == 0
+        ):
+            return self.occ_stride
+        return 1
+
+    # -- state ------------------------------------------------------------
+    def init(self, generator: torch.Generator, device=None):
+        """Parameters drawn from ``generator`` (on the CPU, so a seed gives
+        the same weights on every device), placed on ``device``."""
+        dev = resolve_device(device)
+        return {
+            "geometry": self.geometry.init(generator, dev),
+            "texture": self.texture.init(generator, dev),
+        }
+
+    def init_occupancy(self, device=None):
+        return {"grid": occupancy_grid_init(self.occ_spec, device)}
+
+    # -- rendering ---------------------------------------------------------
+    def march(self, occ, rays_o, rays_d, capacity: int):
+        """Slab test, occupancy-pruned march and sample positions:
+        (samples, positions, dirs, t_mid, group)."""
+        t_min, t_max = ray_aabb_intersect(rays_o, rays_d, -self.radius, self.radius)
+        grp = self.packed_group(capacity)
+        grid = occ["grid"]
+        samples = march_rays(
+            rays_o,
+            rays_d,
+            t_min,
+            t_max,
+            render_step_size=self.render_step_size,
+            max_samples=self.num_samples_per_ray,
+            capacity=capacity,
+            occ_binary=grid.binary if self.grid_prune else None,
+            occ_spec=self.occ_spec,
+            occ_dilated=grid.binary_dilated if self.grid_prune else None,
+            occ_stride=self.occ_stride,
+            group_compact=grp > 1,
+        )
+        positions, dirs, t_mid, _ = packed_positions(samples, rays_o, rays_d, group=grp)
+        return samples, positions, dirs, t_mid, grp
+
+    def composite(self, samples, density, rgb, t_mid, background_color, group):
+        """Weights from density, then (opacity, depth, rgb) per ray in one
+        segment sum, and the background blended by (1 - opacity)."""
+        weights = render_weight_from_density(
+            samples.t_starts, samples.t_ends, density,
+            samples.ray_indices, samples.valid, group=group,
+        )
+        vals = torch.cat([torch.ones_like(t_mid)[:, None], t_mid[:, None], rgb], dim=-1)
+        acc = accumulate_along_rays(
+            weights, vals, samples.ray_ends, valid=samples.valid, group=group
+        )
+        opacity, depth, comp_rgb = acc[:, 0:1], acc[:, 1:2], acc[:, 2:5]
+        bg = torch.as_tensor(background_color, dtype=comp_rgb.dtype, device=comp_rgb.device)
+        comp_rgb = comp_rgb + bg.expand_as(comp_rgb) * (1.0 - opacity)
+        return {
+            "comp_rgb": comp_rgb,
+            "opacity": opacity,
+            "depth": depth,
+            "rays_valid": opacity > 0,
+            "rays_kept": samples.ray_kept,
+            "num_samples": samples.num_valid,
+        }
+
+    @torch.no_grad()
+    def forward(self, params, occ, rays_o, rays_d, *, background_color, capacity: int):
+        """Render a batch of rays (N, 3) with unit ``rays_d``; returns the
+        reference's eval outputs (models/nerf.py:110-125)."""
+        samples, positions, dirs, t_mid, grp = self.march(occ, rays_o, rays_d, capacity)
+        density, feature = self.geometry.apply(params["geometry"], positions)
+        rgb = self.texture.apply(params["texture"], feature, dirs)
+        return self.composite(samples, density, rgb, t_mid, background_color, grp)

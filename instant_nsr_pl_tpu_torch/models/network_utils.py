@@ -1,0 +1,180 @@
+"""Encoding / MLP factories (the reference's models/network_utils.py role).
+
+Port of ``instant_nsr_pl_tpu/models/network_utils.py`` for the encodings the
+NeRF render slice runs: ``CP`` and ``SphericalHarmonics``. As in the JAX
+package, every module is a static Python object with ``init(generator,
+device) -> params`` and ``apply(params, x) -> out``, and parameters are
+nested dicts keyed like the JAX pytree (``cp.line_{s}_{ax}``,
+``layers[i].w``), so weights carry across as copies
+(``utils/transplant.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from instant_nsr_pl_tpu_torch.ops.activations import get_activation
+from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_encode, cp_init
+from instant_nsr_pl_tpu_torch.ops.cp_mlp import cp_mlp_forward, fusable
+from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_init
+from instant_nsr_pl_tpu_torch.ops.sh import sh_output_dim, spherical_harmonics_encoding
+
+_LATER = {
+    "VanillaFrequency": "the HashGrid-family slice",
+    "ProgressiveBandHashGrid": "the HashGrid-family slice",
+    "HashGrid": "the HashGrid-family slice",
+    "VectorMatrix": "the HashGrid-family slice",
+    "VM": "the HashGrid-family slice",
+}
+
+
+class CPEncoding:
+    """CP (line-factorized) encoding, composed path (``ops/cp.py``). The
+    fused density op (``ops/cp_mlp.py``) takes over inside
+    :class:`EncodingWithNetwork` when the pair is fusable."""
+
+    def __init__(self, in_channels, config):
+        if in_channels != 3:
+            raise ValueError("CP encoding is 3-D")
+        if bool(config.get("stack_scales", False)):
+            raise NotImplementedError(
+                "stack_scales (the stacked-scales fused kernel) is not ported yet"
+            )
+        self.spec = CPSpec.from_config(config)
+        self.n_input_dims = 3
+        self.n_output_dims = self.spec.n_output_dims
+
+    def init(self, generator, device=None):
+        return {"cp": cp_init(generator, self.spec, device)}
+
+    def apply(self, params, x):
+        return cp_encode(params["cp"], x, self.spec)
+
+
+class SphericalHarmonicsEncoding:
+    """Real-SH direction encoding (tcnn ``SphericalHarmonics`` role)."""
+
+    def __init__(self, in_channels, config):
+        if in_channels != 3:
+            raise ValueError("SH encoding is 3-D")
+        self.degree = int(config["degree"])
+        self.n_input_dims = 3
+        self.n_output_dims = sh_output_dim(self.degree)
+
+    def init(self, generator, device=None):
+        return {}
+
+    def apply(self, params, x):
+        return spherical_harmonics_encoding(x, self.degree)
+
+
+class CompositeEncoding:
+    """Optionally prepend the raw (rescaled) input to the encoding output
+    (``include_xyz``; reference: models/network_utils.py:68-79)."""
+
+    def __init__(self, encoding, include_xyz=False, xyz_scale=2.0, xyz_offset=-1.0):
+        self.encoding = encoding
+        self.include_xyz = include_xyz
+        self.xyz_scale = xyz_scale
+        self.xyz_offset = xyz_offset
+        self.n_input_dims = encoding.n_input_dims
+        self.n_output_dims = (
+            int(include_xyz) * encoding.n_input_dims + encoding.n_output_dims
+        )
+
+    def init(self, generator, device=None):
+        return self.encoding.init(generator, device)
+
+    def apply(self, params, x):
+        enc = self.encoding.apply(params, x)
+        if not self.include_xyz:
+            return enc
+        return torch.cat([x * self.xyz_scale + self.xyz_offset, enc], dim=-1)
+
+
+def get_encoding(n_input_dims, config):
+    """Factory mirroring reference get_encoding (network_utils.py:82-92);
+    input is assumed to live in [0, 1]."""
+    otype = config["otype"]
+    if otype in ("CP", "TensorCP"):
+        enc = CPEncoding(n_input_dims, config)
+    elif otype == "SphericalHarmonics":
+        enc = SphericalHarmonicsEncoding(n_input_dims, config)
+    elif otype in _LATER:
+        raise NotImplementedError(
+            f"encoding otype '{otype}' comes with {_LATER[otype]} of the port"
+        )
+    else:
+        raise ValueError(f"Unknown encoding otype '{otype}'")
+    return CompositeEncoding(enc, include_xyz=bool(config.get("include_xyz", False)))
+
+
+class MLP:
+    """Functional MLP wrapping ops/mlp.py with the configured output
+    activation (FullyFusedMLP / CutlassMLP / VanillaMLP roles)."""
+
+    def __init__(self, dim_in, dim_out, config):
+        self.spec = MLPSpec.from_config(dim_in, dim_out, config)
+        self.output_activation = get_activation(config.get("output_activation", "none"))
+        self.n_input_dims = dim_in
+        self.n_output_dims = dim_out
+
+    def init(self, generator, device=None):
+        return {"layers": mlp_init(generator, self.spec, device)}
+
+    def apply(self, params, x):
+        return self.output_activation(mlp_apply(params["layers"], x, self.spec))
+
+
+def get_mlp(n_input_dims, n_output_dims, config):
+    """Factory mirroring reference get_mlp (network_utils.py:176-184)."""
+    return MLP(n_input_dims, n_output_dims, config)
+
+
+class EncodingWithNetwork:
+    """Encoding + MLP (tcnn ``NetworkWithInputEncoding`` role, reference
+    network_utils.py:187-215).
+
+    When the encoding is CP without ``include_xyz`` and the pair is
+    ``fusable`` (a bf16 ReLU MLP of kernel-friendly widths), the whole chain
+    runs as ONE fused op (``ops/cp_mlp.py``: the CUDA kernel on the card, its
+    plain version on the CPU). Everything else composes encoding -> MLP."""
+
+    def __init__(self, encoding, network):
+        self.encoding = encoding
+        self.network = network
+        self.n_input_dims = encoding.n_input_dims
+        self.n_output_dims = network.n_output_dims
+        inner = getattr(encoding, "encoding", None)
+        self.fused = (
+            isinstance(encoding, CompositeEncoding)
+            and not encoding.include_xyz
+            and isinstance(inner, CPEncoding)
+            and fusable(inner.spec, network.spec)
+        )
+
+    def init(self, generator, device=None):
+        return {
+            "encoding": self.encoding.init(generator, device),
+            "network": self.network.init(generator, device),
+        }
+
+    def apply(self, params, x):
+        if self.fused:
+            out = cp_mlp_forward(
+                params["encoding"]["cp"],
+                params["network"]["layers"],
+                x,
+                self.encoding.encoding.spec,
+                self.network.spec,
+            )
+            return self.network.output_activation(out)
+        return self.network.apply(
+            params["network"], self.encoding.apply(params["encoding"], x)
+        )
+
+
+def get_encoding_with_network(n_input_dims, n_output_dims, encoding_config, network_config):
+    encoding = get_encoding(n_input_dims, encoding_config)
+    network = get_mlp(encoding.n_output_dims, n_output_dims, network_config)
+    return EncodingWithNetwork(encoding, network)

@@ -1,0 +1,71 @@
+"""Activation DSL and numerics helpers.
+
+Port of ``instant_nsr_pl_tpu/ops/activations.py`` (reference:
+models/utils.py:53-119). The string DSL mirrors ``get_activation``
+(none/scaleN/clampN/mulN/lin2srgb/trunc_exp/+-float/sigmoid/tanh/softplus/
+relu/exp). ``trunc_exp`` is the forward only: its clamped backward belongs to
+the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def trunc_exp(x):
+    """exp(x); the reference clamps only the gradient (models/utils.py:53-68)."""
+    return torch.exp(x)
+
+
+def scale_anything(x, inp_scale, tgt_scale):
+    """Affine remap of x from inp_scale=(lo,hi) to tgt_scale=(lo,hi)
+    (reference: models/utils.py:100-105, explicit-range form)."""
+    lo, hi = inp_scale
+    tlo, thi = tgt_scale
+    x = (x - lo) / (hi - lo)
+    return x * (thi - tlo) + tlo
+
+
+def lin2srgb(x):
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(
+        x > 0.0031308,
+        torch.pow(torch.clamp(x, min=0.0031308), 1.0 / 2.4) * 1.055 - 0.055,
+        12.92 * x,
+    )
+
+
+def get_activation(name):
+    """String -> elementwise activation fn (reference: models/utils.py:71-97)."""
+    if name is None:
+        return lambda x: x
+    name_lower = str(name).lower()
+    if name_lower == "none":
+        return lambda x: x
+    if name_lower.startswith("scale"):
+        scale = float(name_lower[5:])
+        return lambda x: x / scale
+    if name_lower.startswith("clamp"):
+        clamp_max = float(name_lower[5:])
+        return lambda x: torch.clamp(x, 0.0, clamp_max)
+    if name_lower.startswith("mul"):
+        mul = float(name_lower[3:])
+        return lambda x: x * mul
+    if name_lower == "lin2srgb":
+        return lin2srgb
+    if name_lower == "trunc_exp":
+        return trunc_exp
+    if name_lower.startswith("+") or name_lower.startswith("-"):
+        delta = float(name_lower)
+        return lambda x: x + delta
+    if name_lower in ("sigmoid", "sigmoid_mul"):
+        return torch.sigmoid
+    if name_lower == "tanh":
+        return torch.tanh
+    if name_lower == "softplus":
+        return torch.nn.functional.softplus
+    if name_lower == "relu":
+        return torch.relu
+    if name_lower == "exp":
+        return torch.exp
+    raise ValueError(f"Unknown activation '{name}'")

@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
+so a build takes seconds. All sources are compiled in parallel, at first use,
+into ``instant_nsr_pl_tpu_torch/_build/``; a library's file name carries a
+hash of its sources and flags, so an edit rebuilds it. A missing ``nvcc`` or
+a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # no contraction of separate mul/add into FMA: the kernels call fmaf
+    # where they want one, so elementwise rounding follows the plain versions
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}  # source stem -> nvcc/ptxas output of its build
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(cand):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
+            "CUDA kernels are built from instant_nsr_pl_tpu_torch/csrc at first use"
+        )
+    return cand
+
+
+def _library_path(src: Path) -> Path:
+    h = hashlib.sha256()
+    h.update(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every ``csrc/*.cu`` whose library is missing, all at once.
+    Returns the wall seconds spent; raises on the first failed build."""
+    t0 = time.perf_counter()
+    todo = [(s, _library_path(s)) for s in sorted(CSRC.glob("*.cu"))]
+    todo = [(s, p) for s, p in todo if not p.exists()]
+    if not todo:
+        return 0.0
+    nvcc = _nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src, lib in todo:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for src, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOG[src.stem] = log
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, building it at first use."""
+    lib = _LIBS.get(stem)
+    if lib is None:
+        src = CSRC / f"{stem}.cu"
+        path = _library_path(src)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        _LIBS[stem] = lib
+    return lib
+
+
+def check(rc: int, name: str, supported: str):
+    """Raise for a non-zero return code of a kernel's C entry point."""
+    if rc == -1:
+        raise ValueError(f"{name}: no CUDA instantiation for this shape; "
+                         f"supported: {supported}")
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

@@ -1,0 +1,94 @@
+"""Volume-rendering compositing on packed, ray-sorted sample buffers.
+
+Port of ``instant_nsr_pl_tpu/ops/rendering.py:142-286``: nerfacc's
+``render_weight_from_density`` and ``accumulate_along_rays`` (reference use:
+models/nerf.py:105-108). Samples live in the fixed-capacity packed buffer of
+``ops/marching.py``: ``ray_indices`` ascending, padding slots ``valid=False``.
+
+Segmented sums are plain PyTorch: one float64 prefix sum, read back at the
+segment starts, replaces the JAX package's segmented associative scan (whose
+shape was chosen for the TPU). In float64 no sum loses precision across the
+segments it crosses, and the result is rounded to float32 once.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _segmented_inclusive_cumsum(flags, x):
+    """Inclusive cumsum of ``x`` (N,) restarting wherever ``flags`` is True
+    (entries before the first flag form one segment from the start)."""
+    c = torch.cumsum(x.double(), dim=0)
+    starts = torch.nonzero(flags).reshape(-1)
+    base = torch.cat([c.new_zeros(1), (c - x.double())[starts]])
+    seg = torch.cumsum(flags.long(), dim=0)
+    return (c - base[seg]).float()
+
+
+def _segment_starts(ray_indices, valid):
+    """Flags marking the first valid sample of each ray segment."""
+    prev = torch.cat([ray_indices.new_full((1,), -1), ray_indices[:-1]])
+    return (ray_indices != prev) & valid
+
+
+def segmented_cumsum(x, ray_indices, valid, exclusive=False, group=1):
+    """Per-ray cumulative sum over a packed, ray-sorted buffer; invalid
+    entries contribute zero.
+
+    ``group=k > 1`` relies on every ALIGNED block of k entries belonging to
+    one ray (the group-compacted march layout): a within-block cumsum plus a
+    segmented cumsum over block totals."""
+    x = torch.where(valid, x, torch.zeros_like(x))
+    if group > 1:
+        cap = x.shape[0]
+        if cap % group:
+            raise ValueError(f"capacity {cap} is not a multiple of group {group}")
+        g = cap // group
+        incl_in = torch.cumsum(x.reshape(g, group), dim=1)
+        totals = incl_in[:, -1]
+        gray = ray_indices.reshape(g, group)[:, 0]
+        prev = torch.cat([gray.new_full((1,), -1), gray[:-1]])
+        incl_tot = _segmented_inclusive_cumsum(gray != prev, totals)
+        out = (incl_in + (incl_tot - totals)[:, None]).reshape(-1)
+    else:
+        out = _segmented_inclusive_cumsum(_segment_starts(ray_indices, valid), x)
+    return out - x if exclusive else out
+
+
+def render_weight_from_density(t_starts, t_ends, sigma, ray_indices, valid, group=1):
+    """Weights w_i = alpha_i * T_i with alpha = 1 - exp(-sigma * dt) and the
+    per-ray transmittance T_i = prod_{j<i} (1 - alpha_j) (eps 1e-10)."""
+    dt = t_ends - t_starts
+    alpha = 1.0 - torch.exp(-sigma * dt)
+    alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
+    log1m = torch.log(torch.clamp(1.0 - alpha, 1e-10, 1.0))
+    excl = segmented_cumsum(log1m, ray_indices, valid, exclusive=True, group=group)
+    return alpha * torch.exp(excl)
+
+
+def accumulate_along_rays(weights, values, ends, valid=None, group=1):
+    """Per-ray sum of ``weights * values`` (CAP, D) -> (n_rays, D).
+
+    ``ends``: ``PackedSamples.ray_ends``, the exclusive slot offset where
+    each ray's run of packed slots ends: a ray's sum is a difference of one
+    prefix sum at its slot range. ``group``: block size k of the
+    single-ray-per-aligned-block layout; blocks are summed first."""
+    if valid is not None:
+        weights = torch.where(valid, weights, torch.zeros_like(weights))
+    src = weights[:, None] * values
+    if group > 1:
+        cap, d = src.shape
+        if cap % group:
+            raise ValueError(f"capacity {cap} is not a multiple of group {group}")
+        g = cap // group
+        src = src.reshape(g, group, d).sum(dim=1)
+        ends = ends // group
+    # (D, G) layout: the prefix sum runs along the innermost dimension.
+    # Along the outer one PyTorch's CUDA scan took 84.9 ms per 256x256 view
+    # on an H100, against 0.8 ms here (scripts/profile_torch_render.py)
+    c = torch.cumsum(src.T.contiguous().double(), dim=1)
+    c = torch.cat([c.new_zeros((c.shape[0], 1)), c], dim=1)
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    out = (c[:, ends] - c[:, starts]).T.float()
+    return torch.where((ends > starts)[:, None], out, torch.zeros_like(out))

@@ -1,0 +1,268 @@
+"""PyTorch port (instant_nsr_pl_tpu_torch) against the JAX package: rays,
+contraction, SH, the composed MLP and CP encode, the occupancy-pruned march
+and compositing, fed the same numpy inputs. Plus the port's rules: no JAX
+import, CUDA by default."""
+
+import ast
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instant_nsr_pl_tpu.ops import contraction as j_con
+from instant_nsr_pl_tpu.ops import cp as j_cp
+from instant_nsr_pl_tpu.ops import marching as j_march
+from instant_nsr_pl_tpu.ops import mlp as j_mlp
+from instant_nsr_pl_tpu.ops import ray as j_ray
+from instant_nsr_pl_tpu.ops import rendering as j_rend
+from instant_nsr_pl_tpu.ops import sh as j_sh
+from instant_nsr_pl_tpu_torch.ops import contraction as t_con
+from instant_nsr_pl_tpu_torch.ops import cp as t_cp
+from instant_nsr_pl_tpu_torch.ops import marching as t_march
+from instant_nsr_pl_tpu_torch.ops import mlp as t_mlp
+from instant_nsr_pl_tpu_torch.ops import ray as t_ray
+from instant_nsr_pl_tpu_torch.ops import rendering as t_rend
+from instant_nsr_pl_tpu_torch.ops import sh as t_sh
+from instant_nsr_pl_tpu_torch.utils.transplant import params_from_jax, params_from_state_dict
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "instant_nsr_pl_tpu_torch"
+F32_TOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _rays(rs, n, dist=2.5, spread=0.4):
+    o = rs.randn(n, 3).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * dist
+    d = -o / dist + rs.randn(n, 3).astype(np.float32) * spread
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def test_ray_aabb_intersect_hits_and_misses():
+    rs = np.random.RandomState(0)
+    o, d = _rays(rs, 200)
+    d[:20] = -d[:20]  # pointing away: misses
+    jt = j_ray.ray_aabb_intersect(jnp.asarray(o), jnp.asarray(d), -1.5, 1.5)
+    tt = t_ray.ray_aabb_intersect(_t(o), _t(d), -1.5, 1.5)
+    for a, b in zip(jt, tt):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert (tt[0].numpy() == 1e10).sum() >= 20  # the miss value is kept
+
+
+def test_get_rays_and_directions():
+    rs = np.random.RandomState(1)
+    dirs = j_ray.get_ray_directions(7, 5, 6.0, 6.5, 3.5, 2.5)
+    np.testing.assert_array_equal(dirs, t_ray.get_ray_directions(7, 5, 6.0, 6.5, 3.5, 2.5))
+    c2w = rs.randn(4, 3, 4).astype(np.float32)
+    for dd, cc in ((dirs.reshape(-1, 3), c2w[0]), (dirs, c2w[1]), (dirs, c2w),
+                   (dirs.reshape(-1, 3)[:4], c2w)):
+        jo, jd = j_ray.get_rays(dd, cc)
+        to, td = t_ray.get_rays(_t(dd), _t(cc))
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=F32_TOL)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=F32_TOL)
+
+
+def test_contraction_round_trip():
+    rs = np.random.RandomState(2)
+    x = rs.uniform(-1.5, 1.5, (100, 3)).astype(np.float32)
+    aabb = j_con.ContractionType.AABB
+    u_j = j_con.contract_to_unisphere(jnp.asarray(x), 1.5, aabb)
+    u_t = t_con.contract_to_unisphere(_t(x), 1.5, t_con.ContractionType.AABB)
+    np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=F32_TOL)
+    back = t_con.uncontract_from_unisphere(u_t, 1.5, t_con.ContractionType.AABB)
+    np.testing.assert_allclose(back.numpy(), x, atol=F32_TOL)
+    with pytest.raises(NotImplementedError):
+        t_con.contract_to_unisphere(_t(x), 1.5, t_con.ContractionType.UN_BOUNDED_SPHERE)
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_sh_encoding(degree):
+    rs = np.random.RandomState(3)
+    d = rs.randn(300, 3).astype(np.float32)
+    d01 = ((d / np.linalg.norm(d, axis=1, keepdims=True)) + 1.0) / 2.0
+    ref = np.asarray(j_sh.spherical_harmonics_encoding(jnp.asarray(d01), degree))
+    got = t_sh.spherical_harmonics_encoding(_t(d01), degree).numpy()
+    assert got.shape == ref.shape == (300, degree * degree)
+    np.testing.assert_allclose(got, ref, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("n_hidden", [1, 2])
+def test_mlp_apply_bf16(n_hidden):
+    spec = j_mlp.MLPSpec(dim_in=24, dim_out=16, n_neurons=32, n_hidden_layers=n_hidden)
+    params = j_mlp.mlp_init(jax.random.PRNGKey(n_hidden), spec)
+    rs = np.random.RandomState(4)
+    params = [{"w": l["w"], "b": jnp.asarray(rs.randn(*l["b"].shape).astype(np.float32) * 0.1)}
+              for l in params]
+    x = rs.randn(257, 24).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda p, v: j_mlp.mlp_apply(p, v, spec))(params, jnp.asarray(x)))
+    tp = params_from_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    tspec = t_mlp.MLPSpec(dim_in=24, dim_out=16, n_neurons=32, n_hidden_layers=n_hidden)
+    got = t_mlp.mlp_apply(tp, _t(x), tspec).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-2 * np.abs(ref).max())
+
+
+def test_mlp_unported_options_raise():
+    spec = t_mlp.MLPSpec(dim_in=3, dim_out=1, sphere_init=True)
+    with pytest.raises(NotImplementedError, match="NeuS"):
+        t_mlp.mlp_init(torch.Generator().manual_seed(0), spec)
+
+
+def test_cp_encode_xla():
+    spec_j = j_cp.CPSpec(16, (24, 64), 8)
+    params = j_cp.cp_init(jax.random.PRNGKey(0), spec_j)
+    rs = np.random.RandomState(5)
+    x = rs.uniform(-0.1, 1.1, (515, 3)).astype(np.float32)
+    x[:6] = [[0, 0, 0], [1, 1, 1], [0.5, 0.25, 0.75],
+             [1 / 23, 2 / 23, 22 / 23], [3 / 63, 1.0, 0.0], [0.0, 62 / 63, 1.0]]
+    ref = np.asarray(jax.jit(lambda p, v: j_cp.cp_encode(p, v, spec_j, impl="xla"))(params, jnp.asarray(x)))
+    tp = params_from_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    got = t_cp.cp_encode(tp, _t(x), t_cp.CPSpec(16, (24, 64), 8)).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-2 * np.abs(ref).max())
+
+
+def _grid(res, radius, seed=0, density=0.02):
+    rs = np.random.RandomState(seed)
+    binary = rs.rand(res**3) < density
+    spec_j = j_march.OccGridSpec(res, radius)
+    dil_j, bricks = jax.jit(lambda b: j_march._postprocess_binary(b, spec_j))(jnp.asarray(binary))
+    spec_t = t_march.OccGridSpec(res, radius)
+    dil_t = t_march._postprocess_binary(_t(binary), spec_t)
+    np.testing.assert_array_equal(np.asarray(dil_j), dil_t.numpy())
+    return binary, (spec_j, dil_j, bricks), (spec_t, dil_t)
+
+
+@pytest.mark.parametrize(
+    "mode,capacity",
+    [("group", 96 * 1024), ("group", 4096), ("strided", 96 * 1024), ("per_sample", 8192)],
+)
+def test_march_rays_exact(mode, capacity):
+    """Bench march (1024 samples/ray, radius 1.5, 128^3 grid, k=8): every
+    packed output equal, including under capacity truncation (4096)."""
+    radius, S, k = 1.5, 1024, 8
+    binary, (spec_j, dil_j, bricks), (spec_t, dil_t) = _grid(128, radius)
+    o, d = _rays(np.random.RandomState(6), 96)
+    d[:4] = -d[:4]
+    step = 1.732 * 2.0 * radius / S
+    stride = 1 if mode == "per_sample" else k
+    kw = dict(render_step_size=step, max_samples=S, capacity=capacity, occ_stride=stride,
+              group_compact=mode == "group")
+    t0j, t1j = j_ray.ray_aabb_intersect(jnp.asarray(o), jnp.asarray(d), -radius, radius)
+    ref = jax.jit(lambda a, b, c, e: j_march.march_rays(
+        a, b, c, e, occ_spec=spec_j, occ_binary=jnp.asarray(binary), occ_dilated=dil_j,
+        occ_bricks=bricks, **kw))(jnp.asarray(o), jnp.asarray(d), t0j, t1j)
+    t0t, t1t = t_ray.ray_aabb_intersect(_t(o), _t(d), -radius, radius)
+    got = t_march.march_rays(_t(o), _t(d), t0t, t1t, occ_spec=spec_t, occ_binary=_t(binary),
+                             occ_dilated=dil_t, **kw)
+    for f in ref._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f)
+    if capacity == 4096:
+        assert not got.ray_kept.numpy().all()  # the case truncates rays
+    else:
+        assert got.ray_kept.numpy().all()
+    assert int(got.valid.sum()) > 0
+    pj = j_march.packed_positions(ref, jnp.asarray(o), jnp.asarray(d), group=k if mode == "group" else 1)
+    pt = t_march.packed_positions(got, _t(o), _t(d), group=k if mode == "group" else 1)
+    for a, b in zip(pj, pt):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_render_weights_and_accumulate(group):
+    """Weights and per-ray sums on a packed buffer with k=8 blocks."""
+    rs = np.random.RandomState(7)
+    n_rays, cap = 40, 1024
+    blocks = rs.randint(0, 4, n_rays)  # live k-blocks per ray
+    ray_of_block = np.repeat(np.arange(n_rays), blocks)[: cap // 8]
+    n_blocks = len(ray_of_block)
+    ray_indices = np.full(cap, n_rays - 1, np.int32)
+    ray_indices[: n_blocks * 8] = np.repeat(ray_of_block, 8)
+    valid = np.zeros(cap, bool)
+    valid[: n_blocks * 8] = rs.rand(n_blocks * 8) < 0.8
+    ts = np.sort(rs.uniform(0, 3, cap)).astype(np.float32)
+    te = (ts + rs.uniform(0.001, 0.02, cap)).astype(np.float32)
+    sigma = rs.exponential(20.0, cap).astype(np.float32)
+    vals = rs.rand(cap, 5).astype(np.float32)
+    ends = np.cumsum(np.bincount(ray_of_block, minlength=n_rays) * 8).astype(np.int32)
+    ref_w = jax.jit(lambda *a: j_rend.render_weight_from_density(*a, group=group))(
+        ts, te, sigma, ray_indices, valid)
+    got_w = t_rend.render_weight_from_density(_t(ts), _t(te), _t(sigma),
+                                              _t(ray_indices).long(), _t(valid), group=group)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(ref_w), atol=F32_TOL)
+    ref = jax.jit(lambda w, e: j_rend.accumulate_along_rays(
+        w, ray_indices, vals, n_rays=n_rays, valid=valid, group=group, ends=e))(
+        ref_w, jnp.asarray(ends))
+    got = t_rend.accumulate_along_rays(got_w, _t(vals), _t(ends).long(), valid=_t(valid),
+                                       group=group)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL)
+    # the scatter-add form of the same sums (rays without slots give zero)
+    scatter = jax.jit(lambda w: j_rend.accumulate_along_rays(
+        w, ray_indices, vals, n_rays=n_rays, valid=valid, group=group))(ref_w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(scatter), atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the port's rules
+# ---------------------------------------------------------------------------
+
+_FORBIDDEN = re.compile(r"^(jax|jaxlib|instant_nsr_pl_tpu)(\.|$)")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_source_imports_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "scripts" / "profile_torch_render.py"]
+    assert len(files) > 20
+    bad = [(f.name, m) for f in files for m in _imports(f) if _FORBIDDEN.match(m)]
+    assert not bad, bad
+    # the package prefix is a prefix of the port's own name
+    assert not _FORBIDDEN.match("instant_nsr_pl_tpu_torch.ops")
+    assert _FORBIDDEN.match("instant_nsr_pl_tpu.ops")
+
+
+def test_port_import_loads_no_jax():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'instant_nsr_pl_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_default_to_cuda():
+    from instant_nsr_pl_tpu_torch.device import resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_march.occupancy_grid_init(t_march.OccGridSpec())
+    assert resolve_device("cpu").type == "cpu"
