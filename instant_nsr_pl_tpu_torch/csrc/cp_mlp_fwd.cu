@@ -1,8 +1,15 @@
 // Fused CP-encode -> basis -> bf16 ReLU MLP forward (the NeRF density head).
 //
 // Replaces: instant_nsr_pl_tpu/ops/cp_mlp_pallas.py cp_mlp_apply -> _fwd_impl
-// -> _fwd_kernel (pallas_call at :267), forward only (the serving path needs
-// neither the vsave nor the hsave residual, so only `out` is written).
+// -> _fwd_kernel (pallas_call at :267). Eval launches write only `out`;
+// training launches also write the TPU kernel's residuals for the backward
+// (csrc/cp_mlp_bwd.cu): vsave (3, S*C, N) bf16, the interpolated line values
+// v of every axis, and hsave (NH, W, N) bf16, the hidden activations. They
+// are saved rather than recomputed in the backward: that keeps the backward
+// free of the line-table reads and the forward MLP, and lets the tests and
+// chip_smoke.py hand the same residuals to the kernel and to its plain
+// version (cp_mlp.py cp_mlp_backward_plain), so a bf16 rounding difference
+// cannot flip a ReLU mask between the two.
 //
 // What it computes, per sample x (already contracted into [0,1]^3), scale s
 // and axis a:
@@ -16,18 +23,19 @@
 // on an interior knot, where f = 0, and at p = R-1, where f = 1), and both
 // products are exact in f32, so v matches to the bit.
 //
-// What bounds it on an H100: neither HBM nor arithmetic at this size. The
-// function must move ~76 B per sample (12 B in, 64 B out at D = 16), about
-// 6 us at 3.35 TB/s for 262,144 samples, and does ~12k flops per sample on
-// the CUDA cores. The TPU needed the dense tent matmul because it has no
-// vector gather; Hopper has one, so each thread reads its 2 x 3 x S line rows
-// (C bf16 = 128 B each at C = 64) straight from global memory through L1/L2:
-// the tables (48 KB coarse, 768 KB fine at the bench shape) stay resident in
-// the 50 MB L2, and row reads are 16-byte vector loads. The basis and the
-// packed MLP are widened to f32 in shared memory once per block and read as
-// warp-wide broadcasts. A thread per sample keeps every intermediate in
-// registers, so nothing but x and out touches device memory. Tensor cores,
-// TMA and pipelining are left for a later change.
+// What bounds it on an H100: neither HBM nor arithmetic at this size in eval
+// mode. The function must move ~76 B per sample (12 B in, 64 B out at D = 16),
+// about 6 us at 3.35 TB/s for 262,144 samples, and does ~12k flops per sample
+// on the CUDA cores; training mode adds 896 B of residuals per sample (70 us).
+// The TPU needed the dense tent matmul because it has no vector gather;
+// Hopper has one, so each thread reads its 2 x 3 x S line rows (C bf16 = 128 B
+// each at C = 64) straight from global memory through L1/L2: the tables (48 KB
+// coarse, 768 KB fine at the bench shape) stay resident in the 50 MB L2, and
+// row reads are 16-byte vector loads. The basis and the packed MLP are widened
+// to f32 in shared memory once per block and read as warp-wide broadcasts. A
+// thread per sample keeps every intermediate in registers; residual stores are
+// coalesced across a warp (neighbouring samples are neighbouring addresses).
+// Tensor cores, TMA and pipelining are left for a later change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (explicit
 // fmaf only, so elementwise rounding follows the plain PyTorch version).
@@ -64,7 +72,9 @@ __global__ void __launch_bounds__(kCpBlock)
     cp_mlp_fwd_kernel(const float* __restrict__ x, long long n,
                       LineTables lines, const __nv_bfloat16* __restrict__ basis,
                       const __nv_bfloat16* __restrict__ ws,
-                      const float* __restrict__ bs, float* __restrict__ out) {
+                      const float* __restrict__ bs, float* __restrict__ out,
+                      __nv_bfloat16* __restrict__ vsave,
+                      __nv_bfloat16* __restrict__ hsave) {
   constexpr int E = S * F;
   constexpr int ROWS = E + NH * W;
   constexpr int OUT4 = round_up4(D);
@@ -121,6 +131,13 @@ __global__ void __launch_bounds__(kCpBlock)
           for (int a = 0; a < 3; ++a) {
             v[a] = fmaf(w1[a], bf16_at(q1[a], k), w0[a] * bf16_at(q0[a], k));
           }
+          if (vsave != nullptr) {
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+              vsave[(static_cast<long long>(a * S + s) * C + c8 * 8 + k) * n + i] =
+                  __float2bfloat16_rn(v[a]);
+            }
+          }
           const float prod = bf16_round((v[0] * v[1]) * v[2]);
           const float4* brow =
               reinterpret_cast<const float4*>(basis_s + (s * C + c8 * 8 + k) * F);
@@ -138,7 +155,7 @@ __global__ void __launch_bounds__(kCpBlock)
     }
 
     float o[OUT4];
-    mlp_forward<E, W, NH, OUT4>(w_s, b_s, enc, o);
+    mlp_forward<E, W, NH, OUT4>(w_s, b_s, enc, o, hsave, n, i);
     store_row<D, OUT4>(out + i * D, o);
   }
 }
@@ -146,24 +163,27 @@ __global__ void __launch_bounds__(kCpBlock)
 template <int C, int F, int S, int W, int NH, int D>
 int launch_cp(const float* x, long long n, const LineTables& lines,
               const void* basis, const void* ws, const float* bs, float* out,
-              cudaStream_t stream) {
+              void* vsave, void* hsave, cudaStream_t stream) {
   constexpr int ROWS = S * F + NH * W;
   const size_t smem =
       sizeof(float) * (ROWS * W + (NH + 1) * W + S * C * F);
   return launch(cp_mlp_fwd_kernel<C, F, S, W, NH, D>, n, kCpBlock, smem,
                 stream, x, n, lines,
                 static_cast<const __nv_bfloat16*>(basis),
-                static_cast<const __nv_bfloat16*>(ws), bs, out);
+                static_cast<const __nv_bfloat16*>(ws), bs, out,
+                static_cast<__nv_bfloat16*>(vsave), static_cast<__nv_bfloat16*>(hsave));
 }
 
 }  // namespace insr
 
 // Returns cudaGetLastError() after the launch, or -1 when no instantiation
-// matches the shape (the Python wrapper lists the supported ones).
+// matches the shape (the Python wrapper lists the supported ones). vsave and
+// hsave are both nullptr (eval) or both the residual buffers (training).
 extern "C" int cp_mlp_fwd(const float* x, long long n, const void* const* line_ptrs,
                           const int* res, int n_scales, const void* basis,
                           const void* ws, const float* bs, float* out, int c,
-                          int f, int w, int n_hidden, int d, void* stream) {
+                          int f, int w, int n_hidden, int d, void* vsave,
+                          void* hsave, void* stream) {
   insr::LineTables lines{};
   if (n_scales < 1 || n_scales > insr::kMaxScales) return -1;
   for (int s = 0; s < n_scales; ++s) {
@@ -175,7 +195,7 @@ extern "C" int cp_mlp_fwd(const float* x, long long n, const void* const* line_p
   if (c == C_ && f == F_ && n_scales == S_ && w == W_ && n_hidden == NH_ &&   \
       d == D_)                                                                \
     return insr::launch_cp<C_, F_, S_, W_, NH_, D_>(x, n, lines, basis, ws,  \
-                                                    bs, out, st);
+                                                    bs, out, vsave, hsave, st);
   INSR_CP_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head
   INSR_CP_CASE(16, 8, 2, 32, 1, 16)   // the small test model
   INSR_CP_CASE(16, 8, 2, 32, 2, 16)

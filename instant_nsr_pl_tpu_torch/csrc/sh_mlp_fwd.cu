@@ -1,8 +1,10 @@
 // Fused SH-encode -> concat -> bf16 ReLU MLP forward (the NeRF radiance head).
 //
 // Replaces: instant_nsr_pl_tpu/ops/sh_mlp_pallas.py sh_mlp_apply -> _fwd_impl
-// -> _fwd_kernel + _kernel_sh (pallas_call at :195), forward only (the
-// serving path needs no hsave residual, so only `out` is written).
+// -> _fwd_kernel + _kernel_sh (pallas_call at :195). Eval launches write only
+// `out`; training launches also write the TPU kernel's residual hsave (NH, W,
+// N) bf16, the hidden activations, which the backward (csrc/sh_mlp_bwd.cu)
+// reads; it recomputes SH from the directions, as the TPU backward does.
 //
 // What it computes, per sample: the real SH basis of degree DEG in f32 from
 // the raw unit direction (the constants of ops/sh.py, the expressions of
@@ -25,45 +27,19 @@
 // fmaf only, so the SH polynomials round as the plain PyTorch version does).
 
 #include "mlp_common.cuh"
+#include "sh_common.cuh"
 
 namespace insr {
 
 constexpr int kShBlock = 128;
-
-template <int DEG>
-__device__ __forceinline__ void sh_basis(float x, float y, float z, float* o) {
-  o[0] = 0.28209479177387814f;
-  if constexpr (DEG > 1) {
-    o[1] = -0.4886025119029199f * y;
-    o[2] = 0.4886025119029199f * z;
-    o[3] = -0.4886025119029199f * x;
-  }
-  if constexpr (DEG > 2) {
-    const float xx = x * x, yy = y * y, zz = z * z;
-    const float xy = x * y, yz = y * z, xz = x * z;
-    o[4] = 1.0925484305920792f * xy;
-    o[5] = -1.0925484305920792f * yz;
-    o[6] = 0.31539156525252005f * ((2.0f * zz - xx) - yy);
-    o[7] = -1.0925484305920792f * xz;
-    o[8] = 0.5462742152960396f * (xx - yy);
-    if constexpr (DEG > 3) {
-      o[9] = (-0.5900435899266435f * y) * (3.0f * xx - yy);
-      o[10] = (2.890611442640554f * xy) * z;
-      o[11] = (-0.4570457994644658f * y) * ((4.0f * zz - xx) - yy);
-      o[12] = (0.3731763325901154f * z) * ((2.0f * zz - 3.0f * xx) - 3.0f * yy);
-      o[13] = (-0.4570457994644658f * x) * ((4.0f * zz - xx) - yy);
-      o[14] = (1.445305721320277f * z) * (xx - yy);
-      o[15] = (-0.5900435899266435f * x) * (xx - 3.0f * yy);
-    }
-  }
-}
 
 template <int FPAD, int DEG, int W, int NH, int D>
 __global__ void __launch_bounds__(kShBlock)
     sh_mlp_fwd_kernel(const float* __restrict__ feat, int n_feat,
                       const float* __restrict__ dirs, long long n,
                       const __nv_bfloat16* __restrict__ ws,
-                      const float* __restrict__ bs, float* __restrict__ out) {
+                      const float* __restrict__ bs, float* __restrict__ out,
+                      __nv_bfloat16* __restrict__ hsave) {
   constexpr int DIN = FPAD + DEG * DEG;
   constexpr int ROWS = DIN + NH * W;
   constexpr int OUT4 = round_up4(D);
@@ -86,36 +62,39 @@ __global__ void __launch_bounds__(kShBlock)
     sh_basis<DEG>(dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], x0 + FPAD);
 
     float o[OUT4];
-    mlp_forward<DIN, W, NH, OUT4>(w_s, b_s, x0, o);
+    mlp_forward<DIN, W, NH, OUT4>(w_s, b_s, x0, o, hsave, n, i);
     store_row<D, OUT4>(out + i * D, o);
   }
 }
 
 template <int FPAD, int DEG, int W, int NH, int D>
 int launch_sh(const float* feat, int n_feat, const float* dirs, long long n,
-              const void* ws, const float* bs, float* out, cudaStream_t stream) {
+              const void* ws, const float* bs, float* out, void* hsave,
+              cudaStream_t stream) {
   constexpr int ROWS = FPAD + DEG * DEG + NH * W;
   const size_t smem = sizeof(float) * (ROWS * W + (NH + 1) * W);
   return launch(sh_mlp_fwd_kernel<FPAD, DEG, W, NH, D>, n, kShBlock, smem,
                 stream, feat, n_feat, dirs, n,
-                static_cast<const __nv_bfloat16*>(ws), bs, out);
+                static_cast<const __nv_bfloat16*>(ws), bs, out,
+                static_cast<__nv_bfloat16*>(hsave));
 }
 
 }  // namespace insr
 
 // Returns cudaGetLastError() after the launch, or -1 when no instantiation
-// matches the shape (the Python wrapper lists the supported ones).
+// matches the shape (the Python wrapper lists the supported ones). hsave is
+// nullptr (eval) or the (NH, W, n) bf16 residual buffer (training).
 extern "C" int sh_mlp_fwd(const float* feat, int n_feat, int fpad,
                           const float* dirs, long long n, int degree,
                           const void* ws, const float* bs, float* out, int w,
-                          int n_hidden, int d, void* stream) {
+                          int n_hidden, int d, void* hsave, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_feat < 0 || n_feat > fpad) return -1;
 #define INSR_SH_CASE(FPAD_, DEG_, W_, NH_, D_)                                \
   if (fpad == FPAD_ && degree == DEG_ && w == W_ && n_hidden == NH_ &&        \
       d == D_)                                                                \
     return insr::launch_sh<FPAD_, DEG_, W_, NH_, D_>(feat, n_feat, dirs, n,  \
-                                                     ws, bs, out, st);
+                                                     ws, bs, out, hsave, st);
   INSR_SH_CASE(16, 4, 64, 2, 3)  // the bench NeRF radiance head
   INSR_SH_CASE(16, 4, 32, 2, 3)  // the small test models
   INSR_SH_CASE(24, 4, 32, 2, 3)  // 16 features + 3 extras

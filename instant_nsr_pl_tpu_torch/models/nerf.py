@@ -1,15 +1,18 @@
-"""Instant-NGP style NeRF renderer, eval path.
+"""Instant-NGP style NeRF renderer.
 
 Port of ``instant_nsr_pl_tpu/models/nerf.py:37-250`` (reference
 models/nerf.py:14-161) for bounded scenes: AABB contraction, a 128^3
-occupancy grid, uniform stepping ``1.732 * 2r / num_samples``, the
-static-capacity packed march of ``ops/marching.py`` and compositing on the
-packed buffer. The occupancy update, stratified sampling and the training
-outputs belong to the training slice; unbounded scenes (learned background)
-to a later one.
+occupancy grid and its update, uniform (optionally stratified) stepping
+``1.732 * 2r / num_samples``, the static-capacity packed march of
+``ops/marching.py`` and compositing on the packed buffer. The training
+forward is differentiable with respect to the parameters; the eval forward
+runs without autograd. Unbounded scenes (learned background) belong to a
+later slice.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -19,6 +22,7 @@ from instant_nsr_pl_tpu_torch.ops.marching import (
     OccGridSpec,
     march_rays,
     occupancy_grid_init,
+    occupancy_grid_update,
     packed_positions,
 )
 from instant_nsr_pl_tpu_torch.ops.ray import ray_aabb_intersect
@@ -48,6 +52,7 @@ class NeRFModel:
         self.geometry.contraction_type = self.contraction_type
 
         self.grid_prune = bool(config.get("grid_prune", True))
+        self.occ_thre = float(config.get("grid_prune_occ_thre", 0.01))
         self.occ_spec = OccGridSpec(
             resolution=self.occupancy_grid_res,
             radius=self.radius,
@@ -87,10 +92,31 @@ class NeRFModel:
     def init_occupancy(self, device=None):
         return {"grid": occupancy_grid_init(self.occ_spec, device)}
 
+    # -- occupancy maintenance (reference models/nerf.py:45-55) -----------
+    def update_occupancy(self, params, occ, generator, warmup=False, phase=None):
+        """One grid update (``ops/marching.py`` ``occupancy_grid_update``)
+        with occupancy = density * step size, the reference's Taylor
+        approximation of 1 - exp(-density * dt). The density comes from
+        ``geometry.apply``, so the fused density op (K1) evaluates it, in
+        chunks of 2^18 points."""
+        if not self.grid_prune:
+            return occ
+
+        def occ_eval_fn(x):
+            density = [self.geometry.apply(params["geometry"], c)[0] for c in x.split(1 << 18)]
+            return torch.cat(density) * self.render_step_size
+
+        grid = occupancy_grid_update(
+            occ["grid"], self.occ_spec, occ_eval_fn, generator,
+            occ_thre=self.occ_thre, warmup=warmup, phase=phase,
+        )
+        return {"grid": grid}
+
     # -- rendering ---------------------------------------------------------
-    def march(self, occ, rays_o, rays_d, capacity: int):
+    def march(self, occ, rays_o, rays_d, capacity: int, jitter=None):
         """Slab test, occupancy-pruned march and sample positions:
-        (samples, positions, dirs, t_mid, group)."""
+        (samples, positions, dirs, t_mid, group). ``jitter``: the (R,)
+        uniform draws of a stratified march."""
         t_min, t_max = ray_aabb_intersect(rays_o, rays_d, -self.radius, self.radius)
         grp = self.packed_group(capacity)
         grid = occ["grid"]
@@ -107,13 +133,15 @@ class NeRFModel:
             occ_dilated=grid.binary_dilated if self.grid_prune else None,
             occ_stride=self.occ_stride,
             group_compact=grp > 1,
+            jitter=jitter,
         )
         positions, dirs, t_mid, _ = packed_positions(samples, rays_o, rays_d, group=grp)
         return samples, positions, dirs, t_mid, grp
 
     def composite(self, samples, density, rgb, t_mid, background_color, group):
         """Weights from density, then (opacity, depth, rgb) per ray in one
-        segment sum, and the background blended by (1 - opacity)."""
+        segment sum, and the background ((3,) or (N, 3)) blended by
+        (1 - opacity). Also returns the packed ``weights``."""
         weights = render_weight_from_density(
             samples.t_starts, samples.t_ends, density,
             samples.ray_indices, samples.valid, group=group,
@@ -132,13 +160,34 @@ class NeRFModel:
             "rays_valid": opacity > 0,
             "rays_kept": samples.ray_kept,
             "num_samples": samples.num_valid,
+            "weights": weights,
         }
 
-    @torch.no_grad()
-    def forward(self, params, occ, rays_o, rays_d, *, background_color, capacity: int):
+    def forward(self, params, occ, rays_o, rays_d, *, background_color, capacity: int,
+                train=False, randomized=False, generator=None):
         """Render a batch of rays (N, 3) with unit ``rays_d``; returns the
-        reference's eval outputs (models/nerf.py:110-125)."""
-        samples, positions, dirs, t_mid, grp = self.march(occ, rays_o, rays_d, capacity)
-        density, feature = self.geometry.apply(params["geometry"], positions)
-        rgb = self.texture.apply(params["texture"], feature, dirs)
-        return self.composite(samples, density, rgb, t_mid, background_color, grp)
+        reference's outputs (models/nerf.py:110-125). ``randomized`` jitters
+        each ray's start with a draw from ``generator`` (the stratified
+        march). With ``train`` the result is differentiable with respect to
+        ``params`` and adds the packed ``weights``, ``points`` (sample
+        midpoints), ``intervals``, ``ray_indices`` and ``sample_valid``;
+        without it the forward runs under ``torch.no_grad``."""
+        with contextlib.nullcontext() if train else torch.no_grad():
+            jitter = None
+            if randomized:
+                jitter = torch.rand(rays_o.shape[0], generator=generator, device=rays_o.device)
+            samples, positions, dirs, t_mid, grp = self.march(occ, rays_o, rays_d, capacity,
+                                                              jitter)
+            density, feature = self.geometry.apply(params["geometry"], positions)
+            rgb = self.texture.apply(params["texture"], feature, dirs)
+            out = self.composite(samples, density, rgb, t_mid, background_color, grp)
+        if not train:
+            out.pop("weights")
+            return out
+        out.update({
+            "points": t_mid,
+            "intervals": samples.t_ends - samples.t_starts,
+            "ray_indices": samples.ray_indices,
+            "sample_valid": samples.valid,
+        })
+        return out

@@ -1,12 +1,17 @@
 """Encoding / MLP factories (the reference's models/network_utils.py role).
 
 Port of ``instant_nsr_pl_tpu/models/network_utils.py`` for the encodings the
-NeRF render slice runs: ``CP`` and ``SphericalHarmonics``. As in the JAX
-package, every module is a static Python object with ``init(generator,
-device) -> params`` and ``apply(params, x) -> out``, and parameters are
-nested dicts keyed like the JAX pytree (``cp.line_{s}_{ax}``,
-``layers[i].w``), so weights carry across as copies
-(``utils/transplant.py``).
+NeRF slices run: ``CP`` and ``SphericalHarmonics``. As in the JAX package,
+every module is a static Python object with ``init(generator, device) ->
+params`` and ``apply(params, x) -> out``, and parameters are nested dicts
+keyed like the JAX pytree (``cp.line_{s}_{ax}``, ``layers[i].w``), so weights
+carry across as copies (``utils/transplant.py``).
+
+Training hands the tree's leaves to the optimizer: :func:`named_leaves`
+lists them in the JAX package's flatten order and :func:`make_trainable`
+turns them into leaf tensors that require grad. Gradients reach every leaf
+through the fused ops' autograd Functions (``ops/cp_mlp.py``,
+``ops/sh_mlp.py``) or, on the composed paths, through plain PyTorch ops.
 """
 
 from __future__ import annotations
@@ -18,6 +23,30 @@ from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_encode, cp_init
 from instant_nsr_pl_tpu_torch.ops.cp_mlp import cp_mlp_forward, fusable
 from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_init
 from instant_nsr_pl_tpu_torch.ops.sh import sh_output_dim, spherical_harmonics_encoding
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted key, tensor) pairs of a parameter tree in the JAX package's
+    flatten order: dict keys sorted, list entries in order."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out += named_leaves(v, f"{prefix}.{k}" if prefix else k)
+    return out
+
+
+def make_trainable(tree):
+    """Make every parameter of ``tree`` require grad, in place (the init
+    draws them as leaf tensors); returns the tree."""
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    return tree
+
 
 _LATER = {
     "VanillaFrequency": "the HashGrid-family slice",

@@ -3,8 +3,7 @@
 Port of ``instant_nsr_pl_tpu/ops/activations.py`` (reference:
 models/utils.py:53-119). The string DSL mirrors ``get_activation``
 (none/scaleN/clampN/mulN/lin2srgb/trunc_exp/+-float/sigmoid/tanh/softplus/
-relu/exp). ``trunc_exp`` is the forward only: its clamped backward belongs to
-the training slice.
+relu/exp). ``trunc_exp`` keeps the reference's clamped backward.
 """
 
 from __future__ import annotations
@@ -12,9 +11,22 @@ from __future__ import annotations
 import torch
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, max=15.0))
+
+
 def trunc_exp(x):
-    """exp(x); the reference clamps only the gradient (models/utils.py:53-68)."""
-    return torch.exp(x)
+    """exp(x) whose gradient is g * exp(min(x, 15)), so it never explodes
+    (reference models/utils.py:53-68; JAX twin ops/activations.py:16-32)."""
+    return _TruncExp.apply(x)
 
 
 def scale_anything(x, inp_scale, tgt_scale):

@@ -1,14 +1,22 @@
-"""Fused CP-encode -> basis -> bf16 ReLU MLP forward (the density head).
+"""Fused CP-encode -> basis -> bf16 ReLU MLP (the density head), forward and
+backward.
 
-Port of ``instant_nsr_pl_tpu/ops/cp_mlp_pallas.py`` ``cp_mlp_apply``,
-forward only. On a CUDA tensor the op launches the hand-written kernel
-``csrc/cp_mlp_fwd.cu``; on a CPU tensor it runs the plain PyTorch version
-below, which mirrors ``cp_mlp_reference`` (bf16 tent interpolation weights).
-There is no fallback from one to the other.
+Port of ``instant_nsr_pl_tpu/ops/cp_mlp_pallas.py`` ``cp_mlp_apply`` and its
+custom VJP. On CUDA tensors the op launches the hand-written kernels
+``csrc/cp_mlp_fwd.cu`` (K1) and, in its backward, ``csrc/cp_mlp_bwd.cu``
+(K2); on CPU tensors it runs the plain PyTorch versions below, which follow
+the TPU kernels' rounding points. There is no fallback from one to the other.
 
 Precision contract (the TPU kernel's): bf16 line tables, basis and MLP
 weights; each tent weight rounded to bf16; the f32 axis product rounded to
 bf16 before the basis projection; then the bf16 MLP chain of ``ops/mlp.py``.
+The backward reads the forward's bf16 residuals (``vsave``: the interpolated
+line values, ``hsave``: the hidden activations) and rounds every matmul
+operand (activations, cotangents, ``d_enc``, ``prod``, ``d_v``) to bf16 with
+f32 sums.
+
+Differentiable with respect to the CP and MLP parameters only: positions get
+no cotangent (``cp_mlp_pallas.py:24-30``; they are march outputs).
 """
 
 from __future__ import annotations
@@ -20,11 +28,15 @@ import torch
 from instant_nsr_pl_tpu_torch.ops import cuda_build
 from instant_nsr_pl_tpu_torch.ops.cp import CPSpec
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round, mlp_apply
-from instant_nsr_pl_tpu_torch.ops.mlp_common import mlp_wmax, pack_mlp
+from instant_nsr_pl_tpu_torch.ops.mlp_common import (
+    mlp_backward_plain,
+    mlp_wmax,
+    pack_mlp,
+    unpack_mlp_grads,
+)
 
-# tent operands of the plain version are built for at most this many
-# (sample, grid-row) entries at a time: 2^26 f32 = 256 MB per temporary
-_TENT_ELEMS = 1 << 26
+# the plain version interpolates at most this many samples at a time
+_CHUNK = 1 << 18
 
 SUPPORTED = ("(C, F, scales, width, hidden layers, D) in "
              "{(64, 16, 2, 64, 1, 16), (16, 8, 2, 32, 1|2, 16)}")
@@ -55,10 +67,17 @@ def fusable(cp_spec: CPSpec, mlp_spec) -> bool:
 def cp_mlp_forward(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec):
     """Fused (CP encode -> basis -> bf16 ReLU MLP)(x): (..., 3) -> (..., D)
     float32, with x in [0, 1]^3 (clipped). Callers satisfy
-    ``fusable(cp_spec, mlp_spec)``."""
+    ``fusable(cp_spec, mlp_spec)``.
+
+    With grad mode on and a parameter that requires grad, the op records its
+    backward: the forward then also writes the residuals (K1 training mode)
+    and the backward runs K2 (or the plain versions, on CPU tensors)."""
+    flat = _flat_params(cp_params, mlp_params, cp_spec)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+        return _CPMLP.apply(x, cp_spec, mlp_spec, *flat)
     if x.device.type == "cuda":
         operands = cp_mlp_operands(cp_params, mlp_params, cp_spec, mlp_spec)
-        return cp_mlp_launch(operands, x, cp_spec, mlp_spec)
+        return cp_mlp_launch(operands, x, cp_spec, mlp_spec)[0]
     if x.device.type == "cpu":
         return cp_mlp_forward_plain(cp_params, mlp_params, x, cp_spec, mlp_spec)
     raise ValueError(f"cp_mlp_forward: unsupported device {x.device}")
@@ -67,61 +86,190 @@ def cp_mlp_forward(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec):
 cp_mlp_forward.launches = 0
 
 
-def _tent_product(lines, u3, res):
-    """(N, C) product over the three axes of bf16-tent interpolations:
-    v = bf16(tent(p)) @ bf16(L), tent_r(p) = max(0, 1 - |r - p|)."""
-    n = u3.shape[1]
-    chunk = max(1, _TENT_ELEMS // res)
-    iota = torch.arange(res, dtype=torch.float32, device=u3.device)[None, :]
-    out = torch.empty((n, lines[0].shape[1]), dtype=torch.float32, device=u3.device)
-    for start in range(0, n, chunk):
-        prod = None
-        for ax, line in enumerate(lines):
-            p = torch.clamp(u3[ax, start:start + chunk], 0.0, 1.0) * (res - 1)
-            w = bf16_round(torch.clamp(1.0 - (iota - p[:, None]).abs(), min=0.0))
-            v = w @ bf16_round(line)
-            prod = v if prod is None else prod * v
-        out[start:start + chunk] = prod
-    return out
+def _flat_params(cp_params, mlp_params, cp_spec):
+    """The op's parameter tensors in a fixed order: line_{s}_{ax} for every
+    scale and axis, basis_{s}, then each layer's w and b."""
+    s_count = len(cp_spec.resolutions)
+    lines = [cp_params[f"line_{s}_{ax}"] for s in range(s_count) for ax in range(3)]
+    basis = [cp_params[f"basis_{s}"] for s in range(s_count)]
+    layers = [t for layer in mlp_params for t in (layer["w"], layer["b"])]
+    return lines + basis + layers
 
 
-def cp_mlp_forward_plain(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec):
+def _unflat_params(flat, cp_spec):
+    s_count = len(cp_spec.resolutions)
+    cp_params = {f"line_{s}_{ax}": flat[3 * s + ax] for s in range(s_count) for ax in range(3)}
+    cp_params.update({f"basis_{s}": flat[3 * s_count + s] for s in range(s_count)})
+    rest = flat[4 * s_count:]
+    mlp_params = [{"w": rest[k], "b": rest[k + 1]} for k in range(0, len(rest), 2)]
+    return cp_params, mlp_params
+
+
+class _CPMLP(torch.autograd.Function):
+    """The op with its custom backward (``cp_mlp_apply``'s VJP). The bf16
+    operands are packed once in the forward and handed to the backward."""
+
+    @staticmethod
+    def forward(ctx, x, cp_spec, mlp_spec, *flat):
+        cp_params, mlp_params = _unflat_params(flat, cp_spec)
+        operands = cp_mlp_operands(cp_params, mlp_params, cp_spec, mlp_spec)
+        if x.device.type == "cuda":
+            out, vsave, hsave = cp_mlp_launch(operands, x, cp_spec, mlp_spec, train=True)
+        elif x.device.type == "cpu":
+            out, vsave, hsave = cp_mlp_forward_plain(
+                cp_params, mlp_params, x, cp_spec, mlp_spec, save_residuals=True
+            )
+        else:
+            raise ValueError(f"cp_mlp_forward: unsupported device {x.device}")
+        _, basis, ws, _ = operands
+        ctx.save_for_backward(x, vsave, hsave, basis, ws)
+        ctx.specs = (cp_spec, mlp_spec)
+        ctx.layer_shapes = [tuple(layer["w"].shape) for layer in mlp_params]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, vsave, hsave, basis, ws = ctx.saved_tensors
+        cp_spec, mlp_spec = ctx.specs
+        dlines, dbasis, dws, dbs = cp_mlp_backward(
+            x, vsave, hsave, dout.contiguous(), basis, ws, cp_spec, mlp_spec
+        )
+        grads = [dlines[s][ax] for s in range(len(dlines)) for ax in range(3)]
+        grads += list(dbasis)
+        for layer in unpack_mlp_grads(dws, dbs, ctx.layer_shapes):
+            grads += [layer["w"], layer["b"]]
+        return (None, None, None, *grads)
+
+
+def cp_mlp_backward(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp_spec):
+    """The op's backward (K2): from the positions, the forward's residuals
+    and the output cotangent (N, D), the gradients ``(dlines, dbasis, dws,
+    dbs)``: per scale a (3, R_s, C) line-table gradient, the (S, C, F) basis
+    gradient, and the packed MLP gradients (rows, Wmax) and (L, Wmax)."""
+    if x.device.type == "cuda":
+        return cp_mlp_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec, mlp_spec)
+    if x.device.type == "cpu":
+        return cp_mlp_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec, mlp_spec)
+    raise ValueError(f"cp_mlp_backward: unsupported device {x.device}")
+
+
+cp_mlp_backward.launches = 0
+
+
+def _tent_coords(u, res):
+    """Row i0 and the bf16 tent weights (1 - f at i0, f at i0 + 1) of the
+    clipped coordinate u: the two non-zeros of the TPU kernel's tent column."""
+    p = torch.clamp(u, 0.0, 1.0) * (res - 1)
+    i0 = torch.clamp(torch.floor(p), max=float(res - 2))
+    f = p - i0
+    return i0.long(), bf16_round(1.0 - f), bf16_round(f)
+
+
+def _line_values(lines, u3, res):
+    """The three (N, C) interpolated lines of one scale from its bf16-valued
+    (R, C) tables: v = bf16(1 - f) * L[i0] + bf16(f) * L[i0 + 1], both
+    products exact in f32 and one rounding in the sum, as the kernel's fmaf
+    and the TPU's tent matmul compute it."""
+    vs = []
+    for ax, line in enumerate(lines):
+        i0, w0, w1 = _tent_coords(u3[ax], res)
+        v = torch.index_select(line, 0, i0).mul_(w0[:, None])
+        vs.append(v.addcmul_(w1[:, None], torch.index_select(line, 0, i0 + 1)))
+    return vs
+
+
+def cp_mlp_forward_plain(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec,
+                         save_residuals=False):
     """Plain PyTorch version of the fused op with the kernel's precision
-    contract (float32 matmuls on bf16-valued operands). The dense tent
-    operand is built in chunks of samples; chunking changes no value, since
-    each row's tent has two non-zeros and the basis and MLP run on all
-    samples at once."""
+    contract (float32 matmuls on bf16-valued operands), interpolating in
+    chunks of samples; chunking changes no value. With ``save_residuals``
+    returns ``(out, vsave, hsave)``: the (3, S*C, N) bf16 line values and the
+    (NH, W, N) bf16 hidden activations of K1's training mode."""
     xf = x.reshape(-1, 3).float()
-    u3 = xf.T
+    n = xf.shape[0]
+    c = cp_spec.n_components
+    s_count = len(cp_spec.resolutions)
     encs = []
-    for s, r in enumerate(cp_spec.resolutions):
-        lines = [cp_params[f"line_{s}_{ax}"] for ax in range(3)]
-        prod = _tent_product(lines, u3, r)
-        encs.append(bf16_round(prod) @ bf16_round(cp_params[f"basis_{s}"]))
-    out = mlp_apply(mlp_params, torch.cat(encs, dim=-1), mlp_spec)
-    return out.reshape(*x.shape[:-1], mlp_spec.dim_out)
+    vsave = (torch.empty((3, s_count * c, n), dtype=torch.bfloat16, device=x.device)
+             if save_residuals else None)
+    for s, res in enumerate(cp_spec.resolutions):
+        lines = [bf16_round(cp_params[f"line_{s}_{ax}"].float()) for ax in range(3)]
+        basis = bf16_round(cp_params[f"basis_{s}"].float())
+        enc = torch.empty((n, cp_spec.n_features), dtype=torch.float32, device=x.device)
+        for start in range(0, n, _CHUNK):
+            vs = _line_values(lines, xf[start:start + _CHUNK].T, res)
+            if vsave is not None:
+                for ax in range(3):
+                    vsave[ax, s * c:(s + 1) * c, start:start + _CHUNK] = vs[ax].T
+            enc[start:start + _CHUNK] = bf16_round((vs[0] * vs[1]) * vs[2]) @ basis
+        encs.append(enc)
+    hidden = [] if save_residuals else None
+    out = mlp_apply(mlp_params, torch.cat(encs, dim=-1), mlp_spec, hidden=hidden)
+    out = out.reshape(*x.shape[:-1], mlp_spec.dim_out)
+    if not save_residuals:
+        return out
+    hsave = torch.stack([h.T for h in hidden]).to(torch.bfloat16).contiguous()
+    return out, vsave, hsave
+
+
+def cp_mlp_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp_spec):
+    """Plain PyTorch version of K2 (``_bwd_kernel``) at the TPU kernel's
+    rounding points, from the same residuals: returns ``(dlines, dbasis,
+    dws, dbs)`` as :func:`cp_mlp_backward`. ``basis`` is the (S, C, F) bf16
+    stack and ``ws`` the packed bf16 MLP of :func:`cp_mlp_operands`."""
+    xf = x.reshape(-1, 3).float()
+    n = xf.shape[0]
+    c, f = cp_spec.n_components, cp_spec.n_features
+    s_count = len(cp_spec.resolutions)
+    v = vsave.float().reshape(3, s_count, c, n)
+    prod = (v[0] * v[1]) * v[2]  # (S, C, N) f32 from the bf16 residuals
+    prod_r = bf16_round(prod)
+    bas = basis.float()  # (S, C, F)
+    enc = torch.cat([prod_r[s].T @ bas[s] for s in range(s_count)], dim=-1)  # (N, E)
+    acts = [enc] + [h.float().T for h in hsave]
+    d_enc, dws, dbs = mlp_backward_plain(ws, acts, dout.reshape(n, -1).float())
+    d_enc_r = bf16_round(d_enc)
+    dbasis = torch.stack([
+        prod_r[s] @ d_enc_r[:, s * f:(s + 1) * f] for s in range(s_count)
+    ])  # (S, C, F)
+    dlines = []
+    for s, res in enumerate(cp_spec.resolutions):
+        d_prod = d_enc_r[:, s * f:(s + 1) * f] @ bas[s].T  # (N, C)
+        vs = [v[ax, s].T for ax in range(3)]  # (N, C) each
+        others = (vs[1] * vs[2], vs[0] * vs[2], vs[0] * vs[1])
+        grad = torch.zeros((3, res, c), dtype=torch.float32, device=x.device)
+        for ax in range(3):
+            d_v = bf16_round(d_prod * others[ax])
+            i0, w0, w1 = _tent_coords(xf[:, ax], res)
+            grad[ax].index_add_(0, i0, w0[:, None] * d_v)
+            grad[ax].index_add_(0, i0 + 1, w1[:, None] * d_v)
+        dlines.append(grad)
+    return dlines, dbasis, dws, dbs
 
 
 def cp_mlp_operands(cp_params, mlp_params, cp_spec: CPSpec, mlp_spec):
-    """The kernel's device-layout operands: per-scale (3, R, C) bf16 line
+    """The kernels' device-layout operands: per-scale (3, R, C) bf16 line
     stacks (rows contiguous for the 2-row reads), the (S, C, F) bf16 basis
     and the packed MLP. Parameters that do not change between calls can be
     packed once and passed to :func:`cp_mlp_launch` directly."""
     if not fusable(cp_spec, mlp_spec):
         raise ValueError(f"cp_mlp_forward: not fusable: {cp_spec} {mlp_spec}")
     s_count = len(cp_spec.resolutions)
-    lines = [
-        torch.stack([cp_params[f"line_{s}_{ax}"] for ax in range(3)])
-        .to(torch.bfloat16).contiguous()
-        for s in range(s_count)
-    ]
-    basis = torch.stack([cp_params[f"basis_{s}"] for s in range(s_count)])
-    ws, bs = pack_mlp(mlp_params, mlp_wmax(mlp_spec))
+    with torch.no_grad():
+        lines = [
+            torch.stack([cp_params[f"line_{s}_{ax}"] for ax in range(3)])
+            .to(torch.bfloat16).contiguous()
+            for s in range(s_count)
+        ]
+        basis = torch.stack([cp_params[f"basis_{s}"] for s in range(s_count)])
+        ws, bs = pack_mlp(mlp_params, mlp_wmax(mlp_spec))
     return lines, basis.to(torch.bfloat16).contiguous(), ws, bs
 
 
-def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec):
-    """Launch ``csrc/cp_mlp_fwd.cu`` on packed ``operands`` for CUDA x."""
+def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
+    """Launch ``csrc/cp_mlp_fwd.cu`` on packed ``operands`` for CUDA x.
+    Returns ``(out, vsave, hsave)``; the residuals are written only with
+    ``train`` (else None)."""
     lines, basis, ws, bs = operands
     if x.dtype != torch.float32 or x.shape[-1] != 3:
         raise ValueError(f"cp_mlp_forward: x must be (..., 3) float32, got "
@@ -129,16 +277,17 @@ def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec):
     s_count = len(cp_spec.resolutions)
     c, f = cp_spec.n_components, cp_spec.n_features
     w = mlp_wmax(mlp_spec)
+    nh = mlp_spec.n_hidden_layers
     expect = [(3, r, c) for r in cp_spec.resolutions] + [
-        (s_count, c, f), (mlp_spec.dim_in + mlp_spec.n_hidden_layers * w, w),
-        (mlp_spec.n_hidden_layers + 1, w)]
-    for t, shape in zip((*lines, basis, ws, bs), expect):
-        if t.device != x.device or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"cp_mlp_forward: operand {tuple(t.shape)} on {t.device} "
-                             f"does not match {shape} contiguous on {x.device}")
+        (s_count, c, f), (mlp_spec.dim_in + nh * w, w), (nh + 1, w)]
+    cuda_build.check_operands("cp_mlp_forward", (*lines, basis, ws, bs), expect, x.device)
     xf = x.reshape(-1, 3).contiguous()
     n = xf.shape[0]
     out = torch.empty((n, mlp_spec.dim_out), dtype=torch.float32, device=x.device)
+    vsave = hsave = None
+    if train:
+        vsave = torch.empty((3, s_count * c, n), dtype=torch.bfloat16, device=x.device)
+        hsave = torch.empty((nh, mlp_spec.n_neurons, n), dtype=torch.bfloat16, device=x.device)
     fn = cuda_build.library("cp_mlp_fwd").cp_mlp_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -146,6 +295,7 @@ def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec):
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     line_ptrs = (ctypes.c_void_p * s_count)(*[t.data_ptr() for t in lines])
     res = (ctypes.c_int * s_count)(*cp_spec.resolutions)
@@ -154,8 +304,55 @@ def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec):
         rc = fn(
             xf.data_ptr(), n, line_ptrs, res, s_count, basis.data_ptr(),
             ws.data_ptr(), bs.data_ptr(), out.data_ptr(), c, f,
-            mlp_spec.n_neurons, mlp_spec.n_hidden_layers, mlp_spec.dim_out, stream,
+            mlp_spec.n_neurons, nh, mlp_spec.dim_out,
+            vsave.data_ptr() if train else None, hsave.data_ptr() if train else None,
+            stream,
         )
     cuda_build.check(rc, "cp_mlp_forward", SUPPORTED)
     cp_mlp_forward.launches += 1
-    return out.reshape(*x.shape[:-1], mlp_spec.dim_out)
+    return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
+
+
+def cp_mlp_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp_spec):
+    """Launch ``csrc/cp_mlp_bwd.cu`` (K2) for CUDA tensors; see
+    :func:`cp_mlp_backward` for the outputs."""
+    s_count = len(cp_spec.resolutions)
+    c, f = cp_spec.n_components, cp_spec.n_features
+    w = mlp_wmax(mlp_spec)
+    nh = mlp_spec.n_hidden_layers
+    xf = x.reshape(-1, 3).contiguous()
+    n = xf.shape[0]
+    d = mlp_spec.dim_out
+    if dout.dtype != torch.float32:
+        raise ValueError(f"cp_mlp_backward: dout must be float32, got {dout.dtype}")
+    dflat = dout.reshape(n, d).contiguous()
+    expect = [(3, s_count * c, n), (nh, mlp_spec.n_neurons, n), (n, d), (s_count, c, f),
+              (mlp_spec.dim_in + nh * w, w)]
+    cuda_build.check_operands("cp_mlp_backward", (vsave, hsave, dflat, basis, ws), expect, x.device)
+    dev = x.device
+    dlines = [torch.zeros((3, r, c), dtype=torch.float32, device=dev) for r in cp_spec.resolutions]
+    dbasis = torch.zeros((s_count, c, f), dtype=torch.float32, device=dev)
+    dws = torch.zeros(tuple(ws.shape), dtype=torch.float32, device=dev)
+    dbs = torch.zeros((nh + 1, w), dtype=torch.float32, device=dev)
+    fn = cuda_build.library("cp_mlp_bwd").cp_mlp_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    dline_ptrs = (ctypes.c_void_p * s_count)(*[t.data_ptr() for t in dlines])
+    res = (ctypes.c_int * s_count)(*cp_spec.resolutions)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            xf.data_ptr(), n, vsave.data_ptr(), hsave.data_ptr(), dflat.data_ptr(),
+            basis.data_ptr(), ws.data_ptr(), dline_ptrs, res, s_count,
+            dbasis.data_ptr(), dws.data_ptr(), dbs.data_ptr(), c, f,
+            mlp_spec.n_neurons, nh, d, stream,
+        )
+    cuda_build.check(rc, "cp_mlp_backward", SUPPORTED)
+    cp_mlp_backward.launches += 1
+    return dlines, dbasis, dws, dbs

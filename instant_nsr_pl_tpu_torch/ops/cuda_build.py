@@ -107,3 +107,12 @@ def check(rc: int, name: str, supported: str):
                          f"supported: {supported}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def check_operands(name, tensors, shapes, device):
+    """Raise unless each tensor lies on ``device``, has its shape and is
+    contiguous: the kernels read raw pointers with these layouts."""
+    for t, shape in zip(tensors, shapes):
+        if t.device != device or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: operand {tuple(t.shape)} on {t.device} "
+                             f"does not match {tuple(shape)} contiguous on {device}")

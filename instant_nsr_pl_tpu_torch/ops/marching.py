@@ -1,14 +1,18 @@
 """Occupancy grid + static-capacity ray marching (the nerfacc role).
 
-Port of ``instant_nsr_pl_tpu/ops/marching.py`` (grid state :40-176, march
-and packing :482-884) for uniform stepping. It keeps the ``PackedSamples``
-contract and the float expressions of the JAX package, so both give the same
-packed buffers bit for bit, and drops the TPU layout tricks (bit-bricks,
-lane-native probes, the two-level selection sort): on the TPU they compute the
-same outputs as the plain dilated-field probe and single sort this port uses.
+Port of ``instant_nsr_pl_tpu/ops/marching.py`` (grid state and update
+:40-424, march and packing :482-884) for uniform stepping. It keeps the
+``PackedSamples`` contract and the float expressions of the JAX package, so
+both give the same packed buffers bit for bit, and drops the TPU layout
+tricks (bit-bricks, lane-native probes, the two-level selection sort): on the
+TPU they compute the same outputs as the plain dilated-field probe and single
+sort this port uses.
 
-The grid update (``occupancy_grid_update``), stratified jitter and
-cone-angle stepping belong to the training and unbounded-scene slices.
+Random draws (the march's stratified jitter, the grid update's cell choice
+and jitter) come from a ``torch.Generator``; they cannot repeat the JAX
+package's bits, so both functions also take the draws themselves, which is
+how the tests feed the two packages the same numbers. Cone-angle stepping
+belongs to the unbounded-scene slice.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from instant_nsr_pl_tpu_torch.device import resolve_device
-from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType
+from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType, uncontract_from_unisphere
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +71,112 @@ def _postprocess_binary(binary, spec: OccGridSpec):
     """binary -> binary_dilated (the JAX twin also packs bit-bricks, which
     only its TPU probe reads)."""
     return _dilate_binary(binary, spec.resolution)
+
+
+def _cell_coords(indices, resolution):
+    ix = indices % resolution
+    iy = (indices // resolution) % resolution
+    iz = indices // (resolution * resolution)
+    return torch.stack([ix, iy, iz], dim=-1)
+
+
+def occupancy_update_draws(state: OccupancyGridState, spec: OccGridSpec, generator,
+                           warmup=False, slab=False, sample_divisor=8):
+    """The random numbers of one :func:`occupancy_grid_update`, drawn from
+    ``generator`` on the grid's device: ``jitter`` (M, 3) uniform in [0, 1)
+    for the M evaluated cells and, in the random mode, ``uniform`` (m,) cell
+    indices and ``occupied`` (m,) ranks in [0, max(total, 1)) among the
+    occupied cells (total = number of occupied cells)."""
+    dev = state.occs.device
+    n = spec.num_cells
+    m = n // sample_divisor
+    if warmup:
+        return {"jitter": torch.rand((n, 3), generator=generator, device=dev)}
+    if slab:
+        return {"jitter": torch.rand((m, 3), generator=generator, device=dev)}
+    total = state.binary.sum().clamp(min=1)
+    rank = torch.rand(m, generator=generator, device=dev, dtype=torch.float64) * total
+    return {
+        "uniform": torch.randint(0, n, (m,), generator=generator, device=dev),
+        "occupied": torch.minimum(rank.long(), total - 1),
+        "jitter": torch.rand((2 * m, 3), generator=generator, device=dev),
+    }
+
+
+def occupancy_grid_update(
+    state: OccupancyGridState,
+    spec: OccGridSpec,
+    occ_eval_fn,
+    generator=None,
+    *,
+    draws=None,
+    occ_thre: float = 0.01,
+    ema_decay: float = 0.95,
+    warmup: bool = False,
+    sample_divisor: int = 8,
+    phase=None,
+) -> OccupancyGridState:
+    """One nerfacc-style grid update (JAX ``occupancy_grid_update``).
+
+    Cells: every cell in ``warmup``; else, with ``phase`` (the update ordinal
+    mod ``sample_divisor``), the contiguous slab ``[phase * m, (phase + 1) *
+    m)`` of ``m = num_cells // sample_divisor`` cells, which touches every
+    cell once per ``sample_divisor`` updates; else (``phase=None``, the
+    random mode) ``m`` uniform cells plus ``m`` occupied cells by inverse CDF
+    over the binary field (the uniform half again when nothing is occupied).
+    Each chosen cell is evaluated at a jittered point, ``occ_eval_fn`` maps
+    world points (M, 3) to occupancy values (M,), and the EMA is
+    ``max(occs * ema_decay, occ)``; the threshold is ``min(mean(occs),
+    occ_thre)`` and the binary field is dilated by a 3^3 max-pool. A cell
+    drawn twice in the random mode keeps its last draw's value.
+
+    ``draws`` (see :func:`occupancy_update_draws`) replaces the draws from
+    ``generator``."""
+    res = spec.resolution
+    n = spec.num_cells
+    dev = state.occs.device
+    slab = not warmup and phase is not None
+    m = n // sample_divisor
+    if draws is None:
+        draws = occupancy_update_draws(state, spec, generator, warmup=warmup, slab=slab,
+                                       sample_divisor=sample_divisor)
+    if warmup:
+        indices = torch.arange(n, device=dev)
+    elif slab:
+        start = (int(phase) % sample_divisor) * m
+        indices = torch.arange(m, device=dev) + start
+    else:
+        uniform = draws["uniform"].to(dev).long()
+        cdf = torch.cumsum(state.binary.long(), dim=0)
+        total = cdf[-1]
+        occupied = torch.searchsorted(cdf, draws["occupied"].to(dev).long(), right=True)
+        occupied = torch.where(total > 0, torch.clamp(occupied, 0, n - 1), uniform)
+        indices = torch.cat([uniform, occupied])
+    coords = _cell_coords(indices, res).float()
+    unit = (coords + draws["jitter"].to(dev)) / res  # the contracted [0,1]^3 cube
+    world = uncontract_from_unisphere(unit, spec.radius, spec.contraction_type)
+    with torch.no_grad():
+        occ = occ_eval_fn(world).reshape(-1).float()
+    if warmup:
+        occs = torch.maximum(state.occs * ema_decay, occ)
+    elif slab:
+        occs = state.occs.clone()
+        occs[start:start + m] = torch.maximum(state.occs[start:start + m] * ema_decay, occ)
+    else:
+        new_vals = torch.maximum(state.occs[indices] * ema_decay, occ)
+        # a cell drawn twice keeps its last value: unique indices make the
+        # write deterministic on the card as on the CPU
+        order = torch.argsort(indices, stable=True)
+        sorted_idx = indices[order]
+        last = torch.ones_like(sorted_idx, dtype=torch.bool)
+        last[:-1] = sorted_idx[1:] != sorted_idx[:-1]
+        occs = state.occs.clone()
+        occs[sorted_idx[last]] = new_vals[order[last]]
+    thre = torch.clamp(occs.mean(), max=occ_thre)
+    binary = occs > thre
+    return OccupancyGridState(
+        occs=occs, binary=binary, binary_dilated=_postprocess_binary(binary, spec)
+    )
 
 
 def fma32(a, b, c):
@@ -215,15 +325,20 @@ def march_rays(
     occ_dilated=None,
     occ_stride: int = 1,
     group_compact: bool = False,
+    jitter=None,
 ) -> PackedSamples:
     """March rays with uniform steps, prune with the occupancy grid, compact
     to ``capacity`` (JAX ``march_rays``; see its docstring for the strided
-    probe and the group compaction). Cone-angle stepping and stratified
-    jitter come with later slices."""
+    probe and the group compaction). ``jitter``: (R,) uniform [0, 1) draws
+    of the stratified march, which moves each ray's start by ``jitter *
+    render_step_size`` (nerfacc's stratified sampling). Cone-angle stepping
+    comes with a later slice."""
     R = rays_o.shape[0]
     S = max_samples
     t_min = t_min.float()
     t_max = t_max.float()
+    if jitter is not None:
+        t_min = t_min + jitter.float() * render_step_size
     strided = occ_binary is not None and occ_stride > 1 and occ_dilated is not None
     if group_compact:
         if not strided:

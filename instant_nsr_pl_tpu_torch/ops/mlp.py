@@ -94,9 +94,10 @@ def _hidden_act(spec: MLPSpec, x):
     return torch.relu(x)
 
 
-def mlp_apply(params, x, spec: MLPSpec):
+def mlp_apply(params, x, spec: MLPSpec, hidden=None):
     """Apply the MLP to (N, dim_in) -> (N, dim_out) float32. The output
-    activation is NOT applied here (callers use the activation DSL)."""
+    activation is NOT applied here (callers use the activation DSL). A list
+    passed as ``hidden`` receives each hidden layer's (N, W) activation."""
     _check_ported(spec)
     bf16 = spec.precision == "bf16"
     h = bf16_round(x.float()) if bf16 else x.float()
@@ -108,4 +109,6 @@ def mlp_apply(params, x, spec: MLPSpec):
             h = _hidden_act(spec, h)
             if bf16:
                 h = bf16_round(h)
+            if hidden is not None:
+                hidden.append(h)
     return h

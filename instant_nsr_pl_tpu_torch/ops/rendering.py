@@ -9,6 +9,11 @@ Segmented sums are plain PyTorch: one float64 prefix sum, read back at the
 segment starts, replaces the JAX package's segmented associative scan (whose
 shape was chosen for the TPU). In float64 no sum loses precision across the
 segments it crosses, and the result is rounded to float32 once.
+
+Gradients are autograd's through these ops (nothing here works in place):
+the per-ray sum's backward hands each packed slot its ray's cotangent, the
+JAX custom VJP ``ct[row_rays]`` (JAX twin ``ops/rendering.py:73-81``), up to
+the float64 prefix sums' rounding.
 """
 
 from __future__ import annotations
@@ -62,7 +67,12 @@ def render_weight_from_density(t_starts, t_ends, sigma, ray_indices, valid, grou
     dt = t_ends - t_starts
     alpha = 1.0 - torch.exp(-sigma * dt)
     alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
-    log1m = torch.log(torch.clamp(1.0 - alpha, 1e-10, 1.0))
+    # jnp.clip as min(max(x, lo), hi): at a tie (alpha = 0 gives 1 - alpha =
+    # 1 exactly) torch.minimum, like JAX, splits the gradient in half, where
+    # torch.clamp would pass it whole
+    one_minus = 1.0 - alpha
+    log1m = torch.log(torch.minimum(torch.maximum(one_minus, one_minus.new_tensor(1e-10)),
+                                    one_minus.new_tensor(1.0)))
     excl = segmented_cumsum(log1m, ray_indices, valid, exclusive=True, group=group)
     return alpha * torch.exp(excl)
 

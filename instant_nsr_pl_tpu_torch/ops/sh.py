@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 # constants of the real spherical harmonics basis (degrees 0..3); the CUDA
-# kernel in csrc/sh_mlp_fwd.cu repeats them as float literals
+# kernels repeat them as float literals (csrc/sh_common.cuh)
 _C0 = 0.28209479177387814
 _C1 = 0.4886025119029199
 _C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,

@@ -1,10 +1,18 @@
-"""Base system, render side: dataset arrays on the device, chunked image
-rendering with overflow retries, and image metrics.
+"""Base system: dataset arrays on the device, the train state and step, and
+chunked image rendering with overflow retries and image metrics.
 
-Port of ``instant_nsr_pl_tpu/systems/base.py`` (``setup_data``,
-``render_image`` :546-681, ``evaluate_image`` :683-706). The JAX package jits
-one render chunk; the port runs it eagerly. The train state, sampling,
-optimizer and train step belong to the training slice.
+Port of ``instant_nsr_pl_tpu/systems/base.py`` (the train side :28-474,
+``render_image`` :546-681, ``evaluate_image`` :683-706). The JAX package
+jits a pure step over an immutable state pytree; the port runs eagerly and
+its state is a dict whose parameters the optimizer updates in place:
+
+    state = {params, optimizer, occ, step, generator}
+
+``generator`` is a ``torch.Generator`` on the state's device, seeded from
+``init_state(seed)``; it draws every random number of training (rays,
+pixels, background, march jitter, grid updates). Parameters are drawn from
+a CPU generator with the same seed, so a seed gives the same weights on
+every device.
 """
 
 from __future__ import annotations
@@ -16,9 +24,41 @@ import numpy as np
 import torch
 
 from instant_nsr_pl_tpu_torch.device import resolve_device
+from instant_nsr_pl_tpu_torch.models.network_utils import make_trainable
 from instant_nsr_pl_tpu_torch.ops.ray import get_rays
 from instant_nsr_pl_tpu_torch.registry import models
 from instant_nsr_pl_tpu_torch.systems.criterions import psnr, ssim
+from instant_nsr_pl_tpu_torch.systems.optimizers import make_optimizer
+
+
+def C(value, step, epoch_steps=None):
+    """Scheduled scalar (reference ``BaseSystem.C``, systems/base.py:28-45):
+    a number, or [start_step, start_value, end_value, end_step] (or the
+    3-element form with start_step 0) interpolated linearly by step. A float
+    end_step interpolates by the integer epoch ``floor(step / epoch_steps)``,
+    one nominal epoch being one pass over the train split's images."""
+    if isinstance(value, (int, float)):
+        return float(value)
+    value = list(value)
+    if len(value) == 3:
+        value = [0] + value
+    if len(value) != 4:
+        raise ValueError(f"bad scheduled value spec {value}")
+    start_step, start_value, end_value, end_step = value
+    if isinstance(end_step, int):
+        cur = float(step)
+        denom = max(end_step - start_step, 1)
+    else:
+        if not epoch_steps:
+            raise ValueError(
+                f"scheduled value {value}: a float end_step selects the epoch-based "
+                "interpolation; this system has no dataset length to translate "
+                "epochs to steps (call setup_data first, or use integer steps)"
+            )
+        cur = float(step // epoch_steps)
+        denom = max(float(end_step) - float(start_step), 1e-9)
+    t = min(max((cur - float(start_step)) / denom, 0.0), 1.0)
+    return float(start_value) + t * (float(end_value) - float(start_value))
 
 
 def pixels_to_f32(x):
@@ -47,20 +87,53 @@ def dataset_device_arrays(dataset, device):
 
 class BaseSystem:
     """Holds the model and the dataset arrays on ``device`` (CUDA unless the
-    caller passes another) and renders images in fixed-size ray chunks.
-    Subclasses implement ``forward_eval``."""
+    caller passes another), trains with :meth:`train_step` and renders
+    images in fixed-size ray chunks. Subclasses implement ``loss_fn`` and
+    ``forward_eval``."""
 
     def __init__(self, config, device=None):
         self.config = config
         self.device = resolve_device(device)
         self.model = models.make(config.model.name, config.model)
         m = config.model
+        # the static batch: max_train_num_rays rays, train_num_samples packed
+        # samples (the reference's train_num_rays * num_samples_per_ray)
+        self.train_num_rays = int(m.get("max_train_num_rays", m.get("train_num_rays", 8192)))
+        self.train_capacity = int(m.get(
+            "train_num_samples", int(m.get("train_num_rays", 256)) * int(m.num_samples_per_ray)))
         # reference configs spell the eval chunk `ray_chunk`
         self.eval_chunk_rays = int(m.get("eval_chunk_rays", m.get("ray_chunk", 4096)))
         self.eval_capacity = int(m.get("eval_num_samples", self.eval_chunk_rays * 128))
+        self.background_color_mode = str(m.get("background_color", "random"))
+        self.batch_image_sampling = bool(m.get("batch_image_sampling", True))
+        self.randomized = bool(m.get("randomized", True))
+        self.grid_warmup_steps = int(m.get("grid_warmup_steps", 256))
+        self.grid_update_every = int(m.get("grid_update_every", 16))
+        # 'slab': the rotating contiguous-slab refresh; 'random': uniform plus
+        # occupied cells (ops/marching.py occupancy_grid_update)
+        self.grid_update_sampling = str(m.get("grid_update_sampling", "slab"))
+        # bucketed dynamic ray batching (reference systems/nerf.py:93-95): a
+        # power-of-two ladder up to max_train_num_rays, switched from the
+        # live-sample count at log cadence
+        self.dynamic_ray_sampling = bool(m.get("dynamic_ray_sampling", True))
+        start = int(m.get("train_num_rays", max(self.train_num_rays // 8, 64)))
+        ladder = []
+        r = max(start, 64)
+        while r < self.train_num_rays:
+            ladder.append(r)
+            r *= 2
+        ladder.append(self.train_num_rays)
+        self.ray_buckets = ladder
+        self.active_num_rays = ladder[0] if self.dynamic_ray_sampling else self.train_num_rays
         self.data = None  # set by setup_data
+        self.steps_per_epoch = None
         self._eval_capacity_scale = 1
         self.last_render_stats = None
+
+    def C(self, value, step):
+        """Scheduled scalar of this system (epoch specs use its train split
+        length)."""
+        return C(value, step, epoch_steps=self.steps_per_epoch)
 
     # -- data ---------------------------------------------------------------
     def setup_data(self, dataset):
@@ -70,18 +143,146 @@ class BaseSystem:
         self.w = int(dataset.w)
         self.h = int(dataset.h)
         self.n_images = int(self.data["images"].shape[0])
+        # one nominal epoch = one pass over the train split's images
+        self.steps_per_epoch = self.n_images
         self.has_mask = bool(getattr(dataset, "has_mask", False))
         self.apply_mask = bool(getattr(dataset, "apply_mask", False))
+        self.shared_directions = self.data["directions"].ndim == 3
 
     # -- state --------------------------------------------------------------
     def init_state(self, seed: int = 0):
-        """Render state ``{params, occ}`` with parameters drawn from a
-        CPU ``torch.Generator`` seeded with ``seed``."""
-        generator = torch.Generator().manual_seed(seed)
-        return {
-            "params": self.model.init(generator, self.device),
+        """The train state: parameters drawn from a CPU ``torch.Generator``
+        seeded with ``seed`` (leaf tensors that require grad), the optimizer
+        of ``system.optimizer`` / ``system.scheduler``, an all-occupied
+        occupancy grid, ``step`` 0 and the device generator, seeded with
+        ``seed`` too. ``model.weights`` names a checkpoint whose parameters
+        and grid are loaded (reference models/base.py:12-13)."""
+        params = make_trainable(self.model.init(torch.Generator().manual_seed(seed), self.device))
+        optimizer, self.lr_fn = make_optimizer(
+            self.config.system.optimizer, self.config.system.get("scheduler", None), params,
+            epoch_steps=self.steps_per_epoch,
+        )
+        state = {
+            "params": params,
+            "optimizer": optimizer,
             "occ": self.model.init_occupancy(self.device),
+            "step": 0,
+            "generator": torch.Generator(device=self.device).manual_seed(seed),
         }
+        weights = self.config.model.get("weights", None)
+        if weights:
+            from instant_nsr_pl_tpu_torch.utils.checkpoint import load_weights_only
+
+            state = load_weights_only(weights, state)
+        return state
+
+    # -- sampling (reference systems/nerf.py:33-85) -------------------------
+    def _sample_rays(self, data, generator, n):
+        """Random images and pixels of the train split: rays (unit
+        directions), their colours and foreground masks."""
+        dev = data["images"].device
+        if self.batch_image_sampling:
+            idx = torch.randint(0, self.n_images, (n,), generator=generator, device=dev)
+        else:
+            idx = torch.randint(0, self.n_images, (1,), generator=generator,
+                                device=dev).expand(n)
+        x = torch.randint(0, self.w, (n,), generator=generator, device=dev)
+        y = torch.randint(0, self.h, (n,), generator=generator, device=dev)
+        if self.shared_directions:
+            dirs_cam = data["directions"][y, x]
+        else:
+            dirs_cam = data["directions"][idx, y, x]
+        rays_o, rays_d = get_rays(dirs_cam, data["c2w"][idx])
+        rays_d = rays_d / torch.clamp(torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=1e-10)
+        rgb = pixels_to_f32(data["images"][idx, y, x])
+        fg_mask = pixels_to_f32(data["fg_masks"][idx, y, x])
+        return rays_o, rays_d, rgb, fg_mask
+
+    def _background_color(self, generator, n, train: bool):
+        """white / random / black; validation always renders on white
+        (reference systems/nerf.py:69-76)."""
+        mode = self.background_color_mode if train else "white"
+        if mode == "white":
+            return torch.ones(3, dtype=torch.float32, device=self.device)
+        if mode == "black":
+            return torch.zeros(3, dtype=torch.float32, device=self.device)
+        if mode == "random":
+            return torch.rand((n, 3), generator=generator, device=self.device)
+        raise ValueError(f"Unknown background_color '{mode}'")
+
+    # -- train step -----------------------------------------------------------
+    def loss_fn(self, params, occ, batch, generator, step, n_rays=None, capacity=None):
+        """(loss, metrics) of one batch; the loss is differentiable with
+        respect to ``params``."""
+        raise NotImplementedError
+
+    def update_occupancy(self, state, warmup: bool):
+        """One grid update of the state (reference models/nerf.py:45-55 via
+        nerfacc ``every_n_step``): every cell while warming up, else the slab
+        of update ordinal (step // grid_update_every) mod 8, or the random
+        cells with ``grid_update_sampling: random``."""
+        phase = None
+        if not warmup and self.grid_update_sampling == "slab":
+            phase = (state["step"] // self.grid_update_every) % 8
+        state["occ"] = self.model.update_occupancy(
+            state["params"], state["occ"], state["generator"], warmup=warmup, phase=phase
+        )
+        return state
+
+    def train_step(self, state):
+        """One training step, updating ``state`` in place (and returning it
+        with the step's metrics): the grid update when ``step`` is a multiple
+        of ``grid_update_every`` (warmup below ``grid_warmup_steps``), then
+        sample rays, forward, loss, backward and the optimizer update
+        (reference on_train_batch_start -> training_step ordering,
+        systems/base.py:54-57). Metrics are 0-d tensors or floats; reading
+        them waits for the device."""
+        step = state["step"]
+        if step % self.grid_update_every == 0:
+            self.update_occupancy(state, warmup=step < self.grid_warmup_steps)
+        n_rays = self.active_num_rays
+        gen = state["generator"]
+        rays_o, rays_d, rgb, fg_mask = self._sample_rays(self.data, gen, n_rays)
+        bg = self._background_color(gen, n_rays, train=True)
+        if self.apply_mask:
+            rgb = rgb * fg_mask[:, None] + bg.expand_as(rgb) * (1.0 - fg_mask[:, None])
+        batch = {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb, "fg_mask": fg_mask,
+                 "background_color": bg}
+        optimizer = state["optimizer"]
+        optimizer.zero_grad()
+        loss, metrics = self.loss_fn(state["params"], state["occ"], batch, gen, step,
+                                     n_rays=n_rays)
+        loss.backward()
+        optimizer.step(step)
+        metrics["train/loss"] = loss.detach()
+        metrics["train/lr"] = optimizer.lr(step)
+        state["step"] = step + 1
+        return state, metrics
+
+    def train_chunk(self, state, n: int):
+        """``n`` training steps; returns (state, the last step's metrics).
+        The JAX package runs them as one compiled scan between grid updates;
+        the port runs them one by one."""
+        metrics = None
+        for _ in range(n):
+            state, metrics = self.train_step(state)
+        return state, metrics
+
+    def adapt_num_rays(self, live_samples: float):
+        """Bucketed dynamic ray batching (the reference's EMA ``n_rays <-
+        0.9n + 0.1n * target/actual``, systems/nerf.py:93-95): the largest
+        bucket whose expected live-sample count fits 90% of the packed
+        capacity. Called at log cadence."""
+        if not self.dynamic_ray_sampling or live_samples <= 0:
+            return self.active_num_rays
+        per_ray = live_samples / self.active_num_rays
+        desired = 0.9 * self.train_capacity / max(per_ray, 1e-6)
+        new = self.ray_buckets[0]
+        for b in self.ray_buckets:
+            if b <= desired:
+                new = b
+        self.active_num_rays = new
+        return new
 
     # -- evaluation ---------------------------------------------------------
     def forward_eval(self, params, occ, rays_o, rays_d, bg, capacity=None):

@@ -1,12 +1,32 @@
-"""Image metrics: PSNR and SSIM.
+"""Losses and image metrics: weighted and smooth-L1 losses, PSNR, SSIM.
 
-Port of ``instant_nsr_pl_tpu/systems/criterions.py:45,75`` (reference
-systems/criterions.py:40-152). The losses belong to the training slice.
+Port of ``instant_nsr_pl_tpu/systems/criterions.py:14-75`` (reference
+systems/criterions.py:7-152).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def weighted_loss(per_elem, weight=None, reduction="mean"):
+    """Apply an optional elementwise weight, then reduce ('mean', 'sum' or
+    'none'; reference WeightedLoss, systems/criterions.py:7-31)."""
+    if weight is not None:
+        per_elem = per_elem * weight
+    if reduction == "mean":
+        return per_elem.mean()
+    if reduction == "sum":
+        return per_elem.sum()
+    return per_elem
+
+
+def smooth_l1_loss(pred, target, beta=1.0, weight=None, reduction="mean"):
+    """Huber / smooth-L1 with torch's F.smooth_l1_loss semantics, the NeRF
+    rgb loss (reference systems/nerf.py:97)."""
+    d = (pred - target).abs()
+    per = torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+    return weighted_loss(per, weight, reduction)
 
 
 def psnr(pred, target, valid_mask=None, reduction="mean"):

@@ -1,9 +1,11 @@
-"""Carry parameters and occupancy grids from the JAX package to the port.
+"""Carry parameters, occupancy grids and whole train states from the JAX
+package to the port.
 
 The port keeps the JAX pytree's keys and layouts (``line_{s}_{ax}`` (R, C),
 ``basis_{s}`` (C, F), ``layers[i].w`` (d_in, d_out) and ``.b``), so a carry
 is a copy: nothing is transposed or renamed. Inputs are plain numpy
-(nested dicts and lists of arrays), so this module needs no JAX.
+(nested dicts and lists of arrays, or the JAX package's ``.npz``
+checkpoint), so this module needs no JAX.
 
 A state dict is the flat form of a parameter tree: dotted keys, list
 positions as numbers (``geometry.network.layers.0.w``).
@@ -14,21 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from instant_nsr_pl_tpu_torch.models.network_utils import named_leaves
 from instant_nsr_pl_tpu_torch.ops.marching import OccupancyGridState
 
 
 def state_dict(params, prefix="") -> dict[str, torch.Tensor]:
-    """Flatten a nested dict / list parameter tree into dotted keys."""
-    if isinstance(params, dict):
-        items = params.items()
-    elif isinstance(params, (list, tuple)):
-        items = ((str(i), v) for i, v in enumerate(params))
-    else:
-        return {prefix: params}
-    out = {}
-    for k, v in items:
-        out.update(state_dict(v, f"{prefix}.{k}" if prefix else str(k)))
-    return out
+    """Flatten a nested dict / list parameter tree into dotted keys (in the
+    JAX package's leaf order)."""
+    return dict(named_leaves(params, prefix))
 
 
 def _listify(node):
@@ -75,3 +70,73 @@ def occupancy_from_jax(grid, device=None) -> OccupancyGridState:
             np.array(get("binary_dilated"), dtype=bool), device=device
         ),
     )
+
+
+def load_jax_checkpoint(path, state, weights_only=False):
+    """Load a JAX package checkpoint (``utils/checkpoint.py``: one ``.npz``
+    of the train state's flattened leaves, ``leaf_0`` ...) into the port's
+    train ``state`` (from ``system.init_state``), in place.
+
+    The leaf order is the JAX flatten order of ``{params, opt_state, occ,
+    extra, step, rng}``, rebuilt here from the port's own parameter tree:
+    dict keys sorted, lists in order, NamedTuple fields in declaration
+    order. So the leaves are
+      1. ``occ.grid``: occs, binary, binary_dilated and, when the grid
+         carries it, the TPU probe's ``bricks`` (dropped here);
+      2. ``opt_state``: per top-level parameter key, sorted, the optax
+         multi-transform's Adam(W) state: count, the ``mu`` leaves, the
+         ``nu`` leaves (each in the parameters' leaf order), then the
+         schedule's count;
+      3. ``params``, in leaf order;
+      4. ``rng`` (a uint32 PRNG key) and ``step``.
+    (``extra`` has no leaves for NeRF.) Parameters and the grid are copied;
+    unless ``weights_only``, ``step`` and the Adam moments and counts go
+    into the torch optimizer's state (``exp_avg``, ``exp_avg_sq``, ``step``).
+    The JAX PRNG key has no torch counterpart: the state's generator keeps
+    its own seed."""
+    data = np.load(path, allow_pickle=False)
+    leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
+    params = state["params"]
+    groups = [(k, named_leaves(params[k])) for k in sorted(params)]
+    groups = [(k, g) for k, g in groups if g]
+    n_params = sum(len(g) for _, g in groups)
+    n_opt = sum(2 + 2 * len(g) for _, g in groups)
+    n_occ = len(leaves) - n_opt - n_params - 2
+    if n_occ not in (3, 4):
+        raise ValueError(f"{path}: {len(leaves)} leaves do not match a JAX NeRF train state "
+                         f"with {n_params} parameter leaves and Adam(W): config mismatch?")
+    pos = n_occ
+    opt_leaves = []
+    for _, g in groups:
+        k = len(g)
+        opt_leaves.append((leaves[pos], leaves[pos + 1:pos + 1 + k],
+                           leaves[pos + 1 + k:pos + 1 + 2 * k]))
+        pos += 2 + 2 * k
+    param_leaves = leaves[pos:pos + n_params]
+    step = int(leaves[pos + n_params + 1])
+
+    live = named_leaves(params)
+    with torch.no_grad():
+        for (key, t), v in zip(live, param_leaves):
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: checkpoint shape {v.shape} != model {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.asarray(v, np.float32)))
+    grid = state["occ"]["grid"]
+    out = dict(state)
+    out["occ"] = {"grid": occupancy_from_jax(
+        {"occs": leaves[0], "binary": leaves[1], "binary_dilated": leaves[2]},
+        grid.occs.device)}
+    if weights_only:
+        return out
+    opt = state["optimizer"].optimizer
+    if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        raise ValueError("a JAX checkpoint's optimizer state loads into Adam or AdamW only")
+    for group, (count, mu, nu) in zip(opt.param_groups, opt_leaves):
+        for p, m, v in zip(group["params"], mu, nu):
+            opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.as_tensor(np.asarray(m, np.float32), device=p.device),
+                "exp_avg_sq": torch.as_tensor(np.asarray(v, np.float32), device=p.device),
+            }
+    out["step"] = step
+    return out

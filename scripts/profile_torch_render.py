@@ -49,7 +49,7 @@ def main():
     system = systems.make(cfg.system.name, cfg)
     system.setup_data(dm.val)
     state = system.init_state(seed=chip_smoke.SEED)
-    state["occ"] = chip_smoke.scene_grid(system.model, device)
+    state["occ"] = chip_smoke.scene_grid(system.model, cfg.dataset.spheres, device)
     model = system.model
     system.render_image(state, 0)  # warm-up: builds, cuBLAS handles, allocator
 
@@ -62,24 +62,25 @@ def main():
     params, occ, bg = state["params"], state["occ"], torch.ones(3, device=device)
     cap = system.eval_capacity
     stages = {"march": [], "density": [], "radiance": [], "composite": []}
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        samples, positions, dirs, t_mid, grp = model.march(occ, ro, rd, cap)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        density, feature = model.geometry.apply(params["geometry"], positions)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        rgb = model.texture.apply(params["texture"], feature, dirs)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        model.composite(samples, density, rgb, t_mid, bg, grp)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for k, a, b in (("march", t0, t1), ("density", t1, t2), ("radiance", t2, t3),
-                        ("composite", t3, t4)):
-            stages[k].append((b - a) * 1e3)
+    with torch.no_grad():  # the eval path: parameters require grad for training
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples, positions, dirs, t_mid, grp = model.march(occ, ro, rd, cap)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            density, feature = model.geometry.apply(params["geometry"], positions)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rgb = model.texture.apply(params["texture"], feature, dirs)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            model.composite(samples, density, rgb, t_mid, bg, grp)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for k, a, b in (("march", t0, t1), ("density", t1, t2), ("radiance", t2, t3),
+                            ("composite", t3, t4)):
+                stages[k].append((b - a) * 1e3)
     stage_ms = {k: statistics.median(v) for k, v in stages.items()}
     live = int(samples.valid.sum())
 

@@ -1,0 +1,153 @@
+"""Where the time of one training step goes, for the PyTorch port on a CUDA
+card: the bench NeRF of chip_smoke.py (8,192 rays and 262,144 packed samples
+per step), after 40 warm-up steps from random weights.
+
+    python3 scripts/profile_torch_train.py [--out profile_train.json]
+
+Prints as JSON (and writes to ``--out`` when given), with the card's name
+and power limit:
+- the host wall of one step split into stages, each ending in a
+  synchronize, median of 10 steps: ray sampling, march, the K1/K3 forwards
+  (training mode), compositing and the loss, autograd of compositing, the
+  rest of the backward (K2/K4 and the small ops around them), AdamW, and the
+  grid update amortised over its cadence (one slab update every 16 steps);
+- for 10 whole steps under torch.profiler: wall, summed device kernel time,
+  the device's busy share (kernel time / wall) and the top device kernels.
+Needs a CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None, help="also write the JSON result to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_train: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.config import config_from_dict
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+    from instant_nsr_pl_tpu_torch.systems.criterions import smooth_l1_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config_from_dict(chip_smoke.bench_config())
+    dm = datasets.make(cfg.dataset.name, cfg.dataset)
+    dm.setup("fit")
+    system = systems.make(cfg.system.name, cfg)
+    system.setup_data(dm.train)
+    state = system.init_state(seed=chip_smoke.SEED)
+    for _ in range(40):
+        state, _ = system.train_step(state)
+    torch.cuda.synchronize()
+    model, params, opt, gen = system.model, state["params"], state["optimizer"], state["generator"]
+    n_rays, capacity = system.active_num_rays, system.train_capacity
+
+    names = ["sample", "march", "k1_k3_forward", "composite_loss", "composite_backward",
+             "k2_k4_backward", "adamw"]
+    stages = {k: [] for k in names}
+    live = []
+    for rep in range(10):
+        step = state["step"] + rep
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        rays_o, rays_d, rgb, fg = system._sample_rays(system.data, gen, n_rays)
+        bg = system._background_color(gen, n_rays, train=True)
+        rgb = rgb * fg[:, None] + bg * (1.0 - fg[:, None])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        jitter = torch.rand(n_rays, generator=gen, device=rays_o.device)
+        samples, positions, dirs, t_mid, grp = model.march(state["occ"], rays_o, rays_d,
+                                                           capacity, jitter)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.zero_grad()
+        density, feature = model.geometry.apply(params["geometry"], positions)
+        color = model.texture.apply(params["texture"], feature, dirs)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = model.composite(samples, density, color, t_mid, bg, grp)
+        mask = (out["rays_valid"][:, 0] & out["rays_kept"]).float()
+        per_ray = smooth_l1_loss(out["comp_rgb"], rgb, reduction="none").mean(-1)
+        loss = (per_ray * mask).sum() / mask.sum().clamp(min=1.0)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        g_density, g_color = torch.autograd.grad(loss, [density, color], retain_graph=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        torch.autograd.backward([density, color], [g_density, g_color])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step(step)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, b in zip(names, t[:-1], t[1:]):
+            stages[k].append((b - a) * 1e3)
+        live.append(int(samples.num_valid))
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+
+    grid_ms = []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            state["occ"] = model.update_occupancy(params, state["occ"], gen, phase=rep)
+        torch.cuda.synchronize()
+        grid_ms.append((time.perf_counter() - t0) * 1e3)
+    stage_ms["grid_update_amortised"] = statistics.median(grid_ms) / system.grid_update_every
+    stage_ms["sum"] = sum(stage_ms.values())
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        state, _ = system.train_step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, metrics = system.train_step(state)
+        float(metrics["train/loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    result = {
+        "card": chip_smoke.nvidia_smi_line(),
+        "step": {"rays": n_rays, "capacity": capacity, "live_samples_median": statistics.median(live),
+                 "stage_ms": stage_ms},
+        "profiled_10_steps": {"wall_s": wall, "ms_per_step": wall * 100,
+                              "rays_per_s": 10 * n_rays / wall,
+                              "device_kernel_ms_per_step": busy_us / 1e4,
+                              "device_busy_share": busy_us / 1e6 / wall,
+                              "kernel_launches_per_step": len(kernels) / 10},
+        "top_kernels_ms_per_step": [[name[:90], us / 1e4] for name, us in top],
+    }
+    print(json.dumps(result, indent=1))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

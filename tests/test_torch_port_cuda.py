@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version, and a small NeRF forward on the card against the same forward on
-the CPU. Skipped without a CUDA device. This file imports no JAX, so it also
-runs where JAX is not installed:
+version (the backwards fed the same training-mode residuals), a small NeRF
+forward on the card against the same forward on the CPU, and gradients
+flowing through a training step on the card. Skipped without a CUDA device.
+This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 """
@@ -25,11 +26,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _close(got, ref):
-    """Tolerance of the JAX kernel tests: bf16 operands, f32 accumulation."""
+def _close(got, ref, rel=2e-2):
+    """Tolerance of the JAX kernel tests: bf16 operands, f32 accumulation
+    (2e-2 of the largest value for forwards, 2.5e-2 for gradients, whose
+    f32 sums also run in another order, with atomics)."""
     ref = ref.cpu()
     torch.testing.assert_close(got.cpu(), ref, rtol=0,
-                               atol=2e-2 * max(float(ref.abs().max()), 1e-3))
+                               atol=rel * max(float(ref.abs().max()), 1e-3))
 
 
 def _biased(layers, gen, device):
@@ -120,3 +123,112 @@ def test_nerf_forward_cuda_matches_cpu(cuda_device):
     assert int(cpu["num_samples"]) == int(gpu["num_samples"]) > 0
     for k in ("comp_rgb", "opacity", "depth"):
         _close(gpu[k], cpu[k])
+
+
+@pytest.mark.parametrize("n_hidden,n", [(1, 515), (1, 4096), (2, 1001)])
+def test_cp_mlp_backward_kernel_matches_plain(cuda_device, n_hidden, n):
+    """K2 against its plain version from the residuals of one K1 training
+    launch; the residuals equal the plain forward's."""
+    gen = torch.Generator().manual_seed(10 + n)
+    cp_spec = CPSpec(16, (24, 64), 8)
+    mlp_spec = MLPSpec(dim_in=16, dim_out=16, n_neurons=32, n_hidden_layers=n_hidden)
+    cp_params = cp_init(gen, cp_spec, cuda_device)
+    layers = _biased(mlp_init(gen, mlp_spec), gen, cuda_device)
+    x = (torch.rand((n, 3), generator=gen) * 1.2 - 0.1).to(cuda_device)
+    dout = torch.randn((n, 16), generator=gen).to(cuda_device)
+    ops = t_cp_mlp.cp_mlp_operands(cp_params, layers, cp_spec, mlp_spec)
+    out, vsave, hsave = t_cp_mlp.cp_mlp_launch(ops, x, cp_spec, mlp_spec, train=True)
+    ref_out, ref_v, ref_h = t_cp_mlp.cp_mlp_forward_plain(cp_params, layers, x, cp_spec,
+                                                          mlp_spec, save_residuals=True)
+    _close(out, ref_out)
+    assert torch.equal(vsave, ref_v)
+    _close(hsave.float(), ref_h.float())
+    _, basis, ws, _ = ops
+    before = t_cp_mlp.cp_mlp_backward.launches
+    got = t_cp_mlp.cp_mlp_backward(x, vsave, hsave, dout, basis, ws, cp_spec, mlp_spec)
+    torch.cuda.synchronize()
+    assert t_cp_mlp.cp_mlp_backward.launches == before + 1
+    ref = t_cp_mlp.cp_mlp_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec, mlp_spec)
+    for a, b in zip([*got[0], *got[1:]], [*ref[0], *ref[1:]]):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+
+
+@pytest.mark.parametrize("n_post", [0, 3])
+def test_sh_mlp_backward_kernel_matches_plain(cuda_device, n_post):
+    """K4 against its plain version from the residual of one K3 training
+    launch, without and with extras (fpad 16 and 24)."""
+    gen = torch.Generator().manual_seed(20 + n_post)
+    n_feat = 16 + n_post
+    spec = MLPSpec(dim_in=n_feat + 16, dim_out=3, n_neurons=32, n_hidden_layers=2)
+    layers = _biased(mlp_init(gen, spec), gen, cuda_device)
+    feats = torch.randn((1001, n_feat), generator=gen).to(cuda_device)
+    dirs = torch.nn.functional.normalize(torch.randn((1001, 3), generator=gen), dim=-1)
+    dirs = dirs.to(cuda_device)
+    dout = torch.randn((1001, 3), generator=gen).to(cuda_device)
+    ops = t_sh_mlp.pack_sh_mlp(layers, spec, 4, 16, n_feat)
+    out, hsave = t_sh_mlp.sh_mlp_launch(ops, feats, dirs, spec, 4, train=True)
+    _close(out, t_sh_mlp.sh_mlp_forward_plain(layers, feats, dirs, spec, 4, 16))
+    ws, _, fpad = ops
+    before = t_sh_mlp.sh_mlp_backward.launches
+    got = t_sh_mlp.sh_mlp_backward(feats, dirs, hsave, dout, ws, fpad, spec, 4)
+    torch.cuda.synchronize()
+    assert t_sh_mlp.sh_mlp_backward.launches == before + 1
+    ref = t_sh_mlp.sh_mlp_backward_plain(feats, dirs, hsave, dout, ws, fpad, spec, 4)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+
+
+def test_train_step_cuda_gradients_flow(cuda_device):
+    """A small NeRF system on the card: every parameter gets a finite,
+    non-zero gradient through K1-K4, and train_step launches all four."""
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.models.network_utils import named_leaves
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+
+    mlp = {"otype": "FullyFusedMLP", "activation": "ReLU", "n_neurons": 32}
+    cfg = config_from_dict({
+        "dataset": {"name": "synthetic", "size": 32, "n_train": 4, "n_val": 1},
+        "model": {
+            "name": "nerf", "radius": 1.5, "num_samples_per_ray": 1024, "train_num_rays": 256,
+            "max_train_num_rays": 256, "train_num_samples": 32768, "dynamic_ray_sampling": False,
+            "grid_warmup_steps": 16,
+            "geometry": {
+                "name": "volume-density", "radius": 1.5, "feature_dim": 16, "density_bias": -1,
+                "xyz_encoding_config": {"otype": "CP", "n_components": 16,
+                                        "resolutions": [24, 64], "n_features": 8},
+                "mlp_network_config": {**mlp, "n_hidden_layers": 1},
+            },
+            "texture": {
+                "name": "volume-radiance", "input_feature_dim": 16,
+                "dir_encoding_config": {"otype": "SphericalHarmonics", "degree": 4},
+                "mlp_network_config": {**mlp, "output_activation": "Sigmoid", "n_hidden_layers": 2},
+            },
+        },
+        "system": {"name": "nerf-system", "loss": {"lambda_rgb": 1.0},
+                   "optimizer": {"name": "AdamW", "args": {"lr": 0.01, "eps": 1.0e-15}}},
+    })
+    dm = datasets.make("synthetic", cfg.dataset)
+    dm.setup("fit")
+    system = systems.make("nerf-system", cfg)
+    system.setup_data(dm.train)
+    state = system.init_state(seed=0)
+    counters = (t_cp_mlp.cp_mlp_forward, t_cp_mlp.cp_mlp_backward,
+                t_sh_mlp.sh_mlp_forward, t_sh_mlp.sh_mlp_backward)
+    before = [c.launches for c in counters]
+    state, metrics = system.train_step(state)  # warmup grid update, then the step
+    torch.cuda.synchronize()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert torch.isfinite(metrics["train/loss"])
+    params = state["params"]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    rays_o, rays_d, rgb, _ = system._sample_rays(system.data, gen, 256)
+    batch = {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb,
+             "background_color": torch.ones(3, device=cuda_device)}
+    loss, _ = system.loss_fn(params, state["occ"], batch, gen, 1)
+    loss.backward()
+    for key, t in named_leaves(params):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all()), key
+        assert bool((t.grad != 0).any()), key

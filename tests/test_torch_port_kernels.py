@@ -86,7 +86,7 @@ def test_cp_mlp_plain_chunking_changes_nothing(monkeypatch):
     cp_spec, mlp_spec, cp_params, mlp_params, x, (tcp, tmlp) = _cp_setup(1)
     args = (_carry(cp_params), _carry(mlp_params), torch.from_numpy(x), tcp, tmlp)
     one = t_cp_mlp.cp_mlp_forward_plain(*args)
-    monkeypatch.setattr(t_cp_mlp, "_TENT_ELEMS", 64 * 37)  # 37-sample chunks
+    monkeypatch.setattr(t_cp_mlp, "_CHUNK", 37)  # 37-sample chunks
     torch.testing.assert_close(t_cp_mlp.cp_mlp_forward_plain(*args), one, rtol=0, atol=0)
 
 

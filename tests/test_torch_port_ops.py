@@ -227,8 +227,9 @@ def _imports(path):
 
 
 def test_port_source_imports_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "scripts" / "profile_torch_render.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "scripts").glob("profile_torch_*.py"))
+    assert ROOT / "scripts" / "profile_torch_train.py" in files
     assert len(files) > 20
     bad = [(f.name, m) for f in files for m in _imports(f) if _FORBIDDEN.match(m)]
     assert not bad, bad
