@@ -1,5 +1,5 @@
 """Drive the PyTorch port on one CUDA card and hold its kernels against their
-plain versions.
+plain versions: the bench NeRF and the bench NeuS, rendered and trained.
 
     python3 chip_smoke.py
 
@@ -17,20 +17,39 @@ lines are printed):
    2.5e-2 * max|plain| per gradient tensor, the JAX gradient tests'
    tolerance; then timed with CUDA events (median of 20 batches of 10
    back-to-back calls, after warm-up);
-4. render: the bench system (``instant_nsr_pl_tpu_torch/configs/
+4. CP kernels (K5/K6 the CP product, K9/K10 the product with its Jacobian and
+   the basis projection) at the bench NeuS encoding (C=64, F=16) for both
+   scales, R=128 and 2048, at N=262,144 and 262,107: training-mode residuals
+   equal to the plain versions' to the bit, forwards within 2e-2 and
+   gradients within 2.5e-2 of max|plain|; timed as above;
+5. render: the bench system (``instant_nsr_pl_tpu_torch/configs/
    nerf-cp-synthetic.yaml``, the settings of ``bench.py``
    ``build_system("cp")``) on the 256x256 six-sphere synthetic scene, random
    weights from a seeded torch.Generator and an occupancy grid from the scene
    SDF, one view through ``NeRFSystem.evaluate_image`` with the launch
    counters read around it, and one chunk composited from the kernels' and
    from the plain versions' outputs;
-5. train: the same bench system trained through ``NeRFSystem.train_step``
+6. train: the same bench system trained through ``NeRFSystem.train_step``
    (8,192 rays and 262,144 packed samples per step): a gradient check before
    the first step, K1-K4 launched on every step, the loss falling, the
    training PSNR rising, the grid pruning, and the val view at least 3 dB
    above the untrained render; the warm training rate;
-6. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
-7. the last line ``{"ok": true, "device": {...}}``.
+7. NeuS training: the bench NeuS (``instant_nsr_pl_tpu_torch/configs/
+   neus-cp-synthetic.yaml``, ``bench.py`` ``build_neus_system("cp")``)
+   through ``NeuSSystem.train_step`` for NEUS_STEPS steps: gradient checks
+   before the first step (every tensor finite, zero only on the CP tables
+   and bases, by the sphere init) and after the first update (all
+   non-zero), K3/K4/K9/K10 launched on every step and K5 in every grid
+   update, the loss falling, the training PSNR and inv_s rising, the grid
+   leaving its all-occupied state, the val view 3 dB above the untrained
+   render; the warm training rate;
+8. NeuS render: the trained model's 256x256 val view (K9 in eval mode, no
+   backward launched), again warm, and one 4,096-ray chunk composited from
+   the kernels on the card against the plain versions on the CPU;
+9. NeuS with finite differences (and the curvature loss) for FD_STEPS
+   steps: K5/K6 on every step, finite gradients, a finite loss;
+10. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
+11. the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,13 +74,17 @@ SEED = 0
 TRAIN_STEPS = 300
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_CONFIG = os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "configs", "nerf-cp-synthetic.yaml")
+NEUS_CONFIG = os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "configs", "neus-cp-synthetic.yaml")
+NEUS_STEPS = 300
+FD_STEPS = 20
 
 
-def bench_config():
-    """The bench NeRF (bench.py build_system("cp")) as a plain dict."""
+def bench_config(path=BENCH_CONFIG):
+    """The bench NeRF (bench.py build_system("cp")), or the bench NeuS with
+    ``NEUS_CONFIG``, as a plain dict."""
     from instant_nsr_pl_tpu_torch.config import load_config
 
-    return load_config(BENCH_CONFIG).to_dict()
+    return load_config(path).to_dict()
 
 
 def nvidia_smi_line():
@@ -282,6 +305,149 @@ def kernel_phase(device):
                                  "sh_mlp_backward")]
 
 
+def cp_kernel_phase(device):
+    """K5/K6 (the CP product) and K9/K10 (the product with its Jacobian and
+    the basis projection) at the bench NeuS encoding (C=64, F=16) for both
+    scales (R=128 and 2048), at N=262,144 and 262,107, each against its plain
+    version on the same inputs, then timed. The training-mode residuals must
+    equal the plain ones to the bit; forwards lie within 2e-2 * max|plain|,
+    gradients within 2.5e-2 * max|plain|."""
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+
+    c, f = 64, 16
+    resolutions = (128, 2048)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+              .to(device) for r in resolutions}
+    basis = (torch.randn((c, f), generator=gen) / 8.0).to(torch.bfloat16).to(device)
+    u3 = torch.rand((3, N_FULL), generator=gen) * 1.1 - 0.05
+    for r in resolutions:  # exact 0 and 1, out of range, and every knot of each scale
+        knots = torch.arange(r, dtype=torch.float32) / (r - 1)
+        special = torch.cat([torch.tensor([0.0, 1.0, -0.05, 1.05]), knots])
+        off = 8 if r == resolutions[0] else 8 + 4 + resolutions[0]
+        u3[0, off:off + special.numel()] = special
+        u3[1, off:off + special.numel()] = special.flip(0)
+        u3[2, off:off + special.numel()] = special.roll(11)
+    u3 = u3.to(device)
+    dprod = torch.randn((c, N_FULL), generator=gen).to(device)
+    denc = torch.randn((f, N_FULL), generator=gen).to(device)
+    djac = torch.randn((3, f, N_FULL), generator=gen).to(device)
+    table_bytes = {r: 3 * r * c for r in resolutions}  # entries of one scale's stack
+
+    def residuals_equal(name, got, ref):
+        for label, a, b in zip(("vsave", "gdsave"), got, ref):
+            if not torch.equal(a, b):
+                frac = float((a != b).float().mean())
+                raise AssertionError(f"{name}: residual {label} differs from the plain "
+                                     f"version's in {frac:.2e} of its entries")
+        print(f"[kernel] {name}: training-mode residuals equal the plain version's to the bit",
+              flush=True)
+
+    out = {}
+    for name in ("cp_product_forward", "cp_product_backward", "cp_jac_basis_forward",
+                 "cp_jac_basis_backward"):
+        out[name] = {"errs": [], "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}}
+    for r in resolutions:
+        lines = tables[r]
+        for n in (N_RAGGED, N_FULL):  # the timing below reuses the N_FULL arguments
+            u = u3[:, :n].contiguous()
+            tag = f"R={r} N={n}"
+            # K5: eval and training mode
+            prod_e, _ = cpp.cp_product_launch(lines, u, r)
+            prod, vsave = cpp.cp_product_launch(lines, u, r, train=True)
+            torch.cuda.synchronize()
+            ref, ref_v = cpp.cp_product_plain(lines, u, r, save_residuals=True)
+            residuals_equal(f"cp_product_forward {tag}", (vsave,), (ref_v,))
+            assert torch.equal(prod, prod_e), "K5 eval and training mode disagree"
+            out["cp_product_forward"]["errs"].append(compare(f"cp_product_forward {tag}", prod, ref))
+            # K6 from those residuals
+            dp = dprod[:, :n].contiguous()
+            got = cpp.cp_product_backward_launch(lines, u, vsave, dp, r)
+            torch.cuda.synchronize()
+            ref_b = cpp.cp_product_backward_plain(lines, u, vsave, dp, r)
+            for label, a, b in zip(("d lines", "d u"), got, ref_b):
+                out["cp_product_backward"]["errs"].append(
+                    compare(f"cp_product_backward {tag} {label}", a, b, rel=2.5e-2))
+            # K9: eval and training mode
+            enc_e, jac_e, v_e, g_e = cpp.cp_product_jac_basis_launch(lines, basis, u, r)
+            enc, jac, vsave_j, gdsave = cpp.cp_product_jac_basis_launch(lines, basis, u, r,
+                                                                        train=True)
+            torch.cuda.synchronize()
+            assert v_e is None and g_e is None, "K9 eval mode wrote residuals"
+            assert torch.equal(enc, enc_e) and torch.equal(jac, jac_e)
+            ref_j = cpp.cp_product_jac_basis_plain(lines, basis, u, r, save_residuals=True)
+            residuals_equal(f"cp_jac_basis_forward {tag}", (vsave_j, gdsave), ref_j[2:])
+            for label, a, b in zip(("enc", "jac"), (enc, jac), ref_j[:2]):
+                out["cp_jac_basis_forward"]["errs"].append(
+                    compare(f"cp_jac_basis_forward {tag} {label}", a, b))
+            # K10 from those residuals
+            de, dj = denc[:, :n].contiguous(), djac[:, :, :n].contiguous()
+            got = cpp.cp_product_jac_basis_backward_launch(u, vsave_j, gdsave, de, dj, basis, r)
+            torch.cuda.synchronize()
+            ref_b = cpp.cp_product_jac_basis_backward_plain(u, vsave_j, gdsave, de, dj, basis, r)
+            for label, a, b in zip(("d lines", "d u", "d basis"), got, ref_b):
+                out["cp_jac_basis_backward"]["errs"].append(
+                    compare(f"cp_jac_basis_backward {tag} {label}", a, b, rel=2.5e-2))
+
+        # timing at N_FULL (one launch per scale on the main path), bound from
+        # the bytes each function must move and its f32 operations
+        n = N_FULL
+        tb = table_bytes[r]
+        timed = {
+            "cp_product_forward": (
+                lambda: cpp.cp_product_launch(lines, u, r, train=True),
+                lambda: cpp.cp_product_plain(lines, u, r, save_residuals=True),
+                n * (12 + 4 * c + 6 * c) + 2 * tb, n * c * 11),
+            "cp_product_backward": (
+                lambda: cpp.cp_product_backward_launch(lines, u, vsave, dp, r),
+                lambda: cpp.cp_product_backward_plain(lines, u, vsave, dp, r),
+                n * (12 + 6 * c + 4 * c + 12) + 2 * tb + 4 * tb, n * c * 18),
+            "cp_jac_basis_forward": (
+                lambda: cpp.cp_product_jac_basis_launch(lines, basis, u, r, train=True),
+                lambda: cpp.cp_product_jac_basis_plain(lines, basis, u, r, save_residuals=True),
+                n * (12 + 16 * f + 12 * c) + 2 * tb + 2 * c * f, n * c * (23 + 8 * f)),
+            "cp_jac_basis_backward": (
+                lambda: cpp.cp_product_jac_basis_backward_launch(u, vsave_j, gdsave, de, dj,
+                                                                 basis, r),
+                lambda: cpp.cp_product_jac_basis_backward_plain(u, vsave_j, gdsave, de, dj,
+                                                                basis, r),
+                n * (12 + 12 * c + 16 * f + 12) + 4 * tb + 2 * c * f + 4 * c * f,
+                n * c * (40 + 16 * f)),
+        }
+        for name, (kern, plain, n_bytes, f32_ops) in timed.items():
+            e = out[name]
+            e["ms"][r] = time_ms(kern)
+            e["plain_ms"][r] = time_ms(plain, reps=5, inner=2)
+            e["bound_ms"][r], e["bound_by"][r] = bound(n_bytes, 0, f32_ops)
+            print(f"[kernel] {name} R={r}: {e['ms'][r]:.4f} ms (plain {e['plain_ms'][r]:.3f} "
+                  f"ms; bound {e['bound_ms'][r]:.4f} ms by {e['bound_by'][r]}) at N={n}",
+                  flush=True)
+
+    meta = {
+        "cp_product_forward": ("cp_product_fwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:242"),
+        "cp_product_backward": ("cp_product_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:277"),
+        "cp_jac_basis_forward": ("cp_jac_basis_fwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:633"),
+        "cp_jac_basis_backward": ("cp_jac_basis_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:676"),
+    }
+    entries = []
+    for name, (src, replaces) in meta.items():
+        e = out[name]
+        by = e["bound_by"][resolutions[-1]]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"instant_nsr_pl_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": 0, "max_abs_err": max(e["errs"]),
+            # one encode launches once per scale: the two scales' times summed
+            "ms": sum(e["ms"].values()), "plain_ms": sum(e["plain_ms"].values()),
+            "bound_ms": sum(e["bound_ms"].values()), "bound_by": by,
+            "ms_by_scale": e["ms"], "plain_ms_by_scale": e["plain_ms"],
+            "bound_ms_by_scale": e["bound_ms"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "n": N_FULL,
+        })
+    return entries
+
+
 def scene_grid(model, spheres, device):
     """Occupied where the scene SDF is below one cell diagonal, at the 128^3
     cell centres (random weights cannot prune as a trained grid does; this
@@ -498,6 +664,276 @@ def train_phase(device, smi):
     return per_step[1], totals, rays_per_s, warm_s / 100
 
 
+def neus_system(device, grad_type="analytic", lambda_curvature=0.0):
+    """The bench NeuS (bench.py build_neus_system("cp")) on CUDA, set up on
+    the train split, and its val split's arrays."""
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.config import config_from_dict
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+    from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
+
+    raw = bench_config(NEUS_CONFIG)
+    raw["model"]["geometry"]["grad_type"] = grad_type
+    raw["system"]["loss"]["lambda_curvature"] = lambda_curvature
+    cfg = config_from_dict(raw)
+    dm = datasets.make(cfg.dataset.name, cfg.dataset)
+    dm.setup("fit")
+    system = systems.make(cfg.system.name, cfg)  # on CUDA by default
+    assert system.device.type == device.type
+    system.setup_data(dm.train)
+    return system, dataset_device_arrays(dm.val, device)
+
+
+def neus_counters():
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+    from instant_nsr_pl_tpu_torch.ops import sh_mlp
+
+    return {"sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward,
+            "cp_product_forward": cpp.cp_product, "cp_product_backward": cpp.cp_product_backward,
+            "cp_jac_basis_forward": cpp.cp_product_jac_basis,
+            "cp_jac_basis_backward": cpp.cp_product_jac_basis_backward}
+
+
+def _batch(system, gen):
+    n_rays = system.active_num_rays
+    rays_o, rays_d, rgb, fg = system._sample_rays(system.data, gen, n_rays)
+    bg = system._background_color(gen, n_rays, train=True)
+    rgb = rgb * fg[:, None] + bg * (1.0 - fg[:, None])
+    return {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb, "fg_mask": fg, "background_color": bg}
+
+
+def _grads(params, step, exempt=()):
+    """Every parameter tensor's gradient finite, and non-zero unless its key
+    is one of ``exempt`` (then it must be zero)."""
+    from instant_nsr_pl_tpu_torch.models.network_utils import named_leaves
+
+    for key, t in named_leaves(params):
+        g = t.grad
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"step {step}: parameter {key}: gradient missing or non-finite")
+        nonzero = bool((g != 0).any())
+        if nonzero == any(key.startswith(e) for e in exempt):
+            raise AssertionError(f"step {step}: parameter {key}: gradient "
+                                 f"{'non-zero' if nonzero else 'zero'}")
+    return len(named_leaves(params))
+
+
+def neus_train_phase(device, smi):
+    """The bench NeuS trained through NeuSSystem.train_step for NEUS_STEPS
+    steps (8,192 rays and 262,144 packed samples per step)."""
+    system, val = neus_system(device)
+    state = system.init_state(seed=SEED)
+    model, params = system.model, state["params"]
+    geo = model.geometry
+    assert geo.use_jac and geo.encoding.encoding.grad_mode == "fast" and model.texture.fused
+    assert system.train_capacity == N_FULL, system.train_capacity
+
+    # the untrained model against the grid its first (warmup) update gives
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    occ0 = model.update_occupancy(params, state["occ"], gen, warmup=True)
+    untrained = system.evaluate_image({"params": params, "occ": occ0}, 0, data=val)
+    print(f"[neus] untrained val view: PSNR {untrained['psnr']:.3f} dB", flush=True)
+
+    # before the first step: a backward, finite gradients everywhere, zero
+    # only on the CP tables and bases (the sphere init's first layer is zero
+    # beyond the xyz rows, so d out / d enc = 0)
+    cp_keys = ("geometry.encoding.",)
+    loss, _ = system.loss_fn(params, occ0, _batch(system, gen), gen, 0)
+    assert loss.grad_fn is not None, "the loss has no backward"
+    loss.backward()
+    n_leaves = _grads(params, 0, exempt=cp_keys)
+    state["optimizer"].zero_grad()
+    print(f"[neus] gradient check before step 0: loss {float(loss.detach()):.5f}, {n_leaves} "
+          "parameter tensors finite, non-zero but the CP lines and bases (zero by the sphere "
+          "init)", flush=True)
+
+    counters = neus_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses, psnrs, inv_s, live, per_step = [], [], [], [], []
+    n_warm = min(100, NEUS_STEPS // 2)
+    warm_from = NEUS_STEPS - n_warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_warm = None
+    for i in range(NEUS_STEPS):
+        if i == warm_from:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        before = {k: c.launches for k, c in counters.items()}
+        state, metrics = system.train_step(state)
+        delta = {k: c.launches - before[k] for k, c in counters.items()}
+        for k in ("sh_mlp_forward", "sh_mlp_backward", "cp_jac_basis_forward",
+                  "cp_jac_basis_backward"):
+            if delta[k] < 1:
+                raise AssertionError(f"neus step {i}: {k} was not launched: {delta}")
+        if i % system.grid_update_every == 0 and delta["cp_product_forward"] < 2:
+            raise AssertionError(f"neus step {i}: the grid update did not run K5: {delta}")
+        if i == 1:
+            # after the first update the tables and bases get gradients too
+            loss, _ = system.loss_fn(state["params"], state["occ"], _batch(system, gen), gen, i)
+            loss.backward()
+            _grads(state["params"], i)
+            state["optimizer"].zero_grad()
+            print("[neus] gradient check after the first update: every parameter tensor "
+                  "finite and non-zero", flush=True)
+        per_step.append(delta)
+        losses.append(metrics["train/loss"])
+        psnrs.append(metrics["train/psnr"])
+        inv_s.append(metrics["train/inv_s"])
+        live.append(metrics["train/num_samples"])
+        if i == 0:
+            occupied_warm = int(state["occ"]["grid"].binary.sum())
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    totals = {k: c.launches for k, c in counters.items()}
+    losses = [float(v) for v in losses]
+    psnrs = [float(v) for v in psnrs]
+    inv_s = [float(v) for v in inv_s]
+    live = [int(v) for v in live]
+    grid = state["occ"]["grid"]
+    occupied = int(grid.binary.sum())
+    n_rays = system.active_num_rays
+    warm_s = t_end - t_warm
+    rays_per_s = n_warm * n_rays / warm_s
+    print(f"[neus] {NEUS_STEPS} steps in {t_end - t0:.2f} s; launches {totals}; one step "
+          f"{per_step[1]}, a grid-update step {per_step[16]}", flush=True)
+    for i in sorted({0, 1, 15, 16, 50, 100, 200, 300, 500, NEUS_STEPS - 1}
+                    & set(range(NEUS_STEPS))):
+        print(f"[neus] step {i}: loss {losses[i]:.5f} psnr {psnrs[i]:.3f} inv_s {inv_s[i]:.3f} "
+              f"live samples {live[i]} (capacity {system.train_capacity})", flush=True)
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    p_first, p_last = float(np.mean(psnrs[:20])), float(np.mean(psnrs[-20:]))
+    print(f"[neus] mean loss, first 20 steps {first:.5f}, last 20 {last:.5f}; mean training "
+          f"PSNR {p_first:.3f} -> {p_last:.3f} dB; inv_s {inv_s[0]:.3f} -> {inv_s[-1]:.3f}; "
+          f"occupied cells {occupied_warm} after the warmup update, {occupied} of "
+          f"{grid.binary.numel()} at the end", flush=True)
+    assert np.isfinite(losses).all()
+    assert last < first, "the loss did not fall"
+    assert p_last > p_first, "the training PSNR did not rise"
+    assert inv_s[-1] > math.exp(3.0), "inv_s did not rise above its initial e^3"
+    assert 0 < occupied < grid.binary.numel(), "the grid did not leave its all-occupied state"
+    trained = system.evaluate_image(state, 0, data=val)
+    print(f"[neus] val view after {NEUS_STEPS} steps: PSNR {trained['psnr']:.3f} dB, SSIM "
+          f"{trained['ssim']:.4f} (untrained {untrained['psnr']:.3f} dB)", flush=True)
+    assert trained["psnr"] >= untrained["psnr"] + 3.0, "training gained less than 3 dB"
+    print(f"[neus] warm: {rays_per_s:.0f} rays/s, {warm_s / n_warm * 1e3:.2f} ms per step over "
+          f"the last {n_warm} steps ({smi})", flush=True)
+    return system, state, val, per_step[1], totals, rays_per_s
+
+
+def neus_render_phase(device, system, state, val, smi):
+    """One 256x256 val view of the trained NeuS through evaluate_image (the
+    counters read around it: K9 in eval mode, K3), again warm through
+    render_image, and one composited 4,096-ray chunk from the kernels on the
+    card against the same chunk from the plain versions on the CPU."""
+    from instant_nsr_pl_tpu_torch.ops.ray import get_rays
+
+    counters = neus_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = system.evaluate_image(state, 0, data=val)
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    n_rays = system.w * system.h
+    stats = system.last_render_stats
+    imgs = res["images"]
+    print(f"[neus-render] val view: {view_s:.3f} s, {n_rays / view_s:.0f} rays/s (first view), "
+          f"PSNR {res['psnr']:.3f} dB, {stats}, launches {launches}", flush=True)
+    assert stats["rays_kept"] == n_rays, stats
+    for k in ("comp_rgb", "comp_normal", "opacity", "depth"):
+        assert np.isfinite(imgs[k]).all(), k
+    chunks = -(-n_rays // system.eval_chunk_rays)
+    assert launches["cp_jac_basis_forward"] >= 2 * chunks, launches  # one per scale and chunk
+    assert launches["sh_mlp_forward"] >= chunks, launches
+    assert launches["cp_jac_basis_backward"] == 0 and launches["sh_mlp_backward"] == 0, launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.render_image(state, 0, data=val)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"[neus-render] val view again: {warm_s:.3f} s, {n_rays / warm_s:.0f} rays/s ({smi})",
+          flush=True)
+
+    # one 4,096-ray chunk (the image's middle rows): kernels on the card,
+    # plain versions on the CPU
+    ro, rd = get_rays(val["directions"].reshape(-1, 3), val["c2w"][0])
+    rd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    sl = slice(max(0, n_rays // 2 - 2048), n_rays // 2 + 2048)
+    ro, rd = ro[sl].contiguous(), rd[sl].contiguous()
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        grid = state["occ"]["grid"]
+        occ = {"grid": type(grid)(*[t.to(dev) for t in grid])}
+        outs.append(system.model.forward(
+            _to(state["params"], dev), occ, ro.to(dev), rd.to(dev),
+            background_color=torch.ones(3, device=dev), capacity=N_FULL, step=state["step"]))
+    cuda, cpu = outs
+    live = int(cpu["num_samples"])
+    assert live > 0 and int(cuda["num_samples"]) == live, "the two marches differ"
+    errs = {}
+    for k in ("comp_rgb", "comp_rgb_full", "comp_normal"):
+        errs[k] = float((cuda[k].cpu() - cpu[k]).abs().max())
+        tol = 2e-2 * float(cpu[k].abs().max())
+        print(f"[neus-render] middle chunk: {live} live samples, max|d {k}| kernels vs plain = "
+              f"{errs[k]:.3e} (limit {tol:.3e})", flush=True)
+        if not errs[k] <= tol:
+            raise AssertionError(f"composited chunk {k}: kernels and plain versions disagree")
+    return launches, n_rays / view_s, n_rays / warm_s
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.detach().to(device)
+
+
+def neus_fd_phase(device):
+    """The bench NeuS with geometry.grad_type: finite_difference (and the
+    curvature loss on its Laplacian) for FD_STEPS steps: K5 and K6 run the
+    stencil's SDF on every step, all gradients are finite, the tables get a
+    gradient after the first update, the loss stays finite."""
+    system, _ = neus_system(device, grad_type="finite_difference", lambda_curvature=5e-4)
+    state = system.init_state(seed=SEED)
+    assert system.model.geometry.grad_type == "finite_difference"
+    counters = neus_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses, per_step = [], []
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(FD_STEPS):
+        before = {k: c.launches for k, c in counters.items()}
+        state, metrics = system.train_step(state)
+        delta = {k: c.launches - before[k] for k, c in counters.items()}
+        if delta["cp_product_forward"] < 1 or delta["cp_product_backward"] < 1:
+            raise AssertionError(f"fd step {i}: K5/K6 not launched: {delta}")
+        if delta["cp_jac_basis_forward"] or delta["cp_jac_basis_backward"]:
+            raise AssertionError(f"fd step {i}: the jac kernels ran: {delta}")
+        per_step.append(delta)
+        losses.append(float(metrics["train/loss"]))
+        if i == 0:
+            loss, _ = system.loss_fn(state["params"], state["occ"], _batch(system, gen), gen, 1)
+            loss.backward()
+            n_leaves = _grads(state["params"], 1)
+            state["optimizer"].zero_grad()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = {k: c.launches for k, c in counters.items()}
+    print(f"[neus-fd] {FD_STEPS} steps in {wall:.2f} s; launches {totals}; one step "
+          f"{per_step[1]}; {n_leaves} parameter tensors with finite, non-zero gradients after "
+          f"the first update; loss {losses[0]:.5f} -> {losses[-1]:.5f}", flush=True)
+    assert np.isfinite(losses).all(), "the loss went non-finite"
+    return per_step[1], totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -520,18 +956,40 @@ def main():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[build] {stem}: {line.strip()}", flush=True)
 
-    entries = kernel_phase(device)
+    entries = kernel_phase(device) + cp_kernel_phase(device)
     render_launches, rays_per_s, warm_rays_per_s = render_phase(device)
     print(f"[render] rays/s: {rays_per_s:.0f} first view, {warm_rays_per_s:.0f} warm ({smi})",
           flush=True)
     step_launches, run_launches, train_rays_per_s, s_per_step = train_phase(device, smi)
-    for e in entries:
-        e["launches"] = step_launches[e["name"]]  # one training step
-        e["launches_train_run"] = run_launches[e["name"]]
-        if e["name"] in render_launches:
-            e["launches_render_view"] = render_launches[e["name"]]
     print(f"[train] rays/s: {train_rays_per_s:.0f} warm, {s_per_step:.4f} s per step ({smi})",
           flush=True)
+    system, state, val, neus_step, neus_run, neus_rays_per_s = neus_train_phase(device, smi)
+    neus_view, neus_view_first, neus_view_warm = neus_render_phase(device, system, state, val, smi)
+    del system, state, val
+    torch.cuda.empty_cache()
+    fd_step, fd_run = neus_fd_phase(device)
+    print(f"[neus] rays/s: {neus_rays_per_s:.0f} warm training; view {neus_view_first:.0f} first, "
+          f"{neus_view_warm:.0f} warm ({smi})", flush=True)
+    # launches: counted in the run of the path that runs the kernel (the NeRF
+    # training run for K1/K2, the NeuS training run for K3-K5/K9/K10, the
+    # finite-difference run for K6), with the per-step counts of each path
+    for e in entries:
+        name = e["name"]
+        paths = {"nerf_train": (step_launches, run_launches), "neus_train": (neus_step, neus_run),
+                 "neus_fd": (fd_step, fd_run)}
+        for path, (per_step, run) in paths.items():
+            if name in run:
+                e[f"launches_{path}_step"] = per_step[name]
+                e[f"launches_{path}_run"] = run[name]
+        for path, view in (("nerf_view", render_launches), ("neus_view", neus_view)):
+            if name in view:
+                e[f"launches_{path}"] = view[name]
+        main_path = ("nerf_train" if name.startswith("cp_mlp")
+                     else "neus_fd" if name == "cp_product_backward" else "neus_train")
+        e["launches"] = e[f"launches_{main_path}_run"]
+        e["launches_path"] = main_path
+        if e["launches"] < 1:
+            raise AssertionError(f"{name}: not launched on its main path ({main_path})")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,8 +15,8 @@
 //   dbasis_s[c][j] += bf16(prod_s[c]) * bf16(d_enc[s*F + j])
 //   d_prod_s[c] = sum_j B_s[c][j] * bf16(d_enc[s*F + j])
 //   d_v_a = d_prod * (product of the other two axes' v)
-//   dL_{s,a}[i0][c] += bf16(1 - f) * bf16(d_v_a),  dL_{s,a}[i0 + 1][c] += bf16(f) * bf16(d_v_a)
-// with i0, f the forward's tent coordinates of x. Every product is of two
+//   dL_{s,a}[i0][c] += w0 * bf16(d_v_a),  dL_{s,a}[i0 + 1][c] += w1 * bf16(d_v_a)
+// with i0, w0, w1 the forward's tent coordinates of x (cp_common.cuh). Every product is of two
 // bf16 values, so exact in f32, and sums are f32, as on the TPU; only their
 // order differs. The TPU computes the line-table scatter as a dense
 // bf16(d_v) x tent^T matmul; the tent has two non-zeros per sample, so the
@@ -45,9 +45,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (explicit
 // fmaf only).
 
-#include <cstdint>
-
-#include "mlp_common.cuh"
+#include "cp_common.cuh"
 
 namespace insr {
 
@@ -57,19 +55,6 @@ struct GradTables {
   float* ptr[kMaxGradScales];  // per scale: (3, R_s, C) f32
   int res[kMaxGradScales];
 };
-
-// 16-byte atomic add (Hopper, CUDA >= 12.1), else four 4-byte atomics.
-__device__ __forceinline__ void atomic_add4(float* dst, float a, float b, float c,
-                                            float d) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
-  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(a, b, c, d));
-#else
-  atomicAdd(dst, a);
-  atomicAdd(dst + 1, b);
-  atomicAdd(dst + 2, c);
-  atomicAdd(dst + 3, d);
-#endif
-}
 
 template <int C, int F, int S, int W, int NH, int D>
 struct CpBwdSmem {
@@ -183,12 +168,10 @@ __global__ void __launch_bounds__(kBwdTile)
         float w0[3], w1[3];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-          const float p = fminf(fmaxf(u[a], 0.0f), 1.0f) * static_cast<float>(r - 1);
-          const float i0 = fminf(floorf(p), static_cast<float>(r - 2));
-          const float f = p - i0;
-          w0[a] = bf16_round(1.0f - f);
-          w1[a] = bf16_round(f);
-          row0[a] = dlines.ptr[s] + (static_cast<long long>(a) * r + static_cast<int>(i0)) * C;
+          const Tent t = tent(u[a], r);
+          w0[a] = t.w0;
+          w1[a] = t.w1;
+          row0[a] = dlines.ptr[s] + (static_cast<long long>(a) * r + t.i0) * C;
         }
 #pragma unroll 2
         for (int c4 = 0; c4 < C / 4; ++c4) {

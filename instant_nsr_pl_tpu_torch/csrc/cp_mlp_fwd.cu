@@ -13,14 +13,15 @@
 //
 // What it computes, per sample x (already contracted into [0,1]^3), scale s
 // and axis a:
-//   p = clip(x_a, 0, 1) * (R_s - 1), i0 = min(floor(p), R_s - 2), f = p - i0
-//   v_a = bf16(1 - f) * L_{s,a}[i0] + bf16(f) * L_{s,a}[i0 + 1]   (f32 sum)
+//   p = clip(x_a, 0, 1) * (R_s - 1), i0 = min(floor(p), R_s - 2)
+//   v_a = w0 * L_{s,a}[i0] + w1 * L_{s,a}[i0 + 1]   (f32 sum), with the bf16
+//   tent weights w_r = bf16(max(0, 1 - |r - p|)) of cp_common.cuh
 //   prod_s = bf16((v_x * v_y) * v_z)                               (C values)
 //   enc[s*F + j] = sum_c B_s[c][j] * prod_s[c]                     (f32 sum)
 // then the packed MLP of mlp_common.cuh. Lines and basis are bf16. This is
 // exactly the TPU kernel's dense (C, R) x (R, BN) "tent" matmul: the tent
 // column has its two non-zeros at i0 and i0+1 with those bf16 weights (also
-// on an interior knot, where f = 0, and at p = R-1, where f = 1), and both
+// on an interior knot, where w1 = 0, and at p = R-1, where w0 = 0), and both
 // products are exact in f32, so v matches to the bit.
 //
 // What bounds it on an H100: neither HBM nor arithmetic at this size in eval
@@ -40,9 +41,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (explicit
 // fmaf only, so elementwise rounding follows the plain PyTorch version).
 
-#include <cstdint>
-
-#include "mlp_common.cuh"
+#include "cp_common.cuh"
 
 namespace insr {
 
@@ -53,19 +52,6 @@ struct LineTables {
   const __nv_bfloat16* ptr[kMaxScales];  // per scale: (3, R_s, C) bf16
   int res[kMaxScales];
 };
-
-__device__ __forceinline__ float bf16_lo(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-
-// Element k (0..7) of eight packed bf16 values.
-__device__ __forceinline__ float bf16_at(const uint4& q, int k) {
-  const uint32_t w = k < 2 ? q.x : k < 4 ? q.y : k < 6 ? q.z : q.w;
-  return (k & 1) ? bf16_hi(w) : bf16_lo(w);
-}
 
 template <int C, int F, int S, int W, int NH, int D>
 __global__ void __launch_bounds__(kCpBlock)
@@ -106,13 +92,11 @@ __global__ void __launch_bounds__(kCpBlock)
       float w0[3], w1[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float p = fminf(fmaxf(u[a], 0.0f), 1.0f) * static_cast<float>(r - 1);
-        const float i0 = fminf(floorf(p), static_cast<float>(r - 2));
-        const float f = p - i0;
-        w0[a] = bf16_round(1.0f - f);
-        w1[a] = bf16_round(f);
+        const Tent t = tent(u[a], r);
+        w0[a] = t.w0;
+        w1[a] = t.w1;
         const __nv_bfloat16* base =
-            lines.ptr[s] + (static_cast<long long>(a) * r + static_cast<int>(i0)) * C;
+            lines.ptr[s] + (static_cast<long long>(a) * r + t.i0) * C;
         row0[a] = reinterpret_cast<const uint4*>(base);
         row1[a] = reinterpret_cast<const uint4*>(base + C);
       }

@@ -143,11 +143,12 @@ struct TileStage {
 };
 
 // acc[r][j] += sum_s a[s][r] * bf16(g[s][j]) for r < ROWS_L, j < W, and, with
-// db_acc, db[j] += sum_s g[s][j], over the kBwdTile staged samples. Thread t
+// db_acc, db[j] += sum_s g[s][j], over the NS staged rows (by default the
+// kBwdTile samples of a tile). Thread t
 // owns column j = t % W and rows t / W, t / W + NG, ...: its partial sums stay
 // in registers over the tile and are then added to the block's shared
 // accumulator (owned by this thread alone: no atomics).
-template <int ROWS_L, int NCOL, int LDA, int LDG>
+template <int ROWS_L, int NCOL, int LDA, int LDG, int NS = kBwdTile>
 __device__ __forceinline__ void reduce_tile(const float* __restrict__ a_s,
                                             const float* __restrict__ g_s,
                                             float* __restrict__ acc,
@@ -161,7 +162,7 @@ __device__ __forceinline__ void reduce_tile(const float* __restrict__ a_s,
 #pragma unroll
   for (int k = 0; k < PER; ++k) part[k] = 0.0f;
   float bsum = 0.0f;
-  for (int s = 0; s < kBwdTile; ++s) {
+  for (int s = 0; s < NS; ++s) {
     const float g = g_s[s * LDG + j];
     bsum += g;
     const float gr = bf16_round(g);

@@ -1,7 +1,8 @@
 """Encoding / MLP factories (the reference's models/network_utils.py role).
 
 Port of ``instant_nsr_pl_tpu/models/network_utils.py`` for the encodings the
-NeRF slices run: ``CP`` and ``SphericalHarmonics``. As in the JAX package,
+NeRF and NeuS slices run: ``CP`` (with its Jacobian path) and
+``SphericalHarmonics``. As in the JAX package,
 every module is a static Python object with ``init(generator, device) ->
 params`` and ``apply(params, x) -> out``, and parameters are nested dicts
 keyed like the JAX pytree (``cp.line_{s}_{ax}``, ``layers[i].w``), so weights
@@ -18,10 +19,10 @@ from __future__ import annotations
 
 import torch
 
-from instant_nsr_pl_tpu_torch.ops.activations import get_activation
-from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_encode, cp_init
+from instant_nsr_pl_tpu_torch.ops.activations import elementwise_jvp, get_activation
+from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_encode, cp_encode_with_jac, cp_init
 from instant_nsr_pl_tpu_torch.ops.cp_mlp import cp_mlp_forward, fusable
-from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_init
+from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_apply_jvp, mlp_init
 from instant_nsr_pl_tpu_torch.ops.sh import sh_output_dim, spherical_harmonics_encoding
 
 
@@ -58,26 +59,46 @@ _LATER = {
 
 
 class CPEncoding:
-    """CP (line-factorized) encoding, composed path (``ops/cp.py``). The
-    fused density op (``ops/cp_mlp.py``) takes over inside
-    :class:`EncodingWithNetwork` when the pair is fusable."""
+    """CP (line-factorized) encoding (``ops/cp.py``). The fused density op
+    (``ops/cp_mlp.py``) takes over inside :class:`EncodingWithNetwork` when
+    the pair is fusable.
+
+    ``grad_mode`` ('fast' by default, the kernel path): 'fast' runs the CP
+    product op (``ops/cp_product.py``: K5/K6 on the card) and, for
+    :meth:`apply_with_jac`, the product-with-Jacobian op (K9/K10); 'autodiff'
+    keeps the composed formula, differentiable at any order (the NeuS
+    analytic-gradient fallback switches to it, ``models/geometry.py``)."""
 
     def __init__(self, in_channels, config):
         if in_channels != 3:
             raise ValueError("CP encoding is 3-D")
         if bool(config.get("stack_scales", False)):
             raise NotImplementedError(
-                "stack_scales (the stacked-scales fused kernel) is not ported yet"
+                "stack_scales (the stacked-scales kernels K11-K14) comes with a later "
+                "slice of the port"
             )
         self.spec = CPSpec.from_config(config)
         self.n_input_dims = 3
         self.n_output_dims = self.spec.n_output_dims
+        self.grad_mode = str(config.get("grad_mode", "fast"))
+        if self.grad_mode not in ("fast", "autodiff"):
+            raise ValueError(f"CP grad_mode must be 'fast' or 'autodiff', got {self.grad_mode}")
+        if self.grad_mode == "fast" and self.spec.n_components % 8:
+            raise ValueError(f"grad_mode: fast needs n_components divisible by 8; got {self.spec}")
 
     def init(self, generator, device=None):
         return {"cp": cp_init(generator, self.spec, device)}
 
+    def _impl(self):
+        return "fast" if self.grad_mode == "fast" else "xla"
+
     def apply(self, params, x):
-        return cp_encode(params["cp"], x, self.spec)
+        return cp_encode(params["cp"], x, self.spec, impl=self._impl())
+
+    def apply_with_jac(self, params, x):
+        """(feat (..., E), d feat / d x (3, ..., E)) from one product-with-
+        Jacobian op per scale (``ops/cp.py`` ``cp_encode_with_jac``)."""
+        return cp_encode_with_jac(params["cp"], x, self.spec, impl=self._impl())
 
 
 class SphericalHarmonicsEncoding:
@@ -120,6 +141,21 @@ class CompositeEncoding:
             return enc
         return torch.cat([x * self.xyz_scale + self.xyz_offset, enc], dim=-1)
 
+    @property
+    def has_jac(self) -> bool:
+        return hasattr(self.encoding, "apply_with_jac")
+
+    def apply_with_jac(self, params, x):
+        """(feat (..., D), jac (3, ..., D)) including the identity block of
+        the prepended xyz channels (d(x * s + o)/dx = s * I)."""
+        enc, jac = self.encoding.apply_with_jac(params, x)
+        if not self.include_xyz:
+            return enc, jac
+        feat = torch.cat([x * self.xyz_scale + self.xyz_offset, enc], dim=-1)
+        eye = torch.eye(3, dtype=jac.dtype, device=jac.device) * self.xyz_scale
+        jac_xyz = eye.reshape(3, *(1,) * (x.ndim - 1), 3).expand(3, *x.shape[:-1], 3)
+        return feat, torch.cat([jac_xyz, jac], dim=-1)
+
 
 def get_encoding(n_input_dims, config):
     """Factory mirroring reference get_encoding (network_utils.py:82-92);
@@ -154,6 +190,14 @@ class MLP:
     def apply(self, params, x):
         return self.output_activation(mlp_apply(params["layers"], x, self.spec))
 
+    def apply_jvp(self, params, x, tangents):
+        """(apply(params, x), its derivatives along ``tangents`` (K, N, dim_in)
+        -> (K, N, dim_out)): the forward-mode linearization of the network."""
+        out, tout = mlp_apply_jvp(params["layers"], x, self.spec, tangents)
+        if self.spec.output_activation.lower() != "none":
+            out, tout = elementwise_jvp(self.output_activation, out, tout)
+        return out, tout
+
 
 def get_mlp(n_input_dims, n_output_dims, config):
     """Factory mirroring reference get_mlp (network_utils.py:176-184)."""
@@ -164,8 +208,9 @@ class EncodingWithNetwork:
     """Encoding + MLP (tcnn ``NetworkWithInputEncoding`` role, reference
     network_utils.py:187-215).
 
-    When the encoding is CP without ``include_xyz`` and the pair is
-    ``fusable`` (a bf16 ReLU MLP of kernel-friendly widths), the whole chain
+    When the encoding is CP in ``grad_mode: fast`` without ``include_xyz``
+    and the pair is ``fusable`` (a bf16 ReLU MLP of kernel-friendly widths),
+    the whole chain
     runs as ONE fused op (``ops/cp_mlp.py``: the CUDA kernel on the card, its
     plain version on the CPU). Everything else composes encoding -> MLP."""
 
@@ -179,6 +224,7 @@ class EncodingWithNetwork:
             isinstance(encoding, CompositeEncoding)
             and not encoding.include_xyz
             and isinstance(inner, CPEncoding)
+            and inner.grad_mode == "fast"
             and fusable(inner.spec, network.spec)
         )
 

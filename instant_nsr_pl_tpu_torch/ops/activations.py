@@ -29,6 +29,12 @@ def trunc_exp(x):
     return _TruncExp.apply(x)
 
 
+def clip(x, lo, hi):
+    """jnp.clip as min(max(x, lo), hi): at a tie the gradient splits in half,
+    as in JAX, where torch.clamp passes it whole."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def scale_anything(x, inp_scale, tgt_scale):
     """Affine remap of x from inp_scale=(lo,hi) to tgt_scale=(lo,hi)
     (reference: models/utils.py:100-105, explicit-range form)."""
@@ -81,3 +87,18 @@ def get_activation(name):
     if name_lower == "exp":
         return torch.exp
     raise ValueError(f"Unknown activation '{name}'")
+
+
+def elementwise_jvp(fn, x, tangents):
+    """(fn(x), the directional derivatives of the elementwise ``fn`` at x
+    along each of ``tangents`` (K, *x.shape)), by forward-mode autograd; the
+    derivatives stay differentiable by reverse mode."""
+    import torch.autograd.forward_ad as fwad
+
+    outs = []
+    for t in tangents:
+        with fwad.dual_level():
+            y = fn(fwad.make_dual(x, t))
+            primal, tangent = fwad.unpack_dual(y)
+        outs.append(tangent if tangent is not None else torch.zeros_like(primal))
+    return primal, torch.stack(outs)

@@ -1,15 +1,22 @@
-"""CP (CANDECOMP/PARAFAC) factorized line encoding, composed path.
+"""CP (CANDECOMP/PARAFAC) factorized line encoding.
 
-Port of ``instant_nsr_pl_tpu/ops/cp.py:47-169`` (the ``impl="xla"`` formula
-of ``cp_encode``). Features are products of per-axis line interpolations
-projected by a per-scale basis,
+Port of ``instant_nsr_pl_tpu/ops/cp.py``. Features are products of per-axis
+line interpolations projected by a per-scale basis,
 
     feat_s(x) = ( Lx_s(x0) * Ly_s(x1) * Lz_s(x2) ) @ B_s        (N, C)->(N, F)
 
-with the line tables rounded to bf16 and the interpolation weights applied in
-f32 after the row reads. This composed path is what the fused density op
-(``ops/cp_mlp.py``) is held against; the fused op rounds the interpolation
-weights to bf16 as the TPU kernel does.
+with bf16 line tables. Two implementations, as in the JAX package:
+
+- ``impl="xla"``: the composed formula, interpolation weights applied in f32
+  after the row reads; plain PyTorch ops, differentiable at any order (the
+  fused density op ``ops/cp_mlp.py`` is held against it);
+- ``impl="fast"`` (the JAX package's ``"pallas"``): per scale the CP product
+  op of ``ops/cp_product.py`` (K5/K6 on the card), then the basis projection
+  with bf16 operands and f32 sums. First-order only.
+
+:func:`cp_encode_with_jac` returns the encoding and its position Jacobian,
+per scale from one ``cp_product_jac_basis`` op (K9/K10) in the fast
+implementation.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import math
 
 import torch
 
+from instant_nsr_pl_tpu_torch.ops.activations import clip
+from instant_nsr_pl_tpu_torch.ops.cp_product import cp_product, cp_product_jac_basis
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round
 
 
@@ -66,7 +75,7 @@ def cp_init(generator: torch.Generator, spec: CPSpec, device=None):
 def _line_interp(line, u, res: int):
     """Linear interpolation of N scalars against an (R, C) line table:
     (N, C) float32, bf16 table rows, f32 weights applied after the reads."""
-    p = torch.clamp(u.float(), 0.0, 1.0) * (res - 1)
+    p = clip(u.float(), 0.0, 1.0) * (res - 1)
     i0 = torch.clamp(torch.floor(p), 0.0, float(res - 2))
     f = (p - i0)[:, None]
     lb = bf16_round(line)
@@ -74,17 +83,74 @@ def _line_interp(line, u, res: int):
     return (1.0 - f) * lb[i0l] + f * lb[i0l + 1]
 
 
-def cp_encode(params, x, spec: CPSpec):
+def cp_encode(params, x, spec: CPSpec, impl: str = "xla"):
     """CP encode: positions (..., 3) in [0,1] -> (..., n_output_dims)."""
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3)
     outs = []
-    for s, r in enumerate(spec.resolutions):
-        g = _line_interp(params[f"line_{s}_0"], xf[:, 0], r)
-        g = g * _line_interp(params[f"line_{s}_1"], xf[:, 1], r)
-        g = g * _line_interp(params[f"line_{s}_2"], xf[:, 2], r)
-        if spec.n_features > 0:
-            g = bf16_round(g) @ bf16_round(params[f"basis_{s}"])
-        outs.append(g)
+    if impl == "fast":
+        u3 = xf.float().T.contiguous()
+        for s, r in enumerate(spec.resolutions):
+            prod = cp_product(params[f"line_{s}_0"], params[f"line_{s}_1"],
+                              params[f"line_{s}_2"], u3, r)  # (C, N)
+            if spec.n_features > 0:
+                outs.append(bf16_round(prod).T @ bf16_round(params[f"basis_{s}"]))
+            else:
+                outs.append(prod.T)
+    elif impl == "xla":
+        for s, r in enumerate(spec.resolutions):
+            g = _line_interp(params[f"line_{s}_0"], xf[:, 0], r)
+            g = g * _line_interp(params[f"line_{s}_1"], xf[:, 1], r)
+            g = g * _line_interp(params[f"line_{s}_2"], xf[:, 2], r)
+            if spec.n_features > 0:
+                g = bf16_round(g) @ bf16_round(params[f"basis_{s}"])
+            outs.append(g)
+    else:
+        raise ValueError(f"cp_encode: unknown impl '{impl}'")
     out = torch.cat(outs, dim=-1)
     return out.reshape(*batch_shape, spec.n_output_dims).to(x.dtype)
+
+
+def cp_encode_with_jac(params, x, spec: CPSpec, impl: str = "fast"):
+    """(encoded (..., E), d encoded / d x (3, ..., E)).
+
+    ``impl="fast"``: one ``cp_product_jac_basis`` op per scale (K9/K10 on the
+    card; needs ``n_features > 0``), the scales concatenated. ``impl="xla"``:
+    the composed formula and its Jacobian by forward-mode differentiation,
+    one tangent per input axis (the JAX twin's ``jacfwd``), differentiable
+    at any order."""
+    batch_shape = x.shape[:-1]
+    xf = x.reshape(-1, 3)
+    e = spec.n_output_dims
+    if impl == "fast":
+        if spec.n_features <= 0:
+            raise NotImplementedError(
+                "cp_encode_with_jac without a basis (n_features: 0, cp_product_jac) "
+                "comes with the next slice of the port")
+        u3 = xf.float().T.contiguous()
+        encs, jacs = [], []
+        for s, r in enumerate(spec.resolutions):
+            enc, jac = cp_product_jac_basis(
+                params[f"line_{s}_0"], params[f"line_{s}_1"], params[f"line_{s}_2"],
+                params[f"basis_{s}"], u3, r)  # (F, N), (3, F, N)
+            encs.append(enc)
+            jacs.append(jac)
+        enc = torch.cat(encs, dim=0).T
+        jac = torch.cat(jacs, dim=1).transpose(1, 2)
+        return (enc.reshape(*batch_shape, e).to(x.dtype),
+                jac.reshape(3, *batch_shape, e).to(x.dtype))
+    if impl != "xla":
+        raise ValueError(f"cp_encode_with_jac: unknown impl '{impl}'")
+    import torch.autograd.forward_ad as fwad
+
+    enc = cp_encode(params, xf, spec, impl="xla")
+    jacs = []
+    for d in range(3):
+        tangent = torch.zeros_like(xf)
+        tangent[:, d] = 1.0
+        with fwad.dual_level():
+            out = cp_encode(params, fwad.make_dual(xf, tangent), spec, impl="xla")
+            jacs.append(fwad.unpack_dual(out).tangent)
+    jac = torch.stack(jacs)
+    return (enc.reshape(*batch_shape, e).to(x.dtype),
+            jac.reshape(3, *batch_shape, e).to(x.dtype))

@@ -27,6 +27,7 @@ import torch
 
 from instant_nsr_pl_tpu_torch.ops import cuda_build
 from instant_nsr_pl_tpu_torch.ops.cp import CPSpec
+from instant_nsr_pl_tpu_torch.ops.cp_product import tent_coords
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round, mlp_apply
 from instant_nsr_pl_tpu_torch.ops.mlp_common import (
     mlp_backward_plain,
@@ -156,23 +157,14 @@ def cp_mlp_backward(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp_spec)
 cp_mlp_backward.launches = 0
 
 
-def _tent_coords(u, res):
-    """Row i0 and the bf16 tent weights (1 - f at i0, f at i0 + 1) of the
-    clipped coordinate u: the two non-zeros of the TPU kernel's tent column."""
-    p = torch.clamp(u, 0.0, 1.0) * (res - 1)
-    i0 = torch.clamp(torch.floor(p), max=float(res - 2))
-    f = p - i0
-    return i0.long(), bf16_round(1.0 - f), bf16_round(f)
-
-
 def _line_values(lines, u3, res):
     """The three (N, C) interpolated lines of one scale from its bf16-valued
-    (R, C) tables: v = bf16(1 - f) * L[i0] + bf16(f) * L[i0 + 1], both
-    products exact in f32 and one rounding in the sum, as the kernel's fmaf
-    and the TPU's tent matmul compute it."""
+    (R, C) tables: v = w0 * L[i0] + w1 * L[i0 + 1] with the bf16 tent weights
+    of :func:`tent_coords`, both products exact in f32 and one rounding in
+    the sum, as the kernel's fmaf and the TPU's tent matmul compute it."""
     vs = []
     for ax, line in enumerate(lines):
-        i0, w0, w1 = _tent_coords(u3[ax], res)
+        i0, w0, w1, _ = tent_coords(u3[ax], res)
         v = torch.index_select(line, 0, i0).mul_(w0[:, None])
         vs.append(v.addcmul_(w1[:, None], torch.index_select(line, 0, i0 + 1)))
     return vs
@@ -240,7 +232,7 @@ def cp_mlp_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp
         grad = torch.zeros((3, res, c), dtype=torch.float32, device=x.device)
         for ax in range(3):
             d_v = bf16_round(d_prod * others[ax])
-            i0, w0, w1 = _tent_coords(xf[:, ax], res)
+            i0, w0, w1, _ = tent_coords(xf[:, ax], res)
             grad[ax].index_add_(0, i0, w0[:, None] * d_v)
             grad[ax].index_add_(0, i0 + 1, w1[:, None] * d_v)
         dlines.append(grad)

@@ -1,8 +1,9 @@
 """Volume-rendering compositing on packed, ray-sorted sample buffers.
 
-Port of ``instant_nsr_pl_tpu/ops/rendering.py:142-286``: nerfacc's
-``render_weight_from_density`` and ``accumulate_along_rays`` (reference use:
-models/nerf.py:105-108). Samples live in the fixed-capacity packed buffer of
+Port of ``instant_nsr_pl_tpu/ops/rendering.py:142-308``: nerfacc's
+``render_weight_from_density``, ``render_weight_from_alpha`` and
+``accumulate_along_rays`` (reference use: models/nerf.py:105-108,
+models/neus.py:237), and the MipNeRF-360 ``distortion_loss``. Samples live in the fixed-capacity packed buffer of
 ``ops/marching.py``: ``ray_indices`` ascending, padding slots ``valid=False``.
 
 Segmented sums are plain PyTorch: one float64 prefix sum, read back at the
@@ -19,6 +20,8 @@ the float64 prefix sums' rounding.
 from __future__ import annotations
 
 import torch
+
+from instant_nsr_pl_tpu_torch.ops.activations import clip
 
 
 def _segmented_inclusive_cumsum(flags, x):
@@ -61,20 +64,30 @@ def segmented_cumsum(x, ray_indices, valid, exclusive=False, group=1):
     return out - x if exclusive else out
 
 
+def exclusive_cumprod_segments(alpha, ray_indices, valid, eps=1e-10, group=1):
+    """Per-ray exclusive cumulative product of (1 - alpha): the transmittance
+    T_i = prod_{j<i in the same ray} (1 - alpha_j), through log(clip(1 -
+    alpha, eps, 1))."""
+    # a tie is common here: alpha = 0 gives 1 - alpha = 1 exactly
+    log1m = torch.log(clip(1.0 - alpha, eps, 1.0))
+    excl = segmented_cumsum(log1m, ray_indices, valid, exclusive=True, group=group)
+    return torch.exp(excl)
+
+
 def render_weight_from_density(t_starts, t_ends, sigma, ray_indices, valid, group=1):
     """Weights w_i = alpha_i * T_i with alpha = 1 - exp(-sigma * dt) and the
     per-ray transmittance T_i = prod_{j<i} (1 - alpha_j) (eps 1e-10)."""
     dt = t_ends - t_starts
     alpha = 1.0 - torch.exp(-sigma * dt)
     alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
-    # jnp.clip as min(max(x, lo), hi): at a tie (alpha = 0 gives 1 - alpha =
-    # 1 exactly) torch.minimum, like JAX, splits the gradient in half, where
-    # torch.clamp would pass it whole
-    one_minus = 1.0 - alpha
-    log1m = torch.log(torch.minimum(torch.maximum(one_minus, one_minus.new_tensor(1e-10)),
-                                    one_minus.new_tensor(1.0)))
-    excl = segmented_cumsum(log1m, ray_indices, valid, exclusive=True, group=group)
-    return alpha * torch.exp(excl)
+    return alpha * exclusive_cumprod_segments(alpha, ray_indices, valid, group=group)
+
+
+def render_weight_from_alpha(alpha, ray_indices, valid, group=1):
+    """Weights from per-sample alphas (the NeuS path; reference
+    models/neus.py:237)."""
+    alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
+    return alpha * exclusive_cumprod_segments(alpha, ray_indices, valid, group=group)
 
 
 def accumulate_along_rays(weights, values, ends, valid=None, group=1):
@@ -102,3 +115,22 @@ def accumulate_along_rays(weights, values, ends, valid=None, group=1):
     starts = torch.cat([ends.new_zeros(1), ends[:-1]])
     out = (c[:, ends] - c[:, starts]).T.float()
     return torch.where((ends > starts)[:, None], out, torch.zeros_like(out))
+
+
+def distortion_loss(weights, midpoints, intervals, ray_indices, valid, n_rays, group=1):
+    """MipNeRF-360 distortion loss on packed samples in O(N) with segmented
+    prefix sums (the role of ``torch_efficient_distloss.flatten_eff_distloss``;
+    reference systems/nerf.py:104, systems/neus.py:132,137):
+
+        loss = mean_rays[ sum_ij w_i w_j |m_i - m_j| + (1/3) sum_i w_i^2 d_i ]
+
+    whose pairwise term, for samples sorted by t, is ``2 * sum_i w_i (m_i *
+    W_{<i} - (wm)_{<i})``."""
+    w = torch.where(valid, weights, torch.zeros_like(weights))
+    wm = w * midpoints
+    w_prefix = segmented_cumsum(w, ray_indices, valid, exclusive=True, group=group)
+    wm_prefix = segmented_cumsum(wm, ray_indices, valid, exclusive=True, group=group)
+    loss_bi = 2.0 * (w * (midpoints * w_prefix - wm_prefix))
+    loss_uni = (1.0 / 3.0) * (w * w * intervals)
+    total = torch.where(valid, loss_bi + loss_uni, torch.zeros_like(loss_bi)).sum()
+    return total / n_rays

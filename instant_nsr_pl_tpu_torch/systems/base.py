@@ -4,9 +4,10 @@ chunked image rendering with overflow retries and image metrics.
 Port of ``instant_nsr_pl_tpu/systems/base.py`` (the train side :28-474,
 ``render_image`` :546-681, ``evaluate_image`` :683-706). The JAX package
 jits a pure step over an immutable state pytree; the port runs eagerly and
-its state is a dict whose parameters the optimizer updates in place:
+its state is a dict whose parameters the optimizer updates in place
+(``extra``: the model's non-gradient state, e.g. NeuS's inv_s snapshot):
 
-    state = {params, optimizer, occ, step, generator}
+    state = {params, optimizer, occ, extra, step, generator}
 
 ``generator`` is a ``torch.Generator`` on the state's device, seeded from
 ``init_state(seed)``; it draws every random number of training (rays,
@@ -59,6 +60,11 @@ def C(value, step, epoch_steps=None):
         denom = max(float(end_step) - float(start_step), 1e-9)
     t = min(max((cur - float(start_step)) / denom, 0.0), 1.0)
     return float(start_value) + t * (float(end_value) - float(start_value))
+
+
+def is_zero(value):
+    """True for a loss weight that is the number 0 (a schedule never is)."""
+    return isinstance(value, (int, float)) and float(value) == 0.0
 
 
 def pixels_to_f32(x):
@@ -162,10 +168,12 @@ class BaseSystem:
             self.config.system.optimizer, self.config.system.get("scheduler", None), params,
             epoch_steps=self.steps_per_epoch,
         )
+        init_extra = getattr(self.model, "init_extra_state", None)
         state = {
             "params": params,
             "optimizer": optimizer,
             "occ": self.model.init_occupancy(self.device),
+            "extra": init_extra(self.device) if init_extra is not None else {},
             "step": 0,
             "generator": torch.Generator(device=self.device).manual_seed(seed),
         }
@@ -211,9 +219,10 @@ class BaseSystem:
         raise ValueError(f"Unknown background_color '{mode}'")
 
     # -- train step -----------------------------------------------------------
-    def loss_fn(self, params, occ, batch, generator, step, n_rays=None, capacity=None):
+    def loss_fn(self, params, occ, batch, generator, step, n_rays=None, capacity=None,
+                extra=None):
         """(loss, metrics) of one batch; the loss is differentiable with
-        respect to ``params``."""
+        respect to ``params``. ``extra``: the model's non-gradient state."""
         raise NotImplementedError
 
     def update_occupancy(self, state, warmup: bool):
@@ -251,9 +260,12 @@ class BaseSystem:
         optimizer = state["optimizer"]
         optimizer.zero_grad()
         loss, metrics = self.loss_fn(state["params"], state["occ"], batch, gen, step,
-                                     n_rays=n_rays)
+                                     n_rays=n_rays, extra=state.get("extra"))
         loss.backward()
         optimizer.step(step)
+        update_extra = getattr(self.model, "update_extra_state", None)
+        if update_extra is not None:
+            state["extra"] = update_extra(state["params"], state.get("extra", {}), step)
         metrics["train/loss"] = loss.detach()
         metrics["train/lr"] = optimizer.lr(step)
         state["step"] = step + 1
@@ -285,15 +297,15 @@ class BaseSystem:
         return new
 
     # -- evaluation ---------------------------------------------------------
-    def forward_eval(self, params, occ, rays_o, rays_d, bg, capacity=None):
+    def forward_eval(self, params, occ, rays_o, rays_d, bg, step=0, capacity=None):
         raise NotImplementedError
 
     def render_chunk(self, state, rays_o, rays_d, capacity_scale: int = 1):
-        """One fixed-size chunk on a white background (the JAX package's
-        jitted ``make_render_chunk``)."""
+        """One fixed-size chunk on a white background at the state's step
+        (the JAX package's jitted ``make_render_chunk``)."""
         bg = torch.ones(3, dtype=torch.float32, device=rays_o.device)
         return self.forward_eval(
-            state["params"], state["occ"], rays_o, rays_d, bg,
+            state["params"], state["occ"], rays_o, rays_d, bg, step=state.get("step", 0),
             capacity=self.eval_capacity * capacity_scale,
         )
 

@@ -1,12 +1,15 @@
-"""Losses and image metrics: weighted and smooth-L1 losses, PSNR, SSIM.
+"""Losses and image metrics: weighted MSE, L1 and smooth-L1 losses, PSNR,
+SSIM and the clamped binary cross-entropy.
 
-Port of ``instant_nsr_pl_tpu/systems/criterions.py:14-75`` (reference
-systems/criterions.py:7-152).
+Port of ``instant_nsr_pl_tpu/systems/criterions.py`` (reference
+systems/criterions.py:7-159).
 """
 
 from __future__ import annotations
 
 import torch
+
+from instant_nsr_pl_tpu_torch.ops.activations import clip
 
 
 def weighted_loss(per_elem, weight=None, reduction="mean"):
@@ -19,6 +22,21 @@ def weighted_loss(per_elem, weight=None, reduction="mean"):
     if reduction == "sum":
         return per_elem.sum()
     return per_elem
+
+
+def mse_loss(pred, target, weight=None, reduction="mean"):
+    return weighted_loss((pred - target) ** 2, weight, reduction)
+
+
+def l1_loss(pred, target, weight=None, reduction="mean"):
+    return weighted_loss((pred - target).abs(), weight, reduction)
+
+
+def binary_cross_entropy(pred, target, eps=1e-6):
+    """BCE on probabilities clipped to [eps, 1 - eps] (reference
+    systems/criterions.py:155-159)."""
+    pred = clip(pred, eps, 1.0 - eps)
+    return -(target * torch.log(pred) + (1.0 - target) * torch.log(1.0 - pred)).mean()
 
 
 def smooth_l1_loss(pred, target, beta=1.0, weight=None, reduction="mean"):

@@ -1,34 +1,25 @@
-"""NeRF system: the smooth-L1 loss and the eval forward.
+"""NeRF system: the smooth-L1 loss, the distortion loss and the eval forward.
 
 Port of ``instant_nsr_pl_tpu/systems/nerf.py`` (reference systems/nerf.py:
 16-218): the smooth-L1 rgb loss on rays that hit something and were fully
-packed, with the training PSNR and live-sample count as metrics. The
-MipNeRF-360 distortion loss comes with the NeuS slice, where
-``distortion_loss`` is ported (ROADMAP.md section 1, item 3); every shipped
-NeRF config sets its weight to 0.
+packed, the optional MipNeRF-360 distortion loss, with the training PSNR and
+live-sample count as metrics.
 """
 
 from __future__ import annotations
 
+from instant_nsr_pl_tpu_torch.ops.rendering import distortion_loss
 from instant_nsr_pl_tpu_torch.registry import systems
-from instant_nsr_pl_tpu_torch.systems.base import BaseSystem
+from instant_nsr_pl_tpu_torch.systems.base import BaseSystem, is_zero
 from instant_nsr_pl_tpu_torch.systems.criterions import psnr, smooth_l1_loss
 
 
 @systems.register("nerf-system")
 class NeRFSystem(BaseSystem):
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
-        loss_cfg = config.system.get("loss", None)
-        lambda_dist = loss_cfg.get("lambda_distortion", 0.0) if loss_cfg is not None else 0.0
-        if not (isinstance(lambda_dist, (int, float)) and float(lambda_dist) == 0.0):
-            raise NotImplementedError(
-                "system.loss.lambda_distortion != 0: distortion_loss comes with the NeuS "
-                "slice of the port"
-            )
-
-    def loss_fn(self, params, occ, batch, generator, step, n_rays=None, capacity=None):
+    def loss_fn(self, params, occ, batch, generator, step, n_rays=None, capacity=None,
+                extra=None):
         loss_cfg = self.config.system.loss
+        n_rays = n_rays if n_rays is not None else self.train_num_rays
         capacity = capacity if capacity is not None else self.train_capacity
         out = self.model.forward(
             params, occ, batch["rays_o"], batch["rays_d"],
@@ -47,9 +38,16 @@ class NeRFSystem(BaseSystem):
             "train/psnr": psnr(out["comp_rgb"].detach(), batch["rgb"],
                                valid_mask=mask[:, None] > 0),
         }
+        lambda_dist = loss_cfg.get("lambda_distortion", 0.0)
+        if not is_zero(lambda_dist):
+            loss_dist = distortion_loss(
+                out["weights"], out["points"], out["intervals"], out["ray_indices"],
+                out["sample_valid"], n_rays=n_rays, group=self.model.packed_group(capacity))
+            metrics["train/loss_distortion"] = loss_dist.detach()
+            loss = loss + loss_dist * self.C(lambda_dist, step)
         return loss, metrics
 
-    def forward_eval(self, params, occ, rays_o, rays_d, bg, capacity=None):
+    def forward_eval(self, params, occ, rays_o, rays_d, bg, step=0, capacity=None):
         out = self.model.forward(
             params,
             occ,

@@ -3,8 +3,9 @@
 Port of ``instant_nsr_pl_tpu/utils/checkpoint.py`` (reference launch.py:
 13-18,72-75,110-114: ``--resume`` and ``--resume_weights_only``). A
 checkpoint carries the full train state, so a resumed run continues
-exactly: parameters, the optimizer state, the occupancy grid, the step and
-the generator's state. The port's format is one ``torch.save`` file of
+exactly: parameters, the optimizer state, the occupancy grid, the model's
+non-gradient ``extra`` state (NeuS's inv_s snapshot), the step and the
+generator's state. The port's format is one ``torch.save`` file of
 tensors and plain values (read back with ``weights_only=True``); a JAX
 package checkpoint (``.npz``, flattened leaves) loads too, through
 ``utils/transplant.py``.
@@ -33,6 +34,7 @@ def save_checkpoint(path, state):
         "optimizer": state["optimizer"].state_dict(),
         "occ": {"occs": grid.occs.cpu(), "binary": grid.binary.cpu(),
                 "binary_dilated": grid.binary_dilated.cpu()},
+        "extra": {k: v.detach().cpu() for k, v in state.get("extra", {}).items()},
         "step": int(state["step"]),
         "generator": state["generator"].get_state(),
     }
@@ -83,6 +85,7 @@ def load_checkpoint(path, template_state):
     state["optimizer"].load_state_dict(payload["optimizer"])
     device = state["occ"]["grid"].occs.device
     state["occ"] = _grid(payload["occ"], device)
+    state["extra"] = {k: v.to(device) for k, v in payload.get("extra", {}).items()}
     state["step"] = int(payload["step"])
     state["generator"].set_state(payload["generator"])
     return state

@@ -81,6 +81,8 @@ def load_jax_checkpoint(path, state, weights_only=False):
     extra, step, rng}``, rebuilt here from the port's own parameter tree:
     dict keys sorted, lists in order, NamedTuple fields in declaration
     order. So the leaves are
+      0. ``extra``, in sorted key order (NeuS with variance modulation:
+         ``prev_inv_s``; none otherwise);
       1. ``occ.grid``: occs, binary, binary_dilated and, when the grid
          carries it, the TPU probe's ``bricks`` (dropped here);
       2. ``opt_state``: per top-level parameter key, sorted, the optax
@@ -89,9 +91,10 @@ def load_jax_checkpoint(path, state, weights_only=False):
          schedule's count;
       3. ``params``, in leaf order;
       4. ``rng`` (a uint32 PRNG key) and ``step``.
-    (``extra`` has no leaves for NeRF.) Parameters and the grid are copied;
-    unless ``weights_only``, ``step`` and the Adam moments and counts go
-    into the torch optimizer's state (``exp_avg``, ``exp_avg_sq``, ``step``).
+    Parameters (NeuS: the ``variance.variance`` scalar, weight-normed layers'
+    ``b``, ``g``, ``v``) and the grid are copied; unless ``weights_only``,
+    ``extra``, ``step`` and the Adam moments and counts go into the state and
+    the torch optimizer's state (``exp_avg``, ``exp_avg_sq``, ``step``).
     The JAX PRNG key has no torch counterpart: the state's generator keeps
     its own seed."""
     data = np.load(path, allow_pickle=False)
@@ -101,10 +104,15 @@ def load_jax_checkpoint(path, state, weights_only=False):
     groups = [(k, g) for k, g in groups if g]
     n_params = sum(len(g) for _, g in groups)
     n_opt = sum(2 + 2 * len(g) for _, g in groups)
-    n_occ = len(leaves) - n_opt - n_params - 2
+    extra_keys = sorted(state.get("extra", {}))
+    n_extra = len(extra_keys)
+    n_occ = len(leaves) - n_extra - n_opt - n_params - 2
     if n_occ not in (3, 4):
-        raise ValueError(f"{path}: {len(leaves)} leaves do not match a JAX NeRF train state "
-                         f"with {n_params} parameter leaves and Adam(W): config mismatch?")
+        raise ValueError(f"{path}: {len(leaves)} leaves do not match a JAX train state "
+                         f"with {n_params} parameter leaves, {n_extra} extra leaves and "
+                         "Adam(W): config mismatch?")
+    extra_leaves = leaves[:n_extra]
+    leaves = leaves[n_extra:]
     pos = n_occ
     opt_leaves = []
     for _, g in groups:
@@ -122,12 +130,14 @@ def load_jax_checkpoint(path, state, weights_only=False):
                 raise ValueError(f"{key}: checkpoint shape {v.shape} != model {tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.asarray(v, np.float32)))
     grid = state["occ"]["grid"]
+    device = grid.occs.device
     out = dict(state)
     out["occ"] = {"grid": occupancy_from_jax(
-        {"occs": leaves[0], "binary": leaves[1], "binary_dilated": leaves[2]},
-        grid.occs.device)}
+        {"occs": leaves[0], "binary": leaves[1], "binary_dilated": leaves[2]}, device)}
     if weights_only:
         return out
+    out["extra"] = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                    for k, v in zip(extra_keys, extra_leaves)}
     opt = state["optimizer"].optimizer
     if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
         raise ValueError("a JAX checkpoint's optimizer state loads into Adam or AdamW only")

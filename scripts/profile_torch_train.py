@@ -1,16 +1,20 @@
 """Where the time of one training step goes, for the PyTorch port on a CUDA
-card: the bench NeRF of chip_smoke.py (8,192 rays and 262,144 packed samples
-per step), after 40 warm-up steps from random weights.
+card: the bench NeRF or the bench NeuS of chip_smoke.py (8,192 rays and
+262,144 packed samples per step), after 40 warm-up steps from random weights.
 
-    python3 scripts/profile_torch_train.py [--out profile_train.json]
+    python3 scripts/profile_torch_train.py [--model nerf|neus] [--out profile_train.json]
 
 Prints as JSON (and writes to ``--out`` when given), with the card's name
 and power limit:
 - the host wall of one step split into stages, each ending in a
-  synchronize, median of 10 steps: ray sampling, march, the K1/K3 forwards
-  (training mode), compositing and the loss, autograd of compositing, the
-  rest of the backward (K2/K4 and the small ops around them), AdamW, and the
-  grid update amortised over its cadence (one slab update every 16 steps);
+  synchronize, median of 10 steps. NeRF: ray sampling, march, the K1/K3
+  forwards (training mode), compositing and the loss, autograd of
+  compositing, the rest of the backward (K2/K4 and the small ops around
+  them), AdamW. NeuS: ray sampling, march, K9 (the SDF encoding and its
+  Jacobian), the SDF MLP with its three tangents, K3 (radiance with the
+  normals), compositing and the loss, the backward (K10, K4, the MLP's
+  second-order graph and compositing), AdamW. Both add the grid update
+  amortised over its cadence (one slab update every 16 steps);
 - for 10 whole steps under torch.profiler: wall, summed device kernel time,
   the device's busy share (kernel time / wall) and the top device kernels.
 Needs a CUDA card; exits non-zero without one.
@@ -31,30 +35,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=None, help="also write the JSON result to this file")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_train: needs a CUDA card", file=sys.stderr)
-        return 2
-    import chip_smoke
-    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
-    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
-    from instant_nsr_pl_tpu_torch.config import config_from_dict
-    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+def nerf_stages(system, state):
+    """The NeRF step's stages, median of 10 steps, and the live samples."""
     from instant_nsr_pl_tpu_torch.systems.criterions import smooth_l1_loss
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = config_from_dict(chip_smoke.bench_config())
-    dm = datasets.make(cfg.dataset.name, cfg.dataset)
-    dm.setup("fit")
-    system = systems.make(cfg.system.name, cfg)
-    system.setup_data(dm.train)
-    state = system.init_state(seed=chip_smoke.SEED)
-    for _ in range(40):
-        state, _ = system.train_step(state)
-    torch.cuda.synchronize()
     model, params, opt, gen = system.model, state["params"], state["optimizer"], state["generator"]
     n_rays, capacity = system.active_num_rays, system.train_capacity
 
@@ -99,7 +83,96 @@ def main():
         for k, a, b in zip(names, t[:-1], t[1:]):
             stages[k].append((b - a) * 1e3)
         live.append(int(samples.num_valid))
-    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    return {k: statistics.median(v) for k, v in stages.items()}, live
+
+
+class _Timed:
+    """Wrap a bound method or function: synchronize before and after each
+    call and record its host wall in ``ms`` (a list per call)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.ms = []
+        self.end = None
+        setattr(owner, name, self)
+
+    def __call__(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        torch.cuda.synchronize()
+        self.end = time.perf_counter()
+        self.ms.append((self.end - t0) * 1e3)
+        return out
+
+    def restore(self):
+        setattr(self.owner, self.name, self.fn)
+
+
+def neus_stages(system, state):
+    """The NeuS step's stages, median of 10 steps through system.train_step
+    with the stage boundaries timed by wrappers (the model's own code runs),
+    and the live samples."""
+    model, opt = system.model, state["optimizer"]
+    geo = model.geometry
+    timed = {
+        "sample": _Timed(system, "_sample_rays"),
+        "march": _Timed(model, "march"),
+        "k9_encode_with_jac": _Timed(geo.encoding, "apply_with_jac"),
+        "sdf_mlp_with_tangents": _Timed(geo.network, "apply_jvp"),
+        "k3_radiance": _Timed(model.texture, "apply"),
+        "forward_total": _Timed(system, "loss_fn"),
+        "adamw": _Timed(opt, "step"),
+    }
+    stages = {k: [] for k in ("sample", "march", "k9_encode_with_jac", "sdf_mlp_with_tangents",
+                              "k3_radiance", "composite_loss", "backward", "adamw")}
+    live = []
+    for _ in range(10):
+        state, metrics = system.train_step(state)
+        t = {k: w.ms[-1] for k, w in timed.items()}
+        for k in ("sample", "march", "k9_encode_with_jac", "sdf_mlp_with_tangents",
+                  "k3_radiance", "adamw"):
+            stages[k].append(t[k])
+        stages["composite_loss"].append(t["forward_total"] - t["march"] - t["k9_encode_with_jac"]
+                                        - t["sdf_mlp_with_tangents"] - t["k3_radiance"])
+        # the backward: from the loss's return to the optimizer's start
+        stages["backward"].append((timed["adamw"].end - timed["forward_total"].end) * 1e3
+                                  - t["adamw"])
+        live.append(int(metrics["train/num_samples"]))
+    for w in timed.values():
+        w.restore()
+    return {k: statistics.median(v) for k, v in stages.items()}, live
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("nerf", "neus"), default="nerf")
+    ap.add_argument("--out", default=None, help="also write the JSON result to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_train: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.config import config_from_dict
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = chip_smoke.NEUS_CONFIG if args.model == "neus" else chip_smoke.BENCH_CONFIG
+    cfg = config_from_dict(chip_smoke.bench_config(path))
+    dm = datasets.make(cfg.dataset.name, cfg.dataset)
+    dm.setup("fit")
+    system = systems.make(cfg.system.name, cfg)
+    system.setup_data(dm.train)
+    state = system.init_state(seed=chip_smoke.SEED)
+    for _ in range(40):
+        state, _ = system.train_step(state)
+    torch.cuda.synchronize()
+    model, params, gen = system.model, state["params"], state["generator"]
+    n_rays, capacity = system.active_num_rays, system.train_capacity
+    stage_ms, live = (neus_stages if args.model == "neus" else nerf_stages)(system, state)
 
     grid_ms = []
     for rep in range(4):
@@ -131,6 +204,7 @@ def main():
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     result = {
+        "model": args.model,
         "card": chip_smoke.nvidia_smi_line(),
         "step": {"rays": n_rays, "capacity": capacity, "live_samples_median": statistics.median(live),
                  "stage_ms": stage_ms},

@@ -13,6 +13,7 @@ import torch
 
 from instant_nsr_pl_tpu_torch.config import config_from_dict
 from instant_nsr_pl_tpu_torch.ops import cp_mlp as t_cp_mlp
+from instant_nsr_pl_tpu_torch.ops import cp_product as t_cpp
 from instant_nsr_pl_tpu_torch.ops import sh_mlp as t_sh_mlp
 from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_init
 from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_init
@@ -232,3 +233,150 @@ def test_train_step_cuda_gradients_flow(cuda_device):
     for key, t in named_leaves(params):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all()), key
         assert bool((t.grad != 0).any()), key
+
+
+def _product_inputs(gen, c, res, n, device):
+    """Three (R, C) line tables and (3, N) coordinates with out-of-range
+    values, exact 0 and 1, and every knot."""
+    lines = [0.1 * torch.randn((res, c), generator=gen) for _ in range(3)]
+    u3 = torch.rand((3, n), generator=gen) * 1.2 - 0.1
+    knots = torch.arange(res, dtype=torch.float32) / (res - 1)
+    special = torch.cat([torch.tensor([0.0, 1.0, -0.05, 1.05]), knots])[: n]
+    u3[0, : special.numel()] = special
+    u3[1, : special.numel()] = special.flip(0)
+    u3[2, : special.numel()] = special.roll(3)
+    return [t.to(device) for t in lines], u3.to(device)
+
+
+@pytest.mark.parametrize("c,res,n", [(16, 24, 515), (16, 64, 4096), (64, 2048, 3001)])
+def test_cp_product_kernels_match_plain(cuda_device, c, res, n):
+    """K5 (eval and training mode) and K6 against their plain versions: the
+    residual bit for bit, prod within 2e-2 and the gradients within 2.5e-2
+    of the largest plain value (the backward sums with atomics)."""
+    gen = torch.Generator().manual_seed(30 + n)
+    lines, u3 = _product_inputs(gen, c, res, n, cuda_device)
+    stack = t_cpp.line_stack(*lines)
+    before = t_cpp.cp_product.launches
+    prod, vsave = t_cpp.cp_product_launch(stack, u3, res, train=True)
+    prod_eval, none = t_cpp.cp_product_launch(stack, u3, res)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product.launches == before + 2 and none is None
+    ref, ref_v = t_cpp.cp_product_plain(stack, u3, res, save_residuals=True)
+    assert torch.equal(vsave, ref_v)
+    assert torch.equal(prod, prod_eval)
+    _close(prod, ref)
+    dprod = torch.randn((c, n), generator=gen).to(cuda_device)
+    before = t_cpp.cp_product_backward.launches
+    got = t_cpp.cp_product_backward(stack, u3, vsave, dprod, res)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product_backward.launches == before + 1
+    for a, b in zip(got, t_cpp.cp_product_backward_plain(stack, u3, vsave, dprod, res)):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+    outside = (u3 < 0) | (u3 > 1)
+    assert bool((got[1][outside] == 0).all())
+
+
+@pytest.mark.parametrize("c,f,res,n", [(16, 8, 24, 515), (16, 8, 64, 4096), (64, 16, 2048, 3001)])
+def test_cp_jac_basis_kernels_match_plain(cuda_device, c, f, res, n):
+    """K9 (eval and training mode) and K10 against their plain versions."""
+    gen = torch.Generator().manual_seed(40 + n)
+    lines, u3 = _product_inputs(gen, c, res, n, cuda_device)
+    stack = t_cpp.line_stack(*lines)
+    basis = (torch.randn((c, f), generator=gen) / c**0.5).to(torch.bfloat16).to(cuda_device)
+    before = t_cpp.cp_product_jac_basis.launches
+    enc, jac, vsave, gdsave = t_cpp.cp_product_jac_basis_launch(stack, basis, u3, res, train=True)
+    enc_e, jac_e, v_e, g_e = t_cpp.cp_product_jac_basis_launch(stack, basis, u3, res)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product_jac_basis.launches == before + 2 and v_e is None and g_e is None
+    ref = t_cpp.cp_product_jac_basis_plain(stack, basis, u3, res, save_residuals=True)
+    assert torch.equal(vsave, ref[2]) and torch.equal(gdsave, ref[3])
+    assert torch.equal(enc, enc_e) and torch.equal(jac, jac_e)
+    _close(enc, ref[0])
+    _close(jac, ref[1])
+    denc = torch.randn((f, n), generator=gen).to(cuda_device)
+    djac = torch.randn((3, f, n), generator=gen).to(cuda_device)
+    before = t_cpp.cp_product_jac_basis_backward.launches
+    got = t_cpp.cp_product_jac_basis_backward(u3, vsave, gdsave, denc, djac, basis, res)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product_jac_basis_backward.launches == before + 1
+    plain = t_cpp.cp_product_jac_basis_backward_plain(u3, vsave, gdsave, denc, djac, basis, res)
+    for a, b in zip(got, plain):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+
+
+def test_neus_train_step_cuda_gradients_flow(cuda_device):
+    """A small NeuS system on the card (analytic gradients on the jac path):
+    train_step launches K3, K4, K9 and K10 and, in its warmup grid update,
+    K5; after that first update every parameter gets a finite, non-zero
+    gradient; with finite differences K5 and K6 run on every step."""
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.models.network_utils import named_leaves
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+
+    def make(grad_type):
+        cfg = config_from_dict({
+            "dataset": {"name": "synthetic", "size": 32, "n_train": 4, "n_val": 1},
+            "model": {
+                "name": "neus", "radius": 1.5, "num_samples_per_ray": 1024,
+                "train_num_rays": 256, "max_train_num_rays": 256, "train_num_samples": 32768,
+                "dynamic_ray_sampling": False, "grid_warmup_steps": 2,
+                "grid_prune_occ_thre": 0.001, "variance": {"init_val": 0.3},
+                "geometry": {
+                    "name": "volume-sdf", "radius": 1.5, "feature_dim": 13, "grad_type": grad_type,
+                    "xyz_encoding_config": {"otype": "CP", "n_components": 16,
+                                            "resolutions": [24, 64], "n_features": 8,
+                                            "include_xyz": True},
+                    "mlp_network_config": {"otype": "VanillaMLP", "activation": "ReLU",
+                                           "n_neurons": 32, "n_hidden_layers": 1,
+                                           "sphere_init": True, "weight_norm": True},
+                },
+                "texture": {
+                    "name": "volume-radiance", "input_feature_dim": 16,
+                    "dir_encoding_config": {"otype": "SphericalHarmonics", "degree": 4},
+                    "mlp_network_config": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                                           "n_neurons": 32, "n_hidden_layers": 2},
+                    "color_activation": "sigmoid",
+                },
+            },
+            "system": {"name": "neus-system",
+                       "loss": {"lambda_rgb_mse": 10.0, "lambda_eikonal": 0.1,
+                                "lambda_sparsity": 0.01},
+                       "optimizer": {"name": "AdamW", "args": {"lr": 0.01, "eps": 1.0e-15}}},
+        })
+        dm = datasets.make("synthetic", cfg.dataset)
+        dm.setup("fit")
+        system = systems.make("neus-system", cfg)
+        system.setup_data(dm.train)
+        return system
+
+    system = make("analytic")
+    state = system.init_state(seed=0)
+    counters = (t_sh_mlp.sh_mlp_forward, t_sh_mlp.sh_mlp_backward, t_cpp.cp_product,
+                t_cpp.cp_product_jac_basis, t_cpp.cp_product_jac_basis_backward)
+    before = [c.launches for c in counters]
+    state, metrics = system.train_step(state)  # warmup grid update, then the step
+    torch.cuda.synchronize()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert torch.isfinite(metrics["train/loss"])
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    rays_o, rays_d, rgb, _ = system._sample_rays(system.data, gen, 256)
+    batch = {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb,
+             "background_color": torch.ones(3, device=cuda_device)}
+    loss, _ = system.loss_fn(state["params"], state["occ"], batch, gen, 1)
+    loss.backward()
+    for key, t in named_leaves(state["params"]):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all()), key
+        assert bool((t.grad != 0).any()), key
+
+    fd = make("finite_difference")
+    state = fd.init_state(seed=0)
+    before = [t_cpp.cp_product.launches, t_cpp.cp_product_backward.launches]
+    for _ in range(2):
+        state, metrics = fd.train_step(state)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product.launches >= before[0] + 2 * 4
+    assert t_cpp.cp_product_backward.launches >= before[1] + 2 * 4
+    assert torch.isfinite(metrics["train/loss"])

@@ -112,9 +112,20 @@ def test_mlp_apply_bf16(n_hidden):
 
 
 def test_mlp_unported_options_raise():
-    spec = t_mlp.MLPSpec(dim_in=3, dim_out=1, sphere_init=True)
-    with pytest.raises(NotImplementedError, match="NeuS"):
-        t_mlp.mlp_init(torch.Generator().manual_seed(0), spec)
+    """Sphere init is ported (the first layer is zero beyond the xyz rows);
+    the CP options of later slices raise, naming them: stacked scales and the
+    Jacobian of a CP encoding without a basis (cp_product_jac, K7/K8)."""
+    spec = t_mlp.MLPSpec(dim_in=5, dim_out=1, sphere_init=True)
+    layers = t_mlp.mlp_init(torch.Generator().manual_seed(0), spec)
+    assert float(layers[0]["w"][3:].abs().max()) == 0.0
+    from instant_nsr_pl_tpu_torch.models.network_utils import CPEncoding
+
+    with pytest.raises(NotImplementedError, match="later slice"):
+        CPEncoding(3, {"otype": "CP", "stack_scales": True})
+    raw = CPEncoding(3, {"otype": "CP", "n_components": 16, "resolutions": [8], "n_features": 0})
+    params = raw.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        raw.apply_with_jac(params, torch.rand(4, 3))
 
 
 def test_cp_encode_xla():
