@@ -30,10 +30,12 @@ lines are printed):
    counters read around it, and one chunk composited from the kernels' and
    from the plain versions' outputs;
 6. train: the same bench system trained through ``NeRFSystem.train_step``
-   (8,192 rays and 262,144 packed samples per step): a gradient check before
-   the first step, K1-K4 launched on every step, the loss falling, the
-   training PSNR rising, the grid pruning, and the val view at least 3 dB
-   above the untrained render; the warm training rate;
+   (8,192 rays and 262,144 packed samples per step) for TRAIN_STEPS steps: a
+   gradient check before the first step, K1-K4 launched on every step, the
+   loss falling, the training PSNR rising, the grid pruning, and the val view
+   at least 3 dB above the untrained render; the warm training rate; then the
+   same for the stacked NeRF (``nerf-cp-stacked-synthetic.yaml``, ``bench.py
+   --encoding cp_stacked``) with K13/K14 in place of K1/K2;
 7. NeuS training: the bench NeuS (``instant_nsr_pl_tpu_torch/configs/
    neus-cp-synthetic.yaml``, ``bench.py`` ``build_neus_system("cp")``)
    through ``NeuSSystem.train_step`` for NEUS_STEPS steps: gradient checks
@@ -48,8 +50,17 @@ lines are printed):
    the kernels on the card against the plain versions on the CPU;
 9. NeuS with finite differences (and the curvature loss) for FD_STEPS
    steps: K5/K6 on every step, finite gradients, a finite loss;
-10. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
-11. the last line ``{"ok": true, "device": {...}}``.
+10. the stacked NeuS (``neus-cp-stacked-synthetic.yaml``) trained and
+   rendered as in 7 and 8, with K11/K12 in place of K9/K10 and K5 at R=129
+   and 2049 in the grid updates;
+11. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
+12. the last line ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
+C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
+F=16, MLP 32->64->16) and phase 4 K11/K12 (the stacked product with its
+Jacobian and the block-diagonal basis) and K5/K6 at R=129 and 2049 against
+their plain versions, with the same limits.
 """
 
 from __future__ import annotations
@@ -71,11 +82,14 @@ PEAK_F32 = 67e12  # CUDA cores, float32
 N_FULL = 262144  # one eval chunk's / one training step's packed capacity
 N_RAGGED = 262107
 SEED = 0
-TRAIN_STEPS = 300
+TRAIN_STEPS = 200
 ROOT = os.path.dirname(os.path.abspath(__file__))
-BENCH_CONFIG = os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "configs", "nerf-cp-synthetic.yaml")
-NEUS_CONFIG = os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "configs", "neus-cp-synthetic.yaml")
-NEUS_STEPS = 300
+CONFIGS = os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "configs")
+BENCH_CONFIG = os.path.join(CONFIGS, "nerf-cp-synthetic.yaml")
+NEUS_CONFIG = os.path.join(CONFIGS, "neus-cp-synthetic.yaml")
+NERF_STACKED_CONFIG = os.path.join(CONFIGS, "nerf-cp-stacked-synthetic.yaml")
+NEUS_STACKED_CONFIG = os.path.join(CONFIGS, "neus-cp-stacked-synthetic.yaml")
+NEUS_STEPS = 200
 FD_STEPS = 20
 
 
@@ -308,31 +322,35 @@ def kernel_phase(device):
 def cp_kernel_phase(device):
     """K5/K6 (the CP product) and K9/K10 (the product with its Jacobian and
     the basis projection) at the bench NeuS encoding (C=64, F=16) for both
-    scales (R=128 and 2048), at N=262,144 and 262,107, each against its plain
-    version on the same inputs, then timed. The training-mode residuals must
-    equal the plain ones to the bit; forwards lie within 2e-2 * max|plain|,
-    gradients within 2.5e-2 * max|plain|."""
+    scales (R=128 and 2048), and K5/K6 at the stacked encoding's per-scale
+    resolutions (R=129 and 2049: its grid updates and finite differences), at
+    N=262,144 and 262,107, each against its plain version on the same inputs,
+    then timed. The training-mode residuals must equal the plain ones to the
+    bit; forwards lie within 2e-2 * max|plain|, gradients within 2.5e-2 *
+    max|plain|."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
 
     c, f = 64, 16
     resolutions = (128, 2048)
+    stacked_resolutions = (129, 2049)
     gen = torch.Generator().manual_seed(SEED + 7)
     tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
-              .to(device) for r in resolutions}
+              .to(device) for r in resolutions + stacked_resolutions}
     basis = (torch.randn((c, f), generator=gen) / 8.0).to(torch.bfloat16).to(device)
     u3 = torch.rand((3, N_FULL), generator=gen) * 1.1 - 0.05
-    for r in resolutions:  # exact 0 and 1, out of range, and every knot of each scale
+    off = 8
+    for r in tables:  # exact 0 and 1, out of range, and every knot of each scale
         knots = torch.arange(r, dtype=torch.float32) / (r - 1)
         special = torch.cat([torch.tensor([0.0, 1.0, -0.05, 1.05]), knots])
-        off = 8 if r == resolutions[0] else 8 + 4 + resolutions[0]
         u3[0, off:off + special.numel()] = special
         u3[1, off:off + special.numel()] = special.flip(0)
         u3[2, off:off + special.numel()] = special.roll(11)
+        off += special.numel()
     u3 = u3.to(device)
     dprod = torch.randn((c, N_FULL), generator=gen).to(device)
     denc = torch.randn((f, N_FULL), generator=gen).to(device)
     djac = torch.randn((3, f, N_FULL), generator=gen).to(device)
-    table_bytes = {r: 3 * r * c for r in resolutions}  # entries of one scale's stack
+    table_bytes = {r: 3 * r * c for r in tables}  # entries of one scale's stack
 
     def residuals_equal(name, got, ref):
         for label, a, b in zip(("vsave", "gdsave"), got, ref):
@@ -347,8 +365,9 @@ def cp_kernel_phase(device):
     for name in ("cp_product_forward", "cp_product_backward", "cp_jac_basis_forward",
                  "cp_jac_basis_backward"):
         out[name] = {"errs": [], "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}}
-    for r in resolutions:
+    for r in resolutions + stacked_resolutions:
         lines = tables[r]
+        with_jac = r in resolutions  # the stacked encoding's jac path is K11/K12
         for n in (N_RAGGED, N_FULL):  # the timing below reuses the N_FULL arguments
             u = u3[:, :n].contiguous()
             tag = f"R={r} N={n}"
@@ -368,6 +387,8 @@ def cp_kernel_phase(device):
             for label, a, b in zip(("d lines", "d u"), got, ref_b):
                 out["cp_product_backward"]["errs"].append(
                     compare(f"cp_product_backward {tag} {label}", a, b, rel=2.5e-2))
+            if not with_jac:
+                continue
             # K9: eval and training mode
             enc_e, jac_e, v_e, g_e = cpp.cp_product_jac_basis_launch(lines, basis, u, r)
             enc, jac, vsave_j, gdsave = cpp.cp_product_jac_basis_launch(lines, basis, u, r,
@@ -415,6 +436,8 @@ def cp_kernel_phase(device):
                 n * c * (40 + 16 * f)),
         }
         for name, (kern, plain, n_bytes, f32_ops) in timed.items():
+            if not with_jac and name.startswith("cp_jac"):
+                continue
             e = out[name]
             e["ms"][r] = time_ms(kern)
             e["plain_ms"][r] = time_ms(plain, reps=5, inner=2)
@@ -433,18 +456,183 @@ def cp_kernel_phase(device):
     for name, (src, replaces) in meta.items():
         e = out[name]
         by = e["bound_by"][resolutions[-1]]
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": f"instant_nsr_pl_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": max(e["errs"]),
-            # one encode launches once per scale: the two scales' times summed
-            "ms": sum(e["ms"].values()), "plain_ms": sum(e["plain_ms"].values()),
-            "bound_ms": sum(e["bound_ms"].values()), "bound_by": by,
+            # one encode launches once per scale: the bench scales' times summed
+            "ms": sum(e["ms"][r] for r in resolutions),
+            "plain_ms": sum(e["plain_ms"][r] for r in resolutions),
+            "bound_ms": sum(e["bound_ms"][r] for r in resolutions), "bound_by": by,
             "ms_by_scale": e["ms"], "plain_ms_by_scale": e["plain_ms"],
             "bound_ms_by_scale": e["bound_ms"],
             "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
             "n": N_FULL,
-        })
+        }
+        if name.startswith("cp_product"):  # the stacked encoding's per-scale calls
+            entry["ms_stacked_scales"] = sum(e["ms"][r] for r in stacked_resolutions)
+            entry["bound_ms_stacked_scales"] = sum(e["bound_ms"][r] for r in stacked_resolutions)
+        entries.append(entry)
+    return entries
+
+
+def stacked_kernel_phase(device):
+    """K13/K14 (the stacked fused density head: C=64, nested R=(129, 2049) on
+    one (3, 2049, 128) bf16 table, F=16, MLP 32->64->16) and K11/K12 (the
+    stacked product with its Jacobian and the (32, 128) block-diagonal basis)
+    at N=262,144 and 262,107 against their plain versions on the same
+    inputs, then timed: training-mode vsave (and K11's gdsave) equal to the
+    plain versions' to the bit, hsave within 1e-3 of its entries, forwards
+    within 2e-2 * max|plain|, gradients within 2.5e-2 * max|plain|."""
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp
+    from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
+    from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_init
+    from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_init
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    cp_spec = CPSpec(64, (129, 2049), 16)
+    d_spec = MLPSpec(dim_in=32, dim_out=16, n_neurons=64, n_hidden_layers=1)
+    cp_params = cp_init(gen, cp_spec, device)
+    d_layers = with_biases(mlp_init(gen, d_spec, device), gen, device)
+    rmax, s_count, c, f = 2049, 2, 64, 16
+    sc, e, w = s_count * c, s_count * f, 64
+    x = torch.rand((N_FULL, 3), generator=gen) * 1.1 - 0.05
+    knots = [torch.arange(r, dtype=torch.float32) / (r - 1) for r in cp_spec.resolutions]
+    special = torch.cat([torch.tensor([0.0, 1.0, -0.05, 1.05]), *knots])
+    x[: special.numel(), 0] = special
+    x[: special.numel(), 1] = special.flip(0)
+    x[: special.numel(), 2] = special.roll(7)
+    x = x.to(device)
+    u3 = x.T.contiguous()
+    d_dout = torch.randn((N_FULL, 16), generator=gen).to(device)
+    denc = torch.randn((e, N_FULL), generator=gen).to(device)
+    djac = torch.randn((3, e, N_FULL), generator=gen).to(device)
+    ops = cp_mlp.cp_mlp_stacked_operands(cp_params, d_layers, cp_spec, d_spec)
+    lines, basis, ws, _ = ops
+    table = 3 * rmax * sc  # entries of the fine table
+    errs = {k: [] for k in ("cp_mlp_stacked_forward", "cp_mlp_stacked_backward",
+                            "cp_jac_stacked_forward", "cp_jac_stacked_backward")}
+
+    def bitwise(name, label, a, b):
+        if not torch.equal(a, b):
+            frac = float((a != b).float().mean())
+            raise AssertionError(f"{name}: residual {label} differs from the plain version's "
+                                 f"in {frac:.2e} of its entries")
+        print(f"[kernel] {name}: residual {label} equals the plain version's to the bit",
+              flush=True)
+
+    for n in (N_RAGGED, N_FULL):  # the timing below reuses the N_FULL arguments
+        xn, un = x[:n], u3[:, :n].contiguous()
+        tag = f"N={n}"
+        # K13: the op (eval), then training mode on the packed operands
+        got = cp_mlp.cp_mlp_stacked_forward(cp_params, d_layers, xn, cp_spec, d_spec)
+        out, vsave, hsave = cp_mlp.cp_mlp_stacked_launch(ops, xn, cp_spec, d_spec, train=True)
+        torch.cuda.synchronize()
+        ref, ref_v, ref_h = cp_mlp.cp_mlp_stacked_forward_plain(cp_params, d_layers, xn, cp_spec,
+                                                                d_spec, save_residuals=True)
+        assert torch.equal(got, out), "K13 eval and training mode disagree"
+        errs["cp_mlp_stacked_forward"].append(compare(f"cp_mlp_stacked_forward {tag}", out, ref))
+        bitwise(f"cp_mlp_stacked_forward {tag}", "vsave", vsave, ref_v)
+        frac = float((hsave != ref_h).float().mean())
+        print(f"[kernel] cp_mlp_stacked_forward {tag}: hsave differs from the plain version's in "
+              f"{frac:.2e} of its entries", flush=True)
+        if frac > 1e-3:
+            raise AssertionError("cp_mlp_stacked_forward: residual hsave disagrees")
+        compare(f"cp_mlp_stacked_forward {tag} hsave", hsave.float(), ref_h.float())
+        # K14 from those residuals
+        dout = d_dout[:n].contiguous()
+        bwd_args = (xn, vsave, hsave, dout, basis, ws, cp_spec, d_spec)
+        got = cp_mlp.cp_mlp_stacked_backward_launch(*bwd_args)
+        torch.cuda.synchronize()
+        ref = cp_mlp.cp_mlp_stacked_backward_plain(*bwd_args)
+        for label, a, b in zip(("d fine table", "d basis", "dW", "db"), got, ref):
+            assert a.shape == b.shape, (label, tuple(a.shape), tuple(b.shape))
+            errs["cp_mlp_stacked_backward"].append(
+                compare(f"cp_mlp_stacked_backward {tag} {label}", a, b, rel=2.5e-2))
+        # K11: eval and training mode
+        enc_e, jac_e, v_e, g_e = cps.cp_jac_basis_stacked_launch(lines, basis, un, rmax)
+        enc, jac, vsave_j, gdsave = cps.cp_jac_basis_stacked_launch(lines, basis, un, rmax,
+                                                                    train=True)
+        torch.cuda.synchronize()
+        assert v_e is None and g_e is None, "K11 eval mode wrote residuals"
+        assert torch.equal(enc, enc_e) and torch.equal(jac, jac_e)
+        ref_j = cps.cp_jac_basis_stacked_plain(lines, basis, un, rmax, save_residuals=True)
+        bitwise(f"cp_jac_stacked_forward {tag}", "vsave", vsave_j, ref_j[2])
+        bitwise(f"cp_jac_stacked_forward {tag}", "gdsave", gdsave, ref_j[3])
+        for label, a, b in zip(("enc", "jac"), (enc, jac), ref_j[:2]):
+            errs["cp_jac_stacked_forward"].append(
+                compare(f"cp_jac_stacked_forward {tag} {label}", a, b))
+        # K12 from those residuals
+        de, dj = denc[:, :n].contiguous(), djac[:, :, :n].contiguous()
+        jac_bwd_args = (un, vsave_j, gdsave, de, dj, basis, rmax)
+        got = cps.cp_jac_basis_stacked_backward_launch(*jac_bwd_args)
+        torch.cuda.synchronize()
+        ref = cps.cp_jac_basis_stacked_backward_plain(*jac_bwd_args)
+        for label, a, b in zip(("d fine table", "d u", "d basis"), got, ref):
+            errs["cp_jac_stacked_backward"].append(
+                compare(f"cp_jac_stacked_backward {tag} {label}", a, b, rel=2.5e-2))
+
+    # timing at N_FULL; bounds from the bytes each function must move (inputs
+    # read once, outputs written once) and its operations: the interpolation
+    # and the products on the CUDA cores (f32), the projections through the
+    # basis blocks and the MLP as bf16-operand products
+    n = N_FULL
+    mlp_bytes = (e + w) * w * 2 + 2 * w * 4
+    mlp_macs = _mlp_macs([e, w, 16])
+    residual_bytes = n * (3 * sc * 2 + w * 2)
+    fwd_bytes = n * (12 + 16 * 4) + table * 2 + sc * f * 2 + mlp_bytes
+    timed = {
+        "cp_mlp_stacked_forward": (
+            lambda: cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, d_spec, train=True),
+            lambda: cp_mlp.cp_mlp_stacked_forward_plain(cp_params, d_layers, x, cp_spec, d_spec,
+                                                        save_residuals=True),
+            fwd_bytes + residual_bytes, n * 2 * (sc * f + mlp_macs), n * 2 * 3 * sc),
+        "cp_mlp_stacked_backward": (
+            lambda: cp_mlp.cp_mlp_stacked_backward_launch(*bwd_args),
+            lambda: cp_mlp.cp_mlp_stacked_backward_plain(*bwd_args),
+            (n * (12 + 3 * sc * 2 + w * 2 + 16 * 4) + sc * f * 2 + (e + w) * w * 2
+             + table * 4 + sc * f * 4 + (e + w) * w * 4 + 2 * w * 4),
+            n * 2 * (2 * sc * f + 2 * mlp_macs), n * sc * 8),
+        "cp_jac_stacked_forward": (
+            lambda: cps.cp_jac_basis_stacked_launch(lines, basis, u3, rmax, train=True),
+            lambda: cps.cp_jac_basis_stacked_plain(lines, basis, u3, rmax, save_residuals=True),
+            n * (12 + 16 * e + 12 * sc) + table * 2 + sc * f * 2, 0, n * sc * (23 + 8 * f)),
+        "cp_jac_stacked_backward": (
+            lambda: cps.cp_jac_basis_stacked_backward_launch(*jac_bwd_args),
+            lambda: cps.cp_jac_basis_stacked_backward_plain(*jac_bwd_args),
+            n * (12 + 12 * sc + 16 * e + 12) + table * 4 + sc * f * 2 + sc * f * 4,
+            0, n * sc * (40 + 16 * f)),
+    }
+    meta = {
+        "cp_mlp_stacked_forward": ("cp_mlp_fwd.cu", "instant_nsr_pl_tpu/ops/cp_mlp_pallas.py:531"),
+        "cp_mlp_stacked_backward": ("cp_mlp_bwd.cu",
+                                    "instant_nsr_pl_tpu/ops/cp_mlp_pallas.py:603"),
+        "cp_jac_stacked_forward": ("cp_jac_basis_fwd.cu",
+                                   "instant_nsr_pl_tpu/ops/cp_pallas.py:904"),
+        "cp_jac_stacked_backward": ("cp_jac_basis_bwd.cu",
+                                    "instant_nsr_pl_tpu/ops/cp_pallas.py:952"),
+    }
+    entries = []
+    for name, (kern, plain, n_bytes, bf16_ops, f32_ops) in timed.items():
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=5, inner=2)
+        bound_ms, bound_by = bound(n_bytes, bf16_ops, f32_ops)
+        entry = {
+            "name": name, "route": "cuda", "source": f"instant_nsr_pl_tpu_torch/csrc/{meta[name][0]}",
+            "replaces": meta[name][1], "launches": 0, "max_abs_err": max(errs[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "n": N_FULL,
+        }
+        if name == "cp_mlp_stacked_forward":
+            entry["ms_eval"] = time_ms(lambda: cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, d_spec))
+        elif name == "cp_jac_stacked_forward":
+            entry["ms_eval"] = time_ms(lambda: cps.cp_jac_basis_stacked_launch(lines, basis, u3, rmax))
+        extra = f", {entry['ms_eval']:.4f} ms eval" if "ms_eval" in entry else ""
+        print(f"[kernel] {name}: {ms:.4f} ms{extra} (plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by}) at N={n}", flush=True)
+        entries.append(entry)
     return entries
 
 
@@ -557,8 +745,9 @@ def render_phase(device):
     return launches, n_rays / view_s, n_rays / warm_s
 
 
-def train_phase(device, smi):
-    """The bench NeRF trained through NeRFSystem.train_step."""
+def train_phase(device, smi, config=BENCH_CONFIG, stacked=False):
+    """The bench NeRF (or, with ``stacked``, the stacked NeRF: K13/K14 for
+    K1/K2) trained through NeRFSystem.train_step for TRAIN_STEPS steps."""
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
     from instant_nsr_pl_tpu_torch.config import config_from_dict
@@ -567,7 +756,8 @@ def train_phase(device, smi):
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
     from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
 
-    cfg = config_from_dict(bench_config())
+    tag = "train-stacked" if stacked else "train"
+    cfg = config_from_dict(bench_config(config))
     dm = datasets.make(cfg.dataset.name, cfg.dataset)
     dm.setup("fit")
     system = systems.make(cfg.system.name, cfg)  # on CUDA by default
@@ -575,6 +765,8 @@ def train_phase(device, smi):
     val = dataset_device_arrays(dm.val, device)
     state = system.init_state(seed=SEED)
     model, params = system.model, state["params"]
+    ewn = model.geometry.encoding_with_network
+    assert ewn.fused and ewn.encoding.encoding.stack_scales == stacked
     n_rays = system.active_num_rays
     assert n_rays == int(cfg.model.max_train_num_rays), n_rays
     assert system.train_capacity == int(cfg.model.train_num_samples), system.train_capacity
@@ -585,7 +777,7 @@ def train_phase(device, smi):
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     occ0 = model.update_occupancy(params, state["occ"], gen, warmup=True)
     untrained = system.evaluate_image({"params": params, "occ": occ0}, 0, data=val)
-    print(f"[train] untrained val view: PSNR {untrained['psnr']:.3f} dB", flush=True)
+    print(f"[{tag}] untrained val view: PSNR {untrained['psnr']:.3f} dB", flush=True)
 
     # before the first step: the loss has a backward and every parameter
     # tensor gets a finite, non-zero gradient
@@ -600,12 +792,14 @@ def train_phase(device, smi):
         g = t.grad
         if g is None or not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
             raise AssertionError(f"parameter {key}: gradient missing, non-finite or zero")
-    print(f"[train] gradient check: loss {float(loss.detach()):.5f}, {len(named_leaves(params))} parameter "
-          "tensors with finite, non-zero gradients", flush=True)
+    print(f"[{tag}] gradient check: loss {float(loss.detach()):.5f}, {len(named_leaves(params))} "
+          "parameter tensors with finite, non-zero gradients", flush=True)
     state["optimizer"].zero_grad()
 
     # the main path: TRAIN_STEPS steps, launch counters read around each
-    counters = {"cp_mlp_forward": cp_mlp.cp_mlp_forward, "cp_mlp_backward": cp_mlp.cp_mlp_backward,
+    density = "cp_mlp_stacked" if stacked else "cp_mlp"
+    counters = {f"{density}_forward": getattr(cp_mlp, f"{density}_forward"),
+                f"{density}_backward": getattr(cp_mlp, f"{density}_backward"),
                 "sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward}
     for c in counters.values():
         c.launches = 0
@@ -623,8 +817,8 @@ def train_phase(device, smi):
         delta = {k: c.launches - before[k] for k, c in counters.items()}
         if min(delta.values()) < 1:
             raise AssertionError(f"step {i}: a kernel was not launched: {delta}")
-        if i % system.grid_update_every == 0 and delta["cp_mlp_forward"] < 2:
-            raise AssertionError(f"step {i}: the grid update did not run K1: {delta}")
+        if i % system.grid_update_every == 0 and delta[f"{density}_forward"] < 2:
+            raise AssertionError(f"step {i}: the grid update did not run {density}: {delta}")
         per_step.append(delta)
         losses.append(metrics["train/loss"])
         psnrs.append(metrics["train/psnr"])
@@ -639,13 +833,13 @@ def train_phase(device, smi):
     occupied = int(grid.binary.sum())
     warm_s = t_end - t_warm
     rays_per_s = 100 * n_rays / warm_s
-    print(f"[train] {TRAIN_STEPS} steps in {t_end - t0:.2f} s; launches {totals}; one step "
+    print(f"[{tag}] {TRAIN_STEPS} steps in {t_end - t0:.2f} s; launches {totals}; one step "
           f"{per_step[1]}, a grid-update step {per_step[16]}", flush=True)
     for i in sorted({0, 1, 15, 16, 50, 100, 200, TRAIN_STEPS - 1} & set(range(TRAIN_STEPS))):
-        print(f"[train] step {i}: loss {losses[i]:.5f} psnr {psnrs[i]:.3f}", flush=True)
+        print(f"[{tag}] step {i}: loss {losses[i]:.5f} psnr {psnrs[i]:.3f}", flush=True)
     first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
     p_first, p_last = float(np.mean(psnrs[:20])), float(np.mean(psnrs[-20:]))
-    print(f"[train] mean loss, first 20 steps {first:.5f}, last 20 {last:.5f}; mean training "
+    print(f"[{tag}] mean loss, first 20 steps {first:.5f}, last 20 {last:.5f}; mean training "
           f"PSNR {p_first:.3f} -> {p_last:.3f} dB; occupied cells {occupied_warm} after the "
           f"warmup update, {occupied} of {grid.binary.numel()} at the end", flush=True)
     assert np.isfinite(losses).all()
@@ -653,27 +847,28 @@ def train_phase(device, smi):
     assert p_last > p_first, "the training PSNR did not rise"
     assert 0 < occupied < occupied_warm, "the grid did not prune"
     trained = system.evaluate_image(state, 0, data=val)
-    print(f"[train] val view after {TRAIN_STEPS} steps: PSNR {trained['psnr']:.3f} dB, SSIM "
+    print(f"[{tag}] val view after {TRAIN_STEPS} steps: PSNR {trained['psnr']:.3f} dB, SSIM "
           f"{trained['ssim']:.4f} (untrained {untrained['psnr']:.3f} dB)", flush=True)
     assert trained["psnr"] >= untrained["psnr"] + 3.0, "training gained less than 3 dB"
     seen = system.evaluate_image(state, 0)
-    print(f"[train] train view 0 after {TRAIN_STEPS} steps: PSNR {seen['psnr']:.3f} dB, SSIM "
+    print(f"[{tag}] train view 0 after {TRAIN_STEPS} steps: PSNR {seen['psnr']:.3f} dB, SSIM "
           f"{seen['ssim']:.4f}", flush=True)
-    print(f"[train] warm: {rays_per_s:.0f} rays/s, {warm_s / 100 * 1e3:.2f} ms per step over the "
+    print(f"[{tag}] warm: {rays_per_s:.0f} rays/s, {warm_s / 100 * 1e3:.2f} ms per step over the "
           f"last 100 steps ({smi})", flush=True)
     return per_step[1], totals, rays_per_s, warm_s / 100
 
 
-def neus_system(device, grad_type="analytic", lambda_curvature=0.0):
-    """The bench NeuS (bench.py build_neus_system("cp")) on CUDA, set up on
-    the train split, and its val split's arrays."""
+def neus_system(device, grad_type="analytic", lambda_curvature=0.0, config=NEUS_CONFIG):
+    """The bench NeuS (bench.py build_neus_system("cp")), or the stacked one
+    with ``NEUS_STACKED_CONFIG``, on CUDA, set up on the train split, and its
+    val split's arrays."""
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
     from instant_nsr_pl_tpu_torch.config import config_from_dict
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
     from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
 
-    raw = bench_config(NEUS_CONFIG)
+    raw = bench_config(config)
     raw["model"]["geometry"]["grad_type"] = grad_type
     raw["system"]["loss"]["lambda_curvature"] = lambda_curvature
     cfg = config_from_dict(raw)
@@ -687,12 +882,15 @@ def neus_system(device, grad_type="analytic", lambda_curvature=0.0):
 
 def neus_counters():
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+    from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
     from instant_nsr_pl_tpu_torch.ops import sh_mlp
 
     return {"sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward,
             "cp_product_forward": cpp.cp_product, "cp_product_backward": cpp.cp_product_backward,
             "cp_jac_basis_forward": cpp.cp_product_jac_basis,
-            "cp_jac_basis_backward": cpp.cp_product_jac_basis_backward}
+            "cp_jac_basis_backward": cpp.cp_product_jac_basis_backward,
+            "cp_jac_stacked_forward": cps.cp_jac_basis_stacked,
+            "cp_jac_stacked_backward": cps.cp_jac_basis_stacked_backward}
 
 
 def _batch(system, gen):
@@ -719,21 +917,25 @@ def _grads(params, step, exempt=()):
     return len(named_leaves(params))
 
 
-def neus_train_phase(device, smi):
-    """The bench NeuS trained through NeuSSystem.train_step for NEUS_STEPS
-    steps (8,192 rays and 262,144 packed samples per step)."""
-    system, val = neus_system(device)
+def neus_train_phase(device, smi, config=NEUS_CONFIG, stacked=False):
+    """The bench NeuS (or, with ``stacked``, the stacked NeuS: K11/K12 for
+    K9/K10) trained through NeuSSystem.train_step for NEUS_STEPS steps
+    (8,192 rays and 262,144 packed samples per step)."""
+    tag = "neus-stacked" if stacked else "neus"
+    jac = "cp_jac_stacked" if stacked else "cp_jac_basis"
+    system, val = neus_system(device, config=config)
     state = system.init_state(seed=SEED)
     model, params = system.model, state["params"]
     geo = model.geometry
     assert geo.use_jac and geo.encoding.encoding.grad_mode == "fast" and model.texture.fused
+    assert geo.encoding.encoding.stack_scales == stacked
     assert system.train_capacity == N_FULL, system.train_capacity
 
     # the untrained model against the grid its first (warmup) update gives
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     occ0 = model.update_occupancy(params, state["occ"], gen, warmup=True)
     untrained = system.evaluate_image({"params": params, "occ": occ0}, 0, data=val)
-    print(f"[neus] untrained val view: PSNR {untrained['psnr']:.3f} dB", flush=True)
+    print(f"[{tag}] untrained val view: PSNR {untrained['psnr']:.3f} dB", flush=True)
 
     # before the first step: a backward, finite gradients everywhere, zero
     # only on the CP tables and bases (the sphere init's first layer is zero
@@ -744,7 +946,7 @@ def neus_train_phase(device, smi):
     loss.backward()
     n_leaves = _grads(params, 0, exempt=cp_keys)
     state["optimizer"].zero_grad()
-    print(f"[neus] gradient check before step 0: loss {float(loss.detach()):.5f}, {n_leaves} "
+    print(f"[{tag}] gradient check before step 0: loss {float(loss.detach()):.5f}, {n_leaves} "
           "parameter tensors finite, non-zero but the CP lines and bases (zero by the sphere "
           "init)", flush=True)
 
@@ -764,19 +966,18 @@ def neus_train_phase(device, smi):
         before = {k: c.launches for k, c in counters.items()}
         state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
-        for k in ("sh_mlp_forward", "sh_mlp_backward", "cp_jac_basis_forward",
-                  "cp_jac_basis_backward"):
+        for k in ("sh_mlp_forward", "sh_mlp_backward", f"{jac}_forward", f"{jac}_backward"):
             if delta[k] < 1:
-                raise AssertionError(f"neus step {i}: {k} was not launched: {delta}")
+                raise AssertionError(f"{tag} step {i}: {k} was not launched: {delta}")
         if i % system.grid_update_every == 0 and delta["cp_product_forward"] < 2:
-            raise AssertionError(f"neus step {i}: the grid update did not run K5: {delta}")
+            raise AssertionError(f"{tag} step {i}: the grid update did not run K5: {delta}")
         if i == 1:
             # after the first update the tables and bases get gradients too
             loss, _ = system.loss_fn(state["params"], state["occ"], _batch(system, gen), gen, i)
             loss.backward()
             _grads(state["params"], i)
             state["optimizer"].zero_grad()
-            print("[neus] gradient check after the first update: every parameter tensor "
+            print(f"[{tag}] gradient check after the first update: every parameter tensor "
                   "finite and non-zero", flush=True)
         per_step.append(delta)
         losses.append(metrics["train/loss"])
@@ -797,15 +998,15 @@ def neus_train_phase(device, smi):
     n_rays = system.active_num_rays
     warm_s = t_end - t_warm
     rays_per_s = n_warm * n_rays / warm_s
-    print(f"[neus] {NEUS_STEPS} steps in {t_end - t0:.2f} s; launches {totals}; one step "
+    print(f"[{tag}] {NEUS_STEPS} steps in {t_end - t0:.2f} s; launches {totals}; one step "
           f"{per_step[1]}, a grid-update step {per_step[16]}", flush=True)
     for i in sorted({0, 1, 15, 16, 50, 100, 200, 300, 500, NEUS_STEPS - 1}
                     & set(range(NEUS_STEPS))):
-        print(f"[neus] step {i}: loss {losses[i]:.5f} psnr {psnrs[i]:.3f} inv_s {inv_s[i]:.3f} "
+        print(f"[{tag}] step {i}: loss {losses[i]:.5f} psnr {psnrs[i]:.3f} inv_s {inv_s[i]:.3f} "
               f"live samples {live[i]} (capacity {system.train_capacity})", flush=True)
     first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
     p_first, p_last = float(np.mean(psnrs[:20])), float(np.mean(psnrs[-20:]))
-    print(f"[neus] mean loss, first 20 steps {first:.5f}, last 20 {last:.5f}; mean training "
+    print(f"[{tag}] mean loss, first 20 steps {first:.5f}, last 20 {last:.5f}; mean training "
           f"PSNR {p_first:.3f} -> {p_last:.3f} dB; inv_s {inv_s[0]:.3f} -> {inv_s[-1]:.3f}; "
           f"occupied cells {occupied_warm} after the warmup update, {occupied} of "
           f"{grid.binary.numel()} at the end", flush=True)
@@ -815,20 +1016,24 @@ def neus_train_phase(device, smi):
     assert inv_s[-1] > math.exp(3.0), "inv_s did not rise above its initial e^3"
     assert 0 < occupied < grid.binary.numel(), "the grid did not leave its all-occupied state"
     trained = system.evaluate_image(state, 0, data=val)
-    print(f"[neus] val view after {NEUS_STEPS} steps: PSNR {trained['psnr']:.3f} dB, SSIM "
+    print(f"[{tag}] val view after {NEUS_STEPS} steps: PSNR {trained['psnr']:.3f} dB, SSIM "
           f"{trained['ssim']:.4f} (untrained {untrained['psnr']:.3f} dB)", flush=True)
     assert trained["psnr"] >= untrained["psnr"] + 3.0, "training gained less than 3 dB"
-    print(f"[neus] warm: {rays_per_s:.0f} rays/s, {warm_s / n_warm * 1e3:.2f} ms per step over "
+    print(f"[{tag}] warm: {rays_per_s:.0f} rays/s, {warm_s / n_warm * 1e3:.2f} ms per step over "
           f"the last {n_warm} steps ({smi})", flush=True)
     return system, state, val, per_step[1], totals, rays_per_s
 
 
 def neus_render_phase(device, system, state, val, smi):
     """One 256x256 val view of the trained NeuS through evaluate_image (the
-    counters read around it: K9 in eval mode, K3), again warm through
-    render_image, and one composited 4,096-ray chunk from the kernels on the
-    card against the same chunk from the plain versions on the CPU."""
+    counters read around it: K9, or K11 for the stacked NeuS, in eval mode,
+    K3), again warm through render_image, and one composited 4,096-ray chunk
+    from the kernels on the card against the same chunk from the plain
+    versions on the CPU."""
     from instant_nsr_pl_tpu_torch.ops.ray import get_rays
+
+    stacked = system.model.geometry.encoding.encoding.stack_scales
+    tag = "neus-stacked-render" if stacked else "neus-render"
 
     counters = neus_counters()
     for c in counters.values():
@@ -842,21 +1047,25 @@ def neus_render_phase(device, system, state, val, smi):
     n_rays = system.w * system.h
     stats = system.last_render_stats
     imgs = res["images"]
-    print(f"[neus-render] val view: {view_s:.3f} s, {n_rays / view_s:.0f} rays/s (first view), "
+    print(f"[{tag}] val view: {view_s:.3f} s, {n_rays / view_s:.0f} rays/s (first view), "
           f"PSNR {res['psnr']:.3f} dB, {stats}, launches {launches}", flush=True)
     assert stats["rays_kept"] == n_rays, stats
     for k in ("comp_rgb", "comp_normal", "opacity", "depth"):
         assert np.isfinite(imgs[k]).all(), k
     chunks = -(-n_rays // system.eval_chunk_rays)
-    assert launches["cp_jac_basis_forward"] >= 2 * chunks, launches  # one per scale and chunk
+    if stacked:  # one per chunk
+        assert launches["cp_jac_stacked_forward"] >= chunks, launches
+    else:  # one per scale and chunk
+        assert launches["cp_jac_basis_forward"] >= 2 * chunks, launches
     assert launches["sh_mlp_forward"] >= chunks, launches
-    assert launches["cp_jac_basis_backward"] == 0 and launches["sh_mlp_backward"] == 0, launches
+    assert launches["cp_jac_basis_backward"] == launches["cp_jac_stacked_backward"] == 0, launches
+    assert launches["sh_mlp_backward"] == 0, launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     system.render_image(state, 0, data=val)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    print(f"[neus-render] val view again: {warm_s:.3f} s, {n_rays / warm_s:.0f} rays/s ({smi})",
+    print(f"[{tag}] val view again: {warm_s:.3f} s, {n_rays / warm_s:.0f} rays/s ({smi})",
           flush=True)
 
     # one 4,096-ray chunk (the image's middle rows): kernels on the card,
@@ -879,7 +1088,7 @@ def neus_render_phase(device, system, state, val, smi):
     for k in ("comp_rgb", "comp_rgb_full", "comp_normal"):
         errs[k] = float((cuda[k].cpu() - cpu[k]).abs().max())
         tol = 2e-2 * float(cpu[k].abs().max())
-        print(f"[neus-render] middle chunk: {live} live samples, max|d {k}| kernels vs plain = "
+        print(f"[{tag}] middle chunk: {live} live samples, max|d {k}| kernels vs plain = "
               f"{errs[k]:.3e} (limit {tol:.3e})", flush=True)
         if not errs[k] <= tol:
             raise AssertionError(f"composited chunk {k}: kernels and plain versions disagree")
@@ -956,13 +1165,17 @@ def main():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[build] {stem}: {line.strip()}", flush=True)
 
-    entries = kernel_phase(device) + cp_kernel_phase(device)
+    entries = kernel_phase(device) + cp_kernel_phase(device) + stacked_kernel_phase(device)
     render_launches, rays_per_s, warm_rays_per_s = render_phase(device)
     print(f"[render] rays/s: {rays_per_s:.0f} first view, {warm_rays_per_s:.0f} warm ({smi})",
           flush=True)
     step_launches, run_launches, train_rays_per_s, s_per_step = train_phase(device, smi)
     print(f"[train] rays/s: {train_rays_per_s:.0f} warm, {s_per_step:.4f} s per step ({smi})",
           flush=True)
+    st_step, st_run, st_rays_per_s, st_s_per_step = train_phase(device, smi, NERF_STACKED_CONFIG,
+                                                                stacked=True)
+    print(f"[train-stacked] rays/s: {st_rays_per_s:.0f} warm, {st_s_per_step:.4f} s per step "
+          f"({smi})", flush=True)
     system, state, val, neus_step, neus_run, neus_rays_per_s = neus_train_phase(device, smi)
     neus_view, neus_view_first, neus_view_warm = neus_render_phase(device, system, state, val, smi)
     del system, state, val
@@ -970,21 +1183,33 @@ def main():
     fd_step, fd_run = neus_fd_phase(device)
     print(f"[neus] rays/s: {neus_rays_per_s:.0f} warm training; view {neus_view_first:.0f} first, "
           f"{neus_view_warm:.0f} warm ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    system, state, val, ns_step, ns_run, ns_rays_per_s = neus_train_phase(
+        device, smi, NEUS_STACKED_CONFIG, stacked=True)
+    ns_view, ns_view_first, ns_view_warm = neus_render_phase(device, system, state, val, smi)
+    del system, state, val
+    print(f"[neus-stacked] rays/s: {ns_rays_per_s:.0f} warm training; view {ns_view_first:.0f} "
+          f"first, {ns_view_warm:.0f} warm ({smi})", flush=True)
     # launches: counted in the run of the path that runs the kernel (the NeRF
-    # training run for K1/K2, the NeuS training run for K3-K5/K9/K10, the
-    # finite-difference run for K6), with the per-step counts of each path
+    # training runs for K1/K2 and K13/K14, the NeuS training runs for
+    # K3-K5/K9/K10 and K11/K12, the finite-difference run for K6), with the
+    # per-step counts of each path
+    paths = {"nerf_train": (step_launches, run_launches), "nerf_stacked_train": (st_step, st_run),
+             "neus_train": (neus_step, neus_run), "neus_fd": (fd_step, fd_run),
+             "neus_stacked_train": (ns_step, ns_run)}
+    views = {"nerf_view": render_launches, "neus_view": neus_view, "neus_stacked_view": ns_view}
     for e in entries:
         name = e["name"]
-        paths = {"nerf_train": (step_launches, run_launches), "neus_train": (neus_step, neus_run),
-                 "neus_fd": (fd_step, fd_run)}
         for path, (per_step, run) in paths.items():
             if name in run:
                 e[f"launches_{path}_step"] = per_step[name]
                 e[f"launches_{path}_run"] = run[name]
-        for path, view in (("nerf_view", render_launches), ("neus_view", neus_view)):
+        for path, view in views.items():
             if name in view:
                 e[f"launches_{path}"] = view[name]
-        main_path = ("nerf_train" if name.startswith("cp_mlp")
+        main_path = ("nerf_stacked_train" if name.startswith("cp_mlp_stacked")
+                     else "nerf_train" if name.startswith("cp_mlp")
+                     else "neus_stacked_train" if name.startswith("cp_jac_stacked")
                      else "neus_fd" if name == "cp_product_backward" else "neus_train")
         e["launches"] = e[f"launches_{main_path}_run"]
         e["launches_path"] = main_path

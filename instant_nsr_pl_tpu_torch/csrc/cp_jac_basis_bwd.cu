@@ -39,23 +39,36 @@
 // of shared memory at C = 64, F = 16), CUDA-core tile reductions and 6 x C / 4
 // vector atomics per sample.
 //
+// Stacked scales (K12): the kernel is written for S scales sharing one (3, R,
+// S*C) table, with an (S, C, F) basis, cotangents d enc (S*F, N) and d jac
+// (3, S*F, N), residuals (3, S*C, N), and outputs d lines (3, R, S*C), d u
+// (3, N) and d B (S, C, F). K10 is its S = 1 instantiation. With S = 2 it
+// replaces cp_pallas.py _cp_jacs_bwd -> _jacs_bwd_kernel (pallas_call at :952):
+// one tent per axis at R_max; per tile the scales are staged and reduced one
+// after the other into their own (C, F) block of d B (the diagonal blocks of
+// the TPU's (E, S*C) d B^T); d u sums over all S*C components; each sample
+// scatters two S*C-wide rows per axis into the one fine gradient table, which
+// ops/cp_stacked.py maps back to each coarse scale (U^T d fine). At S*C = 128,
+// F = 16 the function moves 2,072 B per sample (0.16 ms at 3.35 TB/s for
+// 262,144 samples); shared memory is 184 KB per block.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
 #include "cp_common.cuh"
 
 namespace insr {
 
-template <int C, int F>
+template <int C, int F, int S>
 struct JacBwdSmem {
   static constexpr int LDA = C + 1;  // staged bf16 C-rows (odd stride)
   static constexpr int LDG = F + 1;  // staged bf16 F-rows (odd stride)
   static constexpr int ROWS = 4 * kBwdTile;
-  // basis (C, F), d B accumulator (C, F), the C-rows, the F-rows
-  static constexpr int FLOATS = 2 * C * F + ROWS * (LDA + LDG);
+  // basis (S, C, F), d B accumulator (S, C, F), one scale's C-rows and F-rows
+  static constexpr int FLOATS = 2 * S * C * F + ROWS * (LDA + LDG);
   static_assert(LDA % 2 == 1 && LDG % 2 == 1, "odd strides");
 };
 
-template <int C, int F>
+template <int C, int F, int S>
 __global__ void __launch_bounds__(kBwdTile)
     cp_jac_basis_bwd_kernel(const float* __restrict__ u3, long long n, int r,
                             const __nv_bfloat16* __restrict__ vsave,
@@ -64,140 +77,146 @@ __global__ void __launch_bounds__(kBwdTile)
                             const __nv_bfloat16* __restrict__ basis,
                             float* __restrict__ dlines, float* __restrict__ du,
                             float* __restrict__ dbasis) {
-  using L = JacBwdSmem<C, F>;
+  using L = JacBwdSmem<C, F, S>;
+  constexpr int LD = S * C;  // row stride of the tables and residual rows
   static_assert(C % 4 == 0 && F % 4 == 0 && kBwdTile % F == 0, "layout");
   extern __shared__ float4 smem4[];
-  float* b_s = reinterpret_cast<float*>(smem4);  // (C, F)
-  float* acc = b_s + C * F;                       // (C, F)
-  float* a_s = acc + C * F;                       // (ROWS, LDA)
+  float* b_s = reinterpret_cast<float*>(smem4);  // (S, C, F)
+  float* acc = b_s + S * C * F;                   // (S, C, F)
+  float* a_s = acc + S * C * F;                   // (ROWS, LDA)
   float* g_s = a_s + L::ROWS * L::LDA;            // (ROWS, LDG)
-  load_bf16_to_shared(basis, C * F, b_s);
-  for (int k = threadIdx.x; k < C * F; k += blockDim.x) acc[k] = 0.0f;
+  load_bf16_to_shared(basis, S * C * F, b_s);
+  for (int k = threadIdx.x; k < S * C * F; k += blockDim.x) acc[k] = 0.0f;
 
   const long long ntiles = (n + kBwdTile - 1) / kBwdTile;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long idx = tile * kBwdTile + threadIdx.x;
     const bool active = idx < n;
     const long long i = active ? idx : n - 1;  // a valid address for idle lanes
-    __syncthreads();  // the basis is loaded; the previous reduction is done
 
     Tent t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) t[a] = tent(u3[a * n + i], r);
-    // this sample's bf16 cotangents, staged as its four F-rows
-    float de[F], dj[3][F];
+    float acc_u[3] = {0.0f, 0.0f, 0.0f};
+    // one scale (output block) at a time: components s*C .. s*C+C-1
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) {
+      __syncthreads();  // the basis is loaded; the previous reduction is done
+      // this sample's bf16 cotangents of the block, staged as its four F-rows
+      float de[F], dj[3][F];
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      de[f] = active ? bf16_round(denc[static_cast<long long>(f) * n + i]) : 0.0f;
+      for (int f = 0; f < F; ++f) {
+        const long long row = s * F + f;
+        de[f] = active ? bf16_round(denc[row * n + i]) : 0.0f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          dj[a][f] = active ? bf16_round(djac[(a * S * F + row) * n + i]) : 0.0f;
+        }
+      }
+      float* grow[4];
+      float* arow[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        grow[k] = g_s + (k * kBwdTile + threadIdx.x) * L::LDG;
+        arow[k] = a_s + (k * kBwdTile + threadIdx.x) * L::LDA;
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        grow[0][f] = de[f];
+        grow[1][f] = dj[0][f];
+        grow[2][f] = dj[1][f];
+        grow[3][f] = dj[2][f];
+      }
+
+      float* drow0[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        dj[a][f] = active ? bf16_round(djac[static_cast<long long>(a * F + f) * n + i]) : 0.0f;
+        drow0[a] = dlines + (static_cast<long long>(a) * r + t[a].i0) * LD + s * C;
       }
-    }
-    float* grow[4];
-    float* arow[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      grow[k] = g_s + (k * kBwdTile + threadIdx.x) * L::LDG;
-      arow[k] = a_s + (k * kBwdTile + threadIdx.x) * L::LDA;
-    }
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      grow[0][f] = de[f];
-      grow[1][f] = dj[0][f];
-      grow[2][f] = dj[1][f];
-      grow[3][f] = dj[2][f];
-    }
-
-    float* drow0[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      drow0[a] = dlines + (static_cast<long long>(a) * r + t[a].i0) * C;
-    }
-    float acc_u[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll 1
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      float dvr[3][4], dgr[3][4];
+      for (int c4 = 0; c4 < C / 4; ++c4) {
+        float dvr[3][4], dgr[3][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = 4 * c4 + q;
-        float v[3], gd[3];
+        for (int q = 0; q < 4; ++q) {
+          const int c = 4 * c4 + q;  // component within the block
+          float v[3], gd[3];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const long long off = (static_cast<long long>(a) * C + c) * n + i;
-          v[a] = __bfloat162float(vsave[off]);
-          gd[a] = __bfloat162float(gdsave[off]);
-        }
-        const float other[3] = {v[1] * v[2], v[0] * v[2], v[0] * v[1]};
-        const float prod = v[0] * other[0];
-        float jpre[3];
+          for (int a = 0; a < 3; ++a) {
+            const long long off = (static_cast<long long>(a) * LD + s * C + c) * n + i;
+            v[a] = __bfloat162float(vsave[off]);
+            gd[a] = __bfloat162float(gdsave[off]);
+          }
+          const float other[3] = {v[1] * v[2], v[0] * v[2], v[0] * v[1]};
+          const float prod = v[0] * other[0];
+          float jpre[3];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) jpre[a] = (gd[a] * t[a].s) * other[a];
-        arow[0][c] = active ? bf16_round(prod) : 0.0f;
+          for (int a = 0; a < 3; ++a) jpre[a] = (gd[a] * t[a].s) * other[a];
+          arow[0][c] = active ? bf16_round(prod) : 0.0f;
 #pragma unroll
-        for (int a = 0; a < 3; ++a) arow[a + 1][c] = active ? bf16_round(jpre[a]) : 0.0f;
+          for (int a = 0; a < 3; ++a) arow[a + 1][c] = active ? bf16_round(jpre[a]) : 0.0f;
 
-        // dP = B bf16(d enc), dJ_a = B bf16(d jac_a): row c of B
-        float dp = 0.0f, dJ[3] = {0.0f, 0.0f, 0.0f};
-        const float4* brow = reinterpret_cast<const float4*>(b_s + c * F);
+          // dP = B bf16(d enc), dJ_a = B bf16(d jac_a): row c of the block's B
+          float dp = 0.0f, dJ[3] = {0.0f, 0.0f, 0.0f};
+          const float4* brow = reinterpret_cast<const float4*>(b_s + (s * C + c) * F);
 #pragma unroll
-        for (int f4 = 0; f4 < F / 4; ++f4) {
-          const float4 bv = brow[f4];
-          const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+          for (int f4 = 0; f4 < F / 4; ++f4) {
+            const float4 bv = brow[f4];
+            const float b[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int f = 4 * f4 + k;
-            dp = fmaf(b[k], de[f], dp);
+            for (int k = 0; k < 4; ++k) {
+              const int f = 4 * f4 + k;
+              dp = fmaf(b[k], de[f], dp);
 #pragma unroll
-            for (int a = 0; a < 3; ++a) dJ[a] = fmaf(b[k], dj[a][f], dJ[a]);
+              for (int a = 0; a < 3; ++a) dJ[a] = fmaf(b[k], dj[a][f], dJ[a]);
+            }
+          }
+          float gs[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) gs[a] = (dJ[a] * gd[a]) * t[a].s;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const int b1 = a == 0 ? 1 : 0;
+            const int b2 = a == 2 ? 1 : 2;
+            const float d_v = (dp * other[a] + gs[b1] * v[b2]) + gs[b2] * v[b1];
+            const float d_gd = (dJ[a] * t[a].s) * other[a];
+            acc_u[a] = acc_u[a] + d_v * gd[a];
+            dvr[a][q] = bf16_round(d_v);
+            dgr[a][q] = bf16_round(d_gd);
           }
         }
-        float gs[3];
+        if (active) {
 #pragma unroll
-        for (int a = 0; a < 3; ++a) gs[a] = (dJ[a] * gd[a]) * t[a].s;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const int b1 = a == 0 ? 1 : 0;
-          const int b2 = a == 2 ? 1 : 2;
-          const float d_v = (dp * other[a] + gs[b1] * v[b2]) + gs[b2] * v[b1];
-          const float d_gd = (dJ[a] * t[a].s) * other[a];
-          acc_u[a] = acc_u[a] + d_v * gd[a];
-          dvr[a][q] = bf16_round(d_v);
-          dgr[a][q] = bf16_round(d_gd);
+          for (int a = 0; a < 3; ++a) {
+            float* dst = drow0[a] + 4 * c4;
+            const float w0 = t[a].w0, w1 = t[a].w1;
+            atomic_add4(dst, w0 * dvr[a][0] - dgr[a][0], w0 * dvr[a][1] - dgr[a][1],
+                        w0 * dvr[a][2] - dgr[a][2], w0 * dvr[a][3] - dgr[a][3]);
+            atomic_add4(dst + LD, w1 * dvr[a][0] + dgr[a][0], w1 * dvr[a][1] + dgr[a][1],
+                        w1 * dvr[a][2] + dgr[a][2], w1 * dvr[a][3] + dgr[a][3]);
+          }
         }
       }
-      if (active) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          float* dst = drow0[a] + 4 * c4;
-          const float w0 = t[a].w0, w1 = t[a].w1;
-          atomic_add4(dst, w0 * dvr[a][0] - dgr[a][0], w0 * dvr[a][1] - dgr[a][1],
-                      w0 * dvr[a][2] - dgr[a][2], w0 * dvr[a][3] - dgr[a][3]);
-          atomic_add4(dst + C, w1 * dvr[a][0] + dgr[a][0], w1 * dvr[a][1] + dgr[a][1],
-                      w1 * dvr[a][2] + dgr[a][2], w1 * dvr[a][3] + dgr[a][3]);
-        }
-      }
+
+      // d B of the block over the tile: 4 x kBwdTile staged (C-row, F-row) pairs
+      __syncthreads();
+      reduce_tile<C, F, L::LDA, L::LDG, L::ROWS>(a_s, g_s, acc + s * C * F, nullptr);
     }
     if (active) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) du[a * n + i] = acc_u[a] * t[a].s;
     }
-
-    // d B over the tile: 4 x kBwdTile staged (C-row, F-row) pairs
-    __syncthreads();
-    reduce_tile<C, F, L::LDA, L::LDG, L::ROWS>(a_s, g_s, acc, nullptr);
   }
   __syncthreads();
-  flush_acc(acc, C * F, dbasis);
+  flush_acc(acc, S * C * F, dbasis);
 }
 
-template <int C, int F>
+template <int C, int F, int S>
 int launch_jac_basis_bwd(const float* u3, long long n, int r, const void* vsave,
                          const void* gdsave, const float* denc, const float* djac,
                          const void* basis, float* dlines, float* du, float* dbasis,
                          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * JacBwdSmem<C, F>::FLOATS;
-  return launch_tiles(cp_jac_basis_bwd_kernel<C, F>, n, smem, stream, u3, n, r,
+  const size_t smem = sizeof(float) * JacBwdSmem<C, F, S>::FLOATS;
+  return launch_tiles(cp_jac_basis_bwd_kernel<C, F, S>, n, smem, stream, u3, n, r,
                       static_cast<const __nv_bfloat16*>(vsave),
                       static_cast<const __nv_bfloat16*>(gdsave), denc, djac,
                       static_cast<const __nv_bfloat16*>(basis), dlines, du, dbasis);
@@ -216,10 +235,29 @@ extern "C" int cp_jac_basis_bwd(const float* u3, long long n, int r, int c, int 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define INSR_JACB_BWD_CASE(C_, F_)                                                  \
   if (c == C_ && f == F_)                                                           \
-    return insr::launch_jac_basis_bwd<C_, F_>(u3, n, r, vsave, gdsave, denc, djac,  \
-                                              basis, dlines, du, dbasis, st);
+    return insr::launch_jac_basis_bwd<C_, F_, 1>(u3, n, r, vsave, gdsave, denc, djac, \
+                                                 basis, dlines, du, dbasis, st);
   INSR_JACB_BWD_CASE(64, 16)  // the bench NeuS SDF encoding
   INSR_JACB_BWD_CASE(16, 8)   // the small test model
 #undef INSR_JACB_BWD_CASE
+  return -1;
+}
+
+// K12, the stacked-scales backward: r = R_max; dlines is the (3, R_max, S*C)
+// f32 fine gradient table and dbasis the (S, C, F) diagonal blocks, both zeroed
+// by the caller; the other operands as cp_jac_stacked_fwd writes and reads them.
+extern "C" int cp_jac_stacked_bwd(const float* u3, long long n, int r, int c, int f,
+                                  int n_scales, const void* vsave, const void* gdsave,
+                                  const float* denc, const float* djac, const void* basis,
+                                  float* dlines, float* du, float* dbasis, void* stream) {
+  if (r < 2) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_JACS_BWD_CASE(C_, F_, S_)                                               \
+  if (c == C_ && f == F_ && n_scales == S_)                                          \
+    return insr::launch_jac_basis_bwd<C_, F_, S_>(u3, n, r, vsave, gdsave, denc, djac, \
+                                                  basis, dlines, du, dbasis, st);
+  INSR_JACS_BWD_CASE(64, 16, 2)  // the bench NeuS SDF encoding, cp_stacked
+  INSR_JACS_BWD_CASE(16, 8, 2)   // the small test model
+#undef INSR_JACS_BWD_CASE
   return -1;
 }

@@ -30,6 +30,19 @@
 // sums in registers and reads B from shared memory as warp-wide broadcasts;
 // stores are coalesced in the (F, N) and (C, N) layouts.
 //
+// Stacked scales (K11): the kernel is written for S scales that share one
+// (3, R, S*C) bf16 table (row r holds every scale's C components side by
+// side) and an (S, C, F) basis, with outputs enc (S*F, N), jac (3, S*F, N) and
+// residuals (3, S*C, N). K9 is its S = 1 instantiation, launched once per
+// scale. With S = 2 it replaces cp_pallas.py cp_jac_basis_stacked ->
+// _cp_jacs_fwd_impl -> _jacs_fwd_kernel (pallas_call at :904): all scales
+// upsampled onto the finest grid (ops/cp_stacked.py), one tent per axis at
+// R_max, and the TPU's (E, S*C) block-diagonal projection computed as its S
+// diagonal blocks: output block s sums components s*C .. s*C+C-1 only. The
+// scales run one after the other, so the 4 x F projection sums stay in
+// registers as in K9. Per sample the stacked kernel moves 12 B in, 512 B of enc
+// and jac out and, training, 1,536 B of residuals (S*C = 128, F = 16).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
 #include "cp_common.cuh"
@@ -38,7 +51,7 @@ namespace insr {
 
 constexpr int kJacBlock = 128;
 
-template <int C, int F>
+template <int C, int F, int S>
 __global__ void __launch_bounds__(kJacBlock)
     cp_jac_basis_fwd_kernel(const float* __restrict__ u3, long long n,
                             const __nv_bfloat16* __restrict__ lines, int r,
@@ -47,9 +60,10 @@ __global__ void __launch_bounds__(kJacBlock)
                             __nv_bfloat16* __restrict__ vsave,
                             __nv_bfloat16* __restrict__ gdsave) {
   static_assert(C % 8 == 0 && F % 4 == 0, "layout");
+  constexpr int LD = S * C;  // row stride of the line table
   extern __shared__ float4 smem4[];
-  float* b_s = reinterpret_cast<float*>(smem4);  // (C, F)
-  load_bf16_to_shared(basis, C * F, b_s);
+  float* b_s = reinterpret_cast<float*>(smem4);  // (S, C, F)
+  load_bf16_to_shared(basis, S * C * F, b_s);
   __syncthreads();
 
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -61,71 +75,77 @@ __global__ void __launch_bounds__(kJacBlock)
     for (int a = 0; a < 3; ++a) {
       t[a] = tent(u3[a * n + i], r);
       row0[a] = reinterpret_cast<const uint4*>(
-          lines + (static_cast<long long>(a) * r + t[a].i0) * C);
+          lines + (static_cast<long long>(a) * r + t[a].i0) * LD);
     }
-    float e[F], j0[F], j1[F], j2[F];
+    // one scale (output block) at a time: components s*C .. s*C+C-1
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) {
+      float e[F], j0[F], j1[F], j2[F];
 #pragma unroll
-    for (int f = 0; f < F; ++f) e[f] = j0[f] = j1[f] = j2[f] = 0.0f;
+      for (int f = 0; f < F; ++f) e[f] = j0[f] = j1[f] = j2[f] = 0.0f;
 
 #pragma unroll 1
-    for (int c8 = 0; c8 < C / 8; ++c8) {
-      uint4 q0[3], q1[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        q0[a] = __ldg(row0[a] + c8);
-        q1[a] = __ldg(row0[a] + C / 8 + c8);
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int c = c8 * 8 + k;
-        float v[3], g[3];
+      for (int c8 = 0; c8 < C / 8; ++c8) {
+        uint4 q0[3], q1[3];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-          const float lo = bf16_at(q0[a], k), hi = bf16_at(q1[a], k);
-          v[a] = fmaf(t[a].w1, hi, t[a].w0 * lo);
-          const float gd = hi - lo;
-          g[a] = gd * t[a].s;
-          if (vsave != nullptr) {
-            const long long off = (static_cast<long long>(a) * C + c) * n + i;
-            vsave[off] = __float2bfloat16_rn(v[a]);
-            gdsave[off] = __float2bfloat16_rn(gd);
-          }
+          q0[a] = __ldg(row0[a] + s * (C / 8) + c8);
+          q1[a] = __ldg(row0[a] + LD / 8 + s * (C / 8) + c8);
         }
-        const float pr = bf16_round((v[0] * v[1]) * v[2]);
-        const float p0 = bf16_round(g[0] * (v[1] * v[2]));
-        const float p1 = bf16_round(g[1] * (v[0] * v[2]));
-        const float p2 = bf16_round(g[2] * (v[0] * v[1]));
-        const float4* brow = reinterpret_cast<const float4*>(b_s + c * F);
 #pragma unroll
-        for (int f4 = 0; f4 < F / 4; ++f4) {
-          const float4 bv = brow[f4];
-          const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+        for (int k = 0; k < 8; ++k) {
+          const int c = s * C + c8 * 8 + k;  // stacked component
+          float v[3], g[3];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int f = 4 * f4 + q;
-            e[f] = fmaf(b[q], pr, e[f]);
-            j0[f] = fmaf(b[q], p0, j0[f]);
-            j1[f] = fmaf(b[q], p1, j1[f]);
-            j2[f] = fmaf(b[q], p2, j2[f]);
+          for (int a = 0; a < 3; ++a) {
+            const float lo = bf16_at(q0[a], k), hi = bf16_at(q1[a], k);
+            v[a] = fmaf(t[a].w1, hi, t[a].w0 * lo);
+            const float gd = hi - lo;
+            g[a] = gd * t[a].s;
+            if (vsave != nullptr) {
+              const long long off = (static_cast<long long>(a) * LD + c) * n + i;
+              vsave[off] = __float2bfloat16_rn(v[a]);
+              gdsave[off] = __float2bfloat16_rn(gd);
+            }
+          }
+          const float pr = bf16_round((v[0] * v[1]) * v[2]);
+          const float p0 = bf16_round(g[0] * (v[1] * v[2]));
+          const float p1 = bf16_round(g[1] * (v[0] * v[2]));
+          const float p2 = bf16_round(g[2] * (v[0] * v[1]));
+          const float4* brow = reinterpret_cast<const float4*>(b_s + c * F);
+#pragma unroll
+          for (int f4 = 0; f4 < F / 4; ++f4) {
+            const float4 bv = brow[f4];
+            const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int f = 4 * f4 + q;
+              e[f] = fmaf(b[q], pr, e[f]);
+              j0[f] = fmaf(b[q], p0, j0[f]);
+              j1[f] = fmaf(b[q], p1, j1[f]);
+              j2[f] = fmaf(b[q], p2, j2[f]);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      enc[static_cast<long long>(f) * n + i] = e[f];
-      jac[static_cast<long long>(f) * n + i] = j0[f];
-      jac[static_cast<long long>(F + f) * n + i] = j1[f];
-      jac[static_cast<long long>(2 * F + f) * n + i] = j2[f];
+      for (int f = 0; f < F; ++f) {
+        const long long row = s * F + f;  // output row of this scale's block
+        enc[row * n + i] = e[f];
+        jac[row * n + i] = j0[f];
+        jac[(S * F + row) * n + i] = j1[f];
+        jac[(2 * S * F + row) * n + i] = j2[f];
+      }
     }
   }
 }
 
-template <int C, int F>
+template <int C, int F, int S>
 int launch_jac_basis(const float* u3, long long n, const void* lines, int r,
                      const void* basis, float* enc, float* jac, void* vsave, void* gdsave,
                      cudaStream_t stream) {
-  return launch(cp_jac_basis_fwd_kernel<C, F>, n, kJacBlock, sizeof(float) * C * F, stream,
+  return launch(cp_jac_basis_fwd_kernel<C, F, S>, n, kJacBlock, sizeof(float) * S * C * F,
+                stream,
                 u3, n, static_cast<const __nv_bfloat16*>(lines), r,
                 static_cast<const __nv_bfloat16*>(basis), enc, jac,
                 static_cast<__nv_bfloat16*>(vsave), static_cast<__nv_bfloat16*>(gdsave));
@@ -143,10 +163,28 @@ extern "C" int cp_jac_basis_fwd(const float* u3, long long n, const void* lines,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define INSR_JACB_CASE(C_, F_)                                                   \
   if (c == C_ && f == F_)                                                        \
-    return insr::launch_jac_basis<C_, F_>(u3, n, lines, r, basis, enc, jac, vsave, \
-                                          gdsave, st);
+    return insr::launch_jac_basis<C_, F_, 1>(u3, n, lines, r, basis, enc, jac, vsave, \
+                                             gdsave, st);
   INSR_JACB_CASE(64, 16)  // the bench NeuS SDF encoding
   INSR_JACB_CASE(16, 8)   // the small test model
 #undef INSR_JACB_CASE
+  return -1;
+}
+
+// K11, the stacked-scales forward: `lines` is the (3, R_max, S*C) bf16 fine
+// table, r = R_max, `basis` the (S, C, F) bf16 diagonal blocks; outputs enc
+// (S*F, N), jac (3, S*F, N) and, training, the (3, S*C, N) bf16 residuals.
+extern "C" int cp_jac_stacked_fwd(const float* u3, long long n, const void* lines, int r,
+                                  int c, int f, int n_scales, const void* basis, float* enc,
+                                  float* jac, void* vsave, void* gdsave, void* stream) {
+  if (r < 2) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_JACS_CASE(C_, F_, S_)                                                  \
+  if (c == C_ && f == F_ && n_scales == S_)                                         \
+    return insr::launch_jac_basis<C_, F_, S_>(u3, n, lines, r, basis, enc, jac, vsave, \
+                                              gdsave, st);
+  INSR_JACS_CASE(64, 16, 2)  // the bench NeuS SDF encoding, cp_stacked
+  INSR_JACS_CASE(16, 8, 2)   // the small test model
+#undef INSR_JACS_CASE
   return -1;
 }

@@ -42,6 +42,17 @@
 // -> f32 products, the mma.sync contract) and a shared-memory pre-reduction of
 // the coarse tables are the next steps.
 //
+// Stacked scales (K14): the same kernel, instantiated with STACKED = true,
+// replaces cp_mlp_pallas.py _cp_mlp_stacked_bwd -> _bwd_kernel_stacked
+// (pallas_call at :603). The line-table gradient goes to the one (3, R_max,
+// S*C) f32 fine table: one tent per axis at R_max, and each sample adds its two
+// S*C-wide rows per axis (the TPU's dense bf16(d_v) x tent^T product over the
+// stacked components). d basis stays the (S, C, F) diagonal blocks of the TPU's
+// (E, S*C) block-diagonal gradient. ops/cp_stacked.py maps the fine gradient
+// back to each coarse scale (d coarse = U^T d fine, outside the kernel, as the
+// JAX package does). For the coarse scale this replaces K2's 128-row table,
+// on which every sample's atomics land, with the 2049-row fine grid.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (explicit
 // fmaf only).
 
@@ -51,8 +62,11 @@ namespace insr {
 
 constexpr int kMaxGradScales = 4;
 
+// Per scale: the gradient table's row 0 at the scale's component 0, and the
+// resolution; per-scale tables are (3, R_s, C) f32, STACKED ones a single
+// (3, R_max, S*C) f32 table with ptr[s] at its column s*C.
 struct GradTables {
-  float* ptr[kMaxGradScales];  // per scale: (3, R_s, C) f32
+  float* ptr[kMaxGradScales];
   int res[kMaxGradScales];
 };
 
@@ -66,7 +80,7 @@ struct CpBwdSmem {
       ROWS * W + S * C * F + TS::FLOATS + ROWS * W + (NH + 1) * W + S * C * F;
 };
 
-template <int C, int F, int S, int W, int NH, int D>
+template <int C, int F, int S, int W, int NH, int D, bool STACKED>
 __global__ void __launch_bounds__(kBwdTile)
     cp_mlp_bwd_kernel(const float* __restrict__ x, long long n,
                       const __nv_bfloat16* __restrict__ vsave,
@@ -80,6 +94,7 @@ __global__ void __launch_bounds__(kBwdTile)
   constexpr int E = L::E;
   constexpr int ROWS = L::ROWS;
   using TS = typename L::TS;
+  constexpr int LD = STACKED ? S * C : C;  // row stride of a gradient table
   static_assert(C % 4 == 0 && F % 4 == 0 && W % 4 == 0 && D <= W, "layout");
   static_assert(C < TS::LDA && F < TS::LDG, "the dbasis tile fits the stage");
 
@@ -161,17 +176,22 @@ __global__ void __launch_bounds__(kBwdTile)
     // line tables: scatter the two tent-weighted rows per scale and axis
     if (active) {
       const float u[3] = {x[3 * i], x[3 * i + 1], x[3 * i + 2]};
+      Tent t[3];
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int r = dlines.res[s];
+        // stacked scales share the fine grid: one tent per axis for all of them
+        if (!STACKED || s == 0) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) t[a] = tent(u[a], r);
+        }
         float* row0[3];
         float w0[3], w1[3];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-          const Tent t = tent(u[a], r);
-          w0[a] = t.w0;
-          w1[a] = t.w1;
-          row0[a] = dlines.ptr[s] + (static_cast<long long>(a) * r + t.i0) * C;
+          w0[a] = t[a].w0;
+          w1[a] = t[a].w1;
+          row0[a] = dlines.ptr[s] + (static_cast<long long>(a) * r + t[a].i0) * LD;
         }
 #pragma unroll 2
         for (int c4 = 0; c4 < C / 4; ++c4) {
@@ -207,7 +227,7 @@ __global__ void __launch_bounds__(kBwdTile)
                           w0[a] * dv[a][3]);
             }
             if (w1[a] != 0.0f) {
-              atomic_add4(dst + C, w1[a] * dv[a][0], w1[a] * dv[a][1], w1[a] * dv[a][2],
+              atomic_add4(dst + LD, w1[a] * dv[a][0], w1[a] * dv[a][1], w1[a] * dv[a][2],
                           w1[a] * dv[a][3]);
             }
           }
@@ -222,13 +242,13 @@ __global__ void __launch_bounds__(kBwdTile)
   flush_acc(dbasis_acc, S * C * F, dbasis);
 }
 
-template <int C, int F, int S, int W, int NH, int D>
+template <int C, int F, int S, int W, int NH, int D, bool STACKED>
 int launch_cp_bwd(const float* x, long long n, const void* vsave, const void* hsave,
                   const float* dout, const void* basis, const void* ws,
                   const GradTables& dlines, float* dbasis, float* dws, float* dbs,
                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * CpBwdSmem<C, F, S, W, NH, D>::FLOATS;
-  return launch_tiles(cp_mlp_bwd_kernel<C, F, S, W, NH, D>, n, smem, stream, x, n,
+  return launch_tiles(cp_mlp_bwd_kernel<C, F, S, W, NH, D, STACKED>, n, smem, stream, x, n,
                       static_cast<const __nv_bfloat16*>(vsave),
                       static_cast<const __nv_bfloat16*>(hsave), dout,
                       static_cast<const __nv_bfloat16*>(basis),
@@ -256,11 +276,37 @@ extern "C" int cp_mlp_bwd(const float* x, long long n, const void* vsave,
 #define INSR_CP_BWD_CASE(C_, F_, S_, W_, NH_, D_)                              \
   if (c == C_ && f == F_ && n_scales == S_ && w == W_ && n_hidden == NH_ &&    \
       d == D_)                                                                 \
-    return insr::launch_cp_bwd<C_, F_, S_, W_, NH_, D_>(                       \
+    return insr::launch_cp_bwd<C_, F_, S_, W_, NH_, D_, false>(                \
         x, n, vsave, hsave, dout, basis, ws, dlines, dbasis, dws, dbs, st);
   INSR_CP_BWD_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head
   INSR_CP_BWD_CASE(16, 8, 2, 32, 1, 16)   // the small test model
   INSR_CP_BWD_CASE(16, 8, 2, 32, 2, 16)
 #undef INSR_CP_BWD_CASE
+  return -1;
+}
+
+// K14, the stacked-scales backward: `dlines` is the (3, R_max, S*C) f32 fine
+// gradient table (zeroed by the caller), r = R_max; otherwise as cp_mlp_bwd.
+extern "C" int cp_mlp_stacked_bwd(const float* x, long long n, const void* vsave,
+                                  const void* hsave, const float* dout, const void* basis,
+                                  const void* ws, float* dlines, int r, int n_scales,
+                                  float* dbasis, float* dws, float* dbs, int c, int f,
+                                  int w, int n_hidden, int d, void* stream) {
+  insr::GradTables tables{};
+  if (n_scales < 1 || n_scales > insr::kMaxGradScales || r < 2) return -1;
+  for (int s = 0; s < n_scales; ++s) {
+    tables.ptr[s] = dlines + s * c;
+    tables.res[s] = r;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_CPS_BWD_CASE(C_, F_, S_, W_, NH_, D_)                             \
+  if (c == C_ && f == F_ && n_scales == S_ && w == W_ && n_hidden == NH_ &&    \
+      d == D_)                                                                 \
+    return insr::launch_cp_bwd<C_, F_, S_, W_, NH_, D_, true>(                 \
+        x, n, vsave, hsave, dout, basis, ws, tables, dbasis, dws, dbs, st);
+  INSR_CPS_BWD_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head, cp_stacked
+  INSR_CPS_BWD_CASE(16, 8, 2, 32, 1, 16)   // the small test model
+  INSR_CPS_BWD_CASE(16, 8, 2, 32, 2, 16)
+#undef INSR_CPS_BWD_CASE
   return -1;
 }

@@ -38,6 +38,18 @@
 // coalesced across a warp (neighbouring samples are neighbouring addresses).
 // Tensor cores, TMA and pipelining are left for a later change.
 //
+// Stacked scales (K13): the same kernel, instantiated with STACKED = true,
+// replaces cp_mlp_pallas.py cp_mlp_apply_stacked -> _fwd_impl_stacked ->
+// _fwd_kernel_stacked (pallas_call at :531). When every resolution is nested
+// in the finest ((R_max - 1) a multiple of every R_s - 1), each coarse line is
+// upsampled exactly onto the fine grid (ops/cp_stacked.py) and all scales'
+// components sit side by side in one (3, R_max, S*C) bf16 table. A sample then
+// computes one tent per axis at R_max for all scales and reads two S*C-wide
+// rows per axis (256 B each at the bench shape). The TPU projects through the
+// (E, S*C) block-diagonal basis; here output block s sums only components
+// s*C .. s*C+C-1 (the (S, C, F) diagonal blocks), skipping exact zeros. The
+// residual vsave keeps the (3, S*C, N) layout of K1.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (explicit
 // fmaf only, so elementwise rounding follows the plain PyTorch version).
 
@@ -48,12 +60,15 @@ namespace insr {
 constexpr int kMaxScales = 4;
 constexpr int kCpBlock = 128;
 
+// Per scale: the first row's component 0 and the resolution. Per-scale tables
+// are (3, R_s, C) bf16; STACKED tables are one (3, R_max, S*C) bf16 table with
+// ptr[s] at its column s*C and res[s] = R_max.
 struct LineTables {
-  const __nv_bfloat16* ptr[kMaxScales];  // per scale: (3, R_s, C) bf16
+  const __nv_bfloat16* ptr[kMaxScales];
   int res[kMaxScales];
 };
 
-template <int C, int F, int S, int W, int NH, int D>
+template <int C, int F, int S, int W, int NH, int D, bool STACKED>
 __global__ void __launch_bounds__(kCpBlock)
     cp_mlp_fwd_kernel(const float* __restrict__ x, long long n,
                       LineTables lines, const __nv_bfloat16* __restrict__ basis,
@@ -64,6 +79,7 @@ __global__ void __launch_bounds__(kCpBlock)
   constexpr int E = S * F;
   constexpr int ROWS = E + NH * W;
   constexpr int OUT4 = round_up4(D);
+  constexpr int LD = STACKED ? S * C : C;  // row stride of a line table
   static_assert(C % 8 == 0 && F % 4 == 0 && W % 4 == 0, "layout");
 
   extern __shared__ float4 smem4[];
@@ -84,21 +100,26 @@ __global__ void __launch_bounds__(kCpBlock)
 #pragma unroll
     for (int e = 0; e < E; ++e) enc[e] = 0.0f;
 
+    Tent t[3];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int r = lines.res[s];
+      // stacked scales share the fine grid: one tent per axis for all of them
+      if (!STACKED || s == 0) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) t[a] = tent(u[a], r);
+      }
       const uint4* row0[3];
       const uint4* row1[3];
       float w0[3], w1[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const Tent t = tent(u[a], r);
-        w0[a] = t.w0;
-        w1[a] = t.w1;
+        w0[a] = t[a].w0;
+        w1[a] = t[a].w1;
         const __nv_bfloat16* base =
-            lines.ptr[s] + (static_cast<long long>(a) * r + t.i0) * C;
+            lines.ptr[s] + (static_cast<long long>(a) * r + t[a].i0) * LD;
         row0[a] = reinterpret_cast<const uint4*>(base);
-        row1[a] = reinterpret_cast<const uint4*>(base + C);
+        row1[a] = reinterpret_cast<const uint4*>(base + LD);
       }
 #pragma unroll
       for (int c8 = 0; c8 < C / 8; ++c8) {
@@ -144,14 +165,14 @@ __global__ void __launch_bounds__(kCpBlock)
   }
 }
 
-template <int C, int F, int S, int W, int NH, int D>
+template <int C, int F, int S, int W, int NH, int D, bool STACKED>
 int launch_cp(const float* x, long long n, const LineTables& lines,
               const void* basis, const void* ws, const float* bs, float* out,
               void* vsave, void* hsave, cudaStream_t stream) {
   constexpr int ROWS = S * F + NH * W;
   const size_t smem =
       sizeof(float) * (ROWS * W + (NH + 1) * W + S * C * F);
-  return launch(cp_mlp_fwd_kernel<C, F, S, W, NH, D>, n, kCpBlock, smem,
+  return launch(cp_mlp_fwd_kernel<C, F, S, W, NH, D, STACKED>, n, kCpBlock, smem,
                 stream, x, n, lines,
                 static_cast<const __nv_bfloat16*>(basis),
                 static_cast<const __nv_bfloat16*>(ws), bs, out,
@@ -178,11 +199,37 @@ extern "C" int cp_mlp_fwd(const float* x, long long n, const void* const* line_p
 #define INSR_CP_CASE(C_, F_, S_, W_, NH_, D_)                                 \
   if (c == C_ && f == F_ && n_scales == S_ && w == W_ && n_hidden == NH_ &&   \
       d == D_)                                                                \
-    return insr::launch_cp<C_, F_, S_, W_, NH_, D_>(x, n, lines, basis, ws,  \
-                                                    bs, out, vsave, hsave, st);
+    return insr::launch_cp<C_, F_, S_, W_, NH_, D_, false>(x, n, lines, basis, ws, \
+                                                           bs, out, vsave, hsave, st);
   INSR_CP_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head
   INSR_CP_CASE(16, 8, 2, 32, 1, 16)   // the small test model
   INSR_CP_CASE(16, 8, 2, 32, 2, 16)
 #undef INSR_CP_CASE
+  return -1;
+}
+
+// K13, the stacked-scales forward: `lines` is the (3, R_max, S*C) bf16 fine
+// table of every scale, r = R_max; otherwise as cp_mlp_fwd.
+extern "C" int cp_mlp_stacked_fwd(const float* x, long long n, const void* lines, int r,
+                                  int n_scales, const void* basis, const void* ws,
+                                  const float* bs, float* out, int c, int f, int w,
+                                  int n_hidden, int d, void* vsave, void* hsave,
+                                  void* stream) {
+  insr::LineTables tables{};
+  if (n_scales < 1 || n_scales > insr::kMaxScales || r < 2) return -1;
+  for (int s = 0; s < n_scales; ++s) {
+    tables.ptr[s] = static_cast<const __nv_bfloat16*>(lines) + s * c;
+    tables.res[s] = r;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_CPS_CASE(C_, F_, S_, W_, NH_, D_)                                  \
+  if (c == C_ && f == F_ && n_scales == S_ && w == W_ && n_hidden == NH_ &&     \
+      d == D_)                                                                  \
+    return insr::launch_cp<C_, F_, S_, W_, NH_, D_, true>(x, n, tables, basis, ws, \
+                                                          bs, out, vsave, hsave, st);
+  INSR_CPS_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head, cp_stacked
+  INSR_CPS_CASE(16, 8, 2, 32, 1, 16)   // the small test model
+  INSR_CPS_CASE(16, 8, 2, 32, 2, 16)
+#undef INSR_CPS_CASE
   return -1;
 }

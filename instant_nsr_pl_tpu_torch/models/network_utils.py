@@ -21,7 +21,13 @@ import torch
 
 from instant_nsr_pl_tpu_torch.ops.activations import elementwise_jvp, get_activation
 from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_encode, cp_encode_with_jac, cp_init
-from instant_nsr_pl_tpu_torch.ops.cp_mlp import cp_mlp_forward, fusable
+from instant_nsr_pl_tpu_torch.ops.cp_mlp import (
+    cp_mlp_forward,
+    cp_mlp_stacked_forward,
+    fusable,
+    fusable_stacked,
+)
+from instant_nsr_pl_tpu_torch.ops.cp_stacked import stackable
 from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_apply_jvp, mlp_init
 from instant_nsr_pl_tpu_torch.ops.sh import sh_output_dim, spherical_harmonics_encoding
 
@@ -67,17 +73,23 @@ class CPEncoding:
     product op (``ops/cp_product.py``: K5/K6 on the card) and, for
     :meth:`apply_with_jac`, the product-with-Jacobian op (K9/K10); 'autodiff'
     keeps the composed formula, differentiable at any order (the NeuS
-    analytic-gradient fallback switches to it, ``models/geometry.py``)."""
+    analytic-gradient fallback switches to it, ``models/geometry.py``).
+
+    ``stack_scales`` (nested resolutions, e.g. (129, 2049)): the fused density
+    op and :meth:`apply_with_jac` run every scale on the finest grid
+    (``ops/cp_stacked.py``: K13/K14 and K11/K12); :meth:`apply` stays per
+    scale."""
 
     def __init__(self, in_channels, config):
         if in_channels != 3:
             raise ValueError("CP encoding is 3-D")
-        if bool(config.get("stack_scales", False)):
-            raise NotImplementedError(
-                "stack_scales (the stacked-scales kernels K11-K14) comes with a later "
-                "slice of the port"
-            )
         self.spec = CPSpec.from_config(config)
+        self.stack_scales = bool(config.get("stack_scales", False))
+        if self.stack_scales and not stackable(self.spec):
+            raise ValueError(
+                "stack_scales needs nested resolutions: (R_max-1) must be a multiple of "
+                f"every (R_s-1); got {self.spec}"
+            )
         self.n_input_dims = 3
         self.n_output_dims = self.spec.n_output_dims
         self.grad_mode = str(config.get("grad_mode", "fast"))
@@ -97,8 +109,11 @@ class CPEncoding:
 
     def apply_with_jac(self, params, x):
         """(feat (..., E), d feat / d x (3, ..., E)) from one product-with-
-        Jacobian op per scale (``ops/cp.py`` ``cp_encode_with_jac``)."""
-        return cp_encode_with_jac(params["cp"], x, self.spec, impl=self._impl())
+        Jacobian op per scale, or one for all scales with ``stack_scales``
+        (``ops/cp.py`` ``cp_encode_with_jac``)."""
+        impl = self._impl()
+        return cp_encode_with_jac(params["cp"], x, self.spec, impl=impl,
+                                  stacked=self.stack_scales and impl == "fast")
 
 
 class SphericalHarmonicsEncoding:
@@ -212,7 +227,8 @@ class EncodingWithNetwork:
     and the pair is ``fusable`` (a bf16 ReLU MLP of kernel-friendly widths),
     the whole chain
     runs as ONE fused op (``ops/cp_mlp.py``: the CUDA kernel on the card, its
-    plain version on the CPU). Everything else composes encoding -> MLP."""
+    plain version on the CPU), the stacked-scales one with ``stack_scales``.
+    Everything else composes encoding -> MLP."""
 
     def __init__(self, encoding, network):
         self.encoding = encoding
@@ -225,7 +241,7 @@ class EncodingWithNetwork:
             and not encoding.include_xyz
             and isinstance(inner, CPEncoding)
             and inner.grad_mode == "fast"
-            and fusable(inner.spec, network.spec)
+            and (fusable_stacked if inner.stack_scales else fusable)(inner.spec, network.spec)
         )
 
     def init(self, generator, device=None):
@@ -236,11 +252,13 @@ class EncodingWithNetwork:
 
     def apply(self, params, x):
         if self.fused:
-            out = cp_mlp_forward(
+            inner = self.encoding.encoding
+            op = cp_mlp_stacked_forward if inner.stack_scales else cp_mlp_forward
+            out = op(
                 params["encoding"]["cp"],
                 params["network"]["layers"],
                 x,
-                self.encoding.encoding.spec,
+                inner.spec,
                 self.network.spec,
             )
             return self.network.output_activation(out)

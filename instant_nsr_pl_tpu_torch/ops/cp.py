@@ -16,7 +16,9 @@ with bf16 line tables. Two implementations, as in the JAX package:
 
 :func:`cp_encode_with_jac` returns the encoding and its position Jacobian,
 per scale from one ``cp_product_jac_basis`` op (K9/K10) in the fast
-implementation.
+implementation, or, with ``stacked=True`` (nested resolutions), for all scales
+from one ``cp_jac_basis_stacked`` op (K11/K12, ``ops/cp_stacked.py``).
+:func:`cp_encode` stays per scale, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from instant_nsr_pl_tpu_torch.ops.activations import clip
 from instant_nsr_pl_tpu_torch.ops.cp_product import cp_product, cp_product_jac_basis
+from instant_nsr_pl_tpu_torch.ops.cp_stacked import cp_jac_basis_stacked, stackable
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round
 
 
@@ -111,17 +114,23 @@ def cp_encode(params, x, spec: CPSpec, impl: str = "xla"):
     return out.reshape(*batch_shape, spec.n_output_dims).to(x.dtype)
 
 
-def cp_encode_with_jac(params, x, spec: CPSpec, impl: str = "fast"):
+def cp_encode_with_jac(params, x, spec: CPSpec, impl: str = "fast", stacked: bool = False):
     """(encoded (..., E), d encoded / d x (3, ..., E)).
 
     ``impl="fast"``: one ``cp_product_jac_basis`` op per scale (K9/K10 on the
-    card; needs ``n_features > 0``), the scales concatenated. ``impl="xla"``:
-    the composed formula and its Jacobian by forward-mode differentiation,
-    one tangent per input axis (the JAX twin's ``jacfwd``), differentiable
-    at any order."""
+    card; needs ``n_features > 0``), the scales concatenated; with
+    ``stacked``, one ``cp_jac_basis_stacked`` op for all scales (K11/K12;
+    needs nested resolutions too). ``impl="xla"``: the composed formula and
+    its Jacobian by forward-mode differentiation, one tangent per input axis
+    (the JAX twin's ``jacfwd``), differentiable at any order."""
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3)
     e = spec.n_output_dims
+    if impl == "fast" and stacked:
+        assert spec.n_features > 0 and stackable(spec), spec
+        enc, jac = cp_jac_basis_stacked(params, xf.float().T.contiguous(), spec)  # (E, N), (3, E, N)
+        return (enc.T.reshape(*batch_shape, e).to(x.dtype),
+                jac.transpose(1, 2).reshape(3, *batch_shape, e).to(x.dtype))
     if impl == "fast":
         if spec.n_features <= 0:
             raise NotImplementedError(

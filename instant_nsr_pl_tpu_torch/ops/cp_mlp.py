@@ -17,6 +17,15 @@ f32 sums.
 
 Differentiable with respect to the CP and MLP parameters only: positions get
 no cotangent (``cp_mlp_pallas.py:24-30``; they are march outputs).
+
+``cp_mlp_stacked_forward`` is the stacked-scales twin (``cp_mlp_apply_stacked``,
+``cp_mlp_pallas.py:425-646``): with nested resolutions every scale is
+upsampled onto the finest grid (``ops/cp_stacked.py``), so one tent per axis
+serves all scales and the basis is block-diagonal. On CUDA tensors it
+launches K13 and K14 (``cp_mlp_stacked_fwd`` / ``cp_mlp_stacked_bwd`` of the
+same sources), on CPU tensors the plain versions, which run the per-scale
+plain versions on the fine table as one scale of S*C components with the
+(S*C, E) block-diagonal basis.
 """
 
 from __future__ import annotations
@@ -28,6 +37,16 @@ import torch
 from instant_nsr_pl_tpu_torch.ops import cuda_build
 from instant_nsr_pl_tpu_torch.ops.cp import CPSpec
 from instant_nsr_pl_tpu_torch.ops.cp_product import tent_coords
+from instant_nsr_pl_tpu_torch.ops.cp_stacked import (
+    basis_stack,
+    blockdiag_bt,
+    coarse_line_grads,
+    cp_from_leaves,
+    cp_leaves,
+    diagonal_blocks,
+    stack_lines_fine,
+    stackable,
+)
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round, mlp_apply
 from instant_nsr_pl_tpu_torch.ops.mlp_common import (
     mlp_backward_plain,
@@ -65,6 +84,12 @@ def fusable(cp_spec: CPSpec, mlp_spec) -> bool:
     return dims_ok and mlp_ok
 
 
+def fusable_stacked(cp_spec: CPSpec, mlp_spec) -> bool:
+    """Static check for the stacked-scales fused op: ``fusable`` and nested
+    resolutions."""
+    return fusable(cp_spec, mlp_spec) and stackable(cp_spec)
+
+
 def cp_mlp_forward(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec):
     """Fused (CP encode -> basis -> bf16 ReLU MLP)(x): (..., 3) -> (..., D)
     float32, with x in [0, 1]^3 (clipped). Callers satisfy
@@ -90,17 +115,13 @@ cp_mlp_forward.launches = 0
 def _flat_params(cp_params, mlp_params, cp_spec):
     """The op's parameter tensors in a fixed order: line_{s}_{ax} for every
     scale and axis, basis_{s}, then each layer's w and b."""
-    s_count = len(cp_spec.resolutions)
-    lines = [cp_params[f"line_{s}_{ax}"] for s in range(s_count) for ax in range(3)]
-    basis = [cp_params[f"basis_{s}"] for s in range(s_count)]
     layers = [t for layer in mlp_params for t in (layer["w"], layer["b"])]
-    return lines + basis + layers
+    return cp_leaves(cp_params, cp_spec) + layers
 
 
 def _unflat_params(flat, cp_spec):
     s_count = len(cp_spec.resolutions)
-    cp_params = {f"line_{s}_{ax}": flat[3 * s + ax] for s in range(s_count) for ax in range(3)}
-    cp_params.update({f"basis_{s}": flat[3 * s_count + s] for s in range(s_count)})
+    cp_params = cp_from_leaves(flat[:4 * s_count], cp_spec)
     rest = flat[4 * s_count:]
     mlp_params = [{"w": rest[k], "b": rest[k + 1]} for k in range(0, len(rest), 2)]
     return cp_params, mlp_params
@@ -348,3 +369,212 @@ def cp_mlp_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, ml
     cuda_build.check(rc, "cp_mlp_backward", SUPPORTED)
     cp_mlp_backward.launches += 1
     return dlines, dbasis, dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# the stacked-scales op (K13 forward, K14 backward)
+# ---------------------------------------------------------------------------
+
+
+def cp_mlp_stacked_forward(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec):
+    """The fused op with all scales on the finest grid (``cp_mlp_apply_stacked``):
+    the same contract as :func:`cp_mlp_forward`. Callers satisfy
+    ``fusable_stacked(cp_spec, mlp_spec)``."""
+    flat = _flat_params(cp_params, mlp_params, cp_spec)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+        return _CPMLPStacked.apply(x, cp_spec, mlp_spec, *flat)
+    if x.device.type == "cuda":
+        operands = cp_mlp_stacked_operands(cp_params, mlp_params, cp_spec, mlp_spec)
+        return cp_mlp_stacked_launch(operands, x, cp_spec, mlp_spec)[0]
+    if x.device.type == "cpu":
+        return cp_mlp_stacked_forward_plain(cp_params, mlp_params, x, cp_spec, mlp_spec)
+    raise ValueError(f"cp_mlp_stacked_forward: unsupported device {x.device}")
+
+
+cp_mlp_stacked_forward.launches = 0
+
+
+class _CPMLPStacked(torch.autograd.Function):
+    """The stacked op with its custom backward (``cp_mlp_apply_stacked``'s
+    VJP): K14's fine-table gradient goes back to each scale as U^T d fine."""
+
+    @staticmethod
+    def forward(ctx, x, cp_spec, mlp_spec, *flat):
+        cp_params, mlp_params = _unflat_params(flat, cp_spec)
+        operands = cp_mlp_stacked_operands(cp_params, mlp_params, cp_spec, mlp_spec)
+        if x.device.type == "cuda":
+            out, vsave, hsave = cp_mlp_stacked_launch(operands, x, cp_spec, mlp_spec, train=True)
+        elif x.device.type == "cpu":
+            out, vsave, hsave = cp_mlp_stacked_forward_plain(
+                cp_params, mlp_params, x, cp_spec, mlp_spec, save_residuals=True)
+        else:
+            raise ValueError(f"cp_mlp_stacked_forward: unsupported device {x.device}")
+        _, basis, ws, _ = operands
+        ctx.save_for_backward(x, vsave, hsave, basis, ws)
+        ctx.specs = (cp_spec, mlp_spec)
+        ctx.layer_shapes = [tuple(layer["w"].shape) for layer in mlp_params]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, vsave, hsave, basis, ws = ctx.saved_tensors
+        cp_spec, mlp_spec = ctx.specs
+        dfine, dbasis, dws, dbs = cp_mlp_stacked_backward(
+            x, vsave, hsave, dout.contiguous(), basis, ws, cp_spec, mlp_spec)
+        lines = coarse_line_grads(dfine, cp_spec)
+        s_count = len(cp_spec.resolutions)
+        grads = [lines[f"line_{s}_{ax}"] for s in range(s_count) for ax in range(3)]
+        grads += list(dbasis)
+        for layer in unpack_mlp_grads(dws, dbs, ctx.layer_shapes):
+            grads += [layer["w"], layer["b"]]
+        return (None, None, None, *grads)
+
+
+def cp_mlp_stacked_backward(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp_spec):
+    """The stacked op's backward (K14): ``(dfine, dbasis, dws, dbs)``: the
+    (3, R_max, S*C) fine-table gradient, the (S, C, F) basis gradient and
+    the packed MLP gradients."""
+    if x.device.type == "cuda":
+        return cp_mlp_stacked_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec,
+                                              mlp_spec)
+    if x.device.type == "cpu":
+        return cp_mlp_stacked_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec,
+                                             mlp_spec)
+    raise ValueError(f"cp_mlp_stacked_backward: unsupported device {x.device}")
+
+
+cp_mlp_stacked_backward.launches = 0
+
+
+def _fine_spec(cp_spec: CPSpec) -> CPSpec:
+    """The stacked table seen as one scale of S*C components at R_max,
+    projected by the (S*C, E) block-diagonal basis."""
+    s_count = len(cp_spec.resolutions)
+    return CPSpec(n_components=s_count * cp_spec.n_components,
+                  resolutions=(max(cp_spec.resolutions),), n_features=cp_spec.n_output_dims)
+
+
+def cp_mlp_stacked_forward_plain(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec,
+                                 save_residuals=False):
+    """Plain PyTorch version of K13 (``_fwd_kernel_stacked``): the per-scale
+    plain version on the fine table of :func:`stack_lines_fine` (one tent per
+    axis at R_max for all S*C components) with the block-diagonal basis, as
+    the TPU's full-width products. Returns what :func:`cp_mlp_forward_plain`
+    does; vsave is the (3, S*C, N) bf16 residual of K13's training mode."""
+    lines = stack_lines_fine(cp_params, cp_spec)
+    fine = {f"line_0_{ax}": lines[ax].float() for ax in range(3)}
+    fine["basis_0"] = blockdiag_bt(basis_stack(cp_params, cp_spec)).T.float()
+    return cp_mlp_forward_plain(fine, mlp_params, x, _fine_spec(cp_spec), mlp_spec,
+                                save_residuals=save_residuals)
+
+
+def cp_mlp_stacked_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec,
+                                  mlp_spec):
+    """Plain PyTorch version of K14 (``_bwd_kernel_stacked``): the per-scale
+    plain backward on the fine table with the block-diagonal basis, then the
+    diagonal (C, F) blocks of its (S*C, E) basis gradient, as the JAX package
+    slices them. Returns ``(dfine, dbasis, dws, dbs)``."""
+    bt = blockdiag_bt(basis).T[None].contiguous()  # (1, S*C, E)
+    (dfine,), dbt, dws, dbs = cp_mlp_backward_plain(x, vsave, hsave, dout, bt, ws,
+                                                    _fine_spec(cp_spec), mlp_spec)
+    return dfine, diagonal_blocks(dbt[0], len(cp_spec.resolutions)), dws, dbs
+
+
+def cp_mlp_stacked_operands(cp_params, mlp_params, cp_spec: CPSpec, mlp_spec):
+    """The stacked kernels' operands: the (3, R_max, S*C) bf16 fine table,
+    the (S, C, F) bf16 diagonal basis blocks and the packed MLP."""
+    if not fusable_stacked(cp_spec, mlp_spec):
+        raise ValueError(f"cp_mlp_stacked_forward: not fusable: {cp_spec} {mlp_spec}")
+    with torch.no_grad():
+        ws, bs = pack_mlp(mlp_params, mlp_wmax(mlp_spec))
+    return stack_lines_fine(cp_params, cp_spec), basis_stack(cp_params, cp_spec), ws, bs
+
+
+def cp_mlp_stacked_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
+    """Launch K13 (``cp_mlp_stacked_fwd`` of ``csrc/cp_mlp_fwd.cu``) on the
+    stacked ``operands`` for CUDA x. Returns ``(out, vsave, hsave)``; the
+    residuals only with ``train`` (else None)."""
+    lines, basis, ws, bs = operands
+    if x.dtype != torch.float32 or x.shape[-1] != 3:
+        raise ValueError(f"cp_mlp_stacked_forward: x must be (..., 3) float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    s_count = len(cp_spec.resolutions)
+    c, f = cp_spec.n_components, cp_spec.n_features
+    rmax = max(cp_spec.resolutions)
+    w = mlp_wmax(mlp_spec)
+    nh = mlp_spec.n_hidden_layers
+    expect = [(3, rmax, s_count * c), (s_count, c, f), (mlp_spec.dim_in + nh * w, w),
+              (nh + 1, w)]
+    cuda_build.check_operands("cp_mlp_stacked_forward", (lines, basis, ws, bs), expect,
+                              x.device)
+    xf = x.reshape(-1, 3).contiguous()
+    n = xf.shape[0]
+    out = torch.empty((n, mlp_spec.dim_out), dtype=torch.float32, device=x.device)
+    vsave = hsave = None
+    if train:
+        vsave = torch.empty((3, s_count * c, n), dtype=torch.bfloat16, device=x.device)
+        hsave = torch.empty((nh, mlp_spec.n_neurons, n), dtype=torch.bfloat16, device=x.device)
+    fn = cuda_build.library("cp_mlp_fwd").cp_mlp_stacked_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(
+            xf.data_ptr(), n, lines.data_ptr(), rmax, s_count, basis.data_ptr(),
+            ws.data_ptr(), bs.data_ptr(), out.data_ptr(), c, f, mlp_spec.n_neurons, nh,
+            mlp_spec.dim_out, vsave.data_ptr() if train else None,
+            hsave.data_ptr() if train else None, stream,
+        )
+    cuda_build.check(rc, "cp_mlp_stacked_forward", SUPPORTED)
+    cp_mlp_stacked_forward.launches += 1
+    return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
+
+
+def cp_mlp_stacked_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec,
+                                   mlp_spec):
+    """Launch K14 (``cp_mlp_stacked_bwd`` of ``csrc/cp_mlp_bwd.cu``); see
+    :func:`cp_mlp_stacked_backward` for the outputs."""
+    s_count = len(cp_spec.resolutions)
+    c, f = cp_spec.n_components, cp_spec.n_features
+    rmax = max(cp_spec.resolutions)
+    w = mlp_wmax(mlp_spec)
+    nh = mlp_spec.n_hidden_layers
+    xf = x.reshape(-1, 3).contiguous()
+    n = xf.shape[0]
+    d = mlp_spec.dim_out
+    if dout.dtype != torch.float32:
+        raise ValueError(f"cp_mlp_stacked_backward: dout must be float32, got {dout.dtype}")
+    dflat = dout.reshape(n, d).contiguous()
+    expect = [(3, s_count * c, n), (nh, mlp_spec.n_neurons, n), (n, d), (s_count, c, f),
+              (mlp_spec.dim_in + nh * w, w)]
+    cuda_build.check_operands("cp_mlp_stacked_backward", (vsave, hsave, dflat, basis, ws),
+                              expect, x.device)
+    dev = x.device
+    dfine = torch.zeros((3, rmax, s_count * c), dtype=torch.float32, device=dev)
+    dbasis = torch.zeros((s_count, c, f), dtype=torch.float32, device=dev)
+    dws = torch.zeros(tuple(ws.shape), dtype=torch.float32, device=dev)
+    dbs = torch.zeros((nh + 1, w), dtype=torch.float32, device=dev)
+    fn = cuda_build.library("cp_mlp_bwd").cp_mlp_stacked_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            xf.data_ptr(), n, vsave.data_ptr(), hsave.data_ptr(), dflat.data_ptr(),
+            basis.data_ptr(), ws.data_ptr(), dfine.data_ptr(), rmax, s_count,
+            dbasis.data_ptr(), dws.data_ptr(), dbs.data_ptr(), c, f, mlp_spec.n_neurons, nh,
+            d, stream,
+        )
+    cuda_build.check(rc, "cp_mlp_stacked_backward", SUPPORTED)
+    cp_mlp_stacked_backward.launches += 1
+    return dfine, dbasis, dws, dbs

@@ -1,19 +1,24 @@
 """Where the time of one training step goes, for the PyTorch port on a CUDA
 card: the bench NeRF or the bench NeuS of chip_smoke.py (8,192 rays and
-262,144 packed samples per step), after 40 warm-up steps from random weights.
+262,144 packed samples per step), or any NeRF or NeuS config given with
+``--config`` (the stacked ones: ``instant_nsr_pl_tpu_torch/configs/
+{nerf,neus}-cp-stacked-synthetic.yaml``), after 40 warm-up steps from random
+weights.
 
-    python3 scripts/profile_torch_train.py [--model nerf|neus] [--out profile_train.json]
+    python3 scripts/profile_torch_train.py [--model nerf|neus] [--config x.yaml]
+        [--out profile_train.json]
 
 Prints as JSON (and writes to ``--out`` when given), with the card's name
 and power limit:
 - the host wall of one step split into stages, each ending in a
-  synchronize, median of 10 steps. NeRF: ray sampling, march, the K1/K3
-  forwards (training mode), compositing and the loss, autograd of
-  compositing, the rest of the backward (K2/K4 and the small ops around
-  them), AdamW. NeuS: ray sampling, march, K9 (the SDF encoding and its
-  Jacobian), the SDF MLP with its three tangents, K3 (radiance with the
-  normals), compositing and the loss, the backward (K10, K4, the MLP's
-  second-order graph and compositing), AdamW. Both add the grid update
+  synchronize, median of 10 steps. NeRF: ray sampling, march, the density
+  and radiance forwards (training mode: K1 or, stacked, K13; K3),
+  compositing and the loss, autograd of compositing, the rest of the
+  backward (K2 or K14, K4 and the small ops around them), AdamW. NeuS: ray
+  sampling, march, the SDF encoding and its Jacobian (K9 per scale or, stacked,
+  K11 once), the SDF MLP with its three tangents, K3 (radiance with the
+  normals), compositing and the loss, the backward (K10 or K12, K4, the
+  MLP's second-order graph and compositing), AdamW. Both add the grid update
   amortised over its cadence (one slab update every 16 steps);
 - for 10 whole steps under torch.profiler: wall, summed device kernel time,
   the device's busy share (kernel time / wall) and the top device kernels.
@@ -42,8 +47,8 @@ def nerf_stages(system, state):
     model, params, opt, gen = system.model, state["params"], state["optimizer"], state["generator"]
     n_rays, capacity = system.active_num_rays, system.train_capacity
 
-    names = ["sample", "march", "k1_k3_forward", "composite_loss", "composite_backward",
-             "k2_k4_backward", "adamw"]
+    names = ["sample", "march", "density_radiance_forward", "composite_loss",
+             "composite_backward", "density_radiance_backward", "adamw"]
     stages = {k: [] for k in names}
     live = []
     for rep in range(10):
@@ -119,23 +124,23 @@ def neus_stages(system, state):
     timed = {
         "sample": _Timed(system, "_sample_rays"),
         "march": _Timed(model, "march"),
-        "k9_encode_with_jac": _Timed(geo.encoding, "apply_with_jac"),
+        "sdf_encode_with_jac": _Timed(geo.encoding, "apply_with_jac"),
         "sdf_mlp_with_tangents": _Timed(geo.network, "apply_jvp"),
-        "k3_radiance": _Timed(model.texture, "apply"),
+        "radiance": _Timed(model.texture, "apply"),
         "forward_total": _Timed(system, "loss_fn"),
         "adamw": _Timed(opt, "step"),
     }
-    stages = {k: [] for k in ("sample", "march", "k9_encode_with_jac", "sdf_mlp_with_tangents",
-                              "k3_radiance", "composite_loss", "backward", "adamw")}
+    stages = {k: [] for k in ("sample", "march", "sdf_encode_with_jac", "sdf_mlp_with_tangents",
+                              "radiance", "composite_loss", "backward", "adamw")}
     live = []
     for _ in range(10):
         state, metrics = system.train_step(state)
         t = {k: w.ms[-1] for k, w in timed.items()}
-        for k in ("sample", "march", "k9_encode_with_jac", "sdf_mlp_with_tangents",
-                  "k3_radiance", "adamw"):
+        for k in ("sample", "march", "sdf_encode_with_jac", "sdf_mlp_with_tangents",
+                  "radiance", "adamw"):
             stages[k].append(t[k])
-        stages["composite_loss"].append(t["forward_total"] - t["march"] - t["k9_encode_with_jac"]
-                                        - t["sdf_mlp_with_tangents"] - t["k3_radiance"])
+        stages["composite_loss"].append(t["forward_total"] - t["march"] - t["sdf_encode_with_jac"]
+                                        - t["sdf_mlp_with_tangents"] - t["radiance"])
         # the backward: from the loss's return to the optimizer's start
         stages["backward"].append((timed["adamw"].end - timed["forward_total"].end) * 1e3
                                   - t["adamw"])
@@ -147,7 +152,11 @@ def neus_stages(system, state):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("nerf", "neus"), default="nerf")
+    ap.add_argument("--model", choices=("nerf", "neus"), default="nerf",
+                    help="the bench NeRF or NeuS of chip_smoke.py (without --config)")
+    ap.add_argument("--config", default=None,
+                    help="a NeRF or NeuS config yaml to profile instead, e.g. "
+                         "instant_nsr_pl_tpu_torch/configs/nerf-cp-stacked-synthetic.yaml")
     ap.add_argument("--out", default=None, help="also write the JSON result to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -160,8 +169,10 @@ def main():
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    path = chip_smoke.NEUS_CONFIG if args.model == "neus" else chip_smoke.BENCH_CONFIG
+    path = args.config or (chip_smoke.NEUS_CONFIG if args.model == "neus"
+                           else chip_smoke.BENCH_CONFIG)
     cfg = config_from_dict(chip_smoke.bench_config(path))
+    model_name = str(cfg.model.name)
     dm = datasets.make(cfg.dataset.name, cfg.dataset)
     dm.setup("fit")
     system = systems.make(cfg.system.name, cfg)
@@ -172,7 +183,7 @@ def main():
     torch.cuda.synchronize()
     model, params, gen = system.model, state["params"], state["generator"]
     n_rays, capacity = system.active_num_rays, system.train_capacity
-    stage_ms, live = (neus_stages if args.model == "neus" else nerf_stages)(system, state)
+    stage_ms, live = (neus_stages if model_name == "neus" else nerf_stages)(system, state)
 
     grid_ms = []
     for rep in range(4):
@@ -204,7 +215,8 @@ def main():
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     result = {
-        "model": args.model,
+        "model": model_name,
+        "config": os.path.relpath(path, ROOT),
         "card": chip_smoke.nvidia_smi_line(),
         "step": {"rays": n_rays, "capacity": capacity, "live_samples_median": statistics.median(live),
                  "stage_ms": stage_ms},

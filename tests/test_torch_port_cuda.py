@@ -14,6 +14,7 @@ import torch
 from instant_nsr_pl_tpu_torch.config import config_from_dict
 from instant_nsr_pl_tpu_torch.ops import cp_mlp as t_cp_mlp
 from instant_nsr_pl_tpu_torch.ops import cp_product as t_cpp
+from instant_nsr_pl_tpu_torch.ops import cp_stacked as t_cps
 from instant_nsr_pl_tpu_torch.ops import sh_mlp as t_sh_mlp
 from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_init
 from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_init
@@ -380,3 +381,80 @@ def test_neus_train_step_cuda_gradients_flow(cuda_device):
     assert t_cpp.cp_product.launches >= before[0] + 2 * 4
     assert t_cpp.cp_product_backward.launches >= before[1] + 2 * 4
     assert torch.isfinite(metrics["train/loss"])
+
+
+@pytest.mark.parametrize("n_hidden,n", [(1, 515), (1, 4096), (2, 1001)])
+def test_cp_mlp_stacked_kernels_match_plain(cuda_device, n_hidden, n):
+    """K13 (eval and training mode) and K14 against their plain versions at
+    the small nested spec (C=16, R=(17, 65), F=8): the same output in both
+    modes, vsave bit for bit, hsave and out within 2e-2, every gradient
+    (the fine table, the basis blocks, dW, db) within 2.5e-2."""
+    gen = torch.Generator().manual_seed(50 + n)
+    cp_spec = CPSpec(16, (17, 65), 8)
+    mlp_spec = MLPSpec(dim_in=16, dim_out=16, n_neurons=32, n_hidden_layers=n_hidden)
+    cp_params = cp_init(gen, cp_spec, cuda_device)
+    layers = _biased(mlp_init(gen, mlp_spec), gen, cuda_device)
+    x = torch.rand((n, 3), generator=gen) * 1.2 - 0.1
+    x[:4] = torch.tensor([[0.0, 1.0, 0.5], [1 / 16, 5 / 64, 1.0], [-0.1, 1.1, 0.0], [1.0, 1.0, 1.0]])
+    x = x.to(cuda_device)
+    dout = torch.randn((n, 16), generator=gen).to(cuda_device)
+    ops = t_cp_mlp.cp_mlp_stacked_operands(cp_params, layers, cp_spec, mlp_spec)
+    before = t_cp_mlp.cp_mlp_stacked_forward.launches
+    out, vsave, hsave = t_cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, mlp_spec, train=True)
+    out_eval, none, _ = t_cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, mlp_spec)
+    torch.cuda.synchronize()
+    assert t_cp_mlp.cp_mlp_stacked_forward.launches == before + 2 and none is None
+    assert torch.equal(out, out_eval)
+    ref_out, ref_v, ref_h = t_cp_mlp.cp_mlp_stacked_forward_plain(
+        cp_params, layers, x, cp_spec, mlp_spec, save_residuals=True)
+    _close(out, ref_out)
+    assert torch.equal(vsave, ref_v)
+    _close(hsave.float(), ref_h.float())
+    _, basis, ws, _ = ops
+    before = t_cp_mlp.cp_mlp_stacked_backward.launches
+    got = t_cp_mlp.cp_mlp_stacked_backward(x, vsave, hsave, dout, basis, ws, cp_spec, mlp_spec)
+    torch.cuda.synchronize()
+    assert t_cp_mlp.cp_mlp_stacked_backward.launches == before + 1
+    ref = t_cp_mlp.cp_mlp_stacked_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec,
+                                                 mlp_spec)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+
+
+@pytest.mark.parametrize("c,f,res,n", [(16, 8, (17, 65), 515), (16, 8, (17, 65), 4096),
+                                       (64, 16, (129, 2049), 3001)])
+def test_cp_jac_stacked_kernels_match_plain(cuda_device, c, f, res, n):
+    """K11 (eval and training mode) and K12 against their plain versions:
+    the residuals bit for bit, enc and jac within 2e-2, the fine-table, d u
+    and basis gradients within 2.5e-2; d u is zero outside [0, 1]."""
+    gen = torch.Generator().manual_seed(60 + n)
+    cp_spec = CPSpec(c, res, f)
+    cp_params = cp_init(gen, cp_spec, cuda_device)
+    rmax = max(res)
+    _, u3 = _product_inputs(gen, c, rmax, n, cuda_device)
+    lines = t_cps.stack_lines_fine(cp_params, cp_spec)
+    basis = t_cps.basis_stack(cp_params, cp_spec)
+    before = t_cps.cp_jac_basis_stacked.launches
+    enc, jac, vsave, gdsave = t_cps.cp_jac_basis_stacked_launch(lines, basis, u3, rmax, train=True)
+    enc_e, jac_e, v_e, g_e = t_cps.cp_jac_basis_stacked_launch(lines, basis, u3, rmax)
+    torch.cuda.synchronize()
+    assert t_cps.cp_jac_basis_stacked.launches == before + 2 and v_e is None and g_e is None
+    ref = t_cps.cp_jac_basis_stacked_plain(lines, basis, u3, rmax, save_residuals=True)
+    assert torch.equal(vsave, ref[2]) and torch.equal(gdsave, ref[3])
+    assert torch.equal(enc, enc_e) and torch.equal(jac, jac_e)
+    _close(enc, ref[0])
+    _close(jac, ref[1])
+    e = len(res) * f
+    denc = torch.randn((e, n), generator=gen).to(cuda_device)
+    djac = torch.randn((3, e, n), generator=gen).to(cuda_device)
+    before = t_cps.cp_jac_basis_stacked_backward.launches
+    got = t_cps.cp_jac_basis_stacked_backward(u3, vsave, gdsave, denc, djac, basis, rmax)
+    torch.cuda.synchronize()
+    assert t_cps.cp_jac_basis_stacked_backward.launches == before + 1
+    plain = t_cps.cp_jac_basis_stacked_backward_plain(u3, vsave, gdsave, denc, djac, basis, rmax)
+    for a, b in zip(got, plain):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+    outside = (u3 < 0) | (u3 > 1)
+    assert bool((got[1][outside] == 0).all())

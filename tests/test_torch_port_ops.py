@@ -113,14 +113,15 @@ def test_mlp_apply_bf16(n_hidden):
 
 def test_mlp_unported_options_raise():
     """Sphere init is ported (the first layer is zero beyond the xyz rows);
-    the CP options of later slices raise, naming them: stacked scales and the
-    Jacobian of a CP encoding without a basis (cp_product_jac, K7/K8)."""
+    stacked scales need nested resolutions (the default (128, 2048) is not:
+    ValueError, as in the JAX package); the Jacobian of a CP encoding without
+    a basis (cp_product_jac, K7/K8) raises, naming the next slice."""
     spec = t_mlp.MLPSpec(dim_in=5, dim_out=1, sphere_init=True)
     layers = t_mlp.mlp_init(torch.Generator().manual_seed(0), spec)
     assert float(layers[0]["w"][3:].abs().max()) == 0.0
     from instant_nsr_pl_tpu_torch.models.network_utils import CPEncoding
 
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="nested"):
         CPEncoding(3, {"otype": "CP", "stack_scales": True})
     raw = CPEncoding(3, {"otype": "CP", "n_components": 16, "resolutions": [8], "n_features": 0})
     params = raw.init(torch.Generator().manual_seed(0))
