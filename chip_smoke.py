@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one CUDA card and hold its kernels against their
-plain versions: the bench NeRF and the bench NeuS, rendered and trained.
+plain versions: the bench NeRF and the bench NeuS, rendered and trained, and
+the raw-product NeuS trained, tested, predicted and exported as a mesh.
 
     python3 chip_smoke.py
 
@@ -17,11 +18,12 @@ lines are printed):
    2.5e-2 * max|plain| per gradient tensor, the JAX gradient tests'
    tolerance; then timed with CUDA events (median of 20 batches of 10
    back-to-back calls, after warm-up);
-4. CP kernels (K5/K6 the CP product, K9/K10 the product with its Jacobian and
-   the basis projection) at the bench NeuS encoding (C=64, F=16) for both
-   scales, R=128 and 2048, at N=262,144 and 262,107: training-mode residuals
-   equal to the plain versions' to the bit, forwards within 2e-2 and
-   gradients within 2.5e-2 of max|plain|; timed as above;
+4. CP kernels (K5/K6 the CP product, K7/K8 the product with its Jacobian,
+   K9/K10 the product with its Jacobian and the basis projection) at the
+   bench NeuS encoding (C=64, F=16) for both scales, R=128 and 2048, at
+   N=262,144 and 262,107: training-mode residuals equal to the plain
+   versions' to the bit, forwards within 2e-2 and gradients within 2.5e-2 of
+   max|plain|; timed as above (K7 in training and eval mode);
 5. render: the bench system (``instant_nsr_pl_tpu_torch/configs/
    nerf-cp-synthetic.yaml``, the settings of ``bench.py``
    ``build_system("cp")``) on the 256x256 six-sphere synthetic scene, random
@@ -53,8 +55,19 @@ lines are printed):
 10. the stacked NeuS (``neus-cp-stacked-synthetic.yaml``) trained and
    rendered as in 7 and 8, with K11/K12 in place of K9/K10 and K5 at R=129
    and 2049 in the grid updates;
-11. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
-12. the last line ``{"ok": true, "device": {...}}``.
+11. the raw-product NeuS (``neus-cp-raw-synthetic.yaml``: the bench NeuS with
+   ``n_features: 0``, E = 131 SDF inputs) trained and rendered as in 7 and 8,
+   with K7/K8 in place of K9/K10; then, on the trained model, the Trainer's
+   ``test`` (the four test views with PNGs and sidecars, test/psnr, then the
+   mesh), ``predict`` (the eight train-camera views) and ``export`` (the
+   128^3 two-stage marching pass: K5 in the level grid, K7 in eval mode for
+   the vertex colours, no backward; a non-empty mesh with valid indices and
+   colours in [0, 1]; timed by stage; one chunk of vertex colours against the
+   plain versions on the CPU within 2e-2), each with the launch counters read
+   around it; and the port's extraction of the scene's own sphere SDF, every
+   vertex within one voxel of a sphere surface;
+12. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
+13. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
 C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
@@ -89,6 +102,7 @@ BENCH_CONFIG = os.path.join(CONFIGS, "nerf-cp-synthetic.yaml")
 NEUS_CONFIG = os.path.join(CONFIGS, "neus-cp-synthetic.yaml")
 NERF_STACKED_CONFIG = os.path.join(CONFIGS, "nerf-cp-stacked-synthetic.yaml")
 NEUS_STACKED_CONFIG = os.path.join(CONFIGS, "neus-cp-stacked-synthetic.yaml")
+NEUS_RAW_CONFIG = os.path.join(CONFIGS, "neus-cp-raw-synthetic.yaml")
 NEUS_STEPS = 200
 FD_STEPS = 20
 
@@ -350,6 +364,7 @@ def cp_kernel_phase(device):
     dprod = torch.randn((c, N_FULL), generator=gen).to(device)
     denc = torch.randn((f, N_FULL), generator=gen).to(device)
     djac = torch.randn((3, f, N_FULL), generator=gen).to(device)
+    djac_raw = torch.randn((3, c, N_FULL), generator=gen).to(device)
     table_bytes = {r: 3 * r * c for r in tables}  # entries of one scale's stack
 
     def residuals_equal(name, got, ref):
@@ -362,8 +377,8 @@ def cp_kernel_phase(device):
               flush=True)
 
     out = {}
-    for name in ("cp_product_forward", "cp_product_backward", "cp_jac_basis_forward",
-                 "cp_jac_basis_backward"):
+    for name in ("cp_product_forward", "cp_product_backward", "cp_product_jac_forward",
+                 "cp_product_jac_backward", "cp_jac_basis_forward", "cp_jac_basis_backward"):
         out[name] = {"errs": [], "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}}
     for r in resolutions + stacked_resolutions:
         lines = tables[r]
@@ -389,6 +404,26 @@ def cp_kernel_phase(device):
                     compare(f"cp_product_backward {tag} {label}", a, b, rel=2.5e-2))
             if not with_jac:
                 continue
+            # K7: eval and training mode
+            prod_e, jac_e, v_e, g_e = cpp.cp_product_jac_launch(lines, u, r)
+            prod_k7, jac_k7, vsave_k7, gdsave_k7 = cpp.cp_product_jac_launch(lines, u, r,
+                                                                            train=True)
+            torch.cuda.synchronize()
+            assert v_e is None and g_e is None, "K7 eval mode wrote residuals"
+            assert torch.equal(prod_k7, prod_e) and torch.equal(jac_k7, jac_e)
+            ref_k7 = cpp.cp_product_jac_plain(lines, u, r, save_residuals=True)
+            residuals_equal(f"cp_product_jac_forward {tag}", (vsave_k7, gdsave_k7), ref_k7[2:])
+            for label, a, b in zip(("prod", "jac"), (prod_k7, jac_k7), ref_k7[:2]):
+                out["cp_product_jac_forward"]["errs"].append(
+                    compare(f"cp_product_jac_forward {tag} {label}", a, b))
+            # K8 from those residuals
+            djr = djac_raw[:, :, :n].contiguous()
+            got = cpp.cp_product_jac_backward_launch(u, vsave_k7, gdsave_k7, dp, djr, r)
+            torch.cuda.synchronize()
+            ref_b = cpp.cp_product_jac_backward_plain(u, vsave_k7, gdsave_k7, dp, djr, r)
+            for label, a, b in zip(("d lines", "d u"), got, ref_b):
+                out["cp_product_jac_backward"]["errs"].append(
+                    compare(f"cp_product_jac_backward {tag} {label}", a, b, rel=2.5e-2))
             # K9: eval and training mode
             enc_e, jac_e, v_e, g_e = cpp.cp_product_jac_basis_launch(lines, basis, u, r)
             enc, jac, vsave_j, gdsave = cpp.cp_product_jac_basis_launch(lines, basis, u, r,
@@ -423,6 +458,14 @@ def cp_kernel_phase(device):
                 lambda: cpp.cp_product_backward_launch(lines, u, vsave, dp, r),
                 lambda: cpp.cp_product_backward_plain(lines, u, vsave, dp, r),
                 n * (12 + 6 * c + 4 * c + 12) + 2 * tb + 4 * tb, n * c * 18),
+            "cp_product_jac_forward": (
+                lambda: cpp.cp_product_jac_launch(lines, u, r, train=True),
+                lambda: cpp.cp_product_jac_plain(lines, u, r, save_residuals=True),
+                n * (12 + 16 * c + 12 * c) + 2 * tb, n * c * 23),
+            "cp_product_jac_backward": (
+                lambda: cpp.cp_product_jac_backward_launch(u, vsave_k7, gdsave_k7, dp, djr, r),
+                lambda: cpp.cp_product_jac_backward_plain(u, vsave_k7, gdsave_k7, dp, djr, r),
+                n * (12 + 12 * c + 4 * c + 12 * c + 12) + 4 * tb, n * c * 40),
             "cp_jac_basis_forward": (
                 lambda: cpp.cp_product_jac_basis_launch(lines, basis, u, r, train=True),
                 lambda: cpp.cp_product_jac_basis_plain(lines, basis, u, r, save_residuals=True),
@@ -436,7 +479,7 @@ def cp_kernel_phase(device):
                 n * c * (40 + 16 * f)),
         }
         for name, (kern, plain, n_bytes, f32_ops) in timed.items():
-            if not with_jac and name.startswith("cp_jac"):
+            if not with_jac and name.startswith(("cp_jac", "cp_product_jac")):
                 continue
             e = out[name]
             e["ms"][r] = time_ms(kern)
@@ -445,10 +488,21 @@ def cp_kernel_phase(device):
             print(f"[kernel] {name} R={r}: {e['ms'][r]:.4f} ms (plain {e['plain_ms'][r]:.3f} "
                   f"ms; bound {e['bound_ms'][r]:.4f} ms by {e['bound_by'][r]}) at N={n}",
                   flush=True)
+        if with_jac:  # K7 in eval mode (export vertex colours, rendered views)
+            e = out["cp_product_jac_forward"]
+            e.setdefault("ms_eval", {})[r] = time_ms(lambda: cpp.cp_product_jac_launch(lines, u, r))
+            e.setdefault("bound_ms_eval", {})[r] = bound(n * (12 + 16 * c) + 2 * tb, 0,
+                                                         n * c * 23)[0]
+            print(f"[kernel] cp_product_jac_forward R={r}: {e['ms_eval'][r]:.4f} ms eval (bound "
+                  f"{e['bound_ms_eval'][r]:.4f} ms) at N={n}", flush=True)
 
     meta = {
         "cp_product_forward": ("cp_product_fwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:242"),
         "cp_product_backward": ("cp_product_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:277"),
+        "cp_product_jac_forward": ("cp_product_jac_fwd.cu",
+                                   "instant_nsr_pl_tpu/ops/cp_pallas.py:424"),
+        "cp_product_jac_backward": ("cp_product_jac_bwd.cu",
+                                    "instant_nsr_pl_tpu/ops/cp_pallas.py:464"),
         "cp_jac_basis_forward": ("cp_jac_basis_fwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:633"),
         "cp_jac_basis_backward": ("cp_jac_basis_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:676"),
     }
@@ -469,9 +523,12 @@ def cp_kernel_phase(device):
             "library_note": "no single PyTorch call computes this function",
             "n": N_FULL,
         }
-        if name.startswith("cp_product"):  # the stacked encoding's per-scale calls
+        if name in ("cp_product_forward", "cp_product_backward"):  # the stacked encoding's
             entry["ms_stacked_scales"] = sum(e["ms"][r] for r in stacked_resolutions)
             entry["bound_ms_stacked_scales"] = sum(e["bound_ms"][r] for r in stacked_resolutions)
+        if "ms_eval" in e:
+            entry["ms_eval"] = sum(e["ms_eval"][r] for r in resolutions)
+            entry["bound_ms_eval"] = sum(e["bound_ms_eval"][r] for r in resolutions)
         entries.append(entry)
     return entries
 
@@ -887,6 +944,8 @@ def neus_counters():
 
     return {"sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward,
             "cp_product_forward": cpp.cp_product, "cp_product_backward": cpp.cp_product_backward,
+            "cp_product_jac_forward": cpp.cp_product_jac,
+            "cp_product_jac_backward": cpp.cp_product_jac_backward,
             "cp_jac_basis_forward": cpp.cp_product_jac_basis,
             "cp_jac_basis_backward": cpp.cp_product_jac_basis_backward,
             "cp_jac_stacked_forward": cps.cp_jac_basis_stacked,
@@ -917,18 +976,28 @@ def _grads(params, step, exempt=()):
     return len(named_leaves(params))
 
 
-def neus_train_phase(device, smi, config=NEUS_CONFIG, stacked=False):
-    """The bench NeuS (or, with ``stacked``, the stacked NeuS: K11/K12 for
-    K9/K10) trained through NeuSSystem.train_step for NEUS_STEPS steps
+def jac_kernel(model):
+    """(tag, counter prefix) of the product-with-Jacobian kernels a NeuS
+    model's encoding runs: K11/K12 stacked, K7/K8 without a basis, else
+    K9/K10."""
+    enc = model.geometry.encoding.encoding
+    if enc.stack_scales:
+        return "neus-stacked", "cp_jac_stacked"
+    if enc.spec.n_features == 0:
+        return "neus-raw", "cp_product_jac"
+    return "neus", "cp_jac_basis"
+
+
+def neus_train_phase(device, smi, config=NEUS_CONFIG):
+    """The bench NeuS (or the stacked NeuS: K11/K12 for K9/K10, or the raw
+    NeuS: K7/K8) trained through NeuSSystem.train_step for NEUS_STEPS steps
     (8,192 rays and 262,144 packed samples per step)."""
-    tag = "neus-stacked" if stacked else "neus"
-    jac = "cp_jac_stacked" if stacked else "cp_jac_basis"
     system, val = neus_system(device, config=config)
     state = system.init_state(seed=SEED)
     model, params = system.model, state["params"]
     geo = model.geometry
+    tag, jac = jac_kernel(model)
     assert geo.use_jac and geo.encoding.encoding.grad_mode == "fast" and model.texture.fused
-    assert geo.encoding.encoding.stack_scales == stacked
     assert system.train_capacity == N_FULL, system.train_capacity
 
     # the untrained model against the grid its first (warmup) update gives
@@ -938,8 +1007,8 @@ def neus_train_phase(device, smi, config=NEUS_CONFIG, stacked=False):
     print(f"[{tag}] untrained val view: PSNR {untrained['psnr']:.3f} dB", flush=True)
 
     # before the first step: a backward, finite gradients everywhere, zero
-    # only on the CP tables and bases (the sphere init's first layer is zero
-    # beyond the xyz rows, so d out / d enc = 0)
+    # only on the CP tables and bases, if any (the sphere init's first layer
+    # is zero beyond the xyz rows, so d out / d enc = 0)
     cp_keys = ("geometry.encoding.",)
     loss, _ = system.loss_fn(params, occ0, _batch(system, gen), gen, 0)
     assert loss.grad_fn is not None, "the loss has no backward"
@@ -957,6 +1026,7 @@ def neus_train_phase(device, smi, config=NEUS_CONFIG, stacked=False):
     n_warm = min(100, NEUS_STEPS // 2)
     warm_from = NEUS_STEPS - n_warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     t_warm = None
     for i in range(NEUS_STEPS):
@@ -988,6 +1058,7 @@ def neus_train_phase(device, smi, config=NEUS_CONFIG, stacked=False):
             occupied_warm = int(state["occ"]["grid"].binary.sum())
     torch.cuda.synchronize()
     t_end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
     totals = {k: c.launches for k, c in counters.items()}
     losses = [float(v) for v in losses]
     psnrs = [float(v) for v in psnrs]
@@ -1020,20 +1091,21 @@ def neus_train_phase(device, smi, config=NEUS_CONFIG, stacked=False):
           f"{trained['ssim']:.4f} (untrained {untrained['psnr']:.3f} dB)", flush=True)
     assert trained["psnr"] >= untrained["psnr"] + 3.0, "training gained less than 3 dB"
     print(f"[{tag}] warm: {rays_per_s:.0f} rays/s, {warm_s / n_warm * 1e3:.2f} ms per step over "
-          f"the last {n_warm} steps ({smi})", flush=True)
+          f"the last {n_warm} steps; peak device memory over the {NEUS_STEPS} steps "
+          f"{peak / 2**30:.2f} GiB ({smi})", flush=True)
     return system, state, val, per_step[1], totals, rays_per_s
 
 
 def neus_render_phase(device, system, state, val, smi):
     """One 256x256 val view of the trained NeuS through evaluate_image (the
-    counters read around it: K9, or K11 for the stacked NeuS, in eval mode,
-    K3), again warm through render_image, and one composited 4,096-ray chunk
-    from the kernels on the card against the same chunk from the plain
-    versions on the CPU."""
+    counters read around it: K9, or K11 for the stacked NeuS and K7 for the
+    raw one, in eval mode, K3, no backward), again warm through
+    render_image, and one composited 4,096-ray chunk from the kernels on the
+    card against the same chunk from the plain versions on the CPU."""
     from instant_nsr_pl_tpu_torch.ops.ray import get_rays
 
-    stacked = system.model.geometry.encoding.encoding.stack_scales
-    tag = "neus-stacked-render" if stacked else "neus-render"
+    tag, jac = jac_kernel(system.model)
+    tag += "-render"
 
     counters = neus_counters()
     for c in counters.values():
@@ -1053,13 +1125,10 @@ def neus_render_phase(device, system, state, val, smi):
     for k in ("comp_rgb", "comp_normal", "opacity", "depth"):
         assert np.isfinite(imgs[k]).all(), k
     chunks = -(-n_rays // system.eval_chunk_rays)
-    if stacked:  # one per chunk
-        assert launches["cp_jac_stacked_forward"] >= chunks, launches
-    else:  # one per scale and chunk
-        assert launches["cp_jac_basis_forward"] >= 2 * chunks, launches
+    per_chunk = 1 if jac == "cp_jac_stacked" else 2  # one launch, or one per scale
+    assert launches[f"{jac}_forward"] >= per_chunk * chunks, launches
     assert launches["sh_mlp_forward"] >= chunks, launches
-    assert launches["cp_jac_basis_backward"] == launches["cp_jac_stacked_backward"] == 0, launches
-    assert launches["sh_mlp_backward"] == 0, launches
+    assert all(launches[k] == 0 for k in launches if k.endswith("_backward")), launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     system.render_image(state, 0, data=val)
@@ -1092,6 +1161,15 @@ def neus_render_phase(device, system, state, val, smi):
               f"{errs[k]:.3e} (limit {tol:.3e})", flush=True)
         if not errs[k] <= tol:
             raise AssertionError(f"composited chunk {k}: kernels and plain versions disagree")
+    # the trained SDF's level set on a 64^3 grid of the scene's cube (K5)
+    from instant_nsr_pl_tpu_torch.models.isosurface import _eval_level_grid
+
+    r = system.model.radius
+    vals = _eval_level_grid(system.model.geometry, state["params"]["geometry"],
+                            np.full(3, -r, np.float32), np.full(3, r, np.float32), 64, N_FULL,
+                            device)
+    print(f"[{tag}] trained SDF on a 64^3 grid: min {vals.min():.4f}, max {vals.max():.4f}, "
+          f"{(vals < 0).mean():.4%} of the points below 0", flush=True)
     return launches, n_rays / view_s, n_rays / warm_s
 
 
@@ -1143,6 +1221,173 @@ def neus_fd_phase(device):
     return per_step[1], totals
 
 
+def trainer_phase(device, system, state, smi):
+    """The trained raw NeuS through the Trainer's test, predict and export
+    (``trainer.py``), as ``launch.py --test`` / ``--predict`` / ``--export``
+    run them, into ``exp/chip_smoke/<config name>/save``; the launch counters
+    set to 0 just before each and read just after. Test: the four 256x256
+    test views (K7 in eval mode, K3) with their PNGs and metric sidecars,
+    test/psnr, then the mesh. Predict: the eight train-camera views. Export:
+    the 128^3 two-stage marching pass (K5 in the level grid, per scale and
+    chunk; the fine pass only where the coarse one found a surface), the
+    vertex colours through the analytic normal (K7 in eval mode, no K8), each
+    timed by stage, of the trained state and of the same model's sphere-init
+    state (the seed's parameters before training), whose level set is a
+    sphere: there a non-empty mesh with valid indices and finite colours in
+    [0, 1], and one chunk of vertex colours from the kernels against the
+    plain versions on the CPU within 2e-2."""
+    import instant_nsr_pl_tpu_torch.models.isosurface as iso_mod
+    from instant_nsr_pl_tpu_torch.registry import datasets
+    from instant_nsr_pl_tpu_torch.trainer import Trainer
+    from instant_nsr_pl_tpu_torch.utils.savers import load_obj
+
+    cfg = system.config
+    exp_dir = os.path.join(ROOT, "exp", "chip_smoke", cfg.name)
+    trainer = Trainer(cfg, exp_dir)
+    dm = datasets.make(cfg.dataset.name, cfg.dataset)
+    step = int(state["step"])
+    counters = neus_counters()
+    launches, walls = {}, {}
+
+    def run(phase, fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[phase] = time.perf_counter() - t0
+        launches[phase] = {k: c.launches for k, c in counters.items() if c.launches}
+        print(f"[{phase}] {walls[phase]:.2f} s, launches {launches[phase]}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        return result
+
+    n_scales = len(cfg.model.geometry.xyz_encoding_config.resolutions)
+    view_chunks = -(-system.w * system.h // system.eval_chunk_rays)
+    iso = cfg.model.geometry.isosurface
+    pass_chunks = -(-(int(iso.resolution) ** 3) // int(iso.chunk))
+    colour_chunk = min(int(cfg.export.chunk_size), 262144)
+
+    def obj_faces(at_step):
+        path = os.path.join(trainer.save_dir, f"it{at_step}-neus.obj")
+        return len(load_obj(path)["t_pos_idx"])
+
+    test_dir = os.path.join(trainer.save_dir, f"it{step}-test")
+    if os.path.isdir(test_dir):  # a fresh test: no cached views from an earlier run
+        for f in os.listdir(test_dir):
+            os.remove(os.path.join(test_dir, f))
+    psnr = run("test", lambda: trainer.test(system, dm, state))
+    n_test = int(cfg.dataset.get("n_test", 4))
+    names = sorted(os.listdir(test_dir))
+    assert names == sorted(f"{i}.{e}" for i in range(n_test) for e in ("png", "json")), names
+    assert math.isfinite(psnr), psnr
+    k = launches["test"]
+    passes = 2 if obj_faces(step) else 1  # the fine pass runs where the coarse found a surface
+    assert k["cp_product_jac_forward"] >= n_test * n_scales * view_chunks, k
+    assert k["cp_product_forward"] == n_scales * passes * pass_chunks, k
+    assert k["sh_mlp_forward"] >= n_test * view_chunks, k
+    print(f"[test] test/psnr {psnr:.3f} dB over {n_test} views ({smi})", flush=True)
+
+    n_pred = run("predict", lambda: trainer.predict(system, dm, state))
+    pred = sorted(os.listdir(os.path.join(trainer.save_dir, f"it{step}-predict")))
+    assert n_pred == system.n_images and pred == sorted(f"{i}.png" for i in range(n_pred)), pred
+    assert launches["predict"]["cp_product_jac_forward"] >= n_pred * n_scales * view_chunks
+
+    # export, timed by stage: the level grid (K5), the host marching pass,
+    # the vertex colours (K7 eval + K3) and the rest (the OBJ); the coarse
+    # level grid's minimum and share below the level set
+    model = system.model
+    level_fn, march_fn = iso_mod._eval_level_grid, iso_mod.marching_tetrahedra
+    colour_fn = model.vertex_colors
+    stages = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage[key] += time.perf_counter() - t0
+            if key == "level grid" and "level min" not in stage:
+                stage["level min"] = float(out.min())
+                stage["inside share"] = float((out < 0).mean())
+            return out
+        return wrapper
+
+    def export(phase, st):
+        nonlocal stage
+        stage = stages[phase] = {"level grid": 0.0, "marching": 0.0, "vertex colours": 0.0}
+        iso_mod._eval_level_grid = timed("level grid", level_fn)
+        iso_mod.marching_tetrahedra = timed("marching", march_fn)
+        model.vertex_colors = timed("vertex colours", colour_fn)
+        try:
+            mesh = run(phase, lambda: trainer.export(system, st))
+        finally:
+            iso_mod._eval_level_grid, iso_mod.marching_tetrahedra = level_fn, march_fn
+            del model.vertex_colors  # the class's method again
+        v, f = mesh["v_pos"], mesh["t_pos_idx"]
+        k = launches[phase]
+        rest = walls[phase] - stage["level grid"] - stage["marching"] - stage["vertex colours"]
+        print(f"[{phase}] step {int(st['step'])}: {len(v)} vertices, {len(f)} faces; coarse level "
+              f"grid min {stage['level min']:.4f}, {stage['inside share']:.4%} below 0; level "
+              f"grid {stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), "
+              f"vertex colours {stage['vertex colours']:.3f} s, the rest (OBJ) {rest:.3f} s; "
+              f"launches {k} ({smi})", flush=True)
+        passes = 2 if len(f) else 1
+        assert k.get("cp_product_forward", 0) == n_scales * passes * pass_chunks, k
+        assert k.get("cp_product_jac_forward", 0) == n_scales * -(-len(v) // colour_chunk), k
+        assert not any(name.endswith("_backward") for name in k), k
+        assert obj_faces(int(st["step"])) == len(f)
+        return mesh
+
+    stage = None
+    export("export", state)
+    init = system.init_state(seed=SEED)  # the sphere init: the level set is a sphere
+    mesh = export("export_init", init)
+    v, f, rgb = mesh["v_pos"], mesh["t_pos_idx"], mesh["v_rgb"]
+    assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
+    assert np.isfinite(rgb).all() and rgb.min() >= 0.0 and rgb.max() <= 1.0
+
+    # one chunk of vertex colours: kernels on the card, plain versions on the CPU
+    pts = torch.from_numpy(v[:colour_chunk])
+    with torch.no_grad():
+        on_card = model.vertex_colors(init["params"], pts.to(device)).cpu()
+        on_cpu = model.vertex_colors(_to(init["params"], torch.device("cpu")), pts)
+    err = float((on_card - on_cpu).abs().max())
+    print(f"[export_init] vertex colours of {len(pts)} vertices: max|kernels - plain| = "
+          f"{err:.3e} (limit 2e-2)", flush=True)
+    if not err <= 2e-2:
+        raise AssertionError("vertex colours: kernels and plain versions disagree")
+    return launches, stages, walls
+
+
+def sphere_extraction_phase(spheres, device):
+    """The port's two-stage extraction (``models/isosurface.py``) of the
+    scene's own sphere-union SDF at 128^3, the level grid handed over as a
+    CUDA tensor: every vertex within one voxel of a sphere surface."""
+    from instant_nsr_pl_tpu_torch.datasets.synthetic import scene_sdf
+    from instant_nsr_pl_tpu_torch.models.isosurface import extract_isosurface
+
+    spheres = tuple((tuple(s[0:3]), float(s[3]), tuple(s[4:7])) for s in spheres)
+
+    class SceneSDF:
+        radius = 1.5
+        config = {"isosurface": {"resolution": 128, "chunk": 262144, "threshold": 0.0}}
+
+        def forward_level(self, params, points):
+            return torch.as_tensor(scene_sdf(points.cpu().numpy(), spheres), device=points.device)
+
+    mesh = extract_isosurface(SceneSDF(), None, device)
+    v = mesh["v_pos"]
+    dist = np.min([np.abs(np.linalg.norm(v - np.float32(c), axis=1) - r) for c, r, _ in spheres],
+                  axis=0)
+    voxel = 2 * 1.5 / 127
+    print(f"[sphere-sdf] {len(v)} vertices, {len(mesh['t_pos_idx'])} faces; max distance to a "
+          f"sphere surface {dist.max():.3e} (one coarse voxel {voxel:.3e})", flush=True)
+    assert len(v) > 0 and dist.max() <= voxel, "the extracted scene surface is off"
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1185,19 +1430,29 @@ def main():
           f"{neus_view_warm:.0f} warm ({smi})", flush=True)
     torch.cuda.empty_cache()
     system, state, val, ns_step, ns_run, ns_rays_per_s = neus_train_phase(
-        device, smi, NEUS_STACKED_CONFIG, stacked=True)
+        device, smi, NEUS_STACKED_CONFIG)
     ns_view, ns_view_first, ns_view_warm = neus_render_phase(device, system, state, val, smi)
     del system, state, val
     print(f"[neus-stacked] rays/s: {ns_rays_per_s:.0f} warm training; view {ns_view_first:.0f} "
           f"first, {ns_view_warm:.0f} warm ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    system, state, val, nr_step, nr_run, nr_rays_per_s = neus_train_phase(
+        device, smi, NEUS_RAW_CONFIG)
+    nr_view, nr_view_first, nr_view_warm = neus_render_phase(device, system, state, val, smi)
+    print(f"[neus-raw] rays/s: {nr_rays_per_s:.0f} warm training; view {nr_view_first:.0f} "
+          f"first, {nr_view_warm:.0f} warm ({smi})", flush=True)
+    nr_launches, _, _ = trainer_phase(device, system, state, smi)
+    sphere_extraction_phase(system.config.dataset.spheres, device)
+    del system, state, val
     # launches: counted in the run of the path that runs the kernel (the NeRF
     # training runs for K1/K2 and K13/K14, the NeuS training runs for
-    # K3-K5/K9/K10 and K11/K12, the finite-difference run for K6), with the
-    # per-step counts of each path
+    # K3-K5/K9/K10, K11/K12 and K7/K8, the finite-difference run for K6),
+    # with the per-step counts of each path
     paths = {"nerf_train": (step_launches, run_launches), "nerf_stacked_train": (st_step, st_run),
              "neus_train": (neus_step, neus_run), "neus_fd": (fd_step, fd_run),
-             "neus_stacked_train": (ns_step, ns_run)}
-    views = {"nerf_view": render_launches, "neus_view": neus_view, "neus_stacked_view": ns_view}
+             "neus_stacked_train": (ns_step, ns_run), "neus_raw_train": (nr_step, nr_run)}
+    views = {"nerf_view": render_launches, "neus_view": neus_view, "neus_stacked_view": ns_view,
+             "neus_raw_view": nr_view, **{f"neus_raw_{k}": v for k, v in nr_launches.items()}}
     for e in entries:
         name = e["name"]
         for path, (per_step, run) in paths.items():
@@ -1210,6 +1465,7 @@ def main():
         main_path = ("nerf_stacked_train" if name.startswith("cp_mlp_stacked")
                      else "nerf_train" if name.startswith("cp_mlp")
                      else "neus_stacked_train" if name.startswith("cp_jac_stacked")
+                     else "neus_raw_train" if name.startswith("cp_product_jac")
                      else "neus_fd" if name == "cp_product_backward" else "neus_train")
         e["launches"] = e[f"launches_{main_path}_run"]
         e["launches_path"] = main_path

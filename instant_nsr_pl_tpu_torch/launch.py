@@ -1,14 +1,17 @@
 """Command-line launcher of the PyTorch port, with ``launch.py``'s surface:
 
-    python -m instant_nsr_pl_tpu_torch.launch --config X.yaml --train|--validate \
+    python -m instant_nsr_pl_tpu_torch.launch --config X.yaml \
+        --train|--validate|--test|--predict|--export \
         [--resume ckpt] [--resume_weights_only] [--device cpu] [dot.list=overrides]
 
 It runs on ``cuda`` unless ``--device cpu`` is given (and fails without a
 card). Runs go to ``<exp_dir>/<name>/<trial>`` as in the JAX package's
 launcher (``launch.py:94-119``): ``<trial>`` is ``[tag@]<timestamp>``, and
 resuming from a checkpoint inside that layout continues in its trial
-directory. ``--resume`` also takes a JAX package checkpoint (``.npz``).
-``--test``, ``--predict`` and ``--export`` come with the export slice.
+directory (so a second ``--test`` finds the views it already saved).
+``--resume`` also takes a JAX package checkpoint (``.npz``). ``--train``
+tests the trained state when it ends (test views, then the mesh), as the
+JAX launcher does (``launch.py:152-159``); the other modes need ``--resume``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import os
 import sys
 from datetime import datetime
 
-LATER = "comes with the export slice of the PyTorch port (test/predict renders, mesh export)"
+MODES = ("train", "validate", "test", "predict", "export")
 
 
 def _trial_name(config, args, name):
@@ -52,12 +55,10 @@ def main(argv=None):
     parser.add_argument("--exp_dir", default="./exp")
     args, extras = parser.parse_known_args(argv)
 
-    for flag in ("test", "predict", "export"):
-        if getattr(args, flag):
-            sys.exit(f"--{flag} {LATER}")
-    if not (args.train or args.validate):
-        parser.error("one of --train/--validate is required "
-                     "(--test/--predict/--export " + LATER + ")")
+    modes = [m for m in MODES if getattr(args, m)]
+    if len(modes) != 1:
+        parser.error("exactly one of --train/--validate/--test/--predict/--export is required")
+    mode = modes[0]
 
     from instant_nsr_pl_tpu_torch.config import dump_config, load_config
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
@@ -75,17 +76,22 @@ def main(argv=None):
     dm = datasets.make(config.dataset.name, config.dataset)
     system = systems.make(config.system.name, config, device=args.device)
     trainer = Trainer(config, exp_dir)
-    if args.train:
-        trainer.fit(system, dm, resume=args.resume, resume_weights_only=args.resume_weights_only)
+    if mode == "train":
+        state = trainer.fit(system, dm, resume=args.resume,
+                            resume_weights_only=args.resume_weights_only)
+        trainer.test(system, dm, state)
         return 0
     if not args.resume:
-        sys.exit("--validate needs --resume <checkpoint>")
+        sys.exit(f"--{mode} needs --resume <checkpoint>")
     from instant_nsr_pl_tpu_torch.utils.checkpoint import load_checkpoint
 
     dm.setup("fit")
     system.setup_data(dm.train)
     state = load_checkpoint(args.resume, system.init_state(seed=int(config.get("seed", 42))))
-    trainer.validate(system, dm, state)
+    if mode == "export":
+        trainer.export(system, state)
+    else:
+        getattr(trainer, mode)(system, dm, state)
     return 0
 
 

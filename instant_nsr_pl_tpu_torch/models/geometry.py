@@ -2,22 +2,32 @@
 
 Port of ``instant_nsr_pl_tpu/models/geometry.py`` (``VolumeDensity``
 :58-108, reference models/geometry.py:115-140; ``VolumeSDF`` :111-313,
-reference models/geometry.py:143-238). Mesh extraction (``isosurface``)
-belongs to the export slice.
+reference models/geometry.py:143-238). Both extract their mesh with
+``isosurface`` (``models/isosurface.py``) from ``forward_level``, the field
+that is negative inside.
 """
 
 from __future__ import annotations
 
 import torch
 
+from instant_nsr_pl_tpu_torch.models.isosurface import extract_isosurface
 from instant_nsr_pl_tpu_torch.models.network_utils import (
     get_encoding,
     get_encoding_with_network,
     get_mlp,
+    params_device,
 )
 from instant_nsr_pl_tpu_torch.ops.activations import elementwise_jvp, get_activation
 from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType, contract_to_unisphere
 from instant_nsr_pl_tpu_torch.registry import models
+
+
+def isosurface(geometry, params):
+    """The two-stage marching pass of ``geometry`` (its ``config.isosurface``
+    section), the level grid evaluated on the parameters' device: a dict with
+    ``v_pos`` (V, 3) float32 and ``t_pos_idx`` (F, 3) int64 numpy arrays."""
+    return extract_isosurface(geometry, params, params_device(params))
 
 
 @models.register("volume-density")
@@ -54,6 +64,15 @@ class VolumeDensity:
         density = self.density_activation(out[..., 0] + self.density_bias)
         return density, out
 
+    def forward_level(self, params, points):
+        """Level-set field for marching (negative inside): -density, so the
+        surface at density ``threshold`` lies at level -threshold."""
+        density, _ = self.apply(params, points)
+        return -density
+
+    def isosurface(self, params):
+        return isosurface(self, params)
+
 
 _STENCIL = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
 
@@ -67,7 +86,8 @@ class VolumeSDF:
 
     - the jac path (the default when the encoding has one, as on the TPU):
       the encoding returns (feature, its analytic position Jacobian) from one
-      op per scale (``cp_product_jac_basis``, K9/K10 on the card), and the SDF
+      op per scale (``cp_product_jac_basis``, K9/K10 on the card, or
+      ``cp_product_jac``, K7/K8, without a basis), and the SDF
       gradient is ``J_enc^T dsdf/denc * 0.5 / radius`` with the MLP part as
       a forward-mode tangent through the plain fp32 MLP
       (:meth:`MLP.apply_jvp`): the second-order graph never meets a custom op
@@ -192,3 +212,6 @@ class VolumeSDF:
         """Scalar level-set field for marching cubes (negative inside)."""
         sdf, _ = self._field(params, points.reshape(-1, 3))
         return sdf.reshape(points.shape[:-1])
+
+    def isosurface(self, params):
+        return isosurface(self, params)

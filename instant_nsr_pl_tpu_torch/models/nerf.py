@@ -6,8 +6,9 @@ occupancy grid and its update, uniform (optionally stratified) stepping
 ``1.732 * 2r / num_samples``, the static-capacity packed march of
 ``ops/marching.py`` and compositing on the packed buffer. The training
 forward is differentiable with respect to the parameters; the eval forward
-runs without autograd. Unbounded scenes (learned background) belong to a
-later slice.
+runs without autograd. ``export`` extracts the mesh, with vertex colours
+seen from -z on request (JAX ``models/nerf.py:252-301``). Unbounded scenes
+(learned background) belong to a later slice.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import contextlib
 import torch
 
 from instant_nsr_pl_tpu_torch.device import resolve_device
+from instant_nsr_pl_tpu_torch.models.isosurface import chunked_point_eval
+from instant_nsr_pl_tpu_torch.models.network_utils import params_device
 from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType
 from instant_nsr_pl_tpu_torch.ops.marching import (
     OccGridSpec,
@@ -191,3 +194,30 @@ class NeRFModel:
             "sample_valid": samples.valid,
         })
         return out
+
+    # -- mesh export (reference models/nerf.py:152-161) ---------------------
+    def forward_level(self, params, points):
+        return self.geometry.forward_level(params["geometry"], points)
+
+    def isosurface(self, params):
+        return self.geometry.isosurface(params["geometry"])
+
+    def vertex_colors(self, params, v_pos):
+        """The radiance at points (N, 3) seen along -z, clipped to [0, 1]."""
+        _, feature = self.geometry.apply(params["geometry"], v_pos)
+        viewdirs = torch.zeros_like(v_pos)
+        viewdirs[:, 2] = -1.0
+        return torch.clamp(self.texture.apply(params["texture"], feature, viewdirs), 0.0, 1.0)
+
+    def export(self, params, export_config):
+        """The mesh (``isosurface``) and, with ``export_vertex_color`` and a
+        surface to colour, its :meth:`vertex_colors`, in chunks of
+        ``export.chunk_size`` points under ``torch.no_grad``. A failure of
+        the colour pass propagates: no geometry-only mesh stands in for it."""
+        mesh = self.isosurface(params)
+        if export_config.get("export_vertex_color", False) and len(mesh["v_pos"]):
+            with torch.no_grad():
+                mesh["v_rgb"] = chunked_point_eval(
+                    lambda v: self.vertex_colors(params, v), mesh["v_pos"],
+                    export_config.get("chunk_size", 2097152), params_device(params))
+        return mesh

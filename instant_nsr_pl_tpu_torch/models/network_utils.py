@@ -47,6 +47,11 @@ def named_leaves(tree, prefix=""):
     return out
 
 
+def params_device(tree) -> torch.device:
+    """The device a parameter tree lies on (its first leaf's)."""
+    return named_leaves(tree)[0][1].device
+
+
 def make_trainable(tree):
     """Make every parameter of ``tree`` require grad, in place (the init
     draws them as leaf tensors); returns the tree."""
@@ -71,7 +76,8 @@ class CPEncoding:
 
     ``grad_mode`` ('fast' by default, the kernel path): 'fast' runs the CP
     product op (``ops/cp_product.py``: K5/K6 on the card) and, for
-    :meth:`apply_with_jac`, the product-with-Jacobian op (K9/K10); 'autodiff'
+    :meth:`apply_with_jac`, the product-with-Jacobian op (K9/K10 with a
+    basis, K7/K8 for the raw products, ``n_features: 0``); 'autodiff'
     keeps the composed formula, differentiable at any order (the NeuS
     analytic-gradient fallback switches to it, ``models/geometry.py``).
 

@@ -8,8 +8,10 @@ AABB (the packed march of ``ops/marching.py``, as in ``models/nerf.py``) and
 compositing of colour, depth and normals. The training forward is
 differentiable with respect to the parameters, through the SDF gradient at
 second order (``models/geometry.py`` ``VolumeSDF``); the eval forward runs
-without autograd. The learned NeRF background (sphere contraction,
-cone-angle stepping, the 256^3 grid) belongs to a later slice.
+without autograd. ``export`` extracts the mesh with "albedo" vertex colours
+seen along -normal, the normal from the analytic SDF gradient (JAX
+``models/neus.py:451-506``). The learned NeRF background (sphere
+contraction, cone-angle stepping, the 256^3 grid) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from instant_nsr_pl_tpu_torch.device import resolve_device
+from instant_nsr_pl_tpu_torch.models.isosurface import chunked_point_eval
+from instant_nsr_pl_tpu_torch.models.network_utils import params_device
 from instant_nsr_pl_tpu_torch.ops.activations import clip
 from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType
 from instant_nsr_pl_tpu_torch.ops.marching import (
@@ -297,5 +301,34 @@ class NeuSModel:
                     out["sdf_laplace_samples"] = sdf_laplace
         return out
 
+    # -- mesh export (reference models/neus.py:316-321) ---------------------
     def forward_level(self, params, points):
         return self.geometry.forward_level(params["geometry"], points)
+
+    def isosurface(self, params):
+        return self.geometry.isosurface(params["geometry"])
+
+    def vertex_colors(self, params, v_pos):
+        """The "albedo" colour at points (N, 3): the radiance seen along
+        -normal, the normal from the analytic SDF gradient (on the jac path,
+        K7 or K9 in eval mode on the card), clipped to [0, 1]."""
+        _, sdf_grad, feature = self.geometry.apply(params["geometry"], v_pos, with_grad=True,
+                                                   with_feature=True)
+        normal = sdf_grad / torch.clamp(torch.linalg.norm(sdf_grad, dim=-1, keepdim=True),
+                                        min=1e-10)
+        rgb = self.texture.apply(params["texture"], feature, -normal, normal)
+        return torch.clamp(rgb, 0.0, 1.0)
+
+    def export(self, params, export_config):
+        """The mesh (``isosurface``) and, with ``export_vertex_color`` and a
+        surface to colour, its :meth:`vertex_colors`, in chunks of
+        ``export.chunk_size`` points capped at 262,144 under
+        ``torch.no_grad``. A failure of the colour pass propagates: no
+        geometry-only mesh stands in for it."""
+        mesh = self.isosurface(params)
+        if export_config.get("export_vertex_color", False) and len(mesh["v_pos"]):
+            chunk = min(int(export_config.get("chunk_size", 2097152)), 262144)
+            with torch.no_grad():
+                mesh["v_rgb"] = chunked_point_eval(lambda v: self.vertex_colors(params, v),
+                                                   mesh["v_pos"], chunk, params_device(params))
+        return mesh

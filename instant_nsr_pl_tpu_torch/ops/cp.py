@@ -15,9 +15,10 @@ with bf16 line tables. Two implementations, as in the JAX package:
   with bf16 operands and f32 sums. First-order only.
 
 :func:`cp_encode_with_jac` returns the encoding and its position Jacobian,
-per scale from one ``cp_product_jac_basis`` op (K9/K10) in the fast
-implementation, or, with ``stacked=True`` (nested resolutions), for all scales
-from one ``cp_jac_basis_stacked`` op (K11/K12, ``ops/cp_stacked.py``).
+per scale from one ``cp_product_jac_basis`` op (K9/K10), or ``cp_product_jac``
+(K7/K8) without a basis, in the fast implementation, or, with
+``stacked=True`` (nested resolutions), for all scales from one
+``cp_jac_basis_stacked`` op (K11/K12, ``ops/cp_stacked.py``).
 :func:`cp_encode` stays per scale, as in the JAX package.
 """
 
@@ -29,7 +30,11 @@ import math
 import torch
 
 from instant_nsr_pl_tpu_torch.ops.activations import clip
-from instant_nsr_pl_tpu_torch.ops.cp_product import cp_product, cp_product_jac_basis
+from instant_nsr_pl_tpu_torch.ops.cp_product import (
+    cp_product,
+    cp_product_jac,
+    cp_product_jac_basis,
+)
 from instant_nsr_pl_tpu_torch.ops.cp_stacked import cp_jac_basis_stacked, stackable
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round
 
@@ -117,12 +122,14 @@ def cp_encode(params, x, spec: CPSpec, impl: str = "xla"):
 def cp_encode_with_jac(params, x, spec: CPSpec, impl: str = "fast", stacked: bool = False):
     """(encoded (..., E), d encoded / d x (3, ..., E)).
 
-    ``impl="fast"``: one ``cp_product_jac_basis`` op per scale (K9/K10 on the
-    card; needs ``n_features > 0``), the scales concatenated; with
-    ``stacked``, one ``cp_jac_basis_stacked`` op for all scales (K11/K12;
-    needs nested resolutions too). ``impl="xla"``: the composed formula and
-    its Jacobian by forward-mode differentiation, one tangent per input axis
-    (the JAX twin's ``jacfwd``), differentiable at any order."""
+    ``impl="fast"``: one op per scale, the scales concatenated:
+    ``cp_product_jac_basis`` (K9/K10 on the card) with a basis, or
+    ``cp_product_jac`` (K7/K8) for the raw products (``n_features: 0``);
+    with ``stacked``, one ``cp_jac_basis_stacked`` op for all scales
+    (K11/K12; needs a basis and nested resolutions). ``impl="xla"``: the
+    composed formula and its Jacobian by forward-mode differentiation, one
+    tangent per input axis (the JAX twin's ``jacfwd``), differentiable at any
+    order."""
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3)
     e = spec.n_output_dims
@@ -132,16 +139,14 @@ def cp_encode_with_jac(params, x, spec: CPSpec, impl: str = "fast", stacked: boo
         return (enc.T.reshape(*batch_shape, e).to(x.dtype),
                 jac.transpose(1, 2).reshape(3, *batch_shape, e).to(x.dtype))
     if impl == "fast":
-        if spec.n_features <= 0:
-            raise NotImplementedError(
-                "cp_encode_with_jac without a basis (n_features: 0, cp_product_jac) "
-                "comes with the next slice of the port")
         u3 = xf.float().T.contiguous()
         encs, jacs = [], []
         for s, r in enumerate(spec.resolutions):
-            enc, jac = cp_product_jac_basis(
-                params[f"line_{s}_0"], params[f"line_{s}_1"], params[f"line_{s}_2"],
-                params[f"basis_{s}"], u3, r)  # (F, N), (3, F, N)
+            lines = (params[f"line_{s}_0"], params[f"line_{s}_1"], params[f"line_{s}_2"])
+            if spec.n_features > 0:
+                enc, jac = cp_product_jac_basis(*lines, params[f"basis_{s}"], u3, r)  # (F, N)
+            else:
+                enc, jac = cp_product_jac(*lines, u3, r)  # raw products: (C, N), (3, C, N)
             encs.append(enc)
             jacs.append(jac)
         enc = torch.cat(encs, dim=0).T

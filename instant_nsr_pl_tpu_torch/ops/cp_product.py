@@ -1,17 +1,19 @@
-"""CP line product, and the CP product with its analytic Jacobian and the basis
-projection fused, forward and backward.
+"""CP line product, the CP product with its analytic Jacobian, and the same
+with the basis projection fused, forward and backward.
 
 Port of ``instant_nsr_pl_tpu/ops/cp_pallas.py`` ``cp_product`` (K5 forward,
-K6 backward) and ``cp_product_jac_basis`` (K9 forward, K10 backward) with
-their custom VJPs. On CUDA tensors each op launches its hand-written kernel
+K6 backward), ``cp_product_jac`` (K7 forward, K8 backward) and
+``cp_product_jac_basis`` (K9 forward, K10 backward) with their custom VJPs.
+On CUDA tensors each op launches its hand-written kernel
 (``csrc/cp_product_fwd.cu``, ``csrc/cp_product_bwd.cu``,
+``csrc/cp_product_jac_fwd.cu``, ``csrc/cp_product_jac_bwd.cu``,
 ``csrc/cp_jac_basis_fwd.cu``, ``csrc/cp_jac_basis_bwd.cu``); on CPU tensors it
 runs the plain PyTorch versions below, at the TPU kernels' rounding points.
 There is no fallback from one to the other.
 
 Layouts follow the TPU kernels: coordinates ``u3`` (3, N) in [0, 1] (clipped),
-outputs feature-major (``prod`` (C, N), ``enc`` (F, N), ``jac`` (3, F, N)),
-residuals (3, C, N) bf16. The line tables enter as the JAX op's (R, C) f32
+outputs feature-major (``prod`` (C, N), ``enc`` (F, N), ``jac`` (3, C, N) or
+(3, F, N)), residuals (3, C, N) bf16. The line tables enter as the JAX op's (R, C) f32
 tables and are stacked into one (3, R, C) bf16 operand (rows contiguous for
 the kernels' two-row reads); the basis enters as (C, F) and is used in bf16.
 
@@ -23,9 +25,10 @@ projections take bf16 operands with f32 sums. The backwards read the bf16
 residuals, round the scatter operands ``d_v`` / ``d_gd`` to bf16, and take
 ``d u`` from the f32 ``d_v``.
 
-``cp_product_jac_basis`` returns the Jacobian as a forward output, so the
-NeuS eikonal loss's second-order graph never differentiates through this op:
-its backward is first-order only (``once_differentiable``).
+``cp_product_jac`` and ``cp_product_jac_basis`` return the Jacobian as a
+forward output, so the NeuS eikonal loss's second-order graph never
+differentiates through them: their backwards are first-order only
+(``once_differentiable``).
 """
 
 from __future__ import annotations
@@ -240,6 +243,181 @@ def cp_product_backward_launch(lines, u3, vsave, dprod, res):
                 dprod.data_ptr(), dlines.data_ptr(), du.data_ptr(), stream)
     cuda_build.check(rc, "cp_product_backward", SUPPORTED_PRODUCT)
     cp_product_backward.launches += 1
+    return dlines, du
+
+
+# ---------------------------------------------------------------------------
+# cp_product_jac (K7 forward, K8 backward): the raw products, no basis
+# ---------------------------------------------------------------------------
+
+
+def cp_product_jac(lx, ly, lz, u3, res):
+    """``(prod (C, N), jac (3, C, N))``: prod = v_x v_y v_z of the (R, C)
+    line tables at the (3, N) coordinates ``u3``, and jac = d prod / d u3,
+    from one op (the CP encoding without a basis, ``n_features: 0``).
+
+    With grad mode on and an input that requires grad, the forward also
+    writes the residuals (K7 training mode) and the backward runs K8 (or the
+    plain versions, on CPU tensors); otherwise (a rendered view, export
+    vertex colours, under ``no_grad``) K7 writes no residuals."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (lx, ly, lz, u3)):
+        return _CPProductJac.apply(lx, ly, lz, u3, res)
+    prod, jac, _, _ = _product_jac_forward(line_stack(lx, ly, lz), u3, res, train=False)
+    return prod, jac
+
+
+cp_product_jac.launches = 0
+
+
+def _product_jac_forward(lines, u3, res, train):
+    if u3.device.type == "cuda":
+        return cp_product_jac_launch(lines, u3, res, train=train)
+    if u3.device.type == "cpu":
+        if train:
+            return cp_product_jac_plain(lines, u3, res, save_residuals=True)
+        return (*cp_product_jac_plain(lines, u3, res), None, None)
+    raise ValueError(f"cp_product_jac: unsupported device {u3.device}")
+
+
+class _CPProductJac(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lx, ly, lz, u3, res):
+        prod, jac, vsave, gdsave = _product_jac_forward(line_stack(lx, ly, lz), u3, res,
+                                                        train=True)
+        ctx.save_for_backward(u3, vsave, gdsave)
+        ctx.res = res
+        return prod, jac
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dprod, djac):
+        u3, vsave, gdsave = ctx.saved_tensors
+        dl, du = cp_product_jac_backward(u3, vsave, gdsave, dprod.contiguous(),
+                                         djac.contiguous(), ctx.res)
+        return dl[0], dl[1], dl[2], (du if ctx.needs_input_grad[3] else None), None
+
+
+def cp_product_jac_backward(u3, vsave, gdsave, dprod, djac, res):
+    """The op's backward (K8): ``(dlines (3, R, C), du (3, N))``, both f32,
+    from the bf16 residuals."""
+    if u3.device.type == "cuda":
+        return cp_product_jac_backward_launch(u3, vsave, gdsave, dprod, djac, res)
+    if u3.device.type == "cpu":
+        return cp_product_jac_backward_plain(u3, vsave, gdsave, dprod, djac, res)
+    raise ValueError(f"cp_product_jac_backward: unsupported device {u3.device}")
+
+
+cp_product_jac_backward.launches = 0
+
+
+def cp_product_jac_plain(lines, u3, res, save_residuals=False):
+    """Plain PyTorch version of K7 (``_jac_fwd_kernel``) on the (3, R, C)
+    bf16 stack: ``(prod (C, N), jac (3, C, N))`` in f32 and, with
+    ``save_residuals``, the (3, C, N) bf16 ``vsave``, ``gdsave``."""
+    table = lines.float()
+    vs, gds, gs = [], [], []
+    for ax in range(3):
+        i0, w0, w1, s = tent_coords(u3[ax], res)
+        r0, r1 = _rows(table[ax], i0)
+        vs.append(r0 * w0[:, None] + r1 * w1[:, None])  # (N, C)
+        gds.append(r1 - r0)
+        gs.append(gds[-1] * s[:, None])
+    prod = ((vs[0] * vs[1]) * vs[2]).T.contiguous()
+    jac = torch.stack([
+        gs[0] * (vs[1] * vs[2]),
+        gs[1] * (vs[0] * vs[2]),
+        gs[2] * (vs[0] * vs[1]),
+    ]).transpose(1, 2).contiguous()
+    if not save_residuals:
+        return prod, jac
+    vsave = torch.stack(vs).transpose(1, 2).to(torch.bfloat16).contiguous()
+    gdsave = torch.stack(gds).transpose(1, 2).to(torch.bfloat16).contiguous()
+    return prod, jac, vsave, gdsave
+
+
+def cp_product_jac_backward_plain(u3, vsave, gdsave, dprod, djac, res):
+    """Plain PyTorch version of K8 (``_jac_bwd_kernel``) at its rounding
+    points: the f32 cotangents as given, ``d_v`` and ``d_gd`` rounded to bf16
+    for the row scatter, ``du`` from the f32 ``d_v``. Returns ``(dlines (3,
+    R, C), du (3, N))``."""
+    c = vsave.shape[1]
+    n = u3.shape[1]
+    v = vsave.float()
+    gd = gdsave.float()
+    coords = [tent_coords(u3[ax], res) for ax in range(3)]
+    ss = [co[3] for co in coords]
+    others = (v[1] * v[2], v[0] * v[2], v[0] * v[1])
+    gs = [(djac[ax] * gd[ax]) * ss[ax] for ax in range(3)]
+    dlines = torch.zeros((3, res, c), dtype=torch.float32, device=u3.device)
+    du = torch.empty((3, n), dtype=torch.float32, device=u3.device)
+    for ax in range(3):
+        b1, b2 = [b for b in range(3) if b != ax]
+        d_v = dprod * others[ax] + gs[b1] * v[b2] + gs[b2] * v[b1]
+        d_gd = (djac[ax] * ss[ax]) * others[ax]
+        du[ax] = (d_v * gd[ax]).sum(0) * ss[ax]
+        i0, w0, w1, _ = coords[ax]
+        dvr, dgr = bf16_round(d_v).T, bf16_round(d_gd).T  # (N, C)
+        dlines[ax].index_add_(0, i0, dvr * w0[:, None] - dgr)
+        dlines[ax].index_add_(0, i0 + 1, dvr * w1[:, None] + dgr)
+    return dlines, du
+
+
+def cp_product_jac_launch(lines, u3, res, train=False):
+    """Launch ``csrc/cp_product_jac_fwd.cu`` (K7) on the (3, R, C) bf16 stack
+    for CUDA u3. Returns ``(prod, jac, vsave, gdsave)``; the residuals only
+    with ``train`` (else None)."""
+    _check_coords("cp_product_jac", u3)
+    c = lines.shape[2]
+    n = u3.shape[1]
+    u3 = u3.contiguous()
+    cuda_build.check_operands("cp_product_jac", (lines,), [(3, res, c)], u3.device)
+    dev = u3.device
+    prod = torch.empty((c, n), dtype=torch.float32, device=dev)
+    jac = torch.empty((3, c, n), dtype=torch.float32, device=dev)
+    vsave = gdsave = None
+    if train:
+        vsave = torch.empty((3, c, n), dtype=torch.bfloat16, device=dev)
+        gdsave = torch.empty((3, c, n), dtype=torch.bfloat16, device=dev)
+    fn = cuda_build.library("cp_product_jac_fwd").cp_product_jac_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(u3.data_ptr(), n, lines.data_ptr(), res, c, prod.data_ptr(), jac.data_ptr(),
+                vsave.data_ptr() if train else None, gdsave.data_ptr() if train else None,
+                stream)
+    cuda_build.check(rc, "cp_product_jac", SUPPORTED_PRODUCT)
+    cp_product_jac.launches += 1
+    return prod, jac, vsave, gdsave
+
+
+def cp_product_jac_backward_launch(u3, vsave, gdsave, dprod, djac, res):
+    """Launch ``csrc/cp_product_jac_bwd.cu`` (K8); see
+    :func:`cp_product_jac_backward`."""
+    _check_coords("cp_product_jac_backward", u3)
+    c = vsave.shape[1]
+    n = u3.shape[1]
+    u3 = u3.contiguous()
+    if dprod.dtype != torch.float32 or djac.dtype != torch.float32:
+        raise ValueError("cp_product_jac_backward: cotangents must be float32")
+    cuda_build.check_operands("cp_product_jac_backward", (vsave, gdsave, dprod, djac),
+                              [(3, c, n), (3, c, n), (c, n), (3, c, n)], u3.device)
+    dev = u3.device
+    dlines = torch.zeros((3, res, c), dtype=torch.float32, device=dev)
+    du = torch.empty((3, n), dtype=torch.float32, device=dev)
+    fn = cuda_build.library("cp_product_jac_bwd").cp_product_jac_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(u3.data_ptr(), n, res, c, vsave.data_ptr(), gdsave.data_ptr(),
+                dprod.data_ptr(), djac.data_ptr(), dlines.data_ptr(), du.data_ptr(), stream)
+    cuda_build.check(rc, "cp_product_jac_backward", SUPPORTED_PRODUCT)
+    cp_product_jac_backward.launches += 1
     return dlines, du
 
 

@@ -3,7 +3,7 @@
 Port of ``instant_nsr_pl_tpu/systems/nerf.py`` (reference systems/nerf.py:
 16-218): the smooth-L1 rgb loss on rays that hit something and were fully
 packed, the optional MipNeRF-360 distortion loss, with the training PSNR and
-live-sample count as metrics.
+live-sample count as metrics, and the panels of a saved view.
 """
 
 from __future__ import annotations
@@ -62,3 +62,15 @@ class NeRFSystem(BaseSystem):
             "opacity": out["opacity"],
             "rays_kept": out["rays_kept"][:, None],
         }
+
+    def image_grid_specs(self, res):
+        """Panels of a saved view: gt | rgb | depth (jet) | opacity
+        (reference systems/nerf.py:140-145)."""
+        imgs = res["images"]
+        return [
+            {"type": "rgb", "img": res["gt"]},
+            {"type": "rgb", "img": imgs["comp_rgb"]},
+            {"type": "grayscale", "img": imgs["depth"], "kwargs": {"cmap": "jet"}},
+            {"type": "grayscale", "img": imgs["opacity"],
+             "kwargs": {"cmap": None, "data_range": (0, 1)}},
+        ]

@@ -6,8 +6,8 @@ the SDF gradients, mask BCE, opaque BCE, sparsity, curvature (the
 finite-difference Laplacian) and the foreground distortion loss, every weight
 a ``C()``-scheduled scalar. Sample-level means are masked by the packed
 validity mask (the reference's ragged buffers hold only live samples; the
-packed buffer carries padding). The background distortion loss comes with the
-learned background.
+packed buffer carries padding). ``image_grid_specs`` gives the panels of a
+saved view. The background distortion loss comes with the learned background.
 """
 
 from __future__ import annotations
@@ -135,3 +135,14 @@ class NeuSSystem(BaseSystem):
             "opacity": out["opacity"],
             "rays_kept": out["rays_kept_full"][:, None],
         }
+
+    def image_grid_specs(self, res):
+        """Panels of a saved view: gt | rgb | depth (jet) | normal (reference
+        systems/neus.py:171-186, without the learned background's panels)."""
+        imgs = res["images"]
+        return [
+            {"type": "rgb", "img": res["gt"]},
+            {"type": "rgb", "img": imgs["comp_rgb"]},
+            {"type": "grayscale", "img": imgs["depth"], "kwargs": {"cmap": "jet"}},
+            {"type": "normal", "img": imgs["comp_normal"]},
+        ]

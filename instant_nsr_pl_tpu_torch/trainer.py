@@ -1,20 +1,25 @@
 """Training orchestration: the PyTorch-Lightning ``Trainer`` role.
 
 Port of ``instant_nsr_pl_tpu/trainer.py`` (``fit`` :90-202, validation
-:204-234, checkpoints :343-360): the step-based fit loop with the log,
-validation and checkpoint cadences, checkpoints written before validation,
-resume, and ``validate``. Test, predict and mesh export, the image savers and
-TensorBoard come with the export slice of the port.
+:204-234, test :236-293, predict :295-324, export :326-341, checkpoints
+:343-360): the step-based fit loop with the log, validation and checkpoint
+cadences, checkpoints written before validation, resume, ``validate``,
+``test`` (per-view PNGs with metric sidecars, skipping views a restarted run
+already saved, then the mesh export), ``predict`` and ``export``. Images and
+meshes go to ``<exp_dir>/save`` (``utils/savers.py``). TensorBoard logging is
+not ported (CSV and console logs only).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
 import numpy as np
 
 from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
+from instant_nsr_pl_tpu_torch.utils import savers
 from instant_nsr_pl_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_weights_only,
@@ -39,7 +44,9 @@ class Trainer:
         # render N val views before training to fail fast on the eval path
         self.num_sanity_val_steps = int(tcfg.get("num_sanity_val_steps", 0))
         self.exp_dir = exp_dir
+        self.save_dir = os.path.join(exp_dir, "save")
         self.ckpt_dir = os.path.join(exp_dir, "ckpt")
+        os.makedirs(self.save_dir, exist_ok=True)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         if loggers is None:
             loggers = [CSVLogger(os.path.join(exp_dir, "csv_logs")),
@@ -115,6 +122,8 @@ class Trainer:
             res = system.evaluate_image(state, i, data=val_data)
             psnrs.append(res["psnr"])
             ssims.append(res["ssim"])
+            savers.save_image_grid(self.save_dir, f"it{step}-{i}.png",
+                                   system.image_grid_specs(res))
             print(f"[val] view {i}: psnr={res['psnr']:.2f} ssim={res['ssim']:.4f}", flush=True)
         self._log({"val/psnr": float(np.mean(psnrs)), "val/ssim": float(np.mean(ssims))}, step)
         return float(np.mean(psnrs))
@@ -126,6 +135,70 @@ class Trainer:
         dm.setup("validate")
         data = dataset_device_arrays(dm.val, system.device)
         return self._run_validation(system, state, data, int(state["step"]))
+
+    def test(self, system, dm, state):
+        """Render the test split: ``it{step}-test/{i}.png`` panels with a
+        ``{i}.json`` metric sidecar each (a view that already has both, from
+        a run restarted into the same trial, is read back, not rendered
+        again), the mean test/psnr and test/ssim logged, the frames assembled
+        into a sequence, then the mesh export. Returns the mean PSNR."""
+        dm.setup("test")
+        data = dataset_device_arrays(dm.test, system.device)
+        step = int(state["step"])
+        psnrs, ssims = [], []
+        for i in range(int(data["images"].shape[0])):
+            png = os.path.join(self.save_dir, f"it{step}-test", f"{i}.png")
+            sidecar = png[:-4] + ".json"
+            if os.path.exists(png) and os.path.exists(sidecar):
+                with open(sidecar) as f:
+                    cached = json.load(f)
+                psnrs.append(cached["psnr"])
+                ssims.append(cached["ssim"])
+                print(f"[test] view {i}: cached ({png})", flush=True)
+                continue
+            res = system.evaluate_image(state, i, data=data)
+            psnrs.append(res["psnr"])
+            ssims.append(res["ssim"])
+            savers.save_image_grid(self.save_dir, f"it{step}-test/{i}.png",
+                                   system.image_grid_specs(res))
+            savers.save_json(self.save_dir, f"it{step}-test/{i}.json",
+                             {"psnr": float(res["psnr"]), "ssim": float(res["ssim"])})
+            print(f"[test] view {i}: psnr={res['psnr']:.2f} ssim={res['ssim']:.4f}", flush=True)
+        psnr = float(np.mean(psnrs))
+        self._log({"test/psnr": psnr, "test/ssim": float(np.mean(ssims))}, step)
+        self._save_sequence(f"it{step}-test")
+        self.export(system, state)
+        return psnr
+
+    def predict(self, system, dm, state):
+        """Render the predict split (the train split's cameras, reference
+        datasets/blender.py:109-110) to ``it{step}-predict/{i}.png`` and a
+        sequence; no metrics. Returns the number of views."""
+        dm.setup("predict")
+        data = dataset_device_arrays(dm.predict, system.device)
+        step = int(state["step"])
+        n = int(data["images"].shape[0])
+        for i in range(n):
+            images = system.render_image(state, i, data=data)
+            savers.save_image_grid(self.save_dir, f"it{step}-predict/{i}.png",
+                                   [{"type": "rgb", "img": images["comp_rgb"]}])
+        self._save_sequence(f"it{step}-predict")
+        return n
+
+    def _save_sequence(self, name):
+        savers.save_img_sequence(self.save_dir, name, os.path.join(self.save_dir, name),
+                                 r"(\d+)\.png",
+                                 save_format=self.config.trainer.get("video_format", "mp4"),
+                                 fps=30)
+
+    def export(self, system, state):
+        """The mesh of ``state`` (``model.export`` with the config's
+        ``export`` section) to ``it{step}-{model.name}.obj``; returns it."""
+        mesh = system.model.export(state["params"], self.config.get("export", None) or {})
+        step = int(state["step"])
+        savers.save_obj(self.save_dir, f"it{step}-{self.config.model.get('name', 'model')}.obj",
+                        mesh["v_pos"], mesh["t_pos_idx"], v_rgb=mesh.get("v_rgb"))
+        return mesh
 
     def save(self, state, step):
         if self.save_top_k == 0:

@@ -307,17 +307,51 @@ def test_cp_jac_basis_kernels_match_plain(cuda_device, c, f, res, n):
         _close(a, b, rel=2.5e-2)
 
 
+@pytest.mark.parametrize("c,res,n", [(16, 24, 515), (16, 64, 4096), (64, 2048, 3001),
+                                     (64, 128, 262107)])
+def test_cp_product_jac_kernels_match_plain(cuda_device, c, res, n):
+    """K7 (eval and training mode) and K8 against their plain versions: the
+    residuals bit for bit, prod and jac within 2e-2 and the gradients within
+    2.5e-2 of the largest plain value; d u is zero outside [0, 1]."""
+    gen = torch.Generator().manual_seed(50 + n)
+    lines, u3 = _product_inputs(gen, c, res, n, cuda_device)
+    stack = t_cpp.line_stack(*lines)
+    before = t_cpp.cp_product_jac.launches
+    prod, jac, vsave, gdsave = t_cpp.cp_product_jac_launch(stack, u3, res, train=True)
+    prod_e, jac_e, v_e, g_e = t_cpp.cp_product_jac_launch(stack, u3, res)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product_jac.launches == before + 2 and v_e is None and g_e is None
+    ref = t_cpp.cp_product_jac_plain(stack, u3, res, save_residuals=True)
+    assert torch.equal(vsave, ref[2]) and torch.equal(gdsave, ref[3])
+    assert torch.equal(prod, prod_e) and torch.equal(jac, jac_e)
+    _close(prod, ref[0])
+    _close(jac, ref[1])
+    dprod = torch.randn((c, n), generator=gen).to(cuda_device)
+    djac = torch.randn((3, c, n), generator=gen).to(cuda_device)
+    before = t_cpp.cp_product_jac_backward.launches
+    got = t_cpp.cp_product_jac_backward(u3, vsave, gdsave, dprod, djac, res)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product_jac_backward.launches == before + 1
+    plain = t_cpp.cp_product_jac_backward_plain(u3, vsave, gdsave, dprod, djac, res)
+    for a, b in zip(got, plain):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+    outside = (u3 < 0) | (u3 > 1)
+    assert bool((got[1][outside] == 0).all())
+
+
 def test_neus_train_step_cuda_gradients_flow(cuda_device):
     """A small NeuS system on the card (analytic gradients on the jac path):
     train_step launches K3, K4, K9 and K10 and, in its warmup grid update,
     K5; after that first update every parameter gets a finite, non-zero
-    gradient; with finite differences K5 and K6 run on every step."""
+    gradient; with the raw products (no basis) K7 and K8 run once per scale;
+    with finite differences K5 and K6 run on every step."""
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
     from instant_nsr_pl_tpu_torch.models.network_utils import named_leaves
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
 
-    def make(grad_type):
+    def make(grad_type, n_features=8):
         cfg = config_from_dict({
             "dataset": {"name": "synthetic", "size": 32, "n_train": 4, "n_val": 1},
             "model": {
@@ -328,8 +362,8 @@ def test_neus_train_step_cuda_gradients_flow(cuda_device):
                 "geometry": {
                     "name": "volume-sdf", "radius": 1.5, "feature_dim": 13, "grad_type": grad_type,
                     "xyz_encoding_config": {"otype": "CP", "n_components": 16,
-                                            "resolutions": [24, 64], "n_features": 8,
-                                            "include_xyz": True},
+                                            "resolutions": [24, 64],
+                                            "n_features": n_features, "include_xyz": True},
                     "mlp_network_config": {"otype": "VanillaMLP", "activation": "ReLU",
                                            "n_neurons": 32, "n_hidden_layers": 1,
                                            "sphere_init": True, "weight_norm": True},
@@ -371,6 +405,16 @@ def test_neus_train_step_cuda_gradients_flow(cuda_device):
     for key, t in named_leaves(state["params"]):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all()), key
         assert bool((t.grad != 0).any()), key
+
+    # the raw products (n_features: 0): K7/K8 in place of K9/K10
+    raw = make("analytic", n_features=0)
+    state = raw.init_state(seed=0)
+    counters = (t_cpp.cp_product_jac, t_cpp.cp_product_jac_backward)
+    before = [c.launches for c in counters]
+    state, metrics = raw.train_step(state)
+    torch.cuda.synchronize()
+    assert all(c.launches == b + 2 for c, b in zip(counters, before))  # one per scale
+    assert torch.isfinite(metrics["train/loss"])
 
     fd = make("finite_difference")
     state = fd.init_state(seed=0)

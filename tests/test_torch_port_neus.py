@@ -335,20 +335,25 @@ def test_jax_neus_checkpoint_loads_into_port(tmp_path):
 def test_launcher_trains_neus_on_cpu(tmp_path):
     """``python -m instant_nsr_pl_tpu_torch.launch --train --device cpu`` with
     a small NeuS config: four steps write checkpoints and CSV logs and
-    validate once; --validate resumes the last checkpoint."""
+    validate once, then the automatic test renders the test view and
+    exports the mesh (a 16^3 isosurface); --validate resumes the last
+    checkpoint."""
     cfg = _cfg(size=24, rays=64, capacity=4096)
     cfg_path = tmp_path / "neus.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
     exp = tmp_path / "exp"
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "instant_nsr_pl_tpu_torch.launch", "--config", str(cfg_path),
-           "--device", "cpu", "--exp_dir", str(exp)]
+           "--device", "cpu", "--exp_dir", str(exp), "dataset.n_test=1",
+           "model.geometry.isosurface.resolution=16"]
     out = subprocess.run(cmd + ["--train"], cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     (trial,) = os.listdir(exp / "neus-cp-small")
     run = exp / "neus-cp-small" / trial
     assert sorted(os.listdir(run / "ckpt")) == ["step=4.ckpt"]
+    assert "[test] view 0: psnr=" in out.stdout
+    assert (run / "save" / "it4-neus.obj").exists()
     with open(run / "csv_logs" / "metrics.csv") as f:
         rows = list(csv.DictReader(f))
     assert [r["step"] for r in rows if r.get("train/loss")] == ["2", "4"]

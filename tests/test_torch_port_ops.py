@@ -115,7 +115,7 @@ def test_mlp_unported_options_raise():
     """Sphere init is ported (the first layer is zero beyond the xyz rows);
     stacked scales need nested resolutions (the default (128, 2048) is not:
     ValueError, as in the JAX package); the Jacobian of a CP encoding without
-    a basis (cp_product_jac, K7/K8) raises, naming the next slice."""
+    a basis (cp_product_jac, K7/K8) returns the JAX package's shapes."""
     spec = t_mlp.MLPSpec(dim_in=5, dim_out=1, sphere_init=True)
     layers = t_mlp.mlp_init(torch.Generator().manual_seed(0), spec)
     assert float(layers[0]["w"][3:].abs().max()) == 0.0
@@ -125,8 +125,13 @@ def test_mlp_unported_options_raise():
         CPEncoding(3, {"otype": "CP", "stack_scales": True})
     raw = CPEncoding(3, {"otype": "CP", "n_components": 16, "resolutions": [8], "n_features": 0})
     params = raw.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        raw.apply_with_jac(params, torch.rand(4, 3))
+    x = torch.rand(4, 3)
+    feat, jac = raw.apply_with_jac(params, x)
+    spec_j = j_cp.CPSpec(16, (8,), 0)
+    j_params = {k: jnp.asarray(v.numpy()) for k, v in params["cp"].items()}
+    j_feat, j_jac = j_cp.cp_encode_with_jac(j_params, jnp.asarray(x.numpy()), spec_j,
+                                            impl="pallas")
+    assert feat.shape == j_feat.shape == (4, 16) and jac.shape == j_jac.shape == (3, 4, 16)
 
 
 def test_cp_encode_xla():

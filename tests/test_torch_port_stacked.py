@@ -224,7 +224,8 @@ def test_launcher_trains_stacked_config_on_cpu(tmp_path, model):
     """``python -m instant_nsr_pl_tpu_torch.launch --device cpu --train`` with
     the stacked config at full width (CP C=64, R=(129, 2049)), cut to a
     24x24 scene, 64 rays, 4,096 packed samples and two steps: a checkpoint,
-    the CSV log and one validation view."""
+    the CSV log, one validation view, then the automatic test's one test
+    view and the mesh (a 16^3 isosurface)."""
     config = os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "configs",
                           f"{model}-cp-stacked-synthetic.yaml")
     exp = tmp_path / "exp"
@@ -234,7 +235,9 @@ def test_launcher_trains_stacked_config_on_cpu(tmp_path, model):
            "dataset.size=24", "model.train_num_rays=64", "model.max_train_num_rays=64",
            "model.train_num_samples=4096", "model.eval_chunk_rays=1024",
            "model.eval_num_samples=65536", "model.grid_warmup_steps=1", "trainer.max_steps=2",
-           "trainer.log_every_n_steps=1", "trainer.val_check_interval=2"]
+           "trainer.log_every_n_steps=1", "trainer.val_check_interval=2", "dataset.n_test=1",
+           "model.geometry.isosurface.resolution=16", "model.geometry.isosurface.chunk=4096",
+           "export.chunk_size=4096"]
     out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     name = f"{model}-cp-stacked-synthetic"
@@ -245,4 +248,5 @@ def test_launcher_trains_stacked_config_on_cpu(tmp_path, model):
         rows = [r for r in csv.DictReader(f) if r.get("train/loss")]
     assert [r["step"] for r in rows] == ["1", "2"]
     assert all(np.isfinite(float(r["train/loss"])) for r in rows)
-    assert "[val] view 0" in out.stdout
+    assert "[val] view 0" in out.stdout and "[test] view 0: psnr=" in out.stdout
+    assert (run / "save" / f"it2-{model}.obj").exists()

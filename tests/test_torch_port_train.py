@@ -334,17 +334,22 @@ def test_port_checkpoint_resume_is_exact(tmp_path):
     assert fresh["step"] == 0 and not fresh["optimizer"].optimizer.state
 
 
-def test_launcher_trains_and_validates_on_cpu(tmp_path):
+def test_launcher_trains_and_validates_on_cpu(tmp_path, capsys):
     """``python -m instant_nsr_pl_tpu_torch.launch --train --device cpu``:
-    six steps write checkpoints (every 4 steps and at the end) and CSV logs;
-    --validate resumes the last checkpoint; the later slices' modes exit
-    with a message."""
+    six steps write checkpoints (every 4 steps and at the end) and CSV logs,
+    then the automatic test renders the two test views and exports the mesh
+    (a 16^3 isosurface at density 5); --validate resumes the last
+    checkpoint; --test, --predict and --export run on it too (the test views
+    cached, the two train-camera views rendered, the mesh written)."""
     cfg_path = tmp_path / "nerf.yaml"
     cfg_path.write_text(yaml.safe_dump(_cfg(size=24, rays=64, capacity=4096)))
     exp = tmp_path / "exp"
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    overrides = ["tag=t", "dataset.n_train=2", "dataset.n_test=2",
+                 "model.geometry.isosurface.resolution=16",
+                 "model.geometry.isosurface.threshold=5.0"]
     cmd = [sys.executable, "-m", "instant_nsr_pl_tpu_torch.launch", "--config", str(cfg_path),
-           "--device", "cpu", "--exp_dir", str(exp), "tag=t"]
+           "--device", "cpu", "--exp_dir", str(exp), *overrides]
     out = subprocess.run(cmd + ["--train"], cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -357,7 +362,8 @@ def test_launcher_trains_and_validates_on_cpu(tmp_path):
         rows = list(csv.DictReader(f))
     steps = [r["step"] for r in rows if r.get("train/loss")]
     assert steps == ["2", "4", "6"]
-    assert float(rows[-2]["val/psnr"]) > 0 and float(rows[0]["train/rays_per_sec"]) > 0
+    val_row = [r for r in rows if r.get("val/psnr")][-1]
+    assert float(val_row["val/psnr"]) > 0 and float(rows[0]["train/rays_per_sec"]) > 0
     assert "[val] view 0" in out.stdout
 
     ckpt = str(run / "ckpt" / "step=6.ckpt")
@@ -365,9 +371,20 @@ def test_launcher_trains_and_validates_on_cpu(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "[val] view 0" in out.stdout and sorted(os.listdir(exp / "nerf-cp-small")) == [trial]
-    for flag in ("--test", "--predict", "--export"):
-        with pytest.raises(SystemExit, match="export slice"):
-            launch_main(["--config", str(cfg_path), flag])
+    save = run / "save"
+    assert sorted(os.listdir(save / "it6-test")) == ["0.json", "0.png", "1.json", "1.png"]
+    assert float(rows[-1]["test/psnr"]) > 0 and (save / "it6-nerf.obj").exists()
+    for mode in ("--test", "--predict", "--export"):
+        (save / "it6-nerf.obj").unlink()
+        assert launch_main(cmd[3:] + [mode, "--resume", ckpt]) == 0
+        if mode == "--predict":
+            (save / "it6-nerf.obj").touch()
+    printed = capsys.readouterr().out
+    assert all(f"[test] view {i}: cached" in printed for i in range(2))
+    assert sorted(os.listdir(save / "it6-predict")) == ["0.png", "1.png"]
+    assert (save / "it6-nerf.obj").stat().st_size > 0
+    with pytest.raises(SystemExit, match="needs --resume"):
+        launch_main(cmd[3:] + ["--export"])
 
 
 def test_launcher_defaults_to_cuda(tmp_path):
