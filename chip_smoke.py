@@ -1,6 +1,9 @@
 """Drive the PyTorch port on one CUDA card and hold its kernels against their
-plain versions: the bench NeRF and the bench NeuS, rendered and trained, and
-the raw-product NeuS trained, tested, predicted and exported as a mesh.
+plain versions: the bench NeRF and the bench NeuS, rendered and trained, the
+raw-product NeuS trained, tested, predicted and exported as a mesh, the
+hash-grid NeRF trained (and the repo's ``configs/nerf-synthetic.yaml``
+trained, tested and exported through the launcher), the ``cp_big`` shapes,
+and the gather / scatter probes.
 
     python3 chip_smoke.py
 
@@ -66,8 +69,33 @@ lines are printed):
    plain versions on the CPU within 2e-2), each with the launch counters read
    around it; and the port's extraction of the scene's own sphere SDF, every
    vertex within one voxel of a sphere surface;
-12. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
-13. the last line ``{"ok": true, "device": {...}}``.
+12. HG1/HG2 (``csrc/hashgrid_{fwd,bwd}.cu``, the hash encoding and its
+   table gradient) at the bench hash shape (16 levels, F=2, 2^19 rows) at
+   N=262,144 and 262,107, with and without a level mask: HG1 within rtol
+   1e-5 of its plain version (equal to the bit in practice), HG2's table
+   gradient within 1e-5 x max|plain| per level (float32 atomics), its
+   position gradient within 1e-4; timed, with bounds by compulsory bytes and
+   by the hashed levels' 32-byte sectors;
+13. the ``bench.py --encoding cp_big`` instantiations (C=128, R=(64, 512,
+   4096), F=16): K1/K2 with the 48->64->16 head, K5-K10 per scale, against
+   their plain versions as in 3-4, timed; then the cp_big NeRF, NeuS, raw
+   NeuS and finite-difference NeuS built for the card and trained
+   CP_BIG_STEPS steps each (their kernels launched on every step), and a CP
+   width without kernels refused when its model is built;
+14. the probes P1a-P1g and P2 (``tools/microbench_gather.py``,
+   ``csrc/gather_probes.cu``) at M=2^18 against numpy and their plain
+   versions, then the probe script's own run at the JAX scripts' sizes with
+   the launch counters read around it;
+15. the hash NeRF (``instant_nsr_pl_tpu_torch/configs/nerf-hash-
+   synthetic.yaml``, ``bench.py build_system("hash")``) trained as in 6, with
+   HG1/HG2 in place of K1/K2 (HG1 also in every grid update);
+16. the repo's ``configs/nerf-synthetic.yaml``, unmodified, through the
+   port's launcher: ``--train trainer.max_steps=LAUNCHER_STEPS`` (dynamic
+   ray sampling, MultiStepLR, the automatic 8-view test and mesh), then
+   ``--export``: test/psnr, a non-empty mesh with valid indices, HG1 in the
+   export's level grid;
+17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
+18. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
 C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
@@ -333,20 +361,21 @@ def kernel_phase(device):
                                  "sh_mlp_backward")]
 
 
-def cp_kernel_phase(device):
-    """K5/K6 (the CP product) and K9/K10 (the product with its Jacobian and
-    the basis projection) at the bench NeuS encoding (C=64, F=16) for both
-    scales (R=128 and 2048), and K5/K6 at the stacked encoding's per-scale
-    resolutions (R=129 and 2049: its grid updates and finite differences), at
-    N=262,144 and 262,107, each against its plain version on the same inputs,
-    then timed. The training-mode residuals must equal the plain ones to the
-    bit; forwards lie within 2e-2 * max|plain|, gradients within 2.5e-2 *
-    max|plain|."""
+def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
+                    stacked_resolutions=(129, 2049), suffix=""):
+    """K5/K6 (the CP product), K7/K8 (the product with its Jacobian) and
+    K9/K10 (the product with its Jacobian and the basis projection) at the
+    bench NeuS encoding (C=64, F=16) for both scales (R=128 and 2048), and
+    K5/K6 at the stacked encoding's per-scale resolutions (R=129 and 2049:
+    its grid updates and finite differences), at N=262,144 and 262,107, each
+    against its plain version on the same inputs, then timed. The
+    training-mode residuals must equal the plain ones to the bit; forwards
+    lie within 2e-2 * max|plain|, gradients within 2.5e-2 * max|plain|.
+    Another encoding (``bench.py --encoding cp_big``: C=128, R=(64, 512,
+    4096)) is held the same way with its own arguments, its entries named
+    with ``suffix``."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
 
-    c, f = 64, 16
-    resolutions = (128, 2048)
-    stacked_resolutions = (129, 2049)
     gen = torch.Generator().manual_seed(SEED + 7)
     tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
               .to(device) for r in resolutions + stacked_resolutions}
@@ -511,7 +540,8 @@ def cp_kernel_phase(device):
         e = out[name]
         by = e["bound_by"][resolutions[-1]]
         entry = {
-            "name": name, "route": "cuda", "source": f"instant_nsr_pl_tpu_torch/csrc/{src}",
+            "name": name + suffix, "route": "cuda",
+            "source": f"instant_nsr_pl_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": max(e["errs"]),
             # one encode launches once per scale: the bench scales' times summed
             "ms": sum(e["ms"][r] for r in resolutions),
@@ -523,7 +553,9 @@ def cp_kernel_phase(device):
             "library_note": "no single PyTorch call computes this function",
             "n": N_FULL,
         }
-        if name in ("cp_product_forward", "cp_product_backward"):  # the stacked encoding's
+        if suffix:
+            entry["shape"] = f"C={c}, R={resolutions}, F={f}"
+        if name in ("cp_product_forward", "cp_product_backward") and stacked_resolutions:
             entry["ms_stacked_scales"] = sum(e["ms"][r] for r in stacked_resolutions)
             entry["bound_ms_stacked_scales"] = sum(e["bound_ms"][r] for r in stacked_resolutions)
         if "ms_eval" in e:
@@ -802,18 +834,20 @@ def render_phase(device):
     return launches, n_rays / view_s, n_rays / warm_s
 
 
-def train_phase(device, smi, config=BENCH_CONFIG, stacked=False):
-    """The bench NeRF (or, with ``stacked``, the stacked NeRF: K13/K14 for
-    K1/K2) trained through NeRFSystem.train_step for TRAIN_STEPS steps."""
+def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
+    """The bench NeRF (``kind`` "cp"), the stacked NeRF ("stacked": K13/K14
+    for K1/K2) or the hash NeRF ("hash": HG1/HG2 for K1/K2, the composed
+    encoding -> bf16 MLP) trained through NeRFSystem.train_step for
+    TRAIN_STEPS steps."""
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
     from instant_nsr_pl_tpu_torch.config import config_from_dict
-    from instant_nsr_pl_tpu_torch.models.network_utils import named_leaves
-    from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
+    from instant_nsr_pl_tpu_torch.models.network_utils import HashGridEncoding, named_leaves
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp, hashgrid, sh_mlp
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
     from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
 
-    tag = "train-stacked" if stacked else "train"
+    tag = {"cp": "train", "stacked": "train-stacked", "hash": "train-hash"}[kind]
     cfg = config_from_dict(bench_config(config))
     dm = datasets.make(cfg.dataset.name, cfg.dataset)
     dm.setup("fit")
@@ -823,7 +857,10 @@ def train_phase(device, smi, config=BENCH_CONFIG, stacked=False):
     state = system.init_state(seed=SEED)
     model, params = system.model, state["params"]
     ewn = model.geometry.encoding_with_network
-    assert ewn.fused and ewn.encoding.encoding.stack_scales == stacked
+    if kind == "hash":
+        assert not ewn.fused and isinstance(ewn.encoding.encoding, HashGridEncoding)
+    else:
+        assert ewn.fused and ewn.encoding.encoding.stack_scales == (kind == "stacked")
     n_rays = system.active_num_rays
     assert n_rays == int(cfg.model.max_train_num_rays), n_rays
     assert system.train_capacity == int(cfg.model.train_num_samples), system.train_capacity
@@ -854,9 +891,10 @@ def train_phase(device, smi, config=BENCH_CONFIG, stacked=False):
     state["optimizer"].zero_grad()
 
     # the main path: TRAIN_STEPS steps, launch counters read around each
-    density = "cp_mlp_stacked" if stacked else "cp_mlp"
-    counters = {f"{density}_forward": getattr(cp_mlp, f"{density}_forward"),
-                f"{density}_backward": getattr(cp_mlp, f"{density}_backward"),
+    density = {"cp": "cp_mlp", "stacked": "cp_mlp_stacked", "hash": "hashgrid"}[kind]
+    module = hashgrid if kind == "hash" else cp_mlp
+    counters = {f"{density}_forward": getattr(module, f"{density}_forward"),
+                f"{density}_backward": getattr(module, f"{density}_backward"),
                 "sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward}
     for c in counters.values():
         c.launches = 0
@@ -1388,6 +1426,367 @@ def sphere_extraction_phase(spheres, device):
     assert len(v) > 0 and dist.max() <= voxel, "the extracted scene surface is off"
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the hash grid (HG1/HG2), the cp_big instantiations, the probes,
+# the hash NeRF and the repo's configs/nerf-synthetic.yaml
+# ---------------------------------------------------------------------------
+
+HASH_CONFIG = os.path.join(CONFIGS, "nerf-hash-synthetic.yaml")
+REPO_NERF_CONFIG = os.path.join(ROOT, "configs", "nerf-synthetic.yaml")
+LAUNCHER_STEPS = 300
+CP_BIG_STEPS = 20
+CP_BIG = {"otype": "CP", "n_components": 128, "resolutions": [64, 512, 4096], "n_features": 16}
+PROBE_CHECK_M = 1 << 18
+
+
+def hash_spec():
+    """The bench hash grid (bench.py _ENCODINGS["hash"], :99-103)."""
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+
+    return HashGridSpec(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+                        base_resolution=16, per_level_scale=1.447269237440378)
+
+
+def hash_kernel_phase(device):
+    """HG1 (the hash encoding forward) and HG2 (its table gradient, and the
+    position gradient on request) at the bench hash shape (16 levels, F=2,
+    2^19 rows per hashed level: a 6,299,960-row table), N=262,144 and
+    262,107, against their plain versions on the same CUDA tensors: HG1
+    within rtol 1e-5 (it should equal the plain version to the bit: both
+    round x*s+0.5 and the corner sum as fused multiply-adds), with and
+    without a level mask; HG2's table gradient within 1e-5 x max|plain| per
+    level (float32 atomics sum in another order each run), its position
+    gradient within 1e-4 x max|plain|; then timed."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = hash_spec()
+    gen = torch.Generator().manual_seed(SEED + 13)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(device)  # values of order 1
+    x = torch.rand((N_FULL, 3), generator=gen)
+    x[:6] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.25, 0.75],
+                          [0.0, 1.0, 0.5], [1.0, 0.0, 0.125], [0.999999, 1e-7, 0.5]])
+    x = x.to(device)
+    ct = torch.randn((N_FULL, spec.n_output_dims), generator=gen).to(device)
+    mask = torch.tensor([1.0] * 10 + [0.5, 0.0, 1.0, 1.0, 0.0, 1.0]).to(device)
+    f, n_levels = spec.n_features_per_level, spec.n_levels
+    errs = {"hashgrid_forward": [], "hashgrid_backward": []}
+    for n in (N_RAGGED, N_FULL):
+        xn, ctn = x[:n], ct[:n].contiguous()
+        for m in (None, mask):
+            tag = f"N={n}" + (" masked" if m is not None else "")
+            got = hg.hashgrid_forward_launch(table, xn, spec, m)
+            torch.cuda.synchronize()
+            ref = hg.hashgrid_encode(table, xn, spec, m)
+            same = float((got == ref).float().mean())
+            err = float((got - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max())
+            print(f"[kernel] hashgrid_forward {tag}: {same:.6%} of the entries equal the plain "
+                  f"version's to the bit; max|kernel - plain| {err:.3e} (limit 1e-5*max|plain| "
+                  f"= {tol:.3e})", flush=True)
+            if not err <= tol:
+                raise AssertionError("hashgrid_forward disagrees with its plain version")
+            errs["hashgrid_forward"].append(err)
+            dt, dx = hg.hashgrid_backward_launch(table, xn, ctn, spec, m, with_dx=True)
+            dt_only, no_dx = hg.hashgrid_backward_launch(table, xn, ctn, spec, m)
+            torch.cuda.synchronize()
+            assert no_dx is None
+            rt, rx = hg.hashgrid_backward_plain(table, xn, ctn, spec, m, with_dx=True)
+            for lv in range(n_levels):
+                sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+                for got_t in (dt, dt_only):
+                    e = float((got_t[:, sl] - rt[:, sl]).abs().max())
+                    t = 1e-5 * float(rt[:, sl].abs().max())
+                    if not e <= t:
+                        raise AssertionError(f"hashgrid_backward {tag} level {lv}: {e:.3e} > "
+                                             f"{t:.3e}")
+            errs["hashgrid_backward"].append(compare(f"hashgrid_backward {tag} d table", dt, rt,
+                                                     rel=1e-5))
+            errs["hashgrid_backward"].append(compare(f"hashgrid_backward {tag} d x", dx, rx,
+                                                     rel=1e-4))
+    # through the autograd Function (the training mode: the same HG1 launch)
+    t_req = table.clone().requires_grad_(True)
+    out = hg.hashgrid_encode_fast(t_req, x, spec)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    compare("hashgrid_encode_fast d table", t_req.grad,
+            hg.hashgrid_backward_plain(table, x, ct, spec)[0], rel=1e-5)
+
+    n = N_FULL
+    hashed = sum(spec.level_hashed)
+    table_bytes = spec.total_params * f * 4
+    fwd_bytes = n * (12 + n_levels * f * 4) + table_bytes
+    bwd_bytes = n * (12 + n_levels * f * 4) + table_bytes
+    sectors = n * hashed * 8 * f * 32  # one 32-byte sector per corner and feature row
+    atomics = n * n_levels * 8 * f
+    ms = time_ms(lambda: hg.hashgrid_forward_launch(table, x, spec))
+    ms_train = time_ms(lambda: hg.hashgrid_encode_fast(t_req, x, spec))
+    plain_ms = time_ms(lambda: hg.hashgrid_encode(table, x, spec), reps=5, inner=2)
+    bms = time_ms(lambda: hg.hashgrid_backward_launch(table, x, ct, spec))
+    bms_dx = time_ms(lambda: hg.hashgrid_backward_launch(table, x, ct, spec, with_dx=True))
+    bplain_ms = time_ms(lambda: hg.hashgrid_backward_plain(table, x, ct, spec), reps=5, inner=2)
+    fwd_bound, _ = bound(fwd_bytes, 0, n * n_levels * 8 * (6 + 2 * f))
+    bwd_bound, _ = bound(bwd_bytes, 0, n * n_levels * 8 * (6 + f))
+    sector_ms = bound(sectors, 0, 0)[0]
+    print(f"[kernel] hashgrid_forward: {ms:.4f} ms eval, {ms_train:.4f} ms through the autograd "
+          f"op (plain {plain_ms:.3f} ms; bound {fwd_bound:.4f} ms by compulsory bytes, "
+          f"{sector_ms:.4f} ms by 32-byte sectors of the hashed levels) at N={n}", flush=True)
+    print(f"[kernel] hashgrid_backward: {bms:.4f} ms, {bms_dx:.4f} ms with d x (plain "
+          f"{bplain_ms:.3f} ms; bound {bwd_bound:.4f} ms by compulsory bytes, {sector_ms:.4f} ms "
+          f"by sectors; {atomics} float32 atomics) at N={n}", flush=True)
+    note = "no single PyTorch call hashes and interpolates (or scatters the hashed taps)"
+    common = {"route": "cuda", "launches": 0, "library_ms": None, "library_note": note, "n": n,
+              "bound_by": "bytes", "bound_sectors_ms": sector_ms}
+    return [
+        {**common, "name": "hashgrid_forward",
+         "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_fwd.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:584 (_encode_with_taps, XLA)",
+         "max_abs_err": max(errs["hashgrid_forward"]), "ms": ms, "ms_train": ms_train,
+         "plain_ms": plain_ms, "bound_ms": fwd_bound},
+        {**common, "name": "hashgrid_backward",
+         "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_bwd.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:652 (_encode_fast_bwd, XLA)",
+         "max_abs_err": max(errs["hashgrid_backward"]), "ms": bms, "ms_with_dx": bms_dx,
+         "plain_ms": bplain_ms, "bound_ms": bwd_bound, "atomics": atomics},
+    ]
+
+
+def cp_big_kernel_phase(device):
+    """The ``bench.py --encoding cp_big`` instantiations (C=128, R=(64, 512,
+    4096), F=16): K1 (training mode) and K2 with the bench NeRF head
+    48->64->16 at N=262,144 and 262,107 against their plain versions (vsave
+    bit for bit, the output within 2e-2, gradients within 2.5e-2 of
+    max|plain|), then timed; K5-K10 per scale through ``cp_kernel_phase``."""
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp
+    from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_init
+    from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_init
+
+    c, f, res = CP_BIG["n_components"], CP_BIG["n_features"], tuple(CP_BIG["resolutions"])
+    gen = torch.Generator().manual_seed(SEED + 17)
+    cp_spec = CPSpec(c, res, f)
+    d_spec = MLPSpec(dim_in=3 * f, dim_out=16, n_neurons=64, n_hidden_layers=1)
+    cp_params = cp_init(gen, cp_spec, device)
+    d_layers = with_biases(mlp_init(gen, d_spec, device), gen, device)
+    x = torch.rand((N_FULL, 3), generator=gen) * 1.1 - 0.05
+    x[:4] = torch.tensor([[0.0, 1.0, 0.5], [1.0, 0.0, -0.05], [1.05, 0.5, 1.0], [0.5, 0.5, 0.5]])
+    x = x.to(device)
+    d_dout = torch.randn((N_FULL, 16), generator=gen).to(device)
+    ops = cp_mlp.cp_mlp_operands(cp_params, d_layers, cp_spec, d_spec)
+    errs = {"cp_mlp_forward": [], "cp_mlp_backward": []}
+    for n in (N_RAGGED, N_FULL):  # the timing below reuses the N_FULL arguments
+        xn = x[:n]
+        tag = f"cp_big N={n}"
+        out, vsave, hsave = cp_mlp.cp_mlp_launch(ops, xn, cp_spec, d_spec, train=True)
+        torch.cuda.synchronize()
+        ref, ref_v, ref_h = cp_mlp.cp_mlp_forward_plain(cp_params, d_layers, xn, cp_spec, d_spec,
+                                                        save_residuals=True)
+        errs["cp_mlp_forward"].append(compare(f"cp_mlp_forward {tag}", out, ref))
+        if not torch.equal(vsave, ref_v) or float((hsave != ref_h).float().mean()) > 1e-3:
+            raise AssertionError(f"cp_mlp_forward {tag}: residuals disagree")
+        bwd_args = (xn, vsave, hsave, d_dout[:n].contiguous(), ops[1], ops[2], cp_spec, d_spec)
+        got = cp_mlp.cp_mlp_backward_launch(*bwd_args)
+        torch.cuda.synchronize()
+        ref = cp_mlp.cp_mlp_backward_plain(*bwd_args)
+        for label, a, b in zip([f"d line_{s}" for s in range(len(res))] + ["d basis", "dW", "db"],
+                               [*got[0], *got[1:]], [*ref[0], *ref[1:]]):
+            errs["cp_mlp_backward"].append(compare(f"cp_mlp_backward {tag} {label}", a, b,
+                                                   rel=2.5e-2))
+    n, e_dim, w = N_FULL, 3 * f, 64
+    line_entries = sum(3 * r * c for r in res)
+    mlp_macs = _mlp_macs([e_dim, w, 16])
+    timed = {
+        "cp_mlp_forward": (
+            "cp_mlp_fwd.cu", "cp_mlp_pallas.py:267",
+            lambda: cp_mlp.cp_mlp_launch(ops, x, cp_spec, d_spec, train=True),
+            lambda: cp_mlp.cp_mlp_forward_plain(cp_params, d_layers, x, cp_spec, d_spec,
+                                                save_residuals=True),
+            n * (12 + 16 * 4 + 3 * 3 * c * 2 + w * 2) + line_entries * 2 + 3 * c * f * 2
+            + (e_dim + w) * w * 2, n * 2 * (3 * c * f + mlp_macs), n * 2 * 3 * 3 * c),
+        "cp_mlp_backward": (
+            "cp_mlp_bwd.cu", "cp_mlp_pallas.py:353",
+            lambda: cp_mlp.cp_mlp_backward_launch(*bwd_args),
+            lambda: cp_mlp.cp_mlp_backward_plain(*bwd_args),
+            n * (12 + 3 * 3 * c * 2 + w * 2 + 16 * 4) + line_entries * 4 + 3 * c * f * 6
+            + (e_dim + w) * w * 6, n * 2 * (3 * 3 * c * f + 2 * mlp_macs), n * 3 * c * 8),
+    }
+    entries = []
+    for name, (src, replaces, kern, plain, n_bytes, bf16_ops, f32_ops) in timed.items():
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=3, inner=2)
+        bound_ms, bound_by = bound(n_bytes, bf16_ops, f32_ops)
+        print(f"[kernel] {name} cp_big: {ms:.4f} ms (plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by}) at N={n}", flush=True)
+        entries.append({
+            "name": f"{name}@cp_big", "route": "cuda",
+            "source": f"instant_nsr_pl_tpu_torch/csrc/{src}",
+            "replaces": f"instant_nsr_pl_tpu/ops/{replaces}", "launches": 0,
+            "max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes this function", "n": n,
+            "shape": f"C={c}, R={res}, F={f}, MLP {e_dim}->{w}->16",
+        })
+    return entries + cp_kernel_phase(device, c, f, res, (), "@cp_big")
+
+
+def cp_big_train_phase(device, smi):
+    """The bench NeRF and the bench NeuS with ``bench.py --encoding
+    cp_big``'s encoding, built for the card (the instantiation check at
+    build time passes) and trained CP_BIG_STEPS steps each through
+    ``train_step``, the launch counters read around each run: NeRF K1-K4 and
+    NeuS K3/K4, K9/K10 on every step (K5 in the grid updates); the same
+    NeuS with the raw products (``n_features: 0``: K7/K8 on every step) and
+    with finite differences (K5/K6 on every step); finite losses. A CP shape
+    without kernels is refused when the model is built."""
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.config import config_from_dict
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+
+    counts = {}
+    per_step_kernels = {
+        "nerf": ("cp_mlp_forward", "cp_mlp_backward", "sh_mlp_forward", "sh_mlp_backward"),
+        "neus": ("sh_mlp_forward", "sh_mlp_backward", "cp_jac_basis_forward",
+                 "cp_jac_basis_backward"),
+        "neus_raw": ("cp_product_jac_forward", "cp_product_jac_backward"),
+        "neus_fd": ("cp_product_forward", "cp_product_backward"),
+    }
+    for kind, kernels in per_step_kernels.items():
+        raw = bench_config(NEUS_CONFIG if kind.startswith("neus") else BENCH_CONFIG)
+        enc = dict(CP_BIG, include_xyz=True) if kind.startswith("neus") else dict(CP_BIG)
+        if kind == "neus_raw":
+            enc["n_features"] = 0
+        if kind == "neus_fd":
+            raw["model"]["geometry"]["grad_type"] = "finite_difference"
+        raw["model"]["geometry"]["xyz_encoding_config"] = enc
+        cfg = config_from_dict(raw)
+        dm = datasets.make(cfg.dataset.name, cfg.dataset)
+        dm.setup("fit")
+        system = systems.make(cfg.system.name, cfg)
+        system.setup_data(dm.train)
+        state = system.init_state(seed=SEED)
+        if kind == "nerf":
+            assert system.model.geometry.encoding_with_network.fused
+            counters = {"cp_mlp_forward": cp_mlp.cp_mlp_forward,
+                        "cp_mlp_backward": cp_mlp.cp_mlp_backward,
+                        "sh_mlp_forward": sh_mlp.sh_mlp_forward,
+                        "sh_mlp_backward": sh_mlp.sh_mlp_backward}
+        else:
+            counters = neus_counters()
+        for c in counters.values():
+            c.launches = 0
+        losses = []
+        for i in range(CP_BIG_STEPS):
+            before = {k: c.launches for k, c in counters.items()}
+            state, metrics = system.train_step(state)
+            delta = {k: c.launches - before[k] for k, c in counters.items()}
+            if min(delta[k] for k in kernels) < 1:
+                raise AssertionError(f"cp_big {kind} step {i}: a kernel was not launched: {delta}")
+            losses.append(float(metrics["train/loss"]))
+        assert np.isfinite(losses).all(), losses
+        counts[kind] = {k: c.launches for k, c in counters.items()}
+        print(f"[cp_big-{kind}] {CP_BIG_STEPS} steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+              f"launches {counts[kind]} ({smi})", flush=True)
+        del system, state
+        torch.cuda.empty_cache()
+    # a CP width with no instantiation is refused when the model is built
+    raw = bench_config(BENCH_CONFIG)
+    raw["model"]["geometry"]["xyz_encoding_config"]["n_components"] = 96
+    cfg = config_from_dict(raw)
+    try:
+        systems.make(cfg.system.name, cfg).init_state(seed=SEED)
+    except ValueError as e:
+        print(f"[cp_big] C=96 refused at build time: {str(e)[:120]}", flush=True)
+    else:
+        raise AssertionError("a CP shape without kernels was not refused at build time")
+    return counts
+
+
+def probe_phase(device):
+    """The probes P1a-P1g and P2 (``tools/microbench_gather.py``): each kernel
+    at a reduced M (2^18 indices) against numpy and against its plain version
+    on the CPU; then the probe script's own run at the JAX scripts' sizes
+    (its main path), the launch counters set to 0 just before it and read
+    just after."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    errs = mb.check_all(PROBE_CHECK_M, PROBE_CHECK_M, device, seed=SEED)
+    print(f"[probe] at M={PROBE_CHECK_M}: every probe equals numpy (gathers to the bit, sums "
+          f"within 1e-6 of their summed magnitudes): {errs}", flush=True)
+    mb.reset_launches()
+    entries = mb.run(1 << 22, mb.P2_M, device, seed=SEED,
+                     log=lambda s: print(s, flush=True))
+    counts = mb.launch_counts()
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+        e["launches_path"] = "probe_script"
+        e["max_abs_err"] = max(e["max_abs_err"], errs[e["name"]])
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']}: not launched by the probe script")
+    return entries
+
+
+def launcher_phase(device, smi):
+    """The repo's ``configs/nerf-synthetic.yaml``, unmodified, through the
+    port's launcher: ``--train trainer.max_steps=LAUNCHER_STEPS`` (dynamic
+    ray sampling from 256 rays, MultiStepLR, the automatic test and mesh
+    after training), then ``--export`` of the last checkpoint with the
+    launch counters read around it: test views with test/psnr in the CSV
+    log, a non-empty mesh with valid indices, HG1 in the export's level
+    grid and no backward launched."""
+    import csv
+    import glob
+
+    from instant_nsr_pl_tpu_torch.launch import main as launch_main
+    from instant_nsr_pl_tpu_torch.ops import hashgrid, sh_mlp
+    from instant_nsr_pl_tpu_torch.utils.savers import load_obj
+
+    exp = os.path.join(ROOT, "exp", "chip_smoke_launcher")
+    base = ["--config", REPO_NERF_CONFIG, "--exp_dir", exp, "tag=chip"]
+    counters = {"hashgrid_forward": hashgrid.hashgrid_forward,
+                "hashgrid_backward": hashgrid.hashgrid_backward,
+                "sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc = launch_main(base + ["--train", f"trainer.max_steps={LAUNCHER_STEPS}",
+                             f"trainer.val_check_interval={LAUNCHER_STEPS}"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {k: c.launches for k, c in counters.items()}
+    assert rc == 0, rc
+    (run,) = glob.glob(os.path.join(exp, "nerf-synthetic", "chip@*"))
+    with open(os.path.join(run, "csv_logs", "metrics.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    test_psnr = [float(r["test/psnr"]) for r in rows if r.get("test/psnr")]
+    rays = [float(r["train/num_rays"]) for r in rows if r.get("train/num_rays")]
+    assert test_psnr and math.isfinite(test_psnr[-1]), "no test/psnr in the CSV log"
+    n_test = len(glob.glob(os.path.join(run, "save", f"it{LAUNCHER_STEPS}-test", "*.png")))
+    assert n_test == 8, n_test
+    assert min(train_launches.values()) >= LAUNCHER_STEPS, train_launches
+    ckpt = os.path.join(run, "ckpt", f"step={LAUNCHER_STEPS}.ckpt")
+    obj = os.path.join(run, "save", f"it{LAUNCHER_STEPS}-nerf.obj")
+    os.remove(obj)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc = launch_main(base + ["--export", "--resume", ckpt])
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    export_launches = {k: c.launches for k, c in counters.items()}
+    assert rc == 0, rc
+    mesh = load_obj(obj)
+    v, f = mesh["v_pos"], mesh["t_pos_idx"]
+    assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
+    assert export_launches["hashgrid_forward"] >= 8, export_launches  # 128^3 in chunks of 2^18
+    assert export_launches["hashgrid_backward"] == export_launches["sh_mlp_backward"] == 0
+    print(f"[launcher] configs/nerf-synthetic.yaml: {LAUNCHER_STEPS} steps + test in "
+          f"{train_s:.1f} s (rays per step {rays[0]:.0f} -> {rays[-1]:.0f}), test/psnr "
+          f"{test_psnr[-1]:.3f} dB over {n_test} views, launches {train_launches}; export "
+          f"{export_s:.2f} s: {len(v)} vertices, {len(f)} faces, launches {export_launches} "
+          f"({smi})", flush=True)
+    return train_launches, export_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1411,6 +1810,9 @@ def main():
                 print(f"[build] {stem}: {line.strip()}", flush=True)
 
     entries = kernel_phase(device) + cp_kernel_phase(device) + stacked_kernel_phase(device)
+    hash_entries = hash_kernel_phase(device)
+    cp_big_entries = cp_big_kernel_phase(device)
+    probe_entries = probe_phase(device)
     render_launches, rays_per_s, warm_rays_per_s = render_phase(device)
     print(f"[render] rays/s: {rays_per_s:.0f} first view, {warm_rays_per_s:.0f} warm ({smi})",
           flush=True)
@@ -1418,9 +1820,15 @@ def main():
     print(f"[train] rays/s: {train_rays_per_s:.0f} warm, {s_per_step:.4f} s per step ({smi})",
           flush=True)
     st_step, st_run, st_rays_per_s, st_s_per_step = train_phase(device, smi, NERF_STACKED_CONFIG,
-                                                                stacked=True)
+                                                                kind="stacked")
     print(f"[train-stacked] rays/s: {st_rays_per_s:.0f} warm, {st_s_per_step:.4f} s per step "
           f"({smi})", flush=True)
+    hs_step, hs_run, hs_rays_per_s, hs_s_per_step = train_phase(device, smi, HASH_CONFIG,
+                                                                kind="hash")
+    print(f"[train-hash] rays/s: {hs_rays_per_s:.0f} warm, {hs_s_per_step:.4f} s per step "
+          f"({smi})", flush=True)
+    torch.cuda.empty_cache()
+    cp_big_counts = cp_big_train_phase(device, smi)
     system, state, val, neus_step, neus_run, neus_rays_per_s = neus_train_phase(device, smi)
     neus_view, neus_view_first, neus_view_warm = neus_render_phase(device, system, state, val, smi)
     del system, state, val
@@ -1444,6 +1852,8 @@ def main():
     nr_launches, _, _ = trainer_phase(device, system, state, smi)
     sphere_extraction_phase(system.config.dataset.spheres, device)
     del system, state, val
+    torch.cuda.empty_cache()
+    launcher_train, launcher_export = launcher_phase(device, smi)
     # launches: counted in the run of the path that runs the kernel (the NeRF
     # training runs for K1/K2 and K13/K14, the NeuS training runs for
     # K3-K5/K9/K10, K11/K12 and K7/K8, the finite-difference run for K6),
@@ -1471,6 +1881,28 @@ def main():
         e["launches_path"] = main_path
         if e["launches"] < 1:
             raise AssertionError(f"{name}: not launched on its main path ({main_path})")
+    # slice 6: HG1/HG2 on the hash NeRF's training run (and the launcher's
+    # run of configs/nerf-synthetic.yaml), the cp_big instantiations on the
+    # cp_big runs, the probes on the probe script's run (probe_phase)
+    for e in hash_entries:
+        name = e["name"]
+        e["launches"] = hs_run[name]
+        e["launches_path"] = "nerf_hash_train"
+        e["launches_nerf_hash_train_step"] = hs_step[name]
+        e["launches_launcher_train"] = launcher_train[name]
+        e["launches_launcher_export"] = launcher_export[name]
+    cp_big_path = {"cp_mlp": "nerf", "cp_jac_basis": "neus", "cp_product_jac": "neus_raw",
+                   "cp_product": "neus_fd"}
+    for e in cp_big_entries:
+        kernel = e["name"].split("@")[0]
+        path = next(v for k, v in cp_big_path.items() if kernel.startswith(k + "_"))
+        e["launches"] = cp_big_counts[path][kernel]
+        e["launches_path"] = f"cp_big_{path}_train"
+    for e in hash_entries + cp_big_entries:
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']}: not launched on its main path "
+                                 f"({e['launches_path']})")
+    entries += hash_entries + cp_big_entries + probe_entries
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

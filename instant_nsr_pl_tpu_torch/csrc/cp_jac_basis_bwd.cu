@@ -36,7 +36,9 @@
 // (12 B): 1,048 B, 82 us at 3.35 TB/s for 262,144 samples. It does ~12k
 // multiply-adds per sample on the CUDA cores (0.1 ms at 67 TFLOP/s f32). This
 // first version is latency-bound instead: one 128-thread block per SM (176 KB
-// of shared memory at C = 64, F = 16), CUDA-core tile reductions and 6 x C / 4
+// of shared memory at C = 64, F = 16; 184 KB at C = 128, bench.py --encoding
+// cp_big, whose d B is reduced over two tiles of 64 components), CUDA-core
+// tile reductions and 6 x C / 4
 // vector atomics per sample.
 //
 // Stacked scales (K12): the kernel is written for S scales sharing one (3, R,
@@ -60,12 +62,15 @@ namespace insr {
 
 template <int C, int F, int S>
 struct JacBwdSmem {
-  static constexpr int LDA = C + 1;  // staged bf16 C-rows (odd stride)
-  static constexpr int LDG = F + 1;  // staged bf16 F-rows (odd stride)
+  // components staged per d B reduction: all of them up to 64, else tiles of
+  // 64 (C = 128 would need 315 KB of stage, more than a block may have)
+  static constexpr int CT = C <= 64 ? C : 64;
+  static constexpr int LDA = CT + 1;  // staged bf16 component rows (odd stride)
+  static constexpr int LDG = F + 1;   // staged bf16 F-rows (odd stride)
   static constexpr int ROWS = 4 * kBwdTile;
-  // basis (S, C, F), d B accumulator (S, C, F), one scale's C-rows and F-rows
+  // basis (S, C, F), d B accumulator (S, C, F), one tile's C-rows and F-rows
   static constexpr int FLOATS = 2 * S * C * F + ROWS * (LDA + LDG);
-  static_assert(LDA % 2 == 1 && LDG % 2 == 1, "odd strides");
+  static_assert(LDA % 2 == 1 && LDG % 2 == 1 && C % CT == 0, "odd strides, whole tiles");
 };
 
 template <int C, int F, int S>
@@ -134,72 +139,80 @@ __global__ void __launch_bounds__(kBwdTile)
         drow0[a] = dlines + (static_cast<long long>(a) * r + t[a].i0) * LD + s * C;
       }
 #pragma unroll 1
-      for (int c4 = 0; c4 < C / 4; ++c4) {
-        float dvr[3][4], dgr[3][4];
+      for (int c0 = 0; c0 < C; c0 += L::CT) {
+        if (c0 > 0) __syncthreads();  // the previous tile's reduction is done
+#pragma unroll 1
+        for (int c4 = c0 / 4; c4 < (c0 + L::CT) / 4; ++c4) {
+          float dvr[3][4], dgr[3][4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = 4 * c4 + q;  // component within the block
-          float v[3], gd[3];
+          for (int q = 0; q < 4; ++q) {
+            const int c = 4 * c4 + q;  // component within the block
+            float v[3], gd[3];
 #pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const long long off = (static_cast<long long>(a) * LD + s * C + c) * n + i;
-            v[a] = __bfloat162float(vsave[off]);
-            gd[a] = __bfloat162float(gdsave[off]);
-          }
-          const float other[3] = {v[1] * v[2], v[0] * v[2], v[0] * v[1]};
-          const float prod = v[0] * other[0];
-          float jpre[3];
+            for (int a = 0; a < 3; ++a) {
+              const long long off = (static_cast<long long>(a) * LD + s * C + c) * n + i;
+              v[a] = __bfloat162float(vsave[off]);
+              gd[a] = __bfloat162float(gdsave[off]);
+            }
+            const float other[3] = {v[1] * v[2], v[0] * v[2], v[0] * v[1]};
+            const float prod = v[0] * other[0];
+            float jpre[3];
 #pragma unroll
-          for (int a = 0; a < 3; ++a) jpre[a] = (gd[a] * t[a].s) * other[a];
-          arow[0][c] = active ? bf16_round(prod) : 0.0f;
+            for (int a = 0; a < 3; ++a) jpre[a] = (gd[a] * t[a].s) * other[a];
+            arow[0][c - c0] = active ? bf16_round(prod) : 0.0f;
 #pragma unroll
-          for (int a = 0; a < 3; ++a) arow[a + 1][c] = active ? bf16_round(jpre[a]) : 0.0f;
+            for (int a = 0; a < 3; ++a) {
+              arow[a + 1][c - c0] = active ? bf16_round(jpre[a]) : 0.0f;
+            }
 
-          // dP = B bf16(d enc), dJ_a = B bf16(d jac_a): row c of the block's B
-          float dp = 0.0f, dJ[3] = {0.0f, 0.0f, 0.0f};
-          const float4* brow = reinterpret_cast<const float4*>(b_s + (s * C + c) * F);
+            // dP = B bf16(d enc), dJ_a = B bf16(d jac_a): row c of the block's B
+            float dp = 0.0f, dJ[3] = {0.0f, 0.0f, 0.0f};
+            const float4* brow = reinterpret_cast<const float4*>(b_s + (s * C + c) * F);
 #pragma unroll
-          for (int f4 = 0; f4 < F / 4; ++f4) {
-            const float4 bv = brow[f4];
-            const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+            for (int f4 = 0; f4 < F / 4; ++f4) {
+              const float4 bv = brow[f4];
+              const float b[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int f = 4 * f4 + k;
-              dp = fmaf(b[k], de[f], dp);
+              for (int k = 0; k < 4; ++k) {
+                const int f = 4 * f4 + k;
+                dp = fmaf(b[k], de[f], dp);
 #pragma unroll
-              for (int a = 0; a < 3; ++a) dJ[a] = fmaf(b[k], dj[a][f], dJ[a]);
+                for (int a = 0; a < 3; ++a) dJ[a] = fmaf(b[k], dj[a][f], dJ[a]);
+              }
+            }
+            float gs[3];
+#pragma unroll
+            for (int a = 0; a < 3; ++a) gs[a] = (dJ[a] * gd[a]) * t[a].s;
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+              const int b1 = a == 0 ? 1 : 0;
+              const int b2 = a == 2 ? 1 : 2;
+              const float d_v = (dp * other[a] + gs[b1] * v[b2]) + gs[b2] * v[b1];
+              const float d_gd = (dJ[a] * t[a].s) * other[a];
+              acc_u[a] = acc_u[a] + d_v * gd[a];
+              dvr[a][q] = bf16_round(d_v);
+              dgr[a][q] = bf16_round(d_gd);
             }
           }
-          float gs[3];
+          if (active) {
 #pragma unroll
-          for (int a = 0; a < 3; ++a) gs[a] = (dJ[a] * gd[a]) * t[a].s;
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const int b1 = a == 0 ? 1 : 0;
-            const int b2 = a == 2 ? 1 : 2;
-            const float d_v = (dp * other[a] + gs[b1] * v[b2]) + gs[b2] * v[b1];
-            const float d_gd = (dJ[a] * t[a].s) * other[a];
-            acc_u[a] = acc_u[a] + d_v * gd[a];
-            dvr[a][q] = bf16_round(d_v);
-            dgr[a][q] = bf16_round(d_gd);
+            for (int a = 0; a < 3; ++a) {
+              float* dst = drow0[a] + 4 * c4;
+              const float w0 = t[a].w0, w1 = t[a].w1;
+              atomic_add4(dst, w0 * dvr[a][0] - dgr[a][0], w0 * dvr[a][1] - dgr[a][1],
+                          w0 * dvr[a][2] - dgr[a][2], w0 * dvr[a][3] - dgr[a][3]);
+              atomic_add4(dst + LD, w1 * dvr[a][0] + dgr[a][0], w1 * dvr[a][1] + dgr[a][1],
+                          w1 * dvr[a][2] + dgr[a][2], w1 * dvr[a][3] + dgr[a][3]);
+            }
           }
         }
-        if (active) {
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            float* dst = drow0[a] + 4 * c4;
-            const float w0 = t[a].w0, w1 = t[a].w1;
-            atomic_add4(dst, w0 * dvr[a][0] - dgr[a][0], w0 * dvr[a][1] - dgr[a][1],
-                        w0 * dvr[a][2] - dgr[a][2], w0 * dvr[a][3] - dgr[a][3]);
-            atomic_add4(dst + LD, w1 * dvr[a][0] + dgr[a][0], w1 * dvr[a][1] + dgr[a][1],
-                        w1 * dvr[a][2] + dgr[a][2], w1 * dvr[a][3] + dgr[a][3]);
-          }
-        }
-      }
 
-      // d B of the block over the tile: 4 x kBwdTile staged (C-row, F-row) pairs
-      __syncthreads();
-      reduce_tile<C, F, L::LDA, L::LDG, L::ROWS>(a_s, g_s, acc + s * C * F, nullptr);
+        // d B of the component tile over the sample tile: 4 x kBwdTile staged
+        // (component row, F-row) pairs
+        __syncthreads();
+        reduce_tile<L::CT, F, L::LDA, L::LDG, L::ROWS>(a_s, g_s, acc + (s * C + c0) * F,
+                                                       nullptr);
+      }
     }
     if (active) {
 #pragma unroll
@@ -237,7 +250,8 @@ extern "C" int cp_jac_basis_bwd(const float* u3, long long n, int r, int c, int 
   if (c == C_ && f == F_)                                                           \
     return insr::launch_jac_basis_bwd<C_, F_, 1>(u3, n, r, vsave, gdsave, denc, djac, \
                                                  basis, dlines, du, dbasis, st);
-  INSR_JACB_BWD_CASE(64, 16)  // the bench NeuS SDF encoding
+  INSR_JACB_BWD_CASE(128, 16)  // the bench NeuS SDF encoding at bench.py --encoding cp_big
+  INSR_JACB_BWD_CASE(64, 16)   // the bench NeuS SDF encoding
   INSR_JACB_BWD_CASE(16, 8)   // the small test model
 #undef INSR_JACB_BWD_CASE
   return -1;

@@ -165,7 +165,8 @@ extern "C" int cp_jac_basis_fwd(const float* u3, long long n, const void* lines,
   if (c == C_ && f == F_)                                                        \
     return insr::launch_jac_basis<C_, F_, 1>(u3, n, lines, r, basis, enc, jac, vsave, \
                                              gdsave, st);
-  INSR_JACB_CASE(64, 16)  // the bench NeuS SDF encoding
+  INSR_JACB_CASE(128, 16)  // the bench NeuS SDF encoding at bench.py --encoding cp_big
+  INSR_JACB_CASE(64, 16)   // the bench NeuS SDF encoding
   INSR_JACB_CASE(16, 8)   // the small test model
 #undef INSR_JACB_CASE
   return -1;

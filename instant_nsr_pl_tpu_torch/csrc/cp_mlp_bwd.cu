@@ -38,7 +38,9 @@
 // per sample. This first version is latency-bound instead: one block of 128
 // threads per SM (~130 KB of shared memory each), CUDA-core FMAs for the tile
 // reductions and up to 5 x 10^7 vector atomics for the line tables (192 per
-// sample). Tensor-core tile reductions (the dW and dbasis sums are bf16 x bf16
+// sample). At bench.py --encoding cp_big (C = 128, three scales) the dbasis
+// tile is staged and reduced 64 components at a time (a stage row holds
+// max(E, W) + 1 floats) and a block takes 174 KB. Tensor-core tile reductions (the dW and dbasis sums are bf16 x bf16
 // -> f32 products, the mma.sync contract) and a shared-memory pre-reduction of
 // the coarse tables are the next steps.
 //
@@ -95,8 +97,11 @@ __global__ void __launch_bounds__(kBwdTile)
   constexpr int ROWS = L::ROWS;
   using TS = typename L::TS;
   constexpr int LD = STACKED ? S * C : C;  // row stride of a gradient table
+  // dbasis is reduced over component tiles of CT rows: one tile holds C < LDA
+  // components (C = 64 at W = 64), C = 128 (cp_big) takes two
+  constexpr int CT = C < TS::LDA ? C : 64;
   static_assert(C % 4 == 0 && F % 4 == 0 && W % 4 == 0 && D <= W, "layout");
-  static_assert(C < TS::LDA && F < TS::LDG, "the dbasis tile fits the stage");
+  static_assert(C % CT == 0 && CT < TS::LDA && F < TS::LDG, "the dbasis tile fits the stage");
 
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
@@ -160,17 +165,21 @@ __global__ void __launch_bounds__(kBwdTile)
 #pragma unroll
     for (int e = 0; e < E; ++e) d_enc[e] = bf16_round(d_enc[e]);
 
-    // dbasis_s += bf16(prod_s)^T bf16(d_enc_s) over the tile
+    // dbasis_s += bf16(prod_s)^T bf16(d_enc_s) over the tile, CT components
+    // at a time
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      __syncthreads();  // the previous reduction has finished reading
+#pragma unroll 1
+      for (int c0 = 0; c0 < C; c0 += CT) {
+        __syncthreads();  // the previous reduction has finished reading
 #pragma unroll 4
-      for (int c = 0; c < C; ++c) arow[c] = active ? prod_at(s, c) : 0.0f;
+        for (int c = 0; c < CT; ++c) arow[c] = active ? prod_at(s, c0 + c) : 0.0f;
 #pragma unroll
-      for (int j = 0; j < F; ++j) grow[j] = d_enc[s * F + j];
-      __syncthreads();
-      reduce_tile<C, F, TS::LDA, TS::LDG>(stage, stage + kBwdTile * TS::LDA,
-                                          dbasis_acc + s * C * F, nullptr);
+        for (int j = 0; j < F; ++j) grow[j] = d_enc[s * F + j];
+        __syncthreads();
+        reduce_tile<CT, F, TS::LDA, TS::LDG>(stage, stage + kBwdTile * TS::LDA,
+                                             dbasis_acc + (s * C + c0) * F, nullptr);
+      }
     }
 
     // line tables: scatter the two tent-weighted rows per scale and axis
@@ -278,7 +287,8 @@ extern "C" int cp_mlp_bwd(const float* x, long long n, const void* vsave,
       d == D_)                                                                 \
     return insr::launch_cp_bwd<C_, F_, S_, W_, NH_, D_, false>(                \
         x, n, vsave, hsave, dout, basis, ws, dlines, dbasis, dws, dbs, st);
-  INSR_CP_BWD_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head
+  INSR_CP_BWD_CASE(64, 16, 2, 64, 1, 16)   // the bench NeRF density head
+  INSR_CP_BWD_CASE(128, 16, 3, 64, 1, 16)  // the same head on bench.py --encoding cp_big
   INSR_CP_BWD_CASE(16, 8, 2, 32, 1, 16)   // the small test model
   INSR_CP_BWD_CASE(16, 8, 2, 32, 2, 16)
 #undef INSR_CP_BWD_CASE

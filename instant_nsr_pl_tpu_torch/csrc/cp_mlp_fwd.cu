@@ -201,7 +201,8 @@ extern "C" int cp_mlp_fwd(const float* x, long long n, const void* const* line_p
       d == D_)                                                                \
     return insr::launch_cp<C_, F_, S_, W_, NH_, D_, false>(x, n, lines, basis, ws, \
                                                            bs, out, vsave, hsave, st);
-  INSR_CP_CASE(64, 16, 2, 64, 1, 16)  // the bench NeRF density head
+  INSR_CP_CASE(64, 16, 2, 64, 1, 16)   // the bench NeRF density head
+  INSR_CP_CASE(128, 16, 3, 64, 1, 16)  // the same head on bench.py --encoding cp_big
   INSR_CP_CASE(16, 8, 2, 32, 1, 16)   // the small test model
   INSR_CP_CASE(16, 8, 2, 32, 2, 16)
 #undef INSR_CP_CASE

@@ -120,6 +120,7 @@ extern "C" int cp_product_bwd(const float* u3, long long n, const void* lines, i
                               float* du, void* stream) {
   if (r < 2) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 128) return insr::launch_product_bwd<128>(u3, n, lines, r, vsave, dprod, dlines, du, st);
   if (c == 64) return insr::launch_product_bwd<64>(u3, n, lines, r, vsave, dprod, dlines, du, st);
   if (c == 16) return insr::launch_product_bwd<16>(u3, n, lines, r, vsave, dprod, dlines, du, st);
   return -1;

@@ -96,6 +96,7 @@ extern "C" int cp_product_fwd(const float* u3, long long n, const void* lines, i
                               float* prod, void* vsave, void* stream) {
   if (r < 2) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 128) return insr::launch_product<128>(u3, n, lines, r, prod, vsave, st);  // cp_big
   if (c == 64) return insr::launch_product<64>(u3, n, lines, r, prod, vsave, st);  // bench
   if (c == 16) return insr::launch_product<16>(u3, n, lines, r, prod, vsave, st);  // tests
   return -1;

@@ -123,6 +123,8 @@ extern "C" int cp_product_jac_bwd(const float* u3, long long n, int r, int c,
                                   const float* djac, float* dlines, float* du, void* stream) {
   if (r < 2) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 128)  // the raw products at bench.py --encoding cp_big's C
+    return insr::launch_product_jac_bwd<128>(u3, n, r, vsave, gdsave, dprod, djac, dlines, du, st);
   if (c == 64)  // the raw-product NeuS SDF encoding
     return insr::launch_product_jac_bwd<64>(u3, n, r, vsave, gdsave, dprod, djac, dlines, du, st);
   if (c == 16)  // the small test model

@@ -110,6 +110,8 @@ extern "C" int cp_product_jac_fwd(const float* u3, long long n, const void* line
                                   void* stream) {
   if (r < 2) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 128)  // the raw products at bench.py --encoding cp_big's C
+    return insr::launch_product_jac<128>(u3, n, lines, r, prod, jac, vsave, gdsave, st);
   if (c == 64)  // the raw-product NeuS SDF encoding
     return insr::launch_product_jac<64>(u3, n, lines, r, prod, jac, vsave, gdsave, st);
   if (c == 16)  // the small test model

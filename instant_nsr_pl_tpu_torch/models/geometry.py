@@ -13,9 +13,12 @@ import torch
 
 from instant_nsr_pl_tpu_torch.models.isosurface import extract_isosurface
 from instant_nsr_pl_tpu_torch.models.network_utils import (
+    CPEncoding,
+    HashGridEncoding,
     get_encoding,
     get_encoding_with_network,
     get_mlp,
+    on_cuda,
     params_device,
 )
 from instant_nsr_pl_tpu_torch.ops.activations import elementwise_jvp, get_activation
@@ -54,15 +57,22 @@ class VolumeDensity:
     def init(self, generator, device=None):
         return self.encoding_with_network.init(generator, device)
 
-    def apply(self, params, points):
-        """points: (..., 3) world -> (density (...,), feature (..., D))."""
+    def apply(self, params, points, grouped=False):
+        """points: (..., 3) world -> (density (...,), feature (..., D)).
+        ``grouped`` asserts that the flattened points are the group-compacted
+        march's aligned uniform-step blocks (a hash encoding's dedup spec)."""
         pts = contract_to_unisphere(points, self.radius, self.contraction_type)
         out = self.encoding_with_network.apply(
-            params, pts.reshape(-1, self.n_input_dims)
+            params, pts.reshape(-1, self.n_input_dims), grouped=grouped
         ).reshape(*points.shape[:-1], self.n_output_dims)
         out = out.float()
         density = self.density_activation(out[..., 0] + self.density_bias)
         return density, out
+
+    def configure_dedup(self, group: int, step: float):
+        """Forward the renderer's aligned-block guarantee to a hash encoding
+        (no-op for other encodings); ``step`` in [0, 1] coordinates."""
+        self.encoding_with_network.encoding.configure_dedup(group, step)
 
     def forward_level(self, params, points):
         """Level-set field for marching (negative inside): -density, so the
@@ -97,8 +107,11 @@ class VolumeSDF:
       ``torch.autograd.grad(create_graph=True)`` through it.
 
     ``grad_type: finite_difference`` (Neuralangelo) evaluates a 6-point
-    stencil through the plain encode (K5/K6 on the card) and, with
-    ``with_laplace``, the Laplacian for the curvature loss."""
+    stencil through the plain encode (K5/K6 on the card, HG1/HG2 with a hash
+    grid) and, with ``with_laplace``, the Laplacian for the curvature loss.
+    A hash grid with analytic gradients needs the hash grid's Jacobian
+    kernels, which come with slice 7: it is refused on every device (the
+    autodiff fallback would run the plain version on the card)."""
 
     def __init__(self, config):
         self.config = config
@@ -112,13 +125,18 @@ class VolumeSDF:
         self.grad_type = str(config.get("grad_type", "analytic"))
         if self.grad_type not in ("analytic", "finite_difference"):
             raise ValueError(f"unknown grad_type '{self.grad_type}'")
+        inner = getattr(self.encoding, "encoding", self.encoding)
+        if self.grad_type == "analytic" and isinstance(inner, HashGridEncoding):
+            raise NotImplementedError(
+                "a HashGrid SDF with grad_type: analytic needs the hash grid's Jacobian "
+                "kernels (hashgrid_encode_with_jac), which come with slice 7 of the port "
+                "(ROADMAP queue 1 item 1); grad_type: finite_difference runs today")
         self.use_jac = False
         if self.grad_type == "analytic":
             jac_capable = getattr(self.encoding, "has_jac", False)
             self.use_jac = bool(config.get("analytic_jac", jac_capable))
             if self.use_jac and not jac_capable:
                 raise ValueError("analytic_jac: true requires an encoding with a jac path")
-            inner = getattr(self.encoding, "encoding", self.encoding)
             if not self.use_jac and hasattr(inner, "grad_mode"):
                 inner.grad_mode = "autodiff"
         self.fd_eps_config = config.get("finite_difference_eps", 1e-3)
@@ -126,7 +144,8 @@ class VolumeSDF:
                 self.fd_eps_config, (int, float)):
             raise NotImplementedError(
                 f"finite_difference_eps: {self.fd_eps_config!r} (the progressive eps of "
-                "ProgressiveBandHashGrid) comes with the HashGrid-family slice of the port"
+                "ProgressiveBandHashGrid) comes with slice 7 of the port (ROADMAP queue 1 "
+                "item 1)"
             )
         self.sdf_activation = (
             get_activation(config.sdf_activation) if "sdf_activation" in config else None
@@ -134,6 +153,14 @@ class VolumeSDF:
         self.sdf_bias = float(config.get("sdf_bias", 0.0))
 
     def init(self, generator, device=None):
+        """Parameters on ``device``. For the card, a CP encoding's kernels
+        (the product and, on the jac path, the product with its Jacobian)
+        must exist at its shape, else ValueError."""
+        inner = self.encoding.encoding
+        if on_cuda(device) and isinstance(inner, CPEncoding):
+            inner.check_instantiated()
+            if self.use_jac:
+                inner.check_instantiated(jac=True)
         return {
             "encoding": self.encoding.init(generator, device),
             "network": self.network.init(generator, device),
@@ -152,6 +179,11 @@ class VolumeSDF:
             params["network"], self.encoding.apply(params["encoding"], pts)
         ).float()
         return self._sdf(out), out
+
+    def configure_dedup(self, group: int, step: float):
+        """Forward the renderer's aligned-block guarantee to a hash encoding
+        (no-op for other encodings)."""
+        self.encoding.configure_dedup(group, step)
 
     def finite_difference_eps(self):
         """The stencil's eps, a float32 constant."""

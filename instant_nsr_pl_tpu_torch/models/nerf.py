@@ -69,6 +69,14 @@ class NeRFModel:
         while self.num_samples_per_ray % self.occ_stride:
             self.occ_stride -= 1
         self.group_compact = bool(config.get("march_group_compact", True))
+        # hash-grid per-group tap dedup (JAX models/nerf.py:87-106): with
+        # aligned k-blocks guaranteed by the group-compacted march, the
+        # geometry's hash encoding keeps the dedup spec (its kernels compute
+        # per-sample taps, the same function)
+        if (bool(config.get("hash_tap_dedup", True)) and self.group_compact
+                and self.grid_prune and self.occ_stride > 1):
+            self.geometry.configure_dedup(self.occ_stride,
+                                          self.render_step_size / (2.0 * self.radius))
 
     def packed_group(self, capacity: int) -> int:
         """Block size of the packed buffer: k when the group-compacted march
@@ -181,7 +189,8 @@ class NeRFModel:
                 jitter = torch.rand(rays_o.shape[0], generator=generator, device=rays_o.device)
             samples, positions, dirs, t_mid, grp = self.march(occ, rays_o, rays_d, capacity,
                                                               jitter)
-            density, feature = self.geometry.apply(params["geometry"], positions)
+            density, feature = self.geometry.apply(params["geometry"], positions,
+                                                   grouped=grp > 1)
             rgb = self.texture.apply(params["texture"], feature, dirs)
             out = self.composite(samples, density, rgb, t_mid, background_color, grp)
         if not train:

@@ -1,8 +1,8 @@
 """Encoding / MLP factories (the reference's models/network_utils.py role).
 
 Port of ``instant_nsr_pl_tpu/models/network_utils.py`` for the encodings the
-NeRF and NeuS slices run: ``CP`` (with its Jacobian path) and
-``SphericalHarmonics``. As in the JAX package,
+NeRF and NeuS slices run: ``CP`` (with its Jacobian path), ``HashGrid``
+(first order) and ``SphericalHarmonics``. As in the JAX package,
 every module is a static Python object with ``init(generator, device) ->
 params`` and ``apply(params, x) -> out``, and parameters are nested dicts
 keyed like the JAX pytree (``cp.line_{s}_{ax}``, ``layers[i].w``), so weights
@@ -17,17 +17,35 @@ through the fused ops' autograd Functions (``ops/cp_mlp.py``,
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
 from instant_nsr_pl_tpu_torch.ops.activations import elementwise_jvp, get_activation
 from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_encode, cp_encode_with_jac, cp_init
 from instant_nsr_pl_tpu_torch.ops.cp_mlp import (
+    check_fused_instantiated,
     cp_mlp_forward,
     cp_mlp_stacked_forward,
     fusable,
     fusable_stacked,
 )
+from instant_nsr_pl_tpu_torch.ops.cp_product import (
+    JAC_BASIS_SHAPES,
+    PRODUCT_COMPONENTS,
+    SUPPORTED_JAC,
+    SUPPORTED_PRODUCT,
+)
+from instant_nsr_pl_tpu_torch.ops.cp_stacked import STACKED_JAC_SHAPES
+from instant_nsr_pl_tpu_torch.ops.cp_stacked import SUPPORTED as SUPPORTED_STACKED_JAC
 from instant_nsr_pl_tpu_torch.ops.cp_stacked import stackable
+from instant_nsr_pl_tpu_torch.ops.hashgrid import (
+    HashGridSpec,
+    hashgrid_encode,
+    hashgrid_encode_fast,
+    hashgrid_init,
+)
 from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_apply_jvp, mlp_init
 from instant_nsr_pl_tpu_torch.ops.sh import sh_output_dim, spherical_harmonics_encoding
 
@@ -52,6 +70,10 @@ def params_device(tree) -> torch.device:
     return named_leaves(tree)[0][1].device
 
 
+def on_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
 def make_trainable(tree):
     """Make every parameter of ``tree`` require grad, in place (the init
     draws them as leaf tensors); returns the tree."""
@@ -61,11 +83,11 @@ def make_trainable(tree):
 
 
 _LATER = {
-    "VanillaFrequency": "the HashGrid-family slice",
-    "ProgressiveBandHashGrid": "the HashGrid-family slice",
-    "HashGrid": "the HashGrid-family slice",
-    "VectorMatrix": "the HashGrid-family slice",
-    "VM": "the HashGrid-family slice",
+    "ProgressiveBandHashGrid": "slice 7 (ROADMAP queue 1 item 1: the hash grid's jac "
+                               "kernels and the level mask threaded by step)",
+    "VanillaFrequency": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
+    "VectorMatrix": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
+    "VM": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
 }
 
 
@@ -107,6 +129,30 @@ class CPEncoding:
     def init(self, generator, device=None):
         return {"cp": cp_init(generator, self.spec, device)}
 
+    def check_instantiated(self, jac=False):
+        """Raise a ValueError unless the kernels this encoding launches in
+        ``grad_mode: fast`` exist at its shape: the CP product (K5/K6) or,
+        with ``jac``, the product with its Jacobian (K9/K10; K7/K8 for the
+        raw products; K11/K12 with ``stack_scales``). Models built for the
+        card call it, so a shape without kernels is refused at build time."""
+        if self.grad_mode != "fast":
+            return
+        c, f, s_count = (self.spec.n_components, self.spec.n_features,
+                         len(self.spec.resolutions))
+        if not jac:
+            ok, name, supported = c in PRODUCT_COMPONENTS, "cp_product", SUPPORTED_PRODUCT
+        elif self.stack_scales:
+            ok, name, supported = ((c, f, s_count) in STACKED_JAC_SHAPES,
+                                   "cp_jac_basis_stacked", SUPPORTED_STACKED_JAC)
+        elif f == 0:
+            ok, name, supported = c in PRODUCT_COMPONENTS, "cp_product_jac", SUPPORTED_PRODUCT
+        else:
+            ok, name, supported = ((c, f) in JAC_BASIS_SHAPES, "cp_product_jac_basis",
+                                   SUPPORTED_JAC)
+        if not ok:
+            raise ValueError(f"{name}: no CUDA instantiation for {self.spec}; "
+                             f"supported: {supported}")
+
     def _impl(self):
         return "fast" if self.grad_mode == "fast" else "xla"
 
@@ -120,6 +166,56 @@ class CPEncoding:
         impl = self._impl()
         return cp_encode_with_jac(params["cp"], x, self.spec, impl=impl,
                                   stacked=self.stack_scales and impl == "fast")
+
+
+class HashGridEncoding:
+    """Multiresolution hash grid (tcnn ``HashGrid`` role, ``ops/hashgrid.py``).
+
+    ``grad_mode`` ('fast' by default): 'fast' runs ``hashgrid_encode_fast``
+    (HG1 forward and HG2 table gradient on the card, their plain versions on
+    the CPU), first order; 'autodiff' the plain ``hashgrid_encode``,
+    differentiable at any order. The JAX package defaults to 'autodiff' off
+    the TPU; both modes compute the same function.
+
+    ``configure_dedup`` keeps the JAX package's per-group tap dedup spec
+    (set by the renderer when its march guarantees aligned blocks); the
+    port's kernels compute per-sample taps, the same function."""
+
+    def __init__(self, in_channels, config):
+        self.spec = HashGridSpec.from_config(config, n_input_dims=in_channels)
+        self.n_input_dims = in_channels
+        self.n_output_dims = self.spec.n_output_dims
+        self.grad_mode = str(config.get("grad_mode", "fast"))
+        if self.grad_mode not in ("fast", "autodiff"):
+            raise ValueError(f"HashGrid grad_mode must be 'fast' or 'autodiff', got "
+                             f"{self.grad_mode}")
+        self.dedup_spec = None
+
+    def configure_dedup(self, group: int, step: float):
+        """Keep the dedup spec for ``grouped`` calls: ``group`` is the
+        march's aligned block size, ``step`` the per-axis position step bound
+        in [0, 1] coordinates (JAX ``HashGridEncoding.configure_dedup``)."""
+        if group < 4 or step <= 0.0 or self.grad_mode != "fast":
+            return
+        spec = dataclasses.replace(self.spec, dedup_group=int(group), dedup_step=float(step))
+        if any(spec.dedup_group_sizes):
+            self.dedup_spec = spec
+
+    def _spec_for(self, x, grouped):
+        """The dedup spec when the caller guarantees aligned blocks and the
+        flattened batch divides the block size, else the plain spec."""
+        if grouped and self.dedup_spec is not None:
+            if math.prod(x.shape[:-1]) % self.dedup_spec.dedup_group == 0:
+                return self.dedup_spec
+        return self.spec
+
+    def init(self, generator, device=None):
+        return {"table": hashgrid_init(generator, self.spec, device)}
+
+    def apply(self, params, x, grouped=False):
+        if self.grad_mode == "fast":
+            return hashgrid_encode_fast(params["table"], x, self._spec_for(x, grouped))
+        return hashgrid_encode(params["table"], x, self.spec)
 
 
 class SphericalHarmonicsEncoding:
@@ -156,11 +252,21 @@ class CompositeEncoding:
     def init(self, generator, device=None):
         return self.encoding.init(generator, device)
 
-    def apply(self, params, x):
-        enc = self.encoding.apply(params, x)
+    def apply(self, params, x, grouped=False):
+        kw = {"grouped": True} if grouped and self.dedup_spec is not None else {}
+        enc = self.encoding.apply(params, x, **kw)
         if not self.include_xyz:
             return enc
         return torch.cat([x * self.xyz_scale + self.xyz_offset, enc], dim=-1)
+
+    @property
+    def dedup_spec(self):
+        return getattr(self.encoding, "dedup_spec", None)
+
+    def configure_dedup(self, group: int, step: float):
+        fn = getattr(self.encoding, "configure_dedup", None)
+        if fn is not None:
+            fn(group, step)
 
     @property
     def has_jac(self) -> bool:
@@ -184,6 +290,8 @@ def get_encoding(n_input_dims, config):
     otype = config["otype"]
     if otype in ("CP", "TensorCP"):
         enc = CPEncoding(n_input_dims, config)
+    elif otype == "HashGrid":
+        enc = HashGridEncoding(n_input_dims, config)
     elif otype == "SphericalHarmonics":
         enc = SphericalHarmonicsEncoding(n_input_dims, config)
     elif otype in _LATER:
@@ -251,12 +359,19 @@ class EncodingWithNetwork:
         )
 
     def init(self, generator, device=None):
+        """Parameters on ``device``. For the card, the kernels of the route
+        (fused or composed) must exist at the CP shape, else ValueError."""
+        inner = self.encoding.encoding
+        if on_cuda(device) and self.fused:
+            check_fused_instantiated(inner.spec, self.network.spec, inner.stack_scales)
+        elif on_cuda(device) and isinstance(inner, CPEncoding):
+            inner.check_instantiated()
         return {
             "encoding": self.encoding.init(generator, device),
             "network": self.network.init(generator, device),
         }
 
-    def apply(self, params, x):
+    def apply(self, params, x, grouped=False):
         if self.fused:
             inner = self.encoding.encoding
             op = cp_mlp_stacked_forward if inner.stack_scales else cp_mlp_forward
@@ -269,7 +384,7 @@ class EncodingWithNetwork:
             )
             return self.network.output_activation(out)
         return self.network.apply(
-            params["network"], self.encoding.apply(params["encoding"], x)
+            params["network"], self.encoding.apply(params["encoding"], x, grouped=grouped)
         )
 
 

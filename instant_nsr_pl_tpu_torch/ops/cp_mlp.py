@@ -58,8 +58,40 @@ from instant_nsr_pl_tpu_torch.ops.mlp_common import (
 # the plain version interpolates at most this many samples at a time
 _CHUNK = 1 << 18
 
-SUPPORTED = ("(C, F, scales, width, hidden layers, D) in "
-             "{(64, 16, 2, 64, 1, 16), (16, 8, 2, 32, 1|2, 16)}")
+# The (C, F, scales, width, hidden layers, D) shapes that csrc/cp_mlp_fwd.cu
+# and csrc/cp_mlp_bwd.cu instantiate (K1/K2, and K13/K14 for the stacked
+# list): the bench NeRF heads of bench.py --encoding cp / cp_big / cp_stacked
+# and the small test models.
+INSTANTIATIONS = (
+    (64, 16, 2, 64, 1, 16),   # cp
+    (128, 16, 3, 64, 1, 16),  # cp_big
+    (16, 8, 2, 32, 1, 16),    # the small test models
+    (16, 8, 2, 32, 2, 16),
+)
+STACKED_INSTANTIATIONS = (
+    (64, 16, 2, 64, 1, 16),   # cp_stacked
+    (16, 8, 2, 32, 1, 16),
+    (16, 8, 2, 32, 2, 16),
+)
+SUPPORTED = f"(C, F, scales, width, hidden layers, D) in {INSTANTIATIONS}"
+SUPPORTED_STACKED = f"(C, F, scales, width, hidden layers, D) in {STACKED_INSTANTIATIONS}"
+
+
+def fused_shape(cp_spec: CPSpec, mlp_spec) -> tuple:
+    """The (C, F, scales, width, hidden layers, D) key of the fused kernels."""
+    return (cp_spec.n_components, cp_spec.n_features, len(cp_spec.resolutions),
+            mlp_spec.n_neurons, mlp_spec.n_hidden_layers, mlp_spec.dim_out)
+
+
+def check_fused_instantiated(cp_spec: CPSpec, mlp_spec, stacked=False):
+    """Raise a ValueError unless the fused kernels of this route (K1/K2, or
+    K13/K14 with ``stacked``) are instantiated at this shape: a model built
+    for the card is refused when it is built, not at its first launch."""
+    shapes = STACKED_INSTANTIATIONS if stacked else INSTANTIATIONS
+    if fused_shape(cp_spec, mlp_spec) not in shapes:
+        name = "cp_mlp_stacked_forward" if stacked else "cp_mlp_forward"
+        raise ValueError(f"{name}: no CUDA instantiation for {fused_shape(cp_spec, mlp_spec)}; "
+                         f"supported: {SUPPORTED_STACKED if stacked else SUPPORTED}")
 
 
 def fusable(cp_spec: CPSpec, mlp_spec) -> bool:
@@ -530,7 +562,7 @@ def cp_mlp_stacked_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
             mlp_spec.dim_out, vsave.data_ptr() if train else None,
             hsave.data_ptr() if train else None, stream,
         )
-    cuda_build.check(rc, "cp_mlp_stacked_forward", SUPPORTED)
+    cuda_build.check(rc, "cp_mlp_stacked_forward", SUPPORTED_STACKED)
     cp_mlp_stacked_forward.launches += 1
     return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
 
@@ -575,6 +607,6 @@ def cp_mlp_stacked_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CP
             dbasis.data_ptr(), dws.data_ptr(), dbs.data_ptr(), c, f, mlp_spec.n_neurons, nh,
             d, stream,
         )
-    cuda_build.check(rc, "cp_mlp_stacked_backward", SUPPORTED)
+    cuda_build.check(rc, "cp_mlp_stacked_backward", SUPPORTED_STACKED)
     cp_mlp_stacked_backward.launches += 1
     return dfine, dbasis, dws, dbs

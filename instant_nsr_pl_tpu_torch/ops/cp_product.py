@@ -41,8 +41,13 @@ from torch.autograd.function import once_differentiable
 from instant_nsr_pl_tpu_torch.ops import cuda_build
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round
 
-SUPPORTED_PRODUCT = "C in {64, 16}, R >= 2"
-SUPPORTED_JAC = "(C, F) in {(64, 16), (16, 8)}, R >= 2"
+# The shapes the kernels instantiate: C of K5-K8 (csrc/cp_product_*.cu) and
+# (C, F) of K9/K10 (csrc/cp_jac_basis_*.cu): the bench NeuS encodings of
+# bench.py --encoding cp (64) and cp_big (128), and the small test models (16).
+PRODUCT_COMPONENTS = (128, 64, 16)
+JAC_BASIS_SHAPES = ((128, 16), (64, 16), (16, 8))
+SUPPORTED_PRODUCT = f"C in {PRODUCT_COMPONENTS}, R >= 2"
+SUPPORTED_JAC = f"(C, F) in {JAC_BASIS_SHAPES}, R >= 2"
 
 
 # ---------------------------------------------------------------------------

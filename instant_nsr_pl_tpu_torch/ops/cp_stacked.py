@@ -43,7 +43,9 @@ from instant_nsr_pl_tpu_torch.ops.cp_product import (
     cp_product_jac_basis_plain,
 )
 
-SUPPORTED = "(C, F, scales) in {(64, 16, 2), (16, 8, 2)}, R_max >= 2"
+# (C, F, scales) of K11/K12 (the stacked entry points of csrc/cp_jac_basis_*.cu)
+STACKED_JAC_SHAPES = ((64, 16, 2), (16, 8, 2))
+SUPPORTED = f"(C, F, scales) in {STACKED_JAC_SHAPES}, R_max >= 2"
 
 
 # ---------------------------------------------------------------------------

@@ -249,7 +249,8 @@ def _product_inputs(gen, c, res, n, device):
     return [t.to(device) for t in lines], u3.to(device)
 
 
-@pytest.mark.parametrize("c,res,n", [(16, 24, 515), (16, 64, 4096), (64, 2048, 3001)])
+@pytest.mark.parametrize("c,res,n", [(16, 24, 515), (16, 64, 4096), (64, 2048, 3001),
+                                     (128, 4096, 3001)])
 def test_cp_product_kernels_match_plain(cuda_device, c, res, n):
     """K5 (eval and training mode) and K6 against their plain versions: the
     residual bit for bit, prod within 2e-2 and the gradients within 2.5e-2
@@ -278,7 +279,8 @@ def test_cp_product_kernels_match_plain(cuda_device, c, res, n):
     assert bool((got[1][outside] == 0).all())
 
 
-@pytest.mark.parametrize("c,f,res,n", [(16, 8, 24, 515), (16, 8, 64, 4096), (64, 16, 2048, 3001)])
+@pytest.mark.parametrize("c,f,res,n", [(16, 8, 24, 515), (16, 8, 64, 4096), (64, 16, 2048, 3001),
+                                       (128, 16, 512, 3001)])
 def test_cp_jac_basis_kernels_match_plain(cuda_device, c, f, res, n):
     """K9 (eval and training mode) and K10 against their plain versions."""
     gen = torch.Generator().manual_seed(40 + n)
@@ -308,7 +310,7 @@ def test_cp_jac_basis_kernels_match_plain(cuda_device, c, f, res, n):
 
 
 @pytest.mark.parametrize("c,res,n", [(16, 24, 515), (16, 64, 4096), (64, 2048, 3001),
-                                     (64, 128, 262107)])
+                                     (64, 128, 262107), (128, 64, 3001)])
 def test_cp_product_jac_kernels_match_plain(cuda_device, c, res, n):
     """K7 (eval and training mode) and K8 against their plain versions: the
     residuals bit for bit, prod and jac within 2e-2 and the gradients within
@@ -502,3 +504,90 @@ def test_cp_jac_stacked_kernels_match_plain(cuda_device, c, f, res, n):
         _close(a, b, rel=2.5e-2)
     outside = (u3 < 0) | (u3 > 1)
     assert bool((got[1][outside] == 0).all())
+
+
+def test_cp_mlp_cp_big_kernels_match_plain(cuda_device):
+    """K1 (training mode) and K2 at bench.py --encoding cp_big's head: C=128,
+    R=(64, 512, 4096), F=16, MLP 48->64->16 (K2 reduces d basis over two
+    64-component tiles): vsave bit for bit, the output within 2e-2 and the
+    gradients within 2.5e-2 of the largest plain value."""
+    gen = torch.Generator().manual_seed(7)
+    cp_spec = CPSpec(128, (64, 512, 4096), 16)
+    mlp_spec = MLPSpec(dim_in=48, dim_out=16, n_neurons=64, n_hidden_layers=1)
+    cp_params = cp_init(gen, cp_spec, cuda_device)
+    layers = _biased(mlp_init(gen, mlp_spec), gen, cuda_device)
+    x = (torch.rand((3001, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    ops = t_cp_mlp.cp_mlp_operands(cp_params, layers, cp_spec, mlp_spec)
+    out, vsave, hsave = t_cp_mlp.cp_mlp_launch(ops, x, cp_spec, mlp_spec, train=True)
+    torch.cuda.synchronize()
+    ref, ref_v, _ = t_cp_mlp.cp_mlp_forward_plain(cp_params, layers, x, cp_spec, mlp_spec,
+                                                  save_residuals=True)
+    assert torch.equal(vsave, ref_v)
+    _close(out, ref)
+    dout = torch.randn((3001, 16), generator=gen).to(cuda_device)
+    args = (x, vsave, hsave, dout, ops[1], ops[2], cp_spec, mlp_spec)
+    got = t_cp_mlp.cp_mlp_backward_launch(*args)
+    torch.cuda.synchronize()
+    plain = t_cp_mlp.cp_mlp_backward_plain(*args)
+    for a, b in zip([*got[0], *got[1:]], [*plain[0], *plain[1:]]):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+
+
+def _bench_hash():
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+
+    return HashGridSpec(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+                        base_resolution=16, per_level_scale=1.447269237440378)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_hashgrid_kernels_match_plain(cuda_device, masked):
+    """HG1 and HG2 at the bench hash shape (16 levels, F=2, 2^19 rows) on a
+    ragged N: the forward equal to the plain version's (both round x*s+0.5
+    and the corner sum as fused multiply-adds; limit rtol 1e-5), the table
+    gradient within 1e-5 x max|plain| per level (float32 atomics sum in
+    another order each run), the position gradient within 1e-4 x max|plain|;
+    each launch counted once."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = _bench_hash()
+    gen = torch.Generator().manual_seed(11)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(cuda_device)
+    x = torch.rand((20011, 3), generator=gen)
+    x[:3] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0]])
+    x = x.to(cuda_device)
+    ct = torch.randn((20011, 32), generator=gen).to(cuda_device)
+    mask = torch.linspace(1.0, 0.0, 16).to(cuda_device) if masked else None
+    before = hg.hashgrid_forward.launches
+    got = hg.hashgrid_forward(table, x, spec, mask)
+    torch.cuda.synchronize()
+    assert hg.hashgrid_forward.launches == before + 1
+    ref = hg.hashgrid_encode(table, x, spec, mask)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    before = hg.hashgrid_backward.launches
+    dt, dx = hg.hashgrid_backward(table, x, ct, spec, mask, with_dx=True)
+    torch.cuda.synchronize()
+    assert hg.hashgrid_backward.launches == before + 1
+    rt, rx = hg.hashgrid_backward_plain(table, x, ct, spec, mask, with_dx=True)
+    for lv in range(spec.n_levels):
+        sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+        _close(dt[:, sl], rt[:, sl], rel=1e-5)
+    _close(dx, rx, rel=1e-4)
+    # through the autograd op: the table gradient, and none for x
+    t = table.clone().requires_grad_(True)
+    hg.hashgrid_encode_fast(t, x, spec, mask).backward(ct)
+    _close(t.grad, rt, rel=1e-5)
+
+
+def test_probe_kernels_match_numpy(cuda_device):
+    """Each gather / scatter probe P1a-P1g and P2 (tools/microbench_gather.py)
+    at a reduced M against the numpy result of the JAX scripts and its plain
+    version: gathers to the bit, sums within 1e-6 of their summed
+    magnitudes."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    mb.reset_launches()
+    errs = mb.check_all(1 << 16, 1 << 16, cuda_device, seed=3)
+    assert len(errs) == 11
+    assert all(v >= 1 for v in mb.launch_counts().values())

@@ -247,6 +247,10 @@ def test_port_source_imports_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
         (ROOT / "scripts").glob("profile_torch_*.py"))
     assert ROOT / "scripts" / "profile_torch_train.py" in files
+    # the hash grid, its model wiring and the probe script
+    for new in ("ops/hashgrid.py", "models/network_utils.py", "tools/microbench_gather.py",
+                "tools/__init__.py"):
+        assert PORT / new in files, new
     assert len(files) > 20
     bad = [(f.name, m) for f in files for m in _imports(f) if _FORBIDDEN.match(m)]
     assert not bad, bad
