@@ -5,7 +5,7 @@ hash-grid NeRF trained (and the repo's ``configs/nerf-synthetic.yaml``
 trained, tested and exported through the launcher), the ``cp_big`` shapes,
 and the gather / scatter probes.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases (each raises on failure; any failure exits non-zero before the result
 lines are printed):
@@ -94,7 +94,18 @@ lines are printed):
    ray sampling, MultiStepLR, the automatic 8-view test and mesh), then
    ``--export``: test/psnr, a non-empty mesh with valid indices, HG1 in the
    export's level grid;
-17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit;
+17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
+   The entries of the tensor-core backward kernels (K2, K14, cp_big's K2,
+   K4) also carry ptxas' registers and spills of this run's build, their
+   launch plan's shared memory and blocks per SM, ``ms_ray_ordered`` (the
+   kernel timed on the operands of the last step of the bench training runs,
+   ray-ordered samples), ``device_ms`` (the device time of a call under
+   torch.profiler, without the host's share), ``composed_ms`` (their
+   products as a chain of ``torch.matmul`` calls at the same shapes, a
+   yardstick the port never calls) and, given ``--parent DIR`` (another
+   checkout, e.g. the parent commit from ``git archive``), ``parent_ms`` /
+   ``parent_ms_ray``: that design's times from ``tools/bwd_bench.py --root
+   DIR`` in this run;
 18. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
@@ -201,6 +212,162 @@ def bound(n_bytes, bf16_flops, f32_flops):
 def _mlp_macs(dims):
     """Multiply-adds of one sample through layers of widths dims[0] -> ..."""
     return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+# The redesigned backward kernels (csrc/mma_common.cuh): per kernel entry, its
+# source stem, the mangled-name marker of its instantiation in ptxas' output,
+# and the key of its launch plan (ops/cuda_build.py PLANS, without the device)
+BWD_KERNELS = {
+    "cp_mlp_backward": ("cp_mlp_bwd", "cp_mlp_bwd_kernelILi64ELi16ELi2ELi64ELi1ELi16ELb0E",
+                        ("cp_mlp_bwd", 64, 16, 2, 64, 1, 16)),
+    "cp_mlp_stacked_backward": ("cp_mlp_bwd",
+                                "cp_mlp_bwd_kernelILi64ELi16ELi2ELi64ELi1ELi16ELb1E",
+                                ("cp_mlp_stacked_bwd", 64, 16, 2, 64, 1, 16)),
+    "cp_mlp_backward@cp_big": ("cp_mlp_bwd",
+                               "cp_mlp_bwd_kernelILi128ELi16ELi3ELi64ELi1ELi16ELb0E",
+                               ("cp_mlp_bwd", 128, 16, 3, 64, 1, 16)),
+    "sh_mlp_backward": ("sh_mlp_bwd", "sh_mlp_bwd_kernelILi16ELi4ELi64ELi2ELi3E",
+                        ("sh_mlp_bwd", 16, 4, 64, 2, 3)),
+}
+# a training step's own operands of the backward kernels (captured in the last
+# step of a training run) and the kernels' times on them
+STEP_MS = {}
+
+
+def ptxas_info(stem, marker):
+    """Registers, stack frame and spill bytes of the kernel whose mangled
+    name holds ``marker``, from ``nvcc -Xptxas -v``'s output of this run's
+    build of ``csrc/<stem>.cu`` (None when the library was not built here)."""
+    import re
+
+    from instant_nsr_pl_tpu_torch.ops import cuda_build
+
+    log = cuda_build.BUILD_LOG.get(stem)
+    if not log:
+        return None
+    info, inside = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = marker in line
+        elif inside:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads")):
+                m = re.search(pat, line)
+                if m:
+                    info[key] = int(m.group(1))
+    return info or None
+
+
+def capture_backward_operands(run_step, label):
+    """Run ``run_step()`` (one training step) with the backward launch
+    functions of K2, K14 and K4 recording their arguments; then time each
+    recorded kernel on its step's own (ray-ordered) operands into
+    ``STEP_MS[name]`` as ``(ms, n)``. The recorders call the launch functions
+    themselves, so the step's launch counts are unchanged, and the counts
+    are restored after the timing launches."""
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
+
+    seen = {}
+    originals = {}
+    targets = {"cp_mlp_backward": (cp_mlp, "cp_mlp_backward_launch"),
+               "cp_mlp_stacked_backward": (cp_mlp, "cp_mlp_stacked_backward_launch"),
+               "sh_mlp_backward": (sh_mlp, "sh_mlp_backward_launch")}
+    for name, (mod, attr) in targets.items():
+        fn = getattr(mod, attr)
+        originals[name] = fn
+
+        def record(*args, _name=name, _fn=fn):
+            seen[_name] = args
+            return _fn(*args)
+
+        setattr(mod, attr, record)
+    try:
+        out = run_step()
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, originals[name])
+    torch.cuda.synchronize()
+    counters = {"cp_mlp_backward": cp_mlp.cp_mlp_backward,
+                "cp_mlp_stacked_backward": cp_mlp.cp_mlp_stacked_backward,
+                "sh_mlp_backward": sh_mlp.sh_mlp_backward}
+    for name, args in seen.items():
+        key = f"{name}{label}"
+        if key in STEP_MS:
+            continue
+        count = counters[name].launches  # timing launches are not the run's
+        ms = time_ms(lambda: originals[name](*args))
+        counters[name].launches = count
+        STEP_MS[key] = (ms, int(args[0].reshape(-1, args[0].shape[-1]).shape[0]))
+        print(f"[step-operands] {key}: {ms:.4f} ms on a training step's own operands "
+              f"(N={STEP_MS[key][1]})", flush=True)
+    return out
+
+
+def composed_backward(kind, device, n=N_FULL, c=64, s_count=2):
+    """A yardstick, never called by the port: the products of K2 (``kind``
+    "cp", the bench head; C=128, S=3 for cp_big) or K4 ("sh", the bench
+    radiance head) as a chain of torch.matmul calls on bf16 operands at the
+    kernels' shapes, without their elementwise work and the line-table
+    scatter. Returns its CUDA-event time in ms."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+
+    if kind == "sh":
+        x0, h0, h1, dout = r(n, 32), r(n, 64), r(n, 64), r(n, 3)
+        w0, w1, w2 = r(32, 64), r(64, 64), r(64, 3)
+        g1, g0 = r(n, 64), r(n, 64)
+
+        def chain():
+            torch.matmul(h1.T, dout)
+            torch.matmul(dout, w2.T)
+            torch.matmul(h0.T, g1)
+            torch.matmul(g1, w1.T)
+            torch.matmul(x0.T, g0)
+            torch.matmul(g0, w0.T)
+    else:
+        f, e = 16, 16 * s_count
+        prods = [r(n, c) for _ in range(s_count)]
+        bases = [r(c, f) for _ in range(s_count)]
+        h, dout, g0, enc, denc = r(n, 64), r(n, 16), r(n, 64), r(n, e), r(n, e)
+        w0, w1 = r(e, 64), r(64, 16)
+
+        def chain():
+            for p, b in zip(prods, bases):
+                torch.matmul(p, b)
+            torch.matmul(h.T, dout)
+            torch.matmul(dout, w1.T)
+            torch.matmul(enc.T, g0)
+            torch.matmul(g0, w0.T)
+            for k, (p, b) in enumerate(zip(prods, bases)):
+                torch.matmul(p.T, denc[:, k * f:(k + 1) * f])
+                torch.matmul(denc[:, k * f:(k + 1) * f], b.T)
+    return time_ms(chain)
+
+
+def device_ms(fn):
+    """Device time per call under torch.profiler (every kernel and memset of
+    a call; ``tools/bwd_bench.py``): unlike ``time_ms`` it leaves out the
+    host's share where the host queues calls slower than the card runs
+    them."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import device_ms as profiled
+
+    return profiled(fn)[0]
+
+
+def parent_times(parent):
+    """The parent design's times of the same kernels at N_FULL on uniform and
+    ray-ordered operands: ``tools/bwd_bench.py --root parent`` in a process of
+    its own (it imports the other checkout's port)."""
+    out = os.path.join(ROOT, "exp", "chip_smoke", "parent_bwd.json")
+    cmd = [sys.executable, os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "tools", "bwd_bench.py"),
+           "--root", parent, "--order", "uniform,ray", "--out", out]
+    subprocess.run(cmd, check=True, timeout=900)
+    with open(out) as fh:
+        return json.load(fh)["ms"]
 
 
 def kernel_phase(device):
@@ -332,6 +499,7 @@ def kernel_phase(device):
                 assert a.shape == b.shape, (name, label, tuple(a.shape), tuple(b.shape))
                 errs.append(compare(f"{name} N={n} {label}", a, b, rel=2.5e-2))
         ms = time_ms(lambda: launch(*args))
+        dev_ms = device_ms(lambda: launch(*args))
         plain_ms = time_ms(lambda: plain(*args))
         if name == "cp_mlp_backward":
             n_bytes = (N_FULL * (12 + 3 * s_count * c * 2 + w * 2 + 16 * 4)
@@ -345,9 +513,12 @@ def kernel_phase(device):
             bf16 = N_FULL * 2 * 2 * _mlp_macs(r_dims)
             f32 = N_FULL * 40
         bound_ms, bound_by = bound(n_bytes, bf16, f32)
+        composed_ms = composed_backward("cp" if name == "cp_mlp_backward" else "sh", device)
         print(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-              f"by {bound_by}) at N={N_FULL}", flush=True)
+              f"by {bound_by}; its products as torch.matmul calls {composed_ms:.4f} ms) at "
+              f"N={N_FULL}", flush=True)
         entries[name] = {
+            "composed_ms": composed_ms, "device_ms": dev_ms,
             "name": name, "route": "cuda",
             "source": f"instant_nsr_pl_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": 0, "max_abs_err": max(errs), "ms": ms, "kernel_ms": ms,
@@ -714,6 +885,9 @@ def stacked_kernel_phase(device):
             "library_note": "no single PyTorch call computes this function",
             "n": N_FULL,
         }
+        if name == "cp_mlp_stacked_backward":
+            entry["composed_ms"] = composed_backward("cp", device)
+            entry["device_ms"] = device_ms(kern)
         if name == "cp_mlp_stacked_forward":
             entry["ms_eval"] = time_ms(lambda: cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, d_spec))
         elif name == "cp_jac_stacked_forward":
@@ -908,7 +1082,10 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
         before = {k: c.launches for k, c in counters.items()}
-        state, metrics = system.train_step(state)
+        if i == TRAIN_STEPS - 1 and kind != "hash":
+            state, metrics = capture_backward_operands(lambda: system.train_step(state), "")
+        else:
+            state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
         if min(delta.values()) < 1:
             raise AssertionError(f"step {i}: a kernel was not launched: {delta}")
@@ -1616,6 +1793,8 @@ def cp_big_kernel_phase(device):
         print(f"[kernel] {name} cp_big: {ms:.4f} ms (plain {plain_ms:.3f} ms; bound "
               f"{bound_ms:.4f} ms by {bound_by}) at N={n}", flush=True)
         entries.append({
+            **({"composed_ms": composed_backward("cp", device, c=c, s_count=len(res)),
+                "device_ms": device_ms(kern)} if name == "cp_mlp_backward" else {}),
             "name": f"{name}@cp_big", "route": "cuda",
             "source": f"instant_nsr_pl_tpu_torch/csrc/{src}",
             "replaces": f"instant_nsr_pl_tpu/ops/{replaces}", "launches": 0,
@@ -1677,7 +1856,11 @@ def cp_big_train_phase(device, smi):
         losses = []
         for i in range(CP_BIG_STEPS):
             before = {k: c.launches for k, c in counters.items()}
-            state, metrics = system.train_step(state)
+            if kind == "nerf" and i == CP_BIG_STEPS - 1:
+                state, metrics = capture_backward_operands(lambda: system.train_step(state),
+                                                           "@cp_big")
+            else:
+                state, metrics = system.train_step(state)
             delta = {k: c.launches - before[k] for k, c in counters.items()}
             if min(delta[k] for k in kernels) < 1:
                 raise AssertionError(f"cp_big {kind} step {i}: a kernel was not launched: {delta}")
@@ -1787,7 +1970,14 @@ def launcher_phase(device, smi):
     return train_launches, export_launches
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout of the repo (for example the parent commit from "
+                         "git archive): the backward kernels' times of its design are added")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
@@ -1903,6 +2093,34 @@ def main():
             raise AssertionError(f"{e['name']}: not launched on its main path "
                                  f"({e['launches_path']})")
     entries += hash_entries + cp_big_entries + probe_entries
+    # the redesigned backward kernels: ptxas' registers and spills, the launch
+    # plan (shared memory, blocks per SM), the time on a training step's own
+    # operands, and the parent design's times where a parent checkout is given
+    from instant_nsr_pl_tpu_torch.ops import cuda_build
+
+    parent = parent_times(args.parent) if args.parent else None
+    bench_key = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
+                 "cp_mlp_backward@cp_big": "k2_cp_big", "sh_mlp_backward": "k4"}
+    for e in entries:
+        if e["name"] not in BWD_KERNELS:
+            continue
+        stem, marker, plan_key = BWD_KERNELS[e["name"]]
+        plan = next((v for k, v in cuda_build.PLANS.items() if k[:-1] == plan_key), None)
+        step = STEP_MS.get(e["name"])
+        e.update({
+            "ptxas": ptxas_info(stem, marker),
+            "smem_bytes": plan["smem_bytes"] if plan else None,
+            "blocks_per_sm": plan["blocks_per_sm"] if plan else None,
+            "ms_ray_ordered": step[0] if step else None,
+            "n_ray_ordered": step[1] if step else None,
+            "parent_ms": parent[f"{bench_key[e['name']]}@uniform"] if parent else None,
+            "parent_ms_ray": parent[f"{bench_key[e['name']]}@ray"] if parent else None,
+        })
+        print(f"[bwd] {e['name']}: {e['ms']:.4f} ms uniform ({e['device_ms']:.4f} ms device "
+              f"time), ray-ordered step operands "
+              f"{e['ms_ray_ordered']}, parent {e['parent_ms']} / {e['parent_ms_ray']}, ptxas "
+              f"{e['ptxas']}, {e['smem_bytes']} B shared, {e['blocks_per_sm']} blocks per SM "
+              f"({smi})", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

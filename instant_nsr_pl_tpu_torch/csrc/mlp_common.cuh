@@ -1,12 +1,13 @@
-// Shared device-side forward and backward of the packed bf16 ReLU MLP.
+// Shared device-side forward of the packed bf16 ReLU MLP, and the CUDA-core
+// tile reduction of the CP Jacobian backward kernels.
 //
-// Replaces kernel_mlp_fwd and kernel_mlp_bwd of
-// instant_nsr_pl_tpu/ops/mlp_pallas_common.py:74-141, the MLP chain both
-// fused TPU kernels end in. One thread evaluates the whole chain for one
-// sample with its activations in registers; the packed weights
-// (ops/mlp_common.py pack_mlp: (sum d_in, Wmax) bf16, zero columns beyond each
-// layer's d_out) are widened to f32 in shared memory once per block, and every
-// thread of a warp reads the same weight row (a broadcast, no bank conflict).
+// Replaces kernel_mlp_fwd of instant_nsr_pl_tpu/ops/mlp_pallas_common.py:74-96,
+// the MLP chain both fused TPU forward kernels end in. One thread evaluates
+// the whole chain for one sample with its activations in registers; the packed
+// weights (ops/mlp_common.py pack_mlp: (sum d_in, Wmax) bf16, zero columns
+// beyond each layer's d_out) are widened to f32 in shared memory once per
+// block, and every thread of a warp reads the same weight row (a broadcast, no
+// bank conflict).
 //
 // Forward rounding points are the TPU kernel's: each layer's input is rounded
 // to bf16, the products are exact in f32 (bf16 x bf16) and accumulate in f32,
@@ -15,16 +16,12 @@
 // training mode the hidden activations are also stored as the (NH, W, N) bf16
 // residual `hsave`.
 //
-// Backward (mlp_backward_tile), per layer from the last to the first, as
-// kernel_mlp_bwd: the activations a (bf16 values) and the cotangent g (f32,
-// rounded to bf16 as a matmul operand) give dW += bf16(a) x bf16(g) and
-// db += g, both summed in f32; the input cotangent is W @ bf16(g) in f32,
-// masked by a > 0 below a hidden layer. Padded cotangent columns (beyond d_out)
-// are zero. The TPU accumulates dW/db across its sequential grid in VMEM; on
-// the card blocks run in no order, so each block walks many 128-sample tiles,
-// sums each tile's dW with a shared-memory reduction into a per-block f32
-// accumulator in shared memory, and adds it to the output with one atomicAdd
-// per element when its last tile is done.
+// The backward of the chain (kernel_mlp_bwd) runs on the tensor cores in
+// mma_common.cuh. What stays here for the CP Jacobian backward kernels
+// (csrc/cp_jac_basis_bwd.cu K10/K12): reduce_tile, a shared-memory tile
+// reduction of bf16-operand products on the CUDA cores, its per-block f32
+// accumulator flushed with one atomicAdd per element (flush_acc), and the
+// one-block-per-SM launch of those kernels (launch_tiles).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,18 +127,6 @@ __device__ __forceinline__ void mlp_forward(const float* __restrict__ w,
 // (one thread per sample of the tile in the per-sample phases).
 constexpr int kBwdTile = 128;
 
-// Shared-memory staging of one tile: per sample a row of activations (`a`,
-// LDA floats) and a row of cotangents (`g`, LDG floats). The odd row strides
-// make a thread's writes to its own row conflict-free, and the reductions
-// read one row element per step, broadcast across the warp.
-template <int DIN, int W>
-struct TileStage {
-  static constexpr int LDA = (DIN > W ? DIN : W) + 1;
-  static constexpr int LDG = W + 1;
-  static constexpr int FLOATS = kBwdTile * (LDA + LDG);
-  static_assert(LDA % 2 == 1 && LDG % 2 == 1, "odd strides");
-};
-
 // acc[r][j] += sum_s a[s][r] * bf16(g[s][j]) for r < ROWS_L, j < W, and, with
 // db_acc, db[j] += sum_s g[s][j], over the NS staged rows (by default the
 // kBwdTile samples of a tile). Thread t
@@ -179,89 +164,6 @@ __device__ __forceinline__ void reduce_tile(const float* __restrict__ a_s,
     if (r < ROWS_L) acc[r * NCOL + j] += part[k];
   }
   if (db_acc != nullptr && rg == 0) db_acc[j] += bsum;
-}
-
-// Backward of the chain for one tile of kBwdTile samples; every thread of the
-// block calls it (inactive samples, past n, with a zero cotangent). Thread t
-// holds sample i; x0 is its f32 first-layer input, hsave the forward's (NH,
-// W, n) residual, g its output cotangent (D = `dout` columns, zero beyond).
-// Accumulates dW (packed rows, W) into dw_acc and db ((NH + 1), W) into db_acc
-// (shared, per block); returns the first-layer input cotangent in dx0 (f32).
-// w: the packed weights widened to f32 in shared memory.
-template <int DIN, int W, int NH>
-__device__ __forceinline__ void mlp_backward_tile(
-    const float* __restrict__ w, float* __restrict__ stage,
-    float* __restrict__ dw_acc, float* __restrict__ db_acc,
-    const float (&x0)[DIN], const __nv_bfloat16* __restrict__ hsave,
-    long long n, long long i, bool active, float (&g)[W], float (&dx0)[DIN]) {
-  using TS = TileStage<DIN, W>;
-  float* a_s = stage;
-  float* g_s = stage + kBwdTile * TS::LDA;
-  float* arow = a_s + threadIdx.x * TS::LDA;
-  float* grow = g_s + threadIdx.x * TS::LDG;
-#pragma unroll
-  for (int li = NH; li >= 0; --li) {
-    const int row0 = li == 0 ? 0 : DIN + (li - 1) * W;
-    // stage this layer's activations and cotangent for the tile
-    __syncthreads();  // the previous reduction has finished reading
-    if (li == 0) {
-#pragma unroll
-      for (int k = 0; k < DIN; ++k) arow[k] = active ? bf16_round(x0[k]) : 0.0f;
-    } else {
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        arow[k] = active ? __bfloat162float(
-                               hsave[(static_cast<long long>(li - 1) * W + k) * n + i])
-                         : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < W; ++j) grow[j] = g[j];
-    __syncthreads();
-    if (li == 0) {
-      reduce_tile<DIN, W, TS::LDA, TS::LDG>(a_s, g_s, dw_acc, db_acc);
-    } else {
-      reduce_tile<W, W, TS::LDA, TS::LDG>(a_s, g_s, dw_acc + row0 * W,
-                                          db_acc + li * W);
-    }
-    // input cotangent: W_li @ bf16(g), masked by the layer input a > 0
-#pragma unroll
-    for (int j = 0; j < W; ++j) g[j] = bf16_round(g[j]);
-    if (li == 0) {
-#pragma unroll
-      for (int k = 0; k < DIN; ++k) {
-        const float4* row = reinterpret_cast<const float4*>(w + k * W);
-        float s = 0.0f;
-#pragma unroll
-        for (int j4 = 0; j4 < W / 4; ++j4) {
-          const float4 wv = row[j4];
-          s = fmaf(wv.x, g[4 * j4], s);
-          s = fmaf(wv.y, g[4 * j4 + 1], s);
-          s = fmaf(wv.z, g[4 * j4 + 2], s);
-          s = fmaf(wv.w, g[4 * j4 + 3], s);
-        }
-        dx0[k] = s;
-      }
-    } else {
-      float gin[W];
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        const float4* row = reinterpret_cast<const float4*>(w + (row0 + k) * W);
-        float s = 0.0f;
-#pragma unroll
-        for (int j4 = 0; j4 < W / 4; ++j4) {
-          const float4 wv = row[j4];
-          s = fmaf(wv.x, g[4 * j4], s);
-          s = fmaf(wv.y, g[4 * j4 + 1], s);
-          s = fmaf(wv.z, g[4 * j4 + 2], s);
-          s = fmaf(wv.w, g[4 * j4 + 3], s);
-        }
-        gin[k] = s;
-      }
-#pragma unroll
-      for (int k = 0; k < W; ++k) g[k] = arow[k] > 0.0f ? gin[k] : 0.0f;
-    }
-  }
 }
 
 // Add a block's shared accumulator to the f32 output (one atomic per element).

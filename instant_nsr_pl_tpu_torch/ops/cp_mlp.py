@@ -272,7 +272,7 @@ def cp_mlp_backward_plain(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp
     bas = basis.float()  # (S, C, F)
     enc = torch.cat([prod_r[s].T @ bas[s] for s in range(s_count)], dim=-1)  # (N, E)
     acts = [enc] + [h.float().T for h in hsave]
-    d_enc, dws, dbs = mlp_backward_plain(ws, acts, dout.reshape(n, -1).float())
+    d_enc, dws, dbs = mlp_backward_plain(ws, acts, dout.reshape(n, mlp_spec.dim_out).float())
     d_enc_r = bf16_round(d_enc)
     dbasis = torch.stack([
         prod_r[s] @ d_enc_r[:, s * f:(s + 1) * f] for s in range(s_count)
@@ -358,9 +358,19 @@ def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
     return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
 
 
+def _split_backward(out, rows, w, nh, s_count, c, f):
+    """Views ``(dbasis, dws, dbs)`` of a backward entry point's summed
+    output: dW (rows, W), db (NH + 1, W) and dbasis (S, C, F), in that order."""
+    a, b = rows * w, rows * w + (nh + 1) * w
+    return out[b:].view(s_count, c, f), out[:a].view(rows, w), out[a:b].view(nh + 1, w)
+
+
 def cp_mlp_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, mlp_spec):
     """Launch ``csrc/cp_mlp_bwd.cu`` (K2) for CUDA tensors; see
-    :func:`cp_mlp_backward` for the outputs."""
+    :func:`cp_mlp_backward` for the outputs. dW, db and dbasis come from
+    per-block partial sums added in block order by a second kernel; the line
+    tables from atomics. With no samples it returns zeros and launches
+    nothing."""
     s_count = len(cp_spec.resolutions)
     c, f = cp_spec.n_components, cp_spec.n_features
     w = mlp_wmax(mlp_spec)
@@ -376,29 +386,31 @@ def cp_mlp_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec, ml
     cuda_build.check_operands("cp_mlp_backward", (vsave, hsave, dflat, basis, ws), expect, x.device)
     dev = x.device
     dlines = [torch.zeros((3, r, c), dtype=torch.float32, device=dev) for r in cp_spec.resolutions]
-    dbasis = torch.zeros((s_count, c, f), dtype=torch.float32, device=dev)
-    dws = torch.zeros(tuple(ws.shape), dtype=torch.float32, device=dev)
-    dbs = torch.zeros((nh + 1, w), dtype=torch.float32, device=dev)
-    fn = cuda_build.library("cp_mlp_bwd").cp_mlp_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    rows = ws.shape[0]
+    if n == 0:
+        return (dlines, torch.zeros((s_count, c, f), dtype=torch.float32, device=dev),
+                torch.zeros((rows, w), dtype=torch.float32, device=dev),
+                torch.zeros((nh + 1, w), dtype=torch.float32, device=dev))
+    fn = cuda_build.entry("cp_mlp_bwd", "cp_mlp_bwd", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ])
     dline_ptrs = (ctypes.c_void_p * s_count)(*[t.data_ptr() for t in dlines])
     res = (ctypes.c_int * s_count)(*cp_spec.resolutions)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            xf.data_ptr(), n, vsave.data_ptr(), hsave.data_ptr(), dflat.data_ptr(),
-            basis.data_ptr(), ws.data_ptr(), dline_ptrs, res, s_count,
-            dbasis.data_ptr(), dws.data_ptr(), dbs.data_ptr(), c, f,
-            mlp_spec.n_neurons, nh, d, stream,
-        )
-    cuda_build.check(rc, "cp_mlp_backward", SUPPORTED)
+
+        def call(part, blocks, out, info, n_):
+            return fn(xf.data_ptr(), n_, vsave.data_ptr(), hsave.data_ptr(), dflat.data_ptr(),
+                      basis.data_ptr(), ws.data_ptr(), dline_ptrs, res, s_count, part, blocks,
+                      out, info, c, f, mlp_spec.n_neurons, nh, d, stream)
+
+        out = cuda_build.launch_persistent(("cp_mlp_bwd", *fused_shape(cp_spec, mlp_spec),
+                                            dev.index), call, n, dev, "cp_mlp_backward", SUPPORTED)
+    dbasis, dws, dbs = _split_backward(out, rows, w, nh, s_count, c, f)
     cp_mlp_backward.launches += 1
     return dlines, dbasis, dws, dbs
 
@@ -570,7 +582,8 @@ def cp_mlp_stacked_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
 def cp_mlp_stacked_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CPSpec,
                                    mlp_spec):
     """Launch K14 (``cp_mlp_stacked_bwd`` of ``csrc/cp_mlp_bwd.cu``); see
-    :func:`cp_mlp_stacked_backward` for the outputs."""
+    :func:`cp_mlp_stacked_backward` for the outputs. With no samples it
+    returns zeros and launches nothing."""
     s_count = len(cp_spec.resolutions)
     c, f = cp_spec.n_components, cp_spec.n_features
     rmax = max(cp_spec.resolutions)
@@ -588,25 +601,29 @@ def cp_mlp_stacked_backward_launch(x, vsave, hsave, dout, basis, ws, cp_spec: CP
                               expect, x.device)
     dev = x.device
     dfine = torch.zeros((3, rmax, s_count * c), dtype=torch.float32, device=dev)
-    dbasis = torch.zeros((s_count, c, f), dtype=torch.float32, device=dev)
-    dws = torch.zeros(tuple(ws.shape), dtype=torch.float32, device=dev)
-    dbs = torch.zeros((nh + 1, w), dtype=torch.float32, device=dev)
-    fn = cuda_build.library("cp_mlp_bwd").cp_mlp_stacked_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    rows = ws.shape[0]
+    if n == 0:
+        return (dfine, torch.zeros((s_count, c, f), dtype=torch.float32, device=dev),
+                torch.zeros((rows, w), dtype=torch.float32, device=dev),
+                torch.zeros((nh + 1, w), dtype=torch.float32, device=dev))
+    fn = cuda_build.entry("cp_mlp_bwd", "cp_mlp_stacked_bwd", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            xf.data_ptr(), n, vsave.data_ptr(), hsave.data_ptr(), dflat.data_ptr(),
-            basis.data_ptr(), ws.data_ptr(), dfine.data_ptr(), rmax, s_count,
-            dbasis.data_ptr(), dws.data_ptr(), dbs.data_ptr(), c, f, mlp_spec.n_neurons, nh,
-            d, stream,
-        )
-    cuda_build.check(rc, "cp_mlp_stacked_backward", SUPPORTED_STACKED)
+
+        def call(part, blocks, out, info, n_):
+            return fn(xf.data_ptr(), n_, vsave.data_ptr(), hsave.data_ptr(), dflat.data_ptr(),
+                      basis.data_ptr(), ws.data_ptr(), dfine.data_ptr(), rmax, s_count, part,
+                      blocks, out, info, c, f, mlp_spec.n_neurons, nh, d, stream)
+
+        out = cuda_build.launch_persistent(("cp_mlp_stacked_bwd", *fused_shape(cp_spec, mlp_spec),
+                                            dev.index), call, n, dev, "cp_mlp_stacked_backward",
+                                           SUPPORTED_STACKED)
+    dbasis, dws, dbs = _split_backward(out, rows, w, nh, s_count, c, f)
     cp_mlp_stacked_backward.launches += 1
     return dfine, dbasis, dws, dbs

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
@@ -34,6 +36,11 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # source stem -> nvcc/ptxas output of its build
+# launch plans of the persistent backward kernels (csrc/mma_common.cuh), by
+# (entry point, shape, device index): grid cap, blocks per SM, shared-memory
+# bytes per block, partial sums per block
+PLANS: dict[tuple, dict] = {}
+BWD_TILE = 64  # samples per tile of those kernels (mma_common.cuh kT)
 
 
 def _nvcc() -> str:
@@ -100,6 +107,23 @@ def library(stem: str) -> ctypes.CDLL:
     return lib
 
 
+_ENTRIES: dict[tuple, object] = {}
+
+
+def entry(stem: str, name: str, argtypes) -> object:
+    """Entry point ``name`` of ``csrc/<stem>.cu``'s library with its argument
+    types set (once per loaded library) and an int return code."""
+    lib = library(stem)
+    known = _ENTRIES.get((stem, name))
+    if known is not None and known[0] is lib:
+        return known[1]
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    _ENTRIES[(stem, name)] = (lib, fn)
+    return fn
+
+
 def check(rc: int, name: str, supported: str):
     """Raise for a non-zero return code of a kernel's C entry point."""
     if rc == -1:
@@ -107,6 +131,27 @@ def check(rc: int, name: str, supported: str):
                          f"supported: {supported}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def launch_persistent(key, call, n, device, name, supported):
+    """Launch a persistent backward entry point (csrc/mma_common.cuh) on n
+    samples: its plan (the first call per ``key`` asks the entry point with no
+    scratch; cached in ``PLANS``: grid cap, blocks per SM, shared-memory
+    bytes, partial sums per block), the (blocks, count) f32 scratch and the
+    summed f32 output, then ``call(part, blocks, out, info, n)``. Returns the
+    output."""
+    plan = PLANS.get(key)
+    if plan is None:
+        info = (ctypes.c_int * 4)()
+        check(call(None, 0, None, info, 1 << 40), name, supported)
+        plan = {"grid_cap": info[0], "blocks_per_sm": info[1], "smem_bytes": info[2],
+                "count": info[3]}
+        PLANS[key] = plan
+    grid = min(plan["grid_cap"], -(-n // BWD_TILE))
+    part = torch.empty((grid, plan["count"]), dtype=torch.float32, device=device)
+    out = torch.empty((plan["count"],), dtype=torch.float32, device=device)
+    check(call(part.data_ptr(), grid, out.data_ptr(), (ctypes.c_int * 4)(), n), name, supported)
+    return out
 
 
 def check_operands(name, tensors, shapes, device):

@@ -174,7 +174,7 @@ def sh_mlp_backward_plain(features, dirs, hsave, dout, ws, fpad, mlp_spec, degre
     n = f.shape[0]
     x0 = torch.cat([f, f.new_zeros((n, fpad - n_feat)), _sh_of(dirs, degree)], dim=-1)
     acts = [x0] + [h.float().T for h in hsave]
-    dx0, dws, dbs = mlp_backward_plain(ws, acts, dout.reshape(n, -1).float())
+    dx0, dws, dbs = mlp_backward_plain(ws, acts, dout.reshape(n, mlp_spec.dim_out).float())
     return dws, dbs, dx0[:, :n_feat]
 
 
@@ -251,7 +251,10 @@ def sh_mlp_launch(operands, features, dirs, mlp_spec, degree, train=False):
 
 def sh_mlp_backward_launch(features, dirs, hsave, dout, ws, fpad, mlp_spec, degree):
     """Launch ``csrc/sh_mlp_bwd.cu`` (K4) for CUDA tensors; see
-    :func:`sh_mlp_backward` for the outputs."""
+    :func:`sh_mlp_backward` for the outputs. The kernel writes each block's
+    partial dW and db to a (blocks, count) scratch and a second kernel sums
+    them in block order. With no samples it returns zeros and launches
+    nothing."""
     n_feat = features.shape[-1]
     _check_inputs("sh_mlp_backward", features, dirs)
     w = mlp_wmax(mlp_spec)
@@ -267,24 +270,27 @@ def sh_mlp_backward_launch(features, dirs, hsave, dout, ws, fpad, mlp_spec, degr
     cuda_build.check_operands("sh_mlp_backward", (hsave, ws),
                               ((nh, mlp_spec.n_neurons, n),
                                (fpad + sh_output_dim(degree) + nh * w, w)), dev)
-    dws = torch.zeros(tuple(ws.shape), dtype=torch.float32, device=dev)
-    dbs = torch.zeros((nh + 1, w), dtype=torch.float32, device=dev)
+    rows = ws.shape[0]
     dfeat = torch.empty((n, n_feat), dtype=torch.float32, device=dev)
-    fn = cuda_build.library("sh_mlp_bwd").sh_mlp_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    if n == 0:
+        return (torch.zeros((rows, w), dtype=torch.float32, device=dev),
+                torch.zeros((nh + 1, w), dtype=torch.float32, device=dev), dfeat)
+    fn = cuda_build.entry("sh_mlp_bwd", "sh_mlp_bwd", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            feat.data_ptr(), n_feat, fpad, d.data_ptr(), n, degree, hsave.data_ptr(),
-            dflat.data_ptr(), ws.data_ptr(), dws.data_ptr(), dbs.data_ptr(),
-            dfeat.data_ptr(), mlp_spec.n_neurons, nh, dim_out, stream,
-        )
-    cuda_build.check(rc, "sh_mlp_backward", SUPPORTED)
+
+        def call(part, blocks, out, info, n_):
+            return fn(feat.data_ptr(), n_feat, fpad, d.data_ptr(), n_, degree,
+                      hsave.data_ptr(), dflat.data_ptr(), ws.data_ptr(), dfeat.data_ptr(),
+                      part, blocks, out, info, mlp_spec.n_neurons, nh, dim_out, stream)
+
+        out = cuda_build.launch_persistent(("sh_mlp_bwd", fpad, degree, w, nh, dim_out, dev.index),
+                                           call, n, dev, "sh_mlp_backward", SUPPORTED)
     sh_mlp_backward.launches += 1
-    return dws, dbs, dfeat
+    return out[:rows * w].view(rows, w), out[rows * w:].view(nh + 1, w), dfeat

@@ -591,3 +591,192 @@ def test_probe_kernels_match_numpy(cuda_device):
     errs = mb.check_all(1 << 16, 1 << 16, cuda_device, seed=3)
     assert len(errs) == 11
     assert all(v >= 1 for v in mb.launch_counts().values())
+
+
+# -- the fused backward kernels K2 (and K14, cp_big) and K4 at every
+# instantiation: sizes around the 64-sample tile, no samples, every sample at
+# one point, ray-ordered against shuffled samples, and repeated calls
+
+# (label, C, resolutions, F, width, hidden layers, stacked)
+_CP_SHAPES = [
+    ("cp", 64, (128, 2048), 16, 64, 1, False),
+    ("cp_big", 128, (64, 512, 4096), 16, 64, 1, False),
+    ("small1", 16, (24, 64), 8, 32, 1, False),
+    ("small2", 16, (24, 64), 8, 32, 2, False),
+    ("stacked", 64, (129, 2049), 16, 64, 1, True),
+    ("stacked_small1", 16, (17, 65), 8, 32, 1, True),
+    ("stacked_small2", 16, (17, 65), 8, 32, 2, True),
+]
+# (label, feature columns, width): SH degree 4, two hidden layers, D = 3
+_SH_SHAPES = [("bench", 16, 64), ("small", 16, 32), ("extras", 19, 32)]
+_SIZES = [1, 15, 127, 129, 515, 4096]
+
+
+def _cp_backward_case(shape, x, gen, device):
+    """K1/K13 training-mode residuals at positions x, and (launch, plain,
+    args, counter) of the matching backward."""
+    _, c, res, f, w, nh, stacked = shape
+    cp_spec = CPSpec(c, res, f)
+    mlp_spec = MLPSpec(dim_in=f * len(res), dim_out=16, n_neurons=w, n_hidden_layers=nh)
+    cp_params = cp_init(gen, cp_spec, device)
+    layers = _biased(mlp_init(gen, mlp_spec), gen, device)
+    dout = torch.randn((x.shape[0], 16), generator=gen).to(device)
+    if stacked:
+        ops = t_cp_mlp.cp_mlp_stacked_operands(cp_params, layers, cp_spec, mlp_spec)
+        _, vsave, hsave = t_cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, mlp_spec, train=True)
+        fns = (t_cp_mlp.cp_mlp_stacked_backward_launch, t_cp_mlp.cp_mlp_stacked_backward_plain,
+               t_cp_mlp.cp_mlp_stacked_backward)
+    else:
+        ops = t_cp_mlp.cp_mlp_operands(cp_params, layers, cp_spec, mlp_spec)
+        _, vsave, hsave = t_cp_mlp.cp_mlp_launch(ops, x, cp_spec, mlp_spec, train=True)
+        fns = (t_cp_mlp.cp_mlp_backward_launch, t_cp_mlp.cp_mlp_backward_plain,
+               t_cp_mlp.cp_mlp_backward)
+    return (*fns, [x, vsave, hsave, dout, ops[1], ops[2], cp_spec, mlp_spec])
+
+
+def _sh_backward_case(shape, feats, dirs, gen, device):
+    _, n_feat, w = shape
+    spec = MLPSpec(dim_in=n_feat + 16, dim_out=3, n_neurons=w, n_hidden_layers=2)
+    layers = _biased(mlp_init(gen, spec), gen, device)
+    ops = t_sh_mlp.pack_sh_mlp(layers, spec, 4, 16, n_feat)
+    _, hsave = t_sh_mlp.sh_mlp_launch(ops, feats, dirs, spec, 4, train=True)
+    dout = torch.randn((feats.shape[0], 3), generator=gen).to(device)
+    ws, _, fpad = ops
+    return [feats, dirs, hsave, dout, ws, fpad, spec, 4]
+
+
+def _flat(grads):
+    return [*grads[0], *grads[1:]] if isinstance(grads[0], list) else list(grads)
+
+
+def _sh_inputs(gen, n, n_feat, device):
+    feats = torch.randn((n, n_feat), generator=gen).to(device)
+    dirs = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
+    return feats, dirs.to(device)
+
+
+@pytest.mark.parametrize("n", _SIZES)
+@pytest.mark.parametrize("shape", _CP_SHAPES, ids=[s[0] for s in _CP_SHAPES])
+def test_cp_backward_sizes_match_plain(cuda_device, shape, n):
+    """K2 / K14 at every instantiation and at sizes around the 64-sample tile
+    (one sample, part of a tile, one tile and a few more): every gradient
+    within 2.5e-2 of the largest plain value, one launch counted."""
+    gen = torch.Generator().manual_seed(100 + n)
+    x = (torch.rand((n, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    launch, plain, op, args = _cp_backward_case(shape, x, gen, cuda_device)
+    before = op.launches
+    got = launch(*args)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    for a, b in zip(_flat(got), _flat(plain(*args))):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+
+
+@pytest.mark.parametrize("n", _SIZES)
+@pytest.mark.parametrize("shape", _SH_SHAPES, ids=[s[0] for s in _SH_SHAPES])
+def test_sh_backward_sizes_match_plain(cuda_device, shape, n):
+    """K4 at every instantiation and at sizes around the 64-sample tile: dW,
+    db and d features within 2.5e-2 of the largest plain value."""
+    gen = torch.Generator().manual_seed(200 + n)
+    args = _sh_backward_case(shape, *_sh_inputs(gen, n, shape[1], cuda_device), gen, cuda_device)
+    before = t_sh_mlp.sh_mlp_backward.launches
+    got = t_sh_mlp.sh_mlp_backward_launch(*args)
+    torch.cuda.synchronize()
+    assert t_sh_mlp.sh_mlp_backward.launches == before + 1
+    for a, b in zip(got, t_sh_mlp.sh_mlp_backward_plain(*args)):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+
+
+@pytest.mark.parametrize("shape", _CP_SHAPES + _SH_SHAPES,
+                         ids=[s[0] for s in _CP_SHAPES] + ["sh_" + s[0] for s in _SH_SHAPES])
+def test_fused_backward_no_samples(cuda_device, shape):
+    """N = 0: zero gradients of the right shapes, and no launch."""
+    gen = torch.Generator().manual_seed(5)
+    if len(shape) == 7:
+        launch, plain, op, args = _cp_backward_case(shape, torch.zeros((0, 3), device=cuda_device),
+                                                    gen, cuda_device)
+    else:
+        op, plain, launch = (t_sh_mlp.sh_mlp_backward, t_sh_mlp.sh_mlp_backward_plain,
+                             t_sh_mlp.sh_mlp_backward_launch)
+        args = _sh_backward_case(shape, *_sh_inputs(gen, 0, shape[1], cuda_device), gen,
+                                 cuda_device)
+    before = op.launches
+    got = launch(*args)
+    torch.cuda.synchronize()
+    assert op.launches == before
+    for a, b in zip(_flat(got), _flat(plain(*args))):
+        assert a.shape == b.shape and not bool(a.any())
+
+
+@pytest.mark.parametrize("shape", _CP_SHAPES + _SH_SHAPES,
+                         ids=[s[0] for s in _CP_SHAPES] + ["sh_" + s[0] for s in _SH_SHAPES])
+def test_fused_backward_one_point(cuda_device, shape):
+    """Every one of 4,096 samples at the same position (and direction): the
+    worst case for the row merge and the atomics; gradients within 2.5e-2."""
+    gen = torch.Generator().manual_seed(6)
+    n = 4096
+    if len(shape) == 7:
+        x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(n, 1).to(cuda_device)
+        launch, plain, _, args = _cp_backward_case(shape, x, gen, cuda_device)
+    else:
+        feats, dirs = _sh_inputs(gen, 1, shape[1], cuda_device)
+        args = _sh_backward_case(shape, feats.repeat(n, 1), dirs.repeat(n, 1), gen, cuda_device)
+        launch, plain = t_sh_mlp.sh_mlp_backward_launch, t_sh_mlp.sh_mlp_backward_plain
+    got = launch(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(_flat(got), _flat(plain(*args))):
+        _close(a, b, rel=2.5e-2)
+
+
+@pytest.mark.parametrize("shape", _CP_SHAPES + _SH_SHAPES,
+                         ids=[s[0] for s in _CP_SHAPES] + ["sh_" + s[0] for s in _SH_SHAPES])
+def test_fused_backward_order_and_repeat(cuda_device, shape):
+    """Ray-ordered samples (8 rays of 512) and a shuffled copy of the same
+    samples: every gradient of the two within 2.5e-2 of the largest plain
+    value, the plain version's within the same limit, K4's d features equal
+    after the permutation; and a repeated call gives bit-equal dW, db and
+    d basis (their second-pass sum runs in block order)."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(8)
+    n = 4096
+    perm = torch.randperm(n, generator=gen).to(cuda_device)
+    x = positions(gen, "ray", n).to(cuda_device)
+    if len(shape) == 7:
+        launch, plain, _, args = _cp_backward_case(shape, x, gen, cuda_device)
+        shuffled = list(args)
+        shuffled[0] = x[perm].contiguous()
+        shuffled[1] = args[1][:, :, perm].contiguous()  # vsave (3, S*C, N)
+        shuffled[2] = args[2][:, :, perm].contiguous()  # hsave (NH, W, N)
+        shuffled[3] = args[3][perm].contiguous()
+        exact = slice(1, None)  # d basis, dW, db (the line tables come from atomics)
+    else:
+        feats, _ = _sh_inputs(gen, n, shape[1], cuda_device)
+        dirs = torch.nn.functional.normalize(x - 0.5, dim=-1)
+        args = _sh_backward_case(shape, feats, dirs, gen, cuda_device)
+        launch, plain = t_sh_mlp.sh_mlp_backward_launch, t_sh_mlp.sh_mlp_backward_plain
+        shuffled = list(args)
+        shuffled[0], shuffled[1] = feats[perm].contiguous(), dirs[perm].contiguous()
+        shuffled[2] = args[2][:, :, perm].contiguous()
+        shuffled[3] = args[3][perm].contiguous()
+        exact = slice(0, 2)  # dW, db
+    got = launch(*args)
+    again = launch(*args)
+    got_shuffled = launch(*shuffled)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    if len(shape) == 7:
+        for a, b in zip(got[exact], again[exact]):
+            assert torch.equal(a, b)
+    else:
+        for a, b in zip(got[exact], again[exact]):
+            assert torch.equal(a, b)
+        assert torch.equal(got_shuffled[2], got[2][perm])
+    ref_shuffled = _flat(ref)
+    if len(shape) != 7:  # K4's d features follow the samples' order
+        ref_shuffled[2] = ref_shuffled[2][perm]
+    for a, b, r, rs in zip(_flat(got), _flat(got_shuffled), _flat(ref), ref_shuffled):
+        _close(a, r, rel=2.5e-2)
+        _close(b, rs, rel=2.5e-2)
