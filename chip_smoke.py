@@ -26,7 +26,8 @@ lines are printed):
    bench NeuS encoding (C=64, F=16) for both scales, R=128 and 2048, at
    N=262,144 and 262,107: training-mode residuals equal to the plain
    versions' to the bit, forwards within 2e-2 and gradients within 2.5e-2 of
-   max|plain|; timed as above (K7 in training and eval mode);
+   max|plain|, K10's d basis equal to the bit across two identical calls;
+   timed as above (K7 in training and eval mode);
 5. render: the bench system (``instant_nsr_pl_tpu_torch/configs/
    nerf-cp-synthetic.yaml``, the settings of ``bench.py``
    ``build_system("cp")``) on the 256x256 six-sphere synthetic scene, random
@@ -74,8 +75,10 @@ lines are printed):
    N=262,144 and 262,107, with and without a level mask: HG1 within rtol
    1e-5 of its plain version (equal to the bit in practice), HG2's table
    gradient within 1e-5 x max|plain| per level (float32 atomics), its
-   position gradient within 1e-4; timed, with bounds by compulsory bytes and
-   by the hashed levels' 32-byte sectors;
+   position gradient within 1e-4, on uniform and on ray-ordered samples
+   (where HG2 merges equal rows); timed, with bounds by compulsory bytes and
+   by the hashed levels' 32-byte sectors, beside the gradient from
+   precomputed taps by one ``index_add_`` per feature (``composed_ms``);
 13. the ``bench.py --encoding cp_big`` instantiations (C=128, R=(64, 512,
    4096), F=16): K1/K2 with the 48->64->16 head, K5-K10 per scale, against
    their plain versions as in 3-4, timed; then the cp_big NeRF, NeuS, raw
@@ -95,17 +98,20 @@ lines are printed):
    ``--export``: test/psnr, a non-empty mesh with valid indices, HG1 in the
    export's level grid;
 17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
-   The entries of the tensor-core backward kernels (K2, K14, cp_big's K2,
-   K4) also carry ptxas' registers and spills of this run's build, their
-   launch plan's shared memory and blocks per SM, ``ms_ray_ordered`` (the
-   kernel timed on the operands of the last step of the bench training runs,
-   ray-ordered samples), ``device_ms`` (the device time of a call under
-   torch.profiler, without the host's share), ``composed_ms`` (their
-   products as a chain of ``torch.matmul`` calls at the same shapes, a
-   yardstick the port never calls) and, given ``--parent DIR`` (another
-   checkout, e.g. the parent commit from ``git archive``), ``parent_ms`` /
-   ``parent_ms_ray``: that design's times from ``tools/bwd_bench.py --root
-   DIR`` in this run;
+   The entries of the redesigned backward kernels (K2, K14, cp_big's K2, K4,
+   K10, K12, cp_big's K10, HG2) also carry ptxas' registers and spills of
+   this run's build, their shared memory and blocks per SM (the launch plan;
+   HG2's from its registers), ``ms_ray_ordered`` (the kernel timed on the
+   operands of the last step of the bench training runs, ray-ordered
+   samples, every launch of the step: K10 once per scale), ``device_ms``
+   (the device time of a call under torch.profiler, without the host's
+   share), ``composed_ms`` (their products as a chain of ``torch.matmul``
+   calls at the same shapes, or HG2's one ``index_add_`` per feature on
+   precomputed taps: a yardstick the port never calls) and, given
+   ``--parent DIR`` (another checkout, e.g. the parent commit from ``git
+   archive``), ``parent_ms`` / ``parent_ms_ray`` and ``parent_device_ms`` /
+   ``parent_device_ms_ray``: that design's times from ``tools/bwd_bench.py
+   --root DIR`` in this run;
 18. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
@@ -228,6 +234,15 @@ BWD_KERNELS = {
                                ("cp_mlp_bwd", 128, 16, 3, 64, 1, 16)),
     "sh_mlp_backward": ("sh_mlp_bwd", "sh_mlp_bwd_kernelILi16ELi4ELi64ELi2ELi3E",
                         ("sh_mlp_bwd", 16, 4, 64, 2, 3)),
+    "cp_jac_basis_backward": ("cp_jac_basis_bwd", "cp_jac_basis_bwd_kernelILi64ELi16ELi1E",
+                              ("cp_jac_basis_bwd", 64, 16)),
+    "cp_jac_stacked_backward": ("cp_jac_basis_bwd", "cp_jac_basis_bwd_kernelILi64ELi16ELi2E",
+                                ("cp_jac_stacked_bwd", 64, 16, 2)),
+    "cp_jac_basis_backward@cp_big": ("cp_jac_basis_bwd",
+                                     "cp_jac_basis_bwd_kernelILi128ELi16ELi1E",
+                                     ("cp_jac_basis_bwd", 128, 16)),
+    # a grid-stride kernel of 128-thread blocks without shared memory: no plan
+    "hashgrid_backward": ("hashgrid_bwd", "hashgrid_bwd_kernelILi2E", None),
 }
 # a training step's own operands of the backward kernels (captured in the last
 # step of a training run) and the kernels' times on them
@@ -262,46 +277,60 @@ def ptxas_info(stem, marker):
 
 def capture_backward_operands(run_step, label):
     """Run ``run_step()`` (one training step) with the backward launch
-    functions of K2, K14 and K4 recording their arguments; then time each
-    recorded kernel on its step's own (ray-ordered) operands into
+    functions of K2, K14, K4, K10, K12 and HG2 recording their arguments;
+    then time each recorded kernel on its step's own (ray-ordered) operands,
+    all of its launches of the step in a row (K10: one per scale), into
     ``STEP_MS[name]`` as ``(ms, n)``. The recorders call the launch functions
     themselves, so the step's launch counts are unchanged, and the counts
     are restored after the timing launches."""
-    from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp, cp_product, cp_stacked, hashgrid, sh_mlp
 
     seen = {}
     originals = {}
-    targets = {"cp_mlp_backward": (cp_mlp, "cp_mlp_backward_launch"),
-               "cp_mlp_stacked_backward": (cp_mlp, "cp_mlp_stacked_backward_launch"),
-               "sh_mlp_backward": (sh_mlp, "sh_mlp_backward_launch")}
-    for name, (mod, attr) in targets.items():
+    # name: (module, launch function, counter, the samples of a call's arguments)
+    targets = {
+        "cp_mlp_backward": (cp_mlp, "cp_mlp_backward_launch", cp_mlp.cp_mlp_backward,
+                            lambda a: a[0].reshape(-1, 3).shape[0]),
+        "cp_mlp_stacked_backward": (cp_mlp, "cp_mlp_stacked_backward_launch",
+                                    cp_mlp.cp_mlp_stacked_backward,
+                                    lambda a: a[0].reshape(-1, 3).shape[0]),
+        "sh_mlp_backward": (sh_mlp, "sh_mlp_backward_launch", sh_mlp.sh_mlp_backward,
+                            lambda a: a[0].shape[0]),
+        "cp_jac_basis_backward": (cp_product, "cp_product_jac_basis_backward_launch",
+                                  cp_product.cp_product_jac_basis_backward,
+                                  lambda a: a[0].shape[1]),
+        "cp_jac_stacked_backward": (cp_stacked, "cp_jac_basis_stacked_backward_launch",
+                                    cp_stacked.cp_jac_basis_stacked_backward,
+                                    lambda a: a[0].shape[1]),
+        "hashgrid_backward": (hashgrid, "hashgrid_backward_launch", hashgrid.hashgrid_backward,
+                              lambda a: a[1].reshape(-1, 3).shape[0]),
+    }
+    for name, (mod, attr, _, _) in targets.items():
         fn = getattr(mod, attr)
         originals[name] = fn
 
-        def record(*args, _name=name, _fn=fn):
-            seen[_name] = args
-            return _fn(*args)
+        def record(*args, _name=name, _fn=fn, **kwargs):
+            seen.setdefault(_name, []).append((args, kwargs))
+            return _fn(*args, **kwargs)
 
         setattr(mod, attr, record)
     try:
         out = run_step()
     finally:
-        for name, (mod, attr) in targets.items():
+        for name, (mod, attr, _, _) in targets.items():
             setattr(mod, attr, originals[name])
     torch.cuda.synchronize()
-    counters = {"cp_mlp_backward": cp_mlp.cp_mlp_backward,
-                "cp_mlp_stacked_backward": cp_mlp.cp_mlp_stacked_backward,
-                "sh_mlp_backward": sh_mlp.sh_mlp_backward}
-    for name, args in seen.items():
+    for name, calls in seen.items():
         key = f"{name}{label}"
         if key in STEP_MS:
             continue
-        count = counters[name].launches  # timing launches are not the run's
-        ms = time_ms(lambda: originals[name](*args))
-        counters[name].launches = count
-        STEP_MS[key] = (ms, int(args[0].reshape(-1, args[0].shape[-1]).shape[0]))
+        counter, n_of = targets[name][2], targets[name][3]
+        count = counter.launches  # timing launches are not the run's
+        ms = time_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
+        counter.launches = count
+        STEP_MS[key] = (ms, int(n_of(calls[-1][0])))
         print(f"[step-operands] {key}: {ms:.4f} ms on a training step's own operands "
-              f"(N={STEP_MS[key][1]})", flush=True)
+              f"({len(calls)} launch(es), N={STEP_MS[key][1]})", flush=True)
     return out
 
 
@@ -348,6 +377,50 @@ def composed_backward(kind, device, n=N_FULL, c=64, s_count=2):
     return time_ms(chain)
 
 
+def composed_jac(device, c=64, f=16, scales=2, n=N_FULL):
+    """A yardstick, never called by the port: K10's five products per scale
+    (``scales`` launches, or K12's scales) as torch.matmul calls on bf16
+    operands at the kernel's shapes: [dP | dJ_x | dJ_y | dJ_z] = B [d enc |
+    d jac] as four (C, F) x (F, N) products and d B as one (C, 4N) x (4N, F)
+    product, without the elementwise work and the line-table scatter."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+
+    per = [(r(c, f), r(f, 4 * n), r(c, 4 * n)) for _ in range(scales)]
+
+    def chain():
+        for b, cot, a in per:
+            for k in range(4):
+                torch.matmul(b, cot[:, k * n:(k + 1) * n])
+            torch.matmul(a, cot.T)
+    return time_ms(chain)
+
+
+def composed_hash(device, spec, x, ct):
+    """A yardstick, never called by the port: HG2's table gradient from
+    precomputed taps (the 8 corners' rows and weights of every level, as the
+    JAX package saves them) with one ``index_add_`` per feature."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    xt = x.T.contiguous()
+    f = spec.n_features_per_level
+    idx, upd = [], []
+    for lv in range(spec.n_levels):
+        i, w = hg.level_corner_indices(spec, xt, lv)  # (8, N)
+        idx.append(i.reshape(-1))
+        upd.append((w[None] * ct[:, lv * f:(lv + 1) * f].T[:, None, :]).reshape(f, -1))
+    idx, upd = torch.cat(idx), torch.cat(upd, dim=1)
+    out = torch.zeros((f, spec.total_params), dtype=torch.float32, device=device)
+
+    def scatter():
+        out.zero_()
+        for k in range(f):
+            out[k].index_add_(0, idx, upd[k])
+    return time_ms(scatter)
+
+
 def device_ms(fn):
     """Device time per call under torch.profiler (every kernel and memset of
     a call; ``tools/bwd_bench.py``): unlike ``time_ms`` it leaves out the
@@ -360,14 +433,16 @@ def device_ms(fn):
 
 def parent_times(parent):
     """The parent design's times of the same kernels at N_FULL on uniform and
-    ray-ordered operands: ``tools/bwd_bench.py --root parent`` in a process of
-    its own (it imports the other checkout's port)."""
+    ray-ordered operands, back to back and as device time: ``tools/bwd_bench.py
+    --root parent`` in a process of its own (it imports the other checkout's
+    port)."""
     out = os.path.join(ROOT, "exp", "chip_smoke", "parent_bwd.json")
     cmd = [sys.executable, os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "tools", "bwd_bench.py"),
            "--root", parent, "--order", "uniform,ray", "--out", out]
     subprocess.run(cmd, check=True, timeout=900)
     with open(out) as fh:
-        return json.load(fh)["ms"]
+        result = json.load(fh)
+    return result["ms"], result["device_ms"]
 
 
 def kernel_phase(device):
@@ -639,7 +714,11 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
             # K10 from those residuals
             de, dj = denc[:, :n].contiguous(), djac[:, :, :n].contiguous()
             got = cpp.cp_product_jac_basis_backward_launch(u, vsave_j, gdsave, de, dj, basis, r)
+            again = cpp.cp_product_jac_basis_backward_launch(u, vsave_j, gdsave, de, dj, basis, r)
             torch.cuda.synchronize()
+            if not torch.equal(got[2], again[2]):
+                raise AssertionError(f"cp_jac_basis_backward {tag}: d basis differs between two "
+                                     "identical calls")
             ref_b = cpp.cp_product_jac_basis_backward_plain(u, vsave_j, gdsave, de, dj, basis, r)
             for label, a, b in zip(("d lines", "d u", "d basis"), got, ref_b):
                 out["cp_jac_basis_backward"]["errs"].append(
@@ -676,15 +755,19 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
                 lambda: cpp.cp_product_jac_basis_backward_plain(u, vsave_j, gdsave, de, dj,
                                                                 basis, r),
                 n * (12 + 12 * c + 16 * f + 12) + 4 * tb + 2 * c * f + 4 * c * f,
-                n * c * (40 + 16 * f)),
+                n * c * 40),
         }
+        # K10's products (B [d enc | d jac] and d B) are bf16 x bf16 on the tensor cores
+        bf16_ops = {"cp_jac_basis_backward": n * 16 * c * f}
         for name, (kern, plain, n_bytes, f32_ops) in timed.items():
             if not with_jac and name.startswith(("cp_jac", "cp_product_jac")):
                 continue
             e = out[name]
             e["ms"][r] = time_ms(kern)
             e["plain_ms"][r] = time_ms(plain, reps=5, inner=2)
-            e["bound_ms"][r], e["bound_by"][r] = bound(n_bytes, 0, f32_ops)
+            e["bound_ms"][r], e["bound_by"][r] = bound(n_bytes, bf16_ops.get(name, 0), f32_ops)
+            if name in bf16_ops:
+                e.setdefault("device_ms", {})[r] = device_ms(kern)
             print(f"[kernel] {name} R={r}: {e['ms'][r]:.4f} ms (plain {e['plain_ms'][r]:.3f} "
                   f"ms; bound {e['bound_ms'][r]:.4f} ms by {e['bound_by'][r]}) at N={n}",
                   flush=True)
@@ -732,6 +815,9 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
         if "ms_eval" in e:
             entry["ms_eval"] = sum(e["ms_eval"][r] for r in resolutions)
             entry["bound_ms_eval"] = sum(e["bound_ms_eval"][r] for r in resolutions)
+        if "device_ms" in e:
+            entry["device_ms"] = sum(e["device_ms"][r] for r in resolutions)
+            entry["composed_ms"] = composed_jac(device, c, f, len(resolutions))
         entries.append(entry)
     return entries
 
@@ -826,7 +912,11 @@ def stacked_kernel_phase(device):
         de, dj = denc[:, :n].contiguous(), djac[:, :, :n].contiguous()
         jac_bwd_args = (un, vsave_j, gdsave, de, dj, basis, rmax)
         got = cps.cp_jac_basis_stacked_backward_launch(*jac_bwd_args)
+        again = cps.cp_jac_basis_stacked_backward_launch(*jac_bwd_args)
         torch.cuda.synchronize()
+        if not torch.equal(got[2], again[2]):
+            raise AssertionError(f"cp_jac_stacked_backward {tag}: d basis differs between two "
+                                 "identical calls")
         ref = cps.cp_jac_basis_stacked_backward_plain(*jac_bwd_args)
         for label, a, b in zip(("d fine table", "d u", "d basis"), got, ref):
             errs["cp_jac_stacked_backward"].append(
@@ -861,7 +951,7 @@ def stacked_kernel_phase(device):
             lambda: cps.cp_jac_basis_stacked_backward_launch(*jac_bwd_args),
             lambda: cps.cp_jac_basis_stacked_backward_plain(*jac_bwd_args),
             n * (12 + 12 * sc + 16 * e + 12) + table * 4 + sc * f * 2 + sc * f * 4,
-            0, n * sc * (40 + 16 * f)),
+            n * 16 * sc * f, n * sc * 40),
     }
     meta = {
         "cp_mlp_stacked_forward": ("cp_mlp_fwd.cu", "instant_nsr_pl_tpu/ops/cp_mlp_pallas.py:531"),
@@ -887,6 +977,9 @@ def stacked_kernel_phase(device):
         }
         if name == "cp_mlp_stacked_backward":
             entry["composed_ms"] = composed_backward("cp", device)
+            entry["device_ms"] = device_ms(kern)
+        elif name == "cp_jac_stacked_backward":
+            entry["composed_ms"] = composed_jac(device, c, f, s_count)
             entry["device_ms"] = device_ms(kern)
         if name == "cp_mlp_stacked_forward":
             entry["ms_eval"] = time_ms(lambda: cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, d_spec))
@@ -1082,7 +1175,7 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
         before = {k: c.launches for k, c in counters.items()}
-        if i == TRAIN_STEPS - 1 and kind != "hash":
+        if i == TRAIN_STEPS - 1:
             state, metrics = capture_backward_operands(lambda: system.train_step(state), "")
         else:
             state, metrics = system.train_step(state)
@@ -1249,7 +1342,10 @@ def neus_train_phase(device, smi, config=NEUS_CONFIG):
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
         before = {k: c.launches for k, c in counters.items()}
-        state, metrics = system.train_step(state)
+        if i == NEUS_STEPS - 1:
+            state, metrics = capture_backward_operands(lambda: system.train_step(state), "")
+        else:
+            state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
         for k in ("sh_mlp_forward", "sh_mlp_backward", f"{jac}_forward", f"{jac}_backward"):
             if delta[k] < 1:
@@ -1680,6 +1776,26 @@ def hash_kernel_phase(device):
                                                      rel=1e-5))
             errs["hashgrid_backward"].append(compare(f"hashgrid_backward {tag} d x", dx, rx,
                                                      rel=1e-4))
+    # ray-ordered samples (512 rays of 512, as a training step packs them):
+    # the coarse levels' rows repeat within a warp and HG2 merges them
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    x_ray = positions(gen, "ray", N_FULL).to(device)
+    for m in (None, mask):
+        tag = "ray-ordered" + (" masked" if m is not None else "")
+        dt, dx = hg.hashgrid_backward_launch(table, x_ray, ct, spec, m, with_dx=True)
+        torch.cuda.synchronize()
+        rt, rx = hg.hashgrid_backward_plain(table, x_ray, ct, spec, m, with_dx=True)
+        for lv in range(n_levels):
+            sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+            e = float((dt[:, sl] - rt[:, sl]).abs().max())
+            t = 1e-5 * float(rt[:, sl].abs().max())
+            if not e <= t:
+                raise AssertionError(f"hashgrid_backward {tag} level {lv}: {e:.3e} > {t:.3e}")
+        errs["hashgrid_backward"].append(compare(f"hashgrid_backward {tag} d table", dt, rt,
+                                                 rel=1e-5))
+        errs["hashgrid_backward"].append(compare(f"hashgrid_backward {tag} d x", dx, rx,
+                                                 rel=1e-4))
     # through the autograd Function (the training mode: the same HG1 launch)
     t_req = table.clone().requires_grad_(True)
     out = hg.hashgrid_encode_fast(t_req, x, spec)
@@ -1694,12 +1810,17 @@ def hash_kernel_phase(device):
     fwd_bytes = n * (12 + n_levels * f * 4) + table_bytes
     bwd_bytes = n * (12 + n_levels * f * 4) + table_bytes
     sectors = n * hashed * 8 * f * 32  # one 32-byte sector per corner and feature row
-    atomics = n * n_levels * 8 * f
+    atomics = n * n_levels * 8  # HG2: one vector atomic per corner, before the merge
+    # HG2 updates a row-major (T, F) scratch: one 32-byte sector per hashed corner
+    bwd_sector_ms = bound(n * hashed * 8 * 32, 0, 0)[0]
     ms = time_ms(lambda: hg.hashgrid_forward_launch(table, x, spec))
     ms_train = time_ms(lambda: hg.hashgrid_encode_fast(t_req, x, spec))
     plain_ms = time_ms(lambda: hg.hashgrid_encode(table, x, spec), reps=5, inner=2)
     bms = time_ms(lambda: hg.hashgrid_backward_launch(table, x, ct, spec))
     bms_dx = time_ms(lambda: hg.hashgrid_backward_launch(table, x, ct, spec, with_dx=True))
+    bdev = device_ms(lambda: hg.hashgrid_backward_launch(table, x, ct, spec))
+    bdev_dx = device_ms(lambda: hg.hashgrid_backward_launch(table, x, ct, spec, with_dx=True))
+    composed_ms = composed_hash(device, spec, x, ct)
     bplain_ms = time_ms(lambda: hg.hashgrid_backward_plain(table, x, ct, spec), reps=5, inner=2)
     fwd_bound, _ = bound(fwd_bytes, 0, n * n_levels * 8 * (6 + 2 * f))
     bwd_bound, _ = bound(bwd_bytes, 0, n * n_levels * 8 * (6 + f))
@@ -1707,9 +1828,11 @@ def hash_kernel_phase(device):
     print(f"[kernel] hashgrid_forward: {ms:.4f} ms eval, {ms_train:.4f} ms through the autograd "
           f"op (plain {plain_ms:.3f} ms; bound {fwd_bound:.4f} ms by compulsory bytes, "
           f"{sector_ms:.4f} ms by 32-byte sectors of the hashed levels) at N={n}", flush=True)
-    print(f"[kernel] hashgrid_backward: {bms:.4f} ms, {bms_dx:.4f} ms with d x (plain "
-          f"{bplain_ms:.3f} ms; bound {bwd_bound:.4f} ms by compulsory bytes, {sector_ms:.4f} ms "
-          f"by sectors; {atomics} float32 atomics) at N={n}", flush=True)
+    print(f"[kernel] hashgrid_backward: {bms:.4f} ms, {bms_dx:.4f} ms with d x (device "
+          f"{bdev:.4f} / {bdev_dx:.4f} ms; plain {bplain_ms:.3f} ms; precomputed taps and one "
+          f"index_add_ per feature {composed_ms:.4f} ms; bound {bwd_bound:.4f} ms by compulsory "
+          f"bytes, {bwd_sector_ms:.4f} ms by sectors; {atomics} corner updates before the "
+          f"merge) at N={n}", flush=True)
     note = "no single PyTorch call hashes and interpolates (or scatters the hashed taps)"
     common = {"route": "cuda", "launches": 0, "library_ms": None, "library_note": note, "n": n,
               "bound_by": "bytes", "bound_sectors_ms": sector_ms}
@@ -1723,7 +1846,9 @@ def hash_kernel_phase(device):
          "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_bwd.cu",
          "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:652 (_encode_fast_bwd, XLA)",
          "max_abs_err": max(errs["hashgrid_backward"]), "ms": bms, "ms_with_dx": bms_dx,
-         "plain_ms": bplain_ms, "bound_ms": bwd_bound, "atomics": atomics},
+         "device_ms": bdev, "device_ms_with_dx": bdev_dx, "composed_ms": composed_ms,
+         "plain_ms": bplain_ms, "bound_ms": bwd_bound, "corner_updates": atomics,
+         "bound_sectors_ms": bwd_sector_ms},
     ]
 
 
@@ -1856,7 +1981,7 @@ def cp_big_train_phase(device, smi):
         losses = []
         for i in range(CP_BIG_STEPS):
             before = {k: c.launches for k, c in counters.items()}
-            if kind == "nerf" and i == CP_BIG_STEPS - 1:
+            if kind in ("nerf", "neus") and i == CP_BIG_STEPS - 1:
                 state, metrics = capture_backward_operands(lambda: system.train_step(state),
                                                            "@cp_big")
             else:
@@ -2098,23 +2223,32 @@ def main(argv=None):
     # operands, and the parent design's times where a parent checkout is given
     from instant_nsr_pl_tpu_torch.ops import cuda_build
 
-    parent = parent_times(args.parent) if args.parent else None
+    parent, parent_dev = parent_times(args.parent) if args.parent else (None, None)
     bench_key = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
-                 "cp_mlp_backward@cp_big": "k2_cp_big", "sh_mlp_backward": "k4"}
+                 "cp_mlp_backward@cp_big": "k2_cp_big", "sh_mlp_backward": "k4",
+                 "cp_jac_basis_backward": "k10", "cp_jac_stacked_backward": "k12",
+                 "cp_jac_basis_backward@cp_big": "k10_cp_big", "hashgrid_backward": "hg2"}
     for e in entries:
         if e["name"] not in BWD_KERNELS:
             continue
         stem, marker, plan_key = BWD_KERNELS[e["name"]]
         plan = next((v for k, v in cuda_build.PLANS.items() if k[:-1] == plan_key), None)
         step = STEP_MS.get(e["name"])
+        ptxas = ptxas_info(stem, marker)
+        if plan_key is None and ptxas:  # by its registers: 128-thread blocks, 2,048 threads
+            plan = {"smem_bytes": 0,
+                    "blocks_per_sm": min(16, 65536 // (-(-ptxas["registers"] // 8) * 8 * 128))}
         e.update({
-            "ptxas": ptxas_info(stem, marker),
+            "ptxas": ptxas,
             "smem_bytes": plan["smem_bytes"] if plan else None,
             "blocks_per_sm": plan["blocks_per_sm"] if plan else None,
             "ms_ray_ordered": step[0] if step else None,
             "n_ray_ordered": step[1] if step else None,
             "parent_ms": parent[f"{bench_key[e['name']]}@uniform"] if parent else None,
             "parent_ms_ray": parent[f"{bench_key[e['name']]}@ray"] if parent else None,
+            "parent_device_ms": (parent_dev[f"{bench_key[e['name']]}@uniform"] if parent
+                                 else None),
+            "parent_device_ms_ray": parent_dev[f"{bench_key[e['name']]}@ray"] if parent else None,
         })
         print(f"[bwd] {e['name']}: {e['ms']:.4f} ms uniform ({e['device_ms']:.4f} ms device "
               f"time), ray-ordered step operands "

@@ -62,8 +62,6 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (explicit
 // fmaf only).
 
-#include <type_traits>
-
 #include "cp_common.cuh"
 #include "mma_common.cuh"
 
@@ -78,14 +76,6 @@ struct GradTables {
   float* ptr[kMaxGradScales];
   int res[kMaxGradScales];
 };
-
-template <int B, int E, typename Fn>
-__device__ __forceinline__ void static_for(Fn&& fn) {
-  if constexpr (B < E) {
-    fn(std::integral_constant<int, B>{});
-    static_for<B + 1, E>(fn);
-  }
-}
 
 template <int C, int F, int NS, int W, int NH, int D>
 struct CpBwd {

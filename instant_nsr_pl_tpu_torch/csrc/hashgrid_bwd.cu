@@ -6,27 +6,47 @@
 // updates w_c * ct and sums them into the table gradient with a two-sort
 // segment sum (ops/segment.py, levels of >= 2^17 rows) or bf16 one-hot
 // matmuls with f32 sums (smaller levels), because the TPU has no fast scatter;
-// the position gradient is _level_dx (:635-650). Here one thread per sample
-// walks the levels, recomputes its 8 taps (hashgrid_common.cuh) and adds
-// w_c * ct_l[f] * mask_l to row c of feature f of the (F, T) float32 gradient
-// with a float32 atomicAdd, tiny-cuda-nn's scheme. With dx requested it also
-// reads the 8 rows again and sums dL/dx_d = s * sum_c sign_cd * (prod of the
-// other two axes' p) * (T[row_c] . ct_l) over the levels in registers.
+// the position gradient is _level_dx (:635-650).
+//
+// What bounds it on an H100: the scatter. The compulsory bytes are x (12 B)
+// and ct (L*F*4 = 128 B) per sample plus the gradient table written once (50.4
+// MB at the bench shape): 0.026 ms for 262,144 samples at 3.35 TB/s. But the
+// updates land on scattered rows: L * 8 corners per sample (33.6 M at N =
+// 262,144), each a read-modify-write of its own 32-byte sector in L2, dense
+// coarse levels and hashed fine ones alike. Measured on the thread-per-sample
+// design (tools/bwd_bench.py --cuts), scattered f32 atomics ran at about 50 G
+// sector updates per second on either kind of level, about four times slower
+// than row-coalesced 16-byte atomics.
+//
+// Design: one thread per sample, a warp on 32 consecutive samples, walks the
+// levels and recomputes its 8 taps (hashgrid_common.cuh). Two changes against
+// one f32 atomicAdd per corner and feature into the (F, T) table:
+// - the updates go to a row-major (T, F) f32 scratch table, so a corner's F
+//   features are one 8-byte (F = 2) or 16-byte vector atomic on one sector,
+//   not F atomics on F sectors; a second kernel writes the scratch out as the
+//   (F, T) gradient (100 MB of coalesced traffic at the bench shape);
+// - a merge of equal rows within the warp, per level and corner: where any
+//   lane's row equals its left neighbour's (a ray's neighbouring samples on a
+//   coarse level), a segmented scan over the warp's runs of equal rows (five
+//   shuffle steps) sums each run's values in a fixed order, and the run's
+//   last lane adds the sum with one atomic. On a ray equal rows are
+//   neighbours: its cell index moves monotonically along each axis. On
+//   uniformly scattered samples the test finds no run and costs one shuffle
+//   and one vote per corner. (Grouping by __match_any_sync, which also finds
+//   equal rows that are not neighbours, with a lane-order sum took 0.56 ms on
+//   ray-ordered samples against 0.60 without a merge; the run scan takes
+//   0.41: tools/bwd_bench.py --cuts.)
+// A shared-memory table for the dense levels was not built: by the same
+// measurement the contended coarse levels (4 MB, L2-resident) cost per update
+// what the hashed levels (50 MB, beyond L2) cost, so the number of sector
+// updates sets the time, and level 0 holds 1/16 of them.
 //
 // Atomics make the summation order change from run to run, so the gradient
 // agrees with the plain version's index_add_ to float32 rounding of the sums
-// (the tests allow 1e-5 x max|plain| per level), not to the bit. The position
-// gradient is summed in a fixed order per thread.
-//
-// What bounds it on an H100: the atomics. The compulsory bytes are x (12 B)
-// and ct (L*F*4 = 128 B) per sample plus the gradient table written once (50.4
-// MB at the bench shape): 0.026 ms for 262,144 samples at 3.35 TB/s. It issues
-// L * 8 * F = 256 float32 atomics per sample (67 M at N = 262,144); on the
-// hashed levels each lands in its own 32-byte sector (11 x 8 x 2 x 32 B = 5.6
-// KB per sample, 0.44 ms at the HBM rate if none of it stayed in L2). The
-// coarse dense levels concentrate many samples' atomics on few rows, where
-// they serialise in L2. A warp-level pre-reduction of equal rows, or a
-// shared-memory table for the coarse levels, are the next steps.
+// (the tests allow 1e-5 x max|plain| per level), not to the bit. With dx
+// requested the thread also reads its 8 rows again and sums dL/dx_d = s *
+// sum_c sign_cd * (prod of the other two axes' p) * (T[row_c] . ct_l) over the
+// levels in registers, in a fixed order.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -34,18 +54,42 @@
 
 namespace insr {
 
+// Add v to row `row` of the (T, F) f32 scratch: one vector atomic per 16 bytes
+// (Hopper, CUDA >= 12.1).
+template <int F>
+__device__ __forceinline__ void add_row(float* __restrict__ scratch, uint32_t row,
+                                        const float (&v)[F]) {
+  float* p = scratch + static_cast<long long>(row) * F;
+  if constexpr (F == 1) {
+    atomicAdd(p, v[0]);
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < F; q += 4) {
+      atomicAdd(reinterpret_cast<float4*>(p + q), make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+    }
+  }
+}
+
 template <int F>
 __global__ void __launch_bounds__(kHashBlock)
     hashgrid_bwd_kernel(const float* __restrict__ x, long long n,
                         const float* __restrict__ ct, const float* __restrict__ table,
                         long long total, int n_levels, HashLevels levels,
-                        const float* __restrict__ mask, float* __restrict__ dtable,
+                        const float* __restrict__ mask, float* __restrict__ scratch,
                         float* __restrict__ dx) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float x0 = x[3 * i], x1 = x[3 * i + 1], x2 = x[3 * i + 2];
-    const float* crow = ct + i * n_levels * F;
+  // warp-uniform loop over each warp's 32 consecutive samples
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x + (threadIdx.x & ~31);
+       base < n; base += stride) {
+    const long long i = base + lane;
+    const bool active = i < n;
+    const long long ii = active ? i : n - 1;  // a valid address for idle lanes
+    const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
+    const float* crow = ct + ii * n_levels * F;
     float dxa[3] = {0.0f, 0.0f, 0.0f};
     for (int l = 0; l < n_levels; ++l) {
       const HashLevel& lv = levels.l[l];
@@ -53,11 +97,36 @@ __global__ void __launch_bounds__(kHashBlock)
       const float m = mask != nullptr ? mask[l] : 1.0f;
       float g[F];
 #pragma unroll
-      for (int f = 0; f < F; ++f) g[f] = mask != nullptr ? crow[l * F + f] * m : crow[l * F + f];
+      for (int f = 0; f < F; ++f) {
+        g[f] = !active ? 0.0f : mask != nullptr ? crow[l * F + f] * m : crow[l * F + f];
+      }
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
+        const uint32_t row = active ? t.row[c] : 0xffffffffu;  // idle lanes: no table row
+        float v[F];
 #pragma unroll
-        for (int f = 0; f < F; ++f) atomicAdd(dtable + f * total + t.row[c], t.w[c] * g[f]);
+        for (int f = 0; f < F; ++f) v[f] = t.w[c] * g[f];
+        const uint32_t left = __shfl_up_sync(kAll, row, 1);
+        const bool head = lane == 0 || left != row;  // the first lane of a run of equal rows
+        if (__any_sync(kAll, !head)) {
+          // a segmented inclusive scan over each run of lanes: afterwards the
+          // run's last lane holds the run's sum, taken in a fixed order
+          const unsigned heads = __ballot_sync(kAll, head);
+          const unsigned upto = lane == 31 ? kAll : (2u << lane) - 1u;
+          const int start = 31 - __clz(heads & upto);
+#pragma unroll
+          for (int d = 1; d < 32; d *= 2) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) {
+              const float up = __shfl_up_sync(kAll, v[f], d);
+              if (lane - d >= start) v[f] += up;
+            }
+          }
+          const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
+          if (active && tail) add_row<F>(scratch, row, v);
+        } else if (active) {
+          add_row<F>(scratch, row, v);
+        }
       }
       if (dx != nullptr) {
         float lvl[3] = {0.0f, 0.0f, 0.0f};
@@ -80,40 +149,77 @@ __global__ void __launch_bounds__(kHashBlock)
         for (int d = 0; d < 3; ++d) dxa[d] = dxa[d] + lvl[d] * lv.scale;
       }
     }
-    if (dx != nullptr) {
+    if (dx != nullptr && active) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) dx[3 * i + d] = dxa[d];
     }
   }
 }
 
+// (T, F) row-major scratch -> (F, T) gradient: coalesced reads of whole rows,
+// coalesced writes of each feature row.
+template <int F>
+__global__ void __launch_bounds__(256)
+    scratch_to_feature_major(const float* __restrict__ scratch, long long total,
+                             float* __restrict__ dtable) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < total;
+       r += stride) {
+    float v[F];
+    if constexpr (F == 1) {
+      v[0] = scratch[r];
+    } else if constexpr (F == 2) {
+      const float2 q = reinterpret_cast<const float2*>(scratch)[r];
+      v[0] = q.x;
+      v[1] = q.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < F; k += 4) {
+        const float4 q = reinterpret_cast<const float4*>(scratch + r * F)[k / 4];
+        v[k] = q.x;
+        v[k + 1] = q.y;
+        v[k + 2] = q.z;
+        v[k + 3] = q.w;
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) dtable[f * total + r] = v[f];
+  }
+}
+
 template <int F>
 int launch_hashgrid_bwd(const float* x, long long n, const float* ct, const float* table,
                         long long total, int n_levels, const HashLevels& levels,
-                        const float* mask, float* dtable, float* dx, cudaStream_t stream) {
+                        const float* mask, float* scratch, float* dtable, float* dx,
+                        cudaStream_t stream) {
   if (n > 0) {
     hashgrid_bwd_kernel<F><<<hash_grid_for(n), kHashBlock, 0, stream>>>(
-        x, n, ct, table, total, n_levels, levels, mask, dtable, dx);
+        x, n, ct, table, total, n_levels, levels, mask, scratch, dx);
   }
+  const long long blocks = (total + 255) / 256;
+  scratch_to_feature_major<F><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
+                                 stream>>>(scratch, total, dtable);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace insr
 
-// Returns cudaGetLastError() after the launch, or -1 when no instantiation
-// matches (F not in {1, 2, 4, 8}, or too many levels). dtable (F, total) must
-// be zeroed by the caller: the kernel adds into it. dx is nullptr (no position
-// gradient) or (n, 3) float32, overwritten.
+// Returns cudaGetLastError() after the launches, or -1 when no instantiation
+// matches (F not in {1, 2, 4, 8}, or too many levels). scratch is a (total, F)
+// f32 table zeroed by the caller (the kernel adds into it); dtable (F, total)
+// is written. dx is nullptr (no position gradient) or (n, 3) float32,
+// overwritten.
 extern "C" int hashgrid_bwd(const float* x, long long n, const float* ct, const float* table,
                             long long total, int n_levels, int f,
-                            const insr::HashLevel* levels, const float* mask, float* dtable,
-                            float* dx, void* stream) {
+                            const insr::HashLevel* levels, const float* mask, float* scratch,
+                            float* dtable, float* dx, void* stream) {
   if (n_levels < 1 || n_levels > insr::kHashMaxLevels) return -1;
   insr::HashLevels lv{};
   for (int l = 0; l < n_levels; ++l) lv.l[l] = levels[l];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define INSR_HG_BWD(F_) \
-  return insr::launch_hashgrid_bwd<F_>(x, n, ct, table, total, n_levels, lv, mask, dtable, dx, st)
+#define INSR_HG_BWD(F_)                                                                     \
+  return insr::launch_hashgrid_bwd<F_>(x, n, ct, table, total, n_levels, lv, mask, scratch, \
+                                       dtable, dx, st)
   switch (f) {
     case 1: INSR_HG_BWD(1);
     case 2: INSR_HG_BWD(2);

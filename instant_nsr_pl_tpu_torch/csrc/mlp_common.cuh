@@ -1,5 +1,5 @@
-// Shared device-side forward of the packed bf16 ReLU MLP, and the CUDA-core
-// tile reduction of the CP Jacobian backward kernels.
+// Shared device-side forward of the packed bf16 ReLU MLP, and the launch
+// helpers of the grid-stride kernels.
 //
 // Replaces kernel_mlp_fwd of instant_nsr_pl_tpu/ops/mlp_pallas_common.py:74-96,
 // the MLP chain both fused TPU forward kernels end in. One thread evaluates
@@ -17,11 +17,7 @@
 // residual `hsave`.
 //
 // The backward of the chain (kernel_mlp_bwd) runs on the tensor cores in
-// mma_common.cuh. What stays here for the CP Jacobian backward kernels
-// (csrc/cp_jac_basis_bwd.cu K10/K12): reduce_tile, a shared-memory tile
-// reduction of bf16-operand products on the CUDA cores, its per-block f32
-// accumulator flushed with one atomicAdd per element (flush_acc), and the
-// one-block-per-SM launch of those kernels (launch_tiles).
+// mma_common.cuh, as do the CP Jacobian backward kernels' products.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -117,82 +113,6 @@ __device__ __forceinline__ void mlp_forward(const float* __restrict__ w,
     if (hsave != nullptr) store_hidden<W>(hsave, l, n, i, h);
   }
   dense<W, OUT4, W>(w + (DIN + (NH - 1) * W) * W, b + NH * W, h, out);
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-// Samples per tile of the backward kernels; also their threads per block
-// (one thread per sample of the tile in the per-sample phases).
-constexpr int kBwdTile = 128;
-
-// acc[r][j] += sum_s a[s][r] * bf16(g[s][j]) for r < ROWS_L, j < W, and, with
-// db_acc, db[j] += sum_s g[s][j], over the NS staged rows (by default the
-// kBwdTile samples of a tile). Thread t
-// owns column j = t % W and rows t / W, t / W + NG, ...: its partial sums stay
-// in registers over the tile and are then added to the block's shared
-// accumulator (owned by this thread alone: no atomics).
-template <int ROWS_L, int NCOL, int LDA, int LDG, int NS = kBwdTile>
-__device__ __forceinline__ void reduce_tile(const float* __restrict__ a_s,
-                                            const float* __restrict__ g_s,
-                                            float* __restrict__ acc,
-                                            float* __restrict__ db_acc) {
-  static_assert(kBwdTile % NCOL == 0, "tile divides into column groups");
-  constexpr int NG = kBwdTile / NCOL;
-  constexpr int PER = (ROWS_L + NG - 1) / NG;
-  const int j = threadIdx.x % NCOL;
-  const int rg = threadIdx.x / NCOL;
-  float part[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) part[k] = 0.0f;
-  float bsum = 0.0f;
-  for (int s = 0; s < NS; ++s) {
-    const float g = g_s[s * LDG + j];
-    bsum += g;
-    const float gr = bf16_round(g);
-    const float* arow = a_s + s * LDA;
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int r = rg + k * NG;
-      if (r < ROWS_L) part[k] = fmaf(arow[r], gr, part[k]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int r = rg + k * NG;
-    if (r < ROWS_L) acc[r * NCOL + j] += part[k];
-  }
-  if (db_acc != nullptr && rg == 0) db_acc[j] += bsum;
-}
-
-// Add a block's shared accumulator to the f32 output (one atomic per element).
-__device__ __forceinline__ void flush_acc(const float* __restrict__ acc, int count,
-                                          float* __restrict__ out) {
-  for (int k = threadIdx.x; k < count; k += blockDim.x) atomicAdd(out + k, acc[k]);
-}
-
-// Blocks of a backward launch: one per SM (each holds ~130-150 KB of shared
-// memory), each walking tiles kBwdTile apart.
-inline int grid_for_tiles(long long n) {
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long tiles = (n + kBwdTile - 1) / kBwdTile;
-  return static_cast<int>(tiles < sms ? (tiles > 0 ? tiles : 1) : sms);
-}
-
-// Launch a backward kernel with `smem` bytes of dynamic shared memory.
-template <typename Kernel, typename... Args>
-int launch_tiles(Kernel kernel, long long n, size_t smem, cudaStream_t stream,
-                 Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (n > 0) {
-    kernel<<<grid_for_tiles(n), kBwdTile, smem, stream>>>(args...);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Store the first D of OUT4 values to a row-major (N, D) f32 output.

@@ -38,6 +38,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +52,16 @@ constexpr int kLdT = kT + 8;    // row stride (bf16) of a [feature][sample] tile
 static_assert(kT / 8 == kWarps, "warp w owns the tile's n-tile w in the G_in products");
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// fn(std::integral_constant<int, k>{}) for k = B .. E - 1: loop steps whose
+// index is a compile-time constant (register-resident fragment slots).
+template <int B, int E, typename Fn>
+__device__ __forceinline__ void static_for(Fn&& fn) {
+  if constexpr (B < E) {
+    fn(std::integral_constant<int, B>{});
+    static_for<B + 1, E>(fn);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -591,7 +591,9 @@ def cp_product_jac_basis_launch(lines, basis, u3, res, train=False):
 
 def cp_product_jac_basis_backward_launch(u3, vsave, gdsave, denc, djac, basis, res):
     """Launch ``csrc/cp_jac_basis_bwd.cu`` (K10); see
-    :func:`cp_product_jac_basis_backward`."""
+    :func:`cp_product_jac_basis_backward`. d basis comes from per-block
+    partial sums added in block order by a second kernel, the line tables
+    from atomics. With no samples it returns zeros and launches nothing."""
     _check_coords("cp_product_jac_basis_backward", u3)
     c, f = basis.shape
     n = u3.shape[1]
@@ -604,18 +606,23 @@ def cp_product_jac_basis_backward_launch(u3, vsave, gdsave, denc, djac, basis, r
     dev = u3.device
     dlines = torch.zeros((3, res, c), dtype=torch.float32, device=dev)
     du = torch.empty((3, n), dtype=torch.float32, device=dev)
-    dbasis = torch.zeros((c, f), dtype=torch.float32, device=dev)
-    fn = cuda_build.library("cp_jac_basis_bwd").cp_jac_basis_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    if n == 0:
+        return dlines, du, torch.zeros((c, f), dtype=torch.float32, device=dev)
+    fn = cuda_build.entry("cp_jac_basis_bwd", "cp_jac_basis_bwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(u3.data_ptr(), n, res, c, f, vsave.data_ptr(), gdsave.data_ptr(),
-                denc.data_ptr(), djac.data_ptr(), basis.data_ptr(), dlines.data_ptr(),
-                du.data_ptr(), dbasis.data_ptr(), stream)
-    cuda_build.check(rc, "cp_product_jac_basis_backward", SUPPORTED_JAC)
+
+        def call(part, blocks, out, info, n_):
+            return fn(u3.data_ptr(), n_, res, c, f, vsave.data_ptr(), gdsave.data_ptr(),
+                      denc.data_ptr(), djac.data_ptr(), basis.data_ptr(), dlines.data_ptr(),
+                      du.data_ptr(), part, blocks, out, info, stream)
+
+        out = cuda_build.launch_persistent(("cp_jac_basis_bwd", c, f, dev.index), call, n, dev,
+                                           "cp_product_jac_basis_backward", SUPPORTED_JAC)
     cp_product_jac_basis_backward.launches += 1
-    return dlines, du, dbasis
+    return dlines, du, out.view(c, f)

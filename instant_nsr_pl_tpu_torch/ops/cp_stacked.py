@@ -300,7 +300,9 @@ def cp_jac_basis_stacked_launch(lines, basis, u3, rmax, train=False):
 
 def cp_jac_basis_stacked_backward_launch(u3, vsave, gdsave, denc, djac, basis, rmax):
     """Launch K12 (``cp_jac_stacked_bwd`` of ``csrc/cp_jac_basis_bwd.cu``);
-    see :func:`cp_jac_basis_stacked_backward`."""
+    see :func:`cp_jac_basis_stacked_backward`. d basis comes from per-block
+    partial sums added in block order, the fine table from atomics. With no
+    samples it returns zeros and launches nothing."""
     _check_coords("cp_jac_basis_stacked_backward", u3)
     s_count, c, f = basis.shape
     n = u3.shape[1]
@@ -315,18 +317,24 @@ def cp_jac_basis_stacked_backward_launch(u3, vsave, gdsave, denc, djac, basis, r
     dev = u3.device
     dfine = torch.zeros((3, rmax, sc), dtype=torch.float32, device=dev)
     du = torch.empty((3, n), dtype=torch.float32, device=dev)
-    dbasis = torch.zeros((s_count, c, f), dtype=torch.float32, device=dev)
-    fn = cuda_build.library("cp_jac_basis_bwd").cp_jac_stacked_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    if n == 0:
+        return dfine, du, torch.zeros((s_count, c, f), dtype=torch.float32, device=dev)
+    fn = cuda_build.entry("cp_jac_basis_bwd", "cp_jac_stacked_bwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(u3.data_ptr(), n, rmax, c, f, s_count, vsave.data_ptr(), gdsave.data_ptr(),
-                denc.data_ptr(), djac.data_ptr(), basis.data_ptr(), dfine.data_ptr(),
-                du.data_ptr(), dbasis.data_ptr(), stream)
-    cuda_build.check(rc, "cp_jac_basis_stacked_backward", SUPPORTED)
+
+        def call(part, blocks, out, info, n_):
+            return fn(u3.data_ptr(), n_, rmax, c, f, s_count, vsave.data_ptr(),
+                      gdsave.data_ptr(), denc.data_ptr(), djac.data_ptr(), basis.data_ptr(),
+                      dfine.data_ptr(), du.data_ptr(), part, blocks, out, info, stream)
+
+        out = cuda_build.launch_persistent(("cp_jac_stacked_bwd", c, f, s_count, dev.index),
+                                           call, n, dev, "cp_jac_basis_stacked_backward",
+                                           SUPPORTED)
     cp_jac_basis_stacked_backward.launches += 1
-    return dfine, du, dbasis
+    return dfine, du, out.view(s_count, c, f)

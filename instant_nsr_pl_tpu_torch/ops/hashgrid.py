@@ -26,9 +26,10 @@ the other. The JAX fast path is XLA, not Pallas: it saves the taps (indices,
 weights, gathered rows) for a backward of two-sort segment sums and bf16
 one-hot matmuls. Here the backward recomputes the taps (HG2 re-hashes; the
 table rows are read again only for the position gradient) and scatters
-``w * ct`` into the table gradient with float32 atomics: saving the taps at
-the bench shape would hold 16 levels x 8 corners x 262,144 samples x 16 B =
-537 MB per step.
+``w * ct`` with float32 vector atomics into a row-major (T, F) scratch table,
+merging equal rows within a warp first, then writes it out feature-major:
+saving the taps at the bench shape would hold 16 levels x 8 corners x 262,144
+samples x 16 B = 537 MB per step.
 
 Rounding: ``pos = x * s + 0.5`` is rounded once, as a fused multiply-add:
 the JAX package's jitted code contracts it (eagerly it does not, and then the
@@ -49,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -339,13 +341,16 @@ class _Level(ctypes.Structure):
                 ("hashed", ctypes.c_int)]
 
 
+@functools.lru_cache(maxsize=64)
 def level_params(spec: HashGridSpec):
     """The kernels' per-level constants: scale (float32), resolution, size,
-    offset and whether the level is hashed."""
+    offset and whether the level is hashed (built once per spec: the
+    properties recompute every level's layout on each access)."""
     arr = (_Level * MAX_LEVELS)()
+    scales, res, sizes = spec.scales, spec.resolutions, spec.level_sizes
+    offsets, hashed = spec.level_offsets, spec.level_hashed
     for l in range(spec.n_levels):
-        arr[l] = _Level(spec.scales[l], spec.resolutions[l], spec.level_sizes[l],
-                        spec.level_offsets[l], int(spec.level_hashed[l]))
+        arr[l] = _Level(scales[l], res[l], sizes[l], offsets[l], int(hashed[l]))
     return arr
 
 
@@ -388,7 +393,10 @@ def hashgrid_forward_launch(table, x, spec: HashGridSpec, level_mask=None):
 def hashgrid_backward_launch(table, x, dout, spec: HashGridSpec, level_mask=None,
                              with_dx=False):
     """Launch ``csrc/hashgrid_bwd.cu`` (HG2) for CUDA tensors; see
-    :func:`hashgrid_backward` for the outputs."""
+    :func:`hashgrid_backward` for the outputs. The kernel scatters into a
+    zeroed row-major (T, F) f32 scratch table, which its second kernel writes
+    out as the (F, T) gradient. With no samples it returns zeros and launches
+    nothing."""
     xf, mask = _operands("hashgrid_backward", table, x, spec, level_mask)
     n = xf.shape[0]
     f = spec.n_features_per_level
@@ -396,19 +404,22 @@ def hashgrid_backward_launch(table, x, dout, spec: HashGridSpec, level_mask=None
         raise ValueError(f"hashgrid_backward: dout must be float32, got {dout.dtype}")
     ct = dout.reshape(n, spec.n_levels * f).contiguous()
     cuda_build.check_operands("hashgrid_backward", (ct,), ((n, spec.n_levels * f),), x.device)
-    dtable = torch.zeros_like(table)
     dx = torch.empty((n, 3), dtype=torch.float32, device=x.device) if with_dx else None
-    fn = cuda_build.library("hashgrid_bwd").hashgrid_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Level),
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    if n == 0:
+        return torch.zeros_like(table), (dx.reshape(*x.shape[:-1], 3) if with_dx else None)
+    scratch = torch.zeros((spec.total_params, f), dtype=torch.float32, device=x.device)
+    dtable = torch.empty_like(table)
+    fn = cuda_build.entry("hashgrid_bwd", "hashgrid_bwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Level),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(xf.data_ptr(), n, ct.data_ptr(), table.data_ptr(), spec.total_params,
                 spec.n_levels, f, level_params(spec),
-                mask.data_ptr() if mask is not None else None, dtable.data_ptr(),
-                dx.data_ptr() if with_dx else None, stream)
+                mask.data_ptr() if mask is not None else None, scratch.data_ptr(),
+                dtable.data_ptr(), dx.data_ptr() if with_dx else None, stream)
     cuda_build.check(rc, "hashgrid_backward", "n_features_per_level in {1, 2, 4, 8}")
     hashgrid_backward.launches += 1
     return dtable, (dx.reshape(*x.shape[:-1], 3) if with_dx else None)

@@ -1,24 +1,34 @@
-"""Time the fused backward kernels K2 (``csrc/cp_mlp_bwd.cu``), its stacked
-(K14) and ``cp_big`` instantiations, and K4 (``csrc/sh_mlp_bwd.cu``) on the
-card, optionally from another checkout of the port and with phases cut out.
+"""Time the backward kernels K2 (``csrc/cp_mlp_bwd.cu``), its stacked (K14)
+and ``cp_big`` instantiations, K4 (``csrc/sh_mlp_bwd.cu``), K10
+(``csrc/cp_jac_basis_bwd.cu``) with K12 and ``cp_big``'s K10, and HG2
+(``csrc/hashgrid_bwd.cu``) on the card, optionally from another checkout of
+the port and with phases cut out.
 
     python instant_nsr_pl_tpu_torch/tools/bwd_bench.py [--root DIR]
-        [--cuts] [--order uniform,ray] [--out result.json]
+        [--cuts] [--order uniform,ray] [--cases k10,hg2,...] [--merge-stats]
+        [--out result.json]
 
 ``--root`` imports the port from checkout DIR (for example the parent
 commit unpacked with ``git archive``) instead of this one: the script calls
 only the public ops (``cp_mlp_operands``, ``cp_mlp_launch``,
 ``cp_mlp_backward_launch``, their stacked twins, ``pack_sh_mlp``,
-``sh_mlp_launch``, ``sh_mlp_backward_launch``), whose signatures every
-design keeps, so two designs are timed by the same code. Run it for the two
+``sh_mlp_launch``, ``sh_mlp_backward_launch``, the K9/K10 and K11/K12
+launches of ``ops/cp_product.py`` / ``ops/cp_stacked.py``,
+``hashgrid_backward_launch``), whose signatures every design keeps, so two
+designs are timed by the same code. Run it for the two
 roots in turns within one call (a, b, b, a) to compare them on one card.
 
 The operands are those of ``chip_smoke.py``'s kernel phases at N = 262,144:
 the bench NeRF's density head (CP C=64, R=(128, 2048), F=16, MLP 32->64->16),
 the stacked head (R=(129, 2049)), the ``cp_big`` head (C=128, R=(64, 512,
 4096), MLP 48->64->16) and the radiance head (SH degree 4, 16 features, MLP
-32->64->64->3), from seeded random weights; the residuals come from one
-training-mode forward. ``--order uniform`` (the default) draws positions uniformly in
+32->64->64->3), the bench NeuS encoding for K10 (C=64, F=16, R=128 and
+2048: one launch each), the stacked one for K12 (R=(129, 2049)), cp_big's
+for its K10 (C=128, R=64, 512, 4096) and the bench hash grid for HG2 (16
+levels, F=2, 2^19 rows), from seeded random weights; the residuals come from
+one training-mode forward. ``--merge-stats`` counts, on each order's
+positions, the row updates that a merge of equal rows would leave: HG2's per
+level within a warp of 32 samples, K10's per axis within runs of 16 and 64. ``--order uniform`` (the default) draws positions uniformly in
 [-0.05, 1.05]^3; ``--order ray`` packs 512 rays of 512 evenly spaced samples
 across the unit box each, as a bench training step packs its 262,144 slots
 (its ~4.6 M live samples overflow them, so the buffer holds the first few
@@ -28,9 +38,10 @@ hundred rays' samples, whole and in order);
 ``--cuts`` also times scratch variants: a copy of the root's ``csrc/`` with
 one phase of a backward kernel edited out (the line-table atomics, the
 whole line-table scatter, the d-basis reduction, the MLP tile reductions of
-the CUDA-core design; the scatter loop, the d-basis products and the MLP
-backward of the tensor-core design, or its scatter replaced by one without
-the row merge),
+the CUDA-core designs; the scatter loop, the d-basis products and the MLP
+backward of the tensor-core designs, or K2's scatter replaced by one without
+the row merge; HG2's atomics by level kind, its row merge, its (T, F)
+vector atomics replaced by the (F, T) layout's scalar ones),
 all built at once with ``nvcc -Xptxas -v`` into a temporary directory. The edits
 are text replacements on the copy; a variant whose text is not in the
 root's source is reported as not applicable. The variants' outputs are
@@ -130,8 +141,73 @@ CUTS.update({
         "    mlp_backward_tile<S, K::MT0>(",
         "    if (false) mlp_backward_tile<S, K::MT0>(")]),
 })
+# K10 / K12 / cp_big K10 (csrc/cp_jac_basis_bwd.cu) and HG2 (csrc/hashgrid_bwd.cu)
+# of the thread-per-sample designs: the line-table atomics, the whole scatter,
+# the d-basis tile reduction, the dP / dJ loops; HG2's atomics of the dense
+# levels, of the hashed levels, or all of them (each value stays live through a
+# store that never happens)
+_HG2_ATOMIC = ("        for (int f = 0; f < F; ++f) atomicAdd(dtable + f * total + t.row[c], "
+               "t.w[c] * g[f]);\n")
+
+
+def _hg2_cut(keep):
+    return ("hashgrid_bwd", [("hashgrid_bwd.cu", _HG2_ATOMIC,
+                              "        for (int f = 0; f < F; ++f) {\n"
+                              "          const float v_ = t.w[c] * g[f];\n"
+                              f"          if ({keep}) atomicAdd(dtable + f * total + t.row[c], v_);\n"
+                              "          else if (v_ == 1.2345e-37f) dtable[t.row[c]] = v_;\n"
+                              "        }\n")])
+
+
+CUTS.update({
+    "k10_no_line_atomics": ("cp_jac_basis_bwd", [("cp_common.cuh", *_ATOMIC_SINK)]),
+    "k10_no_scatter": ("cp_jac_basis_bwd", [(
+        "cp_jac_basis_bwd.cu",
+        "          if (active) {\n#pragma unroll\n            for (int a = 0; a < 3; ++a) {\n"
+        "              float* dst = drow0[a] + 4 * c4;",
+        "          if (false) {\n#pragma unroll\n            for (int a = 0; a < 3; ++a) {\n"
+        "              float* dst = drow0[a] + 4 * c4;")]),
+    "k10_no_dbasis": ("cp_jac_basis_bwd", [(
+        "cp_jac_basis_bwd.cu",
+        "        reduce_tile<L::CT, F, L::LDA, L::LDG, L::ROWS>(a_s, g_s, acc + (s * C + c0) * F,\n"
+        "                                                       nullptr);\n", "")]),
+    "k10_no_dp_dj": ("cp_jac_basis_bwd", [(
+        "cp_jac_basis_bwd.cu",
+        "            for (int f4 = 0; f4 < F / 4; ++f4) {",
+        "            for (int f4 = 0; f4 < 0; ++f4) {")]),
+    # the tensor-core K10 design: the scatter walk, the d B products, the
+    # [dP | dJ] products (their fragments stay zero)
+    "k10_tc_no_scatter": ("cp_jac_basis_bwd", [(
+        "cp_jac_basis_bwd.cu",
+        "for (int q = grp * K::RUN; q < (grp + 1) * K::RUN; ++q) {",
+        "for (int q = 0; q < 0; ++q) {")]),
+    "k10_tc_no_dbasis": ("cp_jac_basis_bwd", [(
+        "cp_jac_basis_bwd.cu",
+        "for (int q = 0; q < K::FPS; ++q) {", "for (int q = 0; q < 0; ++q) {")]),
+    "k10_tc_no_dp_dj": ("cp_jac_basis_bwd", [(
+        "cp_jac_basis_bwd.cu", "            mma_bf16(dq[q], af, bq[q]);\n", "")]),
+    # the merged-scatter HG2: no merge; the (F, T) layout's two 4-byte atomics
+    # per corner in place of one 8-byte atomic (bench shape: T = 6,299,960);
+    # no atomics
+    "hg2_new_no_merge": ("hashgrid_bwd", [(
+        "hashgrid_bwd.cu", "        if (__any_sync(kAll, !head)) {", "        if (false) {")]),
+    "hg2_new_ft_atomics": ("hashgrid_bwd", [(
+        "hashgrid_bwd.cu",
+        "    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));",
+        "    atomicAdd(scratch + row, v[0]);\n    atomicAdd(scratch + 6299960LL + row, v[1]);")]),
+    "hg2_new_no_atomics": ("hashgrid_bwd", [(
+        "hashgrid_bwd.cu",
+        "  float* p = scratch + static_cast<long long>(row) * F;\n",
+        "  float* p = scratch + static_cast<long long>(row) * F;\n"
+        "  if (v[0] == 1.2345e-37f) *p = v[0];  // keeps the value live\n  return;\n")]),
+    "hg2_no_dense_atomics": _hg2_cut("lv.hashed"),
+    "hg2_no_hashed_atomics": _hg2_cut("!lv.hashed"),
+    "hg2_no_atomics": _hg2_cut("false"),
+})
 # which timed case each source's variants run
-CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",)}
+CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
+            "cp_jac_basis_bwd": ("k10", "k12", "k10_cp_big"),
+            "hashgrid_bwd": ("hg2", "hg2_dx")}
 
 
 def time_ms(fn, reps=20, inner=10, warmup=3):
@@ -196,9 +272,10 @@ def positions(gen, order, n=N):
     return (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
 
 
-def cases(device, order):
-    """Per timed case: a zero-argument callable that launches the backward
-    kernel once through its public wrapper, and a short description."""
+def cases(device, order, wanted=None):
+    """Per timed case (all, or those in ``wanted``): a zero-argument callable
+    that launches the backward kernel once through its public wrapper, and a
+    short description."""
     import torch
 
     from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
@@ -206,6 +283,8 @@ def cases(device, order):
     from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_init
 
     out = {}
+    if wanted is not None and not wanted & {"k2", "k14", "k2_cp_big", "k4"}:
+        return {**jac_cases(device, order, wanted), **hash_cases(device, order, wanted)}
 
     def layers(gen, spec):
         return [{"w": l["w"].to(device),
@@ -256,6 +335,169 @@ def cases(device, order):
     sh_args = (feats, dirs, hsave, r_dout, ws, fpad, r_spec, 4)
     out["k4"] = (lambda: sh_mlp.sh_mlp_backward_launch(*sh_args),
                  "SH 4, 16 features, MLP 32->64->64->3")
+    out.update(jac_cases(device, order, wanted))
+    out.update(hash_cases(device, order, wanted))
+    return out
+
+
+def jac_operands(device, order, c=64, f=16, resolutions=(128, 2048), seed=SEED + 7):
+    """Per resolution of a NeuS CP encoding (``chip_smoke.py``'s K9/K10
+    phase: bf16 0.1 N(0, 1) lines, an N(0, 1)/8 basis, N(0, 1) cotangents):
+    the arguments of one K10 launch, ``(u3, vsave, gdsave, denc, djac, basis,
+    r)``, with the residuals from one training-mode K9 launch."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+
+    gen = torch.Generator().manual_seed(seed)
+    tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+              .to(device) for r in resolutions}
+    basis = (torch.randn((c, f), generator=gen) / 8.0).to(torch.bfloat16).to(device)
+    u3 = positions(gen, order).T.contiguous().to(device)
+    denc = torch.randn((f, N), generator=gen).to(device)
+    djac = torch.randn((3, f, N), generator=gen).to(device)
+    out = []
+    for r in resolutions:
+        _, _, vsave, gdsave = cpp.cp_product_jac_basis_launch(tables[r], basis, u3, r, train=True)
+        out.append((u3, vsave, gdsave, denc, djac, basis, r))
+    return out
+
+
+def stacked_jac_operands(device, order, seed=SEED + 11):
+    """The arguments of one K12 launch at the stacked NeuS encoding (C=64,
+    nested R=(129, 2049) on one (3, 2049, 128) table, F=16), residuals from
+    one training-mode K11 launch."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
+    from instant_nsr_pl_tpu_torch.ops.cp import CPSpec, cp_init
+
+    gen = torch.Generator().manual_seed(seed)
+    spec = CPSpec(64, (129, 2049), 16)
+    params = cp_init(gen, spec, device)
+    lines, basis = cps.stack_lines_fine(params, spec), cps.basis_stack(params, spec)
+    u3 = positions(gen, order).T.contiguous().to(device)
+    denc = torch.randn((32, N), generator=gen).to(device)
+    djac = torch.randn((3, 32, N), generator=gen).to(device)
+    _, _, vsave, gdsave = cps.cp_jac_basis_stacked_launch(lines, basis, u3, 2049, train=True)
+    return (u3, vsave, gdsave, denc, djac, basis, 2049)
+
+
+def jac_cases(device, order, wanted=None):
+    """K10 summed over the bench NeuS scales R=128 and 2048 (one launch per
+    scale, as a step runs it), K12 and cp_big's K10 summed over R=(64, 512,
+    4096)."""
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+    from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
+
+    def per_scale(ops):
+        return lambda: [cpp.cp_product_jac_basis_backward_launch(*a) for a in ops]
+
+    out = {}
+    if wanted is None or "k10" in wanted:
+        out["k10"] = (per_scale(jac_operands(device, order)), "C=64, F=16, R=128 + R=2048")
+    if wanted is None or "k12" in wanted:
+        stacked = stacked_jac_operands(device, order)
+        out["k12"] = (lambda: cps.cp_jac_basis_stacked_backward_launch(*stacked),
+                      "C=64, F=16, S=2, R_max=2049")
+    if wanted is None or "k10_cp_big" in wanted:
+        big = jac_operands(device, order, 128, 16, (64, 512, 4096), SEED + 17)
+        out["k10_cp_big"] = (per_scale(big), "C=128, F=16, R=64 + 512 + 4096")
+    return out
+
+
+def hash_spec():
+    """The bench hash grid (bench.py _ENCODINGS["hash"]: 16 levels, F=2,
+    2^19 rows per hashed level), as ``chip_smoke.py`` holds HG1/HG2."""
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+
+    return HashGridSpec(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+                        base_resolution=16, per_level_scale=1.447269237440378)
+
+
+def hash_operands(device, order, seed=SEED + 13):
+    """HG2's arguments at the bench hash shape: a table of values of order 1,
+    positions in the unit box and N(0, 1) output cotangents."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = hash_spec()
+    gen = torch.Generator().manual_seed(seed)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(device)
+    x = (torch.rand((N, 3), generator=gen) if order == "uniform"
+         else positions(gen, order).clamp(0.0, 1.0)).to(device)
+    ct = torch.randn((N, spec.n_output_dims), generator=gen).to(device)
+    return table, x, ct, spec
+
+
+def hash_cases(device, order, wanted=None):
+    """HG2's table gradient, and with the position gradient."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    if wanted is not None and not wanted & {"hg2", "hg2_dx"}:
+        return {}
+    table, x, ct, spec = hash_operands(device, order)
+    return {
+        "hg2": (lambda: hg.hashgrid_backward_launch(table, x, ct, spec),
+                "16 levels, F=2, 2^19 rows"),
+        "hg2_dx": (lambda: hg.hashgrid_backward_launch(table, x, ct, spec, with_dx=True),
+                   "16 levels, F=2, 2^19 rows, with d x"),
+    }
+
+
+def _merged_rows(rows, group):
+    """Rows left after merging equal rows within each group of ``group``
+    consecutive entries of ``rows`` (one level's or axis's rows, (N,) or
+    (k, N): merged per leading index)."""
+    import torch
+
+    rows = rows.reshape(-1, rows.shape[-1])
+    k, n = rows.shape
+    n_groups = -(-n // group)
+    pad = n_groups * group - n
+    if pad:
+        rows = torch.cat([rows, rows[:, -1:].expand(k, pad)], dim=1)
+    g = rows.reshape(k, n_groups, group).sort(dim=-1).values
+    distinct = 1 + (g[..., 1:] != g[..., :-1]).sum(-1)
+    return int(distinct.sum())  # the padding repeats a kept row: nothing new
+
+
+def merge_stats(device, order, n=N):
+    """What merging equal rows would remove, from this order's operands:
+    HG2's per-level (sample, corner) row updates within a warp of 32
+    consecutive samples, merged per corner (one ``__match_any_sync`` per
+    corner) and across the 8 corners; K10's per-axis row updates (two per
+    sample) within runs of 16 and 64 consecutive samples, as a window of
+    two rows walking the run in order merges them, and as distinct rows."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    out = {"hg2": [], "k10": {}}
+    _, x, _, spec = hash_operands(device, order)
+    xt = x.T.contiguous()
+    for lv in range(spec.n_levels):
+        idx, _ = hg.level_corner_indices(spec, xt, lv)  # (8, N)
+        per_corner = _merged_rows(idx, 32)
+        across = _merged_rows(idx.reshape(8, -1, 32).permute(1, 0, 2).reshape(-1, 8 * 32), 8 * 32)
+        out["hg2"].append({"level": lv, "hashed": spec.level_hashed[lv],
+                           "updates": 8 * n, "after_corner_merge": per_corner,
+                           "after_all_corner_merge": across})
+    gen = torch.Generator().manual_seed(SEED + 7)
+    u3 = positions(gen, order, n).T.to(device)
+    for r in (128, 2048, 64, 512, 4096):
+        i0 = torch.stack([cpp.tent_coords(u3[a], r)[0] for a in range(3)])  # (3, N)
+        entry = {"updates": 2 * 3 * n}
+        for run in (16, 64):
+            blocks = i0.reshape(3, -1, run)
+            d = (blocks[..., 1:] - blocks[..., :-1]).abs()
+            entering = torch.where(d == 0, 0, torch.where(d == 1, 1, 2)).sum()
+            entry[f"window_{run}"] = int(2 * 3 * (n // run) + entering)
+            both = torch.cat([i0, i0 + 1], dim=1).reshape(3, 2, -1, run).permute(0, 2, 1, 3)
+            entry[f"distinct_{run}"] = _merged_rows(both.reshape(3 * (n // run), 2 * run), 2 * run)
+        out["k10"][r] = entry
     return out
 
 
@@ -285,6 +527,11 @@ def main(argv=None):
     ap.add_argument("--cuts", action="store_true")
     ap.add_argument("--order", default="uniform",
                     help="uniform, ray, or both separated by a comma")
+    ap.add_argument("--cases", default=None,
+                    help="time only these cases (comma-separated: k2, k14, k2_cp_big, k4, k10, "
+                         "k12, k10_cp_big, hg2, hg2_dx), and only their sources' cuts")
+    ap.add_argument("--merge-stats", action="store_true",
+                    help="also count the row updates a merge of equal rows would remove")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -307,10 +554,17 @@ def main(argv=None):
     result = {"root": str(root), "orders": orders, "n": N, "card": smi, "ms": {},
               "ptxas": {}, "cuts": {}}
     try:
-        stems = ("cp_mlp_fwd", "cp_mlp_bwd", "sh_mlp_fwd", "sh_mlp_bwd")
+        wanted = set(args.cases.split(",")) if args.cases else None
+        bwd_stems = [stem for stem, keys in CASES_OF.items()
+                     if wanted is None or wanted & set(keys)]
+        fwd_of = {"cp_mlp_bwd": "cp_mlp_fwd", "sh_mlp_bwd": "sh_mlp_fwd",
+                  "cp_jac_basis_bwd": "cp_jac_basis_fwd", "hashgrid_bwd": "hashgrid_fwd"}
+        stems = [s for b in bwd_stems for s in (fwd_of[b], b)]
         jobs = [(stem, cuda_build.CSRC / f"{stem}.cu", tmp / f"{stem}.so") for stem in stems]
         variants = {}
         for name, (stem, edits) in (CUTS.items() if args.cuts else ()):
+            if stem not in bwd_stems:
+                continue
             src_dir = tmp / name
             shutil.copytree(cuda_build.CSRC, src_dir)
             ok = True
@@ -329,12 +583,25 @@ def main(argv=None):
         for stem in stems:
             result["ptxas"][stem] = ptxas[stem]
             cuda_build._LIBS[stem] = ctypes.CDLL(str(tmp / f"{stem}.so"))
-        for name in ("cp_mlp_bwd", "sh_mlp_bwd", *variants):
+        for name in (*bwd_stems, *variants):
             for line in ptxas[name]:
                 print(f"[ptxas] {name}: {line}", flush=True)
         timed, loaded = {}, []
         for order in orders:
-            for key, (fn, shape) in cases(device, order).items():
+            if args.merge_stats:
+                result.setdefault("merge", {})[order] = stats = merge_stats(device, order)
+                for e in stats["hg2"]:
+                    print(f"[merge] hg2 {order} level {e['level']} (hashed {e['hashed']}): "
+                          f"{e['updates']} row updates, {e['after_corner_merge']} after a merge "
+                          f"per corner in a warp of 32, {e['after_all_corner_merge']} across "
+                          f"corners", flush=True)
+                for r, e in stats["k10"].items():
+                    print(f"[merge] k10 {order} R={r}: {e['updates']} row updates; window of two "
+                          f"rows {e['window_16']} (runs of 16), {e['window_64']} (64); distinct "
+                          f"{e['distinct_16']} / {e['distinct_64']}", flush=True)
+            for key, (fn, shape) in cases(device, order, wanted).items():
+                if wanted is not None and key not in wanted:
+                    continue
                 key = f"{key}@{order}"
                 timed[key] = fn
                 fn()
@@ -353,7 +620,8 @@ def main(argv=None):
             cuda_build._LIBS[stem] = loaded[-1]
             cuda_build.PLANS.clear()  # a variant may fit more blocks per SM
             entry = {"ptxas": ptxas[name]}
-            for key in [f"{k}@{o}" for k in CASES_OF[stem] for o in orders]:
+            for key in [f"{k}@{o}" for k in CASES_OF[stem] for o in orders
+                        if wanted is None or k in wanted]:
                 fn = timed[key]
                 fn()
                 torch.cuda.synchronize()

@@ -780,3 +780,252 @@ def test_fused_backward_order_and_repeat(cuda_device, shape):
     for a, b, r, rs in zip(_flat(got), _flat(got_shuffled), _flat(ref), ref_shuffled):
         _close(a, r, rel=2.5e-2)
         _close(b, rs, rel=2.5e-2)
+
+
+# ---------------------------------------------------------------------------
+# K10 / K12 / cp_big K10 (csrc/cp_jac_basis_bwd.cu) and HG2 (csrc/hashgrid_bwd.cu)
+# ---------------------------------------------------------------------------
+
+# (label, C, F, scales, R): every instantiation of the K10 / K12 template
+_JAC_SHAPES = [
+    ("jac", 64, 16, 1, 2048),
+    ("jac_coarse", 64, 16, 1, 128),
+    ("jac_cp_big", 128, 16, 1, 4096),
+    ("jac_small", 16, 8, 1, 64),
+    ("jac_stacked", 64, 16, 2, 2049),
+    ("jac_stacked_small", 16, 8, 2, 65),
+]
+_JAC_IDS = [s[0] for s in _JAC_SHAPES]
+
+
+def _jac_backward_case(shape, x, gen, device):
+    """K9 / K11 training-mode residuals at positions x (n, 3), and (launch,
+    plain, counter, args) of the matching backward."""
+    _, c, f, s_count, r = shape
+    u3 = x.T.contiguous()
+    n = u3.shape[1]
+    if s_count == 1:
+        lines = t_cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+        basis = (torch.randn((c, f), generator=gen) / c**0.5).to(torch.bfloat16)
+        lines, basis = lines.to(device), basis.to(device)
+        _, _, vsave, gdsave = t_cpp.cp_product_jac_basis_launch(lines, basis, u3, r, train=True)
+        fns = (t_cpp.cp_product_jac_basis_backward_launch,
+               t_cpp.cp_product_jac_basis_backward_plain, t_cpp.cp_product_jac_basis_backward)
+    else:
+        spec = CPSpec(c, ((r - 1) // 16 + 1, r), f)
+        params = cp_init(gen, spec, device)
+        lines, basis = t_cps.stack_lines_fine(params, spec), t_cps.basis_stack(params, spec)
+        _, _, vsave, gdsave = t_cps.cp_jac_basis_stacked_launch(lines, basis, u3, r, train=True)
+        fns = (t_cps.cp_jac_basis_stacked_backward_launch,
+               t_cps.cp_jac_basis_stacked_backward_plain, t_cps.cp_jac_basis_stacked_backward)
+    denc = torch.randn((s_count * f, n), generator=gen).to(device)
+    djac = torch.randn((3, s_count * f, n), generator=gen).to(device)
+    return (*fns, [u3, vsave, gdsave, denc, djac, basis, r])
+
+
+def _check_jac(launch, plain, args):
+    got = launch(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        _close(a, b, rel=2.5e-2)
+    return got, ref
+
+
+@pytest.mark.parametrize("n", [1, 15, 63, 65, 127, 129, 515, 4096])
+@pytest.mark.parametrize("shape", _JAC_SHAPES, ids=_JAC_IDS)
+def test_jac_backward_sizes_match_plain(cuda_device, shape, n):
+    """K10 / K12 at every instantiation and at sizes around the 64-sample
+    tile, on positions in [-0.05, 1.05]: d lines, d u and d basis within
+    2.5e-2 of the largest plain value, one launch counted."""
+    gen = torch.Generator().manual_seed(300 + n)
+    x = (torch.rand((n, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    launch, plain, op, args = _jac_backward_case(shape, x, gen, cuda_device)
+    before = op.launches
+    _check_jac(launch, plain, args)
+    assert op.launches == before + 1
+
+
+@pytest.mark.parametrize("shape", _JAC_SHAPES, ids=_JAC_IDS)
+def test_jac_backward_no_samples(cuda_device, shape):
+    """N = 0: zero gradients of the right shapes, an empty d u, no launch."""
+    gen = torch.Generator().manual_seed(9)
+    launch, plain, op, args = _jac_backward_case(shape, torch.zeros((0, 3), device=cuda_device),
+                                                 gen, cuda_device)
+    before = op.launches
+    got = launch(*args)
+    torch.cuda.synchronize()
+    assert op.launches == before
+    for a, b in zip(got, plain(*args)):
+        assert a.shape == b.shape and not bool(a.any())
+
+
+@pytest.mark.parametrize("shape", _JAC_SHAPES, ids=_JAC_IDS)
+def test_jac_backward_one_point(cuda_device, shape):
+    """Every one of 4,096 samples at the same position: each tile's scatter
+    merges all its samples into two rows per axis; gradients within 2.5e-2."""
+    gen = torch.Generator().manual_seed(10)
+    x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(4096, 1).to(cuda_device)
+    launch, plain, _, args = _jac_backward_case(shape, x, gen, cuda_device)
+    _check_jac(launch, plain, args)
+
+
+@pytest.mark.parametrize("shape", _JAC_SHAPES, ids=_JAC_IDS)
+def test_jac_backward_edges(cuda_device, shape):
+    """u exactly 0 and exactly 1 on each axis in turn (the last tent row,
+    d clip(u)/du = 0.5) and out of range: gradients within 2.5e-2, d u zero
+    outside [0, 1]."""
+    gen = torch.Generator().manual_seed(12)
+    n = 515
+    x = torch.rand((n, 3), generator=gen)
+    for a in range(3):
+        x[a * 100:a * 100 + 50, a] = 0.0
+        x[a * 100 + 50:a * 100 + 100, a] = 1.0
+    x[300:320] = -0.02
+    x[320:340] = 1.03
+    x = x.to(cuda_device)
+    launch, plain, _, args = _jac_backward_case(shape, x, gen, cuda_device)
+    got, _ = _check_jac(launch, plain, args)
+    outside = (args[0] < 0) | (args[0] > 1)
+    assert bool(outside.any()) and bool((got[1][outside] == 0).all())
+
+
+@pytest.mark.parametrize("shape", _JAC_SHAPES, ids=_JAC_IDS)
+def test_jac_backward_order_and_repeat(cuda_device, shape):
+    """Ray-ordered samples (8 rays of 512) and a shuffled copy of the same
+    samples: every gradient of both within 2.5e-2 of the largest plain value,
+    d u of the shuffled call equal to the permuted d u (each sample's sum runs
+    in a fixed order), and a repeated call gives a bit-equal d basis (its
+    second-pass sum runs in block order)."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(13)
+    n = 4096
+    perm = torch.randperm(n, generator=gen).to(cuda_device)
+    x = positions(gen, "ray", n).to(cuda_device)
+    launch, plain, _, args = _jac_backward_case(shape, x, gen, cuda_device)
+    shuffled = list(args)
+    shuffled[0] = args[0][:, perm].contiguous()
+    shuffled[1] = args[1][:, :, perm].contiguous()
+    shuffled[2] = args[2][:, :, perm].contiguous()
+    shuffled[3] = args[3][:, perm].contiguous()
+    shuffled[4] = args[4][:, :, perm].contiguous()
+    got = launch(*args)
+    again = launch(*args)
+    got_shuffled = launch(*shuffled)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    assert torch.equal(got[2], again[2])
+    assert torch.equal(got_shuffled[1], got[1][:, perm])
+    for a, b, r in zip(got, got_shuffled, ref):
+        _close(a, r, rel=2.5e-2)
+    _close(got_shuffled[0], ref[0], rel=2.5e-2)
+    _close(got_shuffled[2], ref[2], rel=2.5e-2)
+
+
+def _hash_spec(name):
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+
+    if name == "bench":  # bench.py --encoding hash
+        return _bench_hash()
+    return HashGridSpec(n_levels=12, log2_hashmap_size=18)  # configs/nerf-synthetic.yaml
+
+
+def _hash_table_grad_f64(spec, x, ct, mask):
+    """The table gradient as a float64 sum of the float32 corner updates
+    ``w_c * (ct_l * mask_l)`` that the kernel and the plain version add."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    f = spec.n_features_per_level
+    out = torch.zeros((f, spec.total_params), dtype=torch.float64, device=x.device)
+    for lv in range(spec.n_levels):
+        idx, w = hg.level_corner_indices(spec, x.T.contiguous(), lv)  # (8, N)
+        g = ct[:, lv * f:(lv + 1) * f] * (mask[lv] if mask is not None else 1.0)
+        upd = w[:, None, :] * g.T[None]  # (8, F, N) float32
+        for k in range(f):
+            out[k].index_add_(0, idx.reshape(-1), upd[:, k].reshape(-1).double())
+    return out
+
+
+def _check_hash(spec, table, x, ct, mask, exact=False):
+    """HG2 with and without d x against its plain version: the table gradient
+    within 1e-5 x max|plain| per level (with ``exact``, against the float64
+    sum of the same float32 updates instead: where thousands of updates land
+    on one row, the plain version's own sequential float32 sum strays by as
+    much), d x within 1e-4 x max|plain|."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    dt, dx = hg.hashgrid_backward_launch(table, x, ct, spec, mask, with_dx=True)
+    dt_only, no_dx = hg.hashgrid_backward_launch(table, x, ct, spec, mask)
+    torch.cuda.synchronize()
+    assert no_dx is None
+    rt, rx = hg.hashgrid_backward_plain(table, x, ct, spec, mask, with_dx=True)
+    if exact:
+        rt = _hash_table_grad_f64(spec, x, ct, mask)
+    for lv in range(spec.n_levels):
+        sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+        _close(dt[:, sl].to(rt.dtype), rt[:, sl], rel=1e-5)
+        _close(dt_only[:, sl].to(rt.dtype), rt[:, sl], rel=1e-5)
+    _close(dx, rx, rel=1e-4)
+    return dt, dx
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["bench", "nerf-synthetic"])
+def test_hash_backward_order_and_repeat(cuda_device, name, masked):
+    """Ray-ordered samples (8 rays of 512: the coarse levels' rows repeat
+    within a warp, so the merge runs) and a shuffled copy: both within the
+    limits, d x of the shuffled call equal to the permuted d x."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    spec = _hash_spec(name)
+    gen = torch.Generator().manual_seed(14)
+    n = 4096
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(cuda_device)
+    x = positions(gen, "ray", n).to(cuda_device)
+    ct = torch.randn((n, spec.n_output_dims), generator=gen).to(cuda_device)
+    mask = torch.linspace(1.0, 0.0, spec.n_levels).to(cuda_device) if masked else None
+    perm = torch.randperm(n, generator=gen).to(cuda_device)
+    _, dx = _check_hash(spec, table, x, ct, mask)
+    _, dx_shuffled = _check_hash(spec, table, x[perm].contiguous(), ct[perm].contiguous(), mask)
+    assert torch.equal(dx_shuffled, dx[perm])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["bench", "nerf-synthetic"])
+def test_hash_backward_one_point(cuda_device, name, masked):
+    """Every one of 4,096 samples at the same position: each warp merges its
+    32 samples into one update per level and corner; the table gradient
+    within 1e-5 x max|exact| of the float64 sum of the same updates, d x
+    within its limit."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = _hash_spec(name)
+    gen = torch.Generator().manual_seed(15)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(cuda_device)
+    x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(4096, 1).to(cuda_device)
+    ct = torch.randn((4096, spec.n_output_dims), generator=gen).to(cuda_device)
+    mask = torch.linspace(1.0, 0.0, spec.n_levels).to(cuda_device) if masked else None
+    _check_hash(spec, table, x, ct, mask, exact=True)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["bench", "nerf-synthetic"])
+def test_hash_backward_no_samples(cuda_device, name, masked):
+    """N = 0: a zero table gradient, an empty d x, no launch."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = _hash_spec(name)
+    table = (hg.hashgrid_init(torch.Generator().manual_seed(16), spec) * 1e4).to(cuda_device)
+    x = torch.zeros((0, 3), device=cuda_device)
+    ct = torch.zeros((0, spec.n_output_dims), device=cuda_device)
+    mask = torch.linspace(1.0, 0.0, spec.n_levels).to(cuda_device) if masked else None
+    before = hg.hashgrid_backward.launches
+    for with_dx in (False, True):
+        dt, dx = hg.hashgrid_backward_launch(table, x, ct, spec, mask, with_dx=with_dx)
+        torch.cuda.synchronize()
+        assert dt.shape == table.shape and not bool(dt.any())
+        assert dx is None if not with_dx else tuple(dx.shape) == (0, 3)
+    assert hg.hashgrid_backward.launches == before
