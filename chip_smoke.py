@@ -87,7 +87,8 @@ lines are printed):
    width without kernels refused when its model is built;
 14. the probes P1a-P1g and P2 (``tools/microbench_gather.py``,
    ``csrc/gather_probes.cu``) at M=2^18 against numpy and their plain
-   versions, then the probe script's own run at the JAX scripts' sizes with
+   versions, P1g with every index on one row and P1e on a ragged row count
+   against their plain versions, then the probe script's own run at the JAX scripts' sizes with
    the launch counters read around it;
 15. the hash NeRF (``instant_nsr_pl_tpu_torch/configs/nerf-hash-
    synthetic.yaml``, ``bench.py build_system("hash")``) trained as in 6, with
@@ -2012,7 +2013,8 @@ def cp_big_train_phase(device, smi):
 def probe_phase(device):
     """The probes P1a-P1g and P2 (``tools/microbench_gather.py``): each kernel
     at a reduced M (2^18 indices) against numpy and against its plain version
-    on the CPU; then the probe script's own run at the JAX scripts' sizes
+    on the CPU, and P1g / P1e's edge cases (every index on one row, a ragged
+    row count); then the probe script's own run at the JAX scripts' sizes
     (its main path), the launch counters set to 0 just before it and read
     just after."""
     from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
@@ -2020,6 +2022,12 @@ def probe_phase(device):
     errs = mb.check_all(PROBE_CHECK_M, PROBE_CHECK_M, device, seed=SEED)
     print(f"[probe] at M={PROBE_CHECK_M}: every probe equals numpy (gathers to the bit, sums "
           f"within 1e-6 of their summed magnitudes): {errs}", flush=True)
+    edges = mb.check_edges(device, seed=SEED)
+    print(f"[probe] P1g with every index on one row, P1e on 37 rows: equal to their plain "
+          f"versions (P1e to the bit, P1g within 1e-6 of its summed magnitude): {edges}",
+          flush=True)
+    for name, err in edges.items():
+        errs[name] = max(errs[name], err)
     mb.reset_launches()
     entries = mb.run(1 << 22, mb.P2_M, device, seed=SEED,
                      log=lambda s: print(s, flush=True))

@@ -2,7 +2,7 @@
 P1a-P1g and P2, the CUDA counterparts of the JAX package's Pallas probes
 (``scripts/microbench_pallas.py``, ``scripts/microbench_pallas_gather.py``).
 
-    python -m instant_nsr_pl_tpu_torch.tools.microbench_gather [--quick]
+    python -m instant_nsr_pl_tpu_torch.tools.microbench_gather [--quick] [--only A,B]
 
 Each probe is a kernel of ``csrc/gather_probes.cu`` behind a wrapper here
 (launch count on the wrapper, the plain PyTorch version on CPU tensors). The
@@ -13,7 +13,8 @@ function, at the JAX scripts' sizes: M = 2^22 indices for P1 (2^20 with
 ``--quick``) into a (2^19, 2) table, 2^20 row reads of an (8192, 128) table
 for P2. It prints ms and ns per index for each, the least time the card
 could take for the data it moved (``bound_ms``), and one JSON line
-``{"probes": [...]}``. It needs a CUDA card.
+``{"probes": [...]}``. ``--only`` runs the named probes alone (names as in
+that line). It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -42,18 +43,12 @@ P1 = "scripts/microbench_pallas.py"
 P2 = "scripts/microbench_pallas_gather.py"
 
 
-def _lib():
-    return cuda_build.library("gather_probes")
-
-
 def _launch(name, argtypes, *args):
     """Call entry point ``name`` with ``args`` and the current stream."""
-    fn = getattr(_lib(), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
-    cuda_build.check(rc, name, "the shapes of tools/microbench_gather.py")
+    fn = cuda_build.entry("gather_probes", name, [*argtypes, ctypes.c_void_p])
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, name, "the shapes of tools/microbench_gather.py, operands "
+                     "16-byte aligned")
 
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -179,6 +174,8 @@ def sublane_gather(idx, table):
     if tuple(table.shape) != (SUB_ROWS, 128) or idx.shape[1] != 128:
         raise ValueError("sublane_gather: a (512, 128) table and (rows, 128) indices")
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    if idx.shape[0] == 0:
+        return out
     _launch("probe_sublane_gather", [_P, _L, _P, _P], idx.data_ptr(), idx.shape[0],
             table.data_ptr(), out.data_ptr())
     sublane_gather.launches += 1
@@ -210,9 +207,13 @@ def onehot_grad(idx, wg, rows=T):
     if idx.device.type == "cpu":
         return plain_onehot_grad(idx, wg, rows)
     _check_index(idx, wg)
+    if rows % ONEHOT_B or tuple(wg.shape) != (idx.numel(), F):
+        raise ValueError(f"onehot_grad: rows a multiple of {ONEHOT_B} and ({idx.numel()}, {F}) "
+                         f"updates expected, got rows={rows}, {tuple(wg.shape)}")
     out = torch.empty((a_dim, F * ONEHOT_B), dtype=torch.float32, device=idx.device)
-    _launch("probe_onehot_grad", [_P, _L, _P, _I, _P], idx.data_ptr(), idx.numel(),
-            wg.data_ptr(), rows, out.data_ptr())
+    scratch = torch.zeros((rows, F), dtype=torch.float32, device=idx.device)
+    _launch("probe_onehot_grad", [_P, _L, _P, _I, _P, _P], idx.data_ptr(), idx.numel(),
+            wg.data_ptr(), rows, out.data_ptr(), scratch.data_ptr())
     onehot_grad.launches += 1
     return out
 
@@ -413,8 +414,14 @@ def check(name: str, got: np.ndarray, x: dict, rel: float, ref=None) -> float:
     return err
 
 
+QUEUE_CYCLES = 4_000_000  # ~2 ms of the card's clock: longer than queuing a batch
+
+
 def time_ms(fn, reps=20, inner=10, warmup=3):
-    """CUDA-event median over ``reps`` batches of ``inner`` calls, per call."""
+    """CUDA-event median over ``reps`` batches of ``inner`` calls, per call.
+    Each batch is queued behind a spin kernel, so the events time the
+    card's work and not the host's launch cost (which is of the order of a
+    short probe's time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -422,6 +429,7 @@ def time_ms(fn, reps=20, inner=10, warmup=3):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         a.record()
         for _ in range(inner):
             fn()
@@ -452,14 +460,48 @@ def check_all(m_p1: int, m_p2: int, device, seed: int = 0) -> dict:
     return errs
 
 
-def run(m_p1: int, m_p2: int, device, seed: int = 0, log=print) -> list[dict]:
-    """Check and time every probe at these sizes; returns one entry per
-    probe with ms, ns per index, the plain version's and the library call's
-    times and the bytes bound of this run's data."""
+def check_edges(device, seed: int = 0) -> dict:
+    """P1g with every index on one row (its atomics all on one address) into
+    a (1536, 2) table, and P1e on a ragged 37 rows, each against its plain
+    version on the CPU (P1g within 1e-6 x the summed magnitude, P1e to the
+    bit); returns the max abs error of each."""
+    rs = np.random.RandomState(seed)
+    rows, m = 3 * ONEHOT_B, 5003
+    idx = np.full(m, rows - 5, np.int32)
+    upd = (rs.randn(m, F) * 3.0).astype(np.float32)
+    got = onehot_grad(torch.from_numpy(idx).to(device), torch.from_numpy(upd).to(device), rows)
+    ref = plain_onehot_grad(torch.from_numpy(idx), torch.from_numpy(upd), rows)
+    mag = plain_onehot_grad(torch.from_numpy(idx), torch.from_numpy(np.abs(upd)), rows)
+    g_err = float((got.cpu().double() - ref.double()).abs().max())
+    g_tol = 1e-6 * float(mag.max()) + 1e-6
+    if not g_err <= g_tol:
+        raise AssertionError(f"P1g, all indices equal: max|kernel - plain| = {g_err:.3e} "
+                             f"beyond {g_tol:.3e}")
+    sidx = rs.randint(0, SUB_ROWS, (37, 128)).astype(np.int32)
+    table = rs.randn(SUB_ROWS, 128).astype(np.float32)
+    got = sublane_gather(torch.from_numpy(sidx).to(device), torch.from_numpy(table).to(device))
+    s_err = float((got.cpu() - plain_sublane_gather(torch.from_numpy(sidx),
+                                                    torch.from_numpy(table))).abs().max())
+    if not s_err == 0.0:
+        raise AssertionError(f"P1e, 37 rows: max|kernel - plain| = {s_err:.3e}, not 0")
+    return {"P1g_onehot_grad": g_err, "P1e_sublane_gather": s_err}
+
+
+def run(m_p1: int, m_p2: int, device, seed: int = 0, log=print, only=None) -> list[dict]:
+    """Check and time every probe (or those named in ``only``) at these
+    sizes; returns one entry per probe with ms, ns per index, the plain
+    version's and the library call's times and the bytes bound of this run's
+    data."""
     x = make_inputs(m_p1, m_p2, seed)
     d = to_device(x, device)
+    specs = probe_specs(d)
+    unknown = sorted(set(only or ()) - set(specs))
+    if unknown:
+        raise ValueError(f"unknown probes {unknown}; known: {sorted(specs)}")
     entries = []
-    for name, (replaces, kernel, library, lib_name, n_bytes, n_idx, rel) in probe_specs(d).items():
+    for name, (replaces, kernel, library, lib_name, n_bytes, n_idx, rel) in specs.items():
+        if only and name not in only:
+            continue
         got = kernel()
         torch.cuda.synchronize()
         err = check(name, got.cpu().numpy(), x, rel)
@@ -484,7 +526,11 @@ def run(m_p1: int, m_p2: int, device, seed: int = 0, log=print) -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true", help="M = 2^20 for P1 (else 2^22)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated probe names to run (default: all), e.g. "
+                         "P1e_sublane_gather,P1g_onehot_grad")
     args = ap.parse_args(argv)
+    only = [n for n in args.only.split(",") if n]
     if not torch.cuda.is_available():
         print("microbench_gather: needs a CUDA card", file=sys.stderr)
         return 2
@@ -493,7 +539,7 @@ def main(argv=None) -> int:
     cuda_build.build_all()
     print(f"[probe] {torch.cuda.get_device_name(0)}; P1 M={m_p1} into ({T}, {F}) f32; "
           f"P2 M={P2_M} rows of ({P2_T}, 128) f32", flush=True)
-    entries = run(m_p1, P2_M, device, log=lambda s: print(s, flush=True))
+    entries = run(m_p1, P2_M, device, log=lambda s: print(s, flush=True), only=only)
     counts = launch_counts()
     for e in entries:
         e["launches"] = counts[e["name"]]

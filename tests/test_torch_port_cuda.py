@@ -593,6 +593,93 @@ def test_probe_kernels_match_numpy(cuda_device):
     assert all(v >= 1 for v in mb.launch_counts().values())
 
 
+def _onehot_inputs(m, rows, kind, seed):
+    rs = np.random.RandomState(seed)
+    if kind == "uniform":
+        idx = rs.randint(0, rows, m)
+    elif kind == "all_equal":  # one hot row: every atomic on one address
+        idx = np.full(m, rows // 3 + 7)
+    else:  # "ends": only the first and the last row
+        idx = np.where(rs.rand(m) < 0.5, 0, rows - 1)
+    return idx.astype(np.int32), (rs.randn(m, 2) * 3.0).astype(np.float32)
+
+
+def _onehot_check(got, idx, upd, rows):
+    """P1g against its plain version on the CPU, within 1e-6 x the largest
+    summed magnitude (+1e-6): f32 sums whose order the atomics change from
+    run to run."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    ref = mb.plain_onehot_grad(torch.from_numpy(idx), torch.from_numpy(upd), rows)
+    mag = mb.plain_onehot_grad(torch.from_numpy(idx), torch.from_numpy(np.abs(upd)), rows)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    err = float((got.cpu().double() - ref.double()).abs().max()) if ref.numel() else 0.0
+    tol = 1e-6 * float(mag.abs().max()) + 1e-6
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("m,rows,kind", [
+    (0, 1 << 19, "uniform"), (1, 1 << 19, "uniform"), (1023, 1 << 19, "uniform"),
+    (1 << 16, 1 << 19, "uniform"), (1 << 16, 1 << 19, "all_equal"), (4099, 1 << 19, "ends"),
+    (5003, 1536, "uniform"), (1 << 16, 1 << 20, "uniform"), (4096, 1536, "all_equal")])
+def test_onehot_grad_edges_match_plain(cuda_device, m, rows, kind):
+    """P1g (the scatter design of csrc/gather_probes.cu) at no update, one, a
+    ragged count, 2^16, every index equal, indices on the first and last
+    rows only, and tables of other than 2^19 rows; one launch counted."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    idx, upd = _onehot_inputs(m, rows, kind, seed=m + rows)
+    before = mb.onehot_grad.launches
+    got = mb.onehot_grad(torch.from_numpy(idx).to(cuda_device),
+                         torch.from_numpy(upd).to(cuda_device), rows)
+    torch.cuda.synchronize()
+    assert mb.onehot_grad.launches == before + 1
+    assert got.shape == (rows // 512, 1024)
+    _onehot_check(got, idx, upd, rows)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 32768])
+def test_sublane_gather_edges_match_plain(cuda_device, rows):
+    """P1e (a 32-column slice of the table per block, rows in groups of 8) on
+    one row, a ragged five and 32,768 rows: equal to torch.gather on the CPU
+    to the bit."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    rs = np.random.RandomState(rows)
+    idx = rs.randint(0, 512, (rows, 128)).astype(np.int32)
+    idx[0, :4] = [0, 511, 0, 511]
+    table = rs.randn(512, 128).astype(np.float32)
+    before = mb.sublane_gather.launches
+    got = mb.sublane_gather(torch.from_numpy(idx).to(cuda_device),
+                            torch.from_numpy(table).to(cuda_device))
+    torch.cuda.synchronize()
+    assert mb.sublane_gather.launches == before + 1
+    ref = mb.plain_sublane_gather(torch.from_numpy(idx), torch.from_numpy(table))
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_probe_redesigns_repeat(cuda_device):
+    """P1g and P1e called twice on the same inputs: P1e equal to the bit both
+    times, P1g within its tolerance both times (atomics reorder its sums), two
+    launches each."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    idx, upd = _onehot_inputs(1 << 18, 1 << 19, "uniform", seed=5)
+    rs = np.random.RandomState(6)
+    sidx = torch.from_numpy(rs.randint(0, 512, (2048, 128)).astype(np.int32)).to(cuda_device)
+    table = torch.from_numpy(rs.randn(512, 128).astype(np.float32)).to(cuda_device)
+    di, du = torch.from_numpy(idx).to(cuda_device), torch.from_numpy(upd).to(cuda_device)
+    g0, s0 = mb.onehot_grad.launches, mb.sublane_gather.launches
+    first = (mb.onehot_grad(di, du), mb.sublane_gather(sidx, table))
+    second = (mb.onehot_grad(di, du), mb.sublane_gather(sidx, table))
+    torch.cuda.synchronize()
+    assert (mb.onehot_grad.launches, mb.sublane_gather.launches) == (g0 + 2, s0 + 2)
+    for got in (first[0], second[0]):
+        _onehot_check(got, idx, upd, 1 << 19)
+    ref = mb.plain_sublane_gather(sidx.cpu(), table.cpu())
+    assert torch.equal(first[1].cpu(), ref) and torch.equal(second[1].cpu(), ref)
+
+
 # -- the fused backward kernels K2 (and K14, cp_big) and K4 at every
 # instantiation: sizes around the 64-sample tile, no samples, every sample at
 # one point, ray-ordered against shuffled samples, and repeated calls
