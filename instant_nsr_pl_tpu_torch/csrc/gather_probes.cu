@@ -5,8 +5,9 @@
 // Replaces the eight pallas_calls of the JAX package's probe scripts, each
 // computing the same function:
 //   P1a scripts/microbench_pallas.py:156 (pallas_scalar_gather, :143):
-//       out[j] = table[idx[j]] over a (2^19, 2) f32 table; a thread per index
-//       (UNROLL 1) or per 8 consecutive indices (UNROLL 8), one 8-byte load
+//       out[j] = table[idx[j]] over a (2^19, 2) f32 table, one 8-byte load
+//       per index; unroll 1 a thread per index, unroll 8 eight gathers in
+//       flight a lane, a warp's loads and stores coalesced (below)
 //   P1b :201 (bench_pallas_vector_gather, :191): the same gather, a block per
 //       8,192-index chunk
 //   P1c :237 (bench_pallas_takealong_col, :225): whole 128-wide rows of a
@@ -17,7 +18,7 @@
 //   P1e :311 (bench_pallas_sublane_gather, :297): out[r, c] = table[idx[r, c],
 //       c] of a (512, 128) table
 //   P1f :359 (pallas_scatter_add, :340): scatter-add of (M, 2) f32 updates
-//       into a zeroed (2^19, 2) table with float32 atomicAdd
+//       into a zeroed (2^19, 2) table, one 8-byte vector atomic per update
 //   P1g :419 (pallas_onehot_grad, :396): the same gradient as the TPU's
 //       one-hot products U^T (W * g): rows split as (a, b) = (row / 512, row %
 //       512), each update rounded to bf16, sums in f32, output (T / 512, 512 *
@@ -35,9 +36,33 @@
 // HBM rate; their random rows cost a 32-byte sector each (P1a, P1b: 8 B used
 // of 32), unless the table stays in the 50 MB L2 (the 4 MB (2^19, 2) table
 // does; the 256 MB (2^19, 128) table of P1c does not). The scatters issue
-// one float32 atomic per value (P1f) or one 8-byte vector atomic per update
-// (P1g). The bounds are computed in tools/microbench_gather.py from each
-// run's data.
+// one 8-byte vector atomic per update (P1f, P1g). The bounds are computed in
+// tools/microbench_gather.py from each run's data.
+//
+// P1a: the gathers of a (2^19, 2) table that stays in L2 are bound by the
+// L2's sector rate, not by the 50.3 MB the indices and output move through
+// HBM (0.0163 ms): at M = 2^22, 4.19 M random 32-byte table sectors and 1.57
+// M sectors of the streams. Unroll 1 moves them in 0.0395-0.0397 ms, ~145 G
+// sectors/s, 2048 single gathers in flight an SM. A first unroll-8 design
+// (a thread on 8 consecutive indices: 32-byte lane strides on the index
+// loads, 64-byte lane strides on the float2 stores, so each store touched
+// 32 sectors) took 0.0766-0.0777. Here a warp's index loads and stores are
+// coalesced (scalar_gather8), with equal spans per warp so that no warp runs
+// a last step alone: 0.0404-0.0408 ms, table[idx] 0.0497-0.0499. More
+// gathers in flight buy nothing at that rate. Measured and dropped: 16-byte
+// index loads with float4 stores (0.0466-0.0468), a grid-stride walk
+// (0.0404-0.0417), no cache hints (0.0415-0.0421), the table through L2
+// only (__ldcg, +0.0001-0.0008), 2-5 blocks an SM (0.0416-0.0460), 4
+// gathers a lane (0.0398-0.0413), 32-bit index arithmetic at 8 blocks an SM
+// (0.0410-0.0427).
+//
+// P1f: every update read once (16-byte loads of four indices and four
+// updates) and added with one 8-byte atomicAdd(float2 *) (REDG.E.ADD.F32x2)
+// into the zeroed output, P1g's scatter pass (vector_scatter) without the
+// bf16 rounding. A first design of two scalar f32 atomics per update (8.39
+// M, 4-byte index and 8-byte update loads, a grid capped at 8,192 blocks)
+// took 0.1069-0.1074 ms; this one 0.0608-0.0612, index_add_ 0.0806-0.0811,
+// bound by the L2's atomic unit as P1g is.
 //
 // P1e: the bytes bound is the indices read and the output written once
 // (33.8 MB at M = 2^22, 0.0101 ms at 3.35 TB/s). Two things kept a first
@@ -80,6 +105,9 @@
 // within 1e-6 x the largest summed magnitude, not to the bit; every index on
 // one row serialises the atomics on one address and stays right.
 //
+// Times: CUDA-event medians of tools/microbench_gather.py at M = 2^22 on an
+// NVIDIA H100 80GB HBM3 at 700 W, the card's work alone, warm (ms).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
 #include <cstdint>
@@ -120,16 +148,67 @@ inline cudaError_t resident_blocks(const void* kernel, int smem, int (&cache)[kM
   return cudaSuccess;
 }
 
-template <int UNROLL>
+// *grid = the resident blocks of `kernel` (no dynamic shared memory), or the
+// blocks that `work` items at `per_block` items a block need, whichever is
+// less, and at least one
+inline cudaError_t persistent_grid(const void* kernel, long long work, int per_block,
+                                   int (&cache)[kMaxDevices], int* grid) {
+  int resident = 0;
+  const cudaError_t e = resident_blocks(kernel, 0, cache, &resident);
+  if (e != cudaSuccess) return e;
+  const long long need = (work + per_block - 1) / per_block;
+  *grid = static_cast<int>(need < resident ? (need > 0 ? need : 1) : resident);
+  return cudaSuccess;
+}
+
+// unroll 1: a thread per index
 __global__ void __launch_bounds__(kProbeBlock)
     scalar_gather(const int* __restrict__ idx, long long m,
                   const float2* __restrict__ table, float2* __restrict__ out) {
-  const long long base =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * UNROLL;
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j < m) out[j] = __ldg(table + idx[j]);
+}
+
+constexpr int kGatherUnroll = 8;  // gathers a lane keeps in flight
+constexpr int kGatherWarps = kProbeBlock / 32;
+constexpr int kGatherChunk = kGatherUnroll * 32;  // indices of a warp's step
+
+// unroll 8, on a persistent grid whose warps take equal contiguous spans of
+// the indices (ceil(m / warps) rounded up to 32), in steps of 256: lane l
+// takes j = step + u * 32 + l for u = 0..7, so that every index load (128
+// bytes) and every float2 store (256 bytes) of a warp is coalesced and a
+// lane's 8 gathers are in flight together. The next step's indices are
+// loaded before the current step is stored; the streamed indices and output
+// go through __ldcs / __stcs (evict first), which leaves the table's rows in
+// L2
+__global__ void __launch_bounds__(kProbeBlock)
+    scalar_gather8(const int* __restrict__ idx, long long m,
+                   const float2* __restrict__ table, float2* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * kGatherWarps;
+  const long long warp = static_cast<long long>(blockIdx.x) * kGatherWarps + (threadIdx.x >> 5);
+  const long long span = ((m + warps - 1) / warps + 31) / 32 * 32;
+  const long long begin = warp * span;
+  const long long end = begin + span < m ? begin + span : m;
+  int ix[kGatherUnroll];
+  auto load = [&](long long b) {
 #pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const long long j = base + u;
-    if (j < m) out[j] = __ldg(table + idx[j]);
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const long long j = b + u * 32 + lane;
+      ix[u] = j < end ? __ldcs(idx + j) : 0;
+    }
+  };
+  if (begin < end) load(begin);
+  for (long long b = begin; b < end; b += kGatherChunk) {
+    float2 v[kGatherUnroll];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) v[u] = __ldg(table + ix[u]);
+    if (b + kGatherChunk < end) load(b + kGatherChunk);
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const long long j = b + u * 32 + lane;
+      if (j < end) __stcs(out + j, v[u]);
+    }
   }
 }
 
@@ -217,19 +296,6 @@ __global__ void __launch_bounds__(kProbeBlock)
   }
 }
 
-__global__ void __launch_bounds__(kProbeBlock)
-    scatter_add(const int* __restrict__ idx, long long m, const float2* __restrict__ upd,
-                float* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; j < m;
-       j += stride) {
-    const float2 u = upd[j];
-    float* row = out + 2LL * idx[j];
-    atomicAdd(row, u.x);
-    atomicAdd(row + 1, u.y);
-  }
-}
-
 constexpr int kOneHotB = 512;  // columns b of one feature block
 constexpr int kOneHotF = 2;
 
@@ -237,34 +303,42 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ void onehot_add(float2* __restrict__ scratch, int row, float x,
-                                           float y) {
-  atomicAdd(scratch + row, make_float2(bf16_round(x), bf16_round(y)));
+// one 8-byte vector atomic (REDG.E.ADD.F32x2) per update row
+template <bool kRoundBf16>
+__device__ __forceinline__ void add_row(float2* __restrict__ table, int row, float x, float y) {
+  if constexpr (kRoundBf16) {
+    x = bf16_round(x);
+    y = bf16_round(y);
+  }
+  atomicAdd(table + row, make_float2(x, y));
 }
 
-// pass 1: every update once, rounded to bf16, one 8-byte vector atomic into
-// row idx of the zeroed row-major (rows, 2) scratch; a step of a thread is
-// four updates from one 16-byte index load and two 16-byte update loads
+// every update once, one 8-byte vector atomic into row idx of the zeroed
+// row-major (rows, 2) f32 table; a step of a thread is four updates from one
+// 16-byte index load and two 16-byte update loads, the last m % 4 one a
+// thread. P1f adds the f32 updates into its output (kRoundBf16 false); P1g's
+// pass 1 rounds each to bf16 first and adds into its scratch
+template <bool kRoundBf16>
 __global__ void __launch_bounds__(kProbeBlock)
-    onehot_scatter(const int* __restrict__ idx, long long m, const float2* __restrict__ wg,
-                   float2* __restrict__ scratch) {
+    vector_scatter(const int* __restrict__ idx, long long m, const float2* __restrict__ upd,
+                   float2* __restrict__ table) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long m4 = m / 4;
   const int4* idx4 = reinterpret_cast<const int4*>(idx);
-  const float4* wg4 = reinterpret_cast<const float4*>(wg);
+  const float4* upd4 = reinterpret_cast<const float4*>(upd);
   for (long long q = first; q < m4; q += stride) {
     const int4 ix = __ldcs(idx4 + q);
-    const float4 w0 = __ldcs(wg4 + 2 * q);
-    const float4 w1 = __ldcs(wg4 + 2 * q + 1);
-    onehot_add(scratch, ix.x, w0.x, w0.y);
-    onehot_add(scratch, ix.y, w0.z, w0.w);
-    onehot_add(scratch, ix.z, w1.x, w1.y);
-    onehot_add(scratch, ix.w, w1.z, w1.w);
+    const float4 w0 = __ldcs(upd4 + 2 * q);
+    const float4 w1 = __ldcs(upd4 + 2 * q + 1);
+    add_row<kRoundBf16>(table, ix.x, w0.x, w0.y);
+    add_row<kRoundBf16>(table, ix.y, w0.z, w0.w);
+    add_row<kRoundBf16>(table, ix.z, w1.x, w1.y);
+    add_row<kRoundBf16>(table, ix.w, w1.z, w1.w);
   }
   for (long long j = m4 * 4 + first; j < m; j += stride) {
-    const float2 w = wg[j];
-    onehot_add(scratch, idx[j], w.x, w.y);
+    const float2 w = upd[j];
+    add_row<kRoundBf16>(table, idx[j], w.x, w.y);
   }
 }
 
@@ -329,11 +403,16 @@ int probe_scalar_gather(const int* idx, long long m, const void* table, void* ou
   const float2* t = static_cast<const float2*>(table);
   float2* o = static_cast<float2*>(out);
   if (unroll == 1) {
-    insr::scalar_gather<1><<<insr::probe_grid(m, insr::kProbeBlock), insr::kProbeBlock, 0, st>>>(
+    insr::scalar_gather<<<insr::probe_grid(m, insr::kProbeBlock), insr::kProbeBlock, 0, st>>>(
         idx, m, t, o);
   } else if (unroll == 8) {
-    insr::scalar_gather<8><<<insr::probe_grid(m, 8 * insr::kProbeBlock), insr::kProbeBlock, 0,
-                             st>>>(idx, m, t, o);
+    static int cache[insr::kMaxDevices] = {};
+    int grid = 0;
+    const cudaError_t e = insr::persistent_grid(reinterpret_cast<const void*>(insr::scalar_gather8),
+                                                m, insr::kGatherChunk * insr::kGatherWarps, cache,
+                                                &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    insr::scalar_gather8<<<grid, insr::kProbeBlock, 0, st>>>(idx, m, t, o);
   } else {
     return -1;
   }
@@ -383,11 +462,21 @@ int probe_sublane_gather(const int* idx, long long rows, const float* table, flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// out: the (rows, 2) f32 table, zeroed by the caller; idx, upd and out
+// 16-byte aligned
 int probe_scatter_add(const int* idx, long long m, const void* upd, float* out, void* stream) {
-  const long long g = (m + insr::kProbeBlock - 1) / insr::kProbeBlock;
-  insr::scatter_add<<<static_cast<int>(g < 8192 ? (g > 0 ? g : 1) : 8192), insr::kProbeBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(idx, m,
-                                                           static_cast<const float2*>(upd), out);
+  if (reinterpret_cast<uintptr_t>(idx) % 16 || reinterpret_cast<uintptr_t>(upd) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return -1;
+  }
+  static int cache[insr::kMaxDevices] = {};
+  int grid = 0;
+  const cudaError_t e = insr::persistent_grid(
+      reinterpret_cast<const void*>(insr::vector_scatter<false>), m / 4, insr::kProbeBlock, cache,
+      &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  insr::vector_scatter<false><<<grid, insr::kProbeBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      idx, m, static_cast<const float2*>(upd), reinterpret_cast<float2*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -400,16 +489,15 @@ int probe_onehot_grad(const int* idx, long long m, const void* wg, int table_row
     return -1;
   }
   static int cache[insr::kMaxDevices] = {};
-  int resident = 0;
-  const cudaError_t e = insr::resident_blocks(
-      reinterpret_cast<const void*>(insr::onehot_scatter), 0, cache, &resident);
+  int grid = 0;
+  const cudaError_t e = insr::persistent_grid(
+      reinterpret_cast<const void*>(insr::vector_scatter<true>), m / 4, insr::kProbeBlock, cache,
+      &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float2* s2 = reinterpret_cast<float2*>(scratch);
   if (m > 0) {
-    const long long need = (m / 4 + insr::kProbeBlock - 1) / insr::kProbeBlock;
-    const int grid = static_cast<int>(need < resident ? (need > 0 ? need : 1) : resident);
-    insr::onehot_scatter<<<grid, insr::kProbeBlock, 0, st>>>(
+    insr::vector_scatter<true><<<grid, insr::kProbeBlock, 0, st>>>(
         idx, m, static_cast<const float2*>(wg), s2);
   }
   const int write_grid = insr::probe_grid(table_rows, insr::kProbeBlock);

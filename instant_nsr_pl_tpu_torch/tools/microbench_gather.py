@@ -7,14 +7,16 @@ P1a-P1g and P2, the CUDA counterparts of the JAX package's Pallas probes
 Each probe is a kernel of ``csrc/gather_probes.cu`` behind a wrapper here
 (launch count on the wrapper, the plain PyTorch version on CPU tensors). The
 script builds them, checks each against the numpy result the JAX script
-checks, then times each (CUDA-event median of 20 batches of 10 launches)
-beside its plain version and the one PyTorch call that computes the same
-function, at the JAX scripts' sizes: M = 2^22 indices for P1 (2^20 with
-``--quick``) into a (2^19, 2) table, 2^20 row reads of an (8192, 128) table
-for P2. It prints ms and ns per index for each, the least time the card
-could take for the data it moved (``bound_ms``), and one JSON line
-``{"probes": [...]}``. ``--only`` runs the named probes alone (names as in
-that line). It needs a CUDA card.
+checks, then times each beside its plain version and the one PyTorch call
+that computes the same function: warm, ``ms`` (CUDA-event median of 20
+batches of 10 back-to-back launches on the same inputs, part of which stay
+in L2), and for kernel and library call also cold, ``ms_cold`` (median of
+50 single launches, each after a flush of the L2), at the JAX scripts'
+sizes: M = 2^22 indices for P1 (2^20 with ``--quick``) into a (2^19, 2)
+table, 2^20 row reads of an (8192, 128) table for P2. It prints ms and ns
+per index for each, the least time the card could take for the data it
+moved (``bound_ms``), and one JSON line ``{"probes": [...]}``. ``--only``
+runs the named probes alone (names as in that line). It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -190,7 +192,11 @@ def scatter_add(idx, upd, rows=T):
     if idx.device.type == "cpu":
         return plain_scatter_add(idx, upd, rows)
     _check_index(idx, upd)
-    out = torch.zeros((rows, upd.shape[1]), dtype=torch.float32, device=idx.device)
+    if tuple(upd.shape) != (idx.numel(), F):
+        raise ValueError(f"scatter_add: ({idx.numel()}, {F}) updates expected, got "
+                         f"{tuple(upd.shape)}")
+    # zeroed here, inside the timed call, as the index_add_ yardstick's table is
+    out = torch.zeros((rows, F), dtype=torch.float32, device=idx.device)
     _launch("probe_scatter_add", [_P, _L, _P, _P], idx.data_ptr(), idx.numel(),
             upd.data_ptr(), out.data_ptr())
     scatter_add.launches += 1
@@ -439,6 +445,36 @@ def time_ms(fn, reps=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
+FLUSH_BYTES = 128 << 20  # more than twice the card's 50 MB L2
+
+
+def time_cold_ms(fn, reps=50, batch=10, warmup=3):
+    """CUDA-event median over ``reps`` single calls, each with nothing of its
+    operands left in L2: before each call, outside its events, a write of
+    FLUSH_BYTES to a scratch buffer and then a read of it (the read writes
+    the flush's dirty lines back, so that the timed call does not). Batches
+    of ``batch`` calls are queued behind a spin kernel, as in
+    :func:`time_ms`."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for start in range(0, reps, batch):
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(min(batch, reps - start))]
+        torch.cuda._sleep(QUEUE_CYCLES)
+        for a, b in events:
+            flush.fill_(1.0)
+            flush.sum()
+            a.record()
+            fn()
+            b.record()
+        events[-1][1].synchronize()
+        times += [a.elapsed_time(b) for a, b in events]
+    return statistics.median(times)
+
+
 def to_device(x: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in x.items()}
 
@@ -460,31 +496,46 @@ def check_all(m_p1: int, m_p2: int, device, seed: int = 0) -> dict:
     return errs
 
 
+def _check_sum(label, got, ref, mag):
+    """max |got - ref| of a scatter's sums; raises beyond 1e-6 x the largest
+    summed magnitude (+1e-6)."""
+    err = float((got.cpu().double() - ref.double()).abs().max())
+    tol = 1e-6 * float(mag.max()) + 1e-6
+    if not err <= tol:
+        raise AssertionError(f"{label}: max|kernel - plain| = {err:.3e} beyond {tol:.3e}")
+    return err
+
+
 def check_edges(device, seed: int = 0) -> dict:
-    """P1g with every index on one row (its atomics all on one address) into
-    a (1536, 2) table, and P1e on a ragged 37 rows, each against its plain
-    version on the CPU (P1g within 1e-6 x the summed magnitude, P1e to the
-    bit); returns the max abs error of each."""
+    """The scatters P1f and P1g with every index on one row (their atomics
+    all on one address) into a (1536, 2) table, P1a unroll 8 on a ragged
+    2,053 indices (not a multiple of 4, 8 or 256) and P1e on a ragged 37
+    rows, each against its plain version on the CPU (the scatters within 1e-6
+    x the summed magnitude, the gathers to the bit); returns the max abs
+    error of each."""
     rs = np.random.RandomState(seed)
     rows, m = 3 * ONEHOT_B, 5003
-    idx = np.full(m, rows - 5, np.int32)
-    upd = (rs.randn(m, F) * 3.0).astype(np.float32)
-    got = onehot_grad(torch.from_numpy(idx).to(device), torch.from_numpy(upd).to(device), rows)
-    ref = plain_onehot_grad(torch.from_numpy(idx), torch.from_numpy(upd), rows)
-    mag = plain_onehot_grad(torch.from_numpy(idx), torch.from_numpy(np.abs(upd)), rows)
-    g_err = float((got.cpu().double() - ref.double()).abs().max())
-    g_tol = 1e-6 * float(mag.max()) + 1e-6
-    if not g_err <= g_tol:
-        raise AssertionError(f"P1g, all indices equal: max|kernel - plain| = {g_err:.3e} "
-                             f"beyond {g_tol:.3e}")
+    idx = torch.from_numpy(np.full(m, rows - 5, np.int32))
+    upd = torch.from_numpy((rs.randn(m, F) * 3.0).astype(np.float32))
+    errs = {}
+    for name, fn, plain in (("P1f_scatter_add", scatter_add, plain_scatter_add),
+                            ("P1g_onehot_grad", onehot_grad, plain_onehot_grad)):
+        got = fn(idx.to(device), upd.to(device), rows)
+        errs[name] = _check_sum(f"{name}, all indices equal", got, plain(idx, upd, rows),
+                                plain(idx, upd.abs(), rows))
     sidx = rs.randint(0, SUB_ROWS, (37, 128)).astype(np.int32)
     table = rs.randn(SUB_ROWS, 128).astype(np.float32)
     got = sublane_gather(torch.from_numpy(sidx).to(device), torch.from_numpy(table).to(device))
-    s_err = float((got.cpu() - plain_sublane_gather(torch.from_numpy(sidx),
-                                                    torch.from_numpy(table))).abs().max())
-    if not s_err == 0.0:
-        raise AssertionError(f"P1e, 37 rows: max|kernel - plain| = {s_err:.3e}, not 0")
-    return {"P1g_onehot_grad": g_err, "P1e_sublane_gather": s_err}
+    errs["P1e_sublane_gather"] = float((got.cpu() - plain_sublane_gather(
+        torch.from_numpy(sidx), torch.from_numpy(table))).abs().max())
+    gidx = torch.from_numpy(rs.randint(0, T, 2053).astype(np.int32))
+    table = torch.from_numpy(rs.randn(T, F).astype(np.float32))
+    got = scalar_gather(gidx.to(device), table.to(device), 8)
+    errs["P1a_scalar_gather_unroll8"] = float((got.cpu() - plain_gather(gidx, table)).abs().max())
+    for name in ("P1a_scalar_gather_unroll8", "P1e_sublane_gather"):
+        if not errs[name] == 0.0:
+            raise AssertionError(f"{name}, ragged: max|kernel - plain| = {errs[name]:.3e}, not 0")
+    return errs
 
 
 def run(m_p1: int, m_p2: int, device, seed: int = 0, log=print, only=None) -> list[dict]:
@@ -507,16 +558,19 @@ def run(m_p1: int, m_p2: int, device, seed: int = 0, log=print, only=None) -> li
         err = check(name, got.cpu().numpy(), x, rel)
         ms = time_ms(kernel)
         lib_ms = time_ms(library)
+        ms_cold = time_cold_ms(kernel)
+        lib_ms_cold = time_cold_ms(library)
         plain_ms = time_ms(lambda: plain_of(name, d))
         bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        log(f"[probe] {name}: {ms:.4f} ms, {ms * 1e6 / n_idx:.3f} ns/index (library "
-            f"{lib_name}: {lib_ms:.4f} ms, {lib_ms * 1e6 / n_idx:.3f} ns/index; plain "
-            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by bytes; max|kernel - numpy| "
-            f"{err:.3e}) at M={n_idx}")
+        log(f"[probe] {name}: {ms:.4f} ms, cold L2 {ms_cold:.4f} ms, {ms * 1e6 / n_idx:.3f} "
+            f"ns/index (library {lib_name}: {lib_ms:.4f} ms, cold L2 {lib_ms_cold:.4f} ms, "
+            f"{lib_ms * 1e6 / n_idx:.3f} ns/index; plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms by bytes; max|kernel - numpy| {err:.3e}) at M={n_idx}")
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "launches": 0, "max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "library_ms_cold": lib_ms_cold,
             "library_call": lib_name, "ns_per_index": ms * 1e6 / n_idx,
             "library_ns_per_index": lib_ms * 1e6 / n_idx, "m": n_idx,
         })

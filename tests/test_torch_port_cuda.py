@@ -658,6 +658,55 @@ def test_sublane_gather_edges_match_plain(cuda_device, rows):
     assert torch.equal(got.cpu(), ref)
 
 
+_PROBE_EDGES = [
+    (0, 1 << 19, "uniform"), (1, 1 << 19, "uniform"), (2053, 1 << 19, "uniform"),
+    (1 << 16, 1 << 19, "uniform"), (1 << 16, 1 << 19, "all_equal"), (4099, 1 << 19, "ends"),
+    (2053, 1000, "uniform"), (4096, 1000, "all_equal")]
+
+
+@pytest.mark.parametrize("m,rows,kind", _PROBE_EDGES)
+def test_scalar_gather_unroll8_edges_match_plain(cuda_device, m, rows, kind):
+    """P1a unroll 8 (warps over chunks of 256 consecutive indices, a
+    persistent grid) at no index, one, a ragged 2,053 (not a multiple of 4,
+    8 or 256), 2^16, every index on one row, indices on the first and last
+    rows only, and a table of 1,000 rows: equal to table[idx] on the CPU to
+    the bit; one launch counted."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    idx, _ = _onehot_inputs(m, rows, kind, seed=m + rows)
+    table = np.random.RandomState(rows).randn(rows, 2).astype(np.float32)
+    before = mb.scalar_gather.launches[8]
+    got = mb.scalar_gather(torch.from_numpy(idx).to(cuda_device),
+                           torch.from_numpy(table).to(cuda_device), 8)
+    torch.cuda.synchronize()
+    assert mb.scalar_gather.launches[8] == before + 1
+    ref = mb.plain_gather(torch.from_numpy(idx), torch.from_numpy(table))
+    assert got.shape == ref.shape == (m, 2)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("m,rows,kind", _PROBE_EDGES)
+def test_scatter_add_edges_match_plain(cuda_device, m, rows, kind):
+    """P1f (one 8-byte vector atomic per update into the zeroed output) at
+    the edge cases of the P1a test (every index on one row: every atomic on
+    one address), against index_add_ on the CPU within 1e-6 x the largest
+    summed magnitude (+1e-6); one launch counted."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    idx, upd = _onehot_inputs(m, rows, kind, seed=m + rows)
+    before = mb.scatter_add.launches
+    got = mb.scatter_add(torch.from_numpy(idx).to(cuda_device),
+                         torch.from_numpy(upd).to(cuda_device), rows)
+    torch.cuda.synchronize()
+    assert mb.scatter_add.launches == before + 1
+    ref = mb.plain_scatter_add(torch.from_numpy(idx), torch.from_numpy(upd), rows)
+    mag = mb.plain_scatter_add(torch.from_numpy(idx), torch.from_numpy(np.abs(upd)), rows)
+    assert got.shape == ref.shape == (rows, 2) and got.dtype == torch.float32
+    err = float((got.cpu().double() - ref.double()).abs().max())
+    tol = 1e-6 * float(mag.max()) + 1e-6
+    assert err <= tol, (err, tol)
+
+
 def test_probe_redesigns_repeat(cuda_device):
     """P1g and P1e called twice on the same inputs: P1e equal to the bit both
     times, P1g within its tolerance both times (atomics reorder its sums), two

@@ -1,14 +1,14 @@
-"""CPU checks of the probes P1g (one-hot table gradient) and P1e (sublane
-gather) of ``instant_nsr_pl_tpu_torch/tools/microbench_gather.py``: their
-wrappers on CPU tensors (the plain versions, which the card tests and
-``chip_smoke.py`` hold the kernels against) against the JAX package's Pallas
-probes of ``scripts/microbench_pallas.py`` in interpret mode, on the same
-numpy inputs.
+"""CPU checks of the probes P1a (scalar gather), P1f (scatter-add), P1g
+(one-hot table gradient) and P1e (sublane gather) of
+``instant_nsr_pl_tpu_torch/tools/microbench_gather.py``: their wrappers on
+CPU tensors (the plain versions, which the card tests and ``chip_smoke.py``
+hold the kernels against) against the JAX package's Pallas probes of
+``scripts/microbench_pallas.py`` in interpret mode, on the same numpy inputs.
 
-Tolerances: P1g sums f32 values in another order than the TPU kernel's
-one-hot products (their f32 accumulation of bf16-rounded updates), so it
-agrees within 1e-6 x the largest summed magnitude; P1e moves values and
-equals the JAX result to the bit."""
+Tolerances: P1f and P1g sum f32 values in another order than the TPU
+kernels (P1f's sequential adds, P1g's one-hot products: f32 accumulation of
+bf16-rounded updates), so they agree within 1e-6 x the largest summed
+magnitude; P1a and P1e move values and equal the JAX result to the bit."""
 
 import functools
 import importlib.util
@@ -51,6 +51,51 @@ def _onehot_indices(rs, m, rows, kind):
         return idx
     assert kind == "ends"
     return np.where(rs.rand(m) < 0.5, 0, rows - 1)
+
+
+@pytest.mark.parametrize("m,unroll", [(2048, 1), (2048, 8), (4096, 1), (4096, 8)])
+def test_scalar_gather_matches_jax_probe(probes, m, unroll):
+    """P1a: out[j] = table[idx[j]] of the (2^19, 2) f32 table against
+    pallas_scalar_gather at both unrolls of its bench (M a multiple of its
+    2,048-index chunk), equal to the bit; the port's wrapper at the same
+    unroll."""
+    rs = np.random.RandomState(m + unroll)
+    assert probes.T == mb.T and probes.F == mb.F
+    table = rs.randn(mb.T, mb.F).astype(np.float32)
+    idx = rs.randint(0, mb.T, m).astype(np.int32)
+    idx[:2] = [0, mb.T - 1]
+    ref = np.asarray(probes.pallas_scalar_gather(idx, table, unroll=unroll))
+    got = mb.scalar_gather(torch.from_numpy(idx), torch.from_numpy(table), unroll).numpy()
+    assert got.shape == ref.shape == (m, mb.F)
+    assert got.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, table[idx])
+
+
+@pytest.mark.parametrize("m,unroll,kind", [
+    (2048, 1, "uniform"), (2048, 8, "uniform"), (4096, 1, "uniform"), (4096, 8, "uniform"),
+    (4096, 1, "quarter_on_one_row"), (4096, 8, "quarter_on_one_row")])
+def test_scatter_add_matches_jax_probe(probes, m, unroll, kind):
+    """P1f: a zeroed (2^19, 2) f32 table with every update row added at its
+    index, against pallas_scatter_add (its sums sequential, the port's
+    index_add_ on the CPU) at both unrolls, M a multiple of its 2,048-index
+    chunk, within 1e-6 x the largest summed magnitude; rows no index touches
+    stay 0."""
+    rs = np.random.RandomState(3 * m + unroll + len(kind))
+    rows = probes.T
+    idx = _onehot_indices(rs, m, rows, kind).astype(np.int32)
+    upd = (rs.randn(m, mb.F) * 3.0).astype(np.float32)
+    ref = np.asarray(probes.pallas_scatter_add(idx, upd, unroll=unroll))
+    got = mb.scatter_add(torch.from_numpy(idx), torch.from_numpy(upd)).numpy()
+    assert got.shape == ref.shape == (rows, mb.F)
+    assert got.dtype == ref.dtype == np.float32
+    mag = mb.plain_scatter_add(torch.from_numpy(idx), torch.from_numpy(np.abs(upd))).numpy()
+    tol = 1e-6 * float(mag.max())
+    err = float(np.abs(got.astype(np.float64) - ref).max())
+    assert err <= tol, (err, tol)
+    touched = np.zeros(rows, bool)
+    touched[idx] = True
+    assert not got[~touched].any() and not ref[~touched].any()
 
 
 @pytest.mark.parametrize("m,kind", [(1024, "uniform"), (4096, "uniform"),
