@@ -17,7 +17,8 @@ lines are printed):
    radiance forward and backward: SH degree 4, 16 features, MLP
    32->64->64->3), at N=262,144 and a ragged N=262,107, each against its
    plain PyTorch version on the same inputs: forwards within 2e-2 *
-   max|plain|, backwards (fed the same training-mode residuals) within
+   max|plain| (eval mode equal to training mode to the bit), backwards (fed
+   the same training-mode residuals) within
    2.5e-2 * max|plain| per gradient tensor, the JAX gradient tests'
    tolerance; then timed with CUDA events (median of 20 batches of 10
    back-to-back calls, after warm-up);
@@ -71,9 +72,10 @@ lines are printed):
    around it; and the port's extraction of the scene's own sphere SDF, every
    vertex within one voxel of a sphere surface;
 12. HG1/HG2 (``csrc/hashgrid_{fwd,bwd}.cu``, the hash encoding and its
-   table gradient) at the bench hash shape (16 levels, F=2, 2^19 rows) at
-   N=262,144 and 262,107, with and without a level mask: HG1 within rtol
-   1e-5 of its plain version (equal to the bit in practice), HG2's table
+   table gradient, on the row-major (T, F) table) at the bench hash shape
+   (16 levels, F=2, 2^19 rows) at N=262,144 and 262,107, with and without a
+   level mask: HG1 within rtol 1e-5 of its plain version (equal to the bit
+   in practice; the share of equal entries is printed), HG2's table
    gradient within 1e-5 x max|plain| per level (float32 atomics), its
    position gradient within 1e-4, on uniform and on ray-ordered samples
    (where HG2 merges equal rows); timed, with bounds by compulsory bytes and
@@ -101,20 +103,25 @@ lines are printed):
    ``--export``: test/psnr, a non-empty mesh with valid indices, HG1 in the
    export's level grid;
 17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
-   The entries of the redesigned backward kernels (K2, K14, cp_big's K2, K4,
-   K10, K12, cp_big's K10, HG2) also carry ptxas' registers and spills of
-   this run's build, their shared memory and blocks per SM (the launch plan;
-   HG2's from its registers), ``ms_ray_ordered`` (the kernel timed on the
-   operands of the last step of the bench training runs, ray-ordered
-   samples, every launch of the step: K10 once per scale), ``device_ms``
-   (the device time of a call under torch.profiler, without the host's
-   share), ``composed_ms`` (their products as a chain of ``torch.matmul``
-   calls at the same shapes, or HG2's one ``index_add_`` per feature on
-   precomputed taps: a yardstick the port never calls) and, given
-   ``--parent DIR`` (another checkout, e.g. the parent commit from ``git
-   archive``), ``parent_ms`` / ``parent_ms_ray`` and ``parent_device_ms`` /
-   ``parent_device_ms_ray``: that design's times from ``tools/bwd_bench.py
-   --root DIR`` in this run;
+   The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
+   K4, K10, K12, cp_big's K10, HG2; the forwards K1, K13, cp_big's K1 and
+   HG1) also carry ptxas' registers and spills of this run's build, their
+   shared memory and blocks per SM (the launch plan; HG1's and HG2's from
+   their registers; K1 / K13 / cp_big's K1 for the training mode, and
+   ``ptxas_eval`` etc. for the eval mode), ``ms_ray_ordered`` (the kernel
+   timed on the operands of the last step of the bench training runs,
+   ray-ordered samples, every launch of the step: K10 once per scale; the
+   forwards' training-mode launches), for the backwards ``device_ms`` (the
+   device time of a call under torch.profiler, without the host's share)
+   and ``composed_ms`` (their products as a chain of ``torch.matmul`` calls
+   at the same shapes, or HG2's one ``index_add_`` per feature on
+   precomputed taps: a yardstick the port never calls) and, given ``--parent
+   DIR`` (another checkout, e.g. the parent commit from ``git archive``),
+   ``parent_ms`` / ``parent_ms_ray`` and ``parent_device_ms`` /
+   ``parent_device_ms_ray`` (the forwards also ``parent_ms_eval`` and
+   ``parent_ms_step``: the same training step's operands, saved by this run
+   under ``exp/chip_smoke/step_operands.pt``): that design's times from
+   ``tools/bwd_bench.py --root DIR`` in this run;
 18. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
@@ -223,10 +230,12 @@ def _mlp_macs(dims):
     return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
 
 
-# The redesigned backward kernels (csrc/mma_common.cuh): per kernel entry, its
-# source stem, the mangled-name marker of its instantiation in ptxas' output,
-# and the key of its launch plan (ops/cuda_build.py PLANS, without the device)
-BWD_KERNELS = {
+# The redesigned kernels (the backwards of csrc/mma_common.cuh, the forwards
+# K1 / K13 / cp_big's K1 and HG1): per kernel entry, its source stem, the
+# mangled-name marker of its instantiation in ptxas' output (a forward's
+# training mode; its eval mode in EVAL_MARKERS), and the key of its launch
+# plan (ops/cuda_build.py PLANS, without the device)
+REDESIGNED_KERNELS = {
     "cp_mlp_backward": ("cp_mlp_bwd", "cp_mlp_bwd_kernelILi64ELi16ELi2ELi64ELi1ELi16ELb0E",
                         ("cp_mlp_bwd", 64, 16, 2, 64, 1, 16)),
     "cp_mlp_stacked_backward": ("cp_mlp_bwd",
@@ -244,12 +253,27 @@ BWD_KERNELS = {
     "cp_jac_basis_backward@cp_big": ("cp_jac_basis_bwd",
                                      "cp_jac_basis_bwd_kernelILi128ELi16ELi1E",
                                      ("cp_jac_basis_bwd", 128, 16)),
-    # a grid-stride kernel of 128-thread blocks without shared memory: no plan
+    # grid-stride kernels of 128-thread blocks without shared memory: no plan
     "hashgrid_backward": ("hashgrid_bwd", "hashgrid_bwd_kernelILi2E", None),
+    "cp_mlp_forward": ("cp_mlp_fwd", "cp_mlp_fwd_kernelILi64ELi16ELi2ELi64ELi1ELi16ELb0ELb1E",
+                       ("cp_mlp_fwd", 64, 16, 2, 64, 1, 16, True)),
+    "cp_mlp_stacked_forward": ("cp_mlp_fwd",
+                               "cp_mlp_fwd_kernelILi64ELi16ELi2ELi64ELi1ELi16ELb1ELb1E",
+                               ("cp_mlp_stacked_fwd", 64, 16, 2, 64, 1, 16, True)),
+    "cp_mlp_forward@cp_big": ("cp_mlp_fwd",
+                              "cp_mlp_fwd_kernelILi128ELi16ELi3ELi64ELi1ELi16ELb0ELb1E",
+                              ("cp_mlp_fwd", 128, 16, 3, 64, 1, 16, True)),
+    "hashgrid_forward": ("hashgrid_fwd", "hashgrid_fwd_kernelILi2ELi4E", None),
 }
-# a training step's own operands of the backward kernels (captured in the last
-# step of a training run) and the kernels' times on them
+EVAL_MARKERS = {name: (stem, marker[:-len("ELb1E")] + "ELb0E", (*plan[:-1], False))
+                for name, (stem, marker, plan) in REDESIGNED_KERNELS.items()
+                if stem == "cp_mlp_fwd"}
+# a training step's own operands of the redesigned kernels (captured in the
+# last step of a training run), the kernels' times on them, and the
+# forwards' operands as tools/bwd_bench.py --step-operands reads them
 STEP_MS = {}
+STEP_OPERANDS = {}
+STEP_OPERANDS_PATH = os.path.join(ROOT, "exp", "chip_smoke", "step_operands.pt")
 
 
 def ptxas_info(stem, marker):
@@ -278,14 +302,45 @@ def ptxas_info(stem, marker):
     return info or None
 
 
-def capture_backward_operands(run_step, label):
-    """Run ``run_step()`` (one training step) with the backward launch
-    functions of K2, K14, K4, K10, K12 and HG2 recording their arguments;
+def _step_entry(name, args, kwargs):
+    """A forward launch's arguments as ``tools/bwd_bench.py --step-operands``
+    reads them (plain tensors and numbers, so another checkout can load
+    them)."""
+    if name == "hashgrid_forward":
+        table, x, spec = args[:3]
+        mask = args[3] if len(args) > 3 else kwargs.get("level_mask")
+        return {"kind": "hash", "table": table.detach(), "x": x.detach(), "mask": mask,
+                "spec": {k: getattr(spec, k) for k in (
+                    "n_levels", "n_features_per_level", "log2_hashmap_size", "base_resolution",
+                    "per_level_scale", "n_input_dims")}}
+    ops, x, cp_spec, mlp_spec = args[:4]
+    ops = (list(ops[0]) if isinstance(ops[0], (list, tuple)) else ops[0], *ops[1:])
+    return {"kind": "cp", "ops": ops, "x": x.detach(), "stacked": name.startswith("cp_mlp_st"),
+            "train": bool(kwargs.get("train", args[4] if len(args) > 4 else False)),
+            "cp": (cp_spec.n_components, tuple(cp_spec.resolutions), cp_spec.n_features),
+            "mlp": (mlp_spec.dim_in, mlp_spec.dim_out, mlp_spec.n_neurons,
+                    mlp_spec.n_hidden_layers)}
+
+
+# chip_smoke entry name -> tools/bwd_bench.py case
+BENCH_KEY = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
+             "cp_mlp_backward@cp_big": "k2_cp_big", "sh_mlp_backward": "k4",
+             "cp_jac_basis_backward": "k10", "cp_jac_stacked_backward": "k12",
+             "cp_jac_basis_backward@cp_big": "k10_cp_big", "hashgrid_backward": "hg2",
+             "cp_mlp_forward": "k1", "cp_mlp_stacked_forward": "k13",
+             "cp_mlp_forward@cp_big": "k1_cp_big", "hashgrid_forward": "hg1"}
+
+
+def capture_step_operands(run_step, label):
+    """Run ``run_step()`` (one training step) with the launch functions of
+    the redesigned kernels recording their arguments: the backwards K2, K14,
+    K4, K10, K12 and HG2, and the training-mode forwards K1, K13 and HG1;
     then time each recorded kernel on its step's own (ray-ordered) operands,
     all of its launches of the step in a row (K10: one per scale), into
-    ``STEP_MS[name]`` as ``(ms, n)``. The recorders call the launch functions
-    themselves, so the step's launch counts are unchanged, and the counts
-    are restored after the timing launches."""
+    ``STEP_MS[name]`` as ``(ms, n)``, and keep the forwards' arguments in
+    ``STEP_OPERANDS`` for the parent design's timing. The recorders call the
+    launch functions themselves, so the step's launch counts are unchanged,
+    and the counts are restored after the timing launches."""
     from instant_nsr_pl_tpu_torch.ops import cp_mlp, cp_product, cp_stacked, hashgrid, sh_mlp
 
     seen = {}
@@ -307,13 +362,23 @@ def capture_backward_operands(run_step, label):
                                     lambda a: a[0].shape[1]),
         "hashgrid_backward": (hashgrid, "hashgrid_backward_launch", hashgrid.hashgrid_backward,
                               lambda a: a[1].reshape(-1, 3).shape[0]),
+        "cp_mlp_forward": (cp_mlp, "cp_mlp_launch", cp_mlp.cp_mlp_forward,
+                           lambda a: a[1].reshape(-1, 3).shape[0]),
+        "cp_mlp_stacked_forward": (cp_mlp, "cp_mlp_stacked_launch", cp_mlp.cp_mlp_stacked_forward,
+                                   lambda a: a[1].reshape(-1, 3).shape[0]),
+        "hashgrid_forward": (hashgrid, "hashgrid_forward_launch", hashgrid.hashgrid_forward,
+                             lambda a: a[1].reshape(-1, 3).shape[0]),
     }
     for name, (mod, attr, _, _) in targets.items():
         fn = getattr(mod, attr)
         originals[name] = fn
 
         def record(*args, _name=name, _fn=fn, **kwargs):
-            seen.setdefault(_name, []).append((args, kwargs))
+            # the CP forwards: training-mode launches only (a grid update's
+            # eval launches are not the step's forward)
+            if not _name.startswith("cp_mlp_") or not _name.endswith("forward") or \
+                    kwargs.get("train", False):
+                seen.setdefault(_name, []).append((args, kwargs))
             return _fn(*args, **kwargs)
 
         setattr(mod, attr, record)
@@ -332,6 +397,8 @@ def capture_backward_operands(run_step, label):
         ms = time_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
         counter.launches = count
         STEP_MS[key] = (ms, int(n_of(calls[-1][0])))
+        if name.endswith("forward"):
+            STEP_OPERANDS[BENCH_KEY[key]] = _step_entry(name, *calls[-1])
         print(f"[step-operands] {key}: {ms:.4f} ms on a training step's own operands "
               f"({len(calls)} launch(es), N={STEP_MS[key][1]})", flush=True)
     return out
@@ -435,13 +502,15 @@ def device_ms(fn):
 
 
 def parent_times(parent):
-    """The parent design's times of the same kernels at N_FULL on uniform and
-    ray-ordered operands, back to back and as device time: ``tools/bwd_bench.py
-    --root parent`` in a process of its own (it imports the other checkout's
-    port)."""
+    """The parent design's times of the redesigned kernels at N_FULL on
+    uniform and ray-ordered operands, back to back and as device time, and
+    of the forwards on the training steps' own operands saved by this run
+    (``STEP_OPERANDS_PATH``): ``tools/bwd_bench.py --root parent`` in a
+    process of its own (it imports the other checkout's port)."""
     out = os.path.join(ROOT, "exp", "chip_smoke", "parent_bwd.json")
     cmd = [sys.executable, os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "tools", "bwd_bench.py"),
-           "--root", parent, "--order", "uniform,ray", "--out", out]
+           "--root", parent, "--order", "uniform,ray", "--step-operands", STEP_OPERANDS_PATH,
+           "--out", out]
     subprocess.run(cmd, check=True, timeout=900)
     with open(out) as fh:
         result = json.load(fh)
@@ -511,6 +580,8 @@ def kernel_phase(device):
         got, *res = launch(True)
         ref, *ref_res = plain(*args, save_residuals=True)
         compare(f"{name} training mode", got, ref)
+        if not torch.equal(got, launch(False)[0]):
+            raise AssertionError(f"{name}: eval and training mode disagree")
         for label, a, b in zip(("vsave", "hsave") if key == "cp" else ("hsave",), res, ref_res):
             frac = float((a != b).float().mean())
             print(f"[kernel] {name} training mode: {label} {tuple(a.shape)} differs from the "
@@ -1179,7 +1250,7 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
             t_warm = time.perf_counter()
         before = {k: c.launches for k, c in counters.items()}
         if i == TRAIN_STEPS - 1:
-            state, metrics = capture_backward_operands(lambda: system.train_step(state), "")
+            state, metrics = capture_step_operands(lambda: system.train_step(state), "")
         else:
             state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
@@ -1346,7 +1417,7 @@ def neus_train_phase(device, smi, config=NEUS_CONFIG):
             t_warm = time.perf_counter()
         before = {k: c.launches for k, c in counters.items()}
         if i == NEUS_STEPS - 1:
-            state, metrics = capture_backward_operands(lambda: system.train_step(state), "")
+            state, metrics = capture_step_operands(lambda: system.train_step(state), "")
         else:
             state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
@@ -1770,8 +1841,8 @@ def hash_kernel_phase(device):
             for lv in range(n_levels):
                 sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
                 for got_t in (dt, dt_only):
-                    e = float((got_t[:, sl] - rt[:, sl]).abs().max())
-                    t = 1e-5 * float(rt[:, sl].abs().max())
+                    e = float((got_t[sl] - rt[sl]).abs().max())
+                    t = 1e-5 * float(rt[sl].abs().max())
                     if not e <= t:
                         raise AssertionError(f"hashgrid_backward {tag} level {lv}: {e:.3e} > "
                                              f"{t:.3e}")
@@ -1791,8 +1862,8 @@ def hash_kernel_phase(device):
         rt, rx = hg.hashgrid_backward_plain(table, x_ray, ct, spec, m, with_dx=True)
         for lv in range(n_levels):
             sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
-            e = float((dt[:, sl] - rt[:, sl]).abs().max())
-            t = 1e-5 * float(rt[:, sl].abs().max())
+            e = float((dt[sl] - rt[sl]).abs().max())
+            t = 1e-5 * float(rt[sl].abs().max())
             if not e <= t:
                 raise AssertionError(f"hashgrid_backward {tag} level {lv}: {e:.3e} > {t:.3e}")
         errs["hashgrid_backward"].append(compare(f"hashgrid_backward {tag} d table", dt, rt,
@@ -1812,10 +1883,12 @@ def hash_kernel_phase(device):
     table_bytes = spec.total_params * f * 4
     fwd_bytes = n * (12 + n_levels * f * 4) + table_bytes
     bwd_bytes = n * (12 + n_levels * f * 4) + table_bytes
-    sectors = n * hashed * 8 * f * 32  # one 32-byte sector per corner and feature row
+    # the row-major (T, F) table: one 32-byte sector per hashed corner (a
+    # feature-major (F, T) table would take one per corner and feature row)
+    sectors = n * hashed * 8 * 32
+    sector_ft_ms = bound(sectors * f, 0, 0)[0]
     atomics = n * n_levels * 8  # HG2: one vector atomic per corner, before the merge
-    # HG2 updates a row-major (T, F) scratch: one 32-byte sector per hashed corner
-    bwd_sector_ms = bound(n * hashed * 8 * 32, 0, 0)[0]
+    bwd_sector_ms = bound(sectors, 0, 0)[0]
     ms = time_ms(lambda: hg.hashgrid_forward_launch(table, x, spec))
     ms_train = time_ms(lambda: hg.hashgrid_encode_fast(t_req, x, spec))
     plain_ms = time_ms(lambda: hg.hashgrid_encode(table, x, spec), reps=5, inner=2)
@@ -1830,7 +1903,8 @@ def hash_kernel_phase(device):
     sector_ms = bound(sectors, 0, 0)[0]
     print(f"[kernel] hashgrid_forward: {ms:.4f} ms eval, {ms_train:.4f} ms through the autograd "
           f"op (plain {plain_ms:.3f} ms; bound {fwd_bound:.4f} ms by compulsory bytes, "
-          f"{sector_ms:.4f} ms by 32-byte sectors of the hashed levels) at N={n}", flush=True)
+          f"{sector_ms:.4f} ms by 32-byte sectors of the hashed levels' (T, F) rows, "
+          f"{sector_ft_ms:.4f} ms in an (F, T) layout) at N={n}", flush=True)
     print(f"[kernel] hashgrid_backward: {bms:.4f} ms, {bms_dx:.4f} ms with d x (device "
           f"{bdev:.4f} / {bdev_dx:.4f} ms; plain {bplain_ms:.3f} ms; precomputed taps and one "
           f"index_add_ per feature {composed_ms:.4f} ms; bound {bwd_bound:.4f} ms by compulsory "
@@ -1844,7 +1918,7 @@ def hash_kernel_phase(device):
          "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_fwd.cu",
          "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:584 (_encode_with_taps, XLA)",
          "max_abs_err": max(errs["hashgrid_forward"]), "ms": ms, "ms_train": ms_train,
-         "plain_ms": plain_ms, "bound_ms": fwd_bound},
+         "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_sectors_ft_ms": sector_ft_ms},
         {**common, "name": "hashgrid_backward",
          "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_bwd.cu",
          "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:652 (_encode_fast_bwd, XLA)",
@@ -1887,6 +1961,8 @@ def cp_big_kernel_phase(device):
         errs["cp_mlp_forward"].append(compare(f"cp_mlp_forward {tag}", out, ref))
         if not torch.equal(vsave, ref_v) or float((hsave != ref_h).float().mean()) > 1e-3:
             raise AssertionError(f"cp_mlp_forward {tag}: residuals disagree")
+        if not torch.equal(cp_mlp.cp_mlp_launch(ops, xn, cp_spec, d_spec)[0], out):
+            raise AssertionError(f"cp_mlp_forward {tag}: eval and training mode disagree")
         bwd_args = (xn, vsave, hsave, d_dout[:n].contiguous(), ops[1], ops[2], cp_spec, d_spec)
         got = cp_mlp.cp_mlp_backward_launch(*bwd_args)
         torch.cuda.synchronize()
@@ -1922,7 +1998,8 @@ def cp_big_kernel_phase(device):
               f"{bound_ms:.4f} ms by {bound_by}) at N={n}", flush=True)
         entries.append({
             **({"composed_ms": composed_backward("cp", device, c=c, s_count=len(res)),
-                "device_ms": device_ms(kern)} if name == "cp_mlp_backward" else {}),
+                "device_ms": device_ms(kern)} if name == "cp_mlp_backward" else
+               {"ms_eval": time_ms(lambda: cp_mlp.cp_mlp_launch(ops, x, cp_spec, d_spec))}),
             "name": f"{name}@cp_big", "route": "cuda",
             "source": f"instant_nsr_pl_tpu_torch/csrc/{src}",
             "replaces": f"instant_nsr_pl_tpu/ops/{replaces}", "launches": 0,
@@ -1985,7 +2062,7 @@ def cp_big_train_phase(device, smi):
         for i in range(CP_BIG_STEPS):
             before = {k: c.launches for k, c in counters.items()}
             if kind in ("nerf", "neus") and i == CP_BIG_STEPS - 1:
-                state, metrics = capture_backward_operands(lambda: system.train_step(state),
+                state, metrics = capture_step_operands(lambda: system.train_step(state),
                                                            "@cp_big")
             else:
                 state, metrics = system.train_step(state)
@@ -2228,43 +2305,58 @@ def main(argv=None):
             raise AssertionError(f"{e['name']}: not launched on its main path "
                                  f"({e['launches_path']})")
     entries += hash_entries + cp_big_entries + probe_entries
-    # the redesigned backward kernels: ptxas' registers and spills, the launch
-    # plan (shared memory, blocks per SM), the time on a training step's own
+    # the redesigned kernels: ptxas' registers and spills, the launch plan
+    # (shared memory, blocks per SM), the time on a training step's own
     # operands, and the parent design's times where a parent checkout is given
+    # (for the forwards also on the same step's operands, saved for it)
     from instant_nsr_pl_tpu_torch.ops import cuda_build
 
-    parent, parent_dev = parent_times(args.parent) if args.parent else (None, None)
-    bench_key = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
-                 "cp_mlp_backward@cp_big": "k2_cp_big", "sh_mlp_backward": "k4",
-                 "cp_jac_basis_backward": "k10", "cp_jac_stacked_backward": "k12",
-                 "cp_jac_basis_backward@cp_big": "k10_cp_big", "hashgrid_backward": "hg2"}
-    for e in entries:
-        if e["name"] not in BWD_KERNELS:
-            continue
-        stem, marker, plan_key = BWD_KERNELS[e["name"]]
+    os.makedirs(os.path.dirname(STEP_OPERANDS_PATH), exist_ok=True)
+    torch.save(STEP_OPERANDS, STEP_OPERANDS_PATH)
+    parent, parent_dev = parent_times(args.parent) if args.parent else ({}, {})
+
+    def plan_of(stem, marker, plan_key):
         plan = next((v for k, v in cuda_build.PLANS.items() if k[:-1] == plan_key), None)
-        step = STEP_MS.get(e["name"])
         ptxas = ptxas_info(stem, marker)
         if plan_key is None and ptxas:  # by its registers: 128-thread blocks, 2,048 threads
             plan = {"smem_bytes": 0,
                     "blocks_per_sm": min(16, 65536 // (-(-ptxas["registers"] // 8) * 8 * 128))}
+        return ptxas, plan
+
+    for e in entries:
+        if e["name"] not in REDESIGNED_KERNELS:
+            continue
+        ptxas, plan = plan_of(*REDESIGNED_KERNELS[e["name"]])
+        step = STEP_MS.get(e["name"])
+        key = BENCH_KEY[e["name"]]
         e.update({
             "ptxas": ptxas,
             "smem_bytes": plan["smem_bytes"] if plan else None,
             "blocks_per_sm": plan["blocks_per_sm"] if plan else None,
             "ms_ray_ordered": step[0] if step else None,
             "n_ray_ordered": step[1] if step else None,
-            "parent_ms": parent[f"{bench_key[e['name']]}@uniform"] if parent else None,
-            "parent_ms_ray": parent[f"{bench_key[e['name']]}@ray"] if parent else None,
-            "parent_device_ms": (parent_dev[f"{bench_key[e['name']]}@uniform"] if parent
-                                 else None),
-            "parent_device_ms_ray": parent_dev[f"{bench_key[e['name']]}@ray"] if parent else None,
+            "parent_ms": parent.get(f"{key}@uniform"),
+            "parent_ms_ray": parent.get(f"{key}@ray"),
+            "parent_device_ms": parent_dev.get(f"{key}@uniform"),
+            "parent_device_ms_ray": parent_dev.get(f"{key}@ray"),
         })
-        print(f"[bwd] {e['name']}: {e['ms']:.4f} ms uniform ({e['device_ms']:.4f} ms device "
-              f"time), ray-ordered step operands "
-              f"{e['ms_ray_ordered']}, parent {e['parent_ms']} / {e['parent_ms_ray']}, ptxas "
-              f"{e['ptxas']}, {e['smem_bytes']} B shared, {e['blocks_per_sm']} blocks per SM "
-              f"({smi})", flush=True)
+        if e["name"] in EVAL_MARKERS:  # K1 / K13 / cp_big's K1: both modes
+            ptxas_eval, plan_eval = plan_of(*EVAL_MARKERS[e["name"]])
+            e.update({
+                "ptxas_eval": ptxas_eval,
+                "smem_bytes_eval": plan_eval["smem_bytes"] if plan_eval else None,
+                "blocks_per_sm_eval": plan_eval["blocks_per_sm"] if plan_eval else None,
+                "parent_ms_eval": parent.get(f"{key}_eval@uniform"),
+            })
+        if e["name"].endswith(("forward", "forward@cp_big")):
+            e["parent_ms_step"] = parent.get(f"{key}@step")
+        print(f"[design] {e['name']}: {e['ms']:.4f} ms uniform (device {e.get('device_ms')}), "
+              f"step operands {e['ms_ray_ordered']}, parent {e['parent_ms']} / ray "
+              f"{e['parent_ms_ray']} / step {e.get('parent_ms_step')}, ptxas {e['ptxas']}, "
+              f"{e['smem_bytes']} B shared, {e['blocks_per_sm']} blocks per SM"
+              + (f"; eval: ptxas {e['ptxas_eval']}, {e['smem_bytes_eval']} B, "
+                 f"{e['blocks_per_sm_eval']} blocks per SM, parent {e['parent_ms_eval']}"
+                 if "ptxas_eval" in e else "") + f" ({smi})", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

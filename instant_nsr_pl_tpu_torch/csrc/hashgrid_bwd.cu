@@ -20,11 +20,10 @@
 //
 // Design: one thread per sample, a warp on 32 consecutive samples, walks the
 // levels and recomputes its 8 taps (hashgrid_common.cuh). Two changes against
-// one f32 atomicAdd per corner and feature into the (F, T) table:
-// - the updates go to a row-major (T, F) f32 scratch table, so a corner's F
-//   features are one 8-byte (F = 2) or 16-byte vector atomic on one sector,
-//   not F atomics on F sectors; a second kernel writes the scratch out as the
-//   (F, T) gradient (100 MB of coalesced traffic at the bench shape);
+// one f32 atomicAdd per corner and feature into a feature-major (F, T) table:
+// - the gradient is row-major (T, F) f32, the layout of the port's table, so
+//   a corner's F features are one 8-byte (F = 2) or 16-byte vector atomic on
+//   one sector, not F atomics on F sectors;
 // - a merge of equal rows within the warp, per level and corner: where any
 //   lane's row equals its left neighbour's (a ray's neighbouring samples on a
 //   coarse level), a segmented scan over the warp's runs of equal rows (five
@@ -54,12 +53,12 @@
 
 namespace insr {
 
-// Add v to row `row` of the (T, F) f32 scratch: one vector atomic per 16 bytes
-// (Hopper, CUDA >= 12.1).
+// Add v to row `row` of the (T, F) f32 gradient: one vector atomic per 16
+// bytes (Hopper, CUDA >= 12.1).
 template <int F>
-__device__ __forceinline__ void add_row(float* __restrict__ scratch, uint32_t row,
+__device__ __forceinline__ void add_row(float* __restrict__ dtable, uint32_t row,
                                         const float (&v)[F]) {
-  float* p = scratch + static_cast<long long>(row) * F;
+  float* p = dtable + static_cast<long long>(row) * F;
   if constexpr (F == 1) {
     atomicAdd(p, v[0]);
   } else if constexpr (F == 2) {
@@ -76,9 +75,8 @@ template <int F>
 __global__ void __launch_bounds__(kHashBlock)
     hashgrid_bwd_kernel(const float* __restrict__ x, long long n,
                         const float* __restrict__ ct, const float* __restrict__ table,
-                        long long total, int n_levels, HashLevels levels,
-                        const float* __restrict__ mask, float* __restrict__ scratch,
-                        float* __restrict__ dx) {
+                        int n_levels, HashLevels levels, const float* __restrict__ mask,
+                        float* __restrict__ dtable, float* __restrict__ dx) {
   constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -123,18 +121,20 @@ __global__ void __launch_bounds__(kHashBlock)
             }
           }
           const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
-          if (active && tail) add_row<F>(scratch, row, v);
+          if (active && tail) add_row<F>(dtable, row, v);
         } else if (active) {
-          add_row<F>(scratch, row, v);
+          add_row<F>(dtable, row, v);
         }
       }
       if (dx != nullptr) {
         float lvl[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
+          float rv[F];
+          load_row<F>(table, t.row[c], rv);
           float tg = 0.0f;
 #pragma unroll
-          for (int f = 0; f < F; ++f) tg = tg + __ldg(table + f * total + t.row[c]) * g[f];
+          for (int f = 0; f < F; ++f) tg = tg + rv[f] * g[f];
           float p[3];
 #pragma unroll
           for (int d = 0; d < 3; ++d) p[d] = ((c >> d) & 1) ? t.frac[d] : 1.0f - t.frac[d];
@@ -156,70 +156,33 @@ __global__ void __launch_bounds__(kHashBlock)
   }
 }
 
-// (T, F) row-major scratch -> (F, T) gradient: coalesced reads of whole rows,
-// coalesced writes of each feature row.
-template <int F>
-__global__ void __launch_bounds__(256)
-    scratch_to_feature_major(const float* __restrict__ scratch, long long total,
-                             float* __restrict__ dtable) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < total;
-       r += stride) {
-    float v[F];
-    if constexpr (F == 1) {
-      v[0] = scratch[r];
-    } else if constexpr (F == 2) {
-      const float2 q = reinterpret_cast<const float2*>(scratch)[r];
-      v[0] = q.x;
-      v[1] = q.y;
-    } else {
-#pragma unroll
-      for (int k = 0; k < F; k += 4) {
-        const float4 q = reinterpret_cast<const float4*>(scratch + r * F)[k / 4];
-        v[k] = q.x;
-        v[k + 1] = q.y;
-        v[k + 2] = q.z;
-        v[k + 3] = q.w;
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < F; ++f) dtable[f * total + r] = v[f];
-  }
-}
-
 template <int F>
 int launch_hashgrid_bwd(const float* x, long long n, const float* ct, const float* table,
-                        long long total, int n_levels, const HashLevels& levels,
-                        const float* mask, float* scratch, float* dtable, float* dx,
-                        cudaStream_t stream) {
+                        int n_levels, const HashLevels& levels, const float* mask, float* dtable,
+                        float* dx, cudaStream_t stream) {
   if (n > 0) {
     hashgrid_bwd_kernel<F><<<hash_grid_for(n), kHashBlock, 0, stream>>>(
-        x, n, ct, table, total, n_levels, levels, mask, scratch, dx);
+        x, n, ct, table, n_levels, levels, mask, dtable, dx);
   }
-  const long long blocks = (total + 255) / 256;
-  scratch_to_feature_major<F><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
-                                 stream>>>(scratch, total, dtable);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace insr
 
-// Returns cudaGetLastError() after the launches, or -1 when no instantiation
-// matches (F not in {1, 2, 4, 8}, or too many levels). scratch is a (total, F)
-// f32 table zeroed by the caller (the kernel adds into it); dtable (F, total)
-// is written. dx is nullptr (no position gradient) or (n, 3) float32,
-// overwritten.
+// Returns cudaGetLastError() after the launch, or -1 when no instantiation
+// matches (F not in {1, 2, 4, 8}, or too many levels). table is the row-major
+// (total, F) f32 table and dtable its (total, F) f32 gradient, zeroed by the
+// caller (the kernel adds into it). dx is nullptr (no position gradient) or
+// (n, 3) float32, overwritten.
 extern "C" int hashgrid_bwd(const float* x, long long n, const float* ct, const float* table,
-                            long long total, int n_levels, int f,
-                            const insr::HashLevel* levels, const float* mask, float* scratch,
-                            float* dtable, float* dx, void* stream) {
+                            int n_levels, int f, const insr::HashLevel* levels,
+                            const float* mask, float* dtable, float* dx, void* stream) {
   if (n_levels < 1 || n_levels > insr::kHashMaxLevels) return -1;
   insr::HashLevels lv{};
   for (int l = 0; l < n_levels; ++l) lv.l[l] = levels[l];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define INSR_HG_BWD(F_)                                                                     \
-  return insr::launch_hashgrid_bwd<F_>(x, n, ct, table, total, n_levels, lv, mask, scratch, \
-                                       dtable, dx, st)
+#define INSR_HG_BWD(F_) \
+  return insr::launch_hashgrid_bwd<F_>(x, n, ct, table, n_levels, lv, mask, dtable, dx, st)
   switch (f) {
     case 1: INSR_HG_BWD(1);
     case 2: INSR_HG_BWD(2);

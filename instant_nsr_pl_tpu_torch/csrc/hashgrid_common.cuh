@@ -3,8 +3,9 @@
 //
 // The level layout is the JAX package's (instant_nsr_pl_tpu/ops/hashgrid.py
 // HashGridSpec and _level_corner_indices, :44-222): per level a float32 scale
-// s, a resolution R, a row count T_l and a row offset into the feature-major
-// (F, total) float32 table; a dense level indexes x + y*R + z*R*R, a hashed
+// s, a resolution R, a row count T_l and a row offset into the table, which
+// the port keeps row-major, (total, F) float32 (the JAX package's is
+// feature-major, (F, total)); a dense level indexes x + y*R + z*R*R, a hashed
 // one (x * 1) ^ (y * 2654435761) ^ (z * 805459861) mod T_l, both in uint32
 // arithmetic. For one coordinate:
 //   pos = fma(x, s, 0.5)   (one rounding, as the JAX package's jitted code
@@ -79,6 +80,30 @@ __device__ __forceinline__ Taps level_taps(const HashLevel& lv, float x0, float 
     t.w[c] = w;
   }
   return t;
+}
+
+// Row `row` of the row-major (T, F) float32 table: one vector load (8 bytes
+// at F = 2, a quarter of one 32-byte sector).
+template <int F>
+__device__ __forceinline__ void load_row(const float* __restrict__ table, uint32_t row,
+                                         float (&v)[F]) {
+  const float* p = table + static_cast<long long>(row) * F;
+  if constexpr (F == 1) {
+    v[0] = __ldg(p);
+  } else if constexpr (F == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < F; k += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + k));
+      v[k] = q.x;
+      v[k + 1] = q.y;
+      v[k + 2] = q.z;
+      v[k + 3] = q.w;
+    }
+  }
 }
 
 // Grid of a grid-stride launch: enough blocks to fill every SM a few times.

@@ -2,7 +2,9 @@
 // helpers of the grid-stride kernels.
 //
 // Replaces kernel_mlp_fwd of instant_nsr_pl_tpu/ops/mlp_pallas_common.py:74-96,
-// the MLP chain both fused TPU forward kernels end in. One thread evaluates
+// the MLP chain both fused TPU forward kernels end in, for the fused radiance
+// forward (csrc/sh_mlp_fwd.cu K3); the fused density forward (csrc/cp_mlp_fwd.cu
+// K1) runs the same chain on the tensor cores. One thread evaluates
 // the whole chain for one sample with its activations in registers; the packed
 // weights (ops/mlp_common.py pack_mlp: (sum d_in, Wmax) bf16, zero columns
 // beyond each layer's d_out) are widened to f32 in shared memory once per

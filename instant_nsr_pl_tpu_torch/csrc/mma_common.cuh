@@ -1,5 +1,7 @@
 // Tensor-core building blocks of the fused backward kernels (csrc/sh_mlp_bwd.cu
-// K4, csrc/cp_mlp_bwd.cu K2/K14), and their shared bf16 ReLU MLP backward.
+// K4, csrc/cp_mlp_bwd.cu K2/K14, csrc/cp_jac_basis_bwd.cu K10/K12) and of the
+// fused density forward (csrc/cp_mlp_fwd.cu K1/K13), and the backwards' shared
+// bf16 ReLU MLP backward.
 //
 // Replaces kernel_mlp_bwd of instant_nsr_pl_tpu/ops/mlp_pallas_common.py:98-141
 // (the MLP chain both fused TPU backward kernels end in) on Hopper's tensor

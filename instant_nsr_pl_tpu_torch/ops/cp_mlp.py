@@ -311,6 +311,12 @@ def cp_mlp_operands(cp_params, mlp_params, cp_spec: CPSpec, mlp_spec):
     return lines, basis.to(torch.bfloat16).contiguous(), ws, bs
 
 
+def _record_plan(key, info):
+    """Keep a forward launch's plan (``csrc/mma_common.cuh`` plan_persistent:
+    grid, blocks per SM, shared-memory bytes) in ``cuda_build.PLANS``."""
+    cuda_build.PLANS[key] = {"grid": info[0], "blocks_per_sm": info[1], "smem_bytes": info[2]}
+
+
 def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
     """Launch ``csrc/cp_mlp_fwd.cu`` on packed ``operands`` for CUDA x.
     Returns ``(out, vsave, hsave)``; the residuals are written only with
@@ -333,17 +339,16 @@ def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
     if train:
         vsave = torch.empty((3, s_count * c, n), dtype=torch.bfloat16, device=x.device)
         hsave = torch.empty((nh, mlp_spec.n_neurons, n), dtype=torch.bfloat16, device=x.device)
-    fn = cuda_build.library("cp_mlp_fwd").cp_mlp_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    fn = cuda_build.entry("cp_mlp_fwd", "cp_mlp_fwd", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
     line_ptrs = (ctypes.c_void_p * s_count)(*[t.data_ptr() for t in lines])
     res = (ctypes.c_int * s_count)(*cp_spec.resolutions)
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(
@@ -351,9 +356,10 @@ def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
             ws.data_ptr(), bs.data_ptr(), out.data_ptr(), c, f,
             mlp_spec.n_neurons, nh, mlp_spec.dim_out,
             vsave.data_ptr() if train else None, hsave.data_ptr() if train else None,
-            stream,
+            info, stream,
         )
     cuda_build.check(rc, "cp_mlp_forward", SUPPORTED)
+    _record_plan(("cp_mlp_fwd", *fused_shape(cp_spec, mlp_spec), train, x.device.index), info)
     cp_mlp_forward.launches += 1
     return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
 
@@ -558,23 +564,24 @@ def cp_mlp_stacked_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
     if train:
         vsave = torch.empty((3, s_count * c, n), dtype=torch.bfloat16, device=x.device)
         hsave = torch.empty((nh, mlp_spec.n_neurons, n), dtype=torch.bfloat16, device=x.device)
-    fn = cuda_build.library("cp_mlp_fwd").cp_mlp_stacked_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    fn = cuda_build.entry("cp_mlp_fwd", "cp_mlp_stacked_fwd", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(
             xf.data_ptr(), n, lines.data_ptr(), rmax, s_count, basis.data_ptr(),
             ws.data_ptr(), bs.data_ptr(), out.data_ptr(), c, f, mlp_spec.n_neurons, nh,
             mlp_spec.dim_out, vsave.data_ptr() if train else None,
-            hsave.data_ptr() if train else None, stream,
+            hsave.data_ptr() if train else None, info, stream,
         )
     cuda_build.check(rc, "cp_mlp_stacked_forward", SUPPORTED_STACKED)
+    _record_plan(("cp_mlp_stacked_fwd", *fused_shape(cp_spec, mlp_spec), train, x.device.index),
+                 info)
     cp_mlp_stacked_forward.launches += 1
     return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
 

@@ -16,8 +16,11 @@ JAX package's (and tcnn's):
   arithmetic;
 - trilinear interpolation over the 8 corners of ``pos = x * s_l + 0.5``.
 
-The table is feature-major ``(F, total_params)`` float32, the JAX layout, so
-a JAX table carries across as a copy.
+The table is row-major ``(total_params, F)`` float32: a corner's F features
+are one 8-byte piece of one 32-byte sector (the JAX package's feature-major
+``(F, total_params)`` layout, which served the TPU's lanes, costs F sectors a
+corner on the card). A JAX table carries across transposed
+(``utils/transplant.py``), its Adam moments too.
 
 ``hashgrid_encode_fast`` launches ``csrc/hashgrid_fwd.cu`` (HG1) in its
 forward and ``csrc/hashgrid_bwd.cu`` (HG2) in its backward on CUDA tensors,
@@ -26,10 +29,9 @@ the other. The JAX fast path is XLA, not Pallas: it saves the taps (indices,
 weights, gathered rows) for a backward of two-sort segment sums and bf16
 one-hot matmuls. Here the backward recomputes the taps (HG2 re-hashes; the
 table rows are read again only for the position gradient) and scatters
-``w * ct`` with float32 vector atomics into a row-major (T, F) scratch table,
-merging equal rows within a warp first, then writes it out feature-major:
-saving the taps at the bench shape would hold 16 levels x 8 corners x 262,144
-samples x 16 B = 537 MB per step.
+``w * ct`` with float32 vector atomics straight into the (T, F) gradient,
+merging equal rows within a warp first: saving the taps at the bench shape
+would hold 16 levels x 8 corners x 262,144 samples x 16 B = 537 MB per step.
 
 Rounding: ``pos = x * s + 0.5`` is rounded once, as a fused multiply-add:
 the JAX package's jitted code contracts it (eagerly it does not, and then the
@@ -148,10 +150,12 @@ class HashGridSpec:
 
 
 def hashgrid_init(generator: torch.Generator, spec: HashGridSpec, device=None):
-    """The (F, total_params) float32 table, U(-1e-4, 1e-4) (tcnn's default),
-    drawn on the CPU from ``generator`` and placed on ``device``."""
+    """The (total_params, F) float32 table, U(-1e-4, 1e-4) (tcnn's default),
+    drawn on the CPU from ``generator`` and placed on ``device``. The values
+    are drawn feature-major, as before the table became row-major, so a seed
+    gives the same table in either layout."""
     t = torch.rand((spec.n_features_per_level, spec.total_params), generator=generator)
-    return (t * 2e-4 - 1e-4).to(device)
+    return (t * 2e-4 - 1e-4).T.contiguous().to(device)
 
 
 def _level_pos(spec: HashGridSpec, xt, level: int):
@@ -166,7 +170,7 @@ def level_corner_indices(spec: HashGridSpec, xt, level: int):
     Args:
       xt: (3, N) positions in [0, 1], coordinate-major.
     Returns:
-      idx: (8, N) int64 rows of the (F, total_params) table; w: (8, N) float32.
+      idx: (8, N) int64 rows of the (total_params, F) table; w: (8, N) float32.
     """
     res = spec.resolutions[level]
     size = spec.level_sizes[level]
@@ -209,7 +213,7 @@ def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
     role of the JAX package's ``hashgrid_encode``).
 
     Args:
-      table: (F, total_params) float32.
+      table: (total_params, F) float32.
       x: (..., 3) positions in [0, 1].
       level_mask: optional (L,) float mask multiplied per level.
     Returns:
@@ -220,7 +224,7 @@ def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
     outs = []
     for level in range(spec.n_levels):
         idx, w = level_corner_indices(spec, xt, level)
-        feat = _corner_sum(table[:, idx], w.to(table.dtype))  # (F, N)
+        feat = _corner_sum(table.T[:, idx], w.to(table.dtype))  # (F, N)
         if level_mask is not None:
             feat = feat * level_mask[level].to(feat.dtype)
         outs.append(feat)
@@ -231,7 +235,7 @@ def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
 def _check_spec(spec: HashGridSpec, table):
     if spec.n_input_dims != 3 or spec.n_levels > MAX_LEVELS:
         raise ValueError(f"hashgrid: 3-D inputs and at most {MAX_LEVELS} levels, got {spec}")
-    expect = (spec.n_features_per_level, spec.total_params)
+    expect = (spec.total_params, spec.n_features_per_level)
     if tuple(table.shape) != expect:
         raise ValueError(f"hashgrid: table {tuple(table.shape)} != {expect}")
 
@@ -277,7 +281,7 @@ hashgrid_forward.launches = 0
 
 
 def hashgrid_backward(table, x, dout, spec: HashGridSpec, level_mask=None, with_dx=False):
-    """The table gradient (F, total_params) and, with ``with_dx``, the
+    """The table gradient (total_params, F) and, with ``with_dx``, the
     position gradient (..., 3) (else None) for the output cotangent ``dout``
     (..., L*F): HG2 on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cuda":
@@ -314,10 +318,10 @@ def hashgrid_backward_plain(table, x, dout, spec: HashGridSpec, level_mask=None,
         if level_mask is not None:
             g_l = g_l * level_mask[level].float()
         idx, w = level_corner_indices(spec, xt, level)
-        upd = (w[:, None, :] * g_l.T[None]).permute(1, 0, 2).reshape(f, 8 * n)
-        dtable.index_add_(1, idx.reshape(-1), upd)
+        upd = (w[:, :, None] * g_l[None]).reshape(8 * n, f)
+        dtable.index_add_(0, idx.reshape(-1), upd)
         if with_dx:
-            rows = table[:, idx].float()  # (F, 8, N)
+            rows = table.T[:, idx].float()  # (F, 8, N)
             tg = (rows * g_l.T[:, None, :]).sum(0)  # (8, N)
             s = float(torch.tensor(spec.scales[level], dtype=torch.float32))
             pos = _level_pos(spec, xt, level)
@@ -360,7 +364,7 @@ def _operands(name, table, x, spec, level_mask):
                          f"{table.dtype} {tuple(x.shape)} {x.dtype}")
     _check_spec(spec, table)
     xf = x.reshape(-1, 3).contiguous()
-    operands, shapes = [table], [(spec.n_features_per_level, spec.total_params)]
+    operands, shapes = [table], [(spec.total_params, spec.n_features_per_level)]
     if level_mask is not None:
         level_mask = level_mask.float().contiguous()
         operands.append(level_mask)
@@ -375,16 +379,14 @@ def hashgrid_forward_launch(table, x, spec: HashGridSpec, level_mask=None):
     n = xf.shape[0]
     f = spec.n_features_per_level
     out = torch.empty((n, spec.n_levels * f), dtype=torch.float32, device=x.device)
-    fn = cuda_build.library("hashgrid_fwd").hashgrid_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Level), ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn = cuda_build.entry("hashgrid_fwd", "hashgrid_fwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_Level), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(xf.data_ptr(), n, table.data_ptr(), spec.total_params, spec.n_levels, f,
-                level_params(spec), mask.data_ptr() if mask is not None else None,
-                out.data_ptr(), stream)
+        rc = fn(xf.data_ptr(), n, table.data_ptr(), spec.n_levels, f, level_params(spec),
+                mask.data_ptr() if mask is not None else None, out.data_ptr(), stream)
     cuda_build.check(rc, "hashgrid_forward", "n_features_per_level in {1, 2, 4, 8}")
     hashgrid_forward.launches += 1
     return out.reshape(*x.shape[:-1], spec.n_levels * f)
@@ -393,9 +395,8 @@ def hashgrid_forward_launch(table, x, spec: HashGridSpec, level_mask=None):
 def hashgrid_backward_launch(table, x, dout, spec: HashGridSpec, level_mask=None,
                              with_dx=False):
     """Launch ``csrc/hashgrid_bwd.cu`` (HG2) for CUDA tensors; see
-    :func:`hashgrid_backward` for the outputs. The kernel scatters into a
-    zeroed row-major (T, F) f32 scratch table, which its second kernel writes
-    out as the (F, T) gradient. With no samples it returns zeros and launches
+    :func:`hashgrid_backward` for the outputs. The kernel scatters into the
+    zeroed (T, F) gradient. With no samples it returns zeros and launches
     nothing."""
     xf, mask = _operands("hashgrid_backward", table, x, spec, level_mask)
     n = xf.shape[0]
@@ -405,20 +406,18 @@ def hashgrid_backward_launch(table, x, dout, spec: HashGridSpec, level_mask=None
     ct = dout.reshape(n, spec.n_levels * f).contiguous()
     cuda_build.check_operands("hashgrid_backward", (ct,), ((n, spec.n_levels * f),), x.device)
     dx = torch.empty((n, 3), dtype=torch.float32, device=x.device) if with_dx else None
+    dtable = torch.zeros_like(table)
     if n == 0:
-        return torch.zeros_like(table), (dx.reshape(*x.shape[:-1], 3) if with_dx else None)
-    scratch = torch.zeros((spec.total_params, f), dtype=torch.float32, device=x.device)
-    dtable = torch.empty_like(table)
+        return dtable, (dx.reshape(*x.shape[:-1], 3) if with_dx else None)
     fn = cuda_build.entry("hashgrid_bwd", "hashgrid_bwd", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Level),
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(_Level), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
     ])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(xf.data_ptr(), n, ct.data_ptr(), table.data_ptr(), spec.total_params,
-                spec.n_levels, f, level_params(spec),
-                mask.data_ptr() if mask is not None else None, scratch.data_ptr(),
+        rc = fn(xf.data_ptr(), n, ct.data_ptr(), table.data_ptr(), spec.n_levels, f,
+                level_params(spec), mask.data_ptr() if mask is not None else None,
                 dtable.data_ptr(), dx.data_ptr() if with_dx else None, stream)
     cuda_build.check(rc, "hashgrid_backward", "n_features_per_level in {1, 2, 4, 8}")
     hashgrid_backward.launches += 1

@@ -1,12 +1,14 @@
 """Time the backward kernels K2 (``csrc/cp_mlp_bwd.cu``), its stacked (K14)
 and ``cp_big`` instantiations, K4 (``csrc/sh_mlp_bwd.cu``), K10
 (``csrc/cp_jac_basis_bwd.cu``) with K12 and ``cp_big``'s K10, and HG2
-(``csrc/hashgrid_bwd.cu``) on the card, optionally from another checkout of
+(``csrc/hashgrid_bwd.cu``), and the forward kernels K1 / K13 / ``cp_big``'s
+K1 (``csrc/cp_mlp_fwd.cu``, training and eval mode) and HG1
+(``csrc/hashgrid_fwd.cu``) on the card, optionally from another checkout of
 the port and with phases cut out.
 
     python instant_nsr_pl_tpu_torch/tools/bwd_bench.py [--root DIR]
         [--cuts] [--order uniform,ray] [--cases k10,hg2,...] [--merge-stats]
-        [--out result.json]
+        [--step-operands FILE] [--out result.json]
 
 ``--root`` imports the port from checkout DIR (for example the parent
 commit unpacked with ``git archive``) instead of this one: the script calls
@@ -14,9 +16,16 @@ only the public ops (``cp_mlp_operands``, ``cp_mlp_launch``,
 ``cp_mlp_backward_launch``, their stacked twins, ``pack_sh_mlp``,
 ``sh_mlp_launch``, ``sh_mlp_backward_launch``, the K9/K10 and K11/K12
 launches of ``ops/cp_product.py`` / ``ops/cp_stacked.py``,
-``hashgrid_backward_launch``), whose signatures every design keeps, so two
-designs are timed by the same code. Run it for the two
-roots in turns within one call (a, b, b, a) to compare them on one card.
+``hashgrid_forward_launch``, ``hashgrid_backward_launch``), whose signatures
+every design keeps, so two designs are timed by the same code. Each
+checkout's hash table comes from its own ``hashgrid_init`` (feature-major
+(F, T) before the table became row-major, (T, F) after; the same values).
+``--step-operands FILE`` also times the forward kernels on a training
+step's own operands as ``chip_smoke.py`` saved them (``torch.save``: per
+case, the launch's arguments as plain tensors and numbers), each case as
+``<case>@step``; a (T, F) hash table is handed to a feature-major checkout
+transposed. Run it for the two roots in turns within one call (a, b, b, a)
+to compare them on one card.
 
 The operands are those of ``chip_smoke.py``'s kernel phases at N = 262,144:
 the bench NeRF's density head (CP C=64, R=(128, 2048), F=16, MLP 32->64->16),
@@ -41,7 +50,9 @@ whole line-table scatter, the d-basis reduction, the MLP tile reductions of
 the CUDA-core designs; the scatter loop, the d-basis products and the MLP
 backward of the tensor-core designs, or K2's scatter replaced by one without
 the row merge; HG2's atomics by level kind, its row merge, its (T, F)
-vector atomics replaced by the (F, T) layout's scalar ones),
+vector atomics replaced by the (F, T) layout's scalar ones; K1's gather with
+one step's loads in flight, its residuals written with plain stores or not
+at all; HG1 with 1 or 2 levels a thread instead of 4),
 all built at once with ``nvcc -Xptxas -v`` into a temporary directory. The edits
 are text replacements on the copy; a variant whose text is not in the
 root's source is reported as not applicable. The variants' outputs are
@@ -194,20 +205,52 @@ CUTS.update({
     "hg2_new_ft_atomics": ("hashgrid_bwd", [(
         "hashgrid_bwd.cu",
         "    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));",
-        "    atomicAdd(scratch + row, v[0]);\n    atomicAdd(scratch + 6299960LL + row, v[1]);")]),
+        "    atomicAdd(dtable + row, v[0]);\n    atomicAdd(dtable + 6299960LL + row, v[1]);")]),
     "hg2_new_no_atomics": ("hashgrid_bwd", [(
         "hashgrid_bwd.cu",
-        "  float* p = scratch + static_cast<long long>(row) * F;\n",
-        "  float* p = scratch + static_cast<long long>(row) * F;\n"
+        "  float* p = dtable + static_cast<long long>(row) * F;\n",
+        "  float* p = dtable + static_cast<long long>(row) * F;\n"
         "  if (v[0] == 1.2345e-37f) *p = v[0];  // keeps the value live\n  return;\n")]),
     "hg2_no_dense_atomics": _hg2_cut("lv.hashed"),
     "hg2_no_hashed_atomics": _hg2_cut("!lv.hashed"),
     "hg2_no_atomics": _hg2_cut("false"),
 })
+# the forward K1 / K13 / cp_big's K1 (csrc/cp_mlp_fwd.cu): one gather step's
+# loads in flight instead of two (fewer registers), plain stores for the
+# residuals instead of streaming ones, and no residual write-out at all
+CUTS.update({
+    "k1_group1": ("cp_mlp_fwd", [(
+        "cp_mlp_fwd.cu", "static constexpr int GROUP = STEPS < 2 ? STEPS : 2;",
+        "static constexpr int GROUP = 1;")]),
+    "k1_plain_stores": ("cp_mlp_fwd", [(
+        "cp_mlp_fwd.cu",
+        "        __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(row_of(r)) * n + s0 + ch * 8),\n"
+        "               v);",
+        "        *reinterpret_cast<uint4*>(dst + static_cast<long long>(row_of(r)) * n + s0 + ch * 8) =\n"
+        "            v;")]),
+    "k1_no_residual_stores": ("cp_mlp_fwd", [(
+        "cp_mlp_fwd.cu", "  if ((n & 7) == 0) {\n    for (int q = threadIdx.x; q < rows * (kT / 8);",
+        "  if ((n & 7) == 0) {\n    for (int q = threadIdx.x; q < 0;")]),
+})
+# HG1 (csrc/hashgrid_fwd.cu) with 1 or 2 levels a thread instead of 4
+_HG1_GROUP = "  const int group = n_levels % 4 == 0 ? 4 : n_levels % 2 == 0 ? 2 : 1;"
+CUTS.update({
+    "hg1_levels1": ("hashgrid_fwd", [("hashgrid_fwd.cu", _HG1_GROUP, "  const int group = 1;")]),
+    "hg1_levels2": ("hashgrid_fwd", [("hashgrid_fwd.cu", _HG1_GROUP,
+                                      "  const int group = n_levels % 2 == 0 ? 2 : 1;")]),
+})
 # which timed case each source's variants run
 CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
             "cp_jac_basis_bwd": ("k10", "k12", "k10_cp_big"),
-            "hashgrid_bwd": ("hg2", "hg2_dx")}
+            "hashgrid_bwd": ("hg2", "hg2_dx"),
+            "cp_mlp_fwd": ("k1", "k1_eval", "k13", "k13_eval", "k1_cp_big", "k1_cp_big_eval"),
+            "hashgrid_fwd": ("hg1", "hg1_chunked", "ft_to_tf")}
+# the sources a case's operands also need (a backward's residuals come from
+# its forward)
+PARTNER = {"cp_mlp_bwd": "cp_mlp_fwd", "sh_mlp_bwd": "sh_mlp_fwd",
+           "cp_jac_basis_bwd": "cp_jac_basis_fwd", "hashgrid_bwd": "hashgrid_fwd",
+           "cp_mlp_fwd": "cp_mlp_bwd", "hashgrid_fwd": "hashgrid_bwd"}
+FWD_CASES = set(CASES_OF["cp_mlp_fwd"])
 
 
 def time_ms(fn, reps=20, inner=10, warmup=3):
@@ -283,7 +326,7 @@ def cases(device, order, wanted=None):
     from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_init
 
     out = {}
-    if wanted is not None and not wanted & {"k2", "k14", "k2_cp_big", "k4"}:
+    if wanted is not None and not wanted & ({"k2", "k14", "k2_cp_big", "k4"} | FWD_CASES):
         return {**jac_cases(device, order, wanted), **hash_cases(device, order, wanted)}
 
     def layers(gen, spec):
@@ -291,10 +334,10 @@ def cases(device, order, wanted=None):
                  "b": (0.1 * torch.randn(l["b"].shape, generator=gen)).to(device)}
                 for l in mlp_init(gen, spec)]
 
-    for key, (c, res, seed, stacked) in {
-        "k2": (64, (128, 2048), SEED, False),
-        "k14": (64, (129, 2049), SEED + 11, True),
-        "k2_cp_big": (128, (64, 512, 4096), SEED + 17, False),
+    for key, (c, res, seed, stacked, fwd_key) in {
+        "k2": (64, (128, 2048), SEED, False, "k1"),
+        "k14": (64, (129, 2049), SEED + 11, True, "k13"),
+        "k2_cp_big": (128, (64, 512, 4096), SEED + 17, False, "k1_cp_big"),
     }.items():
         gen = torch.Generator().manual_seed(seed)
         cp_spec = CPSpec(c, res, 16)
@@ -305,15 +348,19 @@ def cases(device, order, wanted=None):
         dout = torch.randn((N, 16), generator=gen).to(device)
         if stacked:
             ops = cp_mlp.cp_mlp_stacked_operands(cp_params, d_layers, cp_spec, d_spec)
-            _, vsave, hsave = cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, d_spec, train=True)
+            fwd = cp_mlp.cp_mlp_stacked_launch
             launch = cp_mlp.cp_mlp_stacked_backward_launch
         else:
             ops = cp_mlp.cp_mlp_operands(cp_params, d_layers, cp_spec, d_spec)
-            _, vsave, hsave = cp_mlp.cp_mlp_launch(ops, x, cp_spec, d_spec, train=True)
+            fwd = cp_mlp.cp_mlp_launch
             launch = cp_mlp.cp_mlp_backward_launch
+        _, vsave, hsave = fwd(ops, x, cp_spec, d_spec, train=True)
         args = (x, vsave, hsave, dout, ops[1], ops[2], cp_spec, d_spec)
-        out[key] = (lambda launch=launch, args=args: launch(*args),
-                    f"C={c}, R={res}, F=16, MLP {16 * len(res)}->64->16")
+        shape = f"C={c}, R={res}, F=16, MLP {16 * len(res)}->64->16"
+        out[key] = (lambda launch=launch, args=args: launch(*args), shape)
+        fargs = (fwd, ops, x, cp_spec, d_spec)
+        out[fwd_key] = (lambda a=fargs: a[0](*a[1:], train=True), shape + ", training")
+        out[fwd_key + "_eval"] = (lambda a=fargs: a[0](*a[1:]), shape + ", eval")
 
     gen = torch.Generator().manual_seed(SEED)
     r_spec = MLPSpec(dim_in=32, dim_out=3, n_neurons=64, n_hidden_layers=2,
@@ -432,18 +479,74 @@ def hash_operands(device, order, seed=SEED + 13):
 
 
 def hash_cases(device, order, wanted=None):
-    """HG2's table gradient, and with the position gradient."""
+    """HG2's table gradient, and with the position gradient; HG1, and where
+    the checkout's table is row-major (T, F), HG1 launched on four chunks of
+    N in turn (each chunk's output stays in L2 across its levels) and the
+    (F, T) -> (T, F) copy of the table that a feature-major parameter would
+    need before each row-major read."""
+    import torch
+
     from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
 
-    if wanted is not None and not wanted & {"hg2", "hg2_dx"}:
+    keys = {"hg2", "hg2_dx", *CASES_OF["hashgrid_fwd"]}
+    if wanted is not None and not wanted & keys:
         return {}
     table, x, ct, spec = hash_operands(device, order)
-    return {
-        "hg2": (lambda: hg.hashgrid_backward_launch(table, x, ct, spec),
-                "16 levels, F=2, 2^19 rows"),
+    shape = "16 levels, F=2, 2^19 rows"
+    out = {
+        "hg2": (lambda: hg.hashgrid_backward_launch(table, x, ct, spec), shape),
         "hg2_dx": (lambda: hg.hashgrid_backward_launch(table, x, ct, spec, with_dx=True),
-                   "16 levels, F=2, 2^19 rows, with d x"),
+                   shape + ", with d x"),
+        "hg1": (lambda: hg.hashgrid_forward_launch(table, x, spec), shape),
     }
+    if tuple(table.shape) == (spec.total_params, spec.n_features_per_level):
+        chunks = x.chunk(4)
+        out["hg1_chunked"] = (lambda: [hg.hashgrid_forward_launch(table, c, spec)
+                                       for c in chunks], shape + ", 4 launches of N/4")
+        ft = table.T.contiguous()
+        dst = torch.empty_like(table)
+        out["ft_to_tf"] = (lambda: dst.copy_(ft.T), "(F, T) -> (T, F) copy of the table")
+    return out
+
+
+def step_cases(path, device):
+    """The forward kernels on a training step's own operands, as
+    ``chip_smoke.py`` saved them: per case, ``kind`` "cp" (``ops``, ``x``,
+    ``cp`` = (C, R, F), ``mlp`` = (dim_in, dim_out, width, hidden layers),
+    ``stacked``, ``train``) or "hash" (``table`` (T, F), ``x``, ``spec`` the
+    HashGridSpec fields, ``mask``)."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+    from instant_nsr_pl_tpu_torch.ops.cp import CPSpec
+    from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec
+
+    out = {}
+    for key, e in torch.load(path, map_location=device, weights_only=True).items():
+        x = e["x"]
+        if e["kind"] == "hash":
+            spec = hg.HashGridSpec(**e["spec"])
+            table = e["table"]
+            try:
+                hg._check_spec(spec, table)
+            except ValueError:  # a feature-major checkout
+                table = table.T.contiguous()
+            out[key] = (lambda t=table, x=x, s=spec, m=e["mask"]:
+                        hg.hashgrid_forward_launch(t, x, s, m), f"N={x.shape[0]}")
+            continue
+        c, res, f = e["cp"]
+        din, dout, width, nh = e["mlp"]
+        cp_spec = CPSpec(int(c), tuple(int(r) for r in res), int(f))
+        mlp_spec = MLPSpec(dim_in=int(din), dim_out=int(dout), n_neurons=int(width),
+                           n_hidden_layers=int(nh))
+        launch = cp_mlp.cp_mlp_stacked_launch if e["stacked"] else cp_mlp.cp_mlp_launch
+        ops = e["ops"]
+        if not e["stacked"]:
+            ops = (list(ops[0]), *ops[1:])
+        out[key] = (lambda l=launch, o=tuple(ops), x=x, cs=cp_spec, ms=mlp_spec, t=e["train"]:
+                    l(o, x, cs, ms, train=t), f"N={x.shape[0]}, train={e['train']}")
+    return out
 
 
 def _merged_rows(rows, group):
@@ -521,6 +624,21 @@ def _build(cuda_build, jobs):
     return out
 
 
+def _time(result, key, fn, shape, smi):
+    """Time one case back to back and as device time into ``result``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    result["ms"][key] = time_ms(fn)
+    dev, by_name = device_ms(fn)
+    result.setdefault("device_ms", {})[key] = dev
+    result.setdefault("device_kernels", {})[key] = by_name
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
+    print(f"[time] {key} ({shape}): {result['ms'][key]:.4f} ms back to back; device "
+          f"{dev:.4f} ms ({parts})  [{smi}]", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -529,9 +647,13 @@ def main(argv=None):
                     help="uniform, ray, or both separated by a comma")
     ap.add_argument("--cases", default=None,
                     help="time only these cases (comma-separated: k2, k14, k2_cp_big, k4, k10, "
-                         "k12, k10_cp_big, hg2, hg2_dx), and only their sources' cuts")
+                         "k12, k10_cp_big, hg2, hg2_dx, k1, k1_eval, k13, k13_eval, k1_cp_big, "
+                         "k1_cp_big_eval, hg1, hg1_chunked, ft_to_tf), "
+                         "and only their sources' cuts")
     ap.add_argument("--merge-stats", action="store_true",
                     help="also count the row updates a merge of equal rows would remove")
+    ap.add_argument("--step-operands", default=None,
+                    help="also time the forward kernels on these saved training-step operands")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -557,9 +679,9 @@ def main(argv=None):
         wanted = set(args.cases.split(",")) if args.cases else None
         bwd_stems = [stem for stem, keys in CASES_OF.items()
                      if wanted is None or wanted & set(keys)]
-        fwd_of = {"cp_mlp_bwd": "cp_mlp_fwd", "sh_mlp_bwd": "sh_mlp_fwd",
-                  "cp_jac_basis_bwd": "cp_jac_basis_fwd", "hashgrid_bwd": "hashgrid_fwd"}
-        stems = [s for b in bwd_stems for s in (fwd_of[b], b)]
+        if args.step_operands:
+            bwd_stems = list(dict.fromkeys([*bwd_stems, "cp_mlp_fwd", "hashgrid_fwd"]))
+        stems = list(dict.fromkeys(s for b in bwd_stems for s in (b, PARTNER[b])))
         jobs = [(stem, cuda_build.CSRC / f"{stem}.cu", tmp / f"{stem}.so") for stem in stems]
         variants = {}
         for name, (stem, edits) in (CUTS.items() if args.cuts else ()):
@@ -604,16 +726,10 @@ def main(argv=None):
                     continue
                 key = f"{key}@{order}"
                 timed[key] = fn
-                fn()
-                torch.cuda.synchronize()
-                result["ms"][key] = time_ms(fn)
-                dev, by_name = device_ms(fn)
-                result.setdefault("device_ms", {})[key] = dev
-                result.setdefault("device_kernels", {})[key] = by_name
-                parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_name.items(),
-                                                                    key=lambda kv: -kv[1]))
-                print(f"[time] {key} ({shape}): {result['ms'][key]:.4f} ms back to back; device "
-                      f"{dev:.4f} ms ({parts})  [{smi}]", flush=True)
+                _time(result, key, fn, shape, smi)
+        if args.step_operands:
+            for key, (fn, shape) in step_cases(args.step_operands, device).items():
+                _time(result, f"{key}@step", fn, shape, smi)
         for name, stem in variants.items():
             saved = cuda_build._LIBS[stem]
             loaded.append(ctypes.CDLL(str(tmp / f"{name}.so")))  # kept alive: one id each

@@ -3,9 +3,11 @@ package to the port.
 
 The port keeps the JAX pytree's keys and layouts (``line_{s}_{ax}`` (R, C),
 ``basis_{s}`` (C, F), ``layers[i].w`` (d_in, d_out) and ``.b``), so a carry
-is a copy: nothing is transposed or renamed. Inputs are plain numpy
-(nested dicts and lists of arrays, or the JAX package's ``.npz``
-checkpoint), so this module needs no JAX.
+is a copy, with one exception: a hash grid's ``table`` leaf, feature-major
+(F, T) in the JAX package, is row-major (T, F) in the port (``ops/hashgrid.py``)
+and is transposed, as are its Adam moments in a train state. Nothing is
+renamed. Inputs are plain numpy (nested dicts and lists of arrays, or the JAX
+package's ``.npz`` checkpoint), so this module needs no JAX.
 
 A state dict is the flat form of a parameter tree: dotted keys, list
 positions as numbers (``geometry.network.layers.0.w``).
@@ -48,12 +50,23 @@ def params_from_state_dict(sd, device=None):
     return _listify(root)
 
 
+def port_layout(key, value):
+    """A JAX parameter leaf (or its Adam moment) named ``key`` as a float32
+    numpy array in the port's layout: a hash grid's ``table`` (F, T)
+    becomes (T, F); every other leaf is unchanged."""
+    value = np.asarray(value, dtype=np.float32)
+    if key.rsplit(".", 1)[-1] == "table":
+        return np.ascontiguousarray(value.T)
+    return value
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """The JAX package's parameter pytree (nested dicts and lists of numpy
     arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) -> the
-    port's state dict of float32 CPU tensors."""
+    port's state dict of float32 CPU tensors (hash tables transposed to
+    the port's (T, F) layout)."""
     return {
-        k: torch.from_numpy(np.array(v, dtype=np.float32))
+        k: torch.from_numpy(np.array(port_layout(k, v), dtype=np.float32))
         for k, v in state_dict(tree).items()
     }
 
@@ -92,7 +105,8 @@ def load_jax_checkpoint(path, state, weights_only=False):
       3. ``params``, in leaf order;
       4. ``rng`` (a uint32 PRNG key) and ``step``.
     Parameters (NeuS: the ``variance.variance`` scalar, weight-normed layers'
-    ``b``, ``g``, ``v``) and the grid are copied; unless ``weights_only``,
+    ``b``, ``g``, ``v``) and the grid are copied (a hash table and its
+    moments transposed to the port's (T, F) layout); unless ``weights_only``,
     ``extra``, ``step`` and the Adam moments and counts go into the state and
     the torch optimizer's state (``exp_avg``, ``exp_avg_sq``, ``step``).
     The JAX PRNG key has no torch counterpart: the state's generator keeps
@@ -126,9 +140,10 @@ def load_jax_checkpoint(path, state, weights_only=False):
     live = named_leaves(params)
     with torch.no_grad():
         for (key, t), v in zip(live, param_leaves):
+            v = port_layout(key, v)
             if tuple(v.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: checkpoint shape {v.shape} != model {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.asarray(v, np.float32)))
+            t.copy_(torch.from_numpy(v))
     grid = state["occ"]["grid"]
     device = grid.occs.device
     out = dict(state)
@@ -141,12 +156,13 @@ def load_jax_checkpoint(path, state, weights_only=False):
     opt = state["optimizer"].optimizer
     if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
         raise ValueError("a JAX checkpoint's optimizer state loads into Adam or AdamW only")
-    for group, (count, mu, nu) in zip(opt.param_groups, opt_leaves):
-        for p, m, v in zip(group["params"], mu, nu):
+    for group, (top, leaves_of), (count, mu, nu) in zip(opt.param_groups, groups, opt_leaves):
+        for p, (key, _), m, v in zip(group["params"], leaves_of, mu, nu):
+            key = f"{top}.{key}"
             opt.state[p] = {
                 "step": torch.tensor(float(count)),
-                "exp_avg": torch.as_tensor(np.asarray(m, np.float32), device=p.device),
-                "exp_avg_sq": torch.as_tensor(np.asarray(v, np.float32), device=p.device),
+                "exp_avg": torch.as_tensor(port_layout(key, m), device=p.device),
+                "exp_avg_sq": torch.as_tensor(port_layout(key, v), device=p.device),
             }
     out["step"] = step
     return out

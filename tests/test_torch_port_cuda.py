@@ -572,7 +572,7 @@ def test_hashgrid_kernels_match_plain(cuda_device, masked):
     rt, rx = hg.hashgrid_backward_plain(table, x, ct, spec, mask, with_dx=True)
     for lv in range(spec.n_levels):
         sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
-        _close(dt[:, sl], rt[:, sl], rel=1e-5)
+        _close(dt[sl], rt[sl], rel=1e-5)
     _close(dx, rx, rel=1e-4)
     # through the autograd op: the table gradient, and none for x
     t = table.clone().requires_grad_(True)
@@ -1074,13 +1074,12 @@ def _hash_table_grad_f64(spec, x, ct, mask):
     from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
 
     f = spec.n_features_per_level
-    out = torch.zeros((f, spec.total_params), dtype=torch.float64, device=x.device)
+    out = torch.zeros((spec.total_params, f), dtype=torch.float64, device=x.device)
     for lv in range(spec.n_levels):
         idx, w = hg.level_corner_indices(spec, x.T.contiguous(), lv)  # (8, N)
         g = ct[:, lv * f:(lv + 1) * f] * (mask[lv] if mask is not None else 1.0)
-        upd = w[:, None, :] * g.T[None]  # (8, F, N) float32
-        for k in range(f):
-            out[k].index_add_(0, idx.reshape(-1), upd[:, k].reshape(-1).double())
+        upd = w[:, :, None] * g[None]  # (8, N, F) float32
+        out.index_add_(0, idx.reshape(-1), upd.reshape(-1, f).double())
     return out
 
 
@@ -1101,8 +1100,8 @@ def _check_hash(spec, table, x, ct, mask, exact=False):
         rt = _hash_table_grad_f64(spec, x, ct, mask)
     for lv in range(spec.n_levels):
         sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
-        _close(dt[:, sl].to(rt.dtype), rt[:, sl], rel=1e-5)
-        _close(dt_only[:, sl].to(rt.dtype), rt[:, sl], rel=1e-5)
+        _close(dt[sl].to(rt.dtype), rt[sl], rel=1e-5)
+        _close(dt_only[sl].to(rt.dtype), rt[sl], rel=1e-5)
     _close(dx, rx, rel=1e-4)
     return dt, dx
 
@@ -1165,3 +1164,87 @@ def test_hash_backward_no_samples(cuda_device, name, masked):
         assert dt.shape == table.shape and not bool(dt.any())
         assert dx is None if not with_dx else tuple(dx.shape) == (0, 3)
     assert hg.hashgrid_backward.launches == before
+
+
+# K1 / K13 / cp_big's K1 (csrc/cp_mlp_fwd.cu: tensor-core tiles of 64
+# samples) and HG1 (csrc/hashgrid_fwd.cu: level-major, (T, F) table)
+_FWD_SHAPES = [("bench", 64, (128, 2048), False), ("stacked", 64, (129, 2049), True),
+               ("cp_big", 128, (64, 512, 4096), False)]
+
+
+def _fwd_head(shape, device, seed):
+    """A density head at a kernel instantiation's widths (F=16, MLP
+    16 S -> 64 -> 16, non-zero biases) from seeded random weights: its
+    parameters, packed operands, launch and plain version."""
+    _, c, res, stacked = shape
+    gen = torch.Generator().manual_seed(seed)
+    cp_spec = CPSpec(c, res, 16)
+    mlp_spec = MLPSpec(dim_in=16 * len(res), dim_out=16, n_neurons=64, n_hidden_layers=1)
+    cp_params = cp_init(gen, cp_spec, device)
+    layers = _biased(mlp_init(gen, mlp_spec), gen, device)
+    if stacked:
+        ops = t_cp_mlp.cp_mlp_stacked_operands(cp_params, layers, cp_spec, mlp_spec)
+        launch, plain = t_cp_mlp.cp_mlp_stacked_launch, t_cp_mlp.cp_mlp_stacked_forward_plain
+    else:
+        ops = t_cp_mlp.cp_mlp_operands(cp_params, layers, cp_spec, mlp_spec)
+        launch, plain = t_cp_mlp.cp_mlp_launch, t_cp_mlp.cp_mlp_forward_plain
+    return cp_spec, mlp_spec, cp_params, layers, ops, launch, plain, gen
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 262107])
+@pytest.mark.parametrize("shape", _FWD_SHAPES, ids=[s[0] for s in _FWD_SHAPES])
+def test_cp_forward_sizes_match_plain(cuda_device, shape, n):
+    """K1 / K13 / cp_big's K1 around the 64-sample tile and at a ragged
+    N: vsave equal to the plain version's to the bit, hsave differing in at
+    most 1e-3 of its entries (f32 sums in another order can flip a bf16
+    rounding), out within 2e-2; eval equal to training to the bit, and two
+    identical calls equal to the bit."""
+    cp_spec, mlp_spec, cp_params, layers, ops, launch, plain, gen = _fwd_head(shape, cuda_device,
+                                                                           n + 31)
+    x = torch.rand((n, 3), generator=gen) * 1.1 - 0.05
+    edges = torch.tensor([[0.0, 1.0, 0.5], [1.0, 0.0, -0.05], [1.05, 0.5, 1.0],
+                          [1 / 127, 1 / 2047, 0.25]])
+    x[: min(n, 4)] = edges[: min(n, 4)]
+    x = x.to(cuda_device)
+    out, vsave, hsave = launch(ops, x, cp_spec, mlp_spec, train=True)
+    out_e, v_e, h_e = launch(ops, x, cp_spec, mlp_spec)
+    again = launch(ops, x, cp_spec, mlp_spec, train=True)
+    torch.cuda.synchronize()
+    assert v_e is None and h_e is None
+    assert torch.equal(out, out_e), "eval and training mode disagree"
+    for a, b in zip(again, (out, vsave, hsave)):
+        assert torch.equal(a, b), "two identical calls disagree"
+    ref, ref_v, ref_h = plain(cp_params, layers, x, cp_spec, mlp_spec, save_residuals=True)
+    assert out.shape == ref.shape and vsave.shape == ref_v.shape and hsave.shape == ref_h.shape
+    assert torch.equal(vsave, ref_v)
+    if n:
+        assert float((hsave != ref_h).float().mean()) <= 1e-3
+        _close(out, ref)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 262107])
+def test_hash_forward_sizes_match_plain(cuda_device, n, masked):
+    """HG1 at the bench hash shape around its 128-sample blocks and at a
+    ragged N, with and without a level mask: equal to its plain version to
+    the bit and across two calls; with 6 and 5 levels (2 and 1 levels a
+    thread) equal to the bit too."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    gen = torch.Generator().manual_seed(n + 41)
+    x = torch.rand((n, 3), generator=gen)
+    edges = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.25, 0.75],
+                          [0.0, 1.0, 0.5], [1.0, 0.0, 0.125], [0.999999, 1e-7, 0.5]])
+    x[: min(n, 6)] = edges[: min(n, 6)]
+    x = x.to(cuda_device)
+    for spec in (_bench_hash(), hg.HashGridSpec(n_levels=6, log2_hashmap_size=15),
+                 hg.HashGridSpec(n_levels=5, log2_hashmap_size=15)):
+        table = (hg.hashgrid_init(gen, spec) * 1e4).to(cuda_device)
+        assert tuple(table.shape) == (spec.total_params, 2)
+        mask = torch.linspace(1.0, 0.0, spec.n_levels).to(cuda_device) if masked else None
+        got = hg.hashgrid_forward_launch(table, x, spec, mask)
+        again = hg.hashgrid_forward_launch(table, x, spec, mask)
+        torch.cuda.synchronize()
+        ref = hg.hashgrid_encode(table, x, spec, mask)
+        assert got.shape == ref.shape == (n, spec.n_output_dims)
+        assert torch.equal(got, ref) and torch.equal(again, got)

@@ -48,6 +48,7 @@ from instant_nsr_pl_tpu_torch.utils.transplant import (
     occupancy_from_jax,
     params_from_jax,
     params_from_state_dict,
+    port_layout,
 )
 from instant_nsr_pl_tpu_torch.utils.savers import load_obj
 
@@ -189,9 +190,14 @@ def test_hash_nerf_chunk_and_training_step_match_jax(carried):
     ref_g = dict(named_leaves(jax.tree_util.tree_map(np.asarray, j_grads)))
     for key, t in named_leaves(tp):
         assert t.grad is not None and torch.isfinite(t.grad).all(), key
-        _close(t.grad, ref_g[key], key)
+        _close(t.grad, port_layout(key, ref_g[key]), key)
         assert float(t.grad.abs().max()) > 0, key
-    assert tuple(tp["geometry"]["encoding"]["table"].shape) == (2, t_enc.spec.total_params)
+    # the port's table is row-major (T, F), the JAX package's (F, T)
+    table = tp["geometry"]["encoding"]["table"]
+    assert tuple(table.shape) == (t_enc.spec.total_params, 2) and table.is_contiguous()
+    np.testing.assert_array_equal(
+        table.detach().numpy().T, np.asarray(carried["np_params"]["geometry"]["encoding"]["table"]))
+    _close(table.grad.T, ref_g["geometry.encoding.table"], "table")
 
 
 def _fill(tree, rs):
@@ -232,7 +238,9 @@ def test_jax_hash_checkpoint_loads_into_port(tmp_path):
     live = dict(named_leaves(state["params"]))
     assert "geometry.encoding.table" in live
     for key, t in live.items():
-        np.testing.assert_array_equal(t.detach().numpy(), ref[key], err_msg=key)
+        np.testing.assert_array_equal(t.detach().numpy(), port_layout(key, ref[key]), err_msg=key)
+    np.testing.assert_array_equal(live["geometry.encoding.table"].detach().numpy().T,
+                                  ref["geometry.encoding.table"])  # (F, T) -> (T, F)
     opt = state["optimizer"].optimizer
     group = next(g for g in opt.param_groups if g["name"] == "geometry")
     adam = inner["geometry"].inner_state[0]
@@ -240,8 +248,8 @@ def test_jax_hash_checkpoint_loads_into_port(tmp_path):
     nu = dict(named_leaves(jax.tree_util.tree_map(np.asarray, adam.nu["geometry"])))
     table = state["params"]["geometry"]["encoding"]["table"]
     assert any(p is table for p in group["params"])
-    np.testing.assert_array_equal(opt.state[table]["exp_avg"].numpy(), mu["encoding.table"])
-    np.testing.assert_array_equal(opt.state[table]["exp_avg_sq"].numpy(), nu["encoding.table"])
+    np.testing.assert_array_equal(opt.state[table]["exp_avg"].numpy().T, mu["encoding.table"])
+    np.testing.assert_array_equal(opt.state[table]["exp_avg_sq"].numpy().T, nu["encoding.table"])
     assert float(opt.state[table]["step"]) == 11
     state, metrics = system.train_step(state)
     assert state["step"] == 12 and np.isfinite(float(metrics["train/loss"]))
@@ -293,7 +301,7 @@ def test_fd_neus_sdf_and_gradients_match_jax():
     loss(t_geo.apply(tp, torch.from_numpy(x))).backward()
     g_ref = dict(named_leaves(jax.tree_util.tree_map(np.asarray, g_ref)))
     for key, t in named_leaves(tp):
-        _close(t.grad, g_ref[key], key)
+        _close(t.grad, port_layout(key, g_ref[key]), key)
         assert float(t.grad.abs().max()) > 0, key
 
 

@@ -66,6 +66,11 @@ def _specs(kw):
     return jh.HashGridSpec(**kw), th.HashGridSpec(**kw)
 
 
+def _pt(table):
+    """A JAX-layout (F, T) numpy table as the port's row-major (T, F) tensor."""
+    return torch.from_numpy(np.ascontiguousarray(table.T))
+
+
 def _inputs(spec, n, seed=0, scale=1.0):
     rs = np.random.RandomState(seed)
     table = ((rs.rand(spec.n_features_per_level, spec.total_params) - 0.5) * 2 * scale)
@@ -103,7 +108,7 @@ def test_spec_layout_matches_jax(name):
 def test_init_layout_and_range():
     _, ts = _specs(SMALL)
     t = th.hashgrid_init(torch.Generator().manual_seed(0), ts, "cpu")
-    assert t.shape == (2, ts.total_params) and t.dtype == torch.float32
+    assert t.shape == (ts.total_params, 2) and t.dtype == torch.float32 and t.is_contiguous()
     assert float(t.abs().max()) <= 1e-4 and float(t.std()) > 3e-5
     again = th.hashgrid_init(torch.Generator().manual_seed(0), ts, "cpu")
     assert torch.equal(t, again)
@@ -140,14 +145,14 @@ def test_forward_matches_jax(name, masked):
     jm = None if mask is None else jnp.asarray(mask)
     tm = None if mask is None else torch.from_numpy(mask)
     ref = np.asarray(jax.jit(lambda t, a: jh.hashgrid_encode(t, a, js, jm))(table, x))
-    got = th.hashgrid_encode(torch.from_numpy(table), torch.from_numpy(x), ts, tm).numpy()
+    got = th.hashgrid_encode(_pt(table), torch.from_numpy(x), ts, tm).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-8)
     np.testing.assert_array_equal(got, ref)  # the same rounding points
-    fast = th.hashgrid_encode_fast(torch.from_numpy(table), torch.from_numpy(x), ts, tm)
+    fast = th.hashgrid_encode_fast(_pt(table), torch.from_numpy(x), ts, tm)
     np.testing.assert_array_equal(fast.numpy(), got)
     # batch dims are kept, level-major features
     x3 = torch.from_numpy(x[:1998]).reshape(3, 666, 3)
-    assert th.hashgrid_encode_fast(torch.from_numpy(table), x3, ts, tm).shape == (
+    assert th.hashgrid_encode_fast(_pt(table), x3, ts, tm).shape == (
         3, 666, js.n_output_dims)
 
 
@@ -168,19 +173,19 @@ def test_gradients_match_jax_grad(name, masked):
     jt, jx = _jax_grads(jh.hashgrid_encode, table, x, ct, js, mask)
     tm = None if mask is None else torch.from_numpy(mask)
     for op in (th.hashgrid_encode_fast, th.hashgrid_encode):
-        t = torch.from_numpy(table).requires_grad_(True)
+        t = _pt(table).requires_grad_(True)
         a = torch.from_numpy(x).requires_grad_(True)
         (op(t, a, ts, tm) * torch.from_numpy(ct)).sum().backward()
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jt), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(t.grad.numpy().T, np.asarray(jt), rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(jx), rtol=1e-4, atol=1e-5)
     # positions that do not require grad get none (the NeRF samples)
-    t = torch.from_numpy(table).requires_grad_(True)
+    t = _pt(table).requires_grad_(True)
     a = torch.from_numpy(x)
     (th.hashgrid_encode_fast(t, a, ts, tm) * torch.from_numpy(ct)).sum().backward()
     assert a.grad is None
-    dt, dx = th.hashgrid_backward(torch.from_numpy(table), a, torch.from_numpy(ct), ts, tm)
+    dt, dx = th.hashgrid_backward(_pt(table), a, torch.from_numpy(ct), ts, tm)
     assert dx is None
-    np.testing.assert_allclose(dt.numpy(), np.asarray(jt), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dt.numpy().T, np.asarray(jt), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["small", "sort"])
@@ -192,12 +197,12 @@ def test_gradients_against_jax_fast_path(name):
     js, ts = _specs(SPECS[name])
     table, x, ct = _inputs(js, 1200, seed=4, scale=0.1)
     jt, jx = _jax_grads(jh.hashgrid_encode_fast, table, x, ct, js, None)
-    t = torch.from_numpy(table).requires_grad_(True)
+    t = _pt(table).requires_grad_(True)
     a = torch.from_numpy(x).requires_grad_(True)
     (th.hashgrid_encode_fast(t, a, ts) * torch.from_numpy(ct)).sum().backward()
     np.testing.assert_allclose(a.grad.numpy(), np.asarray(jx), rtol=1e-4, atol=1e-5)
     jt = np.asarray(jt)
-    got = t.grad.numpy()
+    got = t.grad.numpy().T
     assert np.abs(got - jt).max() <= 8e-3 * np.abs(jt).max()  # bf16 one-hot levels
     for level in range(js.n_levels):
         sl = slice(js.level_offsets[level], js.level_offsets[level] + js.level_sizes[level])
@@ -233,14 +238,14 @@ def test_dedup_blocks_match_jax_dedup_path():
     table = ((rs.rand(2, js.total_params) - 0.5) * 0.2).astype(np.float32)
     ct = rs.randn(x.shape[0], js.n_output_dims).astype(np.float32)
     ref = np.asarray(jax.jit(lambda t, a: jh.hashgrid_encode_fast(t, a, jd))(table, x))
-    got = th.hashgrid_encode_fast(torch.from_numpy(table), torch.from_numpy(x), td).numpy()
+    got = th.hashgrid_encode_fast(_pt(table), torch.from_numpy(x), td).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
     jt, jx = _jax_grads(jh.hashgrid_encode_fast, table, x, ct, jd, None)
-    t = torch.from_numpy(table).requires_grad_(True)
+    t = _pt(table).requires_grad_(True)
     a = torch.from_numpy(x).requires_grad_(True)
     (th.hashgrid_encode_fast(t, a, td) * torch.from_numpy(ct)).sum().backward()
     np.testing.assert_allclose(a.grad.numpy(), np.asarray(jx), rtol=2e-4, atol=2e-5)
-    assert np.abs(t.grad.numpy() - np.asarray(jt)).max() <= 8e-3 * np.abs(np.asarray(jt)).max()
+    assert np.abs(t.grad.numpy().T - np.asarray(jt)).max() <= 8e-3 * np.abs(np.asarray(jt)).max()
 
 
 def test_hashgrid_encoding_module():
@@ -258,7 +263,7 @@ def test_hashgrid_encoding_module():
     assert isinstance(inner, t_nu.HashGridEncoding) and inner.grad_mode == "fast"
     assert enc.n_output_dims == 12
     params = enc.init(torch.Generator().manual_seed(0), "cpu")
-    assert params["table"].shape == (2, inner.spec.total_params)
+    assert params["table"].shape == (inner.spec.total_params, 2)
     x = torch.rand((64, 3), generator=torch.Generator().manual_seed(1))
     auto = t_nu.get_encoding(3, {**cfg, "grad_mode": "autodiff"})
     assert torch.equal(enc.apply(params, x), auto.apply(params, x))

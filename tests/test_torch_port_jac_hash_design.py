@@ -165,7 +165,8 @@ def test_hash_backward_plain_matches_jax_fast_bwd_on_rays(name, masked):
     jt, jx = vjp(jnp.asarray(ct))
     idx, _ = th.level_corner_indices(ts, _t(x).T.contiguous(), 0)
     assert int(idx.unique().numel()) < idx.numel() // 4  # coarse rows repeat
-    dt, dx = th.hashgrid_backward(_t(table), _t(x), _t(ct), ts,
+    # the port's table and its gradient are row-major (T, F)
+    dt, dx = th.hashgrid_backward(_t(np.ascontiguousarray(table.T)), _t(x), _t(ct), ts,
                                   None if mask is None else _t(mask), with_dx=True)
-    _close(dt, jt, "d table")
+    _close(dt.T, jt, "d table")
     _close(dx, jx, "d x")
