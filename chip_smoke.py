@@ -104,22 +104,23 @@ lines are printed):
    export's level grid;
 17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
-   K4, K10, K12, cp_big's K10, HG2; the forwards K1, K13, cp_big's K1 and
-   HG1) also carry ptxas' registers and spills of this run's build, their
-   shared memory and blocks per SM (the launch plan; HG1's and HG2's from
-   their registers; K1 / K13 / cp_big's K1 for the training mode, and
-   ``ptxas_eval`` etc. for the eval mode), ``ms_ray_ordered`` (the kernel
-   timed on the operands of the last step of the bench training runs,
-   ray-ordered samples, every launch of the step: K10 once per scale; the
-   forwards' training-mode launches), for the backwards ``device_ms`` (the
+   K4, K8, cp_big's K8, K10, K12, cp_big's K10, HG2; the forwards K1, K13,
+   cp_big's K1, K3 and HG1) also carry ptxas' registers and spills of this
+   run's build, their shared memory and blocks per SM (the launch plan;
+   HG1's and HG2's from their registers; K1 / K13 / cp_big's K1 / K3 for
+   the training mode, and ``ptxas_eval`` etc. for the eval mode),
+   ``ms_ray_ordered`` (the kernel timed on the operands of the last step of
+   the bench training runs, the raw NeuS's for K8, ray-ordered samples,
+   every launch of the step: K8 and K10 once per scale; the forwards'
+   training-mode launches), for the backwards ``device_ms`` (the
    device time of a call under torch.profiler, without the host's share)
    and ``composed_ms`` (their products as a chain of ``torch.matmul`` calls
    at the same shapes, or HG2's one ``index_add_`` per feature on
    precomputed taps: a yardstick the port never calls) and, given ``--parent
    DIR`` (another checkout, e.g. the parent commit from ``git archive``),
    ``parent_ms`` / ``parent_ms_ray`` and ``parent_device_ms`` /
-   ``parent_device_ms_ray`` (the forwards also ``parent_ms_eval`` and
-   ``parent_ms_step``: the same training step's operands, saved by this run
+   ``parent_device_ms_ray`` (the forwards also ``parent_ms_eval``, they and
+   K8 ``parent_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
 18. the last line ``{"ok": true, "device": {...}}``.
@@ -264,10 +265,17 @@ REDESIGNED_KERNELS = {
                               "cp_mlp_fwd_kernelILi128ELi16ELi3ELi64ELi1ELi16ELb0ELb1E",
                               ("cp_mlp_fwd", 128, 16, 3, 64, 1, 16, True)),
     "hashgrid_forward": ("hashgrid_fwd", "hashgrid_fwd_kernelILi2ELi4E", None),
+    "cp_product_jac_backward": ("cp_jac_basis_bwd", "cp_jac_basis_bwd_kernelILi64ELi0ELi1E",
+                                ("cp_product_jac_bwd", 64)),
+    "cp_product_jac_backward@cp_big": ("cp_jac_basis_bwd",
+                                       "cp_jac_basis_bwd_kernelILi128ELi0ELi1E",
+                                       ("cp_product_jac_bwd", 128)),
+    "sh_mlp_forward": ("sh_mlp_fwd", "sh_mlp_fwd_kernelILi16ELi4ELi64ELi2ELi3ELb1E",
+                       ("sh_mlp_fwd", 16, 4, 64, 2, 3, True)),
 }
 EVAL_MARKERS = {name: (stem, marker[:-len("ELb1E")] + "ELb0E", (*plan[:-1], False))
                 for name, (stem, marker, plan) in REDESIGNED_KERNELS.items()
-                if stem == "cp_mlp_fwd"}
+                if stem in ("cp_mlp_fwd", "sh_mlp_fwd")}
 # a training step's own operands of the redesigned kernels (captured in the
 # last step of a training run), the kernels' times on them, and the
 # forwards' operands as tools/bwd_bench.py --step-operands reads them
@@ -302,10 +310,20 @@ def ptxas_info(stem, marker):
     return info or None
 
 
-def _step_entry(name, args, kwargs):
-    """A forward launch's arguments as ``tools/bwd_bench.py --step-operands``
+def _step_entry(name, calls):
+    """A step's launch arguments as ``tools/bwd_bench.py --step-operands``
     reads them (plain tensors and numbers, so another checkout can load
-    them)."""
+    them): the last launch of a forward, every launch of K8 (one per
+    scale)."""
+    if name == "cp_product_jac_backward":
+        return {"kind": "raw", "launches": [[t.detach() if torch.is_tensor(t) else t for t in a]
+                                            for a, _ in calls]}
+    args, kwargs = calls[-1]
+    if name == "sh_mlp_forward":
+        ops, feats, dirs, spec, degree = args[:5]
+        return {"kind": "sh", "ops": list(ops), "feats": feats.detach(), "dirs": dirs.detach(),
+                "degree": degree, "train": bool(kwargs.get("train", False)),
+                "mlp": (spec.dim_in, spec.dim_out, spec.n_neurons, spec.n_hidden_layers)}
     if name == "hashgrid_forward":
         table, x, spec = args[:3]
         mask = args[3] if len(args) > 3 else kwargs.get("level_mask")
@@ -328,19 +346,25 @@ BENCH_KEY = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
              "cp_jac_basis_backward": "k10", "cp_jac_stacked_backward": "k12",
              "cp_jac_basis_backward@cp_big": "k10_cp_big", "hashgrid_backward": "hg2",
              "cp_mlp_forward": "k1", "cp_mlp_stacked_forward": "k13",
-             "cp_mlp_forward@cp_big": "k1_cp_big", "hashgrid_forward": "hg1"}
+             "cp_mlp_forward@cp_big": "k1_cp_big", "hashgrid_forward": "hg1",
+             "cp_product_jac_backward": "k8", "cp_product_jac_backward@cp_big": "k8_cp_big",
+             "sh_mlp_forward": "k3"}
+# the launches a capture records in training mode only (a grid update's or a
+# rendered view's eval launches are not the step's forward)
+TRAIN_ONLY = ("cp_mlp_forward", "cp_mlp_stacked_forward", "sh_mlp_forward")
 
 
 def capture_step_operands(run_step, label):
     """Run ``run_step()`` (one training step) with the launch functions of
     the redesigned kernels recording their arguments: the backwards K2, K14,
-    K4, K10, K12 and HG2, and the training-mode forwards K1, K13 and HG1;
-    then time each recorded kernel on its step's own (ray-ordered) operands,
-    all of its launches of the step in a row (K10: one per scale), into
-    ``STEP_MS[name]`` as ``(ms, n)``, and keep the forwards' arguments in
-    ``STEP_OPERANDS`` for the parent design's timing. The recorders call the
-    launch functions themselves, so the step's launch counts are unchanged,
-    and the counts are restored after the timing launches."""
+    K4, K8, K10, K12 and HG2, and the training-mode forwards K1, K13, K3 and
+    HG1; then time each recorded kernel on its step's own (ray-ordered)
+    operands, all of its launches of the step in a row (K8, K10: one per
+    scale), into ``STEP_MS[name]`` as ``(ms, n)``, and keep the forwards' and
+    K8's arguments in ``STEP_OPERANDS`` for the parent design's timing. The
+    recorders call the launch functions themselves, so the step's launch
+    counts are unchanged, and the counts are restored after the timing
+    launches."""
     from instant_nsr_pl_tpu_torch.ops import cp_mlp, cp_product, cp_stacked, hashgrid, sh_mlp
 
     seen = {}
@@ -368,16 +392,17 @@ def capture_step_operands(run_step, label):
                                    lambda a: a[1].reshape(-1, 3).shape[0]),
         "hashgrid_forward": (hashgrid, "hashgrid_forward_launch", hashgrid.hashgrid_forward,
                              lambda a: a[1].reshape(-1, 3).shape[0]),
+        "cp_product_jac_backward": (cp_product, "cp_product_jac_backward_launch",
+                                    cp_product.cp_product_jac_backward, lambda a: a[0].shape[1]),
+        "sh_mlp_forward": (sh_mlp, "sh_mlp_launch", sh_mlp.sh_mlp_forward,
+                           lambda a: a[1].reshape(-1, a[1].shape[-1]).shape[0]),
     }
     for name, (mod, attr, _, _) in targets.items():
         fn = getattr(mod, attr)
         originals[name] = fn
 
         def record(*args, _name=name, _fn=fn, **kwargs):
-            # the CP forwards: training-mode launches only (a grid update's
-            # eval launches are not the step's forward)
-            if not _name.startswith("cp_mlp_") or not _name.endswith("forward") or \
-                    kwargs.get("train", False):
+            if _name not in TRAIN_ONLY or kwargs.get("train", False):
                 seen.setdefault(_name, []).append((args, kwargs))
             return _fn(*args, **kwargs)
 
@@ -397,8 +422,8 @@ def capture_step_operands(run_step, label):
         ms = time_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
         counter.launches = count
         STEP_MS[key] = (ms, int(n_of(calls[-1][0])))
-        if name.endswith("forward"):
-            STEP_OPERANDS[BENCH_KEY[key]] = _step_entry(name, *calls[-1])
+        if key in BENCH_KEY and (name.endswith("forward") or name == "cp_product_jac_backward"):
+            STEP_OPERANDS[BENCH_KEY[key]] = _step_entry(name, calls)
         print(f"[step-operands] {key}: {ms:.4f} ms on a training step's own operands "
               f"({len(calls)} launch(es), N={STEP_MS[key][1]})", flush=True)
     return out
@@ -544,7 +569,7 @@ def kernel_phase(device):
     d_dout = torch.randn((N_FULL, 16), generator=gen).to(device)
     r_dout = torch.randn((N_FULL, 3), generator=gen).to(device)
 
-    # the kernels alone, on operands packed once (the ops pack per call)
+    # the kernels alone, on operands packed here (the eval ops pack once per weights version)
     cp_ops = cp_mlp.cp_mlp_operands(cp_params, d_layers, cp_spec, d_spec)
     sh_ops = sh_mlp.pack_sh_mlp(r_layers, r_spec, 4, 16, 16)
     s_count, c, f = len(cp_spec.resolutions), cp_spec.n_components, cp_spec.n_features
@@ -591,6 +616,7 @@ def kernel_phase(device):
             compare(f"{name} training mode {label}", a.float(), b.float())
         ms = time_ms(lambda: launch(False))
         ms_train = time_ms(lambda: launch(True))
+        dev_ms, dev_ms_train = device_ms(lambda: launch(False)), device_ms(lambda: launch(True))
         op_ms = time_ms(lambda: op(*args))
         plain_ms = time_ms(lambda: plain(*args))
         if key == "cp":
@@ -605,14 +631,16 @@ def kernel_phase(device):
             f32 = N_FULL * 40  # the degree-4 SH polynomials
         bound_ms, bound_by = bound(n_bytes, bf16, f32)
         bound_train_ms, _ = bound(n_bytes + residual_bytes[key], bf16, f32)
-        print(f"[kernel] {name}: {ms:.4f} ms eval, {ms_train:.4f} ms training mode (with operand "
-              f"packing {op_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
-              f"{bound_by}, {bound_train_ms:.4f} ms with residuals) at N={N_FULL}", flush=True)
+        print(f"[kernel] {name}: {ms:.4f} ms eval, {ms_train:.4f} ms training mode (device "
+              f"{dev_ms:.4f} / {dev_ms_train:.4f}; through the op {op_ms:.4f} ms; plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by}, {bound_train_ms:.4f} "
+              f"ms with residuals) at N={N_FULL}", flush=True)
         entries[name] = {
             "name": name, "route": "cuda",
             "source": f"instant_nsr_pl_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": 0, "max_abs_err": max(errs), "ms": ms, "kernel_ms": ms,
-            "ms_train": ms_train, "op_ms": op_ms, "plain_ms": plain_ms,
+            "ms_train": ms_train, "device_ms": dev_ms, "device_ms_train": dev_ms_train,
+            "op_ms": op_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_train_ms": bound_train_ms,
             "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
@@ -858,7 +886,7 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
         "cp_product_backward": ("cp_product_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:277"),
         "cp_product_jac_forward": ("cp_product_jac_fwd.cu",
                                    "instant_nsr_pl_tpu/ops/cp_pallas.py:424"),
-        "cp_product_jac_backward": ("cp_product_jac_bwd.cu",
+        "cp_product_jac_backward": ("cp_jac_basis_bwd.cu",
                                     "instant_nsr_pl_tpu/ops/cp_pallas.py:464"),
         "cp_jac_basis_forward": ("cp_jac_basis_fwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:633"),
         "cp_jac_basis_backward": ("cp_jac_basis_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:676"),
@@ -2061,7 +2089,7 @@ def cp_big_train_phase(device, smi):
         losses = []
         for i in range(CP_BIG_STEPS):
             before = {k: c.launches for k, c in counters.items()}
-            if kind in ("nerf", "neus") and i == CP_BIG_STEPS - 1:
+            if kind in ("nerf", "neus", "neus_raw") and i == CP_BIG_STEPS - 1:
                 state, metrics = capture_step_operands(lambda: system.train_step(state),
                                                            "@cp_big")
             else:
@@ -2348,7 +2376,7 @@ def main(argv=None):
                 "blocks_per_sm_eval": plan_eval["blocks_per_sm"] if plan_eval else None,
                 "parent_ms_eval": parent.get(f"{key}_eval@uniform"),
             })
-        if e["name"].endswith(("forward", "forward@cp_big")):
+        if e["name"].endswith(("forward", "forward@cp_big")) or key.startswith("k8"):
             e["parent_ms_step"] = parent.get(f"{key}@step")
         print(f"[design] {e['name']}: {e['ms']:.4f} ms uniform (device {e.get('device_ms')}), "
               f"step operands {e['ms_ray_ordered']}, parent {e['parent_ms']} / ray "

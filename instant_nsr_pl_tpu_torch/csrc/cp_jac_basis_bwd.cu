@@ -1,5 +1,6 @@
 // Backward of the fused CP product + Jacobian + basis projection (K10):
-// (d enc (F, N), d jac (3, F, N)) -> (d lines (3, R, C), d u (3, N), d B (C, F)).
+// (d enc (F, N), d jac (3, F, N)) -> (d lines (3, R, C), d u (3, N), d B (C, F)),
+// and of the raw CP product + Jacobian without a basis (K8, below).
 //
 // Replaces: instant_nsr_pl_tpu/ops/cp_pallas.py _cp_jacb_bwd -> _jacb_bwd_kernel
 // (pallas_call at :676). It reads the forward's bf16 residuals vsave and
@@ -68,6 +69,27 @@
 // F = 16 the function moves 2,072 B per sample (0.16 ms at 3.35 TB/s for
 // 262,144 samples).
 //
+// Raw products (K8, the F = 0 instantiation): (d prod (C, N), d jac (3, C, N))
+// -> (d lines (3, R, C), d u (3, N)). It replaces cp_pallas.py
+// _cp_product_jac_bwd -> _jac_bwd_kernel (pallas_call at :464), the backward
+// of the NeuS SDF encoding with n_features: 0, reading the residuals of
+// csrc/cp_product_jac_fwd.cu (K7). The function is the one above without the
+// basis: dP and dJ_a are the f32 cotangents as given, and there is no d B.
+// What bounds it: HBM. Per sample it reads u (12 B), vsave and gdsave (12 B x
+// C), d prod (4 B x C) and d jac (12 B x C) and writes d u (12 B): 1,816 B at
+// C = 64, 0.142 ms at 3.35 TB/s for 262,144 samples, plus the (3, R, C) f32
+// table gradient once. Sample by sample, the scatter would be 2 rows x 3
+// axes x C/4 16-byte atomics per sample into tables that stay in L2: 25 M a
+// launch at C = 64, 0.4-0.5 ms at the ~50-70 G sector updates/s of the L2's
+// atomic unit, three times the bytes bound. Here step 1 also brings the
+// step's f32 d prod and d jac rows in with cp.async as [row][sample] tiles
+// (the bf16 cotangent tile, the products and the d B fragments drop out), and
+// the scatter is step 4's: a ray's neighbouring samples, which hit the same
+// rows above all on the coarse R = 128 table, are summed in registers before
+// they reach L2. d u sums over the components in another order than the
+// plain version (lanes, then steps): it agrees to f32 rounding. 40-71 KB of
+// shared memory at C = 16-128, two blocks of 8 warps per SM.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
 #include "cp_common.cuh"
@@ -75,8 +97,12 @@
 
 namespace insr {
 
+// F = 0 is K8 (csrc header above): no basis, so no [dP | dJ] and no d B
+// products, and the f32 cotangents d prod (C, N), d jac (3, C, N) come in C
+// wide instead of bf16 ones F wide.
 template <int C, int F, int S>
 struct JacBwd {
+  static constexpr bool RAW = F == 0;
   // components per step: 32 holds the step's d v / d gd in 24 registers a
   // thread; with 64 (48 registers) the 128 registers of two blocks per SM
   // spilled up to 296 bytes and K12 ran 20% slower (tools/bwd_bench.py)
@@ -88,15 +114,16 @@ struct JacBwd {
   static constexpr int LDB = 24;              // row stride of the basis (F padded to 16, + 8)
   static constexpr int LDD = CT + 8;          // row stride of the d v / d gd stage
   // shared memory, in bf16 elements
-  static constexpr int BS = S * C * LDB;
+  static constexpr int BS = RAW ? 0 : S * C * LDB;
   static constexpr int VG = 6 * CT * kLdT;         // the step's vsave, gdsave [row][sample]
   static constexpr int DS = 2 * 3 * kT * LDD;      // bf16 d v, d gd [kind][axis][sample][c]
   static constexpr int ST = VG > DS ? VG : DS;     // one region: DS overwrites VG
-  static constexpr int AT = 4 * CT * kLdT;         // bf16 prod, jpre_x..z [q][c][sample]
-  static constexpr int DE = 4 * FP * kLdT;         // bf16 d enc, d jac_x..z [q][f][sample]
-  static constexpr size_t BYTES = 2 * (BS + ST + AT + DE) + 4 * 4 * 3 * kT;  // + tents
+  static constexpr int AT = RAW ? 0 : 4 * CT * kLdT;  // bf16 prod, jpre_x..z [q][c][sample]
+  static constexpr int DE = RAW ? 0 : 4 * FP * kLdT;  // bf16 d enc, d jac_x..z [q][f][sample]
+  static constexpr int CF = RAW ? 4 * CT * kLdT : 0;  // f32 dP, dJ_x..z [q][c][sample] (K8)
+  static constexpr size_t BYTES = 2 * (BS + ST + AT + DE) + 4 * CF + 4 * 4 * 3 * kT;  // + tents
   static constexpr int MINB = BYTES <= 113 * 1024 ? 2 : 1;
-  static constexpr int DPT = 4 * F * kT / kThreads;  // cotangent values each thread stages
+  static constexpr int DPT = 4 * F * kT / kThreads;  // bf16 cotangent values each thread stages
   // the scatter: groups of CT/4 lanes, each walking one run of RUN (axis,
   // sample) rows of the tile in order (every group busy: longer runs, which
   // merge more, left groups idle and ran 2-5% slower; tools/bwd_bench.py)
@@ -107,7 +134,7 @@ struct JacBwd {
   // kWarps owns fragment g in register slot g / kWarps
   static constexpr int FPS = (CT / 16) * NT;
   static constexpr int NBF = STEPS * FPS;
-  static constexpr int NBW = (NBF + kWarps - 1) / kWarps;
+  static constexpr int NBW = NBF > 0 ? (NBF + kWarps - 1) / kWarps : 1;
   static constexpr int COUNT = S * C * F;
   static_assert(C % CT == 0 && CT % 16 == 0 && F % 8 == 0 && F <= FP, "layout");
   static_assert(GL <= 32 && 32 % GL == 0 && (3 * kT) % NG == 0, "scatter groups");
@@ -131,7 +158,8 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
   __nv_bfloat16* st = bs + K::BS;  // residual rows, then d v / d gd
   __nv_bfloat16* at = st + K::ST;
   __nv_bfloat16* de = at + K::AT;
-  int* ti0 = reinterpret_cast<int*>(de + K::DE);  // [axis][sample] tent coordinates
+  float* cf = reinterpret_cast<float*>(de + K::DE);  // K8's f32 cotangent rows
+  int* ti0 = reinterpret_cast<int*>(cf + K::CF);  // [axis][sample] tent coordinates
   float* tw0 = reinterpret_cast<float*>(ti0 + 3 * kT);
   float* tw1 = tw0 + 3 * kT;
   float* tsc = tw1 + 3 * kT;
@@ -140,11 +168,13 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
   const int t = warp * 8 + c_in;  // this thread's first sample of the tile (and t + 1)
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 
-  for (int q = threadIdx.x; q < K::BS; q += kThreads) {
-    const int row = q / K::LDB, col = q % K::LDB;
-    bs[q] = col < F ? basis[row * F + col] : zero;
+  if constexpr (!K::RAW) {
+    for (int q = threadIdx.x; q < K::BS; q += kThreads) {
+      const int row = q / K::LDB, col = q % K::LDB;
+      bs[q] = col < F ? basis[row * F + col] : zero;
+    }
+    fill_shared(de, K::DE, zero);  // rows F..15 of each cotangent stay zero
   }
-  fill_shared(de, K::DE, zero);  // rows F..15 of each cotangent stay zero
 
   float dba[K::NBW][4];
 #pragma unroll
@@ -163,6 +193,10 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
       const auto row_of = [=](int row) { return (row / CT) * LD + c0 + row % CT; };
       load_tile_rows(st, vsave, n, s0, 3 * CT, row_of);
       load_tile_rows(st + 3 * CT * kLdT, gdsave, n, s0, 3 * CT, row_of);
+      if constexpr (K::RAW) {  // and the step's f32 d prod, d jac_x..z rows
+        load_tile_rows(cf, denc, n, s0, CT, [=](int row) { return c0 + row; });
+        load_tile_rows(cf + CT * kLdT, djac, n, s0, 3 * CT, row_of);
+      }
       cp_async_commit();
       if constexpr (k == 0) {
         for (int q = threadIdx.x; q < 3 * kT; q += kThreads) {
@@ -174,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
           tsc[q] = tq < nv ? tt.s : 0.0f;
         }
       }
-      if constexpr (h == 0) {
+      if constexpr (h == 0 && !K::RAW) {
         // this scale's bf16 cotangents, [q][f][sample]: every load of the
         // thread in flight at once, not one round trip per value
         float val[K::DPT];
@@ -204,13 +238,26 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
         sa[a][1] = tsc[a * kT + t + 1];
       }
       uint32_t bq[4][2];
+      if constexpr (!K::RAW) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) load_b_t(bq[q], de + q * K::FP * kLdT, kLdT, 0, warp * 8, lane);
+        for (int q = 0; q < 4; ++q) load_b_t(bq[q], de + q * K::FP * kLdT, kLdT, 0, warp * 8, lane);
+      }
       uint32_t dvp[CT / 16][2][3], dgp[CT / 16][2][3];  // bf16 pairs of samples t, t + 1
 #pragma unroll
       for (int mt = 0; mt < CT / 16; ++mt) {
         float dq[4][4];
-        {
+        if constexpr (K::RAW) {  // K8: the f32 cotangents as given
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  cf + (q * CT + mt * 16 + r_in + 8 * half) * kLdT + t);
+              dq[q][2 * half] = v.x;
+              dq[q][2 * half + 1] = v.y;
+            }
+          }
+        } else {
           uint32_t af[4];
           load_a(af, bs + c0 * K::LDB, K::LDB, mt * 16, 0, lane);
 #pragma unroll
@@ -256,11 +303,16 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
               acc_u[a][j] = acc_u[a][j] + dv[a][j] * gd[a];
             }
           }
-          *reinterpret_cast<uint32_t*>(at + c * kLdT + t) = pack_bf16x2(pr[0], pr[1]);
+          if constexpr (!K::RAW) {
+            *reinterpret_cast<uint32_t*>(at + c * kLdT + t) = pack_bf16x2(pr[0], pr[1]);
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+              *reinterpret_cast<uint32_t*>(at + ((1 + a) * CT + c) * kLdT + t) =
+                  pack_bf16x2(jp[a][0], jp[a][1]);
+            }
+          }
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
-            *reinterpret_cast<uint32_t*>(at + ((1 + a) * CT + c) * kLdT + t) =
-                pack_bf16x2(jp[a][0], jp[a][1]);
             dvp[mt][half][a] = pack_bf16x2(dv[a][0], dv[a][1]);
             dgp[mt][half][a] = pack_bf16x2(dg[a][0], dg[a][1]);
           }
@@ -299,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
           }
         }
       }
-      // d B_s += [prod; jpre] [d enc; d jac]^T for this warp's fragments
+      // d B_s += [prod; jpre] [d enc; d jac]^T for this warp's fragments (none in K8)
 #pragma unroll
       for (int q = 0; q < K::FPS; ++q) {
         constexpr int kOff = k * K::FPS;
@@ -377,6 +429,7 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
     });
   }
 
+  if constexpr (K::RAW) return;  // K8 has no d B
   // this block's d B fragments, in a fixed order, to its partial row
   float* out = part + static_cast<long long>(blockIdx.x) * K::COUNT;
 #pragma unroll
@@ -414,7 +467,45 @@ int jac_basis_bwd(const float* u3, long long n, int r, const void* vsave, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8: the F = 0 instantiation, without d B, so one launch and no partials.
+// info (3 ints) receives the launch plan: grid, blocks per SM, shared bytes.
+template <int C>
+int product_jac_bwd(const float* u3, long long n, int r, const void* vsave, const void* gdsave,
+                    const float* dprod, const float* djac, float* dlines, float* du, int* info,
+                    cudaStream_t stream) {
+  using K = JacBwd<C, 0, 1>;
+  auto kernel = cp_jac_basis_bwd_kernel<C, 0, 1>;
+  const int rc = plan_persistent(reinterpret_cast<const void*>(kernel), K::BYTES, n, info);
+  if (rc != 0) return rc;
+  if (n > 0) {
+    kernel<<<info[0], kThreads, K::BYTES, stream>>>(
+        u3, n, r, static_cast<const __nv_bfloat16*>(vsave),
+        static_cast<const __nv_bfloat16*>(gdsave), dprod, djac, nullptr, dlines, du, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace insr
+
+// K8, the raw products' backward: dprod (C, N) and djac (3, C, N) f32, the
+// residuals of cp_product_jac_fwd (csrc/cp_product_jac_fwd.cu); dlines (3, R,
+// C) zeroed by the caller (the kernel adds into it), du written. Returns
+// cudaGetLastError() after the launch, or -1 when no instantiation matches.
+extern "C" int cp_product_jac_bwd(const float* u3, long long n, int r, int c,
+                                  const void* vsave, const void* gdsave, const float* dprod,
+                                  const float* djac, float* dlines, float* du, int* info,
+                                  void* stream) {
+  if (r < 2) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_PJ_BWD_CASE(C_)                                                               \
+  if (c == C_)                                                                             \
+    return insr::product_jac_bwd<C_>(u3, n, r, vsave, gdsave, dprod, djac, dlines, du, info, st);
+  INSR_PJ_BWD_CASE(128)  // the raw products at bench.py --encoding cp_big's C
+  INSR_PJ_BWD_CASE(64)   // the raw-product NeuS SDF encoding
+  INSR_PJ_BWD_CASE(16)   // the small test model
+#undef INSR_PJ_BWD_CASE
+  return -1;
+}
 
 // With part == nullptr: a plan query, filling info = {grid, blocks per SM,
 // shared-memory bytes per block, partial sums per block}; the caller then

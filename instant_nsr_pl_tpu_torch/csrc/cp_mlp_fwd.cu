@@ -92,44 +92,6 @@ struct LineTables {
   int res[kMaxScales];
 };
 
-// Element (row, t) of a [row][sample] bf16 tile of kT = 64 samples: rows of
-// 128 bytes, the row's eight 16-byte chunks permuted by (row ^ row >> 3) & 7.
-__device__ __forceinline__ int swz(int row, int t) {
-  return row * kT + ((((t >> 3) ^ row ^ (row >> 3)) & 7) << 3) + (t & 7);
-}
-
-// B (16x8, k x n) from a swizzled [k][n] tile at (k0, n0), n0 a multiple of 8.
-__device__ __forceinline__ void load_b_swz(uint32_t (&r)[2], const __nv_bfloat16* tile, int k0,
-                                           int n0, int lane) {
-  const int j = (lane >> 3) & 1, i = lane & 7;
-  ldsm_x2_trans(r, tile + swz(k0 + j * 8 + i, n0));
-}
-
-// Write `rows` rows of a swizzled tile to rows row_of(r) of a (rows, n) bf16
-// array, samples [s0, s0 + nv): 16-byte streaming stores when n is a multiple
-// of 8 (then every chunk is aligned and nv is a multiple of 8), else 2-byte
-// stores. Block-cooperative.
-template <typename RowOf>
-__device__ __forceinline__ void store_tile_rows(const __nv_bfloat16* tile,
-                                                __nv_bfloat16* __restrict__ dst, long long n,
-                                                long long s0, int nv, int rows, RowOf row_of) {
-  if ((n & 7) == 0) {
-    for (int q = threadIdx.x; q < rows * (kT / 8); q += kThreads) {
-      const int r = q / (kT / 8), ch = q % (kT / 8);
-      if (ch * 8 < nv) {
-        const uint4 v = *reinterpret_cast<const uint4*>(tile + swz(r, ch * 8));
-        __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(row_of(r)) * n + s0 + ch * 8),
-               v);
-      }
-    }
-  } else {
-    for (int q = threadIdx.x; q < rows * kT; q += kThreads) {
-      const int r = q / kT, t = q % kT;
-      if (t < nv) dst[static_cast<long long>(row_of(r)) * n + s0 + t] = tile[swz(r, t)];
-    }
-  }
-}
-
 template <int C, int F, int S, int W, int NH, int D>
 struct CpFwd {
   static constexpr int E = S * F;

@@ -6,7 +6,7 @@
 // analytic-gradient path when the CP encoding has no basis (n_features: 0, the
 // raw products; ops/cp.py cp_encode_with_jac). The Jacobian is a forward
 // output, so the eikonal loss's second-order graph never differentiates
-// through this op (its backward is csrc/cp_product_jac_bwd.cu). Training
+// through this op (its backward, K8, is csrc/cp_jac_basis_bwd.cu). Training
 // launches also write the TPU kernel's residuals vsave and gdsave (3, C, N)
 // bf16; eval launches (a rendered view, export vertex colours) write neither.
 //

@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the fused backward kernels (csrc/sh_mlp_bwd.cu
-// K4, csrc/cp_mlp_bwd.cu K2/K14, csrc/cp_jac_basis_bwd.cu K10/K12) and of the
-// fused density forward (csrc/cp_mlp_fwd.cu K1/K13), and the backwards' shared
-// bf16 ReLU MLP backward.
+// K4, csrc/cp_mlp_bwd.cu K2/K14, csrc/cp_jac_basis_bwd.cu K10/K12 and K8) and
+// of the fused forwards (csrc/cp_mlp_fwd.cu K1/K13, csrc/sh_mlp_fwd.cu K3), and
+// the backwards' shared bf16 ReLU MLP backward.
 //
 // Replaces kernel_mlp_bwd of instant_nsr_pl_tpu/ops/mlp_pallas_common.py:98-141
 // (the MLP chain both fused TPU backward kernels end in) on Hopper's tensor
@@ -147,26 +147,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy `rows` rows of a (rows, n) bf16 array's samples [s0, s0 + kT) into a
-// [row][sample] tile (stride kLdT); row r of the tile is source row
-// row_of(r). Samples past n become zeros. With n a multiple of 8 every 16-byte
-// chunk is aligned and the copy is asynchronous (commit and wait on the
-// caller's side); otherwise it is done with plain loads, already complete.
-template <typename RowOf>
-__device__ __forceinline__ void load_tile_rows(__nv_bfloat16* tile, const __nv_bfloat16* src,
-                                               long long n, long long s0, int rows,
-                                               RowOf row_of) {
-  constexpr int kChunks = kT / 8;
-  if ((n & 7) == 0) {
+// Copy `rows` rows of a (rows, n) bf16 or f32 array's samples [s0, s0 + kT)
+// into a [row][sample] tile (stride kLdT elements); row r of the tile is
+// source row row_of(r). Samples past n become zeros. With n a multiple of a
+// 16-byte chunk's elements (8 bf16, 4 f32) every chunk is aligned and the copy
+// is asynchronous (commit and wait on the caller's side); otherwise it is done
+// with plain loads, already complete.
+template <typename T, typename RowOf>
+__device__ __forceinline__ void load_tile_rows(T* tile, const T* src, long long n, long long s0,
+                                               int rows, RowOf row_of) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte chunk
+  constexpr int kChunks = kT / kPer;
+  static_assert((kLdT * sizeof(T)) % 16 == 0, "16-byte aligned tile rows");
+  if (n % kPer == 0) {
     for (int q = threadIdx.x; q < rows * kChunks; q += kThreads) {
       const int r = q / kChunks, ch = q % kChunks;
-      const long long s = s0 + ch * 8;
+      const long long s = s0 + ch * kPer;
       const bool in = s < n;
-      const __nv_bfloat16* g = src + (in ? static_cast<long long>(row_of(r)) * n + s : 0);
-      cp_async16(tile + r * kLdT + ch * 8, g, in ? 16 : 0);
+      const T* g = src + (in ? static_cast<long long>(row_of(r)) * n + s : 0);
+      cp_async16(tile + r * kLdT + ch * kPer, g, in ? 16 : 0);
     }
   } else {
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+    const T zero = static_cast<T>(0.0f);
     for (int q = threadIdx.x; q < rows * kT; q += kThreads) {
       const int r = q / kT, c = q % kT;
       const long long s = s0 + c;
@@ -191,6 +193,49 @@ __device__ __forceinline__ void load_weights(__nv_bfloat16* dst, const __nv_bflo
 template <typename T>
 __device__ __forceinline__ void fill_shared(T* dst, int count, T v) {
   for (int q = threadIdx.x; q < count; q += kThreads) dst[q] = v;
+}
+
+// ---------------------------------------------------------------------------
+// swizzled [row][sample] tiles of the forwards (csrc/cp_mlp_fwd.cu K1/K13,
+// csrc/sh_mlp_fwd.cu K3)
+// ---------------------------------------------------------------------------
+
+// Element (row, t) of a [row][sample] bf16 tile of kT = 64 samples: rows of
+// 128 bytes, the row's eight 16-byte chunks permuted by (row ^ row >> 3) & 7.
+__device__ __forceinline__ int swz(int row, int t) {
+  return row * kT + ((((t >> 3) ^ row ^ (row >> 3)) & 7) << 3) + (t & 7);
+}
+
+// B (16x8, k x n) from a swizzled [k][n] tile at (k0, n0), n0 a multiple of 8.
+__device__ __forceinline__ void load_b_swz(uint32_t (&r)[2], const __nv_bfloat16* tile, int k0,
+                                           int n0, int lane) {
+  const int j = (lane >> 3) & 1, i = lane & 7;
+  ldsm_x2_trans(r, tile + swz(k0 + j * 8 + i, n0));
+}
+
+// Write `rows` rows of a swizzled tile to rows row_of(r) of a (rows, n) bf16
+// array, samples [s0, s0 + nv): 16-byte streaming stores when n is a multiple
+// of 8 (then every chunk is aligned and nv is a multiple of 8), else 2-byte
+// stores. Block-cooperative.
+template <typename RowOf>
+__device__ __forceinline__ void store_tile_rows(const __nv_bfloat16* tile,
+                                                __nv_bfloat16* __restrict__ dst, long long n,
+                                                long long s0, int nv, int rows, RowOf row_of) {
+  if ((n & 7) == 0) {
+    for (int q = threadIdx.x; q < rows * (kT / 8); q += kThreads) {
+      const int r = q / (kT / 8), ch = q % (kT / 8);
+      if (ch * 8 < nv) {
+        const uint4 v = *reinterpret_cast<const uint4*>(tile + swz(r, ch * 8));
+        __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(row_of(r)) * n + s0 + ch * 8),
+               v);
+      }
+    }
+  } else {
+    for (int q = threadIdx.x; q < rows * kT; q += kThreads) {
+      const int r = q / kT, t = q % kT;
+      if (t < nv) dst[static_cast<long long>(row_of(r)) * n + s0 + t] = tile[swz(r, t)];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -52,6 +52,7 @@ from instant_nsr_pl_tpu_torch.ops.mlp_common import (
     mlp_backward_plain,
     mlp_wmax,
     pack_mlp,
+    packed_once,
     unpack_mlp_grads,
 )
 
@@ -134,7 +135,8 @@ def cp_mlp_forward(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec):
     if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
         return _CPMLP.apply(x, cp_spec, mlp_spec, *flat)
     if x.device.type == "cuda":
-        operands = cp_mlp_operands(cp_params, mlp_params, cp_spec, mlp_spec)
+        operands = packed_once("cp_mlp", flat, (cp_spec, mlp_spec), lambda: cp_mlp_operands(
+            cp_params, mlp_params, cp_spec, mlp_spec))
         return cp_mlp_launch(operands, x, cp_spec, mlp_spec)[0]
     if x.device.type == "cpu":
         return cp_mlp_forward_plain(cp_params, mlp_params, x, cp_spec, mlp_spec)
@@ -311,12 +313,6 @@ def cp_mlp_operands(cp_params, mlp_params, cp_spec: CPSpec, mlp_spec):
     return lines, basis.to(torch.bfloat16).contiguous(), ws, bs
 
 
-def _record_plan(key, info):
-    """Keep a forward launch's plan (``csrc/mma_common.cuh`` plan_persistent:
-    grid, blocks per SM, shared-memory bytes) in ``cuda_build.PLANS``."""
-    cuda_build.PLANS[key] = {"grid": info[0], "blocks_per_sm": info[1], "smem_bytes": info[2]}
-
-
 def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
     """Launch ``csrc/cp_mlp_fwd.cu`` on packed ``operands`` for CUDA x.
     Returns ``(out, vsave, hsave)``; the residuals are written only with
@@ -359,7 +355,8 @@ def cp_mlp_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
             info, stream,
         )
     cuda_build.check(rc, "cp_mlp_forward", SUPPORTED)
-    _record_plan(("cp_mlp_fwd", *fused_shape(cp_spec, mlp_spec), train, x.device.index), info)
+    cuda_build.record_plan(("cp_mlp_fwd", *fused_shape(cp_spec, mlp_spec), train,
+                            x.device.index), info)
     cp_mlp_forward.launches += 1
     return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
 
@@ -434,7 +431,9 @@ def cp_mlp_stacked_forward(cp_params, mlp_params, x, cp_spec: CPSpec, mlp_spec):
     if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
         return _CPMLPStacked.apply(x, cp_spec, mlp_spec, *flat)
     if x.device.type == "cuda":
-        operands = cp_mlp_stacked_operands(cp_params, mlp_params, cp_spec, mlp_spec)
+        operands = packed_once("cp_mlp_stacked", flat, (cp_spec, mlp_spec),
+                               lambda: cp_mlp_stacked_operands(cp_params, mlp_params, cp_spec,
+                                                               mlp_spec))
         return cp_mlp_stacked_launch(operands, x, cp_spec, mlp_spec)[0]
     if x.device.type == "cpu":
         return cp_mlp_stacked_forward_plain(cp_params, mlp_params, x, cp_spec, mlp_spec)
@@ -580,8 +579,8 @@ def cp_mlp_stacked_launch(operands, x, cp_spec: CPSpec, mlp_spec, train=False):
             hsave.data_ptr() if train else None, info, stream,
         )
     cuda_build.check(rc, "cp_mlp_stacked_forward", SUPPORTED_STACKED)
-    _record_plan(("cp_mlp_stacked_fwd", *fused_shape(cp_spec, mlp_spec), train, x.device.index),
-                 info)
+    cuda_build.record_plan(("cp_mlp_stacked_fwd", *fused_shape(cp_spec, mlp_spec), train,
+                            x.device.index), info)
     cp_mlp_stacked_forward.launches += 1
     return out.reshape(*x.shape[:-1], mlp_spec.dim_out), vsave, hsave
 

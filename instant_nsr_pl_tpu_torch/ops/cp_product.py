@@ -6,8 +6,8 @@ K6 backward), ``cp_product_jac`` (K7 forward, K8 backward) and
 ``cp_product_jac_basis`` (K9 forward, K10 backward) with their custom VJPs.
 On CUDA tensors each op launches its hand-written kernel
 (``csrc/cp_product_fwd.cu``, ``csrc/cp_product_bwd.cu``,
-``csrc/cp_product_jac_fwd.cu``, ``csrc/cp_product_jac_bwd.cu``,
-``csrc/cp_jac_basis_fwd.cu``, ``csrc/cp_jac_basis_bwd.cu``); on CPU tensors it
+``csrc/cp_product_jac_fwd.cu``, ``csrc/cp_jac_basis_fwd.cu``, and
+``csrc/cp_jac_basis_bwd.cu`` for K10 and, without the basis, K8); on CPU tensors it
 runs the plain PyTorch versions below, at the TPU kernels' rounding points.
 There is no fallback from one to the other.
 
@@ -41,9 +41,10 @@ from torch.autograd.function import once_differentiable
 from instant_nsr_pl_tpu_torch.ops import cuda_build
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round
 
-# The shapes the kernels instantiate: C of K5-K8 (csrc/cp_product_*.cu) and
-# (C, F) of K9/K10 (csrc/cp_jac_basis_*.cu): the bench NeuS encodings of
-# bench.py --encoding cp (64) and cp_big (128), and the small test models (16).
+# The shapes the kernels instantiate: C of K5-K8 (csrc/cp_product_*.cu; K8 in
+# csrc/cp_jac_basis_bwd.cu) and (C, F) of K9/K10 (csrc/cp_jac_basis_*.cu): the
+# bench NeuS encodings of bench.py --encoding cp (64) and cp_big (128), and the
+# small test models (16).
 PRODUCT_COMPONENTS = (128, 64, 16)
 JAC_BASIS_SHAPES = ((128, 16), (64, 16), (16, 8))
 SUPPORTED_PRODUCT = f"C in {PRODUCT_COMPONENTS}, R >= 2"
@@ -399,8 +400,9 @@ def cp_product_jac_launch(lines, u3, res, train=False):
 
 
 def cp_product_jac_backward_launch(u3, vsave, gdsave, dprod, djac, res):
-    """Launch ``csrc/cp_product_jac_bwd.cu`` (K8); see
-    :func:`cp_product_jac_backward`."""
+    """Launch K8 (the raw-product instantiation of ``csrc/cp_jac_basis_bwd.cu``);
+    see :func:`cp_product_jac_backward`. The line tables come from atomics.
+    With no samples it returns zeros and launches nothing."""
     _check_coords("cp_product_jac_backward", u3)
     c = vsave.shape[1]
     n = u3.shape[1]
@@ -412,16 +414,20 @@ def cp_product_jac_backward_launch(u3, vsave, gdsave, dprod, djac, res):
     dev = u3.device
     dlines = torch.zeros((3, res, c), dtype=torch.float32, device=dev)
     du = torch.empty((3, n), dtype=torch.float32, device=dev)
-    fn = cuda_build.library("cp_product_jac_bwd").cp_product_jac_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    if n == 0:
+        return dlines, du
+    fn = cuda_build.entry("cp_jac_basis_bwd", "cp_product_jac_bwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(u3.data_ptr(), n, res, c, vsave.data_ptr(), gdsave.data_ptr(),
-                dprod.data_ptr(), djac.data_ptr(), dlines.data_ptr(), du.data_ptr(), stream)
+                dprod.data_ptr(), djac.data_ptr(), dlines.data_ptr(), du.data_ptr(), info, stream)
     cuda_build.check(rc, "cp_product_jac_backward", SUPPORTED_PRODUCT)
+    cuda_build.record_plan(("cp_product_jac_bwd", c, dev.index), info)
     cp_product_jac_backward.launches += 1
     return dlines, du
 

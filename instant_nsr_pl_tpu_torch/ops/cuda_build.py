@@ -154,6 +154,12 @@ def launch_persistent(key, call, n, device, name, supported):
     return out
 
 
+def record_plan(key, info):
+    """Keep a single-launch kernel's plan (``csrc/mma_common.cuh``
+    plan_persistent: grid, blocks per SM, shared-memory bytes) in ``PLANS``."""
+    PLANS[key] = {"grid": info[0], "blocks_per_sm": info[1], "smem_bytes": info[2]}
+
+
 def check_operands(name, tensors, shapes, device):
     """Raise unless each tensor lies on ``device``, has its shape and is
     contiguous: the kernels read raw pointers with these layouts."""

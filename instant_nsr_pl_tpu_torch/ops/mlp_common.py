@@ -3,9 +3,9 @@ version of the backward chain.
 
 Port of ``instant_nsr_pl_tpu/ops/mlp_pallas_common.py:24-141``. The fused
 density kernels (``csrc/cp_mlp_{fwd,bwd}.cu``) and the fused radiance kernels
-(``csrc/sh_mlp_{fwd,bwd}.cu``) all run the same bf16 ReLU MLP chain,
-``csrc/mlp_common.cuh``. Layer weights are packed into one (sum d_in, Wmax)
-bf16 matrix whose columns beyond each layer's true d_out are zero, and the
+(``csrc/sh_mlp_{fwd,bwd}.cu``) all run the same bf16 ReLU MLP chain, on the
+tensor cores (``csrc/mma_common.cuh``). Layer weights are packed into one
+(sum d_in, Wmax) bf16 matrix whose columns beyond each layer's true d_out are zero, and the
 biases into one (L, Wmax) f32 matrix, so the device code reads static row
 ranges and the padded columns stay exact zeros. Gradients come back in the
 same packed layout and are sliced apart by :func:`unpack_mlp_grads`.
@@ -17,6 +17,27 @@ import numpy as np
 import torch
 
 from instant_nsr_pl_tpu_torch.ops.mlp import bf16_round
+
+
+_PACKED: dict = {}
+
+
+def packed_once(name, tensors, key, build):
+    """``build()``, the kernels' packed operands of these parameter tensors,
+    built once per version of them: while every tensor is the same object at
+    the same ``Tensor._version`` (which every in-place update bumps, an
+    optimizer step included), the chunks of a rendered view or of an export's
+    vertex colours reuse one pack. One entry per ``name``; it keeps the
+    tensors alive, so no new tensor can take their storage and version."""
+    tensors = tuple(tensors)
+    versions = tuple(t._version for t in tensors)
+    hit = _PACKED.get(name)
+    if (hit is not None and hit[2] == key and hit[1] == versions and len(hit[0]) == len(tensors)
+            and all(a is b for a, b in zip(hit[0], tensors))):
+        return hit[3]
+    out = build()
+    _PACKED[name] = (tensors, versions, key, out)
+    return out
 
 
 def mlp_wmax(mlp_spec) -> int:

@@ -33,10 +33,14 @@ from instant_nsr_pl_tpu_torch.ops.mlp_common import (
     mlp_backward_plain,
     mlp_wmax,
     pack_mlp,
+    packed_once,
     unpack_mlp_grads,
 )
 from instant_nsr_pl_tpu_torch.ops.sh import sh_basis, sh_output_dim
 
+# the device type whose tensors the eval path hands to K3 (the plain version
+# runs on "cpu"); a CPU test of the pack-once path points it at the CPU
+KERNEL_DEVICE = "cuda"
 SUPPORTED = ("(padded features, degree, width, hidden layers, D) in "
              "{(16, 4, 64, 2, 3), (16, 4, 32, 2, 3), (24, 4, 32, 2, 3)}")
 
@@ -65,7 +69,9 @@ def sh_mlp_forward(mlp_params, features, dirs, mlp_spec, degree, n_pre):
     With grad mode on and the features or a parameter requiring grad, the op
     records its backward: the forward then also writes the residual (K3
     training mode) and the backward runs K4 (or the plain versions, on CPU
-    tensors)."""
+    tensors). Without it (a rendered view, an export's vertex colours) the
+    packed weights are built once per version of the parameters and every
+    chunk reuses them (``ops/mlp_common.py`` ``packed_once``)."""
     n_feat = features.shape[-1]
     if not fusable(mlp_spec, n_feat, degree):
         raise ValueError(f"sh_mlp_forward: not fusable: {mlp_spec}, n_feat={n_feat}")
@@ -73,8 +79,9 @@ def sh_mlp_forward(mlp_params, features, dirs, mlp_spec, degree, n_pre):
     if torch.is_grad_enabled() and (features.requires_grad
                                     or any(t.requires_grad for t in flat)):
         return _SHMLP.apply(features, dirs, mlp_spec, degree, n_pre, *flat)
-    if features.device.type == "cuda":
-        operands = pack_sh_mlp(mlp_params, mlp_spec, degree, n_pre, n_feat)
+    if features.device.type == KERNEL_DEVICE:
+        operands = packed_once("sh_mlp", flat, (mlp_spec, degree, n_pre, n_feat),
+                               lambda: pack_sh_mlp(mlp_params, mlp_spec, degree, n_pre, n_feat))
         return sh_mlp_launch(operands, features, dirs, mlp_spec, degree)[0]
     if features.device.type == "cpu":
         return sh_mlp_forward_plain(
@@ -214,7 +221,8 @@ def _check_inputs(name, features, dirs):
 def sh_mlp_launch(operands, features, dirs, mlp_spec, degree, train=False):
     """Launch ``csrc/sh_mlp_fwd.cu`` on packed ``operands`` (from
     :func:`pack_sh_mlp`) for CUDA features and dirs. Returns ``(out,
-    hsave)``; the residual is written only with ``train`` (else None)."""
+    hsave)``; the residual is written only with ``train`` (else None). With
+    no samples it returns empty outputs and launches nothing."""
     ws, bs, fpad = operands
     n_feat = features.shape[-1]
     _check_inputs("sh_mlp_forward", features, dirs)
@@ -229,22 +237,25 @@ def sh_mlp_launch(operands, features, dirs, mlp_spec, degree, train=False):
     out = torch.empty((n, mlp_spec.dim_out), dtype=torch.float32, device=feat.device)
     hsave = (torch.empty((nh, mlp_spec.n_neurons, n), dtype=torch.bfloat16, device=feat.device)
              if train else None)
-    fn = cuda_build.library("sh_mlp_fwd").sh_mlp_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    if n == 0:
+        return out.reshape(*features.shape[:-1], mlp_spec.dim_out), hsave
+    fn = cuda_build.entry("sh_mlp_fwd", "sh_mlp_fwd", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         rc = fn(
             feat.data_ptr(), n_feat, fpad, d.data_ptr(), n, degree,
             ws.data_ptr(), bs.data_ptr(), out.data_ptr(), mlp_spec.n_neurons,
-            nh, mlp_spec.dim_out, hsave.data_ptr() if train else None, stream,
+            nh, mlp_spec.dim_out, hsave.data_ptr() if train else None, info, stream,
         )
     cuda_build.check(rc, "sh_mlp_forward", SUPPORTED)
+    cuda_build.record_plan(("sh_mlp_fwd", fpad, degree, w, nh, mlp_spec.dim_out, train,
+                            feat.device.index), info)
     sh_mlp_forward.launches += 1
     return out.reshape(*features.shape[:-1], mlp_spec.dim_out), hsave
 

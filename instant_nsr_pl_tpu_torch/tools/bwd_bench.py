@@ -1,8 +1,10 @@
 """Time the backward kernels K2 (``csrc/cp_mlp_bwd.cu``), its stacked (K14)
 and ``cp_big`` instantiations, K4 (``csrc/sh_mlp_bwd.cu``), K10
-(``csrc/cp_jac_basis_bwd.cu``) with K12 and ``cp_big``'s K10, and HG2
-(``csrc/hashgrid_bwd.cu``), and the forward kernels K1 / K13 / ``cp_big``'s
-K1 (``csrc/cp_mlp_fwd.cu``, training and eval mode) and HG1
+(``csrc/cp_jac_basis_bwd.cu``) with K12 and ``cp_big``'s K10, K8 (the raw
+products' backward, the same source's no-basis instantiation) with
+``cp_big``'s K8, and HG2 (``csrc/hashgrid_bwd.cu``), and the forward kernels
+K1 / K13 / ``cp_big``'s K1 (``csrc/cp_mlp_fwd.cu``, training and eval mode),
+K3 (``csrc/sh_mlp_fwd.cu``, training and eval mode) and HG1
 (``csrc/hashgrid_fwd.cu``) on the card, optionally from another checkout of
 the port and with phases cut out.
 
@@ -14,16 +16,16 @@ the port and with phases cut out.
 commit unpacked with ``git archive``) instead of this one: the script calls
 only the public ops (``cp_mlp_operands``, ``cp_mlp_launch``,
 ``cp_mlp_backward_launch``, their stacked twins, ``pack_sh_mlp``,
-``sh_mlp_launch``, ``sh_mlp_backward_launch``, the K9/K10 and K11/K12
+``sh_mlp_launch``, ``sh_mlp_backward_launch``, the K7/K8, K9/K10 and K11/K12
 launches of ``ops/cp_product.py`` / ``ops/cp_stacked.py``,
 ``hashgrid_forward_launch``, ``hashgrid_backward_launch``), whose signatures
 every design keeps, so two designs are timed by the same code. Each
 checkout's hash table comes from its own ``hashgrid_init`` (feature-major
 (F, T) before the table became row-major, (T, F) after; the same values).
-``--step-operands FILE`` also times the forward kernels on a training
-step's own operands as ``chip_smoke.py`` saved them (``torch.save``: per
-case, the launch's arguments as plain tensors and numbers), each case as
-``<case>@step``; a (T, F) hash table is handed to a feature-major checkout
+``--step-operands FILE`` also times the forward kernels, K3 and K8 on a
+training step's own operands as ``chip_smoke.py`` saved them
+(``torch.save``: per case, the launch's arguments as plain tensors and
+numbers), each case as ``<case>@step``; a (T, F) hash table is handed to a feature-major checkout
 transposed. Run it for the two roots in turns within one call (a, b, b, a)
 to compare them on one card.
 
@@ -31,9 +33,10 @@ The operands are those of ``chip_smoke.py``'s kernel phases at N = 262,144:
 the bench NeRF's density head (CP C=64, R=(128, 2048), F=16, MLP 32->64->16),
 the stacked head (R=(129, 2049)), the ``cp_big`` head (C=128, R=(64, 512,
 4096), MLP 48->64->16) and the radiance head (SH degree 4, 16 features, MLP
-32->64->64->3), the bench NeuS encoding for K10 (C=64, F=16, R=128 and
-2048: one launch each), the stacked one for K12 (R=(129, 2049)), cp_big's
-for its K10 (C=128, R=64, 512, 4096) and the bench hash grid for HG2 (16
+32->64->64->3: K3, K4), the bench NeuS encoding for K10 (C=64, F=16, R=128
+and 2048: one launch each) and its raw products for K8 (C=64, R=128 and
+2048), the stacked one for K12 (R=(129, 2049)), cp_big's for its K10 and K8
+(C=128, R=64, 512, 4096) and the bench hash grid for HG2 (16
 levels, F=2, 2^19 rows), from seeded random weights; the residuals come from
 one training-mode forward. ``--merge-stats`` counts, on each order's
 positions, the row updates that a merge of equal rows would leave: HG2's per
@@ -52,7 +55,9 @@ backward of the tensor-core designs, or K2's scatter replaced by one without
 the row merge; HG2's atomics by level kind, its row merge, its (T, F)
 vector atomics replaced by the (F, T) layout's scalar ones; K1's gather with
 one step's loads in flight, its residuals written with plain stores or not
-at all; HG1 with 1 or 2 levels a thread instead of 4),
+at all; HG1 with 1 or 2 levels a thread instead of 4; K8's scatter, or its
+scatter without the merge of equal rows; K3 without the hsave write-out or
+with plain stores for it),
 all built at once with ``nvcc -Xptxas -v`` into a temporary directory. The edits
 are text replacements on the copy; a variant whose text is not in the
 root's source is reported as not applicable. The variants' outputs are
@@ -223,13 +228,14 @@ CUTS.update({
         "cp_mlp_fwd.cu", "static constexpr int GROUP = STEPS < 2 ? STEPS : 2;",
         "static constexpr int GROUP = 1;")]),
     "k1_plain_stores": ("cp_mlp_fwd", [(
-        "cp_mlp_fwd.cu",
+        "mma_common.cuh",
         "        __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(row_of(r)) * n + s0 + ch * 8),\n"
         "               v);",
         "        *reinterpret_cast<uint4*>(dst + static_cast<long long>(row_of(r)) * n + s0 + ch * 8) =\n"
         "            v;")]),
     "k1_no_residual_stores": ("cp_mlp_fwd", [(
-        "cp_mlp_fwd.cu", "  if ((n & 7) == 0) {\n    for (int q = threadIdx.x; q < rows * (kT / 8);",
+        "mma_common.cuh",
+        "  if ((n & 7) == 0) {\n    for (int q = threadIdx.x; q < rows * (kT / 8);",
         "  if ((n & 7) == 0) {\n    for (int q = threadIdx.x; q < 0;")]),
 })
 # HG1 (csrc/hashgrid_fwd.cu) with 1 or 2 levels a thread instead of 4
@@ -239,18 +245,44 @@ CUTS.update({
     "hg1_levels2": ("hashgrid_fwd", [("hashgrid_fwd.cu", _HG1_GROUP,
                                       "  const int group = n_levels % 2 == 0 ? 2 : 1;")]),
 })
-# which timed case each source's variants run
+# K8 (csrc/cp_jac_basis_bwd.cu, the no-basis instantiation): its scatter walk,
+# and the walk without the window that merges equal rows (every sample adds
+# its two rows per axis); K3 (csrc/sh_mlp_fwd.cu): no hsave write-out, or
+# plain stores for it
+_WINDOW = "          if (i0 != row) {\n            if (i0 == row + 1) {"
+CUTS.update({
+    "k8_no_scatter": ("cp_jac_basis_bwd", CUTS["k10_tc_no_scatter"][1]),
+    "k8_no_row_merge": ("cp_jac_basis_bwd", [
+        ("cp_jac_basis_bwd.cu", _WINDOW, "          if (true) {\n            if (false) {"),
+        ("cp_jac_basis_bwd.cu", "} else if (i0 == row - 1) {", "} else if (false) {")]),
+    "k3_no_hsave_stores": ("sh_mlp_fwd", [(
+        "sh_mlp_fwd.cu",
+        "      store_tile_rows(hb, hsave, n, s0, nv, NH * W, [](int row) { return row; });\n",
+        "")]),
+    "k3_plain_stores": ("sh_mlp_fwd", CUTS["k1_plain_stores"][1]),
+})
+# which timed case each source's variants run (the parent design's K8 has a
+# source of its own, csrc/cp_product_jac_bwd.cu; a stem a checkout does not
+# have is left out)
 CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
-            "cp_jac_basis_bwd": ("k10", "k12", "k10_cp_big"),
+            "cp_jac_basis_bwd": ("k10", "k12", "k10_cp_big", "k8", "k8_cp_big"),
+            "cp_product_jac_bwd": ("k8", "k8_cp_big"),
             "hashgrid_bwd": ("hg2", "hg2_dx"),
             "cp_mlp_fwd": ("k1", "k1_eval", "k13", "k13_eval", "k1_cp_big", "k1_cp_big_eval"),
+            "sh_mlp_fwd": ("k3", "k3_eval"),
             "hashgrid_fwd": ("hg1", "hg1_chunked", "ft_to_tf")}
+# a variant's cases where they are not all of its source's
+CUT_CASES = {**{name: ("k10", "k12", "k10_cp_big") for name in CUTS if name.startswith("k10_tc")},
+             "k8_no_scatter": ("k8", "k8_cp_big"), "k8_no_row_merge": ("k8", "k8_cp_big"),
+             "k3_no_hsave_stores": ("k3",), "k3_plain_stores": ("k3",)}
 # the sources a case's operands also need (a backward's residuals come from
 # its forward)
-PARTNER = {"cp_mlp_bwd": "cp_mlp_fwd", "sh_mlp_bwd": "sh_mlp_fwd",
-           "cp_jac_basis_bwd": "cp_jac_basis_fwd", "hashgrid_bwd": "hashgrid_fwd",
-           "cp_mlp_fwd": "cp_mlp_bwd", "hashgrid_fwd": "hashgrid_bwd"}
-FWD_CASES = set(CASES_OF["cp_mlp_fwd"])
+PARTNER = {"cp_mlp_bwd": ("cp_mlp_fwd",), "sh_mlp_bwd": ("sh_mlp_fwd",),
+           "cp_jac_basis_bwd": ("cp_jac_basis_fwd", "cp_product_jac_fwd"),
+           "cp_product_jac_bwd": ("cp_product_jac_fwd",),
+           "hashgrid_bwd": ("hashgrid_fwd",), "cp_mlp_fwd": ("cp_mlp_bwd",),
+           "sh_mlp_fwd": (), "hashgrid_fwd": ("hashgrid_bwd",)}
+FWD_CASES = {*CASES_OF["cp_mlp_fwd"], *CASES_OF["sh_mlp_fwd"]}
 
 
 def time_ms(fn, reps=20, inner=10, warmup=3):
@@ -380,8 +412,12 @@ def cases(device, order, wanted=None):
     _, hsave = sh_mlp.sh_mlp_launch(sh_ops, feats, dirs, r_spec, 4, train=True)
     ws, _, fpad = sh_ops
     sh_args = (feats, dirs, hsave, r_dout, ws, fpad, r_spec, 4)
-    out["k4"] = (lambda: sh_mlp.sh_mlp_backward_launch(*sh_args),
-                 "SH 4, 16 features, MLP 32->64->64->3")
+    shape = "SH 4, 16 features, MLP 32->64->64->3"
+    out["k4"] = (lambda: sh_mlp.sh_mlp_backward_launch(*sh_args), shape)
+    out["k3"] = (lambda: sh_mlp.sh_mlp_launch(sh_ops, feats, dirs, r_spec, 4, train=True),
+                 shape + ", training")
+    out["k3_eval"] = (lambda: sh_mlp.sh_mlp_launch(sh_ops, feats, dirs, r_spec, 4),
+                      shape + ", eval")
     out.update(jac_cases(device, order, wanted))
     out.update(hash_cases(device, order, wanted))
     return out
@@ -410,6 +446,28 @@ def jac_operands(device, order, c=64, f=16, resolutions=(128, 2048), seed=SEED +
     return out
 
 
+def raw_jac_operands(device, order, c=64, resolutions=(128, 2048), seed=SEED + 19):
+    """Per resolution of a raw-product NeuS encoding (``chip_smoke.py``'s
+    K7/K8 phase: bf16 0.1 N(0, 1) lines, N(0, 1) f32 cotangents): the
+    arguments of one K8 launch, ``(u3, vsave, gdsave, dprod, djac, r)``, with
+    the residuals from one training-mode K7 launch."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+
+    gen = torch.Generator().manual_seed(seed)
+    tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+              .to(device) for r in resolutions}
+    u3 = positions(gen, order).T.contiguous().to(device)
+    dprod = torch.randn((c, N), generator=gen).to(device)
+    djac = torch.randn((3, c, N), generator=gen).to(device)
+    out = []
+    for r in resolutions:
+        _, _, vsave, gdsave = cpp.cp_product_jac_launch(tables[r], u3, r, train=True)
+        out.append((u3, vsave, gdsave, dprod, djac, r))
+    return out
+
+
 def stacked_jac_operands(device, order, seed=SEED + 11):
     """The arguments of one K12 launch at the stacked NeuS encoding (C=64,
     nested R=(129, 2049) on one (3, 2049, 128) table, F=16), residuals from
@@ -433,12 +491,12 @@ def stacked_jac_operands(device, order, seed=SEED + 11):
 def jac_cases(device, order, wanted=None):
     """K10 summed over the bench NeuS scales R=128 and 2048 (one launch per
     scale, as a step runs it), K12 and cp_big's K10 summed over R=(64, 512,
-    4096)."""
+    4096); K8 the same over the raw NeuS's and cp_big's scales."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
     from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
 
-    def per_scale(ops):
-        return lambda: [cpp.cp_product_jac_basis_backward_launch(*a) for a in ops]
+    def per_scale(ops, launch=cpp.cp_product_jac_basis_backward_launch):
+        return lambda: [launch(*a) for a in ops]
 
     out = {}
     if wanted is None or "k10" in wanted:
@@ -450,6 +508,12 @@ def jac_cases(device, order, wanted=None):
     if wanted is None or "k10_cp_big" in wanted:
         big = jac_operands(device, order, 128, 16, (64, 512, 4096), SEED + 17)
         out["k10_cp_big"] = (per_scale(big), "C=128, F=16, R=64 + 512 + 4096")
+    raw = cpp.cp_product_jac_backward_launch
+    if wanted is None or "k8" in wanted:
+        out["k8"] = (per_scale(raw_jac_operands(device, order), raw), "C=64, R=128 + R=2048")
+    if wanted is None or "k8_cp_big" in wanted:
+        big = raw_jac_operands(device, order, 128, (64, 512, 4096), SEED + 23)
+        out["k8_cp_big"] = (per_scale(big, raw), "C=128, R=64 + 512 + 4096")
     return out
 
 
@@ -510,20 +574,36 @@ def hash_cases(device, order, wanted=None):
 
 
 def step_cases(path, device):
-    """The forward kernels on a training step's own operands, as
+    """The forward kernels, K3 and K8 on a training step's own operands, as
     ``chip_smoke.py`` saved them: per case, ``kind`` "cp" (``ops``, ``x``,
     ``cp`` = (C, R, F), ``mlp`` = (dim_in, dim_out, width, hidden layers),
-    ``stacked``, ``train``) or "hash" (``table`` (T, F), ``x``, ``spec`` the
-    HashGridSpec fields, ``mask``)."""
+    ``stacked``, ``train``), "hash" (``table`` (T, F), ``x``, ``spec`` the
+    HashGridSpec fields, ``mask``), "sh" (``ops``, ``feats``, ``dirs``,
+    ``mlp``, ``degree``, ``train``) or "raw" (``launches``: each of the
+    step's K8 launches' arguments)."""
     import torch
 
-    from instant_nsr_pl_tpu_torch.ops import cp_mlp
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
     from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
     from instant_nsr_pl_tpu_torch.ops.cp import CPSpec
     from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec
 
     out = {}
     for key, e in torch.load(path, map_location=device, weights_only=True).items():
+        if e["kind"] == "raw":
+            calls = [tuple(a) for a in e["launches"]]
+            out[key] = (lambda c=calls: [cpp.cp_product_jac_backward_launch(*a) for a in c],
+                        f"N={calls[0][0].shape[1]}, {len(calls)} launches")
+            continue
+        if e["kind"] == "sh":
+            din, dout, width, nh = e["mlp"]
+            spec = MLPSpec(dim_in=int(din), dim_out=int(dout), n_neurons=int(width),
+                           n_hidden_layers=int(nh))
+            out[key] = (lambda e=e, s=spec: sh_mlp.sh_mlp_launch(
+                tuple(e["ops"]), e["feats"], e["dirs"], s, int(e["degree"]), train=e["train"]),
+                f"N={e['feats'].shape[0]}, train={e['train']}")
+            continue
         x = e["x"]
         if e["kind"] == "hash":
             spec = hg.HashGridSpec(**e["spec"])
@@ -647,13 +727,14 @@ def main(argv=None):
                     help="uniform, ray, or both separated by a comma")
     ap.add_argument("--cases", default=None,
                     help="time only these cases (comma-separated: k2, k14, k2_cp_big, k4, k10, "
-                         "k12, k10_cp_big, hg2, hg2_dx, k1, k1_eval, k13, k13_eval, k1_cp_big, "
-                         "k1_cp_big_eval, hg1, hg1_chunked, ft_to_tf), "
-                         "and only their sources' cuts")
+                         "k12, k10_cp_big, k8, k8_cp_big, hg2, hg2_dx, k1, k1_eval, k13, "
+                         "k13_eval, k1_cp_big, k1_cp_big_eval, k3, k3_eval, hg1, hg1_chunked, "
+                         "ft_to_tf), and only their sources' cuts")
     ap.add_argument("--merge-stats", action="store_true",
                     help="also count the row updates a merge of equal rows would remove")
     ap.add_argument("--step-operands", default=None,
-                    help="also time the forward kernels on these saved training-step operands")
+                    help="also time the forward kernels, K3 and K8 on these saved training-step "
+                         "operands")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -678,10 +759,13 @@ def main(argv=None):
     try:
         wanted = set(args.cases.split(",")) if args.cases else None
         bwd_stems = [stem for stem, keys in CASES_OF.items()
-                     if wanted is None or wanted & set(keys)]
+                     if (wanted is None or wanted & set(keys))
+                     and (cuda_build.CSRC / f"{stem}.cu").exists()]
         if args.step_operands:
-            bwd_stems = list(dict.fromkeys([*bwd_stems, "cp_mlp_fwd", "hashgrid_fwd"]))
-        stems = list(dict.fromkeys(s for b in bwd_stems for s in (b, PARTNER[b])))
+            extra = [s for s in ("cp_mlp_fwd", "hashgrid_fwd", "sh_mlp_fwd", "cp_jac_basis_bwd",
+                                 "cp_product_jac_bwd") if (cuda_build.CSRC / f"{s}.cu").exists()]
+            bwd_stems = list(dict.fromkeys([*bwd_stems, *extra]))
+        stems = list(dict.fromkeys(s for b in bwd_stems for s in (b, *PARTNER[b])))
         jobs = [(stem, cuda_build.CSRC / f"{stem}.cu", tmp / f"{stem}.so") for stem in stems]
         variants = {}
         for name, (stem, edits) in (CUTS.items() if args.cuts else ()):
@@ -736,7 +820,7 @@ def main(argv=None):
             cuda_build._LIBS[stem] = loaded[-1]
             cuda_build.PLANS.clear()  # a variant may fit more blocks per SM
             entry = {"ptxas": ptxas[name]}
-            for key in [f"{k}@{o}" for k in CASES_OF[stem] for o in orders
+            for key in [f"{k}@{o}" for k in CUT_CASES.get(name, CASES_OF[stem]) for o in orders
                         if wanted is None or k in wanted]:
                 fn = timed[key]
                 fn()

@@ -1248,3 +1248,172 @@ def test_hash_forward_sizes_match_plain(cuda_device, n, masked):
         ref = hg.hashgrid_encode(table, x, spec, mask)
         assert got.shape == ref.shape == (n, spec.n_output_dims)
         assert torch.equal(got, ref) and torch.equal(again, got)
+
+
+# K8 (the raw-product instantiation of csrc/cp_jac_basis_bwd.cu: K10's
+# 64-sample tiles without the basis) and K3 (csrc/sh_mlp_fwd.cu: the MLP on
+# tensor cores)
+
+# (label, C, R): every K8 instantiation at its models' resolutions
+_K8_SHAPES = [("raw", 64, 2048), ("raw_coarse", 64, 128), ("raw_cp_big", 128, 4096),
+              ("raw_cp_big_coarse", 128, 64), ("raw_small", 16, 64)]
+_K8_IDS = [s[0] for s in _K8_SHAPES]
+
+
+def _k8_case(shape, x, gen, device):
+    """K7 training-mode residuals at positions x (n, 3) and the arguments of
+    the matching K8 launch: (u3, vsave, gdsave, d prod, d jac, R)."""
+    _, c, r = shape
+    u3 = x.T.contiguous()
+    lines = t_cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+    _, _, vsave, gdsave = t_cpp.cp_product_jac_launch(lines.to(device), u3, r, train=True)
+    n = u3.shape[1]
+    dprod = torch.randn((c, n), generator=gen).to(device)
+    djac = torch.randn((3, c, n), generator=gen).to(device)
+    return [u3, vsave, gdsave, dprod, djac, r]
+
+
+def _check_k8(args):
+    """K8 against its plain version: d lines and d u within 2.5e-2 of the
+    largest plain value, one launch counted (none without samples)."""
+    before = t_cpp.cp_product_jac_backward.launches
+    got = t_cpp.cp_product_jac_backward_launch(*args)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product_jac_backward.launches == before + (args[0].shape[1] > 0)
+    ref = t_cpp.cp_product_jac_backward_plain(*args)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        if b.numel():
+            _close(a, b, rel=2.5e-2)
+    return got, ref
+
+
+@pytest.mark.parametrize("n", [1, 15, 63, 64, 65, 127, 129, 515, 4096])
+@pytest.mark.parametrize("shape", _K8_SHAPES, ids=_K8_IDS)
+def test_k8_sizes_match_plain(cuda_device, shape, n):
+    """K8 at every instantiation and at sizes around the 64-sample tile (n
+    not a multiple of 4 reads the f32 cotangents without cp.async)."""
+    gen = torch.Generator().manual_seed(400 + n)
+    x = (torch.rand((n, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    _check_k8(_k8_case(shape, x, gen, cuda_device))
+
+
+@pytest.mark.parametrize("shape", _K8_SHAPES, ids=_K8_IDS)
+def test_k8_no_samples(cuda_device, shape):
+    """N = 0: zero table gradients, an empty d u, no launch."""
+    gen = torch.Generator().manual_seed(14)
+    args = _k8_case(shape, torch.zeros((0, 3), device=cuda_device), gen, cuda_device)
+    got, _ = _check_k8(args)
+    assert not bool(got[0].any()) and tuple(got[1].shape) == (3, 0)
+
+
+@pytest.mark.parametrize("shape", _K8_SHAPES, ids=_K8_IDS)
+def test_k8_one_point(cuda_device, shape):
+    """Every one of 4,096 samples at the same position: each tile's scatter
+    merges all its samples into two rows per axis."""
+    gen = torch.Generator().manual_seed(15)
+    x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(4096, 1).to(cuda_device)
+    _check_k8(_k8_case(shape, x, gen, cuda_device))
+
+
+@pytest.mark.parametrize("shape", _K8_SHAPES, ids=_K8_IDS)
+def test_k8_edges(cuda_device, shape):
+    """u exactly 0 and exactly 1 on each axis in turn (the last tent row,
+    d clip(u)/du = 0.5) and out of range; d u zero outside [0, 1]."""
+    gen = torch.Generator().manual_seed(16)
+    n = 515
+    x = torch.rand((n, 3), generator=gen)
+    for a in range(3):
+        x[a * 100:a * 100 + 50, a] = 0.0
+        x[a * 100 + 50:a * 100 + 100, a] = 1.0
+    x[300:320] = -0.02
+    x[320:340] = 1.03
+    args = _k8_case(shape, x.to(cuda_device), gen, cuda_device)
+    got, _ = _check_k8(args)
+    outside = (args[0] < 0) | (args[0] > 1)
+    assert bool(outside.any()) and bool((got[1][outside] == 0).all())
+
+
+@pytest.mark.parametrize("shape", _K8_SHAPES, ids=_K8_IDS)
+def test_k8_order_and_repeat(cuda_device, shape):
+    """Ray-ordered samples (8 rays of 512) and a shuffled copy: both within
+    2.5e-2, and d u of the shuffled call equal to the permuted d u to the bit
+    (each sample's sum over the components runs in a fixed order)."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(17)
+    n = 4096
+    perm = torch.randperm(n, generator=gen).to(cuda_device)
+    args = _k8_case(shape, positions(gen, "ray", n).to(cuda_device), gen, cuda_device)
+    shuffled = [args[0][:, perm].contiguous(), args[1][:, :, perm].contiguous(),
+                args[2][:, :, perm].contiguous(), args[3][:, perm].contiguous(),
+                args[4][:, :, perm].contiguous(), args[5]]
+    got, ref = _check_k8(args)
+    got_shuffled, _ = _check_k8(shuffled)
+    assert torch.equal(got_shuffled[1], got[1][:, perm])
+    _close(got_shuffled[0], ref[0], rel=2.5e-2)
+
+
+def _k3_case(shape, n, gen, device):
+    """A radiance head at a K3 instantiation's widths (SH degree 4, two hidden
+    layers, D = 3, non-zero biases), its packed operands and inputs."""
+    _, n_feat, w = shape
+    spec = MLPSpec(dim_in=n_feat + 16, dim_out=3, n_neurons=w, n_hidden_layers=2)
+    layers = _biased(mlp_init(gen, spec), gen, device)
+    feats, dirs = _sh_inputs(gen, n, n_feat, device)
+    return spec, layers, t_sh_mlp.pack_sh_mlp(layers, spec, 4, 16, n_feat), feats, dirs
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 262107])
+@pytest.mark.parametrize("shape", _SH_SHAPES, ids=[s[0] for s in _SH_SHAPES])
+def test_sh_forward_sizes_match_plain(cuda_device, shape, n):
+    """K3 at every instantiation, around the 64-sample tile and at a ragged
+    N: eval equal to training to the bit and two identical calls equal, out
+    within 2e-2, hsave differing from the plain version's in at most 1e-3 of
+    its entries (f32 sums in another order can flip a bf16 rounding), and K4
+    on the kernel's hsave within 2.5e-2 of the plain backward on the plain
+    hsave. No samples launch nothing."""
+    gen = torch.Generator().manual_seed(n + 61)
+    spec, layers, ops, feats, dirs = _k3_case(shape, n, gen, cuda_device)
+    before = t_sh_mlp.sh_mlp_forward.launches
+    out, hsave = t_sh_mlp.sh_mlp_launch(ops, feats, dirs, spec, 4, train=True)
+    out_e, h_e = t_sh_mlp.sh_mlp_launch(ops, feats, dirs, spec, 4)
+    again = t_sh_mlp.sh_mlp_launch(ops, feats, dirs, spec, 4, train=True)
+    torch.cuda.synchronize()
+    assert t_sh_mlp.sh_mlp_forward.launches == before + (3 if n else 0)
+    assert h_e is None and torch.equal(out, out_e), "eval and training mode disagree"
+    assert torch.equal(again[0], out) and torch.equal(again[1], hsave)
+    ref, ref_h = t_sh_mlp.sh_mlp_forward_plain(layers, feats, dirs, spec, 4, 16,
+                                               save_residuals=True)
+    assert out.shape == ref.shape and hsave.shape == ref_h.shape
+    if not n:
+        return
+    assert float((hsave != ref_h).float().mean()) <= 1e-3
+    _close(out, ref)
+    dout = torch.randn((n, 3), generator=gen).to(cuda_device)
+    ws, _, fpad = ops
+    got = t_sh_mlp.sh_mlp_backward_launch(feats, dirs, hsave, dout, ws, fpad, spec, 4)
+    torch.cuda.synchronize()
+    want = t_sh_mlp.sh_mlp_backward_plain(feats, dirs, ref_h, dout, ws, fpad, spec, 4)
+    for a, b in zip(got, want):
+        _close(a, b, rel=2.5e-2)
+
+
+def test_sh_forward_packs_once_per_weights_version(cuda_device, monkeypatch):
+    """The eval op packs the radiance weights once for any number of chunks
+    and packs anew after an in-place update of one of them."""
+    gen = torch.Generator().manual_seed(18)
+    spec, layers, _, feats, dirs = _k3_case(_SH_SHAPES[0], 3000, gen, cuda_device)
+    packs = []
+    pack = t_sh_mlp.pack_sh_mlp
+    monkeypatch.setattr(t_sh_mlp, "pack_sh_mlp", lambda *a: packs.append(1) or pack(*a))
+    with torch.no_grad():
+        outs = [t_sh_mlp.sh_mlp_forward(layers, f, d, spec, 4, 16)
+                for f, d in zip(feats.split(1000), dirs.split(1000))]
+        assert len(packs) == 1
+        layers[0]["b"].add_(0.5)
+        moved = t_sh_mlp.sh_mlp_forward(layers, feats[:1000], dirs[:1000], spec, 4, 16)
+    assert len(packs) == 2 and not torch.equal(moved, outs[0])
+    _close(torch.cat(outs), t_sh_mlp.sh_mlp_forward_plain(
+        [{"w": l["w"], "b": l["b"] - (0.5 if k == 0 else 0.0)} for k, l in enumerate(layers)],
+        feats, dirs, spec, 4, 16))
