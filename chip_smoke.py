@@ -56,7 +56,10 @@ lines are printed):
    backward launched), again warm, and one 4,096-ray chunk composited from
    the kernels on the card against the plain versions on the CPU;
 9. NeuS with finite differences (and the curvature loss) for FD_STEPS
-   steps: K5/K6 on every step, finite gradients, a finite loss;
+   steps: K5/K6 on every step, finite gradients, a finite loss (the whole
+   trajectory printed); the last step's K6 launches (two at N and two at 6N,
+   the stencil, one per scale) recorded, each held against its plain version
+   on its own operands within 2.5e-2 * max|plain|, and timed;
 10. the stacked NeuS (``neus-cp-stacked-synthetic.yaml``) trained and
    rendered as in 7 and 8, with K11/K12 in place of K9/K10 and K5 at R=129
    and 2049 in the grid updates;
@@ -104,23 +107,25 @@ lines are printed):
    export's level grid;
 17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
-   K4, K8, cp_big's K8, K10, K12, cp_big's K10, HG2; the forwards K1, K13,
+   K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2; the
+   forwards K1, K13,
    cp_big's K1, K3 and HG1) also carry ptxas' registers and spills of this
    run's build, their shared memory and blocks per SM (the launch plan;
    HG1's and HG2's from their registers; K1 / K13 / cp_big's K1 / K3 for
    the training mode, and ``ptxas_eval`` etc. for the eval mode),
    ``ms_ray_ordered`` (the kernel timed on the operands of the last step of
-   the bench training runs, the raw NeuS's for K8, ray-ordered samples,
-   every launch of the step: K8 and K10 once per scale; the forwards'
-   training-mode launches), for the backwards ``device_ms`` (the
+   the bench training runs, the raw NeuS's for K8, the finite-difference
+   NeuS's for K6, ray-ordered samples, every launch of the step: K8 and K10
+   once per scale, K6 four times; the forwards' training-mode launches;
+   K6 also the size of each launch), for the backwards ``device_ms`` (the
    device time of a call under torch.profiler, without the host's share)
    and ``composed_ms`` (their products as a chain of ``torch.matmul`` calls
    at the same shapes, or HG2's one ``index_add_`` per feature on
    precomputed taps: a yardstick the port never calls) and, given ``--parent
    DIR`` (another checkout, e.g. the parent commit from ``git archive``),
    ``parent_ms`` / ``parent_ms_ray`` and ``parent_device_ms`` /
-   ``parent_device_ms_ray`` (the forwards also ``parent_ms_eval``, they and
-   K8 ``parent_ms_step``: the same training step's operands, saved by this run
+   ``parent_device_ms_ray`` (the forwards also ``parent_ms_eval``, they, K6,
+   K8 and HG2 ``parent_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
 18. the last line ``{"ok": true, "device": {...}}``.
@@ -254,7 +259,8 @@ REDESIGNED_KERNELS = {
     "cp_jac_basis_backward@cp_big": ("cp_jac_basis_bwd",
                                      "cp_jac_basis_bwd_kernelILi128ELi16ELi1E",
                                      ("cp_jac_basis_bwd", 128, 16)),
-    # grid-stride kernels of 128-thread blocks without shared memory: no plan
+    # grid-stride kernels of 128-thread blocks (HG2's static shared memory from
+    # ptxas): no plan
     "hashgrid_backward": ("hashgrid_bwd", "hashgrid_bwd_kernelILi2E", None),
     "cp_mlp_forward": ("cp_mlp_fwd", "cp_mlp_fwd_kernelILi64ELi16ELi2ELi64ELi1ELi16ELb0ELb1E",
                        ("cp_mlp_fwd", 64, 16, 2, 64, 1, 16, True)),
@@ -265,11 +271,16 @@ REDESIGNED_KERNELS = {
                               "cp_mlp_fwd_kernelILi128ELi16ELi3ELi64ELi1ELi16ELb0ELb1E",
                               ("cp_mlp_fwd", 128, 16, 3, 64, 1, 16, True)),
     "hashgrid_forward": ("hashgrid_fwd", "hashgrid_fwd_kernelILi2ELi4E", None),
-    "cp_product_jac_backward": ("cp_jac_basis_bwd", "cp_jac_basis_bwd_kernelILi64ELi0ELi1E",
+    "cp_product_jac_backward": ("cp_jac_basis_bwd", "cp_jac_basis_bwd_kernelILi64ELi0ELi1ELb0E",
                                 ("cp_product_jac_bwd", 64)),
     "cp_product_jac_backward@cp_big": ("cp_jac_basis_bwd",
-                                       "cp_jac_basis_bwd_kernelILi128ELi0ELi1E",
+                                       "cp_jac_basis_bwd_kernelILi128ELi0ELi1ELb0E",
                                        ("cp_product_jac_bwd", 128)),
+    "cp_product_backward": ("cp_jac_basis_bwd", "cp_jac_basis_bwd_kernelILi64ELi0ELi1ELb1E",
+                            ("cp_product_bwd", 64)),
+    "cp_product_backward@cp_big": ("cp_jac_basis_bwd",
+                                   "cp_jac_basis_bwd_kernelILi128ELi0ELi1ELb1E",
+                                   ("cp_product_bwd", 128)),
     "sh_mlp_forward": ("sh_mlp_fwd", "sh_mlp_fwd_kernelILi16ELi4ELi64ELi2ELi3ELb1E",
                        ("sh_mlp_fwd", 16, 4, 64, 2, 3, True)),
 }
@@ -303,7 +314,8 @@ def ptxas_info(stem, marker):
             for key, pat in (("registers", r"Used (\d+) registers"),
                              ("stack_bytes", r"(\d+) bytes stack frame"),
                              ("spill_store_bytes", r"(\d+) bytes spill stores"),
-                             ("spill_load_bytes", r"(\d+) bytes spill loads")):
+                             ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                             ("static_smem_bytes", r"(\d+) bytes smem")):
                 m = re.search(pat, line)
                 if m:
                     info[key] = int(m.group(1))
@@ -313,8 +325,11 @@ def ptxas_info(stem, marker):
 def _step_entry(name, calls):
     """A step's launch arguments as ``tools/bwd_bench.py --step-operands``
     reads them (plain tensors and numbers, so another checkout can load
-    them): the last launch of a forward, every launch of K8 (one per
-    scale)."""
+    them): the last launch of a forward and of HG2, every launch of K8 (one
+    per scale) and of K6 (without its residual, which K5 makes again)."""
+    if name == "cp_product_backward":
+        return {"kind": "prod", "launches": [[lines.detach(), u3.detach(), dprod.detach(), res]
+                                             for (lines, u3, _, dprod, res), _ in calls]}
     if name == "cp_product_jac_backward":
         return {"kind": "raw", "launches": [[t.detach() if torch.is_tensor(t) else t for t in a]
                                             for a, _ in calls]}
@@ -324,6 +339,15 @@ def _step_entry(name, calls):
         return {"kind": "sh", "ops": list(ops), "feats": feats.detach(), "dirs": dirs.detach(),
                 "degree": degree, "train": bool(kwargs.get("train", False)),
                 "mlp": (spec.dim_in, spec.dim_out, spec.n_neurons, spec.n_hidden_layers)}
+    if name == "hashgrid_backward":
+        table, x, dout, spec = args[:4]
+        mask = args[4] if len(args) > 4 else kwargs.get("level_mask")
+        with_dx = args[5] if len(args) > 5 else kwargs.get("with_dx", False)
+        return {"kind": "hash_bwd", "table": table.detach(), "x": x.detach(),
+                "dout": dout.detach(), "mask": mask, "with_dx": bool(with_dx),
+                "spec": {k: getattr(spec, k) for k in (
+                    "n_levels", "n_features_per_level", "log2_hashmap_size", "base_resolution",
+                    "per_level_scale", "n_input_dims")}}
     if name == "hashgrid_forward":
         table, x, spec = args[:3]
         mask = args[3] if len(args) > 3 else kwargs.get("level_mask")
@@ -348,22 +372,28 @@ BENCH_KEY = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
              "cp_mlp_forward": "k1", "cp_mlp_stacked_forward": "k13",
              "cp_mlp_forward@cp_big": "k1_cp_big", "hashgrid_forward": "hg1",
              "cp_product_jac_backward": "k8", "cp_product_jac_backward@cp_big": "k8_cp_big",
+             "cp_product_backward": "k6", "cp_product_backward@cp_big": "k6_cp_big",
              "sh_mlp_forward": "k3"}
+# the backwards whose every launch of a step is kept for the parent design's timing
+STEP_BACKWARDS = ("cp_product_jac_backward", "cp_product_backward", "hashgrid_backward")
 # the launches a capture records in training mode only (a grid update's or a
 # rendered view's eval launches are not the step's forward)
 TRAIN_ONLY = ("cp_mlp_forward", "cp_mlp_stacked_forward", "sh_mlp_forward")
 
 
-def capture_step_operands(run_step, label):
+def capture_step_operands(run_step, label, check=None):
     """Run ``run_step()`` (one training step) with the launch functions of
     the redesigned kernels recording their arguments: the backwards K2, K14,
-    K4, K8, K10, K12 and HG2, and the training-mode forwards K1, K13, K3 and
-    HG1; then time each recorded kernel on its step's own (ray-ordered)
+    K4, K6, K8, K10, K12 and HG2, and the training-mode forwards K1, K13, K3
+    and HG1; then time each recorded kernel on its step's own (ray-ordered)
     operands, all of its launches of the step in a row (K8, K10: one per
-    scale), into ``STEP_MS[name]`` as ``(ms, n)``, and keep the forwards' and
-    K8's arguments in ``STEP_OPERANDS`` for the parent design's timing. The
-    recorders call the launch functions themselves, so the step's launch
-    counts are unchanged, and the counts are restored after the timing
+    scale; K6: one per scale at N and at 6N), into ``STEP_MS[name]`` as
+    ``(ms, n of the last launch, n of each launch)``, and keep the forwards',
+    K6's, K8's and HG2's arguments in ``STEP_OPERANDS`` for the parent design's
+    timing (HG2's too). ``check(name, calls)``, if given, sees each kernel's recorded
+    calls (``(args, kwargs)`` each) before they are timed. The recorders call
+    the launch functions themselves, so the step's launch counts are
+    unchanged, and the counts are restored after the check and the timing
     launches."""
     from instant_nsr_pl_tpu_torch.ops import cp_mlp, cp_product, cp_stacked, hashgrid, sh_mlp
 
@@ -394,6 +424,8 @@ def capture_step_operands(run_step, label):
                              lambda a: a[1].reshape(-1, 3).shape[0]),
         "cp_product_jac_backward": (cp_product, "cp_product_jac_backward_launch",
                                     cp_product.cp_product_jac_backward, lambda a: a[0].shape[1]),
+        "cp_product_backward": (cp_product, "cp_product_backward_launch",
+                                cp_product.cp_product_backward, lambda a: a[1].shape[1]),
         "sh_mlp_forward": (sh_mlp, "sh_mlp_launch", sh_mlp.sh_mlp_forward,
                            lambda a: a[1].reshape(-1, a[1].shape[-1]).shape[0]),
     }
@@ -418,11 +450,13 @@ def capture_step_operands(run_step, label):
         if key in STEP_MS:
             continue
         counter, n_of = targets[name][2], targets[name][3]
-        count = counter.launches  # timing launches are not the run's
+        count = counter.launches  # check and timing launches are not the run's
+        if check is not None:
+            check(key, calls)
         ms = time_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
         counter.launches = count
-        STEP_MS[key] = (ms, int(n_of(calls[-1][0])))
-        if key in BENCH_KEY and (name.endswith("forward") or name == "cp_product_jac_backward"):
+        STEP_MS[key] = (ms, int(n_of(calls[-1][0])), [int(n_of(a)) for a, _ in calls])
+        if key in BENCH_KEY and (name.endswith("forward") or name in STEP_BACKWARDS):
             STEP_OPERANDS[BENCH_KEY[key]] = _step_entry(name, calls)
         print(f"[step-operands] {key}: {ms:.4f} ms on a training step's own operands "
               f"({len(calls)} launch(es), N={STEP_MS[key][1]})", flush=True)
@@ -868,7 +902,7 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
             e["ms"][r] = time_ms(kern)
             e["plain_ms"][r] = time_ms(plain, reps=5, inner=2)
             e["bound_ms"][r], e["bound_by"][r] = bound(n_bytes, bf16_ops.get(name, 0), f32_ops)
-            if name in bf16_ops:
+            if name in bf16_ops or name == "cp_product_backward":
                 e.setdefault("device_ms", {})[r] = device_ms(kern)
             print(f"[kernel] {name} R={r}: {e['ms'][r]:.4f} ms (plain {e['plain_ms'][r]:.3f} "
                   f"ms; bound {e['bound_ms'][r]:.4f} ms by {e['bound_by'][r]}) at N={n}",
@@ -883,7 +917,7 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
 
     meta = {
         "cp_product_forward": ("cp_product_fwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:242"),
-        "cp_product_backward": ("cp_product_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:277"),
+        "cp_product_backward": ("cp_jac_basis_bwd.cu", "instant_nsr_pl_tpu/ops/cp_pallas.py:277"),
         "cp_product_jac_forward": ("cp_product_jac_fwd.cu",
                                    "instant_nsr_pl_tpu/ops/cp_pallas.py:424"),
         "cp_product_jac_backward": ("cp_jac_basis_bwd.cu",
@@ -919,6 +953,7 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
             entry["bound_ms_eval"] = sum(e["bound_ms_eval"][r] for r in resolutions)
         if "device_ms" in e:
             entry["device_ms"] = sum(e["device_ms"][r] for r in resolutions)
+        if name == "cp_jac_basis_backward":
             entry["composed_ms"] = composed_jac(device, c, f, len(resolutions))
         entries.append(entry)
     return entries
@@ -1594,11 +1629,29 @@ def _to(tree, device):
     return tree.detach().to(device)
 
 
+def check_step_k6(key, calls):
+    """K6 on a finite-difference step's own operands (each recorded launch:
+    the step's residual and cotangent, ray-ordered samples and their
+    stencils) against its plain version, within 2.5e-2 * max|plain|."""
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+
+    if not key.startswith("cp_product_backward"):
+        return
+    for k, (args, _) in enumerate(calls):
+        got = cpp.cp_product_backward_launch(*args)
+        torch.cuda.synchronize()
+        ref = cpp.cp_product_backward_plain(*args)
+        tag = f"{key} step launch {k} (R={args[4]}, N={args[1].shape[1]})"
+        for label, a, b in zip(("d lines", "d u"), got, ref):
+            compare(f"{tag} {label}", a, b, rel=2.5e-2)
+
+
 def neus_fd_phase(device):
     """The bench NeuS with geometry.grad_type: finite_difference (and the
     curvature loss on its Laplacian) for FD_STEPS steps: K5 and K6 run the
     stencil's SDF on every step, all gradients are finite, the tables get a
-    gradient after the first update, the loss stays finite."""
+    gradient after the first update, the loss stays finite; the last step's
+    K6 launches are checked and timed on their own operands."""
     system, _ = neus_system(device, grad_type="finite_difference", lambda_curvature=5e-4)
     state = system.init_state(seed=SEED)
     assert system.model.geometry.grad_type == "finite_difference"
@@ -1611,7 +1664,11 @@ def neus_fd_phase(device):
     t0 = time.perf_counter()
     for i in range(FD_STEPS):
         before = {k: c.launches for k, c in counters.items()}
-        state, metrics = system.train_step(state)
+        if i == FD_STEPS - 1:
+            state, metrics = capture_step_operands(lambda: system.train_step(state), "",
+                                                   check=check_step_k6)
+        else:
+            state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
         if delta["cp_product_forward"] < 1 or delta["cp_product_backward"] < 1:
             raise AssertionError(f"fd step {i}: K5/K6 not launched: {delta}")
@@ -1627,9 +1684,10 @@ def neus_fd_phase(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     totals = {k: c.launches for k, c in counters.items()}
-    print(f"[neus-fd] {FD_STEPS} steps in {wall:.2f} s; launches {totals}; one step "
-          f"{per_step[1]}; {n_leaves} parameter tensors with finite, non-zero gradients after "
-          f"the first update; loss {losses[0]:.5f} -> {losses[-1]:.5f}", flush=True)
+    print(f"[neus-fd] {FD_STEPS} steps in {wall:.2f} s (the last with K6 checked and timed); "
+          f"launches {totals}; one step {per_step[1]}; {n_leaves} parameter tensors with "
+          f"finite, non-zero gradients after the first update; loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; trajectory {[round(v, 6) for v in losses]}", flush=True)
     assert np.isfinite(losses).all(), "the loss went non-finite"
     return per_step[1], totals
 
@@ -2089,9 +2147,9 @@ def cp_big_train_phase(device, smi):
         losses = []
         for i in range(CP_BIG_STEPS):
             before = {k: c.launches for k, c in counters.items()}
-            if kind in ("nerf", "neus", "neus_raw") and i == CP_BIG_STEPS - 1:
+            if i == CP_BIG_STEPS - 1:
                 state, metrics = capture_step_operands(lambda: system.train_step(state),
-                                                           "@cp_big")
+                                                       "@cp_big", check=check_step_k6)
             else:
                 state, metrics = system.train_step(state)
             delta = {k: c.launches - before[k] for k, c in counters.items()}
@@ -2347,7 +2405,7 @@ def main(argv=None):
         plan = next((v for k, v in cuda_build.PLANS.items() if k[:-1] == plan_key), None)
         ptxas = ptxas_info(stem, marker)
         if plan_key is None and ptxas:  # by its registers: 128-thread blocks, 2,048 threads
-            plan = {"smem_bytes": 0,
+            plan = {"smem_bytes": ptxas.get("static_smem_bytes", 0),
                     "blocks_per_sm": min(16, 65536 // (-(-ptxas["registers"] // 8) * 8 * 128))}
         return ptxas, plan
 
@@ -2363,6 +2421,7 @@ def main(argv=None):
             "blocks_per_sm": plan["blocks_per_sm"] if plan else None,
             "ms_ray_ordered": step[0] if step else None,
             "n_ray_ordered": step[1] if step else None,
+            "n_ray_ordered_launches": step[2] if step else None,
             "parent_ms": parent.get(f"{key}@uniform"),
             "parent_ms_ray": parent.get(f"{key}@ray"),
             "parent_device_ms": parent_dev.get(f"{key}@uniform"),
@@ -2376,7 +2435,8 @@ def main(argv=None):
                 "blocks_per_sm_eval": plan_eval["blocks_per_sm"] if plan_eval else None,
                 "parent_ms_eval": parent.get(f"{key}_eval@uniform"),
             })
-        if e["name"].endswith(("forward", "forward@cp_big")) or key.startswith("k8"):
+        if e["name"].endswith(("forward", "forward@cp_big")) or key.startswith(("k8", "k6",
+                                                                                 "hg2")):
             e["parent_ms_step"] = parent.get(f"{key}@step")
         print(f"[design] {e['name']}: {e['ms']:.4f} ms uniform (device {e.get('device_ms')}), "
               f"step operands {e['ms_ray_ordered']}, parent {e['parent_ms']} / ray "

@@ -1,7 +1,8 @@
 // Per-axis device helpers of the CP line encoding, shared by the fused density
 // kernels (csrc/cp_mlp_fwd.cu K1, csrc/cp_mlp_bwd.cu K2) and the CP product
-// kernels (csrc/cp_product_{fwd,bwd}.cu K5/K6, csrc/cp_product_jac_{fwd,bwd}.cu
-// K7/K8, csrc/cp_jac_basis_{fwd,bwd}.cu K9/K10).
+// kernels (csrc/cp_product_fwd.cu K5, csrc/cp_product_jac_fwd.cu K7,
+// csrc/cp_jac_basis_{fwd,bwd}.cu K9/K10 and, in the backward's source, K6 and
+// K8).
 //
 // Replaces the operand builders of instant_nsr_pl_tpu/ops/cp_pallas.py:94-126:
 // _axis_p, _tent, _diffhot and _inrange_half. The TPU kernels build a dense

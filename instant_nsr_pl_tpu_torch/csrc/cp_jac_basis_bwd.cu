@@ -1,6 +1,7 @@
 // Backward of the fused CP product + Jacobian + basis projection (K10):
 // (d enc (F, N), d jac (3, F, N)) -> (d lines (3, R, C), d u (3, N), d B (C, F)),
-// and of the raw CP product + Jacobian without a basis (K8, below).
+// of the raw CP product + Jacobian without a basis (K8, below), and of the
+// plain CP product (K6, below).
 //
 // Replaces: instant_nsr_pl_tpu/ops/cp_pallas.py _cp_jacb_bwd -> _jacb_bwd_kernel
 // (pallas_call at :676). It reads the forward's bf16 residuals vsave and
@@ -90,6 +91,39 @@
 // plain version (lanes, then steps): it agrees to f32 rounding. 40-71 KB of
 // shared memory at C = 16-128, two blocks of 8 warps per SM.
 //
+// The CP product (K6, the F = 0 instantiations with gd read from the line
+// table): (d prod (C, N)) -> (d lines (3, R, C), d u (3, N)). It replaces
+// cp_pallas.py _cp_product_bwd -> _bwd_kernel (pallas_call at :277), the
+// backward of cp_product (csrc/cp_product_fwd.cu K5 training mode writes its
+// bf16 residual vsave (3, C, N)): the occupancy grid's and the
+// finite-difference NeuS's SDF encoding. Per sample and axis, at the TPU
+// kernel's rounding points:
+//   d v_a = dP * other_a                                    (f32)
+//   gd_a  = L_a[i0 + 1] - L_a[i0]  from the two bf16 table rows (f32)
+//   d u_a = (sum_C d v_a * gd_a) * s_a                      (the f32 d v)
+//   dL_a[i0] += w0 * bf16(d v_a),  dL_a[i0 + 1] += w1 * bf16(d v_a)
+// What bounds it: HBM. Per sample it reads u (12 B), vsave (6 B x C) and d
+// prod (4 B x C) and writes d u (12 B): 664 B at C = 64, 0.052 ms at 3.35
+// TB/s for 262,144 samples, plus the tables. Its first design (one thread a
+// sample) sent every sample's 2 rows x 3 axes x C/4 16-byte atomics to L2
+// (96 at C = 64) and ran at a tenth of the bound. Here the tile's steps are
+// K8's without the Jacobian: step 1 brings vsave and the f32 d prod rows with
+// cp.async and gathers, per (axis, sample), the step's slices of table rows
+// i0 and i0 + 1 into a [axis][row][sample][component] stage; step 2 forms d v
+// and gd in f32; the scatter is step 4's two-row window. In the
+// finite-difference NeuS a sample's six stencil points lie next to each
+// other, and four of them share each axis's coordinate to the bit, so the
+// window sums most of the tile's rows before they reach L2. The gathered
+// rows come from L2 through L1 (cp.async.ca). A copy of a coarse table
+// staged in shared memory once per block (48 KB at R = 128, C = 64) was
+// measured against that and was no faster: from 0.5% faster on the stencil
+// to 2.6% slower on uniform points (tools/bwd_bench.py --cuts). The TPU
+// kernel takes its diff-hot operand over the table padded to a multiple of 8
+// rows, so at u exactly 1 with R not a multiple of 8 its pair is (R - 1,
+// zero pad); the port keeps the pair (R - 2, R - 1) of cp_common.cuh's
+// tent(), as in K7-K12. 33-57 KB of shared memory at C = 16-128, two blocks
+// of 8 warps per SM.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
 #include "cp_common.cuh"
@@ -99,8 +133,9 @@ namespace insr {
 
 // F = 0 is K8 (csrc header above): no basis, so no [dP | dJ] and no d B
 // products, and the f32 cotangents d prod (C, N), d jac (3, C, N) come in C
-// wide instead of bf16 ones F wide.
-template <int C, int F, int S>
+// wide instead of bf16 ones F wide. PROD (with F = 0) is K6: no Jacobian, and
+// gd comes from the line table instead of the forward's residual gdsave.
+template <int C, int F, int S, bool PROD = false>
 struct JacBwd {
   static constexpr bool RAW = F == 0;
   // components per step: 32 holds the step's d v / d gd in 24 registers a
@@ -115,12 +150,15 @@ struct JacBwd {
   static constexpr int LDD = CT + 8;          // row stride of the d v / d gd stage
   // shared memory, in bf16 elements
   static constexpr int BS = RAW ? 0 : S * C * LDB;
-  static constexpr int VG = 6 * CT * kLdT;         // the step's vsave, gdsave [row][sample]
-  static constexpr int DS = 2 * 3 * kT * LDD;      // bf16 d v, d gd [kind][axis][sample][c]
+  // the step's vsave and gdsave [row][sample]; K6: vsave and the gathered table
+  // rows i0, i0 + 1 [axis][row][sample][c]
+  static constexpr int VG = PROD ? 3 * CT * kLdT + 6 * kT * LDD : 6 * CT * kLdT;
+  // bf16 d v, d gd [kind][axis][sample][c] (K6: d v only)
+  static constexpr int DS = (PROD ? 1 : 2) * 3 * kT * LDD;
   static constexpr int ST = VG > DS ? VG : DS;     // one region: DS overwrites VG
   static constexpr int AT = RAW ? 0 : 4 * CT * kLdT;  // bf16 prod, jpre_x..z [q][c][sample]
   static constexpr int DE = RAW ? 0 : 4 * FP * kLdT;  // bf16 d enc, d jac_x..z [q][f][sample]
-  static constexpr int CF = RAW ? 4 * CT * kLdT : 0;  // f32 dP, dJ_x..z [q][c][sample] (K8)
+  static constexpr int CF = RAW ? (PROD ? 1 : 4) * CT * kLdT : 0;  // f32 dP, dJ_x..z [q][c][sample]
   static constexpr size_t BYTES = 2 * (BS + ST + AT + DE) + 4 * CF + 4 * 4 * 3 * kT;  // + tents
   static constexpr int MINB = BYTES <= 113 * 1024 ? 2 : 1;
   static constexpr int DPT = 4 * F * kT / kThreads;  // bf16 cotangent values each thread stages
@@ -139,26 +177,37 @@ struct JacBwd {
   static_assert(C % CT == 0 && CT % 16 == 0 && F % 8 == 0 && F <= FP, "layout");
   static_assert(GL <= 32 && 32 % GL == 0 && (3 * kT) % NG == 0, "scatter groups");
   static_assert((4 * F * kT) % kThreads == 0, "whole cotangent rows per thread");
+  static_assert(!PROD || (RAW && S == 1), "K6 is a single-scale F = 0 instantiation");
 };
 
-template <int C, int F, int S>
-__global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
+// 16-byte copy that also keeps the line in L1 (K6's gathered table rows: the
+// rows of a coarse table are read again by many tiles). Against cp.async.cg
+// (L2 only): 13-15% faster on the finite-difference stencil, 4-8% in ray
+// order, 1-4% slower on uniform points (tools/bwd_bench.py --cuts).
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// gdsrc: the residual gdsave (3, S*C, N), or K6's (3, R, C) bf16 line table.
+template <int C, int F, int S, bool PROD>
+__global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S, PROD>::MINB))
     cp_jac_basis_bwd_kernel(const float* __restrict__ u3, long long n, int r,
                             const __nv_bfloat16* __restrict__ vsave,
-                            const __nv_bfloat16* __restrict__ gdsave,
+                            const __nv_bfloat16* __restrict__ gdsrc,
                             const float* __restrict__ denc, const float* __restrict__ djac,
                             const __nv_bfloat16* __restrict__ basis,
                             float* __restrict__ dlines, float* __restrict__ du,
                             float* __restrict__ part) {
-  using K = JacBwd<C, F, S>;
+  using K = JacBwd<C, F, S, PROD>;
   constexpr int CT = K::CT;
   constexpr int LD = S * C;  // row stride of the gradient table
   extern __shared__ uint4 smem_u4[];
   __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
   __nv_bfloat16* st = bs + K::BS;  // residual rows, then d v / d gd
+  __nv_bfloat16* gt = st + 3 * CT * kLdT;  // K6's gathered table rows [axis][row][sample][c]
   __nv_bfloat16* at = st + K::ST;
   __nv_bfloat16* de = at + K::AT;
-  float* cf = reinterpret_cast<float*>(de + K::DE);  // K8's f32 cotangent rows
+  float* cf = reinterpret_cast<float*>(de + K::DE);  // K6's / K8's f32 cotangent rows
   int* ti0 = reinterpret_cast<int*>(cf + K::CF);  // [axis][sample] tent coordinates
   float* tw0 = reinterpret_cast<float*>(ti0 + 3 * kT);
   float* tw1 = tw0 + 3 * kT;
@@ -191,14 +240,7 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
       constexpr int c0 = s * C + h * CT;  // the step's first component of the S*C
       // 1. the step's residual rows (3 axes of v, then of gd), asynchronously
       const auto row_of = [=](int row) { return (row / CT) * LD + c0 + row % CT; };
-      load_tile_rows(st, vsave, n, s0, 3 * CT, row_of);
-      load_tile_rows(st + 3 * CT * kLdT, gdsave, n, s0, 3 * CT, row_of);
-      if constexpr (K::RAW) {  // and the step's f32 d prod, d jac_x..z rows
-        load_tile_rows(cf, denc, n, s0, CT, [=](int row) { return c0 + row; });
-        load_tile_rows(cf + CT * kLdT, djac, n, s0, 3 * CT, row_of);
-      }
-      cp_async_commit();
-      if constexpr (k == 0) {
+      const auto tents = [&]() {
         for (int q = threadIdx.x; q < 3 * kT; q += kThreads) {
           const int a = q / kT, tq = q % kT;
           const Tent tt = tent(u3[a * n + s0 + (tq < nv ? tq : nv - 1)], r);
@@ -207,7 +249,32 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
           tw1[q] = tt.w1;
           tsc[q] = tq < nv ? tt.s : 0.0f;
         }
+      };
+      if constexpr (PROD && k == 0) {  // K6: the tile's tents first (the gather reads them)
+        tents();
+        __syncthreads();
       }
+      load_tile_rows(st, vsave, n, s0, 3 * CT, row_of);
+      if constexpr (PROD) {
+        // K6: the step's d prod rows and, per (axis, sample), the step's slices
+        // of table rows i0 and i0 + 1
+        load_tile_rows(cf, denc, n, s0, CT, [=](int row) { return c0 + row; });
+        constexpr int kCh = CT / 8;  // 16-byte chunks of a row's step slice
+        for (int q = threadIdx.x; q < 6 * kT * kCh; q += kThreads) {
+          const int item = q / kCh, ch = q % kCh;  // item = (axis * 2 + row) * kT + sample
+          const int a = item / (2 * kT), tq = item % kT;
+          const long long row = static_cast<long long>(a) * r + ti0[a * kT + tq] + (item / kT) % 2;
+          cp_async16_ca(gt + item * K::LDD + ch * 8, gdsrc + row * C + c0 + ch * 8);
+        }
+      } else {
+        load_tile_rows(st + 3 * CT * kLdT, gdsrc, n, s0, 3 * CT, row_of);
+        if constexpr (K::RAW) {  // and the step's f32 d prod, d jac_x..z rows
+          load_tile_rows(cf, denc, n, s0, CT, [=](int row) { return c0 + row; });
+          load_tile_rows(cf + CT * kLdT, djac, n, s0, 3 * CT, row_of);
+        }
+      }
+      cp_async_commit();
+      if constexpr (!PROD && k == 0) tents();
       if constexpr (h == 0 && !K::RAW) {
         // this scale's bf16 cotangents, [q][f][sample]: every load of the
         // thread in flight at once, not one round trip per value
@@ -246,9 +313,9 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
 #pragma unroll
       for (int mt = 0; mt < CT / 16; ++mt) {
         float dq[4][4];
-        if constexpr (K::RAW) {  // K8: the f32 cotangents as given
+        if constexpr (K::RAW) {  // K6 / K8: the f32 cotangents as given (K6: d prod only)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
+          for (int q = 0; q < (PROD ? 1 : 4); ++q) {
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
               const float2 v = *reinterpret_cast<const float2*>(
@@ -273,7 +340,9 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
             vr[a] = *reinterpret_cast<const uint32_t*>(st + (a * CT + c) * kLdT + t);
-            gr[a] = *reinterpret_cast<const uint32_t*>(st + ((3 + a) * CT + c) * kLdT + t);
+            if constexpr (!PROD) {
+              gr[a] = *reinterpret_cast<const uint32_t*>(st + ((3 + a) * CT + c) * kLdT + t);
+            }
           }
           float pr[2], jp[3][2], dv[3][2], dg[3][2];
 #pragma unroll
@@ -282,24 +351,35 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
 #pragma unroll
             for (int a = 0; a < 3; ++a) {
               v[a] = j ? bf16x2_hi(vr[a]) : bf16x2_lo(vr[a]);
-              gd[a] = j ? bf16x2_hi(gr[a]) : bf16x2_lo(gr[a]);
+              if constexpr (PROD) {  // K6: gd from the gathered table rows i0, i0 + 1
+                const __nv_bfloat16* g0 = gt + ((2 * a) * kT + t + j) * K::LDD + c;
+                gd[a] = __bfloat162float(g0[kT * K::LDD]) - __bfloat162float(g0[0]);
+              } else {
+                gd[a] = j ? bf16x2_hi(gr[a]) : bf16x2_lo(gr[a]);
+              }
             }
             const float other[3] = {v[1] * v[2], v[0] * v[2], v[0] * v[1]};
             pr[j] = v[0] * other[0];
             const float dp = dq[0][2 * half + j];
             float dJ[3], gs[3];
+            if constexpr (!PROD) {
 #pragma unroll
-            for (int a = 0; a < 3; ++a) {
-              dJ[a] = dq[1 + a][2 * half + j];
-              jp[a][j] = (gd[a] * sa[a][j]) * other[a];
-              gs[a] = (dJ[a] * gd[a]) * sa[a][j];
+              for (int a = 0; a < 3; ++a) {
+                dJ[a] = dq[1 + a][2 * half + j];
+                jp[a][j] = (gd[a] * sa[a][j]) * other[a];
+                gs[a] = (dJ[a] * gd[a]) * sa[a][j];
+              }
             }
 #pragma unroll
             for (int a = 0; a < 3; ++a) {
-              const int b1 = a == 0 ? 1 : 0;
-              const int b2 = a == 2 ? 1 : 2;
-              dv[a][j] = (dp * other[a] + gs[b1] * v[b2]) + gs[b2] * v[b1];
-              dg[a][j] = (dJ[a] * sa[a][j]) * other[a];
+              if constexpr (PROD) {  // K6: no Jacobian terms
+                dv[a][j] = dp * other[a];
+              } else {
+                const int b1 = a == 0 ? 1 : 0;
+                const int b2 = a == 2 ? 1 : 2;
+                dv[a][j] = (dp * other[a] + gs[b1] * v[b2]) + gs[b2] * v[b1];
+                dg[a][j] = (dJ[a] * sa[a][j]) * other[a];
+              }
               acc_u[a][j] = acc_u[a][j] + dv[a][j] * gd[a];
             }
           }
@@ -314,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
             dvp[mt][half][a] = pack_bf16x2(dv[a][0], dv[a][1]);
-            dgp[mt][half][a] = pack_bf16x2(dg[a][0], dg[a][1]);
+            if constexpr (!PROD) dgp[mt][half][a] = pack_bf16x2(dg[a][0], dg[a][1]);
           }
         }
       }
@@ -342,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
 #pragma unroll
-            for (int kind = 0; kind < 2; ++kind) {
+            for (int kind = 0; kind < (PROD ? 1 : 2); ++kind) {
               const uint32_t p = kind == 0 ? dvp[mt][half][a] : dgp[mt][half][a];
               __nv_bfloat16* row = st + ((kind * 3 + a) * kT + t) * K::LDD + c;
               row[0] = __ushort_as_bfloat16(static_cast<unsigned short>(p));
@@ -392,9 +472,15 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
           const int i0 = ti0[q];
           const float w0 = tw0[q], w1 = tw1[q];
           const uint2 rv = *reinterpret_cast<const uint2*>(st + q * K::LDD + 4 * ql);
-          const uint2 rg = *reinterpret_cast<const uint2*>(st + (3 * kT + q) * K::LDD + 4 * ql);
           const float d[4] = {bf16x2_lo(rv.x), bf16x2_hi(rv.x), bf16x2_lo(rv.y), bf16x2_hi(rv.y)};
-          const float g[4] = {bf16x2_lo(rg.x), bf16x2_hi(rg.x), bf16x2_lo(rg.y), bf16x2_hi(rg.y)};
+          float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // K6 has no d gd
+          if constexpr (!PROD) {
+            const uint2 rg = *reinterpret_cast<const uint2*>(st + (3 * kT + q) * K::LDD + 4 * ql);
+            g[0] = bf16x2_lo(rg.x);
+            g[1] = bf16x2_hi(rg.x);
+            g[2] = bf16x2_lo(rg.y);
+            g[3] = bf16x2_hi(rg.y);
+          }
           if (i0 != row) {
             if (i0 == row + 1) {  // row leaves the window, row + 1 becomes its first row
               atomic_add4(tab + static_cast<long long>(row) * LD, a0[0], a0[1], a0[2], a0[3]);
@@ -416,8 +502,13 @@ __global__ void __launch_bounds__(kThreads, (JacBwd<C, F, S>::MINB))
           }
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            a0[jj] += w0 * d[jj] - g[jj];
-            a1[jj] += w1 * d[jj] + g[jj];
+            if constexpr (PROD) {
+              a0[jj] += w0 * d[jj];
+              a1[jj] += w1 * d[jj];
+            } else {
+              a0[jj] += w0 * d[jj] - g[jj];
+              a1[jj] += w1 * d[jj] + g[jj];
+            }
           }
         }
         if (row >= 0) {
@@ -453,7 +544,7 @@ int jac_basis_bwd(const float* u3, long long n, int r, const void* vsave, const 
                   float* du, float* part, int part_blocks, float* out, int* info,
                   cudaStream_t stream) {
   using K = JacBwd<C, F, S>;
-  auto kernel = cp_jac_basis_bwd_kernel<C, F, S>;
+  auto kernel = cp_jac_basis_bwd_kernel<C, F, S, false>;
   int rc = plan_persistent(reinterpret_cast<const void*>(kernel), K::BYTES, n, info);
   info[3] = K::COUNT;
   if (rc != 0 || part == nullptr) return rc;  // a plan query
@@ -467,25 +558,47 @@ int jac_basis_bwd(const float* u3, long long n, int r, const void* vsave, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8: the F = 0 instantiation, without d B, so one launch and no partials.
-// info (3 ints) receives the launch plan: grid, blocks per SM, shared bytes.
-template <int C>
-int product_jac_bwd(const float* u3, long long n, int r, const void* vsave, const void* gdsave,
-                    const float* dprod, const float* djac, float* dlines, float* du, int* info,
-                    cudaStream_t stream) {
-  using K = JacBwd<C, 0, 1>;
-  auto kernel = cp_jac_basis_bwd_kernel<C, 0, 1>;
+// K8 and K6: the F = 0 instantiations, without d B, so one launch and no
+// partials; K6 (PROD) reads gd from the (3, R, C) bf16 line table given as
+// gdsrc and has no d jac. info (3 ints) receives the launch plan: grid,
+// blocks per SM, shared bytes.
+template <int C, bool PROD>
+int raw_bwd(const float* u3, long long n, int r, const void* vsave, const void* gdsrc,
+            const float* dprod, const float* djac, float* dlines, float* du, int* info,
+            cudaStream_t stream) {
+  using K = JacBwd<C, 0, 1, PROD>;
+  auto kernel = cp_jac_basis_bwd_kernel<C, 0, 1, PROD>;
   const int rc = plan_persistent(reinterpret_cast<const void*>(kernel), K::BYTES, n, info);
   if (rc != 0) return rc;
   if (n > 0) {
     kernel<<<info[0], kThreads, K::BYTES, stream>>>(
         u3, n, r, static_cast<const __nv_bfloat16*>(vsave),
-        static_cast<const __nv_bfloat16*>(gdsave), dprod, djac, nullptr, dlines, du, nullptr);
+        static_cast<const __nv_bfloat16*>(gdsrc), dprod, djac, nullptr, dlines, du, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace insr
+
+// K6, the CP product's backward: lines the (3, R, C) bf16 stack, vsave the
+// (3, C, N) bf16 residual of cp_product_fwd (csrc/cp_product_fwd.cu) in
+// training mode, dprod (C, N) f32; dlines (3, R, C) f32 zeroed by the caller
+// (the kernel adds into it), du (3, N) written. Returns cudaGetLastError()
+// after the launch, or -1 when no instantiation matches.
+extern "C" int cp_product_bwd(const float* u3, long long n, const void* lines, int r, int c,
+                              const void* vsave, const float* dprod, float* dlines, float* du,
+                              int* info, void* stream) {
+  if (r < 2) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_P_BWD_CASE(C_)                                                              \
+  if (c == C_)                                                                           \
+    return insr::raw_bwd<C_, true>(u3, n, r, vsave, lines, dprod, nullptr, dlines, du, info, st);
+  INSR_P_BWD_CASE(128)  // bench.py --encoding cp_big
+  INSR_P_BWD_CASE(64)   // the bench NeuS SDF encoding
+  INSR_P_BWD_CASE(16)   // the small test model
+#undef INSR_P_BWD_CASE
+  return -1;
+}
 
 // K8, the raw products' backward: dprod (C, N) and djac (3, C, N) f32, the
 // residuals of cp_product_jac_fwd (csrc/cp_product_jac_fwd.cu); dlines (3, R,
@@ -497,9 +610,9 @@ extern "C" int cp_product_jac_bwd(const float* u3, long long n, int r, int c,
                                   void* stream) {
   if (r < 2) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define INSR_PJ_BWD_CASE(C_)                                                               \
-  if (c == C_)                                                                             \
-    return insr::product_jac_bwd<C_>(u3, n, r, vsave, gdsave, dprod, djac, dlines, du, info, st);
+#define INSR_PJ_BWD_CASE(C_)                                                             \
+  if (c == C_)                                                                           \
+    return insr::raw_bwd<C_, false>(u3, n, r, vsave, gdsave, dprod, djac, dlines, du, info, st);
   INSR_PJ_BWD_CASE(128)  // the raw products at bench.py --encoding cp_big's C
   INSR_PJ_BWD_CASE(64)   // the raw-product NeuS SDF encoding
   INSR_PJ_BWD_CASE(16)   // the small test model

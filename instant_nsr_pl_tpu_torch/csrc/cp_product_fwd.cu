@@ -6,7 +6,7 @@
 // finite-difference SDF run it once per scale; the basis projection follows
 // on the host. Eval launches write only `prod`; training launches also write
 // the TPU kernel's residual vsave (3, C, N) bf16, the interpolated line values
-// that the backward (csrc/cp_product_bwd.cu) reads.
+// that the backward (K6, csrc/cp_jac_basis_bwd.cu) reads.
 //
 // What it computes, per sample u (3, N) and axis a, with the tent
 // coordinates of cp_common.cuh on the (3, R, C) bf16 line stack L:

@@ -19,7 +19,7 @@
 // than row-coalesced 16-byte atomics.
 //
 // Design: one thread per sample, a warp on 32 consecutive samples, walks the
-// levels and recomputes its 8 taps (hashgrid_common.cuh). Two changes against
+// levels and recomputes its 8 taps (hashgrid_common.cuh). Three changes against
 // one f32 atomicAdd per corner and feature into a feature-major (F, T) table:
 // - the gradient is row-major (T, F) f32, the layout of the port's table, so
 //   a corner's F features are one 8-byte (F = 2) or 16-byte vector atomic on
@@ -35,17 +35,25 @@
 //   equal rows that are not neighbours, with a lane-order sum took 0.56 ms on
 //   ray-ordered samples against 0.60 without a merge; the run scan takes
 //   0.41: tools/bwd_bench.py --cuts.)
+// - a merge across the block's warps, in warp order: each warp's first and
+//   last run of a level go to shared memory instead of to L2, and after the
+//   level one thread per corner walks the block's warps in order, adds the
+//   runs that hold the same row (a run that straddles a warp boundary, or a
+//   whole block on one row) and sends one atomic per merged run. A run of
+//   equal rows, however many warps it spans, then takes one float32 atomic
+//   per block and level, summed within the block in a fixed order (4,096
+//   samples on one point: 32 atomics a row, not 128).
 // A shared-memory table for the dense levels was not built: by the same
 // measurement the contended coarse levels (4 MB, L2-resident) cost per update
 // what the hashed levels (50 MB, beyond L2) cost, so the number of sector
 // updates sets the time, and level 0 holds 1/16 of them.
 //
-// Atomics make the summation order change from run to run, so the gradient
-// agrees with the plain version's index_add_ to float32 rounding of the sums
-// (the tests allow 1e-5 x max|plain| per level), not to the bit. With dx
-// requested the thread also reads its 8 rows again and sums dL/dx_d = s *
-// sum_c sign_cd * (prod of the other two axes' p) * (T[row_c] . ct_l) over the
-// levels in registers, in a fixed order.
+// Atomics make the summation order across blocks change from run to run, so
+// the gradient agrees with the plain version's index_add_ to float32 rounding
+// of the sums (the tests allow 1e-5 x max|plain| per level), not to the bit.
+// With dx requested the thread also reads its 8 rows again and sums dL/dx_d =
+// s * sum_c sign_cd * (prod of the other two axes' p) * (T[row_c] . ct_l) over
+// the levels in registers, in a fixed order.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -78,18 +86,25 @@ __global__ void __launch_bounds__(kHashBlock)
                         int n_levels, HashLevels levels, const float* __restrict__ mask,
                         float* __restrict__ dtable, float* __restrict__ dx) {
   constexpr unsigned kAll = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
+  constexpr uint32_t kNoRow = 0xffffffffu;  // an idle lane's row, and an empty edge slot
+  constexpr int kWarps = kHashBlock / 32;
+  // per level and corner, each warp's first run [0] and last run [1] (row,
+  // sum); two buffers, so one barrier per level suffices
+  __shared__ uint32_t edge_row[2][8][kWarps][2];
+  __shared__ float edge_val[2][8][kWarps][2][F];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  // warp-uniform loop over each warp's 32 consecutive samples
-  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x + (threadIdx.x & ~31);
-       base < n; base += stride) {
-    const long long i = base + lane;
+  int buf = 0;
+  // block-uniform loop (the barriers below); each warp on 32 consecutive samples
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < n;
+       base += stride) {
+    const long long i = base + threadIdx.x;
     const bool active = i < n;
     const long long ii = active ? i : n - 1;  // a valid address for idle lanes
     const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
     const float* crow = ct + ii * n_levels * F;
     float dxa[3] = {0.0f, 0.0f, 0.0f};
-    for (int l = 0; l < n_levels; ++l) {
+    for (int l = 0; l < n_levels; ++l, buf ^= 1) {
       const HashLevel& lv = levels.l[l];
       const Taps t = level_taps(lv, x0, x1, x2);
       const float m = mask != nullptr ? mask[l] : 1.0f;
@@ -100,16 +115,16 @@ __global__ void __launch_bounds__(kHashBlock)
       }
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        const uint32_t row = active ? t.row[c] : 0xffffffffu;  // idle lanes: no table row
+        const uint32_t row = active ? t.row[c] : kNoRow;
         float v[F];
 #pragma unroll
         for (int f = 0; f < F; ++f) v[f] = t.w[c] * g[f];
         const uint32_t left = __shfl_up_sync(kAll, row, 1);
         const bool head = lane == 0 || left != row;  // the first lane of a run of equal rows
-        if (__any_sync(kAll, !head)) {
+        const unsigned heads = __ballot_sync(kAll, head);
+        if (heads != kAll) {
           // a segmented inclusive scan over each run of lanes: afterwards the
           // run's last lane holds the run's sum, taken in a fixed order
-          const unsigned heads = __ballot_sync(kAll, head);
           const unsigned upto = lane == 31 ? kAll : (2u << lane) - 1u;
           const int start = 31 - __clz(heads & upto);
 #pragma unroll
@@ -120,11 +135,43 @@ __global__ void __launch_bounds__(kHashBlock)
               if (lane - d >= start) v[f] += up;
             }
           }
-          const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
-          if (active && tail) add_row<F>(dtable, row, v);
-        } else if (active) {
+        }
+        // run ends: lane 31 and every lane before a head; the warp's first
+        // run ends at the lowest of them, its last at lane 31
+        const unsigned tails = (heads >> 1) | 0x80000000u;
+        const int first_end = __ffs(tails) - 1;
+        const bool tail = (tails >> lane) & 1u;
+        if (lane == first_end || lane == 31) {
+          const int k = lane == first_end ? 0 : 1;
+          edge_row[buf][c][warp][k] = row;
+#pragma unroll
+          for (int f = 0; f < F; ++f) edge_val[buf][c][warp][k][f] = v[f];
+          if (first_end == 31) edge_row[buf][c][warp][1] = kNoRow;  // one run: no last run
+        } else if (tail && active) {
           add_row<F>(dtable, row, v);
         }
+      }
+      __syncthreads();  // every warp's edge runs of this level are staged
+      if (threadIdx.x < 8) {
+        // corner threadIdx.x: the block's edge runs in warp order, equal rows summed
+        const int c = threadIdx.x;
+        uint32_t run_row = kNoRow;
+        float acc[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+        for (int k = 0; k < 2 * kWarps; ++k) {
+          const uint32_t r = edge_row[buf][c][k >> 1][k & 1];
+          if (r == kNoRow) continue;
+          if (r != run_row) {
+            if (run_row != kNoRow) add_row<F>(dtable, run_row, acc);
+            run_row = r;
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+          }
+#pragma unroll
+          for (int f = 0; f < F; ++f) acc[f] += edge_val[buf][c][k >> 1][k & 1][f];
+        }
+        if (run_row != kNoRow) add_row<F>(dtable, run_row, acc);
       }
       if (dx != nullptr) {
         float lvl[3] = {0.0f, 0.0f, 0.0f};

@@ -2,7 +2,8 @@
 and ``cp_big`` instantiations, K4 (``csrc/sh_mlp_bwd.cu``), K10
 (``csrc/cp_jac_basis_bwd.cu``) with K12 and ``cp_big``'s K10, K8 (the raw
 products' backward, the same source's no-basis instantiation) with
-``cp_big``'s K8, and HG2 (``csrc/hashgrid_bwd.cu``), and the forward kernels
+``cp_big``'s K8, K6 (the CP product's backward, its line-table
+instantiation) with ``cp_big``'s K6, and HG2 (``csrc/hashgrid_bwd.cu``), and the forward kernels
 K1 / K13 / ``cp_big``'s K1 (``csrc/cp_mlp_fwd.cu``, training and eval mode),
 K3 (``csrc/sh_mlp_fwd.cu``, training and eval mode) and HG1
 (``csrc/hashgrid_fwd.cu``) on the card, optionally from another checkout of
@@ -16,13 +17,13 @@ the port and with phases cut out.
 commit unpacked with ``git archive``) instead of this one: the script calls
 only the public ops (``cp_mlp_operands``, ``cp_mlp_launch``,
 ``cp_mlp_backward_launch``, their stacked twins, ``pack_sh_mlp``,
-``sh_mlp_launch``, ``sh_mlp_backward_launch``, the K7/K8, K9/K10 and K11/K12
-launches of ``ops/cp_product.py`` / ``ops/cp_stacked.py``,
+``sh_mlp_launch``, ``sh_mlp_backward_launch``, the K5/K6, K7/K8, K9/K10 and
+K11/K12 launches of ``ops/cp_product.py`` / ``ops/cp_stacked.py``,
 ``hashgrid_forward_launch``, ``hashgrid_backward_launch``), whose signatures
 every design keeps, so two designs are timed by the same code. Each
 checkout's hash table comes from its own ``hashgrid_init`` (feature-major
 (F, T) before the table became row-major, (T, F) after; the same values).
-``--step-operands FILE`` also times the forward kernels, K3 and K8 on a
+``--step-operands FILE`` also times the forward kernels, K3, K8, K6 and HG2 on a
 training step's own operands as ``chip_smoke.py`` saved them
 (``torch.save``: per case, the launch's arguments as plain tensors and
 numbers), each case as ``<case>@step``; a (T, F) hash table is handed to a feature-major checkout
@@ -36,7 +37,8 @@ the stacked head (R=(129, 2049)), the ``cp_big`` head (C=128, R=(64, 512,
 32->64->64->3: K3, K4), the bench NeuS encoding for K10 (C=64, F=16, R=128
 and 2048: one launch each) and its raw products for K8 (C=64, R=128 and
 2048), the stacked one for K12 (R=(129, 2049)), cp_big's for its K10 and K8
-(C=128, R=64, 512, 4096) and the bench hash grid for HG2 (16
+(C=128, R=64, 512, 4096), the CP product of the finite-difference NeuS for
+K6 (C=64, R=128 and 2048; cp_big's C=128, R=64, 512, 4096) and the bench hash grid for HG2 (16
 levels, F=2, 2^19 rows), from seeded random weights; the residuals come from
 one training-mode forward. ``--merge-stats`` counts, on each order's
 positions, the row updates that a merge of equal rows would leave: HG2's per
@@ -44,8 +46,11 @@ level within a warp of 32 samples, K10's per axis within runs of 16 and 64. ``--
 [-0.05, 1.05]^3; ``--order ray`` packs 512 rays of 512 evenly spaced samples
 across the unit box each, as a bench training step packs its 262,144 slots
 (its ~4.6 M live samples overflow them, so the buffer holds the first few
-hundred rays' samples, whole and in order);
-``--order uniform,ray`` times both.
+hundred rays' samples, whole and in order); ``--order stencil`` expands
+those ray-ordered points into the finite-difference NeuS's six-point stencil
+(eps 1e-3 in the bench NeuS's world box of radius 1.5, clipped to the box, as
+``models/geometry.py`` evaluates it: 6 x 262,144 points, a stencil launch's
+size; K6 cases only); ``--order uniform,ray`` times both.
 
 ``--cuts`` also times scratch variants: a copy of the root's ``csrc/`` with
 one phase of a backward kernel edited out (the line-table atomics, the
@@ -57,7 +62,9 @@ vector atomics replaced by the (F, T) layout's scalar ones; K1's gather with
 one step's loads in flight, its residuals written with plain stores or not
 at all; HG1 with 1 or 2 levels a thread instead of 4; K8's scatter, or its
 scatter without the merge of equal rows; K3 without the hsave write-out or
-with plain stores for it),
+with plain stores for it; K6's scatter, its scatter without the row merge,
+its atomics, or its table rows gathered past L1; HG2 without the merge of a
+block's warps),
 all built at once with ``nvcc -Xptxas -v`` into a temporary directory. The edits
 are text replacements on the copy; a variant whose text is not in the
 root's source is reported as not applicable. The variants' outputs are
@@ -202,11 +209,12 @@ CUTS.update({
         "for (int q = 0; q < K::FPS; ++q) {", "for (int q = 0; q < 0; ++q) {")]),
     "k10_tc_no_dp_dj": ("cp_jac_basis_bwd", [(
         "cp_jac_basis_bwd.cu", "            mma_bf16(dq[q], af, bq[q]);\n", "")]),
-    # the merged-scatter HG2: no merge; the (F, T) layout's two 4-byte atomics
+    # the merged-scatter HG2: no merge within a warp; the (F, T) layout's two 4-byte atomics
     # per corner in place of one 8-byte atomic (bench shape: T = 6,299,960);
     # no atomics
     "hg2_new_no_merge": ("hashgrid_bwd", [(
-        "hashgrid_bwd.cu", "        if (__any_sync(kAll, !head)) {", "        if (false) {")]),
+        "hashgrid_bwd.cu", "        const bool head = lane == 0 || left != row;",
+        "        const bool head = true;")]),
     "hg2_new_ft_atomics": ("hashgrid_bwd", [(
         "hashgrid_bwd.cu",
         "    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));",
@@ -261,12 +269,31 @@ CUTS.update({
         "")]),
     "k3_plain_stores": ("sh_mlp_fwd", CUTS["k1_plain_stores"][1]),
 })
-# which timed case each source's variants run (the parent design's K8 has a
-# source of its own, csrc/cp_product_jac_bwd.cu; a stem a checkout does not
-# have is left out)
+# K6 (csrc/cp_jac_basis_bwd.cu, the line-table instantiation): its scatter
+# walk, the walk without the row merge, its atomics, and the table rows
+# gathered with cp.async.cg (L2 only) instead of .ca; HG2 without the merge of
+# a block's warps' edge runs (every run's last lane adds its own atomic)
+CUTS.update({
+    "k6_no_scatter": ("cp_jac_basis_bwd", CUTS["k10_tc_no_scatter"][1]),
+    "k6_no_row_merge": ("cp_jac_basis_bwd", CUTS["k8_no_row_merge"][1]),
+    "k6_no_atomics": ("cp_jac_basis_bwd", [("cp_common.cuh", *_ATOMIC_SINK)]),
+    "k6_gather_l2": ("cp_jac_basis_bwd", [(
+        "cp_jac_basis_bwd.cu",
+        "cp_async16_ca(gt + item * K::LDD + ch * 8, gdsrc + row * C + c0 + ch * 8);",
+        "cp_async16(gt + item * K::LDD + ch * 8, gdsrc + row * C + c0 + ch * 8, 16);")]),
+    "hg2_no_block_merge": ("hashgrid_bwd", [
+        ("hashgrid_bwd.cu", "        if (lane == first_end || lane == 31) {",
+         "        if (false) {"),
+        ("hashgrid_bwd.cu", "      if (threadIdx.x < 8) {", "      if (false) {")]),
+})
+# which timed case each source's variants run (the parent design's K8 and K6
+# have sources of their own, csrc/cp_product_jac_bwd.cu and
+# csrc/cp_product_bwd.cu; a stem a checkout does not have is left out)
 CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
-            "cp_jac_basis_bwd": ("k10", "k12", "k10_cp_big", "k8", "k8_cp_big"),
+            "cp_jac_basis_bwd": ("k10", "k12", "k10_cp_big", "k8", "k8_cp_big", "k6",
+                                 "k6_cp_big"),
             "cp_product_jac_bwd": ("k8", "k8_cp_big"),
+            "cp_product_bwd": ("k6", "k6_cp_big"),
             "hashgrid_bwd": ("hg2", "hg2_dx"),
             "cp_mlp_fwd": ("k1", "k1_eval", "k13", "k13_eval", "k1_cp_big", "k1_cp_big_eval"),
             "sh_mlp_fwd": ("k3", "k3_eval"),
@@ -274,15 +301,18 @@ CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
 # a variant's cases where they are not all of its source's
 CUT_CASES = {**{name: ("k10", "k12", "k10_cp_big") for name in CUTS if name.startswith("k10_tc")},
              "k8_no_scatter": ("k8", "k8_cp_big"), "k8_no_row_merge": ("k8", "k8_cp_big"),
+             **{name: ("k6", "k6_cp_big") for name in CUTS if name.startswith("k6_")},
              "k3_no_hsave_stores": ("k3",), "k3_plain_stores": ("k3",)}
 # the sources a case's operands also need (a backward's residuals come from
 # its forward)
 PARTNER = {"cp_mlp_bwd": ("cp_mlp_fwd",), "sh_mlp_bwd": ("sh_mlp_fwd",),
-           "cp_jac_basis_bwd": ("cp_jac_basis_fwd", "cp_product_jac_fwd"),
+           "cp_jac_basis_bwd": ("cp_jac_basis_fwd", "cp_product_jac_fwd", "cp_product_fwd"),
            "cp_product_jac_bwd": ("cp_product_jac_fwd",),
+           "cp_product_bwd": ("cp_product_fwd",),
            "hashgrid_bwd": ("hashgrid_fwd",), "cp_mlp_fwd": ("cp_mlp_bwd",),
            "sh_mlp_fwd": (), "hashgrid_fwd": ("hashgrid_bwd",)}
 FWD_CASES = {*CASES_OF["cp_mlp_fwd"], *CASES_OF["sh_mlp_fwd"]}
+STENCIL_CASES = {"k6", "k6_cp_big"}
 
 
 def time_ms(fn, reps=20, inner=10, warmup=3):
@@ -328,13 +358,40 @@ def device_ms(fn, calls=20):
     return sum(by_name.values()), by_name
 
 
+STENCIL_RADIUS = 1.5  # the bench NeuS's world box (neus-cp-synthetic.yaml model.radius)
+STENCIL_EPS = 1e-3  # its geometry's finite_difference_eps
+
+
+def stencil(u):
+    """The finite-difference NeuS's six-point stencil around unit-box
+    positions u (n, 3), as ``models/geometry.py`` builds it: in the world box
+    of radius STENCIL_RADIUS, x +- eps along each axis clipped to the box,
+    mapped back to the unit box. (6 n, 3), a sample's six points in a row."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops.contraction import (ContractionType,
+                                                          contract_to_unisphere,
+                                                          uncontract_from_unisphere)
+
+    r = torch.tensor(STENCIL_RADIUS, dtype=torch.float32)
+    offsets = torch.tensor(((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)),
+                           dtype=torch.float32)
+    x = uncontract_from_unisphere(u, STENCIL_RADIUS, ContractionType.AABB)
+    pts = torch.minimum(torch.maximum(x[:, None, :] + torch.tensor(STENCIL_EPS) * offsets, -r), r)
+    return contract_to_unisphere(pts.reshape(-1, 3), STENCIL_RADIUS,
+                                 ContractionType.AABB).contiguous()
+
+
 def positions(gen, order, n=N):
     """(n, 3) float32 positions: uniform, or n / 512 rays of 512 evenly
-    spaced samples across the unit box (n a multiple of 512)."""
+    spaced samples across the unit box (n a multiple of 512), or ("stencil")
+    those rays' samples expanded into the six-point stencil, (6 n, 3)."""
     import torch
 
     if order == "uniform":
         return torch.rand((n, 3), generator=gen) * 1.1 - 0.05
+    if order == "stencil":
+        return stencil(positions(gen, "ray", n))
     n_rays, per_ray = n // 512, 512
     o = torch.nn.functional.normalize(torch.randn((n_rays, 3), generator=gen), dim=-1) * 1.5 + 0.5
     target = 0.3 + 0.4 * torch.rand((n_rays, 3), generator=gen)
@@ -468,6 +525,27 @@ def raw_jac_operands(device, order, c=64, resolutions=(128, 2048), seed=SEED + 1
     return out
 
 
+def prod_operands(device, order, c=64, resolutions=(128, 2048), seed=SEED + 27):
+    """Per resolution of the finite-difference NeuS's CP encoding
+    (``chip_smoke.py``'s K5/K6 phase: bf16 0.1 N(0, 1) lines, N(0, 1) f32
+    cotangents): the arguments of one K6 launch, ``(lines, u3, vsave, dprod,
+    r)``, with the residual from one training-mode K5 launch."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+
+    gen = torch.Generator().manual_seed(seed)
+    tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+              .to(device) for r in resolutions}
+    u3 = positions(gen, order).T.contiguous().to(device)
+    dprod = torch.randn((c, u3.shape[1]), generator=gen).to(device)
+    out = []
+    for r in resolutions:
+        _, vsave = cpp.cp_product_launch(tables[r], u3, r, train=True)
+        out.append((tables[r], u3, vsave, dprod, r))
+    return out
+
+
 def stacked_jac_operands(device, order, seed=SEED + 11):
     """The arguments of one K12 launch at the stacked NeuS encoding (C=64,
     nested R=(129, 2049) on one (3, 2049, 128) table, F=16), residuals from
@@ -491,7 +569,8 @@ def stacked_jac_operands(device, order, seed=SEED + 11):
 def jac_cases(device, order, wanted=None):
     """K10 summed over the bench NeuS scales R=128 and 2048 (one launch per
     scale, as a step runs it), K12 and cp_big's K10 summed over R=(64, 512,
-    4096); K8 the same over the raw NeuS's and cp_big's scales."""
+    4096); K8 and K6 the same over the raw or finite-difference NeuS's and
+    cp_big's scales."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
     from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
 
@@ -508,6 +587,12 @@ def jac_cases(device, order, wanted=None):
     if wanted is None or "k10_cp_big" in wanted:
         big = jac_operands(device, order, 128, 16, (64, 512, 4096), SEED + 17)
         out["k10_cp_big"] = (per_scale(big), "C=128, F=16, R=64 + 512 + 4096")
+    prod = cpp.cp_product_backward_launch
+    if wanted is None or "k6" in wanted:
+        out["k6"] = (per_scale(prod_operands(device, order), prod), "C=64, R=128 + R=2048")
+    if wanted is None or "k6_cp_big" in wanted:
+        big = prod_operands(device, order, 128, (64, 512, 4096), SEED + 29)
+        out["k6_cp_big"] = (per_scale(big, prod), "C=128, R=64 + 512 + 4096")
     raw = cpp.cp_product_jac_backward_launch
     if wanted is None or "k8" in wanted:
         out["k8"] = (per_scale(raw_jac_operands(device, order), raw), "C=64, R=128 + R=2048")
@@ -574,13 +659,17 @@ def hash_cases(device, order, wanted=None):
 
 
 def step_cases(path, device):
-    """The forward kernels, K3 and K8 on a training step's own operands, as
-    ``chip_smoke.py`` saved them: per case, ``kind`` "cp" (``ops``, ``x``,
+    """The forward kernels, K3, K8, K6 and HG2 on a training step's own operands,
+    as ``chip_smoke.py`` saved them: per case, ``kind`` "cp" (``ops``, ``x``,
     ``cp`` = (C, R, F), ``mlp`` = (dim_in, dim_out, width, hidden layers),
     ``stacked``, ``train``), "hash" (``table`` (T, F), ``x``, ``spec`` the
-    HashGridSpec fields, ``mask``), "sh" (``ops``, ``feats``, ``dirs``,
-    ``mlp``, ``degree``, ``train``) or "raw" (``launches``: each of the
-    step's K8 launches' arguments)."""
+    HashGridSpec fields, ``mask``), "hash_bwd" (HG2: ``table``, ``x``,
+    ``dout``, ``spec``, ``mask``, ``with_dx``), "sh" (``ops``, ``feats``, ``dirs``,
+    ``mlp``, ``degree``, ``train``), "raw" (``launches``: each of the
+    step's K8 launches' arguments) or "prod" (``launches``: each of the
+    step's K6 launches' (lines, u3, d prod, R); the residual vsave is made
+    again by the checkout's K5 in training mode, equal to the bit to the
+    step's own)."""
     import torch
 
     from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
@@ -596,6 +685,12 @@ def step_cases(path, device):
             out[key] = (lambda c=calls: [cpp.cp_product_jac_backward_launch(*a) for a in c],
                         f"N={calls[0][0].shape[1]}, {len(calls)} launches")
             continue
+        if e["kind"] == "prod":
+            calls = [(lines, u3, cpp.cp_product_launch(lines, u3, int(r), train=True)[1], dprod,
+                      int(r)) for lines, u3, dprod, r in e["launches"]]
+            out[key] = (lambda c=calls: [cpp.cp_product_backward_launch(*a) for a in c],
+                        "N=" + " + ".join(str(a[1].shape[1]) for a in calls))
+            continue
         if e["kind"] == "sh":
             din, dout, width, nh = e["mlp"]
             spec = MLPSpec(dim_in=int(din), dim_out=int(dout), n_neurons=int(width),
@@ -605,15 +700,19 @@ def step_cases(path, device):
                 f"N={e['feats'].shape[0]}, train={e['train']}")
             continue
         x = e["x"]
-        if e["kind"] == "hash":
+        if e["kind"] in ("hash", "hash_bwd"):
             spec = hg.HashGridSpec(**e["spec"])
             table = e["table"]
             try:
                 hg._check_spec(spec, table)
             except ValueError:  # a feature-major checkout
                 table = table.T.contiguous()
-            out[key] = (lambda t=table, x=x, s=spec, m=e["mask"]:
-                        hg.hashgrid_forward_launch(t, x, s, m), f"N={x.shape[0]}")
+            if e["kind"] == "hash":
+                out[key] = (lambda t=table, x=x, s=spec, m=e["mask"]:
+                            hg.hashgrid_forward_launch(t, x, s, m), f"N={x.shape[0]}")
+            else:
+                out[key] = (lambda t=table, x=x, e=e, s=spec: hg.hashgrid_backward_launch(
+                    t, x, e["dout"], s, e["mask"], e["with_dx"]), f"N={x.shape[0]}")
             continue
         c, res, f = e["cp"]
         din, dout, width, nh = e["mlp"]
@@ -724,17 +823,19 @@ def main(argv=None):
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--cuts", action="store_true")
     ap.add_argument("--order", default="uniform",
-                    help="uniform, ray, or both separated by a comma")
+                    help="uniform, ray, stencil (K6 cases only), or several separated by "
+                         "commas")
     ap.add_argument("--cases", default=None,
                     help="time only these cases (comma-separated: k2, k14, k2_cp_big, k4, k10, "
-                         "k12, k10_cp_big, k8, k8_cp_big, hg2, hg2_dx, k1, k1_eval, k13, "
+                         "k12, k10_cp_big, k8, k8_cp_big, k6, k6_cp_big, hg2, hg2_dx, k1, "
+                         "k1_eval, k13, "
                          "k13_eval, k1_cp_big, k1_cp_big_eval, k3, k3_eval, hg1, hg1_chunked, "
                          "ft_to_tf), and only their sources' cuts")
     ap.add_argument("--merge-stats", action="store_true",
                     help="also count the row updates a merge of equal rows would remove")
     ap.add_argument("--step-operands", default=None,
-                    help="also time the forward kernels, K3 and K8 on these saved training-step "
-                         "operands")
+                    help="also time the forward kernels, K3, K8, K6 and HG2 on these saved "
+                         "training-step operands")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -762,8 +863,9 @@ def main(argv=None):
                      if (wanted is None or wanted & set(keys))
                      and (cuda_build.CSRC / f"{stem}.cu").exists()]
         if args.step_operands:
-            extra = [s for s in ("cp_mlp_fwd", "hashgrid_fwd", "sh_mlp_fwd", "cp_jac_basis_bwd",
-                                 "cp_product_jac_bwd") if (cuda_build.CSRC / f"{s}.cu").exists()]
+            extra = [s for s in ("cp_mlp_fwd", "hashgrid_fwd", "hashgrid_bwd", "sh_mlp_fwd",
+                                 "cp_jac_basis_bwd", "cp_product_jac_bwd", "cp_product_bwd")
+                     if (cuda_build.CSRC / f"{s}.cu").exists()]
             bwd_stems = list(dict.fromkeys([*bwd_stems, *extra]))
         stems = list(dict.fromkeys(s for b in bwd_stems for s in (b, *PARTNER[b])))
         jobs = [(stem, cuda_build.CSRC / f"{stem}.cu", tmp / f"{stem}.so") for stem in stems]
@@ -805,8 +907,10 @@ def main(argv=None):
                     print(f"[merge] k10 {order} R={r}: {e['updates']} row updates; window of two "
                           f"rows {e['window_16']} (runs of 16), {e['window_64']} (64); distinct "
                           f"{e['distinct_16']} / {e['distinct_64']}", flush=True)
-            for key, (fn, shape) in cases(device, order, wanted).items():
-                if wanted is not None and key not in wanted:
+            # the stencil order is the finite-difference NeuS's: K6 cases only
+            want = wanted if order != "stencil" else (wanted or set(STENCIL_CASES)) & STENCIL_CASES
+            for key, (fn, shape) in (cases(device, order, want) if want != set() else {}).items():
+                if want is not None and key not in want:
                     continue
                 key = f"{key}@{order}"
                 timed[key] = fn
@@ -821,7 +925,8 @@ def main(argv=None):
             cuda_build.PLANS.clear()  # a variant may fit more blocks per SM
             entry = {"ptxas": ptxas[name]}
             for key in [f"{k}@{o}" for k in CUT_CASES.get(name, CASES_OF[stem]) for o in orders
-                        if wanted is None or k in wanted]:
+                        if (wanted is None or k in wanted)
+                        and (o != "stencil" or k in STENCIL_CASES)]:
                 fn = timed[key]
                 fn()
                 torch.cuda.synchronize()

@@ -1131,10 +1131,11 @@ def test_hash_backward_order_and_repeat(cuda_device, name, masked):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("name", ["bench", "nerf-synthetic"])
 def test_hash_backward_one_point(cuda_device, name, masked):
-    """Every one of 4,096 samples at the same position: each warp merges its
-    32 samples into one update per level and corner; the table gradient
-    within 1e-5 x max|exact| of the float64 sum of the same updates, d x
-    within its limit."""
+    """Every one of 4,096 samples at the same position: each warp sums its 32
+    samples, each block its warps' sums in warp order, into one update per
+    level and corner (32 float32 atomics a row); the table gradient within
+    1e-5 x max|exact| of the float64 sum of the same updates, d x within its
+    limit."""
     from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
 
     spec = _hash_spec(name)
@@ -1350,6 +1351,130 @@ def test_k8_order_and_repeat(cuda_device, shape):
                 args[4][:, :, perm].contiguous(), args[5]]
     got, ref = _check_k8(args)
     got_shuffled, _ = _check_k8(shuffled)
+    assert torch.equal(got_shuffled[1], got[1][:, perm])
+    _close(got_shuffled[0], ref[0], rel=2.5e-2)
+
+
+# K6 (the CP product's backward: the line-table instantiation of
+# csrc/cp_jac_basis_bwd.cu, K8's tiles without the Jacobian, gd read from the
+# table: each sample's rows i0 and i0 + 1 gathered per step through L1 with
+# cp.async.ca)
+
+# (label, C, R): every K6 instantiation at its models' resolutions (the bench
+# finite-difference NeuS, the stacked scales' per-scale products, cp_big's)
+_K6_SHAPES = [("prod", 64, 2048), ("prod_coarse", 64, 128), ("prod_stacked", 64, 129),
+              ("prod_stacked_fine", 64, 2049), ("prod_cp_big", 128, 4096),
+              ("prod_cp_big_mid", 128, 512), ("prod_cp_big_coarse", 128, 64),
+              ("prod_small", 16, 64)]
+_K6_IDS = [s[0] for s in _K6_SHAPES]
+
+
+def _k6_case(shape, x, gen, device):
+    """K5 training-mode residual at positions x (n, 3) and the arguments of
+    the matching K6 launch: (lines, u3, vsave, d prod, R)."""
+    _, c, r = shape
+    u3 = x.T.contiguous()
+    lines = t_cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+    lines = lines.to(device)
+    _, vsave = t_cpp.cp_product_launch(lines, u3, r, train=True)
+    dprod = torch.randn((c, u3.shape[1]), generator=gen).to(device)
+    return [lines, u3, vsave, dprod, r]
+
+
+def _check_k6(args):
+    """K6 against its plain version: d lines and d u within 2.5e-2 of the
+    largest plain value, one launch counted (none without samples)."""
+    before = t_cpp.cp_product_backward.launches
+    got = t_cpp.cp_product_backward_launch(*args)
+    torch.cuda.synchronize()
+    assert t_cpp.cp_product_backward.launches == before + (args[1].shape[1] > 0)
+    ref = t_cpp.cp_product_backward_plain(*args)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        if b.numel():
+            _close(a, b, rel=2.5e-2)
+    return got, ref
+
+
+@pytest.mark.parametrize("shape", _K6_SHAPES, ids=_K6_IDS)
+def test_k6_stencil_matches_plain(cuda_device, shape):
+    """The finite-difference NeuS's operands: 8 rays of 512 samples, each
+    expanded into its six-point stencil (tools/bwd_bench.py ``stencil``,
+    ``models/geometry.py``'s construction), 24,576 points."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(18)
+    x = positions(gen, "stencil", 4096)
+    assert tuple(x.shape) == (6 * 4096, 3)
+    _check_k6(_k6_case(shape, x.to(cuda_device), gen, cuda_device))
+
+
+@pytest.mark.parametrize("n", [1, 15, 63, 64, 65, 127, 129, 515, 4096])
+@pytest.mark.parametrize("shape", _K6_SHAPES, ids=_K6_IDS)
+def test_k6_sizes_match_plain(cuda_device, shape, n):
+    """K6 at every instantiation and at sizes around the 64-sample tile (n
+    not a multiple of 4 reads the f32 cotangent without cp.async)."""
+    gen = torch.Generator().manual_seed(500 + n)
+    x = (torch.rand((n, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    _check_k6(_k6_case(shape, x, gen, cuda_device))
+
+
+@pytest.mark.parametrize("shape", _K6_SHAPES, ids=_K6_IDS)
+def test_k6_no_samples(cuda_device, shape):
+    """N = 0: zero table gradients, an empty d u, no launch."""
+    gen = torch.Generator().manual_seed(14)
+    args = _k6_case(shape, torch.zeros((0, 3), device=cuda_device), gen, cuda_device)
+    got, _ = _check_k6(args)
+    assert not bool(got[0].any()) and tuple(got[1].shape) == (3, 0)
+
+
+@pytest.mark.parametrize("shape", _K6_SHAPES, ids=_K6_IDS)
+def test_k6_one_point(cuda_device, shape):
+    """Every one of 4,096 samples at the same position: each tile's scatter
+    merges all its samples into two rows per axis."""
+    gen = torch.Generator().manual_seed(15)
+    x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(4096, 1).to(cuda_device)
+    _check_k6(_k6_case(shape, x, gen, cuda_device))
+
+
+@pytest.mark.parametrize("shape", _K6_SHAPES, ids=_K6_IDS)
+def test_k6_edges(cuda_device, shape):
+    """u exactly 0 and exactly 1 on each axis in turn (the last tent row,
+    d clip(u)/du = 0.5) and out of range; d u zero outside [0, 1]."""
+    gen = torch.Generator().manual_seed(16)
+    n = 515
+    x = torch.rand((n, 3), generator=gen)
+    for a in range(3):
+        x[a * 100:a * 100 + 50, a] = 0.0
+        x[a * 100 + 50:a * 100 + 100, a] = 1.0
+    x[300:320] = -0.02
+    x[320:340] = 1.03
+    args = _k6_case(shape, x.to(cuda_device), gen, cuda_device)
+    got, _ = _check_k6(args)
+    outside = (args[1] < 0) | (args[1] > 1)
+    assert bool(outside.any()) and bool((got[1][outside] == 0).all())
+
+
+@pytest.mark.parametrize("shape", _K6_SHAPES, ids=_K6_IDS)
+def test_k6_order_and_repeat(cuda_device, shape):
+    """Stencil-ordered samples and a shuffled copy: both within 2.5e-2, and d
+    u of the shuffled call equal to the permuted d u to the bit (each
+    sample's sum over the components runs in a fixed order: lanes, then
+    steps), d lines of two identical calls within 2.5e-2 of each other's
+    plain version (atomics)."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(17)
+    x = positions(gen, "stencil", 1024).to(cuda_device)
+    n = x.shape[0]
+    perm = torch.randperm(n, generator=gen).to(cuda_device)
+    args = _k6_case(shape, x, gen, cuda_device)
+    shuffled = [args[0], args[1][:, perm].contiguous(), args[2][:, :, perm].contiguous(),
+                args[3][:, perm].contiguous(), args[4]]
+    got, ref = _check_k6(args)
+    again, _ = _check_k6(args)
+    got_shuffled, _ = _check_k6(shuffled)
+    assert torch.equal(again[1], got[1])
     assert torch.equal(got_shuffled[1], got[1][:, perm])
     _close(got_shuffled[0], ref[0], rel=2.5e-2)
 
