@@ -25,10 +25,10 @@ lines are printed):
 4. CP kernels (K5/K6 the CP product, K7/K8 the product with its Jacobian,
    K9/K10 the product with its Jacobian and the basis projection) at the
    bench NeuS encoding (C=64, F=16) for both scales, R=128 and 2048, at
-   N=262,144 and 262,107: training-mode residuals equal to the plain
-   versions' to the bit, forwards within 2e-2 and gradients within 2.5e-2 of
-   max|plain|, K10's d basis equal to the bit across two identical calls;
-   timed as above (K7 in training and eval mode);
+   N=262,144 and 262,107: training-mode residuals and K5's prod equal to the
+   plain versions' to the bit, forwards within 2e-2 and gradients within
+   2.5e-2 of max|plain|, K10's d basis equal to the bit across two identical
+   calls; timed as above (K5, K7 and K9 in training and eval mode);
 5. render: the bench system (``instant_nsr_pl_tpu_torch/configs/
    nerf-cp-synthetic.yaml``, the settings of ``bench.py``
    ``build_system("cp")``) on the 256x256 six-sphere synthetic scene, random
@@ -108,23 +108,26 @@ lines are printed):
 17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2; the
-   forwards K1, K13,
-   cp_big's K1, K3 and HG1) also carry ptxas' registers and spills of this
-   run's build, their shared memory and blocks per SM (the launch plan;
-   HG1's and HG2's from their registers; K1 / K13 / cp_big's K1 / K3 for
-   the training mode, and ``ptxas_eval`` etc. for the eval mode),
+   forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's K9, K11
+   and HG1) also carry ptxas' registers and spills of the loaded build (this
+   run's, or the log an earlier build left beside its library in
+   ``_build/``), their shared memory and blocks per SM (the launch plan;
+   HG1's and HG2's from their registers; the tiled forwards for the
+   training mode, and ``ptxas_eval`` etc. for the eval mode),
    ``ms_ray_ordered`` (the kernel timed on the operands of the last step of
    the bench training runs, the raw NeuS's for K8, the finite-difference
-   NeuS's for K6, ray-ordered samples, every launch of the step: K8 and K10
-   once per scale, K6 four times; the forwards' training-mode launches;
-   K6 also the size of each launch), for the backwards ``device_ms`` (the
+   NeuS's for K5 and K6, ray-ordered samples, every launch of the step: K8,
+   K9 and K10 once per scale, K5 and K6 four times; the forwards'
+   training-mode launches, K5, K9 and K11 each held against its plain
+   version on them; K5 and K6 also the size of each launch), for the
+   backwards ``device_ms`` (the
    device time of a call under torch.profiler, without the host's share)
    and ``composed_ms`` (their products as a chain of ``torch.matmul`` calls
    at the same shapes, or HG2's one ``index_add_`` per feature on
    precomputed taps: a yardstick the port never calls) and, given ``--parent
    DIR`` (another checkout, e.g. the parent commit from ``git archive``),
    ``parent_ms`` / ``parent_ms_ray`` and ``parent_device_ms`` /
-   ``parent_device_ms_ray`` (the forwards also ``parent_ms_eval``, they, K6,
+   ``parent_device_ms_ray`` (the tiled forwards also ``parent_ms_eval``, the forwards, K6,
    K8 and HG2 ``parent_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
@@ -283,10 +286,21 @@ REDESIGNED_KERNELS = {
                                    ("cp_product_bwd", 128)),
     "sh_mlp_forward": ("sh_mlp_fwd", "sh_mlp_fwd_kernelILi16ELi4ELi64ELi2ELi3ELb1E",
                        ("sh_mlp_fwd", 16, 4, 64, 2, 3, True)),
+    "cp_product_forward": ("cp_product_fwd", "cp_product_fwd_kernelILi64ELb1E",
+                           ("cp_product_fwd", 64, True)),
+    "cp_product_forward@cp_big": ("cp_product_fwd", "cp_product_fwd_kernelILi128ELb1E",
+                                  ("cp_product_fwd", 128, True)),
+    "cp_jac_basis_forward": ("cp_jac_basis_fwd", "cp_jac_basis_fwd_kernelILi64ELi16ELi1ELb1E",
+                             ("cp_jac_basis_fwd", 64, 16, True)),
+    "cp_jac_basis_forward@cp_big": ("cp_jac_basis_fwd",
+                                    "cp_jac_basis_fwd_kernelILi128ELi16ELi1ELb1E",
+                                    ("cp_jac_basis_fwd", 128, 16, True)),
+    "cp_jac_stacked_forward": ("cp_jac_basis_fwd", "cp_jac_basis_fwd_kernelILi64ELi16ELi2ELb1E",
+                               ("cp_jac_stacked_fwd", 64, 16, 2, True)),
 }
 EVAL_MARKERS = {name: (stem, marker[:-len("ELb1E")] + "ELb0E", (*plan[:-1], False))
                 for name, (stem, marker, plan) in REDESIGNED_KERNELS.items()
-                if stem in ("cp_mlp_fwd", "sh_mlp_fwd")}
+                if stem in ("cp_mlp_fwd", "sh_mlp_fwd", "cp_product_fwd", "cp_jac_basis_fwd")}
 # a training step's own operands of the redesigned kernels (captured in the
 # last step of a training run), the kernels' times on them, and the
 # forwards' operands as tools/bwd_bench.py --step-operands reads them
@@ -297,13 +311,15 @@ STEP_OPERANDS_PATH = os.path.join(ROOT, "exp", "chip_smoke", "step_operands.pt")
 
 def ptxas_info(stem, marker):
     """Registers, stack frame and spill bytes of the kernel whose mangled
-    name holds ``marker``, from ``nvcc -Xptxas -v``'s output of this run's
-    build of ``csrc/<stem>.cu`` (None when the library was not built here)."""
+    name holds ``marker``, from ``nvcc -Xptxas -v``'s output of the build of
+    ``csrc/<stem>.cu``'s library that this run loads (``cuda_build.build_log``:
+    this process's build, or the log an earlier build left beside the
+    library; None when there is neither)."""
     import re
 
     from instant_nsr_pl_tpu_torch.ops import cuda_build
 
-    log = cuda_build.BUILD_LOG.get(stem)
+    log = cuda_build.build_log(stem)
     if not log:
         return None
     info, inside = {}, False
@@ -325,8 +341,16 @@ def ptxas_info(stem, marker):
 def _step_entry(name, calls):
     """A step's launch arguments as ``tools/bwd_bench.py --step-operands``
     reads them (plain tensors and numbers, so another checkout can load
-    them): the last launch of a forward and of HG2, every launch of K8 (one
-    per scale) and of K6 (without its residual, which K5 makes again)."""
+    them): the last launch of a fused forward and of HG2, every launch of K8
+    (one per scale) and of K6 (without its residual, which K5 makes again),
+    and every training-mode launch of K5 (a finite-difference step's four, on
+    the tensors K6's entry holds: one ``torch.save`` keeps them once), K9
+    (one per scale) and K11."""
+    kinds = {"cp_product_forward": "prod_fwd", "cp_jac_basis_forward": "jacb",
+             "cp_jac_stacked_forward": "jacs"}
+    if name in kinds:
+        return {"kind": kinds[name], "launches": [[t.detach() if torch.is_tensor(t) else t
+                                                   for t in a] for a, _ in calls]}
     if name == "cp_product_backward":
         return {"kind": "prod", "launches": [[lines.detach(), u3.detach(), dprod.detach(), res]
                                              for (lines, u3, _, dprod, res), _ in calls]}
@@ -373,21 +397,25 @@ BENCH_KEY = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
              "cp_mlp_forward@cp_big": "k1_cp_big", "hashgrid_forward": "hg1",
              "cp_product_jac_backward": "k8", "cp_product_jac_backward@cp_big": "k8_cp_big",
              "cp_product_backward": "k6", "cp_product_backward@cp_big": "k6_cp_big",
-             "sh_mlp_forward": "k3"}
+             "sh_mlp_forward": "k3", "cp_product_forward": "k5",
+             "cp_product_forward@cp_big": "k5_cp_big", "cp_jac_basis_forward": "k9",
+             "cp_jac_basis_forward@cp_big": "k9_cp_big", "cp_jac_stacked_forward": "k11"}
 # the backwards whose every launch of a step is kept for the parent design's timing
 STEP_BACKWARDS = ("cp_product_jac_backward", "cp_product_backward", "hashgrid_backward")
 # the launches a capture records in training mode only (a grid update's or a
 # rendered view's eval launches are not the step's forward)
-TRAIN_ONLY = ("cp_mlp_forward", "cp_mlp_stacked_forward", "sh_mlp_forward")
+TRAIN_ONLY = ("cp_mlp_forward", "cp_mlp_stacked_forward", "sh_mlp_forward", "cp_product_forward",
+              "cp_jac_basis_forward", "cp_jac_stacked_forward")
 
 
 def capture_step_operands(run_step, label, check=None):
     """Run ``run_step()`` (one training step) with the launch functions of
     the redesigned kernels recording their arguments: the backwards K2, K14,
-    K4, K6, K8, K10, K12 and HG2, and the training-mode forwards K1, K13, K3
-    and HG1; then time each recorded kernel on its step's own (ray-ordered)
-    operands, all of its launches of the step in a row (K8, K10: one per
-    scale; K6: one per scale at N and at 6N), into ``STEP_MS[name]`` as
+    K4, K6, K8, K10, K12 and HG2, and the training-mode forwards K1, K13, K3,
+    K5, K9, K11 and HG1; then time each recorded kernel on its step's own
+    (ray-ordered) operands, all of its launches of the step in a row (K8, K9,
+    K10: one per scale; K5, K6: one per scale at N and at 6N), into
+    ``STEP_MS[name]`` as
     ``(ms, n of the last launch, n of each launch)``, and keep the forwards',
     K6's, K8's and HG2's arguments in ``STEP_OPERANDS`` for the parent design's
     timing (HG2's too). ``check(name, calls)``, if given, sees each kernel's recorded
@@ -428,6 +456,12 @@ def capture_step_operands(run_step, label, check=None):
                                 cp_product.cp_product_backward, lambda a: a[1].shape[1]),
         "sh_mlp_forward": (sh_mlp, "sh_mlp_launch", sh_mlp.sh_mlp_forward,
                            lambda a: a[1].reshape(-1, a[1].shape[-1]).shape[0]),
+        "cp_product_forward": (cp_product, "cp_product_launch", cp_product.cp_product,
+                               lambda a: a[1].shape[1]),
+        "cp_jac_basis_forward": (cp_product, "cp_product_jac_basis_launch",
+                                 cp_product.cp_product_jac_basis, lambda a: a[2].shape[1]),
+        "cp_jac_stacked_forward": (cp_stacked, "cp_jac_basis_stacked_launch",
+                                   cp_stacked.cp_jac_basis_stacked, lambda a: a[2].shape[1]),
     }
     for name, (mod, attr, _, _) in targets.items():
         fn = getattr(mod, attr)
@@ -804,6 +838,10 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
             ref, ref_v = cpp.cp_product_plain(lines, u, r, save_residuals=True)
             residuals_equal(f"cp_product_forward {tag}", (vsave,), (ref_v,))
             assert torch.equal(prod, prod_e), "K5 eval and training mode disagree"
+            if not torch.equal(prod, ref):  # no sum: prod is the plain one to the bit
+                raise AssertionError(f"cp_product_forward {tag}: prod differs from the plain "
+                                     f"version's in {float((prod != ref).float().mean()):.2e} "
+                                     "of its entries")
             out["cp_product_forward"]["errs"].append(compare(f"cp_product_forward {tag}", prod, ref))
             # K6 from those residuals
             dp = dprod[:, :n].contiguous()
@@ -884,7 +922,7 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
             "cp_jac_basis_forward": (
                 lambda: cpp.cp_product_jac_basis_launch(lines, basis, u, r, train=True),
                 lambda: cpp.cp_product_jac_basis_plain(lines, basis, u, r, save_residuals=True),
-                n * (12 + 16 * f + 12 * c) + 2 * tb + 2 * c * f, n * c * (23 + 8 * f)),
+                n * (12 + 16 * f + 12 * c) + 2 * tb + 2 * c * f, n * c * 23),
             "cp_jac_basis_backward": (
                 lambda: cpp.cp_product_jac_basis_backward_launch(u, vsave_j, gdsave, de, dj,
                                                                  basis, r),
@@ -893,8 +931,9 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
                 n * (12 + 12 * c + 16 * f + 12) + 4 * tb + 2 * c * f + 4 * c * f,
                 n * c * 40),
         }
-        # K10's products (B [d enc | d jac] and d B) are bf16 x bf16 on the tensor cores
-        bf16_ops = {"cp_jac_basis_backward": n * 16 * c * f}
+        # K9's projections (B^T [P | J]) and K10's products (B [d enc | d jac] and
+        # d B) are bf16 x bf16 on the tensor cores
+        bf16_ops = {"cp_jac_basis_forward": n * 8 * c * f, "cp_jac_basis_backward": n * 16 * c * f}
         for name, (kern, plain, n_bytes, f32_ops) in timed.items():
             if not with_jac and name.startswith(("cp_jac", "cp_product_jac")):
                 continue
@@ -907,12 +946,21 @@ def cp_kernel_phase(device, c=64, f=16, resolutions=(128, 2048),
             print(f"[kernel] {name} R={r}: {e['ms'][r]:.4f} ms (plain {e['plain_ms'][r]:.3f} "
                   f"ms; bound {e['bound_ms'][r]:.4f} ms by {e['bound_by'][r]}) at N={n}",
                   flush=True)
-        if with_jac:  # K7 in eval mode (export vertex colours, rendered views)
-            e = out["cp_product_jac_forward"]
-            e.setdefault("ms_eval", {})[r] = time_ms(lambda: cpp.cp_product_jac_launch(lines, u, r))
-            e.setdefault("bound_ms_eval", {})[r] = bound(n * (12 + 16 * c) + 2 * tb, 0,
-                                                         n * c * 23)[0]
-            print(f"[kernel] cp_product_jac_forward R={r}: {e['ms_eval'][r]:.4f} ms eval (bound "
+        # the forwards in eval mode: K5 (grid updates, the level grid), K7
+        # (export vertex colours, rendered views) and K9 (rendered views)
+        evals = {"cp_product_forward": (lambda: cpp.cp_product_launch(lines, u, r),
+                                        n * (12 + 4 * c) + 2 * tb, 0, n * c * 11)}
+        if with_jac:
+            evals["cp_product_jac_forward"] = (lambda: cpp.cp_product_jac_launch(lines, u, r),
+                                               n * (12 + 16 * c) + 2 * tb, 0, n * c * 23)
+            evals["cp_jac_basis_forward"] = (
+                lambda: cpp.cp_product_jac_basis_launch(lines, basis, u, r),
+                n * (12 + 16 * f) + 2 * tb + 2 * c * f, n * 8 * c * f, n * c * 23)
+        for name, (kern, n_bytes, bf16_n, f32_n) in evals.items():
+            e = out[name]
+            e.setdefault("ms_eval", {})[r] = time_ms(kern)
+            e.setdefault("bound_ms_eval", {})[r] = bound(n_bytes, bf16_n, f32_n)[0]
+            print(f"[kernel] {name} R={r}: {e['ms_eval'][r]:.4f} ms eval (bound "
                   f"{e['bound_ms_eval'][r]:.4f} ms) at N={n}", flush=True)
 
     meta = {
@@ -1083,7 +1131,7 @@ def stacked_kernel_phase(device):
         "cp_jac_stacked_forward": (
             lambda: cps.cp_jac_basis_stacked_launch(lines, basis, u3, rmax, train=True),
             lambda: cps.cp_jac_basis_stacked_plain(lines, basis, u3, rmax, save_residuals=True),
-            n * (12 + 16 * e + 12 * sc) + table * 2 + sc * f * 2, 0, n * sc * (23 + 8 * f)),
+            n * (12 + 16 * e + 12 * sc) + table * 2 + sc * f * 2, n * 8 * sc * f, n * sc * 23),
         "cp_jac_stacked_backward": (
             lambda: cps.cp_jac_basis_stacked_backward_launch(*jac_bwd_args),
             lambda: cps.cp_jac_basis_stacked_backward_plain(*jac_bwd_args),
@@ -1122,6 +1170,8 @@ def stacked_kernel_phase(device):
             entry["ms_eval"] = time_ms(lambda: cp_mlp.cp_mlp_stacked_launch(ops, x, cp_spec, d_spec))
         elif name == "cp_jac_stacked_forward":
             entry["ms_eval"] = time_ms(lambda: cps.cp_jac_basis_stacked_launch(lines, basis, u3, rmax))
+            entry["bound_ms_eval"] = bound(n * (12 + 16 * e) + table * 2 + sc * f * 2,
+                                           n * 8 * sc * f, n * sc * 23)[0]
         extra = f", {entry['ms_eval']:.4f} ms eval" if "ms_eval" in entry else ""
         print(f"[kernel] {name}: {ms:.4f} ms{extra} (plain {plain_ms:.3f} ms; bound "
               f"{bound_ms:.4f} ms by {bound_by}) at N={n}", flush=True)
@@ -1480,7 +1530,8 @@ def neus_train_phase(device, smi, config=NEUS_CONFIG):
             t_warm = time.perf_counter()
         before = {k: c.launches for k, c in counters.items()}
         if i == NEUS_STEPS - 1:
-            state, metrics = capture_step_operands(lambda: system.train_step(state), "")
+            state, metrics = capture_step_operands(lambda: system.train_step(state), "",
+                                                   check=check_step_kernels)
         else:
             state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
@@ -1629,21 +1680,51 @@ def _to(tree, device):
     return tree.detach().to(device)
 
 
-def check_step_k6(key, calls):
-    """K6 on a finite-difference step's own operands (each recorded launch:
-    the step's residual and cotangent, ray-ordered samples and their
-    stencils) against its plain version, within 2.5e-2 * max|plain|."""
+def check_step_kernels(key, calls):
+    """The kernels of a NeuS step on their own operands (each recorded
+    launch: ray-ordered samples, and for the finite-difference step their
+    stencils), against their plain versions: K6 (the step's residual and
+    cotangent) within 2.5e-2 * max|plain|; K5 (prod and vsave), K9 and K11
+    (vsave and gdsave) equal to the bit, and K9's and K11's enc and jac within
+    2e-2 * max|plain|."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+    from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
 
-    if not key.startswith("cp_product_backward"):
-        return
-    for k, (args, _) in enumerate(calls):
-        got = cpp.cp_product_backward_launch(*args)
-        torch.cuda.synchronize()
-        ref = cpp.cp_product_backward_plain(*args)
-        tag = f"{key} step launch {k} (R={args[4]}, N={args[1].shape[1]})"
-        for label, a, b in zip(("d lines", "d u"), got, ref):
-            compare(f"{tag} {label}", a, b, rel=2.5e-2)
+    def equal(tag, label, a, b):
+        if not torch.equal(a, b):
+            frac = float((a != b).float().mean())
+            raise AssertionError(f"{tag}: {label} differs from the plain version's in "
+                                 f"{frac:.2e} of its entries")
+
+    for k, (args, kwargs) in enumerate(calls):
+        if key.startswith("cp_product_backward"):
+            got = cpp.cp_product_backward_launch(*args)
+            torch.cuda.synchronize()
+            ref = cpp.cp_product_backward_plain(*args)
+            tag = f"{key} step launch {k} (R={args[4]}, N={args[1].shape[1]})"
+            for label, a, b in zip(("d lines", "d u"), got, ref):
+                compare(f"{tag} {label}", a, b, rel=2.5e-2)
+        elif key.startswith("cp_product_forward"):
+            got = cpp.cp_product_launch(*args, **kwargs)
+            torch.cuda.synchronize()
+            ref = cpp.cp_product_plain(*args, save_residuals=True)
+            tag = f"{key} step launch {k} (R={args[2]}, N={args[1].shape[1]})"
+            for label, a, b in zip(("prod", "vsave"), got, ref):
+                equal(tag, label, a, b)
+            print(f"[kernel] {tag}: prod and vsave equal the plain version's to the bit",
+                  flush=True)
+        elif key.startswith(("cp_jac_basis_forward", "cp_jac_stacked_forward")):
+            stacked = key.startswith("cp_jac_stacked")
+            launch = cps.cp_jac_basis_stacked_launch if stacked else cpp.cp_product_jac_basis_launch
+            plain = cps.cp_jac_basis_stacked_plain if stacked else cpp.cp_product_jac_basis_plain
+            got = launch(*args, **kwargs)
+            torch.cuda.synchronize()
+            ref = plain(*args, save_residuals=True)
+            tag = f"{key} step launch {k} (R={args[3]}, N={args[2].shape[1]})"
+            for label, a, b in zip(("vsave", "gdsave"), got[2:], ref[2:]):
+                equal(tag, label, a, b)
+            for label, a, b in zip(("enc", "jac"), got[:2], ref[:2]):
+                compare(f"{tag} {label}", a, b)
 
 
 def neus_fd_phase(device):
@@ -1666,7 +1747,7 @@ def neus_fd_phase(device):
         before = {k: c.launches for k, c in counters.items()}
         if i == FD_STEPS - 1:
             state, metrics = capture_step_operands(lambda: system.train_step(state), "",
-                                                   check=check_step_k6)
+                                                   check=check_step_kernels)
         else:
             state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
@@ -2149,7 +2230,7 @@ def cp_big_train_phase(device, smi):
             before = {k: c.launches for k, c in counters.items()}
             if i == CP_BIG_STEPS - 1:
                 state, metrics = capture_step_operands(lambda: system.train_step(state),
-                                                       "@cp_big", check=check_step_k6)
+                                                       "@cp_big", check=check_step_kernels)
             else:
                 state, metrics = system.train_step(state)
             delta = {k: c.launches - before[k] for k, c in counters.items()}
@@ -2292,7 +2373,8 @@ def main(argv=None):
     build_s = cuda_build.build_all()
     print(f"[build] {build_s:.1f} s for {sorted(cuda_build.BUILD_LOG) or 'cached libraries'}",
           flush=True)
-    for stem, log in sorted(cuda_build.BUILD_LOG.items()):
+    for stem in sorted(src.stem for src in cuda_build.CSRC.glob("*.cu")):
+        log = cuda_build.build_log(stem) or ""  # this run's build or an earlier one's
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[build] {stem}: {line.strip()}", flush=True)

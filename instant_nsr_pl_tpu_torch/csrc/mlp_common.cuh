@@ -1,5 +1,5 @@
-// bf16 rounding and the launch helpers of the grid-stride kernels (K5, K6,
-// K7, K9 and K11 in csrc/cp_*.cu), shared through cp_common.cuh.
+// bf16 rounding, shared through cp_common.cuh, and the launch helpers of the
+// grid-stride kernel K7 (csrc/cp_product_jac_fwd.cu).
 //
 // The packed bf16 ReLU MLP (ops/mlp_common.py pack_mlp: (sum d_in, Wmax) bf16,
 // zero columns beyond each layer's d_out) runs on the tensor cores in every
@@ -14,14 +14,6 @@ namespace insr {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Widen `count` packed bf16 values to f32 shared memory (block-cooperative).
-__device__ __forceinline__ void load_bf16_to_shared(
-    const __nv_bfloat16* __restrict__ src, int count, float* dst) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    dst[i] = __bfloat162float(src[i]);
-  }
 }
 
 // Grid of a grid-stride launch: enough blocks to fill every SM a few times.

@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the fused backward kernels (csrc/sh_mlp_bwd.cu
 // K4, csrc/cp_mlp_bwd.cu K2/K14, csrc/cp_jac_basis_bwd.cu K10/K12 and K8) and
-// of the fused forwards (csrc/cp_mlp_fwd.cu K1/K13, csrc/sh_mlp_fwd.cu K3), and
-// the backwards' shared bf16 ReLU MLP backward.
+// of the tiled forwards (csrc/cp_mlp_fwd.cu K1/K13, csrc/sh_mlp_fwd.cu K3,
+// csrc/cp_product_fwd.cu K5, csrc/cp_jac_basis_fwd.cu K9/K11), and the
+// backwards' shared bf16 ReLU MLP backward.
 //
 // Replaces kernel_mlp_bwd of instant_nsr_pl_tpu/ops/mlp_pallas_common.py:98-141
 // (the MLP chain both fused TPU backward kernels end in) on Hopper's tensor
@@ -197,7 +198,8 @@ __device__ __forceinline__ void fill_shared(T* dst, int count, T v) {
 
 // ---------------------------------------------------------------------------
 // swizzled [row][sample] tiles of the forwards (csrc/cp_mlp_fwd.cu K1/K13,
-// csrc/sh_mlp_fwd.cu K3)
+// csrc/sh_mlp_fwd.cu K3, csrc/cp_product_fwd.cu K5, csrc/cp_jac_basis_fwd.cu
+// K9/K11)
 // ---------------------------------------------------------------------------
 
 // Element (row, t) of a [row][sample] bf16 tile of kT = 64 samples: rows of

@@ -204,7 +204,9 @@ def _check_coords(name, u3):
 
 def cp_product_launch(lines, u3, res, train=False):
     """Launch ``csrc/cp_product_fwd.cu`` (K5) on the (3, R, C) bf16 stack for
-    CUDA u3. Returns ``(prod, vsave)``; vsave only with ``train`` (else None)."""
+    CUDA u3. Returns ``(prod, vsave)``; vsave only with ``train`` (else None).
+    The launch plan (grid, blocks per SM, shared memory) goes to
+    ``cuda_build.PLANS``; with no samples nothing is launched."""
     _check_coords("cp_product", u3)
     c = lines.shape[2]
     n = u3.shape[1]
@@ -213,16 +215,18 @@ def cp_product_launch(lines, u3, res, train=False):
     prod = torch.empty((c, n), dtype=torch.float32, device=u3.device)
     vsave = (torch.empty((3, c, n), dtype=torch.bfloat16, device=u3.device)
              if train else None)
-    fn = cuda_build.library("cp_product_fwd").cp_product_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn = cuda_build.entry("cp_product_fwd", "cp_product_fwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(u3.device):
         stream = torch.cuda.current_stream(u3.device).cuda_stream
         rc = fn(u3.data_ptr(), n, lines.data_ptr(), res, c, prod.data_ptr(),
-                vsave.data_ptr() if train else None, stream)
+                vsave.data_ptr() if train else None, info, stream)
     cuda_build.check(rc, "cp_product", SUPPORTED_PRODUCT)
-    cp_product.launches += 1
+    cuda_build.record_plan(("cp_product_fwd", c, train, u3.device.index), info)
+    cp_product.launches += int(n > 0)  # N = 0 launches nothing
     return prod, vsave
 
 
@@ -573,7 +577,9 @@ def cp_product_jac_basis_backward_plain(u3, vsave, gdsave, denc, djac, basis, re
 
 def cp_product_jac_basis_launch(lines, basis, u3, res, train=False):
     """Launch ``csrc/cp_jac_basis_fwd.cu`` (K9) for CUDA u3. Returns ``(enc,
-    jac, vsave, gdsave)``; the residuals only with ``train`` (else None)."""
+    jac, vsave, gdsave)``; the residuals only with ``train`` (else None). The
+    launch plan goes to ``cuda_build.PLANS``; with no samples nothing is
+    launched."""
     _check_coords("cp_product_jac_basis", u3)
     c, f = basis.shape
     n = u3.shape[1]
@@ -587,18 +593,20 @@ def cp_product_jac_basis_launch(lines, basis, u3, res, train=False):
     if train:
         vsave = torch.empty((3, c, n), dtype=torch.bfloat16, device=dev)
         gdsave = torch.empty((3, c, n), dtype=torch.bfloat16, device=dev)
-    fn = cuda_build.library("cp_jac_basis_fwd").cp_jac_basis_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn = cuda_build.entry("cp_jac_basis_fwd", "cp_jac_basis_fwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(u3.data_ptr(), n, lines.data_ptr(), res, c, f, basis.data_ptr(),
                 enc.data_ptr(), jac.data_ptr(), vsave.data_ptr() if train else None,
-                gdsave.data_ptr() if train else None, stream)
+                gdsave.data_ptr() if train else None, info, stream)
     cuda_build.check(rc, "cp_product_jac_basis", SUPPORTED_JAC)
-    cp_product_jac_basis.launches += 1
+    cuda_build.record_plan(("cp_jac_basis_fwd", c, f, train, dev.index), info)
+    cp_product_jac_basis.launches += int(n > 0)  # N = 0 launches nothing
     return enc, jac, vsave, gdsave
 
 

@@ -269,7 +269,8 @@ def cp_jac_basis_stacked_backward_plain(u3, vsave, gdsave, denc, djac, basis, rm
 def cp_jac_basis_stacked_launch(lines, basis, u3, rmax, train=False):
     """Launch K11 (``cp_jac_stacked_fwd`` of ``csrc/cp_jac_basis_fwd.cu``) for
     CUDA u3. Returns ``(enc, jac, vsave, gdsave)``; the residuals only with
-    ``train`` (else None)."""
+    ``train`` (else None). The launch plan goes to ``cuda_build.PLANS``; with
+    no samples nothing is launched."""
     _check_coords("cp_jac_basis_stacked", u3)
     s_count, c, f = basis.shape
     n = u3.shape[1]
@@ -283,18 +284,20 @@ def cp_jac_basis_stacked_launch(lines, basis, u3, rmax, train=False):
     if train:
         vsave = torch.empty((3, s_count * c, n), dtype=torch.bfloat16, device=dev)
         gdsave = torch.empty((3, s_count * c, n), dtype=torch.bfloat16, device=dev)
-    fn = cuda_build.library("cp_jac_basis_fwd").cp_jac_stacked_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn = cuda_build.entry("cp_jac_basis_fwd", "cp_jac_stacked_fwd", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(u3.data_ptr(), n, lines.data_ptr(), rmax, c, f, s_count, basis.data_ptr(),
                 enc.data_ptr(), jac.data_ptr(), vsave.data_ptr() if train else None,
-                gdsave.data_ptr() if train else None, stream)
+                gdsave.data_ptr() if train else None, info, stream)
     cuda_build.check(rc, "cp_jac_basis_stacked", SUPPORTED)
-    cp_jac_basis_stacked.launches += 1
+    cuda_build.record_plan(("cp_jac_stacked_fwd", c, f, s_count, train, dev.index), info)
+    cp_jac_basis_stacked.launches += int(n > 0)  # N = 0 launches nothing
     return enc, jac, vsave, gdsave
 
 

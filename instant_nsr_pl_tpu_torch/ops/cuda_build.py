@@ -4,8 +4,11 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
 so a build takes seconds. All sources are compiled in parallel, at first use,
 into ``instant_nsr_pl_tpu_torch/_build/``; a library's file name carries a
-hash of its sources and flags, so an edit rebuilds it. A missing ``nvcc`` or
-a failed build raises: there is no fallback.
+hash of its sources and flags, so an edit rebuilds it, and its build's
+nvcc / ptxas output is kept beside it under the same name with ``.log``
+(:func:`build_log`), so a later process that reuses the library still reads
+its registers and spills. A missing ``nvcc`` or a failed build raises: there
+is no fallback.
 """
 
 from __future__ import annotations
@@ -89,9 +92,21 @@ def build_all() -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, lib)
+            lib.with_suffix(".log").write_text(log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def build_log(stem: str) -> str | None:
+    """The nvcc / ptxas output of the build of ``csrc/<stem>.cu``'s current
+    library: this process's (``BUILD_LOG``) or, when an earlier process built
+    it, the ``.log`` file beside it. None when neither exists."""
+    log = BUILD_LOG.get(stem)
+    if log:
+        return log
+    path = _library_path(CSRC / f"{stem}.cu").with_suffix(".log")
+    return path.read_text() if path.exists() else None
 
 
 def library(stem: str) -> ctypes.CDLL:

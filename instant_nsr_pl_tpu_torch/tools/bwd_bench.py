@@ -5,7 +5,9 @@ products' backward, the same source's no-basis instantiation) with
 ``cp_big``'s K8, K6 (the CP product's backward, its line-table
 instantiation) with ``cp_big``'s K6, and HG2 (``csrc/hashgrid_bwd.cu``), and the forward kernels
 K1 / K13 / ``cp_big``'s K1 (``csrc/cp_mlp_fwd.cu``, training and eval mode),
-K3 (``csrc/sh_mlp_fwd.cu``, training and eval mode) and HG1
+K3 (``csrc/sh_mlp_fwd.cu``, training and eval mode), K5 / ``cp_big``'s K5
+(``csrc/cp_product_fwd.cu``), K9 / K11 / ``cp_big``'s K9
+(``csrc/cp_jac_basis_fwd.cu``; all three in training and eval mode) and HG1
 (``csrc/hashgrid_fwd.cu``) on the card, optionally from another checkout of
 the port and with phases cut out.
 
@@ -23,8 +25,9 @@ K11/K12 launches of ``ops/cp_product.py`` / ``ops/cp_stacked.py``,
 every design keeps, so two designs are timed by the same code. Each
 checkout's hash table comes from its own ``hashgrid_init`` (feature-major
 (F, T) before the table became row-major, (T, F) after; the same values).
-``--step-operands FILE`` also times the forward kernels, K3, K8, K6 and HG2 on a
-training step's own operands as ``chip_smoke.py`` saved them
+``--step-operands FILE`` also times the forward kernels (K1, K13, K3, K5, K9,
+K11, HG1), K8, K6 and HG2 on a training step's own operands as
+``chip_smoke.py`` saved them
 (``torch.save``: per case, the launch's arguments as plain tensors and
 numbers), each case as ``<case>@step``; a (T, F) hash table is handed to a feature-major checkout
 transposed. Run it for the two roots in turns within one call (a, b, b, a)
@@ -34,11 +37,12 @@ The operands are those of ``chip_smoke.py``'s kernel phases at N = 262,144:
 the bench NeRF's density head (CP C=64, R=(128, 2048), F=16, MLP 32->64->16),
 the stacked head (R=(129, 2049)), the ``cp_big`` head (C=128, R=(64, 512,
 4096), MLP 48->64->16) and the radiance head (SH degree 4, 16 features, MLP
-32->64->64->3: K3, K4), the bench NeuS encoding for K10 (C=64, F=16, R=128
-and 2048: one launch each) and its raw products for K8 (C=64, R=128 and
-2048), the stacked one for K12 (R=(129, 2049)), cp_big's for its K10 and K8
-(C=128, R=64, 512, 4096), the CP product of the finite-difference NeuS for
-K6 (C=64, R=128 and 2048; cp_big's C=128, R=64, 512, 4096) and the bench hash grid for HG2 (16
+32->64->64->3: K3, K4), the bench NeuS encoding for K9 and K10 (C=64, F=16,
+R=128 and 2048: one launch each) and its raw products for K8 (C=64, R=128 and
+2048), the stacked one for K11 and K12 (R=(129, 2049)), cp_big's for its K9,
+K10 and K8 (C=128, R=64, 512, 4096), the CP product of the finite-difference
+NeuS for K5 and K6 (C=64, R=128 and 2048; cp_big's C=128, R=64, 512, 4096)
+and the bench hash grid for HG2 (16
 levels, F=2, 2^19 rows), from seeded random weights; the residuals come from
 one training-mode forward. ``--merge-stats`` counts, on each order's
 positions, the row updates that a merge of equal rows would leave: HG2's per
@@ -50,7 +54,7 @@ hundred rays' samples, whole and in order); ``--order stencil`` expands
 those ray-ordered points into the finite-difference NeuS's six-point stencil
 (eps 1e-3 in the bench NeuS's world box of radius 1.5, clipped to the box, as
 ``models/geometry.py`` evaluates it: 6 x 262,144 points, a stencil launch's
-size; K6 cases only); ``--order uniform,ray`` times both.
+size; K5 and K6 cases only); ``--order uniform,ray`` times both.
 
 ``--cuts`` also times scratch variants: a copy of the root's ``csrc/`` with
 one phase of a backward kernel edited out (the line-table atomics, the
@@ -64,7 +68,9 @@ at all; HG1 with 1 or 2 levels a thread instead of 4; K8's scatter, or its
 scatter without the merge of equal rows; K3 without the hsave write-out or
 with plain stores for it; K6's scatter, its scatter without the row merge,
 its atomics, or its table rows gathered past L1; HG2 without the merge of a
-block's warps),
+block's warps; K5 and K9 with one gather step's loads in flight, K5 also at
+three blocks an SM, with plain stores or without its write-out, K9 without
+its residual write-out or its tensor-core products),
 all built at once with ``nvcc -Xptxas -v`` into a temporary directory. The edits
 are text replacements on the copy; a variant whose text is not in the
 root's source is reported as not applicable. The variants' outputs are
@@ -286,6 +292,35 @@ CUTS.update({
          "        if (false) {"),
         ("hashgrid_bwd.cu", "      if (threadIdx.x < 8) {", "      if (false) {")]),
 })
+# K5 / K9 (csrc/cp_product_fwd.cu, csrc/cp_jac_basis_fwd.cu, the tile designs):
+# one gather step's loads in flight instead of two (for K5 also with three
+# blocks an SM, at most 85 registers); K5's write-out (prod and vsave) with
+# plain stores or not at all; K9's residual write-out left out,
+# and its tensor-core products (enc and jac stay zero)
+_INFLIGHT = "static constexpr int INFLIGHT = STEPS < 2 || PASSES > 1 ? 1 : 2;"
+CUTS.update({
+    "k5_one_step_in_flight": ("cp_product_fwd", [("cp_product_fwd.cu", _INFLIGHT,
+                                                  "static constexpr int INFLIGHT = 1;")]),
+    "k5_plain_stores": ("cp_product_fwd", [
+        ("cp_product_fwd.cu", "        __stcs(reinterpret_cast<float4*>(",
+         "        (*reinterpret_cast<float4*>("),
+        ("cp_product_fwd.cu", "                                         ch * 4),\n               v);",
+         "                                         ch * 4)) = v;"),
+        *CUTS["k1_plain_stores"][1]]),
+    "k5_no_stores": ("cp_product_fwd", [
+        ("cp_product_fwd.cu", "    for (int q = threadIdx.x; q < rows * (kT / 4); q += kThreads) {",
+         "    for (int q = threadIdx.x; q < 0; q += kThreads) {"),
+        *CUTS["k1_no_residual_stores"][1]]),
+    "k5_three_blocks": ("cp_product_fwd", [
+        ("cp_product_fwd.cu", _INFLIGHT, "static constexpr int INFLIGHT = 1;"),
+        ("cp_product_fwd.cu", "__global__ void __launch_bounds__(kThreads, 2)",
+         "__global__ void __launch_bounds__(kThreads, 3)")]),
+    "k9_one_step_in_flight": ("cp_jac_basis_fwd", [("cp_jac_basis_fwd.cu", _INFLIGHT,
+                                                    "static constexpr int INFLIGHT = 1;")]),
+    "k9_no_residual_stores": ("cp_jac_basis_fwd", CUTS["k1_no_residual_stores"][1]),
+    "k9_no_projection": ("cp_jac_basis_fwd", [("cp_jac_basis_fwd.cu",
+                                               "            mma_bf16(acc[q], af, bf);\n", "")]),
+})
 # which timed case each source's variants run (the parent design's K8 and K6
 # have sources of their own, csrc/cp_product_jac_bwd.cu and
 # csrc/cp_product_bwd.cu; a stem a checkout does not have is left out)
@@ -296,13 +331,17 @@ CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
             "cp_product_bwd": ("k6", "k6_cp_big"),
             "hashgrid_bwd": ("hg2", "hg2_dx"),
             "cp_mlp_fwd": ("k1", "k1_eval", "k13", "k13_eval", "k1_cp_big", "k1_cp_big_eval"),
+            "cp_product_fwd": ("k5", "k5_eval", "k5_cp_big", "k5_cp_big_eval"),
+            "cp_jac_basis_fwd": ("k9", "k9_eval", "k11", "k11_eval", "k9_cp_big",
+                                 "k9_cp_big_eval"),
             "sh_mlp_fwd": ("k3", "k3_eval"),
             "hashgrid_fwd": ("hg1", "hg1_chunked", "ft_to_tf")}
 # a variant's cases where they are not all of its source's
 CUT_CASES = {**{name: ("k10", "k12", "k10_cp_big") for name in CUTS if name.startswith("k10_tc")},
              "k8_no_scatter": ("k8", "k8_cp_big"), "k8_no_row_merge": ("k8", "k8_cp_big"),
              **{name: ("k6", "k6_cp_big") for name in CUTS if name.startswith("k6_")},
-             "k3_no_hsave_stores": ("k3",), "k3_plain_stores": ("k3",)}
+             "k3_no_hsave_stores": ("k3",), "k3_plain_stores": ("k3",),
+             "k9_no_residual_stores": ("k9", "k11", "k9_cp_big")}
 # the sources a case's operands also need (a backward's residuals come from
 # its forward)
 PARTNER = {"cp_mlp_bwd": ("cp_mlp_fwd",), "sh_mlp_bwd": ("sh_mlp_fwd",),
@@ -310,9 +349,10 @@ PARTNER = {"cp_mlp_bwd": ("cp_mlp_fwd",), "sh_mlp_bwd": ("sh_mlp_fwd",),
            "cp_product_jac_bwd": ("cp_product_jac_fwd",),
            "cp_product_bwd": ("cp_product_fwd",),
            "hashgrid_bwd": ("hashgrid_fwd",), "cp_mlp_fwd": ("cp_mlp_bwd",),
-           "sh_mlp_fwd": (), "hashgrid_fwd": ("hashgrid_bwd",)}
+           "sh_mlp_fwd": (), "hashgrid_fwd": ("hashgrid_bwd",), "cp_product_fwd": (),
+           "cp_jac_basis_fwd": ()}
 FWD_CASES = {*CASES_OF["cp_mlp_fwd"], *CASES_OF["sh_mlp_fwd"]}
-STENCIL_CASES = {"k6", "k6_cp_big"}
+STENCIL_CASES = {"k6", "k6_cp_big", *CASES_OF["cp_product_fwd"]}
 
 
 def time_ms(fn, reps=20, inner=10, warmup=3):
@@ -480,25 +520,44 @@ def cases(device, order, wanted=None):
     return out
 
 
-def jac_operands(device, order, c=64, f=16, resolutions=(128, 2048), seed=SEED + 7):
-    """Per resolution of a NeuS CP encoding (``chip_smoke.py``'s K9/K10
-    phase: bf16 0.1 N(0, 1) lines, an N(0, 1)/8 basis, N(0, 1) cotangents):
-    the arguments of one K10 launch, ``(u3, vsave, gdsave, denc, djac, basis,
-    r)``, with the residuals from one training-mode K9 launch."""
+def _line_tables(gen, c, resolutions, device):
+    """Per resolution, a (3, R, C) bf16 stack of 0.1 N(0, 1) lines."""
     import torch
 
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
 
+    return {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+            .to(device) for r in resolutions}
+
+
+def jacb_fwd_operands(device, order, c=64, f=16, resolutions=(128, 2048), seed=SEED + 7):
+    """Per resolution of a NeuS CP encoding (``chip_smoke.py``'s K9/K10
+    phase: bf16 0.1 N(0, 1) lines, an N(0, 1)/8 basis): the arguments of one
+    K9 launch, ``(lines, basis, u3, r)``, and the generator, to draw on."""
+    import torch
+
     gen = torch.Generator().manual_seed(seed)
-    tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
-              .to(device) for r in resolutions}
+    tables = _line_tables(gen, c, resolutions, device)
     basis = (torch.randn((c, f), generator=gen) / 8.0).to(torch.bfloat16).to(device)
     u3 = positions(gen, order).T.contiguous().to(device)
+    return [(tables[r], basis, u3, r) for r in resolutions], gen
+
+
+def jac_operands(device, order, c=64, f=16, resolutions=(128, 2048), seed=SEED + 7):
+    """Per resolution of a NeuS CP encoding (``jacb_fwd_operands``, N(0, 1)
+    cotangents): the arguments of one K10 launch, ``(u3, vsave, gdsave, denc,
+    djac, basis, r)``, with the residuals from one training-mode K9 launch."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+
+    fwd, gen = jacb_fwd_operands(device, order, c, f, resolutions, seed)
+    u3 = fwd[0][2]
     denc = torch.randn((f, N), generator=gen).to(device)
     djac = torch.randn((3, f, N), generator=gen).to(device)
     out = []
-    for r in resolutions:
-        _, _, vsave, gdsave = cpp.cp_product_jac_basis_launch(tables[r], basis, u3, r, train=True)
+    for lines, basis, _, r in fwd:
+        _, _, vsave, gdsave = cpp.cp_product_jac_basis_launch(lines, basis, u3, r, train=True)
         out.append((u3, vsave, gdsave, denc, djac, basis, r))
     return out
 
@@ -525,31 +584,41 @@ def raw_jac_operands(device, order, c=64, resolutions=(128, 2048), seed=SEED + 1
     return out
 
 
+def prod_fwd_operands(device, order, c=64, resolutions=(128, 2048), seed=SEED + 27):
+    """Per resolution of the finite-difference NeuS's CP encoding
+    (``chip_smoke.py``'s K5/K6 phase: bf16 0.1 N(0, 1) lines): the arguments
+    of one K5 launch, ``(lines, u3, r)``, and the generator, to draw on."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    tables = _line_tables(gen, c, resolutions, device)
+    u3 = positions(gen, order).T.contiguous().to(device)
+    return [(tables[r], u3, r) for r in resolutions], gen
+
+
 def prod_operands(device, order, c=64, resolutions=(128, 2048), seed=SEED + 27):
     """Per resolution of the finite-difference NeuS's CP encoding
-    (``chip_smoke.py``'s K5/K6 phase: bf16 0.1 N(0, 1) lines, N(0, 1) f32
-    cotangents): the arguments of one K6 launch, ``(lines, u3, vsave, dprod,
-    r)``, with the residual from one training-mode K5 launch."""
+    (``prod_fwd_operands``, N(0, 1) f32 cotangents): the arguments of one K6
+    launch, ``(lines, u3, vsave, dprod, r)``, with the residual from one
+    training-mode K5 launch."""
     import torch
 
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
 
-    gen = torch.Generator().manual_seed(seed)
-    tables = {r: cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
-              .to(device) for r in resolutions}
-    u3 = positions(gen, order).T.contiguous().to(device)
+    fwd, gen = prod_fwd_operands(device, order, c, resolutions, seed)
+    u3 = fwd[0][1]
     dprod = torch.randn((c, u3.shape[1]), generator=gen).to(device)
     out = []
-    for r in resolutions:
-        _, vsave = cpp.cp_product_launch(tables[r], u3, r, train=True)
-        out.append((tables[r], u3, vsave, dprod, r))
+    for lines, _, r in fwd:
+        _, vsave = cpp.cp_product_launch(lines, u3, r, train=True)
+        out.append((lines, u3, vsave, dprod, r))
     return out
 
 
-def stacked_jac_operands(device, order, seed=SEED + 11):
-    """The arguments of one K12 launch at the stacked NeuS encoding (C=64,
-    nested R=(129, 2049) on one (3, 2049, 128) table, F=16), residuals from
-    one training-mode K11 launch."""
+def stacked_fwd_operands(device, order, seed=SEED + 11):
+    """The arguments of one K11 launch at the stacked NeuS encoding (C=64,
+    nested R=(129, 2049) on one (3, 2049, 128) table, F=16), ``(lines, basis,
+    u3, 2049)``, and the generator, to draw on."""
     import torch
 
     from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
@@ -560,6 +629,18 @@ def stacked_jac_operands(device, order, seed=SEED + 11):
     params = cp_init(gen, spec, device)
     lines, basis = cps.stack_lines_fine(params, spec), cps.basis_stack(params, spec)
     u3 = positions(gen, order).T.contiguous().to(device)
+    return (lines, basis, u3, 2049), gen
+
+
+def stacked_jac_operands(device, order, seed=SEED + 11):
+    """The arguments of one K12 launch at the stacked NeuS encoding
+    (``stacked_fwd_operands``), residuals from one training-mode K11
+    launch."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
+
+    (lines, basis, u3, _), gen = stacked_fwd_operands(device, order, seed)
     denc = torch.randn((32, N), generator=gen).to(device)
     djac = torch.randn((3, 32, N), generator=gen).to(device)
     _, _, vsave, gdsave = cps.cp_jac_basis_stacked_launch(lines, basis, u3, 2049, train=True)
@@ -570,7 +651,8 @@ def jac_cases(device, order, wanted=None):
     """K10 summed over the bench NeuS scales R=128 and 2048 (one launch per
     scale, as a step runs it), K12 and cp_big's K10 summed over R=(64, 512,
     4096); K8 and K6 the same over the raw or finite-difference NeuS's and
-    cp_big's scales."""
+    cp_big's scales; the forwards K5 and K9 (with cp_big's) the same, and
+    K11, in training and eval mode."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
     from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
 
@@ -593,6 +675,30 @@ def jac_cases(device, order, wanted=None):
     if wanted is None or "k6_cp_big" in wanted:
         big = prod_operands(device, order, 128, (64, 512, 4096), SEED + 29)
         out["k6_cp_big"] = (per_scale(big, prod), "C=128, R=64 + 512 + 4096")
+    # the forwards K5, K9 / cp_big's K9 (summed over the scales, a launch each)
+    # and K11, in training and in eval mode
+    forwards = {
+        "k5": (prod_fwd_operands, (64, (128, 2048), SEED + 27), "C=64, R=128 + R=2048"),
+        "k5_cp_big": (prod_fwd_operands, (128, (64, 512, 4096), SEED + 29),
+                      "C=128, R=64 + 512 + 4096"),
+        "k9": (jacb_fwd_operands, (64, 16, (128, 2048)), "C=64, F=16, R=128 + R=2048"),
+        "k9_cp_big": (jacb_fwd_operands, (128, 16, (64, 512, 4096), SEED + 17),
+                      "C=128, F=16, R=64 + 512 + 4096"),
+    }
+    for key, (make, args, shape) in forwards.items():
+        if wanted is None or wanted & {key, key + "_eval"}:
+            ops, _ = make(device, order, *args)
+            launch = cpp.cp_product_launch if key.startswith("k5") else \
+                cpp.cp_product_jac_basis_launch
+            out[key] = (lambda o=ops, l=launch: [l(*a, train=True) for a in o],
+                        shape + ", training")
+            out[key + "_eval"] = (lambda o=ops, l=launch: [l(*a) for a in o], shape + ", eval")
+    if wanted is None or wanted & {"k11", "k11_eval"}:
+        k11_args, _ = stacked_fwd_operands(device, order)
+        out["k11"] = (lambda a=k11_args: cps.cp_jac_basis_stacked_launch(*a, train=True),
+                      "C=64, F=16, S=2, R_max=2049, training")
+        out["k11_eval"] = (lambda a=k11_args: cps.cp_jac_basis_stacked_launch(*a),
+                           "C=64, F=16, S=2, R_max=2049, eval")
     raw = cpp.cp_product_jac_backward_launch
     if wanted is None or "k8" in wanted:
         out["k8"] = (per_scale(raw_jac_operands(device, order), raw), "C=64, R=128 + R=2048")
@@ -660,7 +766,9 @@ def hash_cases(device, order, wanted=None):
 
 def step_cases(path, device):
     """The forward kernels, K3, K8, K6 and HG2 on a training step's own operands,
-    as ``chip_smoke.py`` saved them: per case, ``kind`` "cp" (``ops``, ``x``,
+    as ``chip_smoke.py`` saved them: per case, ``kind`` "prod_fwd", "jacb" or
+    "jacs" (``launches``: each of the step's training-mode K5, K9 or K11
+    launches' arguments, ``(lines, u3, R)`` or ``(lines, basis, u3, R)``), "cp" (``ops``, ``x``,
     ``cp`` = (C, R, F), ``mlp`` = (dim_in, dim_out, width, hidden layers),
     ``stacked``, ``train``), "hash" (``table`` (T, F), ``x``, ``spec`` the
     HashGridSpec fields, ``mask``), "hash_bwd" (HG2: ``table``, ``x``,
@@ -674,12 +782,23 @@ def step_cases(path, device):
 
     from instant_nsr_pl_tpu_torch.ops import cp_mlp, sh_mlp
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
+    from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
     from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
     from instant_nsr_pl_tpu_torch.ops.cp import CPSpec
     from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec
 
     out = {}
+    # the forwards' training-mode launches, looked up when a case runs
+    forwards = {"prod_fwd": (cpp, "cp_product_launch", 1), "jacb": (cpp,
+                "cp_product_jac_basis_launch", 2), "jacs": (cps, "cp_jac_basis_stacked_launch", 2)}
     for key, e in torch.load(path, map_location=device, weights_only=True).items():
+        if e["kind"] in forwards:
+            mod, name, at = forwards[e["kind"]]
+            calls = [tuple(a) for a in e["launches"]]
+            out[key] = (lambda c=calls, m=mod, nm=name: [getattr(m, nm)(*a, train=True)
+                                                         for a in c],
+                        "N=" + " + ".join(str(a[at].shape[1]) for a in calls))
+            continue
         if e["kind"] == "raw":
             calls = [tuple(a) for a in e["launches"]]
             out[key] = (lambda c=calls: [cpp.cp_product_jac_backward_launch(*a) for a in c],
@@ -823,19 +942,20 @@ def main(argv=None):
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--cuts", action="store_true")
     ap.add_argument("--order", default="uniform",
-                    help="uniform, ray, stencil (K6 cases only), or several separated by "
-                         "commas")
+                    help="uniform, ray, stencil (K5 and K6 cases only), or several "
+                         "separated by commas")
     ap.add_argument("--cases", default=None,
                     help="time only these cases (comma-separated: k2, k14, k2_cp_big, k4, k10, "
                          "k12, k10_cp_big, k8, k8_cp_big, k6, k6_cp_big, hg2, hg2_dx, k1, "
                          "k1_eval, k13, "
                          "k13_eval, k1_cp_big, k1_cp_big_eval, k3, k3_eval, hg1, hg1_chunked, "
-                         "ft_to_tf), and only their sources' cuts")
+                         "ft_to_tf, k5, k5_eval, k5_cp_big, k5_cp_big_eval, k9, k9_eval, k11, "
+                         "k11_eval, k9_cp_big, k9_cp_big_eval), and only their sources' cuts")
     ap.add_argument("--merge-stats", action="store_true",
                     help="also count the row updates a merge of equal rows would remove")
     ap.add_argument("--step-operands", default=None,
-                    help="also time the forward kernels, K3, K8, K6 and HG2 on these saved "
-                         "training-step operands")
+                    help="also time the forward kernels (K1, K13, K3, K5, K9, K11, HG1), K8, "
+                         "K6 and HG2 on these saved training-step operands")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -864,7 +984,8 @@ def main(argv=None):
                      and (cuda_build.CSRC / f"{stem}.cu").exists()]
         if args.step_operands:
             extra = [s for s in ("cp_mlp_fwd", "hashgrid_fwd", "hashgrid_bwd", "sh_mlp_fwd",
-                                 "cp_jac_basis_bwd", "cp_product_jac_bwd", "cp_product_bwd")
+                                 "cp_jac_basis_bwd", "cp_product_jac_bwd", "cp_product_bwd",
+                                 "cp_product_fwd", "cp_jac_basis_fwd")
                      if (cuda_build.CSRC / f"{s}.cu").exists()]
             bwd_stems = list(dict.fromkeys([*bwd_stems, *extra]))
         stems = list(dict.fromkeys(s for b in bwd_stems for s in (b, *PARTNER[b])))
@@ -907,7 +1028,7 @@ def main(argv=None):
                     print(f"[merge] k10 {order} R={r}: {e['updates']} row updates; window of two "
                           f"rows {e['window_16']} (runs of 16), {e['window_64']} (64); distinct "
                           f"{e['distinct_16']} / {e['distinct_64']}", flush=True)
-            # the stencil order is the finite-difference NeuS's: K6 cases only
+            # the stencil order is the finite-difference NeuS's: K5 and K6 cases only
             want = wanted if order != "stencil" else (wanted or set(STENCIL_CASES)) & STENCIL_CASES
             for key, (fn, shape) in (cases(device, order, want) if want != set() else {}).items():
                 if want is not None and key not in want:

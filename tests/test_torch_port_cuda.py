@@ -1542,3 +1542,223 @@ def test_sh_forward_packs_once_per_weights_version(cuda_device, monkeypatch):
     _close(torch.cat(outs), t_sh_mlp.sh_mlp_forward_plain(
         [{"w": l["w"], "b": l["b"] - (0.5 if k == 0 else 0.0)} for k, l in enumerate(layers)],
         feats, dirs, spec, 4, 16))
+
+
+# K5 (csrc/cp_product_fwd.cu) and K9 / K11 / cp_big's K9 (csrc/cp_jac_basis_fwd.cu):
+# K1's 64-sample tiles (whole-row gathers, residuals staged and written as
+# whole rows; K9's projection on the tensor cores). prod and the residuals
+# equal their plain versions to the bit, enc and jac within 2e-2.
+
+# (label, C, R): every K5 instantiation at its models' resolutions
+_K5_SHAPES = [("prod", 64, 2048), ("prod_coarse", 64, 128), ("prod_stacked", 64, 129),
+              ("prod_stacked_fine", 64, 2049), ("prod_cp_big", 128, 4096),
+              ("prod_cp_big_coarse", 128, 64), ("prod_small", 16, 64)]
+_K5_IDS = [s[0] for s in _K5_SHAPES]
+# (label, C, F, scales, R): every K9 / K11 instantiation
+_K9_SHAPES = [("jacb", 64, 16, 1, 2048), ("jacb_coarse", 64, 16, 1, 128),
+              ("jacb_cp_big", 128, 16, 1, 4096), ("jacb_cp_big_mid", 128, 16, 1, 512),
+              ("jacb_small", 16, 8, 1, 64), ("stacked", 64, 16, 2, (129, 2049)),
+              ("stacked_small", 16, 8, 2, (17, 65))]
+_K9_IDS = [s[0] for s in _K9_SHAPES]
+_FWD_SIZES = [1, 15, 63, 64, 65, 127, 129, 385, 515, 4096]
+
+
+def _k5_case(shape, x, gen, device):
+    """The arguments of a K5 launch at positions x (n, 3): (lines, u3, R)."""
+    _, c, r = shape
+    lines = t_cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+    return [lines.to(device), x.T.contiguous(), r]
+
+
+def _check_k5(args):
+    """K5 in training and eval mode against its plain version: prod and
+    vsave to the bit, eval equal to training mode, one launch counted per
+    call (none without samples). Returns (prod, vsave)."""
+    n = args[1].shape[1]
+    before = t_cpp.cp_product.launches
+    prod, vsave = t_cpp.cp_product_launch(*args, train=True)
+    prod_eval, none = t_cpp.cp_product_launch(*args)
+    torch.cuda.synchronize()
+    assert none is None and t_cpp.cp_product.launches == before + 2 * (n > 0)
+    ref, ref_v = t_cpp.cp_product_plain(*args, save_residuals=True)
+    assert prod.shape == ref.shape and vsave.shape == ref_v.shape
+    assert torch.equal(prod, ref) and torch.equal(vsave, ref_v)
+    assert torch.equal(prod_eval, prod)
+    return prod, vsave
+
+
+def _k9_case(shape, x, gen, device):
+    """The arguments of a K9 launch (or K11's, with two scales) at positions
+    x (n, 3): (lines, basis, u3, R)."""
+    _, c, f, scales, r = shape
+    u3 = x.T.contiguous()
+    if scales == 1:
+        lines = t_cpp.line_stack(*[0.1 * torch.randn((r, c), generator=gen) for _ in range(3)])
+        basis = (torch.randn((c, f), generator=gen) / c**0.5).to(torch.bfloat16)
+        return [lines.to(device), basis.to(device), u3, r]
+    spec = CPSpec(c, r, f)
+    params = cp_init(gen, spec, device)
+    return [t_cps.stack_lines_fine(params, spec), t_cps.basis_stack(params, spec), u3, max(r)]
+
+
+def _check_k9(args):
+    """K9 / K11 in training and eval mode against the plain version: vsave
+    and gdsave to the bit, enc and jac within 2e-2, eval equal to training
+    mode, one launch counted per call (none without samples). Returns the
+    training-mode outputs."""
+    stacked = args[1].ndim == 3
+    op = t_cps.cp_jac_basis_stacked if stacked else t_cpp.cp_product_jac_basis
+    launch = t_cps.cp_jac_basis_stacked_launch if stacked else t_cpp.cp_product_jac_basis_launch
+    plain = t_cps.cp_jac_basis_stacked_plain if stacked else t_cpp.cp_product_jac_basis_plain
+    n = args[2].shape[1]
+    before = op.launches
+    got = launch(*args, train=True)
+    enc_e, jac_e, v_e, g_e = launch(*args)
+    torch.cuda.synchronize()
+    assert v_e is None and g_e is None and op.launches == before + 2 * (n > 0)
+    ref = plain(*args, save_residuals=True)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    if n:
+        _close(got[0], ref[0])
+        _close(got[1], ref[1])
+    assert torch.equal(enc_e, got[0]) and torch.equal(jac_e, got[1])
+    return got
+
+
+@pytest.mark.parametrize("n", _FWD_SIZES)
+@pytest.mark.parametrize("shape", _K5_SHAPES, ids=_K5_IDS)
+def test_k5_sizes_match_plain(cuda_device, shape, n):
+    """K5 at every instantiation and at sizes around the 64-sample tile and
+    a block's passes (n not a multiple of 4 writes the rows element by
+    element)."""
+    gen = torch.Generator().manual_seed(600 + n)
+    x = (torch.rand((n, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    _check_k5(_k5_case(shape, x, gen, cuda_device))
+
+
+@pytest.mark.parametrize("n", _FWD_SIZES)
+@pytest.mark.parametrize("shape", _K9_SHAPES, ids=_K9_IDS)
+def test_k9_sizes_match_plain(cuda_device, shape, n):
+    """K9 / K11 at every instantiation and at sizes around the tile (odd n
+    writes enc and jac element by element)."""
+    gen = torch.Generator().manual_seed(700 + n)
+    x = (torch.rand((n, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    _check_k9(_k9_case(shape, x, gen, cuda_device))
+
+
+@pytest.mark.parametrize("shape", [_K5_SHAPES[0], _K5_SHAPES[4], _K9_SHAPES[0], _K9_SHAPES[2],
+                                   _K9_SHAPES[5]], ids=["k5", "k5_cp_big", "k9", "k9_cp_big",
+                                                         "k11"])
+def test_k5_k9_ragged_full_size(cuda_device, shape):
+    """The bench instantiations at chip_smoke.py's ragged N = 262,107 (the
+    row starts c * N are not 16-byte aligned)."""
+    gen = torch.Generator().manual_seed(19)
+    x = (torch.rand((262107, 3), generator=gen) * 1.1 - 0.05).to(cuda_device)
+    if len(shape) == 3:
+        _check_k5(_k5_case(shape, x, gen, cuda_device))
+    else:
+        _check_k9(_k9_case(shape, x, gen, cuda_device))
+
+
+@pytest.mark.parametrize("shape", _K5_SHAPES, ids=_K5_IDS)
+def test_k5_no_samples(cuda_device, shape):
+    """N = 0: empty prod and vsave, no launch."""
+    gen = torch.Generator().manual_seed(14)
+    prod, vsave = _check_k5(_k5_case(shape, torch.zeros((0, 3), device=cuda_device), gen,
+                                     cuda_device))
+    assert tuple(prod.shape) == (shape[1], 0) and tuple(vsave.shape) == (3, shape[1], 0)
+
+
+@pytest.mark.parametrize("shape", _K9_SHAPES, ids=_K9_IDS)
+def test_k9_no_samples(cuda_device, shape):
+    """N = 0: empty enc, jac and residuals, no launch."""
+    gen = torch.Generator().manual_seed(14)
+    got = _check_k9(_k9_case(shape, torch.zeros((0, 3), device=cuda_device), gen, cuda_device))
+    assert all(t.shape[-1] == 0 for t in got)
+
+
+@pytest.mark.parametrize("shape", _K5_SHAPES, ids=_K5_IDS)
+def test_k5_one_point(cuda_device, shape):
+    """One sample, and every one of 4,096 samples at the same position."""
+    gen = torch.Generator().manual_seed(15)
+    for n in (1, 4096):
+        x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(n, 1).to(cuda_device)
+        prod, _ = _check_k5(_k5_case(shape, x, gen, cuda_device))
+        assert bool((prod == prod[:, :1]).all())
+
+
+@pytest.mark.parametrize("shape", _K9_SHAPES, ids=_K9_IDS)
+def test_k9_one_point(cuda_device, shape):
+    """One sample, and every one of 4,096 samples at the same position (each
+    sample's enc and jac the same sums, to the bit)."""
+    gen = torch.Generator().manual_seed(15)
+    for n in (1, 4096):
+        x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(n, 1).to(cuda_device)
+        enc, jac, _, _ = _check_k9(_k9_case(shape, x, gen, cuda_device))
+        assert bool((enc == enc[:, :1]).all()) and bool((jac == jac[:, :, :1]).all())
+
+
+def _edge_positions(gen, device, n=515):
+    """u exactly 0 and exactly 1 on each axis in turn (the last tent row,
+    d clip(u)/du = 0.5) and out of range."""
+    x = torch.rand((n, 3), generator=gen)
+    for a in range(3):
+        x[a * 100:a * 100 + 50, a] = 0.0
+        x[a * 100 + 50:a * 100 + 100, a] = 1.0
+    x[300:320] = -0.02
+    x[320:340] = 1.03
+    return x.to(device)
+
+
+@pytest.mark.parametrize("shape", _K5_SHAPES, ids=_K5_IDS)
+def test_k5_edges(cuda_device, shape):
+    gen = torch.Generator().manual_seed(16)
+    _check_k5(_k5_case(shape, _edge_positions(gen, cuda_device), gen, cuda_device))
+
+
+@pytest.mark.parametrize("shape", _K9_SHAPES, ids=_K9_IDS)
+def test_k9_edges(cuda_device, shape):
+    """As K5's, and jac zero outside [0, 1] on that axis (d clip/du = 0)."""
+    gen = torch.Generator().manual_seed(16)
+    args = _k9_case(shape, _edge_positions(gen, cuda_device), gen, cuda_device)
+    _, jac, _, _ = _check_k9(args)
+    for a in range(3):
+        outside = (args[2][a] < 0) | (args[2][a] > 1)
+        assert bool(outside.any()) and not bool(jac[a][:, outside].any())
+
+
+@pytest.mark.parametrize("shape", _K5_SHAPES, ids=_K5_IDS)
+def test_k5_order_and_repeat(cuda_device, shape):
+    """Ray-ordered samples: two identical calls equal to the bit, and a
+    shuffled copy's outputs the permuted outputs."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(17)
+    args = _k5_case(shape, positions(gen, "ray", 4096).to(cuda_device), gen, cuda_device)
+    perm = torch.randperm(4096, generator=gen).to(cuda_device)
+    prod, vsave = _check_k5(args)
+    again = t_cpp.cp_product_launch(*args, train=True)
+    shuffled = _check_k5([args[0], args[1][:, perm].contiguous(), args[2]])
+    assert torch.equal(again[0], prod) and torch.equal(again[1], vsave)
+    assert torch.equal(shuffled[0], prod[:, perm]) and torch.equal(shuffled[1], vsave[:, :, perm])
+
+
+@pytest.mark.parametrize("shape", _K9_SHAPES, ids=_K9_IDS)
+def test_k9_order_and_repeat(cuda_device, shape):
+    """Ray-ordered samples: two identical calls equal to the bit, and a
+    shuffled copy's outputs the permuted outputs to the bit (each sample's
+    sums run in a fixed order)."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(17)
+    args = _k9_case(shape, positions(gen, "ray", 4096).to(cuda_device), gen, cuda_device)
+    perm = torch.randperm(4096, generator=gen).to(cuda_device)
+    got = _check_k9(args)
+    launch = (t_cps.cp_jac_basis_stacked_launch if args[1].ndim == 3
+              else t_cpp.cp_product_jac_basis_launch)
+    again = launch(*args, train=True)
+    shuffled = _check_k9([args[0], args[1], args[2][:, perm].contiguous(), args[3]])
+    for a, b, s in zip(got, again, shuffled):
+        assert torch.equal(a, b) and torch.equal(s, a[..., perm])
