@@ -2,8 +2,10 @@
 plain versions: the bench NeRF and the bench NeuS, rendered and trained, the
 raw-product NeuS trained, tested, predicted and exported as a mesh, the
 hash-grid NeRF trained (and the repo's ``configs/nerf-synthetic.yaml``
-trained, tested and exported through the launcher), the ``cp_big`` shapes,
-and the gather / scatter probes.
+trained, tested and exported through the launcher), NeuS on the hash grid
+(the repo's ``configs/neus-synthetic.yaml`` through the launcher, and its
+progressive-band variant), the ``cp_big`` shapes, and the gather / scatter
+probes.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -84,6 +86,15 @@ lines are printed):
    (where HG2 merges equal rows); timed, with bounds by compulsory bytes and
    by the hashed levels' 32-byte sectors, beside the gradient from
    precomputed taps by one ``index_add_`` per feature (``composed_ms``);
+   then HG3/HG4 (``csrc/hashgrid_jac_{fwd,bwd}.cu``, the encoding with its
+   position Jacobian and its backward from both cotangents) at
+   ``configs/neus-synthetic.yaml``'s grid (12 levels, F=2, 2^18 rows) at
+   N=65,536 and 262,144, uniform and ray-ordered, without and with a
+   ProgressiveBandHashGrid mask of 5 levels: HG3's features equal to HG1's
+   to the bit, its Jacobian within 2e-2 x max|plain|, HG4 within the HG2
+   limits against the float64 sum of the plain version's updates; timed
+   beside their bounds (bytes, sectors) and HG4 beside its updates by
+   ``index_add_``;
 13. the ``bench.py --encoding cp_big`` instantiations (C=128, R=(64, 512,
    4096), F=16): K1/K2 with the 48->64->16 head, K5-K10 per scale, against
    their plain versions as in 3-4, timed; then the cp_big NeRF, NeuS, raw
@@ -104,7 +115,18 @@ lines are printed):
    port's launcher: ``--train trainer.max_steps=LAUNCHER_STEPS`` (dynamic
    ray sampling, MultiStepLR, the automatic 8-view test and mesh), then
    ``--export``: test/psnr, a non-empty mesh with valid indices, HG1 in the
-   export's level grid;
+   export's level grid; then the repo's ``configs/neus-synthetic.yaml``,
+   unmodified (NeuS on the hash grid with analytic gradients, dynamic ray
+   sampling), through the launcher: ``--train`` for LAUNCHER_STEPS of its
+   2,000 steps with HG3, HG4, K3 and K4 on every step (counted around each
+   step), the loss falling, inv_s rising, the val views 3 dB above the
+   untrained model's, the automatic test and mesh, then ``--export`` timed by
+   stage (a non-empty mesh with valid indices, HG1 in the level grid, HG3 in
+   the vertex colours); the last step's HG3 / HG4 checked and timed on their
+   own operands; then the same config with neuralangelo-dtu-wmask.yaml's
+   geometry over it (ProgressiveBandHashGrid, finite differences, the
+   progressive eps) for BAND_STEPS steps: every HG1 / HG2 launch carries
+   the step's level mask, the eps follows the level, the loss stays finite;
 17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2; the
@@ -145,6 +167,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -411,9 +434,9 @@ TRAIN_ONLY = ("cp_mlp_forward", "cp_mlp_stacked_forward", "sh_mlp_forward", "cp_
 def capture_step_operands(run_step, label, check=None):
     """Run ``run_step()`` (one training step) with the launch functions of
     the redesigned kernels recording their arguments: the backwards K2, K14,
-    K4, K6, K8, K10, K12 and HG2, and the training-mode forwards K1, K13, K3,
-    K5, K9, K11 and HG1; then time each recorded kernel on its step's own
-    (ray-ordered) operands, all of its launches of the step in a row (K8, K9,
+    K4, K6, K8, K10, K12 and HG2, the training-mode forwards K1, K13, K3, K5,
+    K9, K11 and HG1, and HG3 / HG4 (a NeuS hash step's); then time each
+    recorded kernel on its step's own (ray-ordered) operands, all of its launches of the step in a row (K8, K9,
     K10: one per scale; K5, K6: one per scale at N and at 6N), into
     ``STEP_MS[name]`` as
     ``(ms, n of the last launch, n of each launch)``, and keep the forwards',
@@ -462,6 +485,12 @@ def capture_step_operands(run_step, label, check=None):
                                  cp_product.cp_product_jac_basis, lambda a: a[2].shape[1]),
         "cp_jac_stacked_forward": (cp_stacked, "cp_jac_basis_stacked_launch",
                                    cp_stacked.cp_jac_basis_stacked, lambda a: a[2].shape[1]),
+        "hashgrid_jac_forward": (hashgrid, "hashgrid_jac_forward_launch",
+                                 hashgrid.hashgrid_jac_forward,
+                                 lambda a: a[1].reshape(-1, 3).shape[0]),
+        "hashgrid_jac_backward": (hashgrid, "hashgrid_jac_backward_launch",
+                                  hashgrid.hashgrid_jac_backward,
+                                  lambda a: a[1].reshape(-1, 3).shape[0]),
     }
     for name, (mod, attr, _, _) in targets.items():
         fn = getattr(mod, attr)
@@ -574,7 +603,35 @@ def composed_hash(device, spec, x, ct):
         i, w = hg.level_corner_indices(spec, xt, lv)  # (8, N)
         idx.append(i.reshape(-1))
         upd.append((w[None] * ct[:, lv * f:(lv + 1) * f].T[:, None, :]).reshape(f, -1))
-    idx, upd = torch.cat(idx), torch.cat(upd, dim=1)
+    return _index_add_ms(device, spec, torch.cat(idx), torch.cat(upd, dim=1))
+
+
+def composed_hash_jac(device, spec, x, ct_f, ct_j):
+    """A yardstick, never called by the port: HG4's table gradient from
+    precomputed taps and updates (``w_c ct_f + sum_d dw_cd ct_j[d]`` of every
+    level's 8 corners, as the JAX package forms them from its saved taps)
+    with one ``index_add_`` per feature."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    xt = x.T.contiguous()
+    f = spec.n_features_per_level
+    idx, upd = [], []
+    for lv in range(spec.n_levels):
+        i, w, frac = hg._level_taps(spec, xt, lv)  # (8, N)
+        dw, _ = hg._corner_partials(frac, hg._scale32(spec, lv))  # (8, 3, N)
+        g_f = ct_f[:, lv * f:(lv + 1) * f].T  # (F, N)
+        g_j = ct_j[:, :, lv * f:(lv + 1) * f].transpose(1, 2)  # (3, F, N)
+        u = w[None] * g_f[:, None, :] + (dw.transpose(0, 1)[:, None] * g_j[:, :, None, :]).sum(0)
+        idx.append(i.reshape(-1))
+        upd.append(u.reshape(f, -1))
+    return _index_add_ms(device, spec, torch.cat(idx), torch.cat(upd, dim=1))
+
+
+def _index_add_ms(device, spec, idx, upd):
+    """CUDA-event time of the (F, T) table gradient from rows ``idx`` and
+    updates ``upd`` (F, M): the zeroed gradient and one ``index_add_`` per
+    feature."""
+    f = spec.n_features_per_level
     out = torch.zeros((f, spec.total_params), dtype=torch.float32, device=device)
 
     def scatter():
@@ -1686,9 +1743,12 @@ def check_step_kernels(key, calls):
     stencils), against their plain versions: K6 (the step's residual and
     cotangent) within 2.5e-2 * max|plain|; K5 (prod and vsave), K9 and K11
     (vsave and gdsave) equal to the bit, and K9's and K11's enc and jac within
-    2e-2 * max|plain|."""
+    2e-2 * max|plain|; HG3's feat equal to HG1's to the bit and its jac within
+    2e-2 * max|plain|, HG4 within the hash gradient limits
+    (``hash_grad_limits``)."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
     from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
 
     def equal(tag, label, a, b):
         if not torch.equal(a, b):
@@ -1725,6 +1785,22 @@ def check_step_kernels(key, calls):
                 equal(tag, label, a, b)
             for label, a, b in zip(("enc", "jac"), got[:2], ref[:2]):
                 compare(f"{tag} {label}", a, b)
+        elif key.startswith("hashgrid_jac_forward"):
+            table, x, spec = args[:3]
+            mask = args[3] if len(args) > 3 else kwargs.get("level_mask")
+            feat, jac = hg.hashgrid_jac_forward_launch(*args, **kwargs)
+            hg1 = hg.hashgrid_forward_launch(table, x, spec, mask)
+            torch.cuda.synchronize()
+            tag = f"{key} step launch {k} (N={x.reshape(-1, 3).shape[0]})"
+            equal(tag, "feat (against HG1)", feat, hg1)
+            compare(f"{tag} jac", jac, hg.hashgrid_jac_forward_plain(*args, **kwargs)[1])
+        elif key.startswith("hashgrid_jac_backward"):
+            got = hg.hashgrid_jac_backward_launch(*args, **kwargs)
+            torch.cuda.synchronize()
+            ref = hg.hashgrid_jac_backward_plain(*args, **kwargs)
+            spec = args[4]
+            tag = f"{key} step launch {k} (N={args[1].reshape(-1, 3).shape[0]})"
+            hash_grad_limits(tag, spec, got, ref)
 
 
 def neus_fd_phase(device):
@@ -1927,7 +2003,7 @@ def sphere_extraction_phase(spheres, device):
         radius = 1.5
         config = {"isosurface": {"resolution": 128, "chunk": 262144, "threshold": 0.0}}
 
-        def forward_level(self, params, points):
+        def forward_level(self, params, points, step=None):
             return torch.as_tensor(scene_sdf(points.cpu().numpy(), spheres), device=points.device)
 
     mesh = extract_isosurface(SceneSDF(), None, device)
@@ -2303,6 +2379,7 @@ def launcher_phase(device, smi):
     from instant_nsr_pl_tpu_torch.utils.savers import load_obj
 
     exp = os.path.join(ROOT, "exp", "chip_smoke_launcher")
+    shutil.rmtree(os.path.join(exp, "nerf-synthetic"), ignore_errors=True)  # an earlier run's
     base = ["--config", REPO_NERF_CONFIG, "--exp_dir", exp, "tag=chip"]
     counters = {"hashgrid_forward": hashgrid.hashgrid_forward,
                 "hashgrid_backward": hashgrid.hashgrid_backward,
@@ -2349,6 +2426,470 @@ def launcher_phase(device, smi):
     return train_launches, export_launches
 
 
+# ---------------------------------------------------------------------------
+# slice 7: NeuS on the hash grid (HG3/HG4), ProgressiveBandHashGrid and its
+# step-driven level mask, the repo's configs/neus-synthetic.yaml
+# ---------------------------------------------------------------------------
+
+REPO_NEUS_CONFIG = os.path.join(ROOT, "configs", "neus-synthetic.yaml")
+NEUS_HASH_SIZES = (65536, N_FULL)  # the config's training and eval sample capacities
+BAND_STEPS = 30
+BAND_UPDATE_STEPS = 10  # neuralangelo-dtu-wmask.yaml's 1000, cut: the mask moves twice
+# neuralangelo-dtu-wmask.yaml's geometry (:39-56) over configs/neus-synthetic.yaml:
+# the encoding, the gradient type and the eps (its 512^3 isosurface is not
+# what this run checks)
+BAND_OVERRIDES = [
+    "model.geometry.grad_type=finite_difference",
+    "model.geometry.finite_difference_eps=progressive",
+    "model.geometry.xyz_encoding_config.otype=ProgressiveBandHashGrid",
+    "model.geometry.xyz_encoding_config.n_levels=16",
+    "model.geometry.xyz_encoding_config.log2_hashmap_size=19",
+    "model.geometry.xyz_encoding_config.start_level=4",
+    "model.geometry.xyz_encoding_config.start_step=0",
+    f"model.geometry.xyz_encoding_config.update_steps={BAND_UPDATE_STEPS}",
+]
+
+
+def neus_hash_spec():
+    """configs/neus-synthetic.yaml's grid: 12 levels, F=2, 2^18 rows, base 32,
+    scale 1.3195 (3 dense and 9 hashed levels, a 2,647,192-row table)."""
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+
+    return HashGridSpec(n_levels=12, n_features_per_level=2, log2_hashmap_size=18,
+                        base_resolution=32, per_level_scale=1.3195079107728942)
+
+
+def hash_grad_limits(tag, spec, got, ref):
+    """The hash gradient limits (PERF.md section 2): the table gradient within
+    1e-5 x max|ref| per level (float32 atomics sum in another order each
+    run; ``ref`` may be the float64 sum of the same float32 updates), d x
+    within 1e-4 x max|ref|. ``got`` and ``ref`` are (d table, d x or None).
+    Returns the largest error."""
+    (dt, dx), (rt, rx) = got, ref
+    dt = dt.to(rt.dtype)
+    for lv in range(spec.n_levels):
+        sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+        e = float((dt[sl] - rt[sl]).abs().max())
+        t = 1e-5 * float(rt[sl].abs().max())
+        if not e <= t:
+            raise AssertionError(f"{tag} level {lv}: {e:.3e} > {t:.3e}")
+    errs = [compare(f"{tag} d table", dt, rt, rel=1e-5)]
+    if rx is not None:
+        errs.append(compare(f"{tag} d x", dx, rx, rel=1e-4))
+    return max(errs)
+
+
+def hash_jac_kernel_phase(device):
+    """HG3 (the hash encoding with its position Jacobian) and HG4 (its table
+    gradient from both cotangents, and d x on request) at
+    configs/neus-synthetic.yaml's grid, N=65,536 (a training step's
+    capacity) and 262,144 (an eval chunk's), on uniform and on ray-ordered
+    samples, without and with a ProgressiveBandHashGrid mask of 5 levels of
+    12, against their plain versions on the same CUDA tensors: HG3's feat
+    equal to HG1's to the bit, its jac within 2e-2 x max|plain|; HG4 within
+    the hash gradient limits (``hash_grad_limits``, against the float64 sum of
+    the plain version's updates); then timed beside their bounds, and HG4
+    beside the same gradient from precomputed updates by ``index_add_``."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    spec = neus_hash_spec()
+    gen = torch.Generator().manual_seed(SEED + 17)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(device)  # values of order 1
+    n_max, lf = max(NEUS_HASH_SIZES), spec.n_output_dims
+    x = torch.rand((n_max, 3), generator=gen)
+    x[:6] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.25, 0.75],
+                          [0.0, 1.0, 0.5], [1.0, 0.0, 0.125], [0.999999, 1e-7, 0.5]])
+    orders = {"uniform": x.to(device), "ray-ordered": positions(gen, "ray", n_max).to(device)}
+    ct_f = torch.randn((n_max, lf), generator=gen).to(device)
+    ct_j = torch.randn((3, n_max, lf), generator=gen).to(device)
+    masks = {"": None, " band 5/12": (torch.arange(spec.n_levels) < 5).float().to(device)}
+    errs = {"hashgrid_jac_forward": [], "hashgrid_jac_backward": []}
+    for order, xs in orders.items():
+        for n in NEUS_HASH_SIZES:
+            xn, cf, cj = xs[:n], ct_f[:n], ct_j[:, :n].contiguous()
+            for label, m in masks.items():
+                tag = f"{order} N={n}{label}"
+                feat, jac = hg.hashgrid_jac_forward_launch(table, xn, spec, m)
+                hg1 = hg.hashgrid_forward_launch(table, xn, spec, m)
+                torch.cuda.synchronize()
+                if not torch.equal(feat, hg1):
+                    raise AssertionError(f"hashgrid_jac_forward {tag}: feat differs from HG1's")
+                _, rj = hg.hashgrid_jac_forward_plain(table, xn, spec, m)
+                same = float((jac == rj).float().mean())
+                errs["hashgrid_jac_forward"].append(
+                    compare(f"hashgrid_jac_forward {tag} jac ({same:.4%} equal to the bit; "
+                            "feat equal to HG1's)", jac, rj))
+                got = hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec, m, with_dx=True)
+                dt_only, no_dx = hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec, m)
+                torch.cuda.synchronize()
+                assert no_dx is None
+                ref = hg.hashgrid_jac_backward_plain(table, xn, cf, cj, spec, m, with_dx=True,
+                                                     accumulate=torch.float64)
+                errs["hashgrid_jac_backward"] += [
+                    hash_grad_limits(f"hashgrid_jac_backward {tag}", spec, got, ref),
+                    hash_grad_limits(f"hashgrid_jac_backward {tag} without d x", spec,
+                                     (dt_only, None), (ref[0], None))]
+    # through the autograd op (the NeuS training path: the same HG3 and HG4)
+    n, xn = NEUS_HASH_SIZES[0], orders["ray-ordered"][:NEUS_HASH_SIZES[0]]
+    cf, cj = ct_f[:n], ct_j[:, :n].contiguous()
+    t_req = table.clone().requires_grad_(True)
+    feat, jac = hg.hashgrid_encode_with_jac(t_req, xn, spec)
+    ((feat * cf).sum() + (jac * cj).sum()).backward()
+    torch.cuda.synchronize()
+    ref = hg.hashgrid_jac_backward_plain(table, xn, cf, cj, spec, accumulate=torch.float64)
+    hash_grad_limits("hashgrid_encode_with_jac", spec, (t_req.grad, None), (ref[0], None))
+
+    f, hashed = spec.n_features_per_level, sum(spec.level_hashed)
+    table_bytes = spec.total_params * f * 4
+    timings = {}
+    for n in NEUS_HASH_SIZES:
+        xn, cf, cj = orders["uniform"][:n], ct_f[:n], ct_j[:, :n].contiguous()
+        # compulsory bytes: x, feat and jac (3 L F floats) per sample and the
+        # table once; HG4 reads x and both cotangents, writes the gradient
+        # once, and with d x reads the table and writes d x
+        fwd_bound = bound(n * (12 + 4 * lf * 4) + table_bytes, 0,
+                          n * spec.n_levels * 8 * (8 * f + 12))
+        bwd_bound = bound(n * (12 + 4 * lf * 4) + table_bytes, 0,
+                          n * spec.n_levels * 8 * (8 * f + 10))
+        bwd_dx_bound = bound(n * (24 + 4 * lf * 4) + 2 * table_bytes, 0,
+                             n * spec.n_levels * 8 * (16 * f + 30))
+        sector_ms = bound(n * hashed * 8 * 32, 0, 0)[0]  # one 32-byte sector a hashed corner
+        timings[n] = {
+            "ms": time_ms(lambda: hg.hashgrid_jac_forward_launch(table, xn, spec)),
+            "ms_masked": time_ms(lambda: hg.hashgrid_jac_forward_launch(table, xn, spec,
+                                                                        masks[" band 5/12"])),
+            "plain_ms": time_ms(lambda: hg.hashgrid_jac_forward_plain(table, xn, spec), reps=5,
+                                inner=2),
+            "hg1_ms": time_ms(lambda: hg.hashgrid_forward_launch(table, xn, spec)),
+            "bwd_ms": time_ms(lambda: hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec)),
+            "bwd_ms_dx": time_ms(lambda: hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec,
+                                                                         with_dx=True)),
+            "bwd_device_ms": device_ms(lambda: hg.hashgrid_jac_backward_launch(table, xn, cf, cj,
+                                                                               spec)),
+            "bwd_plain_ms": time_ms(lambda: hg.hashgrid_jac_backward_plain(table, xn, cf, cj,
+                                                                           spec),
+                                    reps=5, inner=2),
+            "composed_ms": composed_hash_jac(device, spec, xn, cf, cj),
+            "fwd_bound": fwd_bound, "bwd_bound": bwd_bound, "bwd_dx_bound": bwd_dx_bound[0],
+            "sector_ms": sector_ms,
+        }
+        t = timings[n]
+        print(f"[kernel] hashgrid_jac_forward at N={n}: {t['ms']:.4f} ms ({t['ms_masked']:.4f} "
+              f"with the band mask; HG1 alone {t['hg1_ms']:.4f}; plain {t['plain_ms']:.3f}); "
+              f"bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}, {sector_ms:.4f} ms by 32-byte "
+              "sectors of the hashed levels' rows", flush=True)
+        print(f"[kernel] hashgrid_jac_backward at N={n}: {t['bwd_ms']:.4f} ms, "
+              f"{t['bwd_ms_dx']:.4f} with d x (device {t['bwd_device_ms']:.4f}; plain "
+              f"{t['bwd_plain_ms']:.3f}; precomputed updates and one index_add_ per feature "
+              f"{t['composed_ms']:.4f} ms); bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]} "
+              f"({bwd_dx_bound[0]:.4f} with d x), {sector_ms:.4f} ms by sectors", flush=True)
+    n, big = NEUS_HASH_SIZES
+    t, tb = timings[n], timings[big]
+    note = ("no single PyTorch call hashes and interpolates with the Jacobian (or scatters its "
+            "updates)")
+    common = {"route": "cuda", "launches": 0, "library_ms": None, "library_note": note, "n": n,
+              "bound_sectors_ms": t["sector_ms"], f"bound_sectors_ms_n{big}": tb["sector_ms"]}
+    return [
+        {**common, "name": "hashgrid_jac_forward",
+         "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_jac_fwd.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:797 (_encode_jac_fwd_impl, XLA)",
+         "max_abs_err": max(errs["hashgrid_jac_forward"]), "ms": t["ms"],
+         "ms_masked": t["ms_masked"], "hg1_ms": t["hg1_ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": t["fwd_bound"][0], "bound_by": t["fwd_bound"][1],
+         f"ms_n{big}": tb["ms"], f"plain_ms_n{big}": tb["plain_ms"],
+         f"bound_ms_n{big}": tb["fwd_bound"][0]},
+        {**common, "name": "hashgrid_jac_backward",
+         "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_jac_bwd.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:841 (_encode_jac_bwd, XLA)",
+         "max_abs_err": max(errs["hashgrid_jac_backward"]), "ms": t["bwd_ms"],
+         "ms_with_dx": t["bwd_ms_dx"], "device_ms": t["bwd_device_ms"],
+         "composed_ms": t["composed_ms"], "plain_ms": t["bwd_plain_ms"],
+         "bound_ms": t["bwd_bound"][0], "bound_by": t["bwd_bound"][1],
+         "bound_ms_with_dx": t["bwd_dx_bound"], f"ms_n{big}": tb["bwd_ms"],
+         f"device_ms_n{big}": tb["bwd_device_ms"], f"composed_ms_n{big}": tb["composed_ms"],
+         f"plain_ms_n{big}": tb["bwd_plain_ms"], f"bound_ms_n{big}": tb["bwd_bound"][0]},
+    ]
+
+
+def _launcher_run(argv):
+    """``instant_nsr_pl_tpu_torch.launch`` in this process; returns the
+    wall seconds (after the card's queue drains)."""
+    from instant_nsr_pl_tpu_torch.launch import main as launch_main
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = launch_main(argv)
+    torch.cuda.synchronize()
+    assert rc == 0, rc
+    return time.perf_counter() - t0
+
+
+def _recording_steps(counters, last, warm_from, extra=None):
+    """A stand-in for ``NeuSSystem.train_step`` that records each step's
+    launch counts, loss, inv_s and ray count (``records``) and the wall
+    clock at the start of step ``warm_from`` and of step ``last``
+    (``marks``), captures step ``last``'s kernels on their own operands
+    (``capture_step_operands``), and calls ``extra(system, state, step)``
+    after each step."""
+    from instant_nsr_pl_tpu_torch.systems.base import BaseSystem
+
+    records, marks = [], {}
+
+    def train_step(system, state):
+        step = int(state["step"])
+        if step in (warm_from, last):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        before = {k: c.launches for k, c in counters.items()}
+        n_rays = system.active_num_rays
+        if step == last:
+            state, metrics = capture_step_operands(lambda: BaseSystem.train_step(system, state),
+                                                   "", check=check_step_kernels)
+        else:
+            state, metrics = BaseSystem.train_step(system, state)
+        records.append({"step": step, "rays": n_rays, "loss": metrics["train/loss"],
+                        "inv_s": metrics["train/inv_s"],
+                        "delta": {k: c.launches - before[k] for k, c in counters.items()}})
+        if extra is not None:
+            extra(system, state, step)
+        return state, metrics
+
+    return train_step, records, marks
+
+
+def neus_hash_launcher_phase(device, smi):
+    """The repo's ``configs/neus-synthetic.yaml``, unmodified (the hash grid
+    with analytic gradients: HG3 / HG4 and K3 / K4 on every step; dynamic ray
+    sampling; 65,536 training and 262,144 eval samples), through the port's
+    launcher: ``--train trainer.max_steps=LAUNCHER_STEPS`` of its 2,000 (the
+    automatic 8-view test and mesh), then ``--export`` of the checkpoint,
+    timed by stage. Checks: HG3, HG4, K3 and K4 launched on every step (each
+    step's counts recorded around it), the loss falling and inv_s rising, the
+    val views at least 3 dB above the untrained model's (its parameters from
+    the config's seed, the grid after one warmup update), test/psnr logged, a
+    non-empty mesh with valid indices, HG1 in the export's level grid and HG3
+    in its vertex colours, no backward. The last step's HG3 / HG4 launches
+    are checked and timed on their own operands."""
+    import csv
+    import glob
+
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.models.isosurface as iso_mod
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.config import load_config
+    from instant_nsr_pl_tpu_torch.models.neus import NeuSModel
+    from instant_nsr_pl_tpu_torch.ops import hashgrid, sh_mlp
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+    from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
+    from instant_nsr_pl_tpu_torch.systems.neus import NeuSSystem
+    from instant_nsr_pl_tpu_torch.utils.savers import load_obj
+
+    # the untrained model: the launcher's parameters (the config's seed),
+    # the grid after one warmup update
+    cfg = load_config(REPO_NEUS_CONFIG)
+    dm = datasets.make(cfg.dataset.name, cfg.dataset)
+    dm.setup("fit")
+    system = systems.make(cfg.system.name, cfg)
+    system.setup_data(dm.train)
+    state = system.init_state(seed=int(cfg.get("seed", 42)))
+    geo = system.model.geometry
+    assert geo.use_jac and geo.encoding.encoding.grad_mode == "fast" and system.model.texture.fused
+    assert system.train_capacity == NEUS_HASH_SIZES[0] and system.dynamic_ray_sampling
+    state["occ"] = system.model.update_occupancy(state["params"], state["occ"],
+                                                 state["generator"], warmup=True)
+    val = dataset_device_arrays(dm.val, device)
+    untrained = [system.evaluate_image(state, i, data=val)["psnr"] for i in range(2)]
+    del system, state, val
+    torch.cuda.empty_cache()
+    print(f"[neus-hash] untrained val views: PSNR {untrained[0]:.3f} / {untrained[1]:.3f} dB",
+          flush=True)
+
+    exp = os.path.join(ROOT, "exp", "chip_smoke_launcher")
+    shutil.rmtree(os.path.join(exp, "neus-synthetic"), ignore_errors=True)  # an earlier run's
+    base = ["--config", REPO_NEUS_CONFIG, "--exp_dir", exp, "tag=chip"]
+    counters = {"hashgrid_jac_forward": hashgrid.hashgrid_jac_forward,
+                "hashgrid_jac_backward": hashgrid.hashgrid_jac_backward,
+                "hashgrid_forward": hashgrid.hashgrid_forward,
+                "hashgrid_backward": hashgrid.hashgrid_backward,
+                "sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward}
+    n_warm = min(100, LAUNCHER_STEPS // 3)
+    train_step, records, marks = _recording_steps(counters, LAUNCHER_STEPS - 1,
+                                                  LAUNCHER_STEPS - 1 - n_warm)
+    for c in counters.values():
+        c.launches = 0
+    NeuSSystem.train_step = train_step
+    try:
+        train_s = _launcher_run(base + ["--train", f"trainer.max_steps={LAUNCHER_STEPS}",
+                                        f"trainer.val_check_interval={LAUNCHER_STEPS}"])
+    finally:
+        del NeuSSystem.train_step  # the base class's again
+    train_launches = {k: c.launches for k, c in counters.items()}
+    assert len(records) == LAUNCHER_STEPS, len(records)
+    for r in records:
+        for k in ("hashgrid_jac_forward", "hashgrid_jac_backward", "sh_mlp_forward",
+                  "sh_mlp_backward"):
+            if r["delta"][k] < 1:
+                raise AssertionError(f"neus-hash step {r['step']}: {k} was not launched: "
+                                     f"{r['delta']}")
+        if r["delta"]["hashgrid_backward"]:
+            raise AssertionError(f"neus-hash step {r['step']}: HG2 ran: {r['delta']}")
+    losses = [float(r["loss"]) for r in records]
+    inv_s = [float(r["inv_s"]) for r in records]
+    rays = [r["rays"] for r in records]
+    warm_s = marks[LAUNCHER_STEPS - 1] - marks[LAUNCHER_STEPS - 1 - n_warm]
+    rays_per_s = sum(rays[-1 - n_warm:-1]) / warm_s
+    (run,) = glob.glob(os.path.join(exp, "neus-synthetic", "chip@*"))
+    with open(os.path.join(run, "csv_logs", "metrics.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    test_psnr = [float(r["test/psnr"]) for r in rows if r.get("test/psnr")]
+    val_psnr = [float(r["val/psnr"]) for r in rows if r.get("val/psnr")]
+    n_test = len(glob.glob(os.path.join(run, "save", f"it{LAUNCHER_STEPS}-test", "*.png")))
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    print(f"[neus-hash] configs/neus-synthetic.yaml: {LAUNCHER_STEPS} steps + val + test in "
+          f"{train_s:.1f} s; warm {rays_per_s:.0f} rays/s, {warm_s / n_warm * 1e3:.2f} ms per "
+          f"step over steps {LAUNCHER_STEPS - 1 - n_warm}-{LAUNCHER_STEPS - 2} (rays per step "
+          f"{rays[0]} -> {rays[-1]}); loss, first 20 steps {first:.5f}, last 20 {last:.5f}; "
+          f"inv_s {inv_s[0]:.3f} -> {inv_s[-1]:.3f}; one step {records[1]['delta']}; launches "
+          f"{train_launches} ({smi})", flush=True)
+    print(f"[neus-hash] val PSNR after {LAUNCHER_STEPS} steps {val_psnr[-1]:.3f} dB (untrained "
+          f"{np.mean(untrained):.3f}); test/psnr {test_psnr[-1]:.3f} dB over {n_test} views",
+          flush=True)
+    assert np.isfinite(losses).all() and last < first, "the loss did not fall"
+    assert inv_s[-1] > inv_s[0], "inv_s did not rise"
+    assert val_psnr[-1] >= np.mean(untrained) + 3.0, "training gained less than 3 dB"
+    assert n_test == 8 and math.isfinite(test_psnr[-1]), (n_test, test_psnr)
+
+    ckpt = os.path.join(run, "ckpt", f"step={LAUNCHER_STEPS}.ckpt")
+    obj = os.path.join(run, "save", f"it{LAUNCHER_STEPS}-neus.obj")
+    os.remove(obj)
+    stage = {"level grid": 0.0, "marching": 0.0, "vertex colours": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    level_fn, march_fn = iso_mod._eval_level_grid, iso_mod.marching_tetrahedra
+    colour_fn = NeuSModel.vertex_colors
+    for c in counters.values():
+        c.launches = 0
+    iso_mod._eval_level_grid = timed("level grid", level_fn)
+    iso_mod.marching_tetrahedra = timed("marching", march_fn)
+    NeuSModel.vertex_colors = timed("vertex colours", colour_fn)
+    try:
+        export_s = _launcher_run(base + ["--export", "--resume", ckpt])
+    finally:
+        iso_mod._eval_level_grid, iso_mod.marching_tetrahedra = level_fn, march_fn
+        NeuSModel.vertex_colors = colour_fn
+    export_launches = {k: c.launches for k, c in counters.items()}
+    mesh = load_obj(obj)
+    v, f = mesh["v_pos"], mesh["t_pos_idx"]
+    rest = export_s - sum(stage.values())
+    print(f"[neus-hash] export {export_s:.2f} s: {len(v)} vertices, {len(f)} faces; level grid "
+          f"{stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), vertex "
+          f"colours {stage['vertex colours']:.3f} s, the rest (loading, OBJ) {rest:.3f} s; "
+          f"launches {export_launches} ({smi})", flush=True)
+    assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
+    assert export_launches["hashgrid_forward"] >= 8, export_launches  # 128^3 in chunks of 2^18
+    assert export_launches["hashgrid_jac_forward"] >= 1, export_launches
+    assert not any(export_launches[k] for k in counters if k.endswith("_backward"))
+    return ({k: records[1]["delta"][k] for k in counters}, train_launches, export_launches,
+            rays_per_s)
+
+
+def band_launcher_phase(device, smi):
+    """configs/neus-synthetic.yaml with neuralangelo-dtu-wmask.yaml's geometry
+    put over it on the command line (``BAND_OVERRIDES``: a
+    ProgressiveBandHashGrid of 16 levels from level 4, update_steps cut to
+    BAND_UPDATE_STEPS; finite differences with the progressive eps) through
+    the launcher's ``--train`` for BAND_STEPS steps (the automatic test and
+    mesh included): at every step each HG1 and HG2 launch carries the
+    step's level mask, the stencil's eps is the progressive eps of the
+    step's level, the mask moves at least twice, no HG3 / HG4 runs, and the
+    loss stays finite."""
+    from instant_nsr_pl_tpu_torch.models.geometry import VolumeSDF
+    from instant_nsr_pl_tpu_torch.ops import hashgrid
+    from instant_nsr_pl_tpu_torch.systems.neus import NeuSSystem
+
+    exp = os.path.join(ROOT, "exp", "chip_smoke_band")
+    shutil.rmtree(exp, ignore_errors=True)  # an earlier run's
+    masks, eps_seen = [], []
+    fwd_fn, bwd_fn = hashgrid.hashgrid_forward_launch, hashgrid.hashgrid_backward_launch
+    eps_fn = VolumeSDF.finite_difference_eps
+
+    def record_fwd(table, x, spec, level_mask=None):
+        masks.append(("hashgrid_forward", None if level_mask is None else level_mask.tolist()))
+        return fwd_fn(table, x, spec, level_mask)
+
+    def record_bwd(table, x, dout, spec, level_mask=None, with_dx=False):
+        masks.append(("hashgrid_backward", None if level_mask is None else level_mask.tolist()))
+        return bwd_fn(table, x, dout, spec, level_mask, with_dx)
+
+    def eps(self, step=None):
+        out = eps_fn(self, step)
+        eps_seen.append((step, float(out)))
+        return out
+
+    per_step = {}
+
+    def check(system, state, step):
+        enc = system.model.geometry.encoding.encoding
+        level = enc.current_level(step)
+        want = [1.0] * level + [0.0] * (enc.spec.n_levels - level)
+        seen = [m for _, m in masks]
+        names = {n for n, _ in masks}
+        if any(m != want for m in seen) or names != {"hashgrid_forward", "hashgrid_backward"}:
+            raise AssertionError(f"band step {step}: HG1 / HG2 launched with masks "
+                                 f"{sorted(set(map(str, seen)))} (names {names}), want {want}")
+        spec = enc.spec
+        res = np.float32(spec.base_resolution) * np.float32(spec.per_level_scale) ** np.float32(
+            level - 1)
+        expect = float(np.float32(2.0 * system.model.radius) / np.float32(res))
+        # the eps of the step's level (float32 powers may differ in the last place)
+        if not eps_seen or any(abs(e - expect) > 1e-6 * expect for _, e in eps_seen):
+            raise AssertionError(f"band step {step}: eps {eps_seen} != {expect} (level {level})")
+        per_step[step] = (level, eps_seen[-1][1], len(seen))
+        masks.clear()
+        eps_seen.clear()
+
+    counters = {"hashgrid_forward": hashgrid.hashgrid_forward,
+                "hashgrid_backward": hashgrid.hashgrid_backward,
+                "hashgrid_jac_forward": hashgrid.hashgrid_jac_forward,
+                "hashgrid_jac_backward": hashgrid.hashgrid_jac_backward}
+    train_step, records, _ = _recording_steps(counters, -1, -1, extra=check)
+    for c in counters.values():
+        c.launches = 0
+    hashgrid.hashgrid_forward_launch, hashgrid.hashgrid_backward_launch = record_fwd, record_bwd
+    VolumeSDF.finite_difference_eps = eps
+    NeuSSystem.train_step = train_step
+    try:
+        wall = _launcher_run(["--config", REPO_NEUS_CONFIG, "--exp_dir", exp, "tag=chip",
+                              "--train", f"trainer.max_steps={BAND_STEPS}",
+                              f"trainer.val_check_interval={BAND_STEPS}", *BAND_OVERRIDES])
+    finally:
+        del NeuSSystem.train_step
+        VolumeSDF.finite_difference_eps = eps_fn
+        hashgrid.hashgrid_forward_launch, hashgrid.hashgrid_backward_launch = fwd_fn, bwd_fn
+    launches = {k: c.launches for k, c in counters.items()}
+    losses = [float(r["loss"]) for r in records]
+    levels = [per_step[s][0] for s in sorted(per_step)]
+    print(f"[band] {BAND_STEPS} steps + val + test + mesh in {wall:.1f} s; level by step "
+          f"{levels}; eps {sorted({(v[0], v[1]) for v in per_step.values()})}; HG1 + HG2 "
+          f"launches a step {per_step[1][2]}; loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"launches {launches} ({smi})", flush=True)
+    assert len(per_step) == BAND_STEPS and len(set(levels)) >= 3, levels
+    assert np.isfinite(losses).all(), "the loss went non-finite"
+    assert launches["hashgrid_jac_forward"] == launches["hashgrid_jac_backward"] == 0, launches
+    assert min(launches["hashgrid_forward"], launches["hashgrid_backward"]) >= BAND_STEPS
+    return launches
+
+
 def main(argv=None):
     import argparse
 
@@ -2381,6 +2922,7 @@ def main(argv=None):
 
     entries = kernel_phase(device) + cp_kernel_phase(device) + stacked_kernel_phase(device)
     hash_entries = hash_kernel_phase(device)
+    hash_jac_entries = hash_jac_kernel_phase(device)
     cp_big_entries = cp_big_kernel_phase(device)
     probe_entries = probe_phase(device)
     render_launches, rays_per_s, warm_rays_per_s = render_phase(device)
@@ -2424,6 +2966,11 @@ def main(argv=None):
     del system, state, val
     torch.cuda.empty_cache()
     launcher_train, launcher_export = launcher_phase(device, smi)
+    torch.cuda.empty_cache()
+    nh_step, nh_run, nh_export, nh_rays_per_s = neus_hash_launcher_phase(device, smi)
+    print(f"[neus-hash] rays/s: {nh_rays_per_s:.0f} warm training ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    band_run = band_launcher_phase(device, smi)
     # launches: counted in the run of the path that runs the kernel (the NeRF
     # training runs for K1/K2 and K13/K14, the NeuS training runs for
     # K3-K5/K9/K10, K11/K12 and K7/K8, the finite-difference run for K6),
@@ -2468,11 +3015,30 @@ def main(argv=None):
         path = next(v for k, v in cp_big_path.items() if kernel.startswith(k + "_"))
         e["launches"] = cp_big_counts[path][kernel]
         e["launches_path"] = f"cp_big_{path}_train"
-    for e in hash_entries + cp_big_entries:
+    # slice 7: HG3/HG4 on the neus-synthetic launcher's training run (and its
+    # export; HG1/HG2 also on the progressive-band run)
+    for e in hash_jac_entries:
+        name = e["name"]
+        e["launches"] = nh_run[name]
+        e["launches_path"] = "neus_hash_launcher_train"
+        e["launches_neus_hash_launcher_train_step"] = nh_step[name]
+        e["launches_neus_hash_launcher_export"] = nh_export[name]
+        stem = "hashgrid_jac_fwd" if name.endswith("forward") else "hashgrid_jac_bwd"
+        marker = f"{stem}_kernelILi2E" + ("Li4E" if stem.endswith("fwd") else "")
+        step = STEP_MS.get(name)
+        e.update({"ptxas": ptxas_info(stem, marker),
+                  "ms_ray_ordered": step[0] if step else None,
+                  "n_ray_ordered": step[1] if step else None})
+        print(f"[design] {name}: {e['ms']:.4f} ms uniform at N={e['n']}, on a NeuS hash "
+              f"step's own operands {e['ms_ray_ordered']}, ptxas {e['ptxas']} ({smi})",
+              flush=True)
+    for e in hash_entries:
+        e["launches_band_launcher_train"] = band_run[e["name"]]
+    for e in hash_entries + hash_jac_entries + cp_big_entries:
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']}: not launched on its main path "
                                  f"({e['launches_path']})")
-    entries += hash_entries + cp_big_entries + probe_entries
+    entries += hash_entries + hash_jac_entries + cp_big_entries + probe_entries
     # the redesigned kernels: ptxas' registers and spills, the launch plan
     # (shared memory, blocks per SM), the time on a training step's own
     # operands, and the parent design's times where a parent checkout is given

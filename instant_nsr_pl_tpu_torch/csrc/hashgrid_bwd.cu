@@ -19,7 +19,8 @@
 // than row-coalesced 16-byte atomics.
 //
 // Design: one thread per sample, a warp on 32 consecutive samples, walks the
-// levels and recomputes its 8 taps (hashgrid_common.cuh). Three changes against
+// levels and recomputes its 8 taps (hash_scatter in hashgrid_common.cuh, which
+// HG4, csrc/hashgrid_jac_bwd.cu, instantiates too). Three changes against
 // one f32 atomicAdd per corner and feature into a feature-major (F, T) table:
 // - the gradient is row-major (T, F) f32, the layout of the port's table, so
 //   a corner's F features are one 8-byte (F = 2) or 16-byte vector atomic on
@@ -61,23 +62,56 @@
 
 namespace insr {
 
-// Add v to row `row` of the (T, F) f32 gradient: one vector atomic per 16
-// bytes (Hopper, CUDA >= 12.1).
+// HG2's cotangent: ct (n, L*F), the features' cotangent. A corner's update is
+// w_c * ct_l (times the level mask); the position gradient of a level is
+// s * sum_c sign_cd * excl_cd * (T[row_c] . ct_l).
 template <int F>
-__device__ __forceinline__ void add_row(float* __restrict__ dtable, uint32_t row,
-                                        const float (&v)[F]) {
-  float* p = dtable + static_cast<long long>(row) * F;
-  if constexpr (F == 1) {
-    atomicAdd(p, v[0]);
-  } else if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  } else {
+struct FeatCotangent {
+  const float* __restrict__ ct;
+  struct Level {
+    float g[F];
+  };
+
+  __device__ __forceinline__ Level load(long long i, int l, int n_levels, bool active,
+                                        bool masked, float m) const {
+    Level v;
+    const float* crow = ct + i * n_levels * F;
 #pragma unroll
-    for (int q = 0; q < F; q += 4) {
-      atomicAdd(reinterpret_cast<float4*>(p + q), make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+    for (int f = 0; f < F; ++f) {
+      v.g[f] = !active ? 0.0f : masked ? crow[l * F + f] * m : crow[l * F + f];
     }
+    return v;
   }
-}
+
+  __device__ __forceinline__ void update(const Level& g, const Taps& t, int c, float,
+                                         float (&v)[F]) const {
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = t.w[c] * g.g[f];
+  }
+
+  __device__ __forceinline__ void dx(const Level& g, const Taps& t,
+                                     const float* __restrict__ table, float s,
+                                     float (&dxa)[3]) const {
+    float lvl[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float rv[F];
+      load_row<F>(table, t.row[c], rv);
+      float tg = 0.0f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) tg = tg + rv[f] * g.g[f];
+      float p[3], excl[3];
+      corner_tents(t, c, p, excl);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float v = excl[d] * tg;
+        lvl[d] = ((c >> d) & 1) ? lvl[d] + v : lvl[d] - v;
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dxa[d] = dxa[d] + lvl[d] * s;
+  }
+};
 
 template <int F>
 __global__ void __launch_bounds__(kHashBlock)
@@ -85,122 +119,7 @@ __global__ void __launch_bounds__(kHashBlock)
                         const float* __restrict__ ct, const float* __restrict__ table,
                         int n_levels, HashLevels levels, const float* __restrict__ mask,
                         float* __restrict__ dtable, float* __restrict__ dx) {
-  constexpr unsigned kAll = 0xffffffffu;
-  constexpr uint32_t kNoRow = 0xffffffffu;  // an idle lane's row, and an empty edge slot
-  constexpr int kWarps = kHashBlock / 32;
-  // per level and corner, each warp's first run [0] and last run [1] (row,
-  // sum); two buffers, so one barrier per level suffices
-  __shared__ uint32_t edge_row[2][8][kWarps][2];
-  __shared__ float edge_val[2][8][kWarps][2][F];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  int buf = 0;
-  // block-uniform loop (the barriers below); each warp on 32 consecutive samples
-  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < n;
-       base += stride) {
-    const long long i = base + threadIdx.x;
-    const bool active = i < n;
-    const long long ii = active ? i : n - 1;  // a valid address for idle lanes
-    const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
-    const float* crow = ct + ii * n_levels * F;
-    float dxa[3] = {0.0f, 0.0f, 0.0f};
-    for (int l = 0; l < n_levels; ++l, buf ^= 1) {
-      const HashLevel& lv = levels.l[l];
-      const Taps t = level_taps(lv, x0, x1, x2);
-      const float m = mask != nullptr ? mask[l] : 1.0f;
-      float g[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        g[f] = !active ? 0.0f : mask != nullptr ? crow[l * F + f] * m : crow[l * F + f];
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const uint32_t row = active ? t.row[c] : kNoRow;
-        float v[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) v[f] = t.w[c] * g[f];
-        const uint32_t left = __shfl_up_sync(kAll, row, 1);
-        const bool head = lane == 0 || left != row;  // the first lane of a run of equal rows
-        const unsigned heads = __ballot_sync(kAll, head);
-        if (heads != kAll) {
-          // a segmented inclusive scan over each run of lanes: afterwards the
-          // run's last lane holds the run's sum, taken in a fixed order
-          const unsigned upto = lane == 31 ? kAll : (2u << lane) - 1u;
-          const int start = 31 - __clz(heads & upto);
-#pragma unroll
-          for (int d = 1; d < 32; d *= 2) {
-#pragma unroll
-            for (int f = 0; f < F; ++f) {
-              const float up = __shfl_up_sync(kAll, v[f], d);
-              if (lane - d >= start) v[f] += up;
-            }
-          }
-        }
-        // run ends: lane 31 and every lane before a head; the warp's first
-        // run ends at the lowest of them, its last at lane 31
-        const unsigned tails = (heads >> 1) | 0x80000000u;
-        const int first_end = __ffs(tails) - 1;
-        const bool tail = (tails >> lane) & 1u;
-        if (lane == first_end || lane == 31) {
-          const int k = lane == first_end ? 0 : 1;
-          edge_row[buf][c][warp][k] = row;
-#pragma unroll
-          for (int f = 0; f < F; ++f) edge_val[buf][c][warp][k][f] = v[f];
-          if (first_end == 31) edge_row[buf][c][warp][1] = kNoRow;  // one run: no last run
-        } else if (tail && active) {
-          add_row<F>(dtable, row, v);
-        }
-      }
-      __syncthreads();  // every warp's edge runs of this level are staged
-      if (threadIdx.x < 8) {
-        // corner threadIdx.x: the block's edge runs in warp order, equal rows summed
-        const int c = threadIdx.x;
-        uint32_t run_row = kNoRow;
-        float acc[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-        for (int k = 0; k < 2 * kWarps; ++k) {
-          const uint32_t r = edge_row[buf][c][k >> 1][k & 1];
-          if (r == kNoRow) continue;
-          if (r != run_row) {
-            if (run_row != kNoRow) add_row<F>(dtable, run_row, acc);
-            run_row = r;
-#pragma unroll
-            for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-          }
-#pragma unroll
-          for (int f = 0; f < F; ++f) acc[f] += edge_val[buf][c][k >> 1][k & 1][f];
-        }
-        if (run_row != kNoRow) add_row<F>(dtable, run_row, acc);
-      }
-      if (dx != nullptr) {
-        float lvl[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          float rv[F];
-          load_row<F>(table, t.row[c], rv);
-          float tg = 0.0f;
-#pragma unroll
-          for (int f = 0; f < F; ++f) tg = tg + rv[f] * g[f];
-          float p[3];
-#pragma unroll
-          for (int d = 0; d < 3; ++d) p[d] = ((c >> d) & 1) ? t.frac[d] : 1.0f - t.frac[d];
-          const float excl[3] = {p[1] * p[2], p[0] * p[2], p[0] * p[1]};
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float v = excl[d] * tg;
-            lvl[d] = ((c >> d) & 1) ? lvl[d] + v : lvl[d] - v;
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < 3; ++d) dxa[d] = dxa[d] + lvl[d] * lv.scale;
-      }
-    }
-    if (dx != nullptr && active) {
-#pragma unroll
-      for (int d = 0; d < 3; ++d) dx[3 * i + d] = dxa[d];
-    }
-  }
+  hash_scatter<F>(x, n, FeatCotangent<F>{ct}, table, n_levels, levels, mask, dtable, dx);
 }
 
 template <int F>

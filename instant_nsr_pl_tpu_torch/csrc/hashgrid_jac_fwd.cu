@@ -1,0 +1,144 @@
+// HG3: the multiresolution hash-grid encoding with its position Jacobian.
+//
+// Replaces: instant_nsr_pl_tpu/ops/hashgrid.py hashgrid_encode_with_jac's
+// forward (_encode_jac_fwd_impl, :797-838, weights _jac_weights :779), which
+// is XLA, not Pallas: per level it builds (8, N) indices and weights, gathers
+// (F, 8, N) table rows with jnp.take, sums the features and, from the same
+// rows, the Jacobian einsum("cdn,fcn->dfn", dw, g), and saves the taps for its
+// backward. The NeuS SDF with analytic gradients runs it on every training
+// step, every rendered view and the mesh's vertex colours.
+//
+// Here a thread takes one sample and a group of LG consecutive levels, as HG1
+// (csrc/hashgrid_fwd.cu) does: per level it hashes (or strides) the 8 corners
+// with HG1's position code (hashgrid_common.cuh level_taps: pos =
+// fmaf(x, s, 0.5), so a sample lands in the same cell as in HG1, HG2 and the
+// plain versions), reads each corner's F features as one vector load, and
+// from the same 8 rows sums
+// - feat: the corners in order 0..7 as fmaf after the first product, HG1's
+//   sum, so feat equals HG1's output to the bit;
+// - jac[d] = sum_c dw_cd * T[row_c], dw_cd = (sign_cd * excl_cd) * s in world
+//   units, in corner order with each product and sum rounded once (built with
+//   --fmad=false), as the plain version (ops/hashgrid.py
+//   hashgrid_jac_forward_plain) sums it;
+// then multiplies both by the optional level mask. Outputs: feat (N, L*F)
+// level-major, as HG1; jac (3, N, L*F) coordinate-major, the JAX layout that
+// CompositeEncoding.apply_with_jac extends by its xyz identity block. Nothing
+// is saved for the backward: HG4 recomputes the taps.
+//
+// What bounds it on an H100: the compulsory bytes are x (12 B), feat (L*F*4 B)
+// and jac (3*L*F*4 B) per sample plus the table once: at
+// configs/neus-synthetic.yaml's grid (12 levels, F = 2, a 2,647,192-row
+// table, 21.2 MB) 396 B a sample, 0.014 ms for 65,536 samples at 3.35 TB/s.
+// The hashed levels' corners land on random rows, one 32-byte sector each (9
+// hashed levels x 8 corners x 32 B = 2.3 KB a sample, 0.045 ms for 65,536
+// samples if none hit in L2). The design is HG1's: level-major blocks
+// (blockIdx.y a group of levels), so one group's slice of the table is the
+// working set in L2; the Jacobian costs three more sums per feature on rows
+// already in registers and three times HG1's stores.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
+
+#include "hashgrid_common.cuh"
+
+namespace insr {
+
+template <int F, int LG>
+__global__ void __launch_bounds__(kHashBlock)
+    hashgrid_jac_fwd_kernel(const float* __restrict__ x, long long n,
+                            const float* __restrict__ table, int n_levels, HashLevels levels,
+                            const float* __restrict__ mask, float* __restrict__ out,
+                            float* __restrict__ jac) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int l0 = blockIdx.y * LG;
+  const float x0 = x[3 * i], x1 = x[3 * i + 1], x2 = x[3 * i + 2];
+  float res[LG * F];
+  float jres[3][LG * F];
+#pragma unroll
+  for (int q = 0; q < LG; ++q) {
+    const HashLevel& lv = levels.l[l0 + q];
+    const Taps t = level_taps(lv, x0, x1, x2);
+    float acc[F], ja[3][F];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float v[F];
+      load_row<F>(table, t.row[c], v);
+      float p[3], excl[3];
+      corner_tents(t, c, p, excl);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float dw = (((c >> d) & 1) ? excl[d] : -excl[d]) * lv.scale;
+#pragma unroll
+        for (int f = 0; f < F; ++f) ja[d][f] = c == 0 ? dw * v[f] : ja[d][f] + dw * v[f];
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = c == 0 ? v[f] * t.w[c] : fmaf(v[f], t.w[c], acc[f]);
+    }
+    const float m = mask != nullptr ? mask[l0 + q] : 1.0f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      res[q * F + f] = mask != nullptr ? acc[f] * m : acc[f];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) jres[d][q * F + f] = mask != nullptr ? ja[d][f] * m : ja[d][f];
+    }
+  }
+  const long long row = i * n_levels * F + l0 * F;
+  store_vec<LG * F>(out + row, res);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) store_vec<LG * F>(jac + d * n * n_levels * F + row, jres[d]);
+}
+
+template <int F, int LG>
+int launch_hashgrid_jac_fwd(const float* x, long long n, const float* table, int n_levels,
+                            const HashLevels& levels, const float* mask, float* out, float* jac,
+                            cudaStream_t stream) {
+  if (n > 0) {
+    const dim3 grid(static_cast<unsigned>((n + kHashBlock - 1) / kHashBlock), n_levels / LG);
+    hashgrid_jac_fwd_kernel<F, LG><<<grid, kHashBlock, 0, stream>>>(x, n, table, n_levels,
+                                                                   levels, mask, out, jac);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Levels per thread as HG1 takes them: 4 where the level count allows it, else
+// 2 or 1.
+template <int F>
+int launch_hashgrid_jac_fwd_any(const float* x, long long n, const float* table, int n_levels,
+                                const HashLevels& levels, const float* mask, float* out,
+                                float* jac, cudaStream_t stream) {
+  const int group = n_levels % 4 == 0 ? 4 : n_levels % 2 == 0 ? 2 : 1;
+  switch (group) {
+    case 4:
+      return launch_hashgrid_jac_fwd<F, 4>(x, n, table, n_levels, levels, mask, out, jac, stream);
+    case 2:
+      return launch_hashgrid_jac_fwd<F, 2>(x, n, table, n_levels, levels, mask, out, jac, stream);
+    default:
+      return launch_hashgrid_jac_fwd<F, 1>(x, n, table, n_levels, levels, mask, out, jac, stream);
+  }
+}
+
+}  // namespace insr
+
+// Returns cudaGetLastError() after the launch, or -1 when no instantiation
+// matches (F not in {1, 2, 4, 8}, or too many levels). table is the row-major
+// (total, F) float32 table; `levels` holds n_levels HashLevel records; mask is
+// nullptr or (n_levels,) float32; out is (n, n_levels * F) and jac (3, n,
+// n_levels * F), float32.
+extern "C" int hashgrid_jac_fwd(const float* x, long long n, const float* table, int n_levels,
+                                int f, const insr::HashLevel* levels, const float* mask,
+                                float* out, float* jac, void* stream) {
+  if (n_levels < 1 || n_levels > insr::kHashMaxLevels) return -1;
+  insr::HashLevels lv{};
+  for (int l = 0; l < n_levels; ++l) lv.l[l] = levels[l];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define INSR_HG_JAC_FWD(F_) \
+  return insr::launch_hashgrid_jac_fwd_any<F_>(x, n, table, n_levels, lv, mask, out, jac, st)
+  switch (f) {
+    case 1: INSR_HG_JAC_FWD(1);
+    case 2: INSR_HG_JAC_FWD(2);
+    case 4: INSR_HG_JAC_FWD(4);
+    case 8: INSR_HG_JAC_FWD(8);
+    default: return -1;
+  }
+#undef INSR_HG_JAC_FWD
+}

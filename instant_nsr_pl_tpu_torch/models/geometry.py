@@ -14,7 +14,7 @@ import torch
 from instant_nsr_pl_tpu_torch.models.isosurface import extract_isosurface
 from instant_nsr_pl_tpu_torch.models.network_utils import (
     CPEncoding,
-    HashGridEncoding,
+    ProgressiveBandHashGrid,
     get_encoding,
     get_encoding_with_network,
     get_mlp,
@@ -26,11 +26,12 @@ from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType, contract_t
 from instant_nsr_pl_tpu_torch.registry import models
 
 
-def isosurface(geometry, params):
+def isosurface(geometry, params, step=None):
     """The two-stage marching pass of ``geometry`` (its ``config.isosurface``
-    section), the level grid evaluated on the parameters' device: a dict with
-    ``v_pos`` (V, 3) float32 and ``t_pos_idx`` (F, 3) int64 numpy arrays."""
-    return extract_isosurface(geometry, params, params_device(params))
+    section), the level grid evaluated on the parameters' device at training
+    step ``step``: a dict with ``v_pos`` (V, 3) float32 and ``t_pos_idx``
+    (F, 3) int64 numpy arrays."""
+    return extract_isosurface(geometry, params, params_device(params), step=step)
 
 
 @models.register("volume-density")
@@ -57,13 +58,14 @@ class VolumeDensity:
     def init(self, generator, device=None):
         return self.encoding_with_network.init(generator, device)
 
-    def apply(self, params, points, grouped=False):
-        """points: (..., 3) world -> (density (...,), feature (..., D)).
+    def apply(self, params, points, step=None, grouped=False):
+        """points: (..., 3) world -> (density (...,), feature (..., D)) at
+        training step ``step`` (a progressive encoding's level mask).
         ``grouped`` asserts that the flattened points are the group-compacted
         march's aligned uniform-step blocks (a hash encoding's dedup spec)."""
         pts = contract_to_unisphere(points, self.radius, self.contraction_type)
         out = self.encoding_with_network.apply(
-            params, pts.reshape(-1, self.n_input_dims), grouped=grouped
+            params, pts.reshape(-1, self.n_input_dims), step=step, grouped=grouped
         ).reshape(*points.shape[:-1], self.n_output_dims)
         out = out.float()
         density = self.density_activation(out[..., 0] + self.density_bias)
@@ -74,14 +76,14 @@ class VolumeDensity:
         (no-op for other encodings); ``step`` in [0, 1] coordinates."""
         self.encoding_with_network.encoding.configure_dedup(group, step)
 
-    def forward_level(self, params, points):
+    def forward_level(self, params, points, step=None):
         """Level-set field for marching (negative inside): -density, so the
         surface at density ``threshold`` lies at level -threshold."""
-        density, _ = self.apply(params, points)
+        density, _ = self.apply(params, points, step=step)
         return -density
 
-    def isosurface(self, params):
-        return isosurface(self, params)
+    def isosurface(self, params, step=None):
+        return isosurface(self, params, step)
 
 
 _STENCIL = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
@@ -97,9 +99,10 @@ class VolumeSDF:
     - the jac path (the default when the encoding has one, as on the TPU):
       the encoding returns (feature, its analytic position Jacobian) from one
       op per scale (``cp_product_jac_basis``, K9/K10 on the card, or
-      ``cp_product_jac``, K7/K8, without a basis), and the SDF
-      gradient is ``J_enc^T dsdf/denc * 0.5 / radius`` with the MLP part as
-      a forward-mode tangent through the plain fp32 MLP
+      ``cp_product_jac``, K7/K8, without a basis; K11/K12 for stacked
+      scales; ``hashgrid_encode_with_jac``, HG3/HG4, for a hash grid), and
+      the SDF gradient is ``J_enc^T dsdf/denc * 0.5 / radius`` with the MLP
+      part as a forward-mode tangent through the plain fp32 MLP
       (:meth:`MLP.apply_jvp`): the second-order graph never meets a custom op
       and works under ``no_grad`` for eval;
     - the autodiff fallback (``analytic_jac: false``): the encoding switches
@@ -108,10 +111,13 @@ class VolumeSDF:
 
     ``grad_type: finite_difference`` (Neuralangelo) evaluates a 6-point
     stencil through the plain encode (K5/K6 on the card, HG1/HG2 with a hash
-    grid) and, with ``with_laplace``, the Laplacian for the curvature loss.
-    A hash grid with analytic gradients needs the hash grid's Jacobian
-    kernels, which come with slice 7: it is refused on every device (the
-    autodiff fallback would run the plain version on the card)."""
+    grid) and, with ``with_laplace``, the Laplacian for the curvature loss;
+    ``finite_difference_eps: progressive`` ties the stencil's eps to the cell
+    of a ``ProgressiveBandHashGrid``'s current level.
+
+    ``step`` (a Python int, None outside training) reaches the encoding
+    through every evaluation: a progressive encoding's level mask follows
+    it."""
 
     def __init__(self, config):
         self.config = config
@@ -126,11 +132,6 @@ class VolumeSDF:
         if self.grad_type not in ("analytic", "finite_difference"):
             raise ValueError(f"unknown grad_type '{self.grad_type}'")
         inner = getattr(self.encoding, "encoding", self.encoding)
-        if self.grad_type == "analytic" and isinstance(inner, HashGridEncoding):
-            raise NotImplementedError(
-                "a HashGrid SDF with grad_type: analytic needs the hash grid's Jacobian "
-                "kernels (hashgrid_encode_with_jac), which come with slice 7 of the port "
-                "(ROADMAP queue 1 item 1); grad_type: finite_difference runs today")
         self.use_jac = False
         if self.grad_type == "analytic":
             jac_capable = getattr(self.encoding, "has_jac", False)
@@ -142,11 +143,12 @@ class VolumeSDF:
         self.fd_eps_config = config.get("finite_difference_eps", 1e-3)
         if self.grad_type == "finite_difference" and not isinstance(
                 self.fd_eps_config, (int, float)):
-            raise NotImplementedError(
-                f"finite_difference_eps: {self.fd_eps_config!r} (the progressive eps of "
-                "ProgressiveBandHashGrid) comes with slice 7 of the port (ROADMAP queue 1 "
-                "item 1)"
-            )
+            otype = config.xyz_encoding_config.otype
+            if self.fd_eps_config != "progressive" or not isinstance(
+                    inner, ProgressiveBandHashGrid):
+                raise ValueError(
+                    f"finite_difference_eps: {self.fd_eps_config!r} needs 'progressive' and a "
+                    f"ProgressiveBandHashGrid encoding, got otype {otype!r}")
         self.sdf_activation = (
             get_activation(config.sdf_activation) if "sdf_activation" in config else None
         )
@@ -172,11 +174,11 @@ class VolumeSDF:
             sdf = self.sdf_activation(sdf + self.sdf_bias)
         return sdf
 
-    def _field(self, params, points):
+    def _field(self, params, points, step=None):
         """(N, 3) world -> (sdf (N,), feature (N, D))."""
         pts = contract_to_unisphere(points, self.radius, self.contraction_type)
         out = self.network.apply(
-            params["network"], self.encoding.apply(params["encoding"], pts)
+            params["network"], self.encoding.apply(params["encoding"], pts, step=step)
         ).float()
         return self._sdf(out), out
 
@@ -185,20 +187,31 @@ class VolumeSDF:
         (no-op for other encodings)."""
         self.encoding.configure_dedup(group, step)
 
-    def finite_difference_eps(self):
-        """The stencil's eps, a float32 constant."""
-        return torch.tensor(float(self.fd_eps_config), dtype=torch.float32)
+    def finite_difference_eps(self, step=None):
+        """The stencil's eps, a float32 scalar tensor: the configured number,
+        or with 'progressive' the cell of the current level,
+        ``2 r / (base_resolution * scale ** (level - 1))`` in float32 (JAX
+        ``finite_difference_eps``, reference models/geometry.py:219-238)."""
+        if isinstance(self.fd_eps_config, (int, float)):
+            return torch.tensor(float(self.fd_eps_config), dtype=torch.float32)
+        enc = self.encoding.encoding
+        level = enc.current_level(step)
+        grid_res = enc.spec.base_resolution * torch.tensor(
+            enc.spec.per_level_scale, dtype=torch.float32) ** (level - 1)
+        return torch.tensor(2.0 * self.radius, dtype=torch.float32) / grid_res
 
-    def apply(self, params, points, with_grad=True, with_feature=True, with_laplace=False):
+    def apply(self, params, points, step=None, with_grad=True, with_feature=True,
+              with_laplace=False):
         """Returns (sdf, [grad,] [feature,] [laplace]), the reference's tuple
-        protocol (models/geometry.py:158-210)."""
+        protocol (models/geometry.py:158-210), at training step ``step``."""
         points = points.reshape(-1, 3)
         grad = feature = laplace = None
         if with_grad and self.grad_type == "analytic" and self.use_jac:
             if self.contraction_type != ContractionType.AABB:
                 raise ValueError("analytic_jac supports AABB contraction only")
             pts = contract_to_unisphere(points, self.radius, self.contraction_type)
-            enc, jac = self.encoding.apply_with_jac(params["encoding"], pts)  # (N, E), (3, N, E)
+            enc, jac = self.encoding.apply_with_jac(params["encoding"], pts,
+                                                    step=step)  # (N, E), (3, N, E)
             scale = 0.5 / self.radius  # d pts / d points (AABB is linear)
             out, tout = self.network.apply_jvp(params["network"], enc, jac * scale)
             feature = out.float()
@@ -212,18 +225,18 @@ class VolumeSDF:
             create = torch.is_grad_enabled()
             with torch.enable_grad():
                 x = points if points.requires_grad else points.detach().requires_grad_(True)
-                sdf, feature = self._field(params, x)
+                sdf, feature = self._field(params, x, step)
                 (grad,) = torch.autograd.grad(sdf, x, torch.ones_like(sdf), create_graph=create)
             if not create:
                 sdf, feature = sdf.detach(), feature.detach()
         else:
-            sdf, feature = self._field(params, points)
+            sdf, feature = self._field(params, points, step)
             if with_grad:  # finite differences (Neuralangelo)
-                eps = self.finite_difference_eps().to(points.device)
+                eps = self.finite_difference_eps(step).to(points.device)
                 offsets = torch.tensor(_STENCIL, dtype=torch.float32, device=points.device)
                 r = torch.tensor(self.radius, dtype=torch.float32, device=points.device)
                 pts_d = torch.minimum(torch.maximum(points[:, None, :] + eps * offsets, -r), r)
-                sdf_d, _ = self._field(params, pts_d.reshape(-1, 3))
+                sdf_d, _ = self._field(params, pts_d.reshape(-1, 3), step)
                 sdf_d = sdf_d.reshape(-1, 6)
                 grad = 0.5 * (sdf_d[:, 0::2] - sdf_d[:, 1::2]) / eps
                 if with_laplace:
@@ -240,10 +253,10 @@ class VolumeSDF:
             rv.append(laplace)
         return rv[0] if len(rv) == 1 else tuple(rv)
 
-    def forward_level(self, params, points):
+    def forward_level(self, params, points, step=None):
         """Scalar level-set field for marching cubes (negative inside)."""
-        sdf, _ = self._field(params, points.reshape(-1, 3))
+        sdf, _ = self._field(params, points.reshape(-1, 3), step)
         return sdf.reshape(points.shape[:-1])
 
-    def isosurface(self, params):
-        return isosurface(self, params)
+    def isosurface(self, params, step=None):
+        return isosurface(self, params, step)

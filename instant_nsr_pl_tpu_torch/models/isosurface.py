@@ -21,7 +21,7 @@ import torch
 from instant_nsr_pl_tpu_torch.ops.isosurface import marching_tetrahedra
 
 
-def _eval_level_grid(geometry, params, vmin, vmax, resolution, chunk, device):
+def _eval_level_grid(geometry, params, vmin, vmax, resolution, chunk, device, step=None):
     """Evaluate ``geometry.forward_level`` on a regular grid, in chunks of
     ``chunk`` points, or one chunk of the whole grid where it is smaller (the
     tail padded to a full chunk, as the JAX package pads it to compile
@@ -39,7 +39,7 @@ def _eval_level_grid(geometry, params, vmin, vmax, resolution, chunk, device):
             block = pts[start:end]
             if block.shape[0] < chunk:
                 block = np.concatenate([block, np.zeros((chunk - block.shape[0], 3), np.float32)])
-            vals = geometry.forward_level(params, torch.from_numpy(block).to(device))
+            vals = geometry.forward_level(params, torch.from_numpy(block).to(device), step=step)
             out[start:end] = vals[: end - start].float().cpu().numpy()
             if time.time() - last_beat > 60.0:
                 print(f"[isosurface] {end}/{n} points ({time.time() - t0:.0f}s)", flush=True,
@@ -91,10 +91,11 @@ def _extract(values, vmin, vmax, iso=0.0):
     return {"v_pos": v_world.astype(np.float32), "t_pos_idx": faces}
 
 
-def extract_isosurface(geometry, params, device):
+def extract_isosurface(geometry, params, device, step=None):
     """Two-stage extraction (coarse full-cube pass -> padded-bbox fine pass).
 
-    ``geometry`` exposes ``forward_level(params, points)`` (negative inside)
+    ``geometry`` exposes ``forward_level(params, points, step=step)``
+    (negative inside; ``step`` the training step, None outside training)
     and carries ``radius`` and ``config.isosurface`` with ``resolution``,
     optional ``chunk`` and ``threshold`` (the surface lies at level ==
     -threshold: a density geometry's level is -density). ``device``: where
@@ -109,7 +110,7 @@ def extract_isosurface(geometry, params, device):
 
     vmin = np.array([-r, -r, -r], np.float32)
     vmax = np.array([r, r, r], np.float32)
-    coarse_vals = _eval_level_grid(geometry, params, vmin, vmax, resolution, chunk, device)
+    coarse_vals = _eval_level_grid(geometry, params, vmin, vmax, resolution, chunk, device, step)
     coarse = _extract(coarse_vals, vmin, vmax, iso=iso)
     if coarse["v_pos"].shape[0] == 0:
         return coarse
@@ -120,5 +121,5 @@ def extract_isosurface(geometry, params, device):
     pad = 0.1 * (c_max - c_min)
     f_min = np.maximum(c_min - pad, vmin)
     f_max = np.minimum(c_max + pad, vmax)
-    fine_vals = _eval_level_grid(geometry, params, f_min, f_max, resolution, chunk, device)
+    fine_vals = _eval_level_grid(geometry, params, f_min, f_max, resolution, chunk, device, step)
     return _extract(fine_vals, f_min, f_max, iso=iso)

@@ -104,17 +104,18 @@ class NeRFModel:
         return {"grid": occupancy_grid_init(self.occ_spec, device)}
 
     # -- occupancy maintenance (reference models/nerf.py:45-55) -----------
-    def update_occupancy(self, params, occ, generator, warmup=False, phase=None):
+    def update_occupancy(self, params, occ, generator, warmup=False, phase=None, step=None):
         """One grid update (``ops/marching.py`` ``occupancy_grid_update``)
         with occupancy = density * step size, the reference's Taylor
         approximation of 1 - exp(-density * dt). The density comes from
-        ``geometry.apply``, so the fused density op (K1) evaluates it, in
-        chunks of 2^18 points."""
+        ``geometry.apply`` at training step ``step``, so the fused density op
+        (K1) evaluates it, in chunks of 2^18 points."""
         if not self.grid_prune:
             return occ
 
         def occ_eval_fn(x):
-            density = [self.geometry.apply(params["geometry"], c)[0] for c in x.split(1 << 18)]
+            density = [self.geometry.apply(params["geometry"], c, step=step)[0]
+                       for c in x.split(1 << 18)]
             return torch.cat(density) * self.render_step_size
 
         grid = occupancy_grid_update(
@@ -175,11 +176,12 @@ class NeRFModel:
         }
 
     def forward(self, params, occ, rays_o, rays_d, *, background_color, capacity: int,
-                train=False, randomized=False, generator=None):
+                train=False, randomized=False, generator=None, step=None):
         """Render a batch of rays (N, 3) with unit ``rays_d``; returns the
         reference's outputs (models/nerf.py:110-125). ``randomized`` jitters
         each ray's start with a draw from ``generator`` (the stratified
-        march). With ``train`` the result is differentiable with respect to
+        march); ``step`` is the training step (a progressive encoding's level
+        mask). With ``train`` the result is differentiable with respect to
         ``params`` and adds the packed ``weights``, ``points`` (sample
         midpoints), ``intervals``, ``ray_indices`` and ``sample_valid``;
         without it the forward runs under ``torch.no_grad``."""
@@ -189,7 +191,7 @@ class NeRFModel:
                 jitter = torch.rand(rays_o.shape[0], generator=generator, device=rays_o.device)
             samples, positions, dirs, t_mid, grp = self.march(occ, rays_o, rays_d, capacity,
                                                               jitter)
-            density, feature = self.geometry.apply(params["geometry"], positions,
+            density, feature = self.geometry.apply(params["geometry"], positions, step=step,
                                                    grouped=grp > 1)
             rgb = self.texture.apply(params["texture"], feature, dirs)
             out = self.composite(samples, density, rgb, t_mid, background_color, grp)
@@ -205,28 +207,28 @@ class NeRFModel:
         return out
 
     # -- mesh export (reference models/nerf.py:152-161) ---------------------
-    def forward_level(self, params, points):
-        return self.geometry.forward_level(params["geometry"], points)
+    def forward_level(self, params, points, step=None):
+        return self.geometry.forward_level(params["geometry"], points, step=step)
 
-    def isosurface(self, params):
-        return self.geometry.isosurface(params["geometry"])
+    def isosurface(self, params, step=None):
+        return self.geometry.isosurface(params["geometry"], step=step)
 
-    def vertex_colors(self, params, v_pos):
+    def vertex_colors(self, params, v_pos, step=None):
         """The radiance at points (N, 3) seen along -z, clipped to [0, 1]."""
-        _, feature = self.geometry.apply(params["geometry"], v_pos)
+        _, feature = self.geometry.apply(params["geometry"], v_pos, step=step)
         viewdirs = torch.zeros_like(v_pos)
         viewdirs[:, 2] = -1.0
         return torch.clamp(self.texture.apply(params["texture"], feature, viewdirs), 0.0, 1.0)
 
-    def export(self, params, export_config):
+    def export(self, params, export_config, step=None):
         """The mesh (``isosurface``) and, with ``export_vertex_color`` and a
         surface to colour, its :meth:`vertex_colors`, in chunks of
         ``export.chunk_size`` points under ``torch.no_grad``. A failure of
         the colour pass propagates: no geometry-only mesh stands in for it."""
-        mesh = self.isosurface(params)
+        mesh = self.isosurface(params, step)
         if export_config.get("export_vertex_color", False) and len(mesh["v_pos"]):
             with torch.no_grad():
                 mesh["v_rgb"] = chunked_point_eval(
-                    lambda v: self.vertex_colors(params, v), mesh["v_pos"],
+                    lambda v: self.vertex_colors(params, v, step), mesh["v_pos"],
                     export_config.get("chunk_size", 2097152), params_device(params))
         return mesh

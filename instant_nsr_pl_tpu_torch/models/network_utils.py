@@ -1,10 +1,11 @@
 """Encoding / MLP factories (the reference's models/network_utils.py role).
 
 Port of ``instant_nsr_pl_tpu/models/network_utils.py`` for the encodings the
-NeRF and NeuS slices run: ``CP`` (with its Jacobian path), ``HashGrid``
-(first order) and ``SphericalHarmonics``. As in the JAX package,
-every module is a static Python object with ``init(generator, device) ->
-params`` and ``apply(params, x) -> out``, and parameters are nested dicts
+NeRF and NeuS slices run: ``CP`` and ``HashGrid`` (each with its Jacobian
+path), ``ProgressiveBandHashGrid`` and ``SphericalHarmonics``. As in the JAX
+package, every module is a static Python object with ``init(generator,
+device) -> params`` and ``apply(params, x, step=None) -> out`` (``step``, a
+Python int, drives the progressive level mask), and parameters are nested dicts
 keyed like the JAX pytree (``cp.line_{s}_{ax}``, ``layers[i].w``), so weights
 carry across as copies (``utils/transplant.py``).
 
@@ -44,6 +45,7 @@ from instant_nsr_pl_tpu_torch.ops.hashgrid import (
     HashGridSpec,
     hashgrid_encode,
     hashgrid_encode_fast,
+    hashgrid_encode_with_jac,
     hashgrid_init,
 )
 from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_apply_jvp, mlp_init
@@ -83,8 +85,6 @@ def make_trainable(tree):
 
 
 _LATER = {
-    "ProgressiveBandHashGrid": "slice 7 (ROADMAP queue 1 item 1: the hash grid's jac "
-                               "kernels and the level mask threaded by step)",
     "VanillaFrequency": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
     "VectorMatrix": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
     "VM": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
@@ -156,10 +156,10 @@ class CPEncoding:
     def _impl(self):
         return "fast" if self.grad_mode == "fast" else "xla"
 
-    def apply(self, params, x):
+    def apply(self, params, x, step=None):
         return cp_encode(params["cp"], x, self.spec, impl=self._impl())
 
-    def apply_with_jac(self, params, x):
+    def apply_with_jac(self, params, x, step=None):
         """(feat (..., E), d feat / d x (3, ..., E)) from one product-with-
         Jacobian op per scale, or one for all scales with ``stack_scales``
         (``ops/cp.py`` ``cp_encode_with_jac``)."""
@@ -175,7 +175,9 @@ class HashGridEncoding:
     (HG1 forward and HG2 table gradient on the card, their plain versions on
     the CPU), first order; 'autodiff' the plain ``hashgrid_encode``,
     differentiable at any order. The JAX package defaults to 'autodiff' off
-    the TPU; both modes compute the same function.
+    the TPU; both modes compute the same function. :meth:`apply_with_jac`
+    (the NeuS SDF's analytic gradient) runs ``hashgrid_encode_with_jac`` (HG3
+    forward, HG4 backward) in either mode.
 
     ``configure_dedup`` keeps the JAX package's per-group tap dedup spec
     (set by the renderer when its march guarantees aligned blocks); the
@@ -212,10 +214,60 @@ class HashGridEncoding:
     def init(self, generator, device=None):
         return {"table": hashgrid_init(generator, self.spec, device)}
 
-    def apply(self, params, x, grouped=False):
+    def _encode(self, table, x, level_mask=None, grouped=False):
         if self.grad_mode == "fast":
-            return hashgrid_encode_fast(params["table"], x, self._spec_for(x, grouped))
-        return hashgrid_encode(params["table"], x, self.spec)
+            return hashgrid_encode_fast(table, x, self._spec_for(x, grouped), level_mask)
+        return hashgrid_encode(table, x, self.spec, level_mask)
+
+    def _mask(self, step, device):
+        """The level mask at ``step``: none for a plain hash grid."""
+        return None
+
+    def apply(self, params, x, step=None, grouped=False):
+        table = params["table"]
+        return self._encode(table, x, self._mask(step, table.device), grouped)
+
+    def apply_with_jac(self, params, x, step=None):
+        """(feat (..., L*F), jac (3, ..., L*F)): the features and their
+        analytic position Jacobian from one set of taps
+        (``hashgrid_encode_with_jac``), per sample: the JAX package's tap
+        dedup computes the same function."""
+        table = params["table"]
+        return hashgrid_encode_with_jac(table, x, self.spec, self._mask(step, table.device))
+
+
+class ProgressiveBandHashGrid(HashGridEncoding):
+    """Neuralangelo's progressive level unmasking (JAX
+    ``models/network_utils.py:137-170``, reference models/network_utils.py:
+    40-65): levels at or above :meth:`current_level` are zeroed, and the
+    level advances every ``update_steps`` after ``start_step``. The mask is
+    built from a Python int step, as an (L,) float32 tensor on the table's
+    device (kept once per level and device); the kernels take it as their
+    level mask (HG1/HG2, HG3/HG4)."""
+
+    def __init__(self, in_channels, config):
+        super().__init__(in_channels, config)
+        self.start_level = int(config["start_level"])
+        self.start_step = int(config["start_step"])
+        self.update_steps = int(config["update_steps"])
+        self._masks = {}
+
+    def current_level(self, step):
+        """The number of unmasked levels at ``step`` (all for None)."""
+        if step is None:
+            return self.spec.n_levels
+        lvl = self.start_level + max(int(step) - self.start_step, 0) // self.update_steps
+        return min(lvl, self.spec.n_levels)
+
+    def _mask(self, step, device):
+        if step is None:
+            return None
+        key = (self.current_level(step), torch.device(device))
+        mask = self._masks.get(key)
+        if mask is None:
+            mask = (torch.arange(self.spec.n_levels) < key[0]).float().to(key[1])
+            self._masks[key] = mask
+        return mask
 
 
 class SphericalHarmonicsEncoding:
@@ -231,7 +283,7 @@ class SphericalHarmonicsEncoding:
     def init(self, generator, device=None):
         return {}
 
-    def apply(self, params, x):
+    def apply(self, params, x, step=None):
         return spherical_harmonics_encoding(x, self.degree)
 
 
@@ -252,9 +304,9 @@ class CompositeEncoding:
     def init(self, generator, device=None):
         return self.encoding.init(generator, device)
 
-    def apply(self, params, x, grouped=False):
+    def apply(self, params, x, step=None, grouped=False):
         kw = {"grouped": True} if grouped and self.dedup_spec is not None else {}
-        enc = self.encoding.apply(params, x, **kw)
+        enc = self.encoding.apply(params, x, step=step, **kw)
         if not self.include_xyz:
             return enc
         return torch.cat([x * self.xyz_scale + self.xyz_offset, enc], dim=-1)
@@ -272,10 +324,10 @@ class CompositeEncoding:
     def has_jac(self) -> bool:
         return hasattr(self.encoding, "apply_with_jac")
 
-    def apply_with_jac(self, params, x):
+    def apply_with_jac(self, params, x, step=None):
         """(feat (..., D), jac (3, ..., D)) including the identity block of
         the prepended xyz channels (d(x * s + o)/dx = s * I)."""
-        enc, jac = self.encoding.apply_with_jac(params, x)
+        enc, jac = self.encoding.apply_with_jac(params, x, step=step)
         if not self.include_xyz:
             return enc, jac
         feat = torch.cat([x * self.xyz_scale + self.xyz_offset, enc], dim=-1)
@@ -292,6 +344,8 @@ def get_encoding(n_input_dims, config):
         enc = CPEncoding(n_input_dims, config)
     elif otype == "HashGrid":
         enc = HashGridEncoding(n_input_dims, config)
+    elif otype == "ProgressiveBandHashGrid":
+        enc = ProgressiveBandHashGrid(n_input_dims, config)
     elif otype == "SphericalHarmonics":
         enc = SphericalHarmonicsEncoding(n_input_dims, config)
     elif otype in _LATER:
@@ -371,7 +425,7 @@ class EncodingWithNetwork:
             "network": self.network.init(generator, device),
         }
 
-    def apply(self, params, x, grouped=False):
+    def apply(self, params, x, step=None, grouped=False):
         if self.fused:
             inner = self.encoding.encoding
             op = cp_mlp_stacked_forward if inner.stack_scales else cp_mlp_forward
@@ -384,7 +438,8 @@ class EncodingWithNetwork:
             )
             return self.network.output_activation(out)
         return self.network.apply(
-            params["network"], self.encoding.apply(params["encoding"], x, grouped=grouped)
+            params["network"],
+            self.encoding.apply(params["encoding"], x, step=step, grouped=grouped),
         )
 
 

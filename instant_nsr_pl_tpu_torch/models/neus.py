@@ -155,18 +155,19 @@ class NeuSModel:
         return float(min(np.float32(1.0), np.float32(step) / np.float32(self.cos_anneal_end)))
 
     # -- occupancy maintenance (reference models/neus.py:94-111) -----------
-    def update_occupancy(self, params, occ, generator, warmup=False, phase=None):
-        """One grid update with the occupancy estimated from the SDF: the
-        alpha of a step-sized section at the cell's point, without the view
-        term (``geometry.apply`` without gradient: the plain CP encode, K5 on
-        the card, in chunks of 2^18 points)."""
+    def update_occupancy(self, params, occ, generator, warmup=False, phase=None, step=None):
+        """One grid update with the occupancy estimated from the SDF at
+        training step ``step``: the alpha of a step-sized section at the
+        cell's point, without the view term (``geometry.apply`` without
+        gradient: the plain encode, K5 or HG1 on the card, in chunks of 2^18
+        points)."""
         if not self.grid_prune:
             return occ
         inv_s = clip(self.variance.inv_s(params["variance"]), 1e-6, 1e6)
         half = self.render_step_size * 0.5
 
         def occ_eval(x):
-            sdf = self.geometry.apply(params["geometry"], x, with_grad=False,
+            sdf = self.geometry.apply(params["geometry"], x, step=step, with_grad=False,
                                       with_feature=False)
             prev_cdf = torch.sigmoid((sdf + half) * inv_s)
             next_cdf = torch.sigmoid((sdf - half) * inv_s)
@@ -238,11 +239,12 @@ class NeuSModel:
             sdf_laplace = None
             if geo.grad_type == "finite_difference":
                 sdf, sdf_grad, feature, sdf_laplace = geo.apply(
-                    params["geometry"], positions, with_grad=True, with_feature=True,
-                    with_laplace=True)
+                    params["geometry"], positions, step=step, with_grad=True,
+                    with_feature=True, with_laplace=True)
             else:
                 sdf, sdf_grad, feature = geo.apply(
-                    params["geometry"], positions, with_grad=True, with_feature=True)
+                    params["geometry"], positions, step=step, with_grad=True,
+                    with_feature=True)
             # an EXACTLY zero gradient (padding samples with collapsed clipped
             # stencils) makes the norm's backward NaN even where masked:
             # substitute a safe unit vector
@@ -302,33 +304,33 @@ class NeuSModel:
         return out
 
     # -- mesh export (reference models/neus.py:316-321) ---------------------
-    def forward_level(self, params, points):
-        return self.geometry.forward_level(params["geometry"], points)
+    def forward_level(self, params, points, step=None):
+        return self.geometry.forward_level(params["geometry"], points, step=step)
 
-    def isosurface(self, params):
-        return self.geometry.isosurface(params["geometry"])
+    def isosurface(self, params, step=None):
+        return self.geometry.isosurface(params["geometry"], step=step)
 
-    def vertex_colors(self, params, v_pos):
+    def vertex_colors(self, params, v_pos, step=None):
         """The "albedo" colour at points (N, 3): the radiance seen along
         -normal, the normal from the analytic SDF gradient (on the jac path,
-        K7 or K9 in eval mode on the card), clipped to [0, 1]."""
-        _, sdf_grad, feature = self.geometry.apply(params["geometry"], v_pos, with_grad=True,
-                                                   with_feature=True)
+        K7, K9 or HG3 in eval mode on the card), clipped to [0, 1]."""
+        _, sdf_grad, feature = self.geometry.apply(params["geometry"], v_pos, step=step,
+                                                   with_grad=True, with_feature=True)
         normal = sdf_grad / torch.clamp(torch.linalg.norm(sdf_grad, dim=-1, keepdim=True),
                                         min=1e-10)
         rgb = self.texture.apply(params["texture"], feature, -normal, normal)
         return torch.clamp(rgb, 0.0, 1.0)
 
-    def export(self, params, export_config):
-        """The mesh (``isosurface``) and, with ``export_vertex_color`` and a
-        surface to colour, its :meth:`vertex_colors`, in chunks of
-        ``export.chunk_size`` points capped at 262,144 under
-        ``torch.no_grad``. A failure of the colour pass propagates: no
-        geometry-only mesh stands in for it."""
-        mesh = self.isosurface(params)
+    def export(self, params, export_config, step=None):
+        """The mesh (``isosurface``) at training step ``step`` and, with
+        ``export_vertex_color`` and a surface to colour, its
+        :meth:`vertex_colors`, in chunks of ``export.chunk_size`` points
+        capped at 262,144 under ``torch.no_grad``. A failure of the colour
+        pass propagates: no geometry-only mesh stands in for it."""
+        mesh = self.isosurface(params, step)
         if export_config.get("export_vertex_color", False) and len(mesh["v_pos"]):
             chunk = min(int(export_config.get("chunk_size", 2097152)), 262144)
             with torch.no_grad():
-                mesh["v_rgb"] = chunked_point_eval(lambda v: self.vertex_colors(params, v),
+                mesh["v_rgb"] = chunked_point_eval(lambda v: self.vertex_colors(params, v, step),
                                                    mesh["v_pos"], chunk, params_device(params))
         return mesh

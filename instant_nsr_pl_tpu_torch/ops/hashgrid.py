@@ -1,11 +1,13 @@
 """Multiresolution hash-grid encoding (Instant-NGP), forward and table
-gradient.
+gradient, and the encoding with its position Jacobian.
 
 Port of ``instant_nsr_pl_tpu/ops/hashgrid.py``: :class:`HashGridSpec`
 (:44-153, copied field for field), :func:`hashgrid_init` (:155-169),
 :func:`level_corner_indices` (:172-222), :func:`hashgrid_encode` (:458-498,
-the plain version, differentiable at any order) and
-:func:`hashgrid_encode_fast` (:576-765, first order). The level layout is the
+the plain version, differentiable at any order),
+:func:`hashgrid_encode_fast` (:576-765, first order) and
+:func:`hashgrid_encode_with_jac` (:767-957, first order: the features and
+their analytic Jacobian for the NeuS SDF's gradient). The level layout is the
 JAX package's (and tcnn's):
 
 - level ``l`` scale ``s_l = 2^(l*log2(b)) * N_min - 1``, resolution
@@ -24,10 +26,12 @@ corner on the card). A JAX table carries across transposed
 
 ``hashgrid_encode_fast`` launches ``csrc/hashgrid_fwd.cu`` (HG1) in its
 forward and ``csrc/hashgrid_bwd.cu`` (HG2) in its backward on CUDA tensors,
-and the plain versions below on CPU tensors; there is no fallback from one to
-the other. The JAX fast path is XLA, not Pallas: it saves the taps (indices,
-weights, gathered rows) for a backward of two-sort segment sums and bf16
-one-hot matmuls. Here the backward recomputes the taps (HG2 re-hashes; the
+and ``hashgrid_encode_with_jac`` ``csrc/hashgrid_jac_fwd.cu`` (HG3) and
+``csrc/hashgrid_jac_bwd.cu`` (HG4); on CPU tensors both run the plain
+versions below, and there is no fallback from one to the other. The JAX
+fast paths are XLA, not Pallas: they save the taps (indices, weights,
+gathered rows) for a backward of two-sort segment sums and bf16 one-hot
+matmuls. Here the backwards recompute the taps (HG2 / HG4 re-hash; the
 table rows are read again only for the position gradient) and scatters
 ``w * ct`` with float32 vector atomics straight into the (T, F) gradient,
 merging equal rows within a warp first: saving the taps at the bench shape
@@ -172,6 +176,12 @@ def level_corner_indices(spec: HashGridSpec, xt, level: int):
     Returns:
       idx: (8, N) int64 rows of the (total_params, F) table; w: (8, N) float32.
     """
+    idx, w, _ = _level_taps(spec, xt, level)
+    return idx, w
+
+
+def _level_taps(spec: HashGridSpec, xt, level: int):
+    """:func:`level_corner_indices` and the (3, N) cell fractions."""
     res = spec.resolutions[level]
     size = spec.level_sizes[level]
     hashed = spec.level_hashed[level]
@@ -194,7 +204,7 @@ def level_corner_indices(spec: HashGridSpec, xt, level: int):
         for d in (1, 2):
             w = w * (frac[d] if bits[d] else 1.0 - frac[d])
         w_list.append(w)
-    return torch.stack(idx_list), torch.stack(w_list)
+    return torch.stack(idx_list), torch.stack(w_list), frac
 
 
 def _corner_sum(rows, w):
@@ -335,7 +345,159 @@ def hashgrid_backward_plain(table, x, dout, spec: HashGridSpec, level_mask=None,
 
 
 # ---------------------------------------------------------------------------
-# the kernels (HG1, HG2)
+# features with their position Jacobian (HG3 forward, HG4 backward)
+# ---------------------------------------------------------------------------
+
+
+def _scale32(spec: HashGridSpec, level: int) -> float:
+    """Level ``level``'s scale rounded to float32, as the kernels read it."""
+    return float(torch.tensor(spec.scales[level], dtype=torch.float32))
+
+
+def _corner_partials(frac, s: float):
+    """d w_c / d x_d in world units, (8, 3, N): sign_cd times the product of
+    the other two axes' tents p times s (JAX ``_jac_weights``), and the tents
+    p (8, 3, N) with p_cd = frac_d where corner c sets bit d, else 1 - frac_d."""
+    bits = _CORNER_BITS.to(frac.device)[:, :, None]  # (8, 3, 1)
+    p = bits * frac[None] + (1.0 - bits) * (1.0 - frac[None])
+    prod_excl = torch.stack([p[:, 1] * p[:, 2], p[:, 0] * p[:, 2], p[:, 0] * p[:, 1]], dim=1)
+    return (bits * 2.0 - 1.0) * prod_excl * s, p
+
+
+@torch.no_grad()
+def hashgrid_jac_forward_plain(table, x, spec: HashGridSpec, level_mask=None):
+    """Plain version of HG3: the features (..., L*F), equal to
+    :func:`hashgrid_encode`'s to the bit, and their position Jacobian
+    (3, ..., L*F), ``jac[d] = sum_c dw_cd * T[row_c]`` summed over the corners
+    in order 0..7 with each product and sum rounded once (JAX
+    ``_encode_jac_fwd_impl``, :797; its einsum sums in XLA's order)."""
+    batch_shape = x.shape[:-1]
+    xt = x.reshape(-1, 3).T
+    feats, jacs = [], []
+    for level in range(spec.n_levels):
+        idx, w, frac = _level_taps(spec, xt, level)
+        rows = table.T[:, idx]  # (F, 8, N)
+        feat = _corner_sum(rows, w.to(table.dtype))  # (F, N)
+        dw, _ = _corner_partials(frac, _scale32(spec, level))  # (8, 3, N)
+        jac = dw[0][:, None] * rows[None, :, 0]  # (3, F, N)
+        for c in range(1, 8):
+            jac = jac + dw[c][:, None] * rows[None, :, c]
+        if level_mask is not None:
+            m = level_mask[level].to(feat.dtype)
+            feat, jac = feat * m, jac * m
+        feats.append(feat)
+        jacs.append(jac)
+    lf = spec.n_output_dims
+    feat = torch.cat(feats, dim=0).T.reshape(*batch_shape, lf)
+    jac = torch.cat(jacs, dim=1).transpose(1, 2).reshape(3, *batch_shape, lf)
+    return feat, jac
+
+
+@torch.no_grad()
+def hashgrid_jac_backward_plain(table, x, ct_feat, ct_jac, spec: HashGridSpec, level_mask=None,
+                                with_dx=False, accumulate=torch.float32):
+    """Plain version of HG4 (JAX ``_encode_jac_bwd``, :841): per level,
+    ``index_add_`` of each corner's ``w_c ct_f + sum_d dw_cd ct_j[d]`` into
+    the table gradient; with ``with_dx`` the position gradient, the feature
+    cotangent through dw plus the Jacobian cotangent through the mixed second
+    derivatives ``d2 w_c / dx_d dx_e = s^2 sign_cd sign_ce p_c,g`` (g the
+    third axis, e != d; the diagonal is zero). Returns (dtable, dx or None).
+    ``accumulate``: the type the float32 updates are summed in (float64
+    gives their exact sum, the card tests' reference for HG4's atomics; the
+    table gradient is then returned in it)."""
+    batch_shape = x.shape[:-1]
+    xt = x.reshape(-1, 3).T.float()
+    n = xt.shape[1]
+    f = spec.n_features_per_level
+    ctf = ct_feat.reshape(n, spec.n_levels, f).float()
+    ctj = ct_jac.reshape(3, n, spec.n_levels, f).float()
+    dtable = torch.zeros_like(table, dtype=accumulate)
+    dx_t = torch.zeros_like(xt) if with_dx else None
+    signs = _CORNER_BITS.to(x.device) * 2.0 - 1.0  # (8, 3)
+    for level in range(spec.n_levels):
+        g_f, g_j = ctf[:, level], ctj[:, :, level]  # (N, F), (3, N, F)
+        if level_mask is not None:
+            m = level_mask[level].float()
+            g_f, g_j = g_f * m, g_j * m
+        idx, w, frac = _level_taps(spec, xt, level)
+        s = _scale32(spec, level)
+        dw, p = _corner_partials(frac, s)  # (8, 3, N) each
+        upd = w[:, :, None] * g_f[None]  # (8, N, F)
+        for d in range(3):
+            upd = upd + dw[:, d, :, None] * g_j[d][None]
+        dtable.index_add_(0, idx.reshape(-1), upd.reshape(8 * n, f).to(accumulate))
+        if with_dx:
+            rows = table.T[:, idx].float()  # (F, 8, N)
+            tg_f = (rows * g_f.T[:, None, :]).sum(0)  # (8, N)
+            dx_t += (dw * tg_f[:, None, :]).sum(0)
+            tg_j = (rows[None] * g_j.transpose(1, 2)[:, :, None, :]).sum(1)  # (3, 8, N)
+            for d in range(3):
+                for e in range(3):
+                    if e != d:  # the third axis is 3 - d - e
+                        d2 = signs[:, d, None] * signs[:, e, None] * p[:, 3 - d - e] * (s * s)
+                        dx_t[d] += (d2 * tg_j[e]).sum(0)
+    dx = dx_t.T.reshape(*batch_shape, 3).to(x.dtype) if with_dx else None
+    return (dtable.to(table.dtype) if accumulate == torch.float32 else dtable), dx
+
+
+def hashgrid_encode_with_jac(table, x, spec: HashGridSpec, level_mask=None):
+    """Features (..., L*F) and their position Jacobian (3, ..., L*F),
+    coordinate-major (JAX ``hashgrid_encode_with_jac``, :767): HG3 forward
+    and HG4 backward on the card, the plain versions on the CPU. First order,
+    as the JAX custom VJP: the table gets a cotangent from both outputs, ``x``
+    one only when it requires grad, ``level_mask`` none. Nothing is saved
+    for the backward but the inputs: HG4 recomputes the taps."""
+    _check_spec(spec, table)
+    if torch.is_grad_enabled() and (table.requires_grad or x.requires_grad):
+        return _HashGridJac.apply(table, x, spec, level_mask)
+    return hashgrid_jac_forward(table, x, spec, level_mask)
+
+
+class _HashGridJac(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, x, spec, level_mask):
+        ctx.save_for_backward(table, x, level_mask)
+        ctx.spec = spec
+        return hashgrid_jac_forward(table, x, spec, level_mask)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_feat, ct_jac):
+        table, x, level_mask = ctx.saved_tensors
+        dtable, dx = hashgrid_jac_backward(table, x, ct_feat.contiguous(), ct_jac.contiguous(),
+                                           ctx.spec, level_mask,
+                                           with_dx=ctx.needs_input_grad[1])
+        return dtable, dx, None, None
+
+
+def hashgrid_jac_forward(table, x, spec: HashGridSpec, level_mask=None):
+    """(feat, jac): HG3 on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cuda":
+        return hashgrid_jac_forward_launch(table, x, spec, level_mask)
+    if x.device.type == "cpu":
+        return hashgrid_jac_forward_plain(table, x, spec, level_mask)
+    raise ValueError(f"hashgrid_jac_forward: unsupported device {x.device}")
+
+
+hashgrid_jac_forward.launches = 0
+
+
+def hashgrid_jac_backward(table, x, ct_feat, ct_jac, spec: HashGridSpec, level_mask=None,
+                          with_dx=False):
+    """(dtable, dx or None) for the cotangents of feat and jac: HG4 on CUDA
+    tensors, the plain version on CPU tensors."""
+    if x.device.type == "cuda":
+        return hashgrid_jac_backward_launch(table, x, ct_feat, ct_jac, spec, level_mask, with_dx)
+    if x.device.type == "cpu":
+        return hashgrid_jac_backward_plain(table, x, ct_feat, ct_jac, spec, level_mask, with_dx)
+    raise ValueError(f"hashgrid_jac_backward: unsupported device {x.device}")
+
+
+hashgrid_jac_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels (HG1-HG4)
 # ---------------------------------------------------------------------------
 
 
@@ -421,4 +583,64 @@ def hashgrid_backward_launch(table, x, dout, spec: HashGridSpec, level_mask=None
                 dtable.data_ptr(), dx.data_ptr() if with_dx else None, stream)
     cuda_build.check(rc, "hashgrid_backward", "n_features_per_level in {1, 2, 4, 8}")
     hashgrid_backward.launches += 1
+    return dtable, (dx.reshape(*x.shape[:-1], 3) if with_dx else None)
+
+
+def hashgrid_jac_forward_launch(table, x, spec: HashGridSpec, level_mask=None):
+    """Launch ``csrc/hashgrid_jac_fwd.cu`` (HG3) for CUDA x; see
+    :func:`hashgrid_jac_forward_plain` for the outputs. With no samples it
+    returns empty outputs and launches nothing."""
+    xf, mask = _operands("hashgrid_jac_forward", table, x, spec, level_mask)
+    n = xf.shape[0]
+    f, lf = spec.n_features_per_level, spec.n_output_dims
+    feat = torch.empty((n, lf), dtype=torch.float32, device=x.device)
+    jac = torch.empty((3, n, lf), dtype=torch.float32, device=x.device)
+    if n > 0:
+        fn = cuda_build.entry("hashgrid_jac_fwd", "hashgrid_jac_fwd", [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(_Level), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ])
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(xf.data_ptr(), n, table.data_ptr(), spec.n_levels, f, level_params(spec),
+                    mask.data_ptr() if mask is not None else None, feat.data_ptr(),
+                    jac.data_ptr(), stream)
+        cuda_build.check(rc, "hashgrid_jac_forward", "n_features_per_level in {1, 2, 4, 8}")
+        hashgrid_jac_forward.launches += 1
+    return feat.reshape(*x.shape[:-1], lf), jac.reshape(3, *x.shape[:-1], lf)
+
+
+def hashgrid_jac_backward_launch(table, x, ct_feat, ct_jac, spec: HashGridSpec,
+                                 level_mask=None, with_dx=False):
+    """Launch ``csrc/hashgrid_jac_bwd.cu`` (HG4) for CUDA tensors; see
+    :func:`hashgrid_jac_backward` for the outputs. The kernel scatters into
+    the zeroed (T, F) gradient. With no samples it returns zeros and launches
+    nothing."""
+    xf, mask = _operands("hashgrid_jac_backward", table, x, spec, level_mask)
+    n = xf.shape[0]
+    f, lf = spec.n_features_per_level, spec.n_output_dims
+    if ct_feat.dtype != torch.float32 or ct_jac.dtype != torch.float32:
+        raise ValueError(f"hashgrid_jac_backward: cotangents must be float32, got "
+                         f"{ct_feat.dtype} {ct_jac.dtype}")
+    ctf = ct_feat.reshape(n, lf).contiguous()
+    ctj = ct_jac.reshape(3, n, lf).contiguous()
+    cuda_build.check_operands("hashgrid_jac_backward", (ctf, ctj), ((n, lf), (3, n, lf)),
+                              x.device)
+    dx = torch.empty((n, 3), dtype=torch.float32, device=x.device) if with_dx else None
+    dtable = torch.zeros_like(table)
+    if n > 0:
+        fn = cuda_build.entry("hashgrid_jac_bwd", "hashgrid_jac_bwd", [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Level),
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ])
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(xf.data_ptr(), n, ctf.data_ptr(), ctj.data_ptr(), table.data_ptr(),
+                    spec.n_levels, f, level_params(spec),
+                    mask.data_ptr() if mask is not None else None, dtable.data_ptr(),
+                    dx.data_ptr() if with_dx else None, stream)
+        cuda_build.check(rc, "hashgrid_jac_backward", "n_features_per_level in {1, 2, 4, 8}")
+        hashgrid_jac_backward.launches += 1
     return dtable, (dx.reshape(*x.shape[:-1], 3) if with_dx else None)

@@ -234,7 +234,8 @@ class BaseSystem:
         if not warmup and self.grid_update_sampling == "slab":
             phase = (state["step"] // self.grid_update_every) % 8
         state["occ"] = self.model.update_occupancy(
-            state["params"], state["occ"], state["generator"], warmup=warmup, phase=phase
+            state["params"], state["occ"], state["generator"], warmup=warmup, phase=phase,
+            step=state["step"],
         )
         return state
 

@@ -24,7 +24,7 @@ class NeRFSystem(BaseSystem):
         out = self.model.forward(
             params, occ, batch["rays_o"], batch["rays_d"],
             background_color=batch["background_color"], capacity=capacity,
-            train=True, randomized=self.randomized, generator=generator,
+            train=True, randomized=self.randomized, generator=generator, step=step,
         )
         # loss only on rays that hit something AND were fully packed
         mask = (out["rays_valid"][:, 0] & out["rays_kept"]).float()
@@ -55,6 +55,7 @@ class NeRFSystem(BaseSystem):
             rays_d,
             background_color=bg,
             capacity=capacity or self.eval_capacity,
+            step=step,
         )
         return {
             "comp_rgb": out["comp_rgb"],

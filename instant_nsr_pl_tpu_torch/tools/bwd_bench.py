@@ -215,18 +215,19 @@ CUTS.update({
         "for (int q = 0; q < K::FPS; ++q) {", "for (int q = 0; q < 0; ++q) {")]),
     "k10_tc_no_dp_dj": ("cp_jac_basis_bwd", [(
         "cp_jac_basis_bwd.cu", "            mma_bf16(dq[q], af, bq[q]);\n", "")]),
-    # the merged-scatter HG2: no merge within a warp; the (F, T) layout's two 4-byte atomics
-    # per corner in place of one 8-byte atomic (bench shape: T = 6,299,960);
-    # no atomics
+    # the merged-scatter HG2 (its scatter, hash_scatter, lives in
+    # csrc/hashgrid_common.cuh, which HG4 shares): no merge within a warp;
+    # the (F, T) layout's two 4-byte atomics per corner in place of one
+    # 8-byte atomic (bench shape: T = 6,299,960); no atomics
     "hg2_new_no_merge": ("hashgrid_bwd", [(
-        "hashgrid_bwd.cu", "        const bool head = lane == 0 || left != row;",
+        "hashgrid_common.cuh", "        const bool head = lane == 0 || left != row;",
         "        const bool head = true;")]),
     "hg2_new_ft_atomics": ("hashgrid_bwd", [(
-        "hashgrid_bwd.cu",
+        "hashgrid_common.cuh",
         "    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));",
         "    atomicAdd(dtable + row, v[0]);\n    atomicAdd(dtable + 6299960LL + row, v[1]);")]),
     "hg2_new_no_atomics": ("hashgrid_bwd", [(
-        "hashgrid_bwd.cu",
+        "hashgrid_common.cuh",
         "  float* p = dtable + static_cast<long long>(row) * F;\n",
         "  float* p = dtable + static_cast<long long>(row) * F;\n"
         "  if (v[0] == 1.2345e-37f) *p = v[0];  // keeps the value live\n  return;\n")]),
@@ -288,9 +289,9 @@ CUTS.update({
         "cp_async16_ca(gt + item * K::LDD + ch * 8, gdsrc + row * C + c0 + ch * 8);",
         "cp_async16(gt + item * K::LDD + ch * 8, gdsrc + row * C + c0 + ch * 8, 16);")]),
     "hg2_no_block_merge": ("hashgrid_bwd", [
-        ("hashgrid_bwd.cu", "        if (lane == first_end || lane == 31) {",
+        ("hashgrid_common.cuh", "        if (lane == first_end || lane == 31) {",
          "        if (false) {"),
-        ("hashgrid_bwd.cu", "      if (threadIdx.x < 8) {", "      if (false) {")]),
+        ("hashgrid_common.cuh", "      if (threadIdx.x < 8) {", "      if (false) {")]),
 })
 # K5 / K9 (csrc/cp_product_fwd.cu, csrc/cp_jac_basis_fwd.cu, the tile designs):
 # one gather step's loads in flight instead of two (for K5 also with three

@@ -192,10 +192,12 @@ class Trainer:
                                  fps=30)
 
     def export(self, system, state):
-        """The mesh of ``state`` (``model.export`` with the config's
-        ``export`` section) to ``it{step}-{model.name}.obj``; returns it."""
-        mesh = system.model.export(state["params"], self.config.get("export", None) or {})
+        """The mesh of ``state`` at its step (``model.export`` with the
+        config's ``export`` section) to ``it{step}-{model.name}.obj``;
+        returns it."""
         step = int(state["step"])
+        mesh = system.model.export(state["params"], self.config.get("export", None) or {},
+                                   step=step)
         savers.save_obj(self.save_dir, f"it{step}-{self.config.model.get('name', 'model')}.obj",
                         mesh["v_pos"], mesh["t_pos_idx"], v_rgb=mesh.get("v_rgb"))
         return mesh

@@ -2,8 +2,10 @@
 card: the bench NeRF or the bench NeuS of chip_smoke.py (8,192 rays and
 262,144 packed samples per step), or any NeRF or NeuS config given with
 ``--config`` (the stacked ones: ``instant_nsr_pl_tpu_torch/configs/
-{nerf,neus}-cp-stacked-synthetic.yaml``), after 40 warm-up steps from random
-weights.
+{nerf,neus}-cp-stacked-synthetic.yaml``; NeuS on the hash grid:
+``configs/neus-synthetic.yaml``), after 40 warm-up steps from random
+weights (with dynamic ray sampling the ray count adapts every 10 of them,
+as the trainer adapts it at its log cadence).
 
     python3 scripts/profile_torch_train.py [--model nerf|neus] [--config x.yaml]
         [--out profile_train.json]
@@ -16,9 +18,9 @@ and power limit:
   compositing and the loss, autograd of compositing, the rest of the
   backward (K2 or K14, K4 and the small ops around them), AdamW. NeuS: ray
   sampling, march, the SDF encoding and its Jacobian (K9 per scale or, stacked,
-  K11 once), the SDF MLP with its three tangents, K3 (radiance with the
-  normals), compositing and the loss, the backward (K10 or K12, K4, the
-  MLP's second-order graph and compositing), AdamW. Both add the grid update
+  K11 once; HG3 on a hash grid), the SDF MLP with its three tangents, K3
+  (radiance with the normals), compositing and the loss, the backward (K10,
+  K12 or HG4, K4, the MLP's second-order graph and compositing), AdamW. Both add the grid update
   amortised over its cadence (one slab update every 16 steps);
 - for 10 whole steps under torch.profiler: wall, summed device kernel time,
   the device's busy share (kernel time / wall) and the top device kernels.
@@ -178,8 +180,10 @@ def main():
     system = systems.make(cfg.system.name, cfg)
     system.setup_data(dm.train)
     state = system.init_state(seed=chip_smoke.SEED)
-    for _ in range(40):
-        state, _ = system.train_step(state)
+    for i in range(40):
+        state, metrics = system.train_step(state)
+        if i % 10 == 9:  # dynamic ray sampling: the trainer's adaptation at its log cadence
+            system.adapt_num_rays(float(metrics["train/num_samples"]))
     torch.cuda.synchronize()
     model, params, gen = system.model, state["params"], state["generator"]
     n_rays, capacity = system.active_num_rays, system.train_capacity

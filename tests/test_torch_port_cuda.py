@@ -1167,6 +1167,143 @@ def test_hash_backward_no_samples(cuda_device, name, masked):
     assert hg.hashgrid_backward.launches == before
 
 
+# HG3 / HG4 (csrc/hashgrid_jac_{fwd,bwd}.cu: the hash encoding with its
+# position Jacobian, and its backward from both cotangents) at
+# configs/neus-synthetic.yaml's grid
+def _neus_hash():
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+
+    return HashGridSpec(n_levels=12, n_features_per_level=2, log2_hashmap_size=18,
+                        base_resolution=32, per_level_scale=1.3195079107728942)
+
+
+def _jac_case(x, seed, masked, device):
+    """The table (values of order 1), both cotangents and the mask (a
+    ProgressiveBandHashGrid's 5 levels of 12) for positions x."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = _neus_hash()
+    gen = torch.Generator().manual_seed(seed)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(device)
+    n = x.shape[0]
+    ct_f = torch.randn((n, spec.n_output_dims), generator=gen).to(device)
+    ct_j = torch.randn((3, n, spec.n_output_dims), generator=gen).to(device)
+    mask = (torch.arange(12) < 5).float().to(device) if masked else None
+    return spec, table, ct_f, ct_j, mask
+
+
+def _check_hash_jac(spec, table, x, ct_f, ct_j, mask):
+    """HG4 with and without d x: the table gradient within 1e-5 x max|exact|
+    per level of the float64 sum of the plain version's float32 updates
+    (atomics sum in another order each run), d x within 1e-4 x max|plain|."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    dt, dx = hg.hashgrid_jac_backward_launch(table, x, ct_f, ct_j, spec, mask, with_dx=True)
+    dt_only, no_dx = hg.hashgrid_jac_backward_launch(table, x, ct_f, ct_j, spec, mask)
+    torch.cuda.synchronize()
+    assert no_dx is None
+    rt, rx = hg.hashgrid_jac_backward_plain(table, x, ct_f, ct_j, spec, mask, with_dx=True,
+                                            accumulate=torch.float64)
+    for lv in range(spec.n_levels):
+        sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+        _close(dt[sl].double(), rt[sl], rel=1e-5)
+        _close(dt_only[sl].double(), rt[sl], rel=1e-5)
+    _close(dx, rx, rel=1e-4)
+    return dt, dx
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_hash_jac_kernels_match_plain(cuda_device, masked):
+    """HG3 on a ragged N with exact 0 / 1 coordinates: its features equal to
+    HG1's (and the plain version's) to the bit, its Jacobian within 2e-2 x
+    max|plain| of the plain version; HG4 within the HG2 limits
+    (``_check_hash_jac``); each launch counted once; through the autograd
+    op the table gets HG4's gradient, and x one only when it requires
+    grad."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    gen = torch.Generator().manual_seed(17)
+    x = torch.rand((20011, 3), generator=gen)
+    x[:3] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0]])
+    x = x.to(cuda_device)
+    spec, table, ct_f, ct_j, mask = _jac_case(x, 18, masked, cuda_device)
+    before = hg.hashgrid_jac_forward.launches
+    feat, jac = hg.hashgrid_jac_forward(table, x, spec, mask)
+    torch.cuda.synchronize()
+    assert hg.hashgrid_jac_forward.launches == before + 1
+    assert feat.shape == (20011, 24) and jac.shape == (3, 20011, 24)
+    assert torch.equal(feat, hg.hashgrid_forward_launch(table, x, spec, mask))
+    ref_f, ref_j = hg.hashgrid_jac_forward_plain(table, x, spec, mask)
+    assert torch.equal(feat, ref_f)
+    _close(jac, ref_j, rel=2e-2)
+    before = hg.hashgrid_jac_backward.launches
+    _check_hash_jac(spec, table, x, ct_f, ct_j, mask)
+    assert hg.hashgrid_jac_backward.launches == before + 2
+    t = table.clone().requires_grad_(True)
+    f2, j2 = hg.hashgrid_encode_with_jac(t, x, spec, mask)
+    ((f2 * ct_f).sum() + (j2 * ct_j).sum()).backward()
+    rt, _ = hg.hashgrid_jac_backward_plain(table, x, ct_f, ct_j, spec, mask,
+                                           accumulate=torch.float64)
+    _close(t.grad.double(), rt, rel=1e-5)
+    a = x.clone().requires_grad_(True)
+    f3, j3 = hg.hashgrid_encode_with_jac(table, a, spec, mask)
+    ((f3 * ct_f).sum() + (j3 * ct_j).sum()).backward()
+    _, rx = hg.hashgrid_jac_backward_plain(table, x, ct_f, ct_j, spec, mask, with_dx=True)
+    _close(a.grad, rx, rel=1e-4)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_hash_jac_backward_order_and_repeat(cuda_device, masked):
+    """Ray-ordered samples (8 rays of 512: the coarse levels' rows repeat
+    within a warp, so the merges run) and a shuffled copy: both within the
+    limits, d x of the shuffled call equal to the permuted d x, HG3's
+    outputs of the shuffled call equal to the permuted outputs."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import positions
+
+    gen = torch.Generator().manual_seed(19)
+    x = positions(gen, "ray", 4096).to(cuda_device)
+    spec, table, ct_f, ct_j, mask = _jac_case(x, 20, masked, cuda_device)
+    perm = torch.randperm(4096, generator=gen).to(cuda_device)
+    _, dx = _check_hash_jac(spec, table, x, ct_f, ct_j, mask)
+    xp = x[perm].contiguous()
+    _, dx_p = _check_hash_jac(spec, table, xp, ct_f[perm].contiguous(),
+                              ct_j[:, perm].contiguous(), mask)
+    assert torch.equal(dx_p, dx[perm])
+    feat, jac = hg.hashgrid_jac_forward_launch(table, x, spec, mask)
+    feat_p, jac_p = hg.hashgrid_jac_forward_launch(table, xp, spec, mask)
+    assert torch.equal(feat_p, feat[perm]) and torch.equal(jac_p, jac[:, perm])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_hash_jac_backward_one_point(cuda_device, masked):
+    """Every one of 4,096 samples at the same position: each warp sums its
+    32 samples, each block its warps' sums in warp order, into one update
+    per level and corner; the table gradient within 1e-5 x max|exact| of
+    the float64 sum of the same updates, d x within its limit."""
+    x = torch.tensor([[0.3, 0.71, 0.52]]).repeat(4096, 1).to(cuda_device)
+    spec, table, ct_f, ct_j, mask = _jac_case(x, 21, masked, cuda_device)
+    _check_hash_jac(spec, table, x, ct_f, ct_j, mask)
+
+
+def test_hash_jac_no_samples(cuda_device):
+    """N = 0: empty outputs and a zero table gradient, no launch."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    x = torch.zeros((0, 3), device=cuda_device)
+    spec, table, ct_f, ct_j, mask = _jac_case(x, 22, True, cuda_device)
+    before = (hg.hashgrid_jac_forward.launches, hg.hashgrid_jac_backward.launches)
+    feat, jac = hg.hashgrid_jac_forward_launch(table, x, spec, mask)
+    assert feat.shape == (0, 24) and jac.shape == (3, 0, 24)
+    for with_dx in (False, True):
+        dt, dx = hg.hashgrid_jac_backward_launch(table, x, ct_f, ct_j, spec, mask,
+                                                 with_dx=with_dx)
+        torch.cuda.synchronize()
+        assert dt.shape == table.shape and not bool(dt.any())
+        assert dx is None if not with_dx else tuple(dx.shape) == (0, 3)
+    assert (hg.hashgrid_jac_forward.launches, hg.hashgrid_jac_backward.launches) == before
+
+
 # K1 / K13 / cp_big's K1 (csrc/cp_mlp_fwd.cu: tensor-core tiles of 64
 # samples) and HG1 (csrc/hashgrid_fwd.cu: level-major, (T, F) table)
 _FWD_SHAPES = [("bench", 64, (128, 2048), False), ("stacked", 64, (129, 2049), True),

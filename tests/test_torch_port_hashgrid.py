@@ -3,8 +3,9 @@ widths (HashGrid of 5 levels, 2^12 rows: 3 dense and 2 hashed levels; MLPs
 32 wide): a hash NeRF's composited chunk and one training step's loss and
 gradients from transplanted JAX parameters and an SDF occupancy grid; the
 JAX ``.npz`` train state of a hash NeRF loaded into the port; the
-finite-difference NeuS SDF and its gradients; the refusal of an analytic
-NeuS with a hash grid; and the repo's ``configs/nerf-synthetic.yaml`` through
+finite-difference NeuS SDF and its gradients; the analytic and progressive
+NeuS geometries on a hash grid built (slice 7; their values against JAX are
+in ``test_torch_port_neus_hash.py``); and the repo's ``configs/nerf-synthetic.yaml`` through
 the port's launcher on the CPU (train, test, export) with size overrides.
 
 The JAX side runs ``grad_mode: fast`` (``hashgrid_encode_fast``, with the
@@ -40,6 +41,7 @@ from instant_nsr_pl_tpu_torch.config import config_from_dict as t_config
 from instant_nsr_pl_tpu_torch.launch import main as launch_main
 from instant_nsr_pl_tpu_torch.models.network_utils import (
     HashGridEncoding,
+    ProgressiveBandHashGrid,
     make_trainable,
     named_leaves,
 )
@@ -307,20 +309,33 @@ def test_fd_neus_sdf_and_gradients_match_jax():
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_analytic_neus_with_hash_grid_is_refused(device):
-    """A HashGrid SDF with analytic gradients needs the hash grid's Jacobian
-    kernels (slice 7): refused when the geometry is built, whatever the
-    device (building the geometry touches no device)."""
-    for analytic_jac in (True, False):
-        cfg = {**_sdf_geometry("analytic"), "analytic_jac": analytic_jac}
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            t_reg.models.make("volume-sdf", t_config(copy.deepcopy(cfg)))
+    """No longer refused since slice 7 (the test keeps its name): a HashGrid
+    SDF with analytic gradients builds on the jac path by default
+    (``use_jac``, the encoding in its fast mode: HG3 / HG4 on the card), with
+    ``analytic_jac: false`` in the autodiff mode, and finite differences with
+    ``finite_difference_eps: progressive`` build with a
+    ProgressiveBandHashGrid (its eps shrinks as the levels unmask); building
+    a geometry touches no device, and on the CPU its parameters
+    initialise."""
+    geo = t_reg.models.make("volume-sdf", t_config(_sdf_geometry("analytic")))
+    assert geo.use_jac and geo.encoding.has_jac
+    assert isinstance(geo.encoding.encoding, HashGridEncoding)
+    assert geo.encoding.encoding.grad_mode == "fast"
+    cfg = {**_sdf_geometry("analytic"), "analytic_jac": False}
+    auto = t_reg.models.make("volume-sdf", t_config(cfg))
+    assert not auto.use_jac and auto.encoding.encoding.grad_mode == "autodiff"
     cfg = _sdf_geometry("finite_difference")
     cfg["finite_difference_eps"] = "progressive"
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_reg.models.make("volume-sdf", t_config(cfg))
-    geo = t_reg.models.make("volume-sdf", t_config(_sdf_geometry("finite_difference")))
+    cfg["xyz_encoding_config"] = {**cfg["xyz_encoding_config"],
+                                  "otype": "ProgressiveBandHashGrid", "start_level": 2,
+                                  "start_step": 0, "update_steps": 10}
+    band = t_reg.models.make("volume-sdf", t_config(cfg))
+    assert isinstance(band.encoding.encoding, ProgressiveBandHashGrid)
+    assert float(band.finite_difference_eps(0)) > float(band.finite_difference_eps(None))
+    fd = t_reg.models.make("volume-sdf", t_config(_sdf_geometry("finite_difference")))
     if device == "cpu":
-        assert geo.init(torch.Generator().manual_seed(0), "cpu")["encoding"]["table"].numel()
+        for g in (geo, auto, band, fd):
+            assert g.init(torch.Generator().manual_seed(0), "cpu")["encoding"]["table"].numel()
 
 
 def test_launcher_runs_repo_nerf_synthetic_config_on_cpu(tmp_path):

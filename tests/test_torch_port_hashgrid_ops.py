@@ -252,7 +252,8 @@ def test_hashgrid_encoding_module():
     """``get_encoding`` builds the HashGrid module: 'fast' (the default) and
     'autodiff' compute the same features; configure_dedup keeps the JAX
     module's dedup spec and the grouped call picks it only for whole blocks;
-    the encodings of later slices are refused with their ROADMAP item."""
+    ProgressiveBandHashGrid builds (slice 7), and the encodings of later
+    slices are refused with their ROADMAP item."""
     from instant_nsr_pl_tpu.models import network_utils as j_nu
 
     cfg = {"otype": "HashGrid", **{k: v for k, v in dict(
@@ -282,8 +283,11 @@ def test_hashgrid_encoding_module():
     assert torch.equal(enc.apply(params, x, grouped=True), enc.apply(params, x))
     with pytest.raises(ValueError, match="grad_mode"):
         t_nu.get_encoding(3, {**cfg, "grad_mode": "sort"})
-    for otype, item in (("ProgressiveBandHashGrid", "slice 7"), ("VanillaFrequency", "item 3"),
-                        ("VM", "item 3")):
+    band = t_nu.get_encoding(3, {**cfg, "otype": "ProgressiveBandHashGrid", "start_level": 2,
+                                 "start_step": 0, "update_steps": 4})  # ported in slice 7
+    assert isinstance(band.encoding, t_nu.ProgressiveBandHashGrid) and band.has_jac
+    assert torch.equal(band.apply(params, x), enc.apply(params, x))  # no step: no mask
+    for otype, item in (("VanillaFrequency", "item 3"), ("VM", "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             t_nu.get_encoding(3, {**cfg, "otype": otype})
 

@@ -448,16 +448,18 @@ def test_later_slices_raise(what):
     """What the port does not have yet raises NotImplementedError naming the
     slice that brings it; ``stack_scales`` is ported, and on this config's
     non-nested resolutions (16, 48) it raises ValueError ("nested"), as the
-    JAX package does."""
+    JAX package does; the progressive eps is ported, and on this config's CP
+    encoding it raises ValueError naming the otype (the JAX package asserts
+    when the eps is asked for)."""
     cfg = _cfg()
     error = NotImplementedError
     if what == "learned_background":
         cfg["model"]["learned_background"] = True
         match = "unbounded-scene"
-    elif what == "progressive_eps":
+    elif what == "progressive_eps":  # ported in slice 7, for a ProgressiveBandHashGrid only
         cfg["model"]["geometry"] = _geometry("finite_difference")
         cfg["model"]["geometry"]["finite_difference_eps"] = "progressive"
-        match = "HashGrid"
+        error, match = ValueError, "ProgressiveBandHashGrid encoding, got otype 'CP'"
     elif what == "stack_scales":
         cfg["model"]["geometry"]["xyz_encoding_config"]["stack_scales"] = True
         error, match = ValueError, "nested"
