@@ -92,9 +92,9 @@ lines are printed):
    N=65,536 and 262,144, uniform and ray-ordered, without and with a
    ProgressiveBandHashGrid mask of 5 levels: HG3's features equal to HG1's
    to the bit, its Jacobian within 2e-2 x max|plain|, HG4 within the HG2
-   limits against the float64 sum of the plain version's updates; timed
-   beside their bounds (bytes, sectors) and HG4 beside its updates by
-   ``index_add_``;
+   limits against the float64 sum of the plain version's updates, its d x
+   the same bits in two calls; timed (and as device time) beside their
+   bounds (bytes, sectors) and HG4 beside its updates by ``index_add_``;
 13. the ``bench.py --encoding cp_big`` instantiations (C=128, R=(64, 512,
    4096), F=16): K1/K2 with the 48->64->16 head, K5-K10 per scale, against
    their plain versions as in 3-4, timed; then the cp_big NeRF, NeuS, raw
@@ -129,16 +129,17 @@ lines are printed):
    the step's level mask, the eps follows the level, the loss stays finite;
 17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
-   K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2; the
-   forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's K9, K11
-   and HG1) also carry ptxas' registers and spills of the loaded build (this
-   run's, or the log an earlier build left beside its library in
+   K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4;
+   the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's K9,
+   K11, HG1 and HG3) also carry ptxas' registers and spills of the loaded
+   build (this run's, or the log an earlier build left beside its library in
    ``_build/``), their shared memory and blocks per SM (the launch plan;
-   HG1's and HG2's from their registers; the tiled forwards for the
+   HG1-HG4's from their registers and shared memory; the tiled forwards for the
    training mode, and ``ptxas_eval`` etc. for the eval mode),
    ``ms_ray_ordered`` (the kernel timed on the operands of the last step of
    the bench training runs, the raw NeuS's for K8, the finite-difference
-   NeuS's for K5 and K6, ray-ordered samples, every launch of the step: K8,
+   NeuS's for K5 and K6, the NeuS hash launcher's for HG3 and HG4,
+   ray-ordered samples, every launch of the step: K8,
    K9 and K10 once per scale, K5 and K6 four times; the forwards'
    training-mode launches, K5, K9 and K11 each held against its plain
    version on them; K5 and K6 also the size of each launch), for the
@@ -320,6 +321,10 @@ REDESIGNED_KERNELS = {
                                     ("cp_jac_basis_fwd", 128, 16, True)),
     "cp_jac_stacked_forward": ("cp_jac_basis_fwd", "cp_jac_basis_fwd_kernelILi64ELi16ELi2ELb1E",
                                ("cp_jac_stacked_fwd", 64, 16, 2, True)),
+    # HG3 (a grid of 128-thread blocks, 4 levels a thread at 12 levels) and HG4
+    # (one wave of 128-thread blocks): no plan
+    "hashgrid_jac_forward": ("hashgrid_jac_fwd", "hashgrid_jac_fwd_kernelILi2ELi4E", None),
+    "hashgrid_jac_backward": ("hashgrid_jac_bwd", "hashgrid_jac_bwd_kernelILi2E", None),
 }
 EVAL_MARKERS = {name: (stem, marker[:-len("ELb1E")] + "ELb0E", (*plan[:-1], False))
                 for name, (stem, marker, plan) in REDESIGNED_KERNELS.items()
@@ -364,7 +369,7 @@ def ptxas_info(stem, marker):
 def _step_entry(name, calls):
     """A step's launch arguments as ``tools/bwd_bench.py --step-operands``
     reads them (plain tensors and numbers, so another checkout can load
-    them): the last launch of a fused forward and of HG2, every launch of K8
+    them): the last launch of a fused forward and of HG1-HG4, every launch of K8
     (one per scale) and of K6 (without its residual, which K5 makes again),
     and every training-mode launch of K5 (a finite-difference step's four, on
     the tensors K6's entry holds: one ``torch.save`` keeps them once), K9
@@ -386,22 +391,27 @@ def _step_entry(name, calls):
         return {"kind": "sh", "ops": list(ops), "feats": feats.detach(), "dirs": dirs.detach(),
                 "degree": degree, "train": bool(kwargs.get("train", False)),
                 "mlp": (spec.dim_in, spec.dim_out, spec.n_neurons, spec.n_hidden_layers)}
-    if name == "hashgrid_backward":
-        table, x, dout, spec = args[:4]
-        mask = args[4] if len(args) > 4 else kwargs.get("level_mask")
-        with_dx = args[5] if len(args) > 5 else kwargs.get("with_dx", False)
-        return {"kind": "hash_bwd", "table": table.detach(), "x": x.detach(),
-                "dout": dout.detach(), "mask": mask, "with_dx": bool(with_dx),
-                "spec": {k: getattr(spec, k) for k in (
-                    "n_levels", "n_features_per_level", "log2_hashmap_size", "base_resolution",
-                    "per_level_scale", "n_input_dims")}}
-    if name == "hashgrid_forward":
-        table, x, spec = args[:3]
-        mask = args[3] if len(args) > 3 else kwargs.get("level_mask")
-        return {"kind": "hash", "table": table.detach(), "x": x.detach(), "mask": mask,
-                "spec": {k: getattr(spec, k) for k in (
-                    "n_levels", "n_features_per_level", "log2_hashmap_size", "base_resolution",
-                    "per_level_scale", "n_input_dims")}}
+    if name in ("hashgrid_forward", "hashgrid_jac_forward", "hashgrid_backward",
+                "hashgrid_jac_backward"):
+        # (table, x, [cotangents,] spec, level_mask[, with_dx]): HG1 / HG3,
+        # HG2 (one cotangent) and HG4 (two)
+        n_ct = {"hashgrid_backward": 1, "hashgrid_jac_backward": 2}.get(name, 0)
+        table, x, *cts = args[:2 + n_ct]
+        spec = args[2 + n_ct]
+        rest = args[3 + n_ct:]
+        entry = {"kind": {"hashgrid_forward": "hash", "hashgrid_jac_forward": "hash_jac",
+                          "hashgrid_backward": "hash_bwd",
+                          "hashgrid_jac_backward": "hash_jac_bwd"}[name],
+                 "table": table.detach(), "x": x.detach(),
+                 "mask": rest[0] if rest else kwargs.get("level_mask"),
+                 "spec": {k: getattr(spec, k) for k in (
+                     "n_levels", "n_features_per_level", "log2_hashmap_size", "base_resolution",
+                     "per_level_scale", "n_input_dims")}}
+        if n_ct:
+            entry["with_dx"] = bool(rest[1] if len(rest) > 1 else kwargs.get("with_dx", False))
+            entry.update(zip(("dout",) if n_ct == 1 else ("ct_feat", "ct_jac"),
+                             (t.detach() for t in cts)))
+        return entry
     ops, x, cp_spec, mlp_spec = args[:4]
     ops = (list(ops[0]) if isinstance(ops[0], (list, tuple)) else ops[0], *ops[1:])
     return {"kind": "cp", "ops": ops, "x": x.detach(), "stacked": name.startswith("cp_mlp_st"),
@@ -422,9 +432,11 @@ BENCH_KEY = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
              "cp_product_backward": "k6", "cp_product_backward@cp_big": "k6_cp_big",
              "sh_mlp_forward": "k3", "cp_product_forward": "k5",
              "cp_product_forward@cp_big": "k5_cp_big", "cp_jac_basis_forward": "k9",
-             "cp_jac_basis_forward@cp_big": "k9_cp_big", "cp_jac_stacked_forward": "k11"}
+             "cp_jac_basis_forward@cp_big": "k9_cp_big", "cp_jac_stacked_forward": "k11",
+             "hashgrid_jac_forward": "hg3", "hashgrid_jac_backward": "hg4"}
 # the backwards whose every launch of a step is kept for the parent design's timing
-STEP_BACKWARDS = ("cp_product_jac_backward", "cp_product_backward", "hashgrid_backward")
+STEP_BACKWARDS = ("cp_product_jac_backward", "cp_product_backward", "hashgrid_backward",
+                  "hashgrid_jac_backward")
 # the launches a capture records in training mode only (a grid update's or a
 # rendered view's eval launches are not the step's forward)
 TRAIN_ONLY = ("cp_mlp_forward", "cp_mlp_stacked_forward", "sh_mlp_forward", "cp_product_forward",
@@ -2521,9 +2533,13 @@ def hash_jac_kernel_phase(device):
                     compare(f"hashgrid_jac_forward {tag} jac ({same:.4%} equal to the bit; "
                             "feat equal to HG1's)", jac, rj))
                 got = hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec, m, with_dx=True)
+                again = hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec, m, with_dx=True)
                 dt_only, no_dx = hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec, m)
                 torch.cuda.synchronize()
                 assert no_dx is None
+                if not torch.equal(got[1], again[1]):
+                    raise AssertionError(f"hashgrid_jac_backward {tag}: d x differs between two "
+                                         "calls")
                 ref = hg.hashgrid_jac_backward_plain(table, xn, cf, cj, spec, m, with_dx=True,
                                                      accumulate=torch.float64)
                 errs["hashgrid_jac_backward"] += [
@@ -2561,6 +2577,7 @@ def hash_jac_kernel_phase(device):
                                                                         masks[" band 5/12"])),
             "plain_ms": time_ms(lambda: hg.hashgrid_jac_forward_plain(table, xn, spec), reps=5,
                                 inner=2),
+            "device_ms": device_ms(lambda: hg.hashgrid_jac_forward_launch(table, xn, spec)),
             "hg1_ms": time_ms(lambda: hg.hashgrid_forward_launch(table, xn, spec)),
             "bwd_ms": time_ms(lambda: hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec)),
             "bwd_ms_dx": time_ms(lambda: hg.hashgrid_jac_backward_launch(table, xn, cf, cj, spec,
@@ -2576,7 +2593,8 @@ def hash_jac_kernel_phase(device):
         }
         t = timings[n]
         print(f"[kernel] hashgrid_jac_forward at N={n}: {t['ms']:.4f} ms ({t['ms_masked']:.4f} "
-              f"with the band mask; HG1 alone {t['hg1_ms']:.4f}; plain {t['plain_ms']:.3f}); "
+              f"with the band mask; device {t['device_ms']:.4f}; HG1 alone {t['hg1_ms']:.4f}; "
+              f"plain {t['plain_ms']:.3f}); "
               f"bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}, {sector_ms:.4f} ms by 32-byte "
               "sectors of the hashed levels' rows", flush=True)
         print(f"[kernel] hashgrid_jac_backward at N={n}: {t['bwd_ms']:.4f} ms, "
@@ -2595,9 +2613,10 @@ def hash_jac_kernel_phase(device):
          "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_jac_fwd.cu",
          "replaces": "instant_nsr_pl_tpu/ops/hashgrid.py:797 (_encode_jac_fwd_impl, XLA)",
          "max_abs_err": max(errs["hashgrid_jac_forward"]), "ms": t["ms"],
-         "ms_masked": t["ms_masked"], "hg1_ms": t["hg1_ms"], "plain_ms": t["plain_ms"],
-         "bound_ms": t["fwd_bound"][0], "bound_by": t["fwd_bound"][1],
-         f"ms_n{big}": tb["ms"], f"plain_ms_n{big}": tb["plain_ms"],
+         "ms_masked": t["ms_masked"], "device_ms": t["device_ms"], "hg1_ms": t["hg1_ms"],
+         "plain_ms": t["plain_ms"], "bound_ms": t["fwd_bound"][0], "bound_by": t["fwd_bound"][1],
+         f"ms_n{big}": tb["ms"], f"device_ms_n{big}": tb["device_ms"],
+         f"plain_ms_n{big}": tb["plain_ms"],
          f"bound_ms_n{big}": tb["fwd_bound"][0]},
         {**common, "name": "hashgrid_jac_backward",
          "source": "instant_nsr_pl_tpu_torch/csrc/hashgrid_jac_bwd.cu",
@@ -3023,15 +3042,6 @@ def main(argv=None):
         e["launches_path"] = "neus_hash_launcher_train"
         e["launches_neus_hash_launcher_train_step"] = nh_step[name]
         e["launches_neus_hash_launcher_export"] = nh_export[name]
-        stem = "hashgrid_jac_fwd" if name.endswith("forward") else "hashgrid_jac_bwd"
-        marker = f"{stem}_kernelILi2E" + ("Li4E" if stem.endswith("fwd") else "")
-        step = STEP_MS.get(name)
-        e.update({"ptxas": ptxas_info(stem, marker),
-                  "ms_ray_ordered": step[0] if step else None,
-                  "n_ray_ordered": step[1] if step else None})
-        print(f"[design] {name}: {e['ms']:.4f} ms uniform at N={e['n']}, on a NeuS hash "
-              f"step's own operands {e['ms_ray_ordered']}, ptxas {e['ptxas']} ({smi})",
-              flush=True)
     for e in hash_entries:
         e["launches_band_launcher_train"] = band_run[e["name"]]
     for e in hash_entries + hash_jac_entries + cp_big_entries:
@@ -3052,9 +3062,11 @@ def main(argv=None):
     def plan_of(stem, marker, plan_key):
         plan = next((v for k, v in cuda_build.PLANS.items() if k[:-1] == plan_key), None)
         ptxas = ptxas_info(stem, marker)
-        if plan_key is None and ptxas:  # by its registers: 128-thread blocks, 2,048 threads
-            plan = {"smem_bytes": ptxas.get("static_smem_bytes", 0),
-                    "blocks_per_sm": min(16, 65536 // (-(-ptxas["registers"] // 8) * 8 * 128))}
+        if plan_key is None and ptxas:  # 128-thread blocks, 2,048 threads, 228 KB shared
+            smem = ptxas.get("static_smem_bytes", 0)
+            plan = {"smem_bytes": smem,
+                    "blocks_per_sm": min(16, 65536 // (-(-ptxas["registers"] // 8) * 8 * 128),
+                                         233472 // (smem + 1024))}
         return ptxas, plan
 
     for e in entries:
@@ -3083,8 +3095,8 @@ def main(argv=None):
                 "blocks_per_sm_eval": plan_eval["blocks_per_sm"] if plan_eval else None,
                 "parent_ms_eval": parent.get(f"{key}_eval@uniform"),
             })
-        if e["name"].endswith(("forward", "forward@cp_big")) or key.startswith(("k8", "k6",
-                                                                                 "hg2")):
+        if e["name"].endswith(("forward", "forward@cp_big")) or key.startswith(("k8", "k6", "hg2",
+                                                                                 "hg4")):
             e["parent_ms_step"] = parent.get(f"{key}@step")
         print(f"[design] {e['name']}: {e['ms']:.4f} ms uniform (device {e.get('device_ms')}), "
               f"step operands {e['ms_ray_ordered']}, parent {e['parent_ms']} / ray "

@@ -19,8 +19,8 @@
 // than row-coalesced 16-byte atomics.
 //
 // Design: one thread per sample, a warp on 32 consecutive samples, walks the
-// levels and recomputes its 8 taps (hash_scatter in hashgrid_common.cuh, which
-// HG4, csrc/hashgrid_jac_bwd.cu, instantiates too). Three changes against
+// levels and recomputes its 8 taps (HG4, csrc/hashgrid_jac_bwd.cu, shares its
+// merges of equal rows, hashgrid_common.cuh). Three changes against
 // one f32 atomicAdd per corner and feature into a feature-major (F, T) table:
 // - the gradient is row-major (T, F) f32, the layout of the port's table, so
 //   a corner's F features are one 8-byte (F = 2) or 16-byte vector atomic on
@@ -62,64 +62,86 @@
 
 namespace insr {
 
-// HG2's cotangent: ct (n, L*F), the features' cotangent. A corner's update is
-// w_c * ct_l (times the level mask); the position gradient of a level is
-// s * sum_c sign_cd * excl_cd * (T[row_c] . ct_l).
-template <int F>
-struct FeatCotangent {
-  const float* __restrict__ ct;
-  struct Level {
-    float g[F];
-  };
-
-  __device__ __forceinline__ Level load(long long i, int l, int n_levels, bool active,
-                                        bool masked, float m) const {
-    Level v;
-    const float* crow = ct + i * n_levels * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      v.g[f] = !active ? 0.0f : masked ? crow[l * F + f] * m : crow[l * F + f];
-    }
-    return v;
-  }
-
-  __device__ __forceinline__ void update(const Level& g, const Taps& t, int c, float,
-                                         float (&v)[F]) const {
-#pragma unroll
-    for (int f = 0; f < F; ++f) v[f] = t.w[c] * g.g[f];
-  }
-
-  __device__ __forceinline__ void dx(const Level& g, const Taps& t,
-                                     const float* __restrict__ table, float s,
-                                     float (&dxa)[3]) const {
-    float lvl[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float rv[F];
-      load_row<F>(table, t.row[c], rv);
-      float tg = 0.0f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) tg = tg + rv[f] * g.g[f];
-      float p[3], excl[3];
-      corner_tents(t, c, p, excl);
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float v = excl[d] * tg;
-        lvl[d] = ((c >> d) & 1) ? lvl[d] + v : lvl[d] - v;
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < 3; ++d) dxa[d] = dxa[d] + lvl[d] * s;
-  }
-};
-
+// One thread per sample, a warp on 32 consecutive samples, walks the levels,
+// recomputes its 8 taps and adds each corner's update w_c * ct_l (times the
+// level mask), merged within the warp and across the block's warps
+// (scatter_corner, merge_edges), into the zeroed row-major (T, F) gradient.
+// With dx requested each thread also adds its levels' position gradient
+// s * sum_c sign_cd * excl_cd * (T[row_c] . ct_l) in registers, in a fixed
+// order.
 template <int F>
 __global__ void __launch_bounds__(kHashBlock)
     hashgrid_bwd_kernel(const float* __restrict__ x, long long n,
                         const float* __restrict__ ct, const float* __restrict__ table,
                         int n_levels, HashLevels levels, const float* __restrict__ mask,
                         float* __restrict__ dtable, float* __restrict__ dx) {
-  hash_scatter<F>(x, n, FeatCotangent<F>{ct}, table, n_levels, levels, mask, dtable, dx);
+  // two buffers, so one barrier per level suffices
+  __shared__ EdgeRuns<F> edges[2];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  int buf = 0;
+  // block-uniform loop (the barriers below); each warp on 32 consecutive samples
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < n;
+       base += stride) {
+    const long long i = base + threadIdx.x;
+    const bool active = i < n;
+    const long long ii = active ? i : n - 1;  // a valid address for idle lanes
+    const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
+    const float* crow = ct + ii * n_levels * F;
+    float dxa[3] = {0.0f, 0.0f, 0.0f};
+    for (int l = 0; l < n_levels; ++l, buf ^= 1) {
+      const HashLevel& lv = levels.l[l];
+      const Taps t = level_taps(lv, x0, x1, x2);
+      const float m = mask != nullptr ? mask[l] : 1.0f;
+      float g[F];  // the level's cotangent (zeros for an idle lane)
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        g[f] = !active ? 0.0f : mask != nullptr ? crow[l * F + f] * m : crow[l * F + f];
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float v[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = t.w[c] * g[f];
+        scatter_corner<F>(c, active ? t.row[c] : kNoRow, v, active, edges[buf], dtable);
+      }
+      __syncthreads();  // every warp's edge runs of this level are staged
+      merge_edges<F, false>(edges[buf], dtable);
+      if (dx != nullptr) {
+        float lvl[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float rv[F];
+          load_row<F>(table, t.row[c], rv);
+          float tg = 0.0f;
+#pragma unroll
+          for (int f = 0; f < F; ++f) tg = tg + rv[f] * g[f];
+          float p[3], excl[3];
+          corner_tents(t, c, p, excl);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float v = excl[d] * tg;
+            lvl[d] = ((c >> d) & 1) ? lvl[d] + v : lvl[d] - v;
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 3; ++d) dxa[d] = dxa[d] + lvl[d] * lv.scale;
+      }
+    }
+    if (dx != nullptr && active) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dx[3 * i + d] = dxa[d];
+    }
+  }
+}
+
+// Grid of a grid-stride launch: enough blocks to fill every SM a few times.
+inline int hash_grid_for(long long n) {
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long need = (n + kHashBlock - 1) / kHashBlock;
+  const long long cap = 16LL * sms;
+  return static_cast<int>(need < cap ? (need > 0 ? need : 1) : cap);
 }
 
 template <int F>

@@ -39,6 +39,26 @@
 
 namespace insr {
 
+// Store M floats to dst: float4 / float2 pieces when M allows them (the
+// caller passes a dst aligned to 4 * M bytes, up to 16).
+template <int M>
+__device__ __forceinline__ void store_vec(float* __restrict__ dst, const float (&v)[M]) {
+  if constexpr (M % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < M; k += 4) {
+      reinterpret_cast<float4*>(dst)[k / 4] = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+    }
+  } else if constexpr (M % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < M; k += 2) {
+      reinterpret_cast<float2*>(dst)[k / 2] = make_float2(v[k], v[k + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < M; ++k) dst[k] = v[k];
+  }
+}
+
 template <int F, int LG>
 __global__ void __launch_bounds__(kHashBlock)
     hashgrid_fwd_kernel(const float* __restrict__ x, long long n,

@@ -12,7 +12,7 @@
 // (csrc/hashgrid_fwd.cu) does: per level it hashes (or strides) the 8 corners
 // with HG1's position code (hashgrid_common.cuh level_taps: pos =
 // fmaf(x, s, 0.5), so a sample lands in the same cell as in HG1, HG2 and the
-// plain versions), reads each corner's F features as one vector load, and
+// plain versions), issues the 8 corners' vector loads before any sum, and
 // from the same 8 rows sums
 // - feat: the corners in order 0..7 as fmaf after the first product, HG1's
 //   sum, so feat equals HG1's output to the bit;
@@ -31,10 +31,25 @@
 // table, 21.2 MB) 396 B a sample, 0.014 ms for 65,536 samples at 3.35 TB/s.
 // The hashed levels' corners land on random rows, one 32-byte sector each (9
 // hashed levels x 8 corners x 32 B = 2.3 KB a sample, 0.045 ms for 65,536
-// samples if none hit in L2). The design is HG1's: level-major blocks
-// (blockIdx.y a group of levels), so one group's slice of the table is the
-// working set in L2; the Jacobian costs three more sums per feature on rows
-// already in registers and three times HG1's stores.
+// samples if none hit in L2). Measured on the earlier design
+// (tools/bwd_bench.py --cuts; PERF.md), its Jacobian stores took a third of
+// its time
+// (0.091 of 0.233 ms at 262,144): each thread stored its own 32-byte slice
+// of each output as two 16-byte halves, so every store instruction touched
+// 32 sectors by halves; and at 64 registers (8 blocks an SM) a step's 65,536
+// samples x 3 level groups ran in 1.45 waves.
+//
+// Design: HG1's level-major grid (blockIdx.y a group of levels, so one
+// group's slice of the table is the working set in L2), and
+// - each warp stages its 32 samples' slices of the 4 outputs in shared
+//   memory as it sums them (no results held in registers), then writes each
+//   output with lane e on piece e % P of sample e / P: one 16-byte streaming
+//   store instruction fills 16 whole sectors (a sample's slice of a group of
+//   4 levels at F = 2 is one sector);
+// - at most 64 registers, 8 blocks an SM: 65,536 samples x 3 level groups
+//   take 1.45 waves of 1,056 block slots, 262,144 take 5.8. A cap of 40
+//   registers (12 blocks, one wave at 65,536) ran 28% slower: each level's
+//   8 row loads no longer fit in flight at once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -42,50 +57,89 @@
 
 namespace insr {
 
+// Blocks an SM should hold at F <= 2: at most 64 registers (the head comment
+// has why not 12).
+constexpr int kJacFwdBlocks = 8;
+
+// The outputs: feat (N, L*F) and the Jacobian planes (3, N, L*F), level-major
+// rows of L*F floats per sample.
+constexpr int kJacOutputs = 4;
+
 template <int F, int LG>
-__global__ void __launch_bounds__(kHashBlock)
+__global__ void __launch_bounds__(kHashBlock, F <= 2 ? kJacFwdBlocks : 1)
     hashgrid_jac_fwd_kernel(const float* __restrict__ x, long long n,
                             const float* __restrict__ table, int n_levels, HashLevels levels,
                             const float* __restrict__ mask, float* __restrict__ out,
                             float* __restrict__ jac) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  constexpr int V = LG * F;  // floats of one output's level-group slice of a sample
+  // per warp and output, its 32 samples' slices, staged for the write-out
+  __shared__ __align__(16) float stage[kHashBlock / 32][kJacOutputs][32][V];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) * kHashBlock + warp * 32;
+  if (base >= n) return;  // warp-uniform
+  const long long i = base + lane;
+  const long long ii = i < n ? i : n - 1;  // a ragged warp's idle lanes: a valid sample
   const int l0 = blockIdx.y * LG;
-  const float x0 = x[3 * i], x1 = x[3 * i + 1], x2 = x[3 * i + 2];
-  float res[LG * F];
-  float jres[3][LG * F];
+  const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
+  float(&st)[kJacOutputs][32][V] = stage[warp];
 #pragma unroll
   for (int q = 0; q < LG; ++q) {
     const HashLevel& lv = levels.l[l0 + q];
     const Taps t = level_taps(lv, x0, x1, x2);
+    float v[8][F];  // the 8 corners' rows, all loads in flight before the sums
+#pragma unroll
+    for (int c = 0; c < 8; ++c) load_row<F>(table, t.row[c], v[c]);
     float acc[F], ja[3][F];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      float v[F];
-      load_row<F>(table, t.row[c], v);
       float p[3], excl[3];
       corner_tents(t, c, p, excl);
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         const float dw = (((c >> d) & 1) ? excl[d] : -excl[d]) * lv.scale;
 #pragma unroll
-        for (int f = 0; f < F; ++f) ja[d][f] = c == 0 ? dw * v[f] : ja[d][f] + dw * v[f];
+        for (int f = 0; f < F; ++f) ja[d][f] = c == 0 ? dw * v[c][f] : ja[d][f] + dw * v[c][f];
       }
 #pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] = c == 0 ? v[f] * t.w[c] : fmaf(v[f], t.w[c], acc[f]);
+      for (int f = 0; f < F; ++f) {
+        acc[f] = c == 0 ? v[c][f] * t.w[c] : fmaf(v[c][f], t.w[c], acc[f]);
+      }
     }
     const float m = mask != nullptr ? mask[l0 + q] : 1.0f;
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      res[q * F + f] = mask != nullptr ? acc[f] * m : acc[f];
+      st[0][lane][q * F + f] = mask != nullptr ? acc[f] * m : acc[f];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) jres[d][q * F + f] = mask != nullptr ? ja[d][f] * m : ja[d][f];
+      for (int d = 0; d < 3; ++d) {
+        st[1 + d][lane][q * F + f] = mask != nullptr ? ja[d][f] * m : ja[d][f];
+      }
     }
   }
-  const long long row = i * n_levels * F + l0 * F;
-  store_vec<LG * F>(out + row, res);
+  __syncwarp();
+  // the write-out: each output's 32 slices as pieces of W floats, lane e on
+  // piece e % P of sample e / P, so one store instruction fills whole
+  // 32-byte sectors where a slice is one (V = 8); streaming stores
+  constexpr int W = V % 4 == 0 ? 4 : V % 2 == 0 ? 2 : 1;
+  constexpr int P = V / W;
+  const long long row = static_cast<long long>(n_levels) * F;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) store_vec<LG * F>(jac + d * n * n_levels * F + row, jres[d]);
+  for (int k = 0; k < kJacOutputs; ++k) {
+    float* dst = (k == 0 ? out : jac + (k - 1) * n * row) + l0 * F;
+#pragma unroll
+    for (int e = lane; e < 32 * P; e += 32) {
+      const int smp = e / P, pc = e % P;
+      if (base + smp >= n) continue;
+      float* d = dst + (base + smp) * row + pc * W;
+      const float* src = &st[k][smp][pc * W];
+      if constexpr (W == 4) {
+        __stcs(reinterpret_cast<float4*>(d), *reinterpret_cast<const float4*>(src));
+      } else if constexpr (W == 2) {
+        __stcs(reinterpret_cast<float2*>(d), *reinterpret_cast<const float2*>(src));
+      } else {
+        __stcs(d, *src);
+      }
+    }
+  }
 }
 
 template <int F, int LG>
@@ -100,21 +154,26 @@ int launch_hashgrid_jac_fwd(const float* x, long long n, const float* table, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Levels per thread as HG1 takes them: 4 where the level count allows it, else
-// 2 or 1.
+// Levels per thread: 4 where the level count allows it, else 2 or 1, and at
+// most 8 / F, so that a sample's slice of one output is at most one 32-byte
+// sector (8 floats).
 template <int F>
 int launch_hashgrid_jac_fwd_any(const float* x, long long n, const float* table, int n_levels,
                                 const HashLevels& levels, const float* mask, float* out,
                                 float* jac, cudaStream_t stream) {
-  const int group = n_levels % 4 == 0 ? 4 : n_levels % 2 == 0 ? 2 : 1;
-  switch (group) {
-    case 4:
+  int group = n_levels % 4 == 0 ? 4 : n_levels % 2 == 0 ? 2 : 1;
+  while (group * F > 8) group /= 2;
+  if constexpr (F <= 2) {
+    if (group == 4) {
       return launch_hashgrid_jac_fwd<F, 4>(x, n, table, n_levels, levels, mask, out, jac, stream);
-    case 2:
-      return launch_hashgrid_jac_fwd<F, 2>(x, n, table, n_levels, levels, mask, out, jac, stream);
-    default:
-      return launch_hashgrid_jac_fwd<F, 1>(x, n, table, n_levels, levels, mask, out, jac, stream);
+    }
   }
+  if constexpr (F <= 4) {
+    if (group == 2) {
+      return launch_hashgrid_jac_fwd<F, 2>(x, n, table, n_levels, levels, mask, out, jac, stream);
+    }
+  }
+  return launch_hashgrid_jac_fwd<F, 1>(x, n, table, n_levels, levels, mask, out, jac, stream);
 }
 
 }  // namespace insr

@@ -633,14 +633,18 @@ def hashgrid_jac_backward_launch(table, x, ct_feat, ct_jac, spec: HashGridSpec,
         fn = cuda_build.entry("hashgrid_jac_bwd", "hashgrid_jac_bwd", [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Level),
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ])
+        # with d x: each level's term, summed by the kernel's second pass in level order
+        part = (torch.empty((spec.n_levels, n, 3), dtype=torch.float32, device=x.device)
+                if with_dx else None)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = fn(xf.data_ptr(), n, ctf.data_ptr(), ctj.data_ptr(), table.data_ptr(),
                     spec.n_levels, f, level_params(spec),
                     mask.data_ptr() if mask is not None else None, dtable.data_ptr(),
-                    dx.data_ptr() if with_dx else None, stream)
+                    dx.data_ptr() if with_dx else None, part.data_ptr() if with_dx else None,
+                    stream)
         cuda_build.check(rc, "hashgrid_jac_backward", "n_features_per_level in {1, 2, 4, 8}")
         hashgrid_jac_backward.launches += 1
     return dtable, (dx.reshape(*x.shape[:-1], 3) if with_dx else None)

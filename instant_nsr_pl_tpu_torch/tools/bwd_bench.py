@@ -215,13 +215,13 @@ CUTS.update({
         "for (int q = 0; q < K::FPS; ++q) {", "for (int q = 0; q < 0; ++q) {")]),
     "k10_tc_no_dp_dj": ("cp_jac_basis_bwd", [(
         "cp_jac_basis_bwd.cu", "            mma_bf16(dq[q], af, bq[q]);\n", "")]),
-    # the merged-scatter HG2 (its scatter, hash_scatter, lives in
+    # the merged-scatter HG2 (its merges of equal rows and its atomics live in
     # csrc/hashgrid_common.cuh, which HG4 shares): no merge within a warp;
     # the (F, T) layout's two 4-byte atomics per corner in place of one
     # 8-byte atomic (bench shape: T = 6,299,960); no atomics
     "hg2_new_no_merge": ("hashgrid_bwd", [(
-        "hashgrid_common.cuh", "        const bool head = lane == 0 || left != row;",
-        "        const bool head = true;")]),
+        "hashgrid_common.cuh", "  const bool head = lane == 0 || left != row;",
+        "  const bool head = true;")]),
     "hg2_new_ft_atomics": ("hashgrid_bwd", [(
         "hashgrid_common.cuh",
         "    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));",
@@ -289,9 +289,8 @@ CUTS.update({
         "cp_async16_ca(gt + item * K::LDD + ch * 8, gdsrc + row * C + c0 + ch * 8);",
         "cp_async16(gt + item * K::LDD + ch * 8, gdsrc + row * C + c0 + ch * 8, 16);")]),
     "hg2_no_block_merge": ("hashgrid_bwd", [
-        ("hashgrid_common.cuh", "        if (lane == first_end || lane == 31) {",
-         "        if (false) {"),
-        ("hashgrid_common.cuh", "      if (threadIdx.x < 8) {", "      if (false) {")]),
+        ("hashgrid_common.cuh", "  if (lane == first_end || lane == 31) {", "  if (false) {"),
+        ("hashgrid_common.cuh", "  if (threadIdx.x >= 8) return;", "  return;")]),
 })
 # K5 / K9 (csrc/cp_product_fwd.cu, csrc/cp_jac_basis_fwd.cu, the tile designs):
 # one gather step's loads in flight instead of two (for K5 also with three
@@ -322,6 +321,104 @@ CUTS.update({
     "k9_no_projection": ("cp_jac_basis_fwd", [("cp_jac_basis_fwd.cu",
                                                "            mma_bf16(acc[q], af, bf);\n", "")]),
 })
+# HG4 (csrc/hashgrid_jac_bwd.cu) of the sample-major design (HG2's scatter
+# walk, instantiated with the Jacobian cotangent; these texts are that
+# design's, so they apply with --root at a checkout of it): no atomics, no merge of
+# equal rows within a warp, no merge across the block's warps, and the
+# level-major grid (N/128 blocks x the levels, one level a block, atomics and
+# merges kept). The edits go to the copy's hashgrid_common.cuh, which only
+# this variant's HG4 is built from (_SAMPLE_MAJOR_HG4, a text of that design
+# only, keeps a cut from applying to another).
+_SAMPLE_MAJOR_MERGE = [("hashgrid_common.cuh", "        if (lane == first_end || lane == 31) {",
+                        "        if (false) {"),
+                       ("hashgrid_common.cuh", "      if (threadIdx.x < 8) {", "      if (false) {")]
+_SAMPLE_MAJOR_HG4 = ("hashgrid_jac_bwd.cu", "JacCotangent<F>{ct_f, ct_j, n}",
+                     "JacCotangent<F>{ct_f, ct_j, n}")
+CUTS.update({
+    "hg4_no_atomics": ("hashgrid_jac_bwd", [*CUTS["hg2_new_no_atomics"][1], _SAMPLE_MAJOR_HG4]),
+    "hg4_no_merge": ("hashgrid_jac_bwd", [(
+        "hashgrid_common.cuh", "        const bool head = lane == 0 || left != row;",
+        "        const bool head = true;")]),
+    "hg4_no_block_merge": ("hashgrid_jac_bwd", _SAMPLE_MAJOR_MERGE),
+    "hg4_level_major": ("hashgrid_jac_bwd", [
+        ("hashgrid_common.cuh", "    for (int l = 0; l < n_levels; ++l, buf ^= 1) {",
+         "    for (int l = blockIdx.y; l < static_cast<int>(blockIdx.y) + 1; ++l, buf ^= 1) {"),
+        ("hashgrid_jac_bwd.cu",
+         "hashgrid_jac_bwd_kernel<F><<<hash_grid_for(n), kHashBlock, 0, stream>>>(",
+         "hashgrid_jac_bwd_kernel<F><<<dim3(static_cast<unsigned>((n + kHashBlock - 1) / "
+         "kHashBlock), n_levels), kHashBlock, 0, stream>>>(")]),
+})
+# HG4 of the tiled design (tiles of 128 samples x 1 level, one wave of
+# blocks): 4 levels a tile, or every level (the sample-major schedule);
+# tiles ordered by level first (the card on one level at a time); no pair
+# atomics of x-neighbour rows; no skip of a warp whose cotangents are zero;
+# no merge across the block's warps; no atomics
+_TILE_LEVELS = "constexpr int kTileLevels = 1;"
+CUTS.update({
+    "hg4_tile_levels4": ("hashgrid_jac_bwd", [("hashgrid_jac_bwd.cu", _TILE_LEVELS,
+                                               "constexpr int kTileLevels = 4;")]),
+    "hg4_tile_levels_all": ("hashgrid_jac_bwd", [("hashgrid_jac_bwd.cu", _TILE_LEVELS,
+                                                  "constexpr int kTileLevels = kHashMaxLevels;")]),
+    "hg4_group_major": ("hashgrid_jac_bwd", [(
+        "hashgrid_jac_bwd.cu",
+        "    const long long i = t / groups * kHashBlock + threadIdx.x;\n"
+        "    const int l0 = static_cast<int>(t % groups) * kTileLevels;",
+        "    const long long i = t % blocks * kHashBlock + threadIdx.x;\n"
+        "    const int l0 = static_cast<int>(t / blocks) * kTileLevels;")]),
+    "hg4_no_pair": ("hashgrid_jac_bwd", [(
+        "hashgrid_jac_bwd.cu", "    if (add0 && add1 && (row0 ^ row1) == 1u) {",
+        "    if (false) {")]),
+    "hg4_no_zero_warp_skip": ("hashgrid_jac_bwd", [(
+        "hashgrid_jac_bwd.cu", "      if (__all_sync(0xffffffffu, !nonzero(gf)",
+        "      if (false && __all_sync(0xffffffffu, !nonzero(gf)")]),
+    "hg4_tiled_no_block_merge": ("hashgrid_jac_bwd", CUTS["hg2_no_block_merge"][1]),
+    "hg4_tiled_no_atomics": ("hashgrid_jac_bwd", [
+        *CUTS["hg2_new_no_atomics"][1],
+        ("hashgrid_jac_bwd.cu", "  float* p = dtable + static_cast<long long>(row) * F;\n",
+         "  float* p = dtable + static_cast<long long>(row) * F;\n"
+         "  if (lo[0] == 1.2345e-37f) *p = hi[0];  // keeps the values live\n  return;\n")]),
+})
+# HG3 (csrc/hashgrid_jac_fwd.cu) of the own-slice design at 1 or 2 levels a
+# thread instead of 4, and without its Jacobian stores (the Jacobian still
+# summed: a store that never happens keeps it live); of the staged design:
+# 2 levels a thread, 10 or 12 blocks an SM (48 or 40 registers) instead of
+# 8 (64), each lane storing its own sample's slice (half a sector an
+# instruction) instead of the pieces of whole sectors, plain stores instead
+# of streaming ones, and feat alone written out (the Jacobian staged but not
+# stored)
+_JAC_FWD_OUT = ("        __stcs(reinterpret_cast<float4*>(d), "
+                "*reinterpret_cast<const float4*>(src));")
+_JAC_FWD_BLOCKS = "constexpr int kJacFwdBlocks = 8;"
+CUTS.update({
+    "hg3_levels1": ("hashgrid_jac_fwd", [("hashgrid_jac_fwd.cu", _HG1_GROUP,
+                                          "  const int group = 1;")]),
+    "hg3_levels2": ("hashgrid_jac_fwd", [("hashgrid_jac_fwd.cu", _HG1_GROUP,
+                                          "  const int group = n_levels % 2 == 0 ? 2 : 1;")]),
+    "hg3_no_jac_stores": ("hashgrid_jac_fwd", [(
+        "hashgrid_jac_fwd.cu",
+        "  for (int d = 0; d < 3; ++d) store_vec<LG * F>(jac + d * n * n_levels * F + row, jres[d]);",
+        "  for (int d = 0; d < 3; ++d) {\n"
+        "    float s_ = 0.0f;\n"
+        "    for (int k = 0; k < LG * F; ++k) s_ += jres[d][k];\n"
+        "    if (s_ == 1.2345e-37f) jac[row] = s_;  // keeps the Jacobian live\n"
+        "  }")]),
+    "hg3_staged_levels2": ("hashgrid_jac_fwd", [(
+        "hashgrid_jac_fwd.cu", "  int group = n_levels % 4 == 0 ? 4 : n_levels % 2 == 0 ? 2 : 1;",
+        "  int group = n_levels % 2 == 0 ? 2 : 1;")]),
+    "hg3_blocks10": ("hashgrid_jac_fwd", [("hashgrid_jac_fwd.cu", _JAC_FWD_BLOCKS,
+                                           "constexpr int kJacFwdBlocks = 10;")]),
+    "hg3_blocks12": ("hashgrid_jac_fwd", [("hashgrid_jac_fwd.cu", _JAC_FWD_BLOCKS,
+                                           "constexpr int kJacFwdBlocks = 12;")]),
+    "hg3_own_slice_stores": ("hashgrid_jac_fwd", [(
+        "hashgrid_jac_fwd.cu", "      const int smp = e / P, pc = e % P;",
+        "      const int smp = e % 32, pc = e / 32;")]),
+    "hg3_plain_stores": ("hashgrid_jac_fwd", [(
+        "hashgrid_jac_fwd.cu", _JAC_FWD_OUT,
+        "        *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(src);")]),
+    "hg3_staged_no_jac_stores": ("hashgrid_jac_fwd", [(
+        "hashgrid_jac_fwd.cu", "  for (int k = 0; k < kJacOutputs; ++k) {",
+        "  for (int k = 0; k < 1; ++k) {")]),
+})
 # which timed case each source's variants run (the parent design's K8 and K6
 # have sources of their own, csrc/cp_product_jac_bwd.cu and
 # csrc/cp_product_bwd.cu; a stem a checkout does not have is left out)
@@ -336,7 +433,9 @@ CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
             "cp_jac_basis_fwd": ("k9", "k9_eval", "k11", "k11_eval", "k9_cp_big",
                                  "k9_cp_big_eval"),
             "sh_mlp_fwd": ("k3", "k3_eval"),
-            "hashgrid_fwd": ("hg1", "hg1_chunked", "ft_to_tf")}
+            "hashgrid_fwd": ("hg1", "hg1_chunked", "ft_to_tf"),
+            "hashgrid_jac_fwd": ("hg3", "hg3_eval"),
+            "hashgrid_jac_bwd": ("hg4", "hg4_dx", "hg4_262k")}
 # a variant's cases where they are not all of its source's
 CUT_CASES = {**{name: ("k10", "k12", "k10_cp_big") for name in CUTS if name.startswith("k10_tc")},
              "k8_no_scatter": ("k8", "k8_cp_big"), "k8_no_row_merge": ("k8", "k8_cp_big"),
@@ -351,7 +450,8 @@ PARTNER = {"cp_mlp_bwd": ("cp_mlp_fwd",), "sh_mlp_bwd": ("sh_mlp_fwd",),
            "cp_product_bwd": ("cp_product_fwd",),
            "hashgrid_bwd": ("hashgrid_fwd",), "cp_mlp_fwd": ("cp_mlp_bwd",),
            "sh_mlp_fwd": (), "hashgrid_fwd": ("hashgrid_bwd",), "cp_product_fwd": (),
-           "cp_jac_basis_fwd": ()}
+           "cp_jac_basis_fwd": (), "hashgrid_jac_fwd": ("hashgrid_jac_bwd", "hashgrid_fwd"),
+           "hashgrid_jac_bwd": ("hashgrid_jac_fwd",)}
 FWD_CASES = {*CASES_OF["cp_mlp_fwd"], *CASES_OF["sh_mlp_fwd"]}
 STENCIL_CASES = {"k6", "k6_cp_big", *CASES_OF["cp_product_fwd"]}
 
@@ -457,7 +557,8 @@ def cases(device, order, wanted=None):
 
     out = {}
     if wanted is not None and not wanted & ({"k2", "k14", "k2_cp_big", "k4"} | FWD_CASES):
-        return {**jac_cases(device, order, wanted), **hash_cases(device, order, wanted)}
+        return {**jac_cases(device, order, wanted), **hash_cases(device, order, wanted),
+                **hash_jac_cases(device, order, wanted)}
 
     def layers(gen, spec):
         return [{"w": l["w"].to(device),
@@ -518,6 +619,7 @@ def cases(device, order, wanted=None):
                       shape + ", eval")
     out.update(jac_cases(device, order, wanted))
     out.update(hash_cases(device, order, wanted))
+    out.update(hash_jac_cases(device, order, wanted))
     return out
 
 
@@ -765,7 +867,57 @@ def hash_cases(device, order, wanted=None):
     return out
 
 
-def step_cases(path, device):
+def neus_hash_spec():
+    """configs/neus-synthetic.yaml's grid (12 levels, F=2, 2^18 rows, base 32:
+    3 dense and 9 hashed levels), as ``chip_smoke.py`` holds HG3/HG4."""
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+
+    return HashGridSpec(n_levels=12, n_features_per_level=2, log2_hashmap_size=18,
+                        base_resolution=32, per_level_scale=1.3195079107728942)
+
+
+def hash_jac_operands(device, order, n, seed=SEED + 31):
+    """HG3/HG4's arguments at ``neus_hash_spec`` for n samples: a table of
+    values of order 1, positions in the unit box (uniform, or ray-ordered),
+    N(0, 1) cotangents of the features (n, L F) and of the Jacobian (3, n,
+    L F)."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = neus_hash_spec()
+    gen = torch.Generator().manual_seed(seed)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(device)
+    x = (torch.rand((n, 3), generator=gen) if order == "uniform"
+         else positions(gen, order, n).clamp(0.0, 1.0)).to(device)
+    ct_f = torch.randn((n, spec.n_output_dims), generator=gen).to(device)
+    ct_j = torch.randn((3, n, spec.n_output_dims), generator=gen).to(device)
+    return table, x, ct_f, ct_j, spec
+
+
+def hash_jac_cases(device, order, wanted=None):
+    """HG3 at a NeuS hash step's capacity (N = 65,536) and at an eval chunk's
+    (``hg3_eval``, 262,144); HG4's table gradient at 65,536, with the position
+    gradient (``hg4_dx``), and at 262,144 (``hg4_262k``)."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    keys = {*CASES_OF["hashgrid_jac_fwd"], *CASES_OF["hashgrid_jac_bwd"]}
+    if wanted is not None and not wanted & keys:
+        return {}
+    out = {}
+    for n, fwd_key, bwd_keys in ((65536, "hg3", ("hg4", "hg4_dx")),
+                                 (N, "hg3_eval", ("hg4_262k",))):
+        table, x, ct_f, ct_j, spec = hash_jac_operands(device, order, n)
+        shape = f"12 levels, F=2, 2^18 rows, N={n}"
+        out[fwd_key] = (lambda a=(table, x, spec): hg.hashgrid_jac_forward_launch(*a), shape)
+        for key in bwd_keys:
+            args = (table, x, ct_f, ct_j, spec, None, key.endswith("_dx"))
+            out[key] = (lambda a=args: hg.hashgrid_jac_backward_launch(*a),
+                        shape + (", with d x" if key.endswith("_dx") else ""))
+    return out
+
+
+def step_cases(path, device, wanted=None):
     """The forward kernels, K3, K8, K6 and HG2 on a training step's own operands,
     as ``chip_smoke.py`` saved them: per case, ``kind`` "prod_fwd", "jacb" or
     "jacs" (``launches``: each of the step's training-mode K5, K9 or K11
@@ -793,6 +945,8 @@ def step_cases(path, device):
     forwards = {"prod_fwd": (cpp, "cp_product_launch", 1), "jacb": (cpp,
                 "cp_product_jac_basis_launch", 2), "jacs": (cps, "cp_jac_basis_stacked_launch", 2)}
     for key, e in torch.load(path, map_location=device, weights_only=True).items():
+        if wanted is not None and key not in wanted:
+            continue
         if e["kind"] in forwards:
             mod, name, at = forwards[e["kind"]]
             calls = [tuple(a) for a in e["launches"]]
@@ -820,19 +974,22 @@ def step_cases(path, device):
                 f"N={e['feats'].shape[0]}, train={e['train']}")
             continue
         x = e["x"]
-        if e["kind"] in ("hash", "hash_bwd"):
+        if e["kind"] in ("hash", "hash_bwd", "hash_jac", "hash_jac_bwd"):
             spec = hg.HashGridSpec(**e["spec"])
             table = e["table"]
             try:
                 hg._check_spec(spec, table)
             except ValueError:  # a feature-major checkout
                 table = table.T.contiguous()
-            if e["kind"] == "hash":
-                out[key] = (lambda t=table, x=x, s=spec, m=e["mask"]:
-                            hg.hashgrid_forward_launch(t, x, s, m), f"N={x.shape[0]}")
-            else:
-                out[key] = (lambda t=table, x=x, e=e, s=spec: hg.hashgrid_backward_launch(
-                    t, x, e["dout"], s, e["mask"], e["with_dx"]), f"N={x.shape[0]}")
+            launch = {"hash": lambda t, x, s, e: hg.hashgrid_forward_launch(t, x, s, e["mask"]),
+                      "hash_bwd": lambda t, x, s, e: hg.hashgrid_backward_launch(
+                          t, x, e["dout"], s, e["mask"], e["with_dx"]),
+                      "hash_jac": lambda t, x, s, e: hg.hashgrid_jac_forward_launch(
+                          t, x, s, e["mask"]),
+                      "hash_jac_bwd": lambda t, x, s, e: hg.hashgrid_jac_backward_launch(
+                          t, x, e["ct_feat"], e["ct_jac"], s, e["mask"], e["with_dx"])}[e["kind"]]
+            out[key] = (lambda l=launch, t=table, x=x, s=spec, e=e: l(t, x, s, e),
+                        f"N={x.reshape(-1, 3).shape[0]}")
             continue
         c, res, f = e["cp"]
         din, dout, width, nh = e["mlp"]
@@ -951,12 +1108,14 @@ def main(argv=None):
                          "k1_eval, k13, "
                          "k13_eval, k1_cp_big, k1_cp_big_eval, k3, k3_eval, hg1, hg1_chunked, "
                          "ft_to_tf, k5, k5_eval, k5_cp_big, k5_cp_big_eval, k9, k9_eval, k11, "
-                         "k11_eval, k9_cp_big, k9_cp_big_eval), and only their sources' cuts")
+                         "k11_eval, k9_cp_big, k9_cp_big_eval, hg3, hg3_eval, hg4, hg4_dx, "
+                         "hg4_262k), only their sources' cuts and, with --step-operands, only "
+                         "these cases of the step")
     ap.add_argument("--merge-stats", action="store_true",
                     help="also count the row updates a merge of equal rows would remove")
     ap.add_argument("--step-operands", default=None,
-                    help="also time the forward kernels (K1, K13, K3, K5, K9, K11, HG1), K8, "
-                         "K6 and HG2 on these saved training-step operands")
+                    help="also time the forward kernels (K1, K13, K3, K5, K9, K11, HG1, HG3), "
+                         "K8, K6, HG2 and HG4 on these saved training-step operands")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -983,17 +1142,19 @@ def main(argv=None):
         bwd_stems = [stem for stem, keys in CASES_OF.items()
                      if (wanted is None or wanted & set(keys))
                      and (cuda_build.CSRC / f"{stem}.cu").exists()]
+        cut_stems = set(bwd_stems)  # the cuts of the wanted cases' sources only
         if args.step_operands:
             extra = [s for s in ("cp_mlp_fwd", "hashgrid_fwd", "hashgrid_bwd", "sh_mlp_fwd",
                                  "cp_jac_basis_bwd", "cp_product_jac_bwd", "cp_product_bwd",
-                                 "cp_product_fwd", "cp_jac_basis_fwd")
+                                 "cp_product_fwd", "cp_jac_basis_fwd", "hashgrid_jac_fwd",
+                                 "hashgrid_jac_bwd")
                      if (cuda_build.CSRC / f"{s}.cu").exists()]
             bwd_stems = list(dict.fromkeys([*bwd_stems, *extra]))
         stems = list(dict.fromkeys(s for b in bwd_stems for s in (b, *PARTNER[b])))
         jobs = [(stem, cuda_build.CSRC / f"{stem}.cu", tmp / f"{stem}.so") for stem in stems]
         variants = {}
         for name, (stem, edits) in (CUTS.items() if args.cuts else ()):
-            if stem not in bwd_stems:
+            if stem not in cut_stems:
                 continue
             src_dir = tmp / name
             shutil.copytree(cuda_build.CSRC, src_dir)
@@ -1038,7 +1199,7 @@ def main(argv=None):
                 timed[key] = fn
                 _time(result, key, fn, shape, smi)
         if args.step_operands:
-            for key, (fn, shape) in step_cases(args.step_operands, device).items():
+            for key, (fn, shape) in step_cases(args.step_operands, device, wanted).items():
                 _time(result, f"{key}@step", fn, shape, smi)
         for name, stem in variants.items():
             saved = cuda_build._LIBS[stem]

@@ -1304,6 +1304,56 @@ def test_hash_jac_no_samples(cuda_device):
     assert (hg.hashgrid_jac_forward.launches, hg.hashgrid_jac_backward.launches) == before
 
 
+# the level counts HG3's level groups (4, 2 or 1 levels a thread) and HG4's
+# tiles (4 levels, the last one short at 6 and 5 levels) cut along
+_JAC_TILE_SPECS = {"neus-synthetic": dict(n_levels=12, n_features_per_level=2,
+                                          log2_hashmap_size=18, base_resolution=32,
+                                          per_level_scale=1.3195079107728942),
+                   "6 levels": dict(n_levels=6, n_features_per_level=2, log2_hashmap_size=14,
+                                    base_resolution=4, per_level_scale=1.5),
+                   "5 levels": dict(n_levels=5, n_features_per_level=2, log2_hashmap_size=11,
+                                    base_resolution=4, per_level_scale=1.9)}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 3 * 128 + 5, 262107])
+@pytest.mark.parametrize("name", sorted(_JAC_TILE_SPECS))
+def test_hash_jac_tile_edges(cuda_device, name, n, masked):
+    """HG3 / HG4 around their tiles' edges (128 samples a block) at every
+    level grouping, with the box's corners and faces, a run of up to 250
+    samples on one point from sample 100 (across blocks) and zero cotangents
+    on samples 200-259 (a step's empty slots), with and without a band mask
+    of the first 5 levels: HG3's features equal to HG1's and its Jacobian
+    equal to the plain version's to the bit (the same sums in the same
+    order); HG4 against the float64 sum of the plain version's updates
+    (``_check_hash_jac``); d x the same bits in two calls."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = hg.HashGridSpec(**_JAC_TILE_SPECS[name])
+    gen = torch.Generator().manual_seed(23)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(cuda_device)
+    x = torch.rand((n, 3), generator=gen)
+    x[:8] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5], [1.0, 0.0, 0.125],
+                          [0.5, 0.5, 0.0], [0.25, 1.0, 0.75], [1.0, 0.3, 0.6],
+                          [0.999999, 1e-7, 0.5]])[:n]
+    x[100:350] = torch.tensor([0.3, 0.71, 0.52])
+    x = x.to(cuda_device)
+    ct_f = torch.randn((n, spec.n_output_dims), generator=gen)
+    ct_j = torch.randn((3, n, spec.n_output_dims), generator=gen)
+    ct_f[200:260], ct_j[:, 200:260] = 0.0, 0.0
+    ct_f, ct_j = ct_f.to(cuda_device), ct_j.to(cuda_device)
+    mask = (torch.arange(spec.n_levels) < 5).float().to(cuda_device) if masked else None
+    feat, jac = hg.hashgrid_jac_forward_launch(table, x, spec, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(feat, hg.hashgrid_forward_launch(table, x, spec, mask))
+    assert torch.equal(jac, hg.hashgrid_jac_forward_plain(table, x, spec, mask)[1])
+    _, dx = _check_hash_jac(spec, table, x, ct_f, ct_j, mask)
+    _, dx2 = hg.hashgrid_jac_backward_launch(table, x, ct_f, ct_j, spec, mask, with_dx=True)
+    assert torch.equal(dx2, dx)
+    if n > 200:
+        assert not bool(dx[200:260].any())
+
+
 # K1 / K13 / cp_big's K1 (csrc/cp_mlp_fwd.cu: tensor-core tiles of 64
 # samples) and HG1 (csrc/hashgrid_fwd.cu: level-major, (T, F) table)
 _FWD_SHAPES = [("bench", 64, (128, 2048), False), ("stacked", 64, (129, 2049), True),
