@@ -4,8 +4,9 @@ raw-product NeuS trained, tested, predicted and exported as a mesh, the
 hash-grid NeRF trained (and the repo's ``configs/nerf-synthetic.yaml``
 trained, tested and exported through the launcher), NeuS on the hash grid
 (the repo's ``configs/neus-synthetic.yaml`` through the launcher, and its
-progressive-band variant), the ``cp_big`` shapes, and the gather / scatter
-probes.
+progressive-band variant), the ``cp_big`` shapes, the gather / scatter
+probes, and the Blender and DTU configs on data read from disk
+(``data80/blender`` and a DTU-layout export).
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -127,7 +128,25 @@ lines are printed):
    geometry over it (ProgressiveBandHashGrid, finite differences, the
    progressive eps) for BAND_STEPS steps: every HG1 / HG2 launch carries
    the step's level mask, the eps follows the level, the loss stays finite;
-17. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
+17. slice 8, the Blender and DTU loaders (``datasets/{blender,dtu}.py``, PNGs
+   read by ``utils/image_io.py``) through the launcher, each run's split
+   loads (decode, resize), warm training rate and mesh export by stage
+   printed: ``configs/nerf-blender.yaml`` on ``data80/blender`` (800x800, 80
+   views; HG1, HG2, K3 and K4 on every step of LAUNCHER_STEPS, then the
+   4-view test, the mesh and ``--export`` with HG1 in its level grid and no
+   backward), ``configs/neus-blender.yaml`` on the same data (HG3, HG4, K3
+   and K4 on every step), every run's isosurface cut to ISO_CUT^3, each with
+   test/psnr at least 3 dB above the untrained model's and the last step's
+   HG1-HG4 / K3 / K4 launches held against their plain versions on their own
+   operands; ``tools/make_synthetic_data.py``'s DTU layout of the scene
+   (DTU_VIEWS views at DTU_SIZE^2) with ``configs/neus-dtu-wmask.yaml`` on it
+   (img_downscale 2; HG3 and HG4 on every step, its float32 radiance head
+   not K3 / K4's; the val split, the training images, 3 dB above the
+   untrained model's; DTU_TEST_VIEWS of its 60 test frames; a mesh and its
+   chamfer against the scene's analytic surface) and
+   ``configs/neuralangelo-dtu-wmask.yaml`` on it for BAND_STEPS steps, each
+   HG1 / HG2 launch's level mask and the eps checked per step as in 16;
+18. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4;
    the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's K9,
@@ -154,7 +173,7 @@ lines are printed):
    K8 and HG2 ``parent_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
-18. the last line ``{"ok": true, "device": {...}}``.
+19. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
 C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
@@ -334,6 +353,9 @@ EVAL_MARKERS = {name: (stem, marker[:-len("ELb1E")] + "ELb0E", (*plan[:-1], Fals
 # forwards' operands as tools/bwd_bench.py --step-operands reads them
 STEP_MS = {}
 STEP_OPERANDS = {}
+# the packed K3 / K4 weights of a captured step with the parameters they
+# were packed from: (ws, mlp params, n_pre)
+SH_PACKS = []
 STEP_OPERANDS_PATH = os.path.join(ROOT, "exp", "chip_smoke", "step_operands.pt")
 
 
@@ -504,6 +526,16 @@ def capture_step_operands(run_step, label, check=None):
                                   hashgrid.hashgrid_jac_backward,
                                   lambda a: a[1].reshape(-1, 3).shape[0]),
     }
+    pack_fn = sh_mlp.pack_sh_mlp
+
+    def record_pack(mlp_params, mlp_spec, degree, n_pre, n_feat):
+        out = pack_fn(mlp_params, mlp_spec, degree, n_pre, n_feat)
+        # copies: the step's optimizer update changes the parameters in place
+        SH_PACKS.append((out[0], [{k: t.detach().clone() for k, t in layer.items()}
+                                  for layer in mlp_params], n_pre))
+        return out
+
+    sh_mlp.pack_sh_mlp = record_pack
     for name, (mod, attr, _, _) in targets.items():
         fn = getattr(mod, attr)
         originals[name] = fn
@@ -517,6 +549,7 @@ def capture_step_operands(run_step, label, check=None):
     try:
         out = run_step()
     finally:
+        sh_mlp.pack_sh_mlp = pack_fn
         for name, (mod, attr, _, _) in targets.items():
             setattr(mod, attr, originals[name])
     torch.cuda.synchronize()
@@ -535,6 +568,7 @@ def capture_step_operands(run_step, label, check=None):
             STEP_OPERANDS[BENCH_KEY[key]] = _step_entry(name, calls)
         print(f"[step-operands] {key}: {ms:.4f} ms on a training step's own operands "
               f"({len(calls)} launch(es), N={STEP_MS[key][1]})", flush=True)
+    SH_PACKS.clear()
     return out
 
 
@@ -1757,10 +1791,14 @@ def check_step_kernels(key, calls):
     (vsave and gdsave) equal to the bit, and K9's and K11's enc and jac within
     2e-2 * max|plain|; HG3's feat equal to HG1's to the bit and its jac within
     2e-2 * max|plain|, HG4 within the hash gradient limits
-    (``hash_grad_limits``)."""
+    (``hash_grad_limits``); HG1 within 1e-5 * max|plain| and HG2 within the
+    hash gradient limits; K3 within 2e-2 * max|plain| (its hsave differing
+    in at most 1e-3 of its entries, as in ``kernel_phase``) and K4 within
+    2.5e-2 * max|plain| per gradient."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
     from instant_nsr_pl_tpu_torch.ops import cp_stacked as cps
     from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+    from instant_nsr_pl_tpu_torch.ops import sh_mlp as sh
 
     def equal(tag, label, a, b):
         if not torch.equal(a, b):
@@ -1813,6 +1851,36 @@ def check_step_kernels(key, calls):
             spec = args[4]
             tag = f"{key} step launch {k} (N={args[1].reshape(-1, 3).shape[0]})"
             hash_grad_limits(tag, spec, got, ref)
+        elif key.startswith("hashgrid_forward"):
+            got = hg.hashgrid_forward_launch(*args, **kwargs)
+            torch.cuda.synchronize()
+            tag = f"{key} step launch {k} (N={args[1].reshape(-1, 3).shape[0]})"
+            compare(tag, got, hg.hashgrid_encode(*args, **kwargs), rel=1e-5)
+        elif key.startswith("hashgrid_backward"):
+            got = hg.hashgrid_backward_launch(*args, **kwargs)
+            torch.cuda.synchronize()
+            ref = hg.hashgrid_backward_plain(*args, **kwargs)
+            tag = f"{key} step launch {k} (N={args[1].reshape(-1, 3).shape[0]})"
+            hash_grad_limits(tag, args[3], got, ref)
+        elif key.startswith("sh_mlp_forward"):
+            ops, feats, dirs, spec, degree = args[:5]
+            params, n_pre = next((p, n) for ws, p, n in SH_PACKS if ws is ops[0])
+            got, hsave = sh.sh_mlp_launch(*args, **kwargs)
+            torch.cuda.synchronize()
+            ref, ref_h = sh.sh_mlp_forward_plain(params, feats, dirs, spec, degree, n_pre,
+                                                 save_residuals=True)
+            tag = f"{key} step launch {k} (N={feats.reshape(-1, feats.shape[-1]).shape[0]})"
+            compare(f"{tag} out", got, ref)
+            frac = float((hsave != ref_h).float().mean())
+            if frac > 1e-3:  # bf16 roundings of f32 sums in another order (kernel_phase)
+                raise AssertionError(f"{tag}: hsave differs in {frac:.2e} of its entries")
+        elif key.startswith("sh_mlp_backward"):
+            got = sh.sh_mlp_backward_launch(*args)
+            torch.cuda.synchronize()
+            ref = sh.sh_mlp_backward_plain(*args)
+            tag = f"{key} step launch {k} (N={args[0].reshape(-1, args[0].shape[-1]).shape[0]})"
+            for label, a, b in zip(("d ws", "d bs", "d features"), got, ref):
+                compare(f"{tag} {label}", a, b, rel=2.5e-2)
 
 
 def neus_fd_phase(device):
@@ -2644,13 +2712,13 @@ def _launcher_run(argv):
     return time.perf_counter() - t0
 
 
-def _recording_steps(counters, last, warm_from, extra=None):
-    """A stand-in for ``NeuSSystem.train_step`` that records each step's
-    launch counts, loss, inv_s and ray count (``records``) and the wall
-    clock at the start of step ``warm_from`` and of step ``last``
+def _recording_steps(counters, last, warm_from, extra=None, label=""):
+    """A stand-in for a system's ``train_step`` that records each step's
+    launch counts, loss, inv_s (NeuS) and ray count (``records``) and the
+    wall clock at the start of step ``warm_from`` and of step ``last``
     (``marks``), captures step ``last``'s kernels on their own operands
-    (``capture_step_operands``), and calls ``extra(system, state, step)``
-    after each step."""
+    (``capture_step_operands`` under ``label``), and calls ``extra(system,
+    state, step)`` after each step."""
     from instant_nsr_pl_tpu_torch.systems.base import BaseSystem
 
     records, marks = [], {}
@@ -2664,11 +2732,11 @@ def _recording_steps(counters, last, warm_from, extra=None):
         n_rays = system.active_num_rays
         if step == last:
             state, metrics = capture_step_operands(lambda: BaseSystem.train_step(system, state),
-                                                   "", check=check_step_kernels)
+                                                   label, check=check_step_kernels)
         else:
             state, metrics = BaseSystem.train_step(system, state)
         records.append({"step": step, "rays": n_rays, "loss": metrics["train/loss"],
-                        "inv_s": metrics["train/inv_s"],
+                        "inv_s": metrics.get("train/inv_s"),
                         "delta": {k: c.launches - before[k] for k, c in counters.items()}})
         if extra is not None:
             extra(system, state, step)
@@ -2694,14 +2762,13 @@ def neus_hash_launcher_phase(device, smi):
     import glob
 
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
-    import instant_nsr_pl_tpu_torch.models.isosurface as iso_mod
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
     from instant_nsr_pl_tpu_torch.config import load_config
-    from instant_nsr_pl_tpu_torch.models.neus import NeuSModel
     from instant_nsr_pl_tpu_torch.ops import hashgrid, sh_mlp
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
     from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
     from instant_nsr_pl_tpu_torch.systems.neus import NeuSSystem
+    from instant_nsr_pl_tpu_torch.tools.launch_timed import timed_export
     from instant_nsr_pl_tpu_torch.utils.savers import load_obj
 
     # the untrained model: the launcher's parameters (the config's seed),
@@ -2782,34 +2849,15 @@ def neus_hash_launcher_phase(device, smi):
     ckpt = os.path.join(run, "ckpt", f"step={LAUNCHER_STEPS}.ckpt")
     obj = os.path.join(run, "save", f"it{LAUNCHER_STEPS}-neus.obj")
     os.remove(obj)
-    stage = {"level grid": 0.0, "marching": 0.0, "vertex colours": 0.0}
-
-    def timed(key, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stage[key] += time.perf_counter() - t0
-            return out
-        return wrapper
-
-    level_fn, march_fn = iso_mod._eval_level_grid, iso_mod.marching_tetrahedra
-    colour_fn = NeuSModel.vertex_colors
+    stage = {}
     for c in counters.values():
         c.launches = 0
-    iso_mod._eval_level_grid = timed("level grid", level_fn)
-    iso_mod.marching_tetrahedra = timed("marching", march_fn)
-    NeuSModel.vertex_colors = timed("vertex colours", colour_fn)
-    try:
+    with timed_export(stage):
         export_s = _launcher_run(base + ["--export", "--resume", ckpt])
-    finally:
-        iso_mod._eval_level_grid, iso_mod.marching_tetrahedra = level_fn, march_fn
-        NeuSModel.vertex_colors = colour_fn
     export_launches = {k: c.launches for k, c in counters.items()}
     mesh = load_obj(obj)
     v, f = mesh["v_pos"], mesh["t_pos_idx"]
-    rest = export_s - sum(stage.values())
+    rest = export_s - stage["level grid"] - stage["marching"] - stage["vertex colours"]
     print(f"[neus-hash] export {export_s:.2f} s: {len(v)} vertices, {len(f)} faces; level grid "
           f"{stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), vertex "
           f"colours {stage['vertex colours']:.3f} s, the rest (loading, OBJ) {rest:.3f} s; "
@@ -2822,21 +2870,23 @@ def neus_hash_launcher_phase(device, smi):
             rays_per_s)
 
 
-def band_launcher_phase(device, smi):
+def band_launcher_phase(device, smi, config=None, overrides=BAND_OVERRIDES,
+                        exp_name="chip_smoke_band", tag="band"):
     """configs/neus-synthetic.yaml with neuralangelo-dtu-wmask.yaml's geometry
     put over it on the command line (``BAND_OVERRIDES``: a
     ProgressiveBandHashGrid of 16 levels from level 4, update_steps cut to
-    BAND_UPDATE_STEPS; finite differences with the progressive eps) through
-    the launcher's ``--train`` for BAND_STEPS steps (the automatic test and
-    mesh included): at every step each HG1 and HG2 launch carries the
-    step's level mask, the stencil's eps is the progressive eps of the
-    step's level, the mask moves at least twice, no HG3 / HG4 runs, and the
-    loss stays finite."""
+    BAND_UPDATE_STEPS; finite differences with the progressive eps), or
+    ``config`` with ``overrides``, through the launcher's ``--train`` for
+    BAND_STEPS steps (the automatic test and mesh included): at every step
+    each HG1 and HG2 launch carries the step's level mask, the stencil's eps
+    is the progressive eps of the step's level, the mask moves at least
+    twice, no HG3 / HG4 runs, and the loss stays finite. Returns the run's
+    launch counts and its wall seconds."""
     from instant_nsr_pl_tpu_torch.models.geometry import VolumeSDF
     from instant_nsr_pl_tpu_torch.ops import hashgrid
     from instant_nsr_pl_tpu_torch.systems.neus import NeuSSystem
 
-    exp = os.path.join(ROOT, "exp", "chip_smoke_band")
+    exp = os.path.join(ROOT, "exp", exp_name)
     shutil.rmtree(exp, ignore_errors=True)  # an earlier run's
     masks, eps_seen = [], []
     fwd_fn, bwd_fn = hashgrid.hashgrid_forward_launch, hashgrid.hashgrid_backward_launch
@@ -2864,7 +2914,7 @@ def band_launcher_phase(device, smi):
         seen = [m for _, m in masks]
         names = {n for n, _ in masks}
         if any(m != want for m in seen) or names != {"hashgrid_forward", "hashgrid_backward"}:
-            raise AssertionError(f"band step {step}: HG1 / HG2 launched with masks "
+            raise AssertionError(f"{tag} step {step}: HG1 / HG2 launched with masks "
                                  f"{sorted(set(map(str, seen)))} (names {names}), want {want}")
         spec = enc.spec
         res = np.float32(spec.base_resolution) * np.float32(spec.per_level_scale) ** np.float32(
@@ -2872,7 +2922,7 @@ def band_launcher_phase(device, smi):
         expect = float(np.float32(2.0 * system.model.radius) / np.float32(res))
         # the eps of the step's level (float32 powers may differ in the last place)
         if not eps_seen or any(abs(e - expect) > 1e-6 * expect for _, e in eps_seen):
-            raise AssertionError(f"band step {step}: eps {eps_seen} != {expect} (level {level})")
+            raise AssertionError(f"{tag} step {step}: eps {eps_seen} != {expect} (level {level})")
         per_step[step] = (level, eps_seen[-1][1], len(seen))
         masks.clear()
         eps_seen.clear()
@@ -2888,9 +2938,9 @@ def band_launcher_phase(device, smi):
     VolumeSDF.finite_difference_eps = eps
     NeuSSystem.train_step = train_step
     try:
-        wall = _launcher_run(["--config", REPO_NEUS_CONFIG, "--exp_dir", exp, "tag=chip",
-                              "--train", f"trainer.max_steps={BAND_STEPS}",
-                              f"trainer.val_check_interval={BAND_STEPS}", *BAND_OVERRIDES])
+        wall = _launcher_run(["--config", config or REPO_NEUS_CONFIG, "--exp_dir", exp,
+                              "tag=chip", "--train", f"trainer.max_steps={BAND_STEPS}",
+                              f"trainer.val_check_interval={BAND_STEPS}", *overrides])
     finally:
         del NeuSSystem.train_step
         VolumeSDF.finite_difference_eps = eps_fn
@@ -2898,7 +2948,7 @@ def band_launcher_phase(device, smi):
     launches = {k: c.launches for k, c in counters.items()}
     losses = [float(r["loss"]) for r in records]
     levels = [per_step[s][0] for s in sorted(per_step)]
-    print(f"[band] {BAND_STEPS} steps + val + test + mesh in {wall:.1f} s; level by step "
+    print(f"[{tag}] {BAND_STEPS} steps + val + test + mesh in {wall:.1f} s; level by step "
           f"{levels}; eps {sorted({(v[0], v[1]) for v in per_step.values()})}; HG1 + HG2 "
           f"launches a step {per_step[1][2]}; loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"launches {launches} ({smi})", flush=True)
@@ -2906,7 +2956,208 @@ def band_launcher_phase(device, smi):
     assert np.isfinite(losses).all(), "the loss went non-finite"
     assert launches["hashgrid_jac_forward"] == launches["hashgrid_jac_backward"] == 0, launches
     assert min(launches["hashgrid_forward"], launches["hashgrid_backward"]) >= BAND_STEPS
-    return launches
+    return launches, wall
+
+
+# ---------------------------------------------------------------------------
+# slice 8: the Blender and DTU loaders on data80 and on a DTU-layout export
+# of the port's own, through configs/{nerf,neus}-blender.yaml,
+# neus-dtu-wmask.yaml and neuralangelo-dtu-wmask.yaml
+# ---------------------------------------------------------------------------
+
+DATA80 = os.path.join(ROOT, "data80", "blender")
+DTU_EXPORT = os.path.join(ROOT, "exp", "chip_smoke_data")
+DTU_VIEWS = 49  # DTU's view count; 800x800 (DTU's 1600x1200, cut so the export stays quick)
+DTU_SIZE = 800
+DTU_TEST_VIEWS = 10  # the configs' n_test_traj_steps 60, cut
+# the configs' isosurfaces (NeRF 256^3, NeuS 512^3), cut: marching and the
+# OBJ run on the host (measured uncut with tools/launch_timed.py)
+ISO_CUT = 128
+BLENDER_DATA = ["dataset.scene=procsphere", f"dataset.root_dir={DATA80}",
+                f"model.geometry.isosurface.resolution={ISO_CUT}"]
+# the paths: config, overrides, the split whose PSNR the run is held to
+# (DTU's test frames are blank: its val split, the training images), the
+# views of that split, and the kernels every step launches
+DATASET_PATHS = {
+    "blender_nerf": ("nerf-blender.yaml", BLENDER_DATA, "test", 4,
+                     ("hashgrid_forward", "hashgrid_backward", "sh_mlp_forward",
+                      "sh_mlp_backward")),
+    "blender_neus": ("neus-blender.yaml", BLENDER_DATA, "test", 4,
+                     ("hashgrid_jac_forward", "hashgrid_jac_backward", "sh_mlp_forward",
+                      "sh_mlp_backward")),
+    "dtu_neus": ("neus-dtu-wmask.yaml",
+                 [f"dataset.root_dir={os.path.join(DTU_EXPORT, 'dtu')}",
+                  f"dataset.n_test_traj_steps={DTU_TEST_VIEWS}",
+                  f"model.geometry.isosurface.resolution={ISO_CUT}"], "val", 2,
+                 # the DTU configs' radiance head is a float32 VanillaMLP:
+                 # not K3 / K4's bf16 head, in the JAX package as here
+                 ("hashgrid_jac_forward", "hashgrid_jac_backward")),
+}
+DTU_BAND_OVERRIDES = [f"dataset.root_dir={os.path.join(DTU_EXPORT, 'dtu')}",
+                      f"dataset.n_test_traj_steps={DTU_TEST_VIEWS}",
+                      f"model.geometry.isosurface.resolution={ISO_CUT}",
+                      f"model.geometry.xyz_encoding_config.update_steps={BAND_UPDATE_STEPS}"]
+
+
+def dtu_export_phase():
+    """The procedural scene's DTU layout (``tools/make_synthetic_data.py``):
+    DTU_VIEWS views at DTU_SIZE x DTU_SIZE into ``exp/chip_smoke_data/dtu``.
+    Returns the wall seconds."""
+    from instant_nsr_pl_tpu_torch.tools import make_synthetic_data
+
+    shutil.rmtree(DTU_EXPORT, ignore_errors=True)
+    t0 = time.perf_counter()
+    assert make_synthetic_data.main(["--out", DTU_EXPORT, "--format", "dtu", "--size",
+                                     str(DTU_SIZE), "--n-train", str(DTU_VIEWS)]) == 0
+    wall = time.perf_counter() - t0
+    print(f"[dtu-export] {DTU_VIEWS} views at {DTU_SIZE}x{DTU_SIZE} (RGB + L mask PNGs, "
+          f"cameras_sphere.npz) in {wall:.2f} s (host)", flush=True)
+    return wall
+
+
+def _untrained_psnr(config, overrides, split, n_views, device):
+    """The mean PSNR over ``n_views`` views of ``split`` of the model the
+    launcher starts from: its parameters from the config's seed, the grid
+    after one warmup update."""
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.config import load_config
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+    from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
+
+    cfg = load_config(config, cli_args=overrides)
+    dm = datasets.make(cfg.dataset.name, cfg.dataset)
+    dm.setup("test" if split == "test" else "validate")
+    ds = dm.test if split == "test" else dm.val
+    system = systems.make(cfg.system.name, cfg)
+    system.setup_data(ds)
+    state = system.init_state(seed=int(cfg.get("seed", 42)))
+    state["occ"] = system.model.update_occupancy(state["params"], state["occ"],
+                                                 state["generator"], warmup=True, step=0)
+    data = dataset_device_arrays(ds, device)
+    psnrs = [system.evaluate_image(state, i, data=data)["psnr"] for i in range(n_views)]
+    del system, state, data, dm
+    torch.cuda.empty_cache()
+    return float(np.mean(psnrs))
+
+
+def dataset_launcher_phase(device, smi, key):
+    """One of ``DATASET_PATHS`` through the port's launcher: ``--train
+    trainer.max_steps=LAUNCHER_STEPS`` of the config's 20,000 (the automatic
+    test and mesh after it), the splits' load seconds (decode, resize) and
+    the export's seconds by stage recorded. Checks: the path's kernels
+    launched on every step (each step's counts recorded around it), the last
+    step's HG1-HG4 / K3 / K4 launches held against their plain versions on
+    their own operands (``check_step_kernels``), the loss finite and falling,
+    the held split's PSNR at least 3 dB above the untrained model's, a
+    non-empty mesh with valid indices; for DTU a finite chamfer against the
+    scene's analytic surface (``tools/eval_chamfer.py``); for the NeRF a
+    ``--export`` of the checkpoint with HG1 in its level grid and no
+    backward. Returns a dict of the run's figures."""
+    import csv
+    import glob
+
+    from instant_nsr_pl_tpu_torch.ops import hashgrid, sh_mlp
+    from instant_nsr_pl_tpu_torch.systems.nerf import NeRFSystem
+    from instant_nsr_pl_tpu_torch.systems.neus import NeuSSystem
+    from instant_nsr_pl_tpu_torch.tools.eval_chamfer import mesh_chamfer
+    from instant_nsr_pl_tpu_torch.tools.launch_timed import timed_export, timed_loads
+    from instant_nsr_pl_tpu_torch.utils.savers import load_obj
+
+    name, overrides, held, n_views, required = DATASET_PATHS[key]
+    config = os.path.join(ROOT, "configs", name)
+    nerf = key.endswith("nerf")
+    untrained = _untrained_psnr(config, overrides, held, n_views, device)
+    print(f"[{key}] untrained {held} PSNR over {n_views} views: {untrained:.3f} dB", flush=True)
+
+    exp = os.path.join(ROOT, "exp", "chip_smoke_datasets", key)
+    shutil.rmtree(exp, ignore_errors=True)  # an earlier run's
+    base = ["--config", config, "--exp_dir", exp, "tag=chip", *overrides]
+    counters = {"hashgrid_forward": hashgrid.hashgrid_forward,
+                "hashgrid_backward": hashgrid.hashgrid_backward,
+                "hashgrid_jac_forward": hashgrid.hashgrid_jac_forward,
+                "hashgrid_jac_backward": hashgrid.hashgrid_jac_backward,
+                "sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward}
+    n_warm = min(100, LAUNCHER_STEPS // 3)
+    train_step, records, marks = _recording_steps(counters, LAUNCHER_STEPS - 1,
+                                                  LAUNCHER_STEPS - 1 - n_warm, label=f"@{key}")
+    loads, stage = [], {}
+    system_cls = NeRFSystem if nerf else NeuSSystem
+    for c in counters.values():
+        c.launches = 0
+    system_cls.train_step = train_step
+    try:
+        with timed_loads(loads), timed_export(stage):
+            train_s = _launcher_run(base + ["--train", f"trainer.max_steps={LAUNCHER_STEPS}",
+                                            f"trainer.val_check_interval={LAUNCHER_STEPS}"])
+    finally:
+        del system_cls.train_step  # the base class's again
+    train_launches = {k: c.launches for k, c in counters.items()}
+    assert len(records) == LAUNCHER_STEPS, len(records)
+    for r in records:
+        for k in required:
+            if r["delta"][k] < 1:
+                raise AssertionError(f"{key} step {r['step']}: {k} was not launched: "
+                                     f"{r['delta']}")
+    assert min(train_launches[k] for k in required) >= LAUNCHER_STEPS, train_launches
+    losses = [float(r["loss"]) for r in records]
+    rays = [r["rays"] for r in records]
+    warm_s = marks[LAUNCHER_STEPS - 1] - marks[LAUNCHER_STEPS - 1 - n_warm]
+    rays_per_s = sum(rays[-1 - n_warm:-1]) / warm_s
+    (run,) = glob.glob(os.path.join(exp, "*", "chip@*"))
+    with open(os.path.join(run, "csv_logs", "metrics.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    test_psnr = [float(r["test/psnr"]) for r in rows if r.get("test/psnr")]
+    val_psnr = [float(r["val/psnr"]) for r in rows if r.get("val/psnr")]
+    trained = test_psnr[-1] if held == "test" else val_psnr[-1]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    obj = os.path.join(run, "save", f"it{LAUNCHER_STEPS}-{'nerf' if nerf else 'neus'}.obj")
+    mesh = load_obj(obj)
+    v, f = mesh["v_pos"], mesh["t_pos_idx"]
+    out = {"untrained": untrained, "trained": trained, "test_psnr": test_psnr[-1],
+           "train_s": train_s, "rays_per_s": rays_per_s, "loads": loads,
+           "stages": dict(stage), "vertices": len(v), "faces": len(f),
+           "launches": train_launches, "step": records[1]["delta"]}
+    load_line = "; ".join(f"{d['split']} {d['views']} views at {d['wh'][0]}x{d['wh'][1]} "
+                          f"{d['wall']:.2f} s (decode {d['decode']:.2f}, resize "
+                          f"{d['resize']:.2f})" for d in loads)
+    print(f"[{key}] configs/{name}: loads {load_line} (host)", flush=True)
+    print(f"[{key}] {LAUNCHER_STEPS} steps + val + test + mesh in {train_s:.1f} s; warm "
+          f"{rays_per_s:.0f} rays/s, {warm_s / n_warm * 1e3:.2f} ms per step (rays per step "
+          f"{rays[0]} -> {rays[-1]}); loss, first 20 steps {first:.5f}, last 20 {last:.5f}; "
+          f"{held} PSNR {trained:.3f} dB (untrained {untrained:.3f}), test/psnr "
+          f"{test_psnr[-1]:.3f}; one step {records[1]['delta']}; launches {train_launches} "
+          f"({smi})", flush=True)
+    rest = stage["export"] - stage["level grid"] - stage["marching"] - stage["vertex colours"]
+    print(f"[{key}] mesh export {stage['export']:.2f} s: {len(v)} vertices, {len(f)} faces; "
+          f"level grid {stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), "
+          f"vertex colours {stage['vertex colours']:.3f} s, the rest (OBJ) {rest:.3f} s "
+          f"({smi})", flush=True)
+    assert np.isfinite(losses).all() and last < first, "the loss did not fall"
+    assert trained >= untrained + 3.0, f"{key}: training gained less than 3 dB"
+    assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
+    if key.startswith("dtu"):
+        t0 = time.perf_counter()
+        out["chamfer"] = mesh_chamfer(mesh)
+        print(f"[{key}] chamfer against the analytic surface: {json.dumps(out['chamfer'])} "
+              f"({time.perf_counter() - t0:.2f} s, host)", flush=True)
+        assert math.isfinite(out["chamfer"]["chamfer"]), out["chamfer"]
+    if nerf:
+        ckpt = os.path.join(run, "ckpt", f"step={LAUNCHER_STEPS}.ckpt")
+        os.remove(obj)
+        for c in counters.values():
+            c.launches = 0
+        out["export_s"] = _launcher_run(base + ["--export", "--resume", ckpt])
+        out["export_launches"] = {k: c.launches for k, c in counters.items()}
+        mesh = load_obj(obj)
+        v, f = mesh["v_pos"], mesh["t_pos_idx"]
+        print(f"[{key}] --export {out['export_s']:.2f} s: {len(v)} vertices, {len(f)} faces; "
+              f"launches {out['export_launches']} ({smi})", flush=True)
+        assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
+        assert out["export_launches"]["hashgrid_forward"] >= 1, out["export_launches"]
+        assert not any(out["export_launches"][k] for k in counters if k.endswith("_backward"))
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None):
@@ -2989,7 +3240,21 @@ def main(argv=None):
     nh_step, nh_run, nh_export, nh_rays_per_s = neus_hash_launcher_phase(device, smi)
     print(f"[neus-hash] rays/s: {nh_rays_per_s:.0f} warm training ({smi})", flush=True)
     torch.cuda.empty_cache()
-    band_run = band_launcher_phase(device, smi)
+    band_run, _ = band_launcher_phase(device, smi)
+    torch.cuda.empty_cache()
+    # slice 8: the Blender loader on data80, the DTU loader on the port's export
+    ds_runs = {key: dataset_launcher_phase(device, smi, key)
+               for key in ("blender_nerf", "blender_neus")}
+    dtu_export_s = dtu_export_phase()
+    ds_runs["dtu_neus"] = dataset_launcher_phase(device, smi, "dtu_neus")
+    dtu_band_run, dtu_band_s = band_launcher_phase(
+        device, smi, os.path.join(ROOT, "configs", "neuralangelo-dtu-wmask.yaml"),
+        DTU_BAND_OVERRIDES, "chip_smoke_dtu_band", "dtu-band")
+    summary = {"card": smi, "dtu_export_s": dtu_export_s, "dtu_band_s": dtu_band_s,
+               "dtu_band_launches": dtu_band_run, **ds_runs}
+    os.makedirs(os.path.join(ROOT, "exp", "chip_smoke_datasets"), exist_ok=True)
+    with open(os.path.join(ROOT, "exp", "chip_smoke_datasets", "summary.json"), "w") as fh:
+        json.dump(summary, fh, indent=1, default=str)
     # launches: counted in the run of the path that runs the kernel (the NeRF
     # training runs for K1/K2 and K13/K14, the NeuS training runs for
     # K3-K5/K9/K10, K11/K12 and K7/K8, the finite-difference run for K6),
@@ -3049,6 +3314,18 @@ def main(argv=None):
             raise AssertionError(f"{e['name']}: not launched on its main path "
                                  f"({e['launches_path']})")
     entries += hash_entries + hash_jac_entries + cp_big_entries + probe_entries
+    # slice 8: HG1-HG4, K3 and K4 on the Blender and DTU launcher runs (the
+    # NeRF's --export; HG1 / HG2 on neuralangelo-dtu-wmask.yaml's run)
+    for e in entries:
+        name = e["name"]
+        for key, run in ds_runs.items():
+            if name in run["launches"]:
+                e[f"launches_{key}_train"] = run["launches"][name]
+                e[f"launches_{key}_step"] = run["step"][name]
+        if name in ds_runs["blender_nerf"]["export_launches"]:
+            e["launches_blender_nerf_export"] = ds_runs["blender_nerf"]["export_launches"][name]
+        if name in dtu_band_run:
+            e["launches_dtu_band_train"] = dtu_band_run[name]
     # the redesigned kernels: ptxas' registers and spills, the launch plan
     # (shared memory, blocks per SM), the time on a training step's own
     # operands, and the parent design's times where a parent checkout is given

@@ -12,6 +12,9 @@ directory (so a second ``--test`` finds the views it already saved).
 ``--resume`` also takes a JAX package checkpoint (``.npz``). ``--train``
 tests the trained state when it ends (test views, then the mesh), as the
 JAX launcher does (``launch.py:152-159``); the other modes need ``--resume``.
+Every mode writes ``config/parsed.yaml`` and ``config/raw.yaml`` into the
+trial; ``--train`` also copies the git-tracked files of the working
+directory into ``code/`` (``utils/callbacks.py``, JAX ``launch.py:149-150``).
 """
 
 from __future__ import annotations
@@ -60,18 +63,20 @@ def main(argv=None):
         parser.error("exactly one of --train/--validate/--test/--predict/--export is required")
     mode = modes[0]
 
-    from instant_nsr_pl_tpu_torch.config import dump_config, load_config
+    from instant_nsr_pl_tpu_torch.config import load_config
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
     from instant_nsr_pl_tpu_torch.trainer import Trainer
+    from instant_nsr_pl_tpu_torch.utils.callbacks import snapshot_code, snapshot_config
 
     config = load_config(args.config, cli_args=extras)
     name = config.get("name", os.path.splitext(os.path.basename(args.config))[0])
     config["trial_name"] = _trial_name(config, args, name)
     exp_dir = os.path.join(args.exp_dir, name, config["trial_name"])
-    os.makedirs(os.path.join(exp_dir, "config"), exist_ok=True)
-    dump_config(os.path.join(exp_dir, "config", "parsed.yaml"), config)
+    snapshot_config(os.path.join(exp_dir, "config"), config, args.config)
+    if mode == "train":
+        snapshot_code(os.path.join(exp_dir, "code"))
 
     dm = datasets.make(config.dataset.name, config.dataset)
     system = systems.make(config.system.name, config, device=args.device)

@@ -147,14 +147,19 @@ def _png_chunk(tag, data):
 
 
 def encode_png(img_u8):
-    """An (H, W, 3) uint8 RGB image as PNG bytes: 8-bit truecolour, every
-    row with filter 0, one zlib stream."""
+    """A uint8 image as PNG bytes: (H, W) grey, (H, W, 3) RGB or (H, W, 4)
+    RGBA, 8 bits a sample, every row with filter 0, one zlib stream."""
     img = np.ascontiguousarray(img_u8, np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"encode_png: expected (H, W, 3) uint8, got {img.shape}")
-    h, w, _ = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    if img.ndim == 2:
+        colour = 0
+    elif img.ndim == 3 and img.shape[2] in (3, 4):
+        colour = 2 if img.shape[2] == 3 else 6
+    else:
+        raise ValueError(f"encode_png: expected (H, W), (H, W, 3) or (H, W, 4) uint8, "
+                         f"got {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
             + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _png_chunk(b"IEND", b""))
 
