@@ -146,7 +146,26 @@ lines are printed):
    chamfer against the scene's analytic surface) and
    ``configs/neuralangelo-dtu-wmask.yaml`` on it for BAND_STEPS steps, each
    HG1 / HG2 launch's level mask and the eps checked per step as in 16;
-18. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
+18. slice 9, unbounded scenes (sphere contraction, cone-angle stepping, the
+   256^3 contracted grid, the learned background; ``datasets/colmap.py``)
+   through the launcher as in 17: ``tools/make_synthetic_data.py``'s COLMAP
+   layout of the scene (COLMAP_VIEWS views at COLMAP_SIZE^2, one PINHOLE
+   camera, PNG, the background a textured sphere of radius COLMAP_BACKDROP)
+   with ``configs/nerf-colmap.yaml`` (img_downscale 4; HG1, HG2,
+   K3 and K4 on every step; then ``--export`` at threshold 5.0) and
+   ``configs/neus-colmap.yaml`` on it (HG3 / HG4 for the foreground SDF, HG1
+   / HG2 for the background density on every step), and
+   ``configs/neus-dtu.yaml`` (DTU without masks, with the background) on the
+   DTU export of 17; the up direction from the cameras
+   (``dataset.up_est_method=camera``: the scene has no ground plane for the
+   RANSAC of ``ground``), the test trajectory cut to DTU_TEST_VIEWS frames;
+   each with the val split 3 dB above the untrained model's, the warm
+   training rate, the share of the packed foreground and background samples
+   that are live, the seconds and peak memory of the grid warmup updates
+   (every cell of the 256^3 grid through the density network), a non-empty
+   mesh and, for NeuS, the foreground SDF's range over the AABB and the
+   share of a val view's pixels that the foreground covers;
+19. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4;
    the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's K9,
@@ -173,7 +192,7 @@ lines are printed):
    K8 and HG2 ``parent_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
-19. the last line ``{"ok": true, "device": {...}}``.
+20. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
 C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
@@ -258,6 +277,7 @@ def with_biases(layers, gen, device):
 
 
 def compare(name, kernel_out, plain_out, rel=2e-2):
+    kernel_out, plain_out = kernel_out.detach(), plain_out.detach()
     err = float((kernel_out - plain_out).abs().max())
     tol = rel * float(plain_out.abs().max())
     ok = math.isfinite(err) and err <= tol
@@ -2993,6 +3013,34 @@ DATASET_PATHS = {
                  # not K3 / K4's bf16 head, in the JAX package as here
                  ("hashgrid_jac_forward", "hashgrid_jac_backward")),
 }
+# slice 9: the unbounded-scene configs on a COLMAP export of the scene and on
+# the DTU export (neus-dtu.yaml: DTU without masks, with the background)
+COLMAP_EXPORT = os.path.join(ROOT, "exp", "chip_smoke_colmap")
+COLMAP_VIEWS = 80  # data80's train split: 80 views at 800x800
+COLMAP_SIZE = 800
+# the background is a textured sphere at 4x the cameras' distance (the
+# export's --backdrop), not white: an unbounded capture's surroundings, which
+# the learned background takes on and a foreground shell cannot
+COLMAP_BACKDROP = 10.0
+# the procedural scene has no ground plane: the RANSAC of the configs'
+# up_est_method "ground" finds an arbitrary plane through sphere points
+COLMAP_OVERRIDES = [f"dataset.root_dir={os.path.join(COLMAP_EXPORT, 'colmap')}",
+                    "dataset.up_est_method=camera",
+                    f"dataset.n_test_traj_steps={DTU_TEST_VIEWS}",
+                    f"model.geometry.isosurface.resolution={ISO_CUT}"]
+BG_KERNELS = ("hashgrid_jac_forward", "hashgrid_jac_backward", "hashgrid_forward",
+              "hashgrid_backward")
+DATASET_PATHS.update({
+    "colmap_nerf": ("nerf-colmap.yaml", COLMAP_OVERRIDES, "val", 2,
+                    ("hashgrid_forward", "hashgrid_backward", "sh_mlp_forward",
+                     "sh_mlp_backward")),
+    # the NeuS configs' heads (and texture_bg) are float32 VanillaMLPs: no K3 / K4
+    "colmap_neus": ("neus-colmap.yaml", COLMAP_OVERRIDES, "val", 2, BG_KERNELS),
+    "dtu_bg_neus": ("neus-dtu.yaml",
+                    [f"dataset.root_dir={os.path.join(DTU_EXPORT, 'dtu')}",
+                     f"dataset.n_test_traj_steps={DTU_TEST_VIEWS}",
+                     f"model.geometry.isosurface.resolution={ISO_CUT}"], "val", 2, BG_KERNELS),
+})
 DTU_BAND_OVERRIDES = [f"dataset.root_dir={os.path.join(DTU_EXPORT, 'dtu')}",
                       f"dataset.n_test_traj_steps={DTU_TEST_VIEWS}",
                       f"model.geometry.isosurface.resolution={ISO_CUT}",
@@ -3013,6 +3061,94 @@ def dtu_export_phase():
     print(f"[dtu-export] {DTU_VIEWS} views at {DTU_SIZE}x{DTU_SIZE} (RGB + L mask PNGs, "
           f"cameras_sphere.npz) in {wall:.2f} s (host)", flush=True)
     return wall
+
+
+def colmap_export_phase():
+    """The procedural scene's COLMAP layout (``tools/make_synthetic_data.py``):
+    COLMAP_VIEWS views at COLMAP_SIZE x COLMAP_SIZE into
+    ``exp/chip_smoke_colmap/colmap``. Returns the wall seconds."""
+    from instant_nsr_pl_tpu_torch.tools import make_synthetic_data
+
+    shutil.rmtree(COLMAP_EXPORT, ignore_errors=True)
+    t0 = time.perf_counter()
+    assert make_synthetic_data.main(["--out", COLMAP_EXPORT, "--format", "colmap", "--size",
+                                     str(COLMAP_SIZE), "--n-train", str(COLMAP_VIEWS),
+                                     "--backdrop", str(COLMAP_BACKDROP)]) == 0
+    wall = time.perf_counter() - t0
+    print(f"[colmap-export] {COLMAP_VIEWS} views at {COLMAP_SIZE}x{COLMAP_SIZE} (RGB PNGs on a "
+          f"textured backdrop of radius {COLMAP_BACKDROP}, sparse/0 cameras, images, points3D) "
+          f"in {wall:.2f} s (host)", flush=True)
+    return wall
+
+
+def _grid_and_sample_recorders(system_cls, model_cls, warmups, shares):
+    """Wrap ``system_cls.update_occupancy`` and ``model_cls.forward``: each
+    warmup update's wall seconds, the card's peak allocation during it and
+    the allocation before it go to ``warmups``; each training forward's
+    packed live counts and capacities (foreground, and the background's where
+    the model has one) to ``shares``. Returns a function that undoes both."""
+    update, forward = system_cls.update_occupancy, model_cls.forward
+
+    def update_occupancy(self, state, warmup):
+        if not warmup:
+            return update(self, state, warmup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state = update(self, state, warmup)
+        torch.cuda.synchronize()
+        warmups.append({"s": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated(),
+                        "before": before,
+                        "cells": sum(g.occs.numel() for g in state["occ"].values())})
+        return state
+
+    def recording_forward(self, *args, **kwargs):
+        out = forward(self, *args, **kwargs)
+        if kwargs.get("train"):
+            shares.append((out["num_samples"], kwargs["capacity"], out.get("num_samples_bg"),
+                           kwargs.get("capacity_bg")))
+        return out
+
+    system_cls.update_occupancy = update_occupancy
+    model_cls.forward = recording_forward
+
+    def undo():
+        del system_cls.update_occupancy  # the base class's again
+        model_cls.forward = forward
+    return undo
+
+
+def _sdf_over_box(run, config, overrides, device):
+    """The trained NeuS foreground SDF of the run's last checkpoint at 64^3
+    points over its AABB: min, max and the share below 0; and on the first
+    val view the share of pixels whose foreground opacity exceeds 0.5 (a
+    foreground that covers the whole view is a shell, not the object)."""
+    import glob
+
+    from instant_nsr_pl_tpu_torch.config import load_config
+    from instant_nsr_pl_tpu_torch.registry import datasets, systems
+    from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
+    from instant_nsr_pl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    (ckpt,) = glob.glob(os.path.join(run, "ckpt", "*.ckpt"))
+    cfg = load_config(config, cli_args=overrides)
+    system = systems.make(cfg.system.name, cfg)
+    state = load_checkpoint(ckpt, system.init_state(0))
+    c = torch.linspace(-system.model.radius, system.model.radius, 64, device=device)
+    pts = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1).reshape(-1, 3)
+    with torch.no_grad():
+        sdf = system.model.forward_level(state["params"], pts, step=state["step"])
+    dm = datasets.make(cfg.dataset.name, cfg.dataset)
+    dm.setup("validate")
+    system.setup_data(dm.val)
+    opacity = system.render_image(state, 0, data=dataset_device_arrays(dm.val, device))["opacity"]
+    out = {"min": float(sdf.min()), "max": float(sdf.max()),
+           "negative_share": float((sdf < 0).float().mean()),
+           "fg_opaque_pixel_share": float((opacity > 0.5).mean())}
+    del system, state, dm
+    torch.cuda.empty_cache()
+    return out
 
 
 def _untrained_psnr(config, overrides, split, n_views, device):
@@ -3057,6 +3193,9 @@ def dataset_launcher_phase(device, smi, key):
     import csv
     import glob
 
+    from instant_nsr_pl_tpu_torch.datasets.colmap import ColmapDatasetBase
+    from instant_nsr_pl_tpu_torch.models.nerf import NeRFModel
+    from instant_nsr_pl_tpu_torch.models.neus import NeuSModel
     from instant_nsr_pl_tpu_torch.ops import hashgrid, sh_mlp
     from instant_nsr_pl_tpu_torch.systems.nerf import NeRFSystem
     from instant_nsr_pl_tpu_torch.systems.neus import NeuSSystem
@@ -3070,6 +3209,9 @@ def dataset_launcher_phase(device, smi, key):
     untrained = _untrained_psnr(config, overrides, held, n_views, device)
     print(f"[{key}] untrained {held} PSNR over {n_views} views: {untrained:.3f} dB", flush=True)
 
+    # the untrained model's load filled the COLMAP parse cache: empty it, so
+    # the launcher's loads are timed
+    ColmapDatasetBase._cache.clear()
     exp = os.path.join(ROOT, "exp", "chip_smoke_datasets", key)
     shutil.rmtree(exp, ignore_errors=True)  # an earlier run's
     base = ["--config", config, "--exp_dir", exp, "tag=chip", *overrides]
@@ -3081,17 +3223,20 @@ def dataset_launcher_phase(device, smi, key):
     n_warm = min(100, LAUNCHER_STEPS // 3)
     train_step, records, marks = _recording_steps(counters, LAUNCHER_STEPS - 1,
                                                   LAUNCHER_STEPS - 1 - n_warm, label=f"@{key}")
-    loads, stage = [], {}
+    loads, stage, warmups, shares = [], {}, [], []
     system_cls = NeRFSystem if nerf else NeuSSystem
     for c in counters.values():
         c.launches = 0
     system_cls.train_step = train_step
+    undo = _grid_and_sample_recorders(system_cls, NeRFModel if nerf else NeuSModel, warmups,
+                                      shares)
     try:
         with timed_loads(loads), timed_export(stage):
             train_s = _launcher_run(base + ["--train", f"trainer.max_steps={LAUNCHER_STEPS}",
                                             f"trainer.val_check_interval={LAUNCHER_STEPS}"])
     finally:
         del system_cls.train_step  # the base class's again
+        undo()
     train_launches = {k: c.launches for k, c in counters.items()}
     assert len(records) == LAUNCHER_STEPS, len(records)
     for r in records:
@@ -3114,10 +3259,17 @@ def dataset_launcher_phase(device, smi, key):
     obj = os.path.join(run, "save", f"it{LAUNCHER_STEPS}-{'nerf' if nerf else 'neus'}.obj")
     mesh = load_obj(obj)
     v, f = mesh["v_pos"], mesh["t_pos_idx"]
+    assert len(shares) == LAUNCHER_STEPS and warmups, (len(shares), len(warmups))
+    fg_live = [min(int(n), cap) / cap for n, cap, _, _ in shares[-1 - n_warm:-1]]
+    bg_live = [min(int(n), cap) / cap for _, _, n, cap in shares[-1 - n_warm:-1]
+               if n is not None]
     out = {"untrained": untrained, "trained": trained, "test_psnr": test_psnr[-1],
            "train_s": train_s, "rays_per_s": rays_per_s, "loads": loads,
            "stages": dict(stage), "vertices": len(v), "faces": len(f),
-           "launches": train_launches, "step": records[1]["delta"]}
+           "launches": train_launches, "step": records[1]["delta"],
+           "ms_per_step": warm_s / n_warm * 1e3, "fg_live_share": float(np.mean(fg_live)),
+           "bg_live_share": float(np.mean(bg_live)) if bg_live else None,
+           "grid_warmups": warmups}
     load_line = "; ".join(f"{d['split']} {d['views']} views at {d['wh'][0]}x{d['wh'][1]} "
                           f"{d['wall']:.2f} s (decode {d['decode']:.2f}, resize "
                           f"{d['resize']:.2f})" for d in loads)
@@ -3129,10 +3281,22 @@ def dataset_launcher_phase(device, smi, key):
           f"{test_psnr[-1]:.3f}; one step {records[1]['delta']}; launches {train_launches} "
           f"({smi})", flush=True)
     rest = stage["export"] - stage["level grid"] - stage["marching"] - stage["vertex colours"]
+    w_s = [w["s"] for w in warmups]
+    print(f"[{key}] packed samples live over the warm steps: foreground "
+          f"{out['fg_live_share']:.4f} of {shares[-1][1]}"
+          + (f", background {out['bg_live_share']:.4f} of {shares[-1][3]}" if bg_live else "")
+          + f"; {len(warmups)} grid warmup updates ({warmups[0]['cells']} cells each) "
+          f"{min(w_s):.3f}-{max(w_s):.3f} s, peak allocated "
+          f"{max(w['peak'] for w in warmups) / 2**30:.2f} GiB "
+          f"({warmups[0]['before'] / 2**30:.2f} GiB before the first) ({smi})", flush=True)
     print(f"[{key}] mesh export {stage['export']:.2f} s: {len(v)} vertices, {len(f)} faces; "
           f"level grid {stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), "
           f"vertex colours {stage['vertex colours']:.3f} s, the rest (OBJ) {rest:.3f} s "
           f"({smi})", flush=True)
+    if not nerf:
+        out["sdf"] = _sdf_over_box(run, config, overrides, device)
+        print(f"[{key}] foreground SDF over the AABB (64^3 points): {json.dumps(out['sdf'])} "
+              f"({smi})", flush=True)
     assert np.isfinite(losses).all() and last < first, "the loss did not fall"
     assert trained >= untrained + 3.0, f"{key}: training gained less than 3 dB"
     assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
@@ -3250,8 +3414,13 @@ def main(argv=None):
     dtu_band_run, dtu_band_s = band_launcher_phase(
         device, smi, os.path.join(ROOT, "configs", "neuralangelo-dtu-wmask.yaml"),
         DTU_BAND_OVERRIDES, "chip_smoke_dtu_band", "dtu-band")
+    torch.cuda.empty_cache()
+    # slice 9: unbounded scenes on the COLMAP export and on the DTU export
+    colmap_export_s = colmap_export_phase()
+    for key in ("colmap_nerf", "colmap_neus", "dtu_bg_neus"):
+        ds_runs[key] = dataset_launcher_phase(device, smi, key)
     summary = {"card": smi, "dtu_export_s": dtu_export_s, "dtu_band_s": dtu_band_s,
-               "dtu_band_launches": dtu_band_run, **ds_runs}
+               "dtu_band_launches": dtu_band_run, "colmap_export_s": colmap_export_s, **ds_runs}
     os.makedirs(os.path.join(ROOT, "exp", "chip_smoke_datasets"), exist_ok=True)
     with open(os.path.join(ROOT, "exp", "chip_smoke_datasets", "summary.json"), "w") as fh:
         json.dump(summary, fh, indent=1, default=str)
@@ -3322,8 +3491,9 @@ def main(argv=None):
             if name in run["launches"]:
                 e[f"launches_{key}_train"] = run["launches"][name]
                 e[f"launches_{key}_step"] = run["step"][name]
-        if name in ds_runs["blender_nerf"]["export_launches"]:
-            e["launches_blender_nerf_export"] = ds_runs["blender_nerf"]["export_launches"][name]
+        for key in ("blender_nerf", "colmap_nerf"):
+            if name in ds_runs[key]["export_launches"]:
+                e[f"launches_{key}_export"] = ds_runs[key]["export_launches"][name]
         if name in dtu_band_run:
             e["launches_dtu_band_train"] = dtu_band_run[name]
     # the redesigned kernels: ptxas' registers and spills, the launch plan

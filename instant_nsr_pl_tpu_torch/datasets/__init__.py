@@ -1,3 +1,3 @@
 """Dataset loaders (the reference's datasets/ package role)."""
 
-from instant_nsr_pl_tpu_torch.datasets import blender, dtu, synthetic  # noqa: F401
+from instant_nsr_pl_tpu_torch.datasets import blender, colmap, dtu, synthetic  # noqa: F401

@@ -1,19 +1,22 @@
 """Instant-NGP style NeRF renderer.
 
 Port of ``instant_nsr_pl_tpu/models/nerf.py:37-250`` (reference
-models/nerf.py:14-161) for bounded scenes: AABB contraction, a 128^3
-occupancy grid and its update, uniform (optionally stratified) stepping
-``1.732 * 2r / num_samples``, the static-capacity packed march of
-``ops/marching.py`` and compositing on the packed buffer. The training
-forward is differentiable with respect to the parameters; the eval forward
-runs without autograd. ``export`` extracts the mesh, with vertex colours
-seen from -z on request (JAX ``models/nerf.py:252-301``). Unbounded scenes
-(learned background) belong to a later slice.
+models/nerf.py:14-161). Bounded scenes: AABB contraction, a 128^3 occupancy
+grid and its update, uniform (optionally stratified) stepping ``1.732 * 2r /
+num_samples``. Unbounded scenes (``learned_background``, reference
+models/nerf.py:21-26): sphere contraction, a 256^3 grid in contracted space,
+near / far 0.2 / 1e4 and cone-angle stepping from a 0.01 base step, one grid
+probe per sample. Both run the static-capacity packed march of
+``ops/marching.py`` and composite on the packed buffer. The training forward
+is differentiable with respect to the parameters; the eval forward runs
+without autograd. ``export`` extracts the mesh, with vertex colours seen from
+-z on request (JAX ``models/nerf.py:252-301``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -39,19 +42,25 @@ from instant_nsr_pl_tpu_torch.registry import models
 @models.register("nerf")
 class NeRFModel:
     def __init__(self, config):
-        if config.get("learned_background", False):
-            raise NotImplementedError(
-                "learned_background (unbounded scenes) comes with a later slice of the port"
-            )
         self.config = config
         self.radius = float(config.radius)
         self.geometry = models.make(config.geometry.name, config.geometry)
         self.texture = models.make(config.texture.name, config.texture)
         self.num_samples_per_ray = int(config.num_samples_per_ray)
 
-        self.occupancy_grid_res = 128
-        self.render_step_size = 1.732 * 2.0 * self.radius / self.num_samples_per_ray
-        self.contraction_type = ContractionType.AABB
+        self.learned_background = bool(config.get("learned_background", False))
+        if self.learned_background:
+            self.occupancy_grid_res = 256
+            self.near_plane, self.far_plane = 0.2, 1e4
+            self.cone_angle = 10.0 ** (math.log10(self.far_plane) / self.num_samples_per_ray) - 1.0
+            self.render_step_size = 0.01
+            self.contraction_type = ContractionType.UN_BOUNDED_SPHERE
+        else:
+            self.occupancy_grid_res = 128
+            self.near_plane, self.far_plane = None, None
+            self.cone_angle = 0.0
+            self.render_step_size = 1.732 * 2.0 * self.radius / self.num_samples_per_ray
+            self.contraction_type = ContractionType.AABB
         self.geometry.contraction_type = self.contraction_type
 
         self.grid_prune = bool(config.get("grid_prune", True))
@@ -61,18 +70,23 @@ class NeRFModel:
             radius=self.radius,
             contraction_type=self.contraction_type,
         )
-        # strided occupancy probing: one dilated-grid probe per group of k
-        # samples, k bounded so a group stays within one dilation radius
-        cell = 2.0 * self.radius / self.occupancy_grid_res
-        auto = int(2.0 * cell / self.render_step_size)
-        self.occ_stride = int(config.get("grid_lookup_stride", min(8, max(1, auto))))
-        while self.num_samples_per_ray % self.occ_stride:
-            self.occ_stride -= 1
+        # strided occupancy probing (uniform steps only): one dilated-grid
+        # probe per group of k samples, k bounded so a group stays within one
+        # dilation radius
+        if self.cone_angle == 0.0:
+            cell = 2.0 * self.radius / self.occupancy_grid_res
+            auto = int(2.0 * cell / self.render_step_size)
+            self.occ_stride = int(config.get("grid_lookup_stride", min(8, max(1, auto))))
+            while self.num_samples_per_ray % self.occ_stride:
+                self.occ_stride -= 1
+        else:
+            self.occ_stride = 1
         self.group_compact = bool(config.get("march_group_compact", True))
         # hash-grid per-group tap dedup (JAX models/nerf.py:87-106): with
         # aligned k-blocks guaranteed by the group-compacted march, the
         # geometry's hash encoding keeps the dedup spec (its kernels compute
-        # per-sample taps, the same function)
+        # per-sample taps, the same function); a stride > 1 means AABB and
+        # uniform steps
         if (bool(config.get("hash_tap_dedup", True)) and self.group_compact
                 and self.grid_prune and self.occ_stride > 1):
             self.geometry.configure_dedup(self.occ_stride,
@@ -126,10 +140,15 @@ class NeRFModel:
 
     # -- rendering ---------------------------------------------------------
     def march(self, occ, rays_o, rays_d, capacity: int, jitter=None):
-        """Slab test, occupancy-pruned march and sample positions:
-        (samples, positions, dirs, t_mid, group). ``jitter``: the (R,)
-        uniform draws of a stratified march."""
-        t_min, t_max = ray_aabb_intersect(rays_o, rays_d, -self.radius, self.radius)
+        """Slab test (near / far planes for an unbounded scene),
+        occupancy-pruned march and sample positions: (samples, positions,
+        dirs, t_mid, group). ``jitter``: the (R,) uniform draws of a
+        stratified march."""
+        if self.learned_background:
+            t_min = torch.full((rays_o.shape[0],), self.near_plane, device=rays_o.device)
+            t_max = torch.full((rays_o.shape[0],), self.far_plane, device=rays_o.device)
+        else:
+            t_min, t_max = ray_aabb_intersect(rays_o, rays_d, -self.radius, self.radius)
         grp = self.packed_group(capacity)
         grid = occ["grid"]
         samples = march_rays(
@@ -146,14 +165,17 @@ class NeRFModel:
             occ_stride=self.occ_stride,
             group_compact=grp > 1,
             jitter=jitter,
+            cone_angle=self.cone_angle,
         )
         positions, dirs, t_mid, _ = packed_positions(samples, rays_o, rays_d, group=grp)
         return samples, positions, dirs, t_mid, grp
 
-    def composite(self, samples, density, rgb, t_mid, background_color, group):
+    @staticmethod
+    def composite(samples, density, rgb, t_mid, background_color, group):
         """Weights from density, then (opacity, depth, rgb) per ray in one
         segment sum, and the background ((3,) or (N, 3)) blended by
-        (1 - opacity). Also returns the packed ``weights``."""
+        (1 - opacity). Also returns the packed ``weights``. NeuS's learned
+        background composites the same way."""
         weights = render_weight_from_density(
             samples.t_starts, samples.t_ends, density,
             samples.ray_indices, samples.valid, group=group,

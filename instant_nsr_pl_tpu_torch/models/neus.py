@@ -1,17 +1,27 @@
-"""NeuS SDF renderer.
+"""NeuS SDF renderer with the learned NeRF background.
 
-Port of ``instant_nsr_pl_tpu/models/neus.py:41-452`` (reference
-models/neus.py:15-321) for bounded scenes: the learnable variance with its
-optional modulation, the SDF-to-alpha section integral with cosine annealing,
-the occupancy grid estimated from the SDF, the foreground march inside the
-AABB (the packed march of ``ops/marching.py``, as in ``models/nerf.py``) and
-compositing of colour, depth and normals. The training forward is
-differentiable with respect to the parameters, through the SDF gradient at
-second order (``models/geometry.py`` ``VolumeSDF``); the eval forward runs
-without autograd. ``export`` extracts the mesh with "albedo" vertex colours
-seen along -normal, the normal from the analytic SDF gradient (JAX
-``models/neus.py:451-506``). The learned NeRF background (sphere
-contraction, cone-angle stepping, the 256^3 grid) belongs to a later slice.
+Port of ``instant_nsr_pl_tpu/models/neus.py:41-506`` (reference
+models/neus.py:15-321): the learnable variance with its optional modulation,
+the SDF-to-alpha section integral with cosine annealing, the occupancy grid
+estimated from the SDF, the foreground march inside the AABB (the packed
+march of ``ops/marching.py``, as in ``models/nerf.py``) and compositing of
+colour, depth and normals. With ``learned_background`` a second NeRF field
+(``geometry_bg`` / ``texture_bg``) renders what lies beyond the AABB: it
+marches from the far AABB intersection (from ``near_plane_bg`` on a miss) to
+``far_plane_bg`` with cone-angle stepping, through a 256^3 grid in
+sphere-contracted space, and the foreground composites over it (``comp_rgb +
+comp_rgb_bg * (1 - opacity)``). The training forward is differentiable with
+respect to the parameters, through the SDF gradient at second order
+(``models/geometry.py`` ``VolumeSDF``); the eval forward runs without
+autograd. ``export`` extracts the mesh with "albedo" vertex colours seen
+along -normal, the normal from the analytic SDF gradient (JAX
+``models/neus.py:451-506``).
+
+Random draws: the JAX package splits its key into a foreground and a
+background key; the port draws from one generator in a fixed order, the
+foreground march's jitter and then the background's (``forward``), the
+foreground grid's update draws and then the background grid's
+(``update_occupancy``).
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 
 from instant_nsr_pl_tpu_torch.device import resolve_device
 from instant_nsr_pl_tpu_torch.models.isosurface import chunked_point_eval
+from instant_nsr_pl_tpu_torch.models.nerf import NeRFModel
 from instant_nsr_pl_tpu_torch.models.network_utils import params_device
 from instant_nsr_pl_tpu_torch.ops.activations import clip
 from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType
@@ -76,12 +87,6 @@ class VarianceNetwork:
 @models.register("neus")
 class NeuSModel:
     def __init__(self, config):
-        if bool(config.get("learned_background", False)):
-            raise NotImplementedError(
-                "learned_background (the NeRF background: sphere contraction, cone "
-                "stepping, the 256^3 grid) comes with the unbounded-scene slice of the "
-                "port (ROADMAP.md queue item 6)"
-            )
         self.config = config
         self.radius = float(config.radius)
         self.geometry = models.make(config.geometry.name, config.geometry)
@@ -105,6 +110,21 @@ class NeuSModel:
         )
         self.cos_anneal_end = int(config.get("cos_anneal_end", 0))
 
+        self.learned_background = bool(config.get("learned_background", False))
+        if self.learned_background:
+            self.geometry_bg = models.make(config.geometry_bg.name, config.geometry_bg)
+            self.texture_bg = models.make(config.texture_bg.name, config.texture_bg)
+            self.geometry_bg.contraction_type = ContractionType.UN_BOUNDED_SPHERE
+            self.near_plane_bg, self.far_plane_bg = 0.1, 1e3
+            self.num_samples_per_ray_bg = int(config.num_samples_per_ray_bg)
+            self.cone_angle_bg = (
+                10.0 ** (math.log10(self.far_plane_bg) / self.num_samples_per_ray_bg) - 1.0)
+            self.render_step_size_bg = 0.01
+            self.occ_thre_bg = float(config.get("grid_prune_occ_thre_bg", 0.01))
+            self.occ_spec_bg = OccGridSpec(
+                resolution=256, radius=self.radius,
+                contraction_type=ContractionType.UN_BOUNDED_SPHERE)
+
     def packed_group(self, capacity: int) -> int:
         """Block size of the packed buffer: k when the group-compacted march
         guarantees single-ray aligned k-blocks, else 1."""
@@ -122,14 +142,21 @@ class NeuSModel:
         """Parameters drawn from ``generator`` (on the CPU, so a seed gives
         the same weights on every device), placed on ``device``."""
         dev = resolve_device(device)
-        return {
+        params = {
             "geometry": self.geometry.init(generator, dev),
             "texture": self.texture.init(generator, dev),
             "variance": self.variance.init(generator, dev),
         }
+        if self.learned_background:
+            params["geometry_bg"] = self.geometry_bg.init(generator, dev)
+            params["texture_bg"] = self.texture_bg.init(generator, dev)
+        return params
 
     def init_occupancy(self, device=None):
-        return {"grid": occupancy_grid_init(self.occ_spec, device)}
+        occ = {"grid": occupancy_grid_init(self.occ_spec, device)}
+        if self.learned_background:
+            occ["grid_bg"] = occupancy_grid_init(self.occ_spec_bg, device)
+        return occ
 
     def init_extra_state(self, device=None):
         """Non-gradient training state beyond the grid: the pre-modulation
@@ -160,7 +187,8 @@ class NeuSModel:
         training step ``step``: the alpha of a step-sized section at the
         cell's point, without the view term (``geometry.apply`` without
         gradient: the plain encode, K5 or HG1 on the card, in chunks of 2^18
-        points)."""
+        points). With the learned background, then the background grid's
+        update with density * its base step (HG1 on the card)."""
         if not self.grid_prune:
             return occ
         inv_s = clip(self.variance.inv_s(params["variance"]), 1e-6, 1e6)
@@ -176,11 +204,21 @@ class NeuSModel:
         def occ_eval_fn(x):
             return torch.cat([occ_eval(c) for c in x.split(1 << 18)])
 
-        grid = occupancy_grid_update(
+        new = {"grid": occupancy_grid_update(
             occ["grid"], self.occ_spec, occ_eval_fn, generator,
             occ_thre=self.occ_thre, warmup=warmup, phase=phase,
-        )
-        return {"grid": grid}
+        )}
+        if self.learned_background:
+            def occ_eval_fn_bg(x):
+                density = [self.geometry_bg.apply(params["geometry_bg"], c, step=step)[0]
+                           for c in x.split(1 << 18)]
+                return torch.cat(density) * self.render_step_size_bg
+
+            new["grid_bg"] = occupancy_grid_update(
+                occ["grid_bg"], self.occ_spec_bg, occ_eval_fn_bg, generator,
+                occ_thre=self.occ_thre_bg, warmup=warmup, phase=phase,
+            )
+        return new
 
     # -- NeuS alpha (reference models/neus.py:117-139) ----------------------
     def get_alpha(self, inv_s, cos_anneal_ratio, sdf, normal, dirs, dists):
@@ -218,8 +256,46 @@ class NeuSModel:
         positions, dirs, t_mid, dists = packed_positions(samples, rays_o, rays_d, group=grp)
         return samples, positions, dirs, t_mid, dists, grp
 
+    def forward_bg(self, params, occ, rays_o, rays_d, *, background_color, capacity: int,
+                   train=False, jitter=None, step=0):
+        """The background field (reference models/neus.py:141-203): a NeRF
+        march from the far AABB intersection (``near_plane_bg`` where the ray
+        misses the AABB) to ``far_plane_bg`` with cone-angle stepping through
+        the background grid, one probe per sample, composited onto
+        ``background_color``. ``jitter``: the (R,) draws of a stratified
+        march. Called inside :meth:`forward`'s autograd mode."""
+        _, t_max = ray_aabb_intersect(rays_o, rays_d, -self.radius, self.radius)
+        near = torch.where(t_max > 1e9, torch.full_like(t_max, self.near_plane_bg), t_max)
+        far = torch.full_like(t_max, self.far_plane_bg)
+        grid = occ["grid_bg"]
+        samples = march_rays(
+            rays_o, rays_d, near, far,
+            render_step_size=self.render_step_size_bg,
+            max_samples=self.num_samples_per_ray_bg,
+            capacity=capacity,
+            occ_binary=grid.binary if self.grid_prune else None,
+            occ_spec=self.occ_spec_bg,
+            jitter=jitter,
+            cone_angle=self.cone_angle_bg,
+        )
+        positions, dirs, t_mid, intervals = packed_positions(samples, rays_o, rays_d)
+        density, feature = self.geometry_bg.apply(params["geometry_bg"], positions, step=step)
+        rgb = self.texture_bg.apply(params["texture_bg"], feature, dirs)
+        out = NeRFModel.composite(samples, density, rgb, t_mid, background_color, 1)
+        if not train:
+            del out["weights"]
+            return out
+        out.update({
+            "points": t_mid,
+            "intervals": intervals,
+            "ray_indices": samples.ray_indices,
+            "sample_valid": samples.valid,
+        })
+        return out
+
     def forward(self, params, occ, rays_o, rays_d, *, background_color, capacity: int,
-                train=False, randomized=False, generator=None, step=0, prev_inv_s=None):
+                capacity_bg=None, train=False, randomized=False, generator=None, step=0,
+                prev_inv_s=None):
         """Render a batch of rays (N, 3) with unit ``rays_d``; returns the JAX
         package's outputs (``comp_rgb``, ``comp_normal``, ``opacity``,
         ``depth``, ``inv_s`` ...; ``*_full`` composited onto the background
@@ -228,12 +304,18 @@ class NeuSModel:
         ``sdf_grad_samples`` (and ``sdf_laplace_samples`` with finite
         differences), ``weights``, ``points``, ``intervals``, ``ray_indices``
         and ``sample_valid``; without it the forward runs under
-        ``torch.no_grad``."""
+        ``torch.no_grad``. With the learned background the background
+        field's outputs come as ``*_bg`` (marched into ``capacity_bg``
+        samples, ``capacity`` when None) and the foreground composites over
+        its colour."""
         geo = self.geometry
         with contextlib.nullcontext() if train else torch.no_grad():
-            jitter = None
+            jitter = jitter_bg = None
             if randomized:
                 jitter = torch.rand(rays_o.shape[0], generator=generator, device=rays_o.device)
+                if self.learned_background:
+                    jitter_bg = torch.rand(rays_o.shape[0], generator=generator,
+                                           device=rays_o.device)
             samples, positions, dirs, t_mid, dists, grp = self.march(
                 occ, rays_o, rays_d, capacity, jitter)
             sdf_laplace = None
@@ -271,8 +353,6 @@ class NeuSModel:
             comp_normal = comp_normal / torch.maximum(
                 torch.linalg.norm(comp_normal, dim=-1, keepdim=True),
                 comp_normal.new_tensor(1e-10))
-            bg = torch.as_tensor(background_color, dtype=comp_rgb.dtype,
-                                 device=comp_rgb.device).expand_as(comp_rgb)
             out = {
                 "comp_rgb": comp_rgb,
                 "comp_normal": comp_normal,
@@ -282,13 +362,29 @@ class NeuSModel:
                 "rays_kept": samples.ray_kept,
                 "num_samples": samples.num_valid,
                 "inv_s": inv_s,
-                # no learned background: the background is the colour itself
-                "comp_rgb_bg": bg,
-                "comp_rgb_full": comp_rgb + bg * (1.0 - opacity),
-                "num_samples_full": samples.num_valid,
-                "rays_valid_full": opacity > 0,
-                "rays_kept_full": samples.ray_kept,
             }
+            if self.learned_background:
+                out_bg = self.forward_bg(
+                    params, occ, rays_o, rays_d, background_color=background_color,
+                    capacity=capacity_bg or capacity, train=train, jitter=jitter_bg, step=step)
+                out.update({k + "_bg": v for k, v in out_bg.items()})
+                out.update({
+                    "comp_rgb_full": comp_rgb + out_bg["comp_rgb"] * (1.0 - opacity),
+                    "num_samples_full": samples.num_valid + out_bg["num_samples"],
+                    "rays_valid_full": out["rays_valid"] | out_bg["rays_valid"],
+                    "rays_kept_full": samples.ray_kept & out_bg["rays_kept"],
+                })
+            else:
+                # no learned background: the background is the colour itself
+                bg = torch.as_tensor(background_color, dtype=comp_rgb.dtype,
+                                     device=comp_rgb.device).expand_as(comp_rgb)
+                out.update({
+                    "comp_rgb_bg": bg,
+                    "comp_rgb_full": comp_rgb + bg * (1.0 - opacity),
+                    "num_samples_full": samples.num_valid,
+                    "rays_valid_full": opacity > 0,
+                    "rays_kept_full": samples.ray_kept,
+                })
             if train:
                 out.update({
                     "sdf_samples": sdf,

@@ -8,6 +8,7 @@ relu/exp). ``trunc_exp`` keeps the reference's clamped backward.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -102,3 +103,18 @@ def elementwise_jvp(fn, x, tangents):
             primal, tangent = fwad.unpack_dual(y)
         outs.append(tangent if tangent is not None else torch.zeros_like(primal))
     return primal, torch.stack(outs)
+
+
+def fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
+
+    The JAX package's compiled code contracts the march's and the occupancy
+    lookup's affine expressions into FMAs, so the port evaluates them the
+    same way to keep the packed buffers bit-identical: the product of two
+    float32 values is exact in float64 and the float64 sum is rounded to
+    float32. Python floats enter as float32 constants, as they do in JAX."""
+
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else float(np.float32(x))
+
+    return (f64(a) * f64(b) + f64(c)).float()

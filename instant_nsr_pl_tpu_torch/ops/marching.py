@@ -1,18 +1,29 @@
 """Occupancy grid + static-capacity ray marching (the nerfacc role).
 
 Port of ``instant_nsr_pl_tpu/ops/marching.py`` (grid state and update
-:40-424, march and packing :482-884) for uniform stepping. It keeps the
-``PackedSamples`` contract and the float expressions of the JAX package, so
-both give the same packed buffers bit for bit, and drops the TPU layout
-tricks (bit-bricks, lane-native probes, the two-level selection sort): on the
-TPU they compute the same outputs as the plain dilated-field probe and single
-sort this port uses.
+:40-424, lookups :427-475, the sample schedule :501-519, march and packing
+:482-884). It keeps the ``PackedSamples`` contract and the float expressions
+of the JAX package, so on the AABB grid with uniform steps both give the same
+packed buffers bit for bit, and drops the TPU layout tricks (bit-bricks,
+lane-native probes, the two-level selection sort): on the TPU they compute
+the same outputs as the plain dilated-field probe and single sort this port
+uses.
+
+Unbounded scenes march a grid in contracted space (``UN_BOUNDED_SPHERE``:
+cells are looked up through ``contract_coords`` and updated at points placed
+by ``uncontract_from_unisphere``) with cone-angle stepping, one probe per
+sample (as in the JAX package, the strided probe and the group compaction
+need an AABB grid and uniform steps). The cone-angle schedule's geometric
+part is ``base * (1 + c) ** k`` with the power correctly rounded to float32
+(evaluated in float64); XLA's float32 ``pow`` is not correctly rounded, so
+there the two packages' distances differ by an ulp in about one sample of a
+hundred and the packed buffers are equal only where no sample sits on a
+cell or range boundary.
 
 Random draws (the march's stratified jitter, the grid update's cell choice
 and jitter) come from a ``torch.Generator``; they cannot repeat the JAX
 package's bits, so both functions also take the draws themselves, which is
-how the tests feed the two packages the same numbers. Cone-angle stepping
-belongs to the unbounded-scene slice.
+how the tests feed the two packages the same numbers.
 """
 
 from __future__ import annotations
@@ -24,7 +35,12 @@ import numpy as np
 import torch
 
 from instant_nsr_pl_tpu_torch.device import resolve_device
-from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType, uncontract_from_unisphere
+from instant_nsr_pl_tpu_torch.ops.activations import fma32
+from instant_nsr_pl_tpu_torch.ops.contraction import (
+    ContractionType,
+    contract_coords,
+    uncontract_from_unisphere,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,29 +195,12 @@ def occupancy_grid_update(
     )
 
 
-def fma32(a, b, c):
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
-
-    The JAX package's compiled code contracts these march expressions into
-    FMAs, so the port evaluates them the same way to keep the packed buffers
-    bit-identical: the product of two float32 values is exact in float64 and
-    the float64 sum is rounded to float32. Python floats enter as float32
-    constants, as they do in JAX."""
-
-    def f64(x):
-        return x.double() if torch.is_tensor(x) else float(np.float32(x))
-
-    return (f64(a) * f64(b) + f64(c)).float()
-
-
 def occupancy_lookup_coords(binary, px, py, pz, spec: OccGridSpec, clamp=False):
-    """Coordinate-wise occupancy query. ``clamp=True`` clamps out-of-domain
-    probes onto the boundary cell instead of returning False (the strided
-    group probe, whose group centres may sit just outside the domain)."""
-    if spec.contraction_type != ContractionType.AABB:
-        raise NotImplementedError("only the AABB occupancy grid is ported")
-    s = 0.5 / spec.radius
-    ux, uy, uz = (fma32(p, s, 0.5) for p in (px, py, pz))
+    """Coordinate-wise occupancy query at world points (through
+    ``contract_coords``). ``clamp=True`` clamps out-of-domain probes onto the
+    boundary cell instead of returning False (the strided group probe, whose
+    group centres may sit just outside the domain)."""
+    ux, uy, uz = contract_coords(px, py, pz, spec.radius, spec.contraction_type)
     res = spec.resolution
     # clamp in float before the integer cast: identical cells for in-range
     # values, and a saturating cast for the far-away probes of missed rays
@@ -239,6 +238,31 @@ def _first_true(mask, count, fill):
     sel = torch.full((count,), fill, dtype=torch.long, device=mask.device)
     sel[: idx.shape[0]] = idx
     return sel
+
+
+def t_schedule(t_min, render_step_size, cone_angle, max_samples):
+    """Per-ray sample boundaries t_0..t_S, (R, S+1) float32 (JAX
+    ``_t_schedule``). ``cone_angle == 0``: uniform steps ``t_i = t_min + i *
+    s``. ``cone_angle = c > 0``: nerfacc's exponential stepping, the
+    recurrence ``t_{k+1} = t_k + max(t_k * c, s)`` in closed form: linear up
+    to ``t >= s / c`` (``n_lin`` steps), geometric with ratio ``1 + c`` after
+    it. The affine parts round as fused multiply-adds; the power ``(1 +
+    c) ** k`` is correctly rounded to float32."""
+    s = render_step_size
+    i = torch.arange(max_samples + 1, dtype=torch.float32, device=t_min.device)[None, :]
+    t0 = t_min[:, None]
+    if cone_angle <= 0.0:
+        return fma32(i, s, t0)
+    c = cone_angle
+    switch = float(np.float32(s / c))
+    # a true division: CUDA multiplies by the reciprocal of a host scalar
+    step = t0.new_tensor(float(np.float32(s)))
+    n_lin = torch.ceil(torch.clamp(switch - t0, min=0.0) / step)  # (R, 1)
+    t_lin = fma32(torch.minimum(i, n_lin), s, t0)
+    ratio = torch.tensor(float(np.float32(1.0 + c)), dtype=torch.float64, device=t_min.device)
+    growth = torch.pow(ratio, torch.clamp(i - n_lin, min=0.0).double()).float()
+    t_geo = fma32(n_lin, s, t0) * growth
+    return torch.where(i <= n_lin, t_lin, t_geo)
 
 
 def _expand_groups(sel, num_valid, ray_kept, ray_ends, R, sg, k, t_min, t_max, step):
@@ -326,13 +350,15 @@ def march_rays(
     occ_stride: int = 1,
     group_compact: bool = False,
     jitter=None,
+    cone_angle: float = 0.0,
 ) -> PackedSamples:
-    """March rays with uniform steps, prune with the occupancy grid, compact
-    to ``capacity`` (JAX ``march_rays``; see its docstring for the strided
-    probe and the group compaction). ``jitter``: (R,) uniform [0, 1) draws
-    of the stratified march, which moves each ray's start by ``jitter *
-    render_step_size`` (nerfacc's stratified sampling). Cone-angle stepping
-    comes with a later slice."""
+    """March rays, prune with the occupancy grid, compact to ``capacity``
+    (JAX ``march_rays``; see its docstring for the strided probe and the
+    group compaction). ``jitter``: (R,) uniform [0, 1) draws of the
+    stratified march, which moves each ray's start by ``jitter *
+    render_step_size`` (nerfacc's stratified sampling). ``cone_angle > 0``
+    steps exponentially (:func:`t_schedule`; unbounded scenes) and probes the
+    grid once per sample."""
     R = rays_o.shape[0]
     S = max_samples
     t_min = t_min.float()
@@ -340,6 +366,10 @@ def march_rays(
     if jitter is not None:
         t_min = t_min + jitter.float() * render_step_size
     strided = occ_binary is not None and occ_stride > 1 and occ_dilated is not None
+    if (strided or group_compact) and (cone_angle > 0.0
+                                       or occ_spec.contraction_type != ContractionType.AABB):
+        raise ValueError("the strided probe and the group compaction need an AABB grid and "
+                         "uniform steps (cone_angle 0)")
     if group_compact:
         if not strided:
             raise ValueError(
@@ -352,8 +382,7 @@ def march_rays(
             occ_dilated=occ_dilated, occ_stride=occ_stride,
         )
 
-    i = torch.arange(S + 1, dtype=torch.float32, device=rays_o.device)[None, :]
-    t_bounds = fma32(i, render_step_size, t_min[:, None])  # (R, S+1)
+    t_bounds = t_schedule(t_min, render_step_size, cone_angle, S)  # (R, S+1)
     t_starts = t_bounds[:, :-1]
     t_ends = t_bounds[:, 1:]
     t_mid = 0.5 * (t_starts + t_ends)

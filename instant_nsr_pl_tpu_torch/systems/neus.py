@@ -3,11 +3,14 @@
 Port of ``instant_nsr_pl_tpu/systems/neus.py:31-191`` (reference
 systems/neus.py:17-265): rgb MSE and L1 on the composite, the eikonal loss on
 the SDF gradients, mask BCE, opaque BCE, sparsity, curvature (the
-finite-difference Laplacian) and the foreground distortion loss, every weight
-a ``C()``-scheduled scalar. Sample-level means are masked by the packed
-validity mask (the reference's ragged buffers hold only live samples; the
-packed buffer carries padding). ``image_grid_specs`` gives the panels of a
-saved view. The background distortion loss comes with the learned background.
+finite-difference Laplacian) and the foreground and background distortion
+losses, every weight a ``C()``-scheduled scalar. Sample-level means are
+masked by the packed validity mask (the reference's ragged buffers hold only
+live samples; the packed buffer carries padding). With the learned
+background the background field has packed capacities of its own
+(``train_num_samples_bg``, ``eval_num_samples_bg``), scaled with the
+foreground's when a smaller capacity is asked for. ``image_grid_specs``
+gives the panels of a saved view.
 """
 
 from __future__ import annotations
@@ -35,24 +38,29 @@ def _masked_mean(x, mask):
 class NeuSSystem(BaseSystem):
     def __init__(self, config, device=None):
         super().__init__(config, device)
-        loss_cfg = config.system.get("loss", None) or {}
-        if not is_zero(loss_cfg.get("lambda_distortion_bg", 0.0)):
-            raise NotImplementedError(
-                "system.loss.lambda_distortion_bg != 0: the background distortion loss "
-                "comes with the learned background, in the unbounded-scene slice of the "
-                "port (ROADMAP.md queue item 6)"
-            )
+        m = config.model
+        if self.model.learned_background:
+            self.train_capacity_bg = int(m.get(
+                "train_num_samples_bg",
+                int(m.get("train_num_rays", 256)) * int(m.num_samples_per_ray_bg)))
+            self.eval_capacity_bg = int(m.get("eval_num_samples_bg", self.eval_chunk_rays * 128))
+        else:
+            self.train_capacity_bg = self.train_capacity
+            self.eval_capacity_bg = self.eval_capacity
 
     def loss_fn(self, params, occ, batch, generator, step, n_rays=None, capacity=None,
                 extra=None):
         cfg = self.config.system.loss
         n_rays = n_rays if n_rays is not None else self.train_num_rays
-        capacity = capacity if capacity is not None else self.train_capacity
+        if capacity is not None:
+            capacity_bg = self.train_capacity_bg * capacity // self.train_capacity
+        else:
+            capacity, capacity_bg = self.train_capacity, self.train_capacity_bg
         out = self.model.forward(
             params, occ, batch["rays_o"], batch["rays_d"],
             background_color=batch["background_color"], capacity=capacity,
-            train=True, randomized=self.randomized, generator=generator, step=step,
-            prev_inv_s=(extra or {}).get("prev_inv_s"),
+            capacity_bg=capacity_bg, train=True, randomized=self.randomized,
+            generator=generator, step=step, prev_inv_s=(extra or {}).get("prev_inv_s"),
         )
         ray_mask = (out["rays_valid_full"][:, 0] & out["rays_kept_full"]).float()[:, None]
         sample_mask = out["sample_valid"]
@@ -116,6 +124,13 @@ class NeuSSystem(BaseSystem):
                 out["sample_valid"], n_rays=n_rays, group=self.model.packed_group(capacity))
             metrics["train/loss_distortion"] = loss_dist.detach()
             loss = loss + loss_dist * self.C(cfg.lambda_distortion, step)
+        # background distortion (reference systems/neus.py:135-139)
+        if self.model.learned_background and not is_zero(cfg.get("lambda_distortion_bg", 0.0)):
+            loss_dist_bg = distortion_loss(
+                out["weights_bg"], out["points_bg"], out["intervals_bg"],
+                out["ray_indices_bg"], out["sample_valid_bg"], n_rays=n_rays)
+            metrics["train/loss_distortion_bg"] = loss_dist_bg.detach()
+            loss = loss + loss_dist_bg * self.C(cfg.lambda_distortion_bg, step)
 
         metrics["train/inv_s"] = out["inv_s"].detach()
         metrics["train/num_samples"] = out["num_samples_full"]
@@ -124,25 +139,31 @@ class NeuSSystem(BaseSystem):
         return loss, metrics
 
     def forward_eval(self, params, occ, rays_o, rays_d, bg, step=0, capacity=None):
+        capacity = capacity or self.eval_capacity
         out = self.model.forward(
-            params, occ, rays_o, rays_d, background_color=bg,
-            capacity=capacity or self.eval_capacity, step=step,
+            params, occ, rays_o, rays_d, background_color=bg, capacity=capacity,
+            capacity_bg=self.eval_capacity_bg * capacity // self.eval_capacity, step=step,
         )
-        return {
+        res = {
             "comp_rgb": out["comp_rgb_full"],
             "comp_normal": out["comp_normal"],
             "depth": out["depth"],
             "opacity": out["opacity"],
             "rays_kept": out["rays_kept_full"][:, None],
         }
+        if self.model.learned_background:
+            res["comp_rgb_fg"] = out["comp_rgb"]
+            res["comp_rgb_bg"] = out["comp_rgb_bg"]
+        return res
 
     def image_grid_specs(self, res):
-        """Panels of a saved view: gt | rgb | depth (jet) | normal (reference
-        systems/neus.py:171-186, without the learned background's panels)."""
+        """Panels of a saved view: gt | rgb | [fg | bg] | depth (jet) |
+        normal (reference systems/neus.py:171-186)."""
         imgs = res["images"]
-        return [
-            {"type": "rgb", "img": res["gt"]},
-            {"type": "rgb", "img": imgs["comp_rgb"]},
-            {"type": "grayscale", "img": imgs["depth"], "kwargs": {"cmap": "jet"}},
-            {"type": "normal", "img": imgs["comp_normal"]},
-        ]
+        specs = [{"type": "rgb", "img": res["gt"]}, {"type": "rgb", "img": imgs["comp_rgb"]}]
+        if "comp_rgb_fg" in imgs:
+            specs.append({"type": "rgb", "img": imgs["comp_rgb_fg"]})
+            specs.append({"type": "rgb", "img": imgs["comp_rgb_bg"]})
+        specs.append({"type": "grayscale", "img": imgs["depth"], "kwargs": {"cmap": "jet"}})
+        specs.append({"type": "normal", "img": imgs["comp_normal"]})
+        return specs

@@ -30,11 +30,15 @@ def _sync():
 
 @contextlib.contextmanager
 def timed_loads(records):
-    """Append each Blender / DTU split's load figures to ``records``."""
+    """Append each Blender / DTU / COLMAP split's load figures to
+    ``records`` (a COLMAP capture is parsed by its first split; the others
+    record 0 s of decode and resize)."""
     from instant_nsr_pl_tpu_torch.datasets.blender import BlenderDatasetBase
+    from instant_nsr_pl_tpu_torch.datasets.colmap import ColmapDatasetBase
     from instant_nsr_pl_tpu_torch.datasets.dtu import DTUDatasetBase
 
-    originals = {cls: cls.setup for cls in (BlenderDatasetBase, DTUDatasetBase)}
+    originals = {cls: cls.setup for cls in (BlenderDatasetBase, ColmapDatasetBase,
+                                            DTUDatasetBase)}
 
     def wrap(fn):
         def setup(self, config, split, *args, **kwargs):

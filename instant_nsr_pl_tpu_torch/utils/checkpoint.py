@@ -20,20 +20,22 @@ import torch
 from instant_nsr_pl_tpu_torch.ops.marching import OccupancyGridState
 from instant_nsr_pl_tpu_torch.utils.transplant import load_jax_checkpoint, state_dict
 
-FORMAT = "instant_nsr_pl_tpu_torch.train_state/1"
+# 2: "occ" holds every grid by name ("grid", NeuS's background "grid_bg")
+FORMAT = "instant_nsr_pl_tpu_torch.train_state/2"
 
 
 def save_checkpoint(path, state):
     """Write ``state`` to ``path`` (through a temporary file, replaced at
     the end, so a killed save leaves the previous checkpoint intact)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    grid = state["occ"]["grid"]
     payload = {
         "format": FORMAT,
         "params": {k: v.detach().cpu() for k, v in state_dict(state["params"]).items()},
         "optimizer": state["optimizer"].state_dict(),
-        "occ": {"occs": grid.occs.cpu(), "binary": grid.binary.cpu(),
-                "binary_dilated": grid.binary_dilated.cpu()},
+        # every grid of the model: "grid", and NeuS's background "grid_bg"
+        "occ": {name: {"occs": g.occs.cpu(), "binary": g.binary.cpu(),
+                       "binary_dilated": g.binary_dilated.cpu()}
+                for name, g in state["occ"].items()},
         "extra": {k: v.detach().cpu() for k, v in state.get("extra", {}).items()},
         "step": int(state["step"]),
         "generator": state["generator"].get_state(),
@@ -60,10 +62,15 @@ def _copy_params(params, saved):
             t.copy_(v)
 
 
-def _grid(occ, device):
-    return {"grid": OccupancyGridState(
-        occs=occ["occs"].to(device).float(), binary=occ["binary"].to(device).bool(),
-        binary_dilated=occ["binary_dilated"].to(device).bool())}
+def _grid(occ, template, device):
+    """The saved grids as the template state's ``occ`` dict (its names must
+    match)."""
+    if set(occ) != set(template):
+        raise ValueError(f"checkpoint grids {sorted(occ)} do not match the model's "
+                         f"{sorted(template)}: config/model mismatch?")
+    return {name: OccupancyGridState(
+        occs=g["occs"].to(device).float(), binary=g["binary"].to(device).bool(),
+        binary_dilated=g["binary_dilated"].to(device).bool()) for name, g in occ.items()}
 
 
 def _read(path):
@@ -84,7 +91,7 @@ def load_checkpoint(path, template_state):
     _copy_params(state["params"], payload["params"])
     state["optimizer"].load_state_dict(payload["optimizer"])
     device = state["occ"]["grid"].occs.device
-    state["occ"] = _grid(payload["occ"], device)
+    state["occ"] = _grid(payload["occ"], state["occ"], device)
     state["extra"] = {k: v.to(device) for k, v in payload.get("extra", {}).items()}
     state["step"] = int(payload["step"])
     state["generator"].set_state(payload["generator"])
@@ -100,5 +107,5 @@ def load_weights_only(path, template_state):
     payload = _read(path)
     state = dict(template_state)
     _copy_params(state["params"], payload["params"])
-    state["occ"] = _grid(payload["occ"], state["occ"]["grid"].occs.device)
+    state["occ"] = _grid(payload["occ"], state["occ"], state["occ"]["grid"].occs.device)
     return state

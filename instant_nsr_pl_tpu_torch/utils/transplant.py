@@ -96,8 +96,9 @@ def load_jax_checkpoint(path, state, weights_only=False):
     order. So the leaves are
       0. ``extra``, in sorted key order (NeuS with variance modulation:
          ``prev_inv_s``; none otherwise);
-      1. ``occ.grid``: occs, binary, binary_dilated and, when the grid
-         carries it, the TPU probe's ``bricks`` (dropped here);
+      1. ``occ``, per grid in sorted name order (``grid``, then NeuS's
+         background ``grid_bg``): occs, binary, binary_dilated and, when
+         the grid carries it, the TPU probe's ``bricks`` (dropped here);
       2. ``opt_state``: per top-level parameter key, sorted, the optax
          multi-transform's Adam(W) state: count, the ``mu`` leaves, the
          ``nu`` leaves (each in the parameters' leaf order), then the
@@ -120,11 +121,13 @@ def load_jax_checkpoint(path, state, weights_only=False):
     n_opt = sum(2 + 2 * len(g) for _, g in groups)
     extra_keys = sorted(state.get("extra", {}))
     n_extra = len(extra_keys)
+    grids = sorted(state["occ"])
     n_occ = len(leaves) - n_extra - n_opt - n_params - 2
-    if n_occ not in (3, 4):
+    per_grid = n_occ // len(grids)
+    if per_grid not in (3, 4) or per_grid * len(grids) != n_occ:
         raise ValueError(f"{path}: {len(leaves)} leaves do not match a JAX train state "
-                         f"with {n_params} parameter leaves, {n_extra} extra leaves and "
-                         "Adam(W): config mismatch?")
+                         f"with {n_params} parameter leaves, {n_extra} extra leaves, "
+                         f"{len(grids)} occupancy grids and Adam(W): config mismatch?")
     extra_leaves = leaves[:n_extra]
     leaves = leaves[n_extra:]
     pos = n_occ
@@ -144,11 +147,12 @@ def load_jax_checkpoint(path, state, weights_only=False):
             if tuple(v.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: checkpoint shape {v.shape} != model {tuple(t.shape)}")
             t.copy_(torch.from_numpy(v))
-    grid = state["occ"]["grid"]
-    device = grid.occs.device
+    device = state["occ"]["grid"].occs.device
     out = dict(state)
-    out["occ"] = {"grid": occupancy_from_jax(
-        {"occs": leaves[0], "binary": leaves[1], "binary_dilated": leaves[2]}, device)}
+    out["occ"] = {
+        name: occupancy_from_jax({"occs": leaves[k * per_grid], "binary": leaves[k * per_grid + 1],
+                                  "binary_dilated": leaves[k * per_grid + 2]}, device)
+        for k, name in enumerate(grids)}
     if weights_only:
         return out
     out["extra"] = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)

@@ -7,6 +7,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1949,3 +1951,92 @@ def test_k9_order_and_repeat(cuda_device, shape):
     shuffled = _check_k9([args[0], args[1], args[2][:, perm].contiguous(), args[3]])
     for a, b, s in zip(got, again, shuffled):
         assert torch.equal(a, b) and torch.equal(s, a[..., perm])
+
+
+# ---------------------------------------------------------------------------
+# unbounded scenes: the hash kernels on contracted points, the contracted grid
+# ---------------------------------------------------------------------------
+
+_UNBOUNDED_SPECS = {  # nerf-colmap.yaml's geometry; the NeuS configs' geometry_bg
+    "nerf-colmap": dict(n_levels=16, log2_hashmap_size=19, base_resolution=16,
+                        per_level_scale=1.447269237440378),
+    "neus-colmap-bg": dict(n_levels=16, log2_hashmap_size=19, base_resolution=32,
+                           per_level_scale=1.3195079107728942),
+}
+
+
+def _contracted_points(gen, n):
+    """World points with radii log-uniform in [0.01, 1e6] through the sphere
+    contraction (radius 1), the outer shell crowding toward u -> 1, plus
+    u = 1 - 1 ulp and exact cell corners on every axis."""
+    from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType, contract_to_unisphere
+
+    d = torch.randn((n, 3), generator=gen, dtype=torch.float64)
+    d = d / d.norm(dim=1, keepdim=True)
+    r = torch.exp(torch.rand((n, 1), generator=gen, dtype=torch.float64) * math.log(1e8)) * 0.01
+    u = contract_to_unisphere((d * r).float(), 1.0, ContractionType.UN_BOUNDED_SPHERE)
+    one_minus = 1.0 - 2.0 ** -24
+    u[:8] = torch.tensor([[one_minus] * 3, [one_minus, 0.5, 0.0], [0.0, one_minus, 1.0],
+                          [1.0, 1.0, 1.0], [0.5, 0.5, one_minus], [1.0 - 2.0 ** -23] * 3,
+                          [0.25, 0.75, 0.125], [0.0, 0.0, 0.0]])
+    return u.contiguous()
+
+
+@pytest.mark.parametrize("name", sorted(_UNBOUNDED_SPECS))
+def test_hash_kernels_on_contracted_points(cuda_device, name):
+    """HG1 / HG2 at the unbounded configs' grids on sphere-contracted points
+    (far samples crowd u -> 1; u = 1 - 1 ulp on every axis): HG1 equal to
+    its plain version on the card and on the CPU to the bit, each level's
+    corner indices equal to the CPU's; HG2 within the hash gradient limits."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = hg.HashGridSpec(**_UNBOUNDED_SPECS[name])
+    gen = torch.Generator().manual_seed(91)
+    x = _contracted_points(gen, 65536)
+    # points beyond radius 10 (5 / 8 of them) land within 0.025 of the cube's
+    # shell, |c| = 2 - 1 / |x| > 1.9 in the contracted [-2, 2]
+    assert float(x.max()) <= 1.0 and float(x.min()) >= 0.0
+    assert float(((x - 0.5).norm(dim=1) > 0.475).float().mean()) > 0.5
+    table = hg.hashgrid_init(gen, spec) * 1e4
+    xd, td = x.to(cuda_device), table.to(cuda_device)
+    got = hg.hashgrid_forward_launch(td, xd, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hg.hashgrid_encode(td, xd, spec))
+    assert torch.equal(got.cpu(), hg.hashgrid_encode(table, x, spec))
+    for lv in range(spec.n_levels):
+        idx_d, w_d = hg.level_corner_indices(spec, xd.T.contiguous(), lv)
+        idx_c, w_c = hg.level_corner_indices(spec, x.T.contiguous(), lv)
+        assert torch.equal(idx_d.cpu(), idx_c) and torch.equal(w_d.cpu(), w_c), lv
+    ct = torch.randn((x.shape[0], spec.n_output_dims), generator=gen).to(cuda_device)
+    _check_hash(spec, td, xd, ct, None)
+
+
+def test_unbounded_occupancy_lookup_and_march_on_card_match_cpu(cuda_device):
+    """nerf-colmap.yaml's 256^3 contracted grid (a random binary field): the
+    occupancy lookup at far points and the cone-angle march (2,048 samples
+    from 0.2 to 1e4, 256 rays) on the card equal to the CPU's to the bit."""
+    from instant_nsr_pl_tpu_torch.ops import marching as mr
+    from instant_nsr_pl_tpu_torch.ops.contraction import ContractionType
+
+    spec = mr.OccGridSpec(256, 1.0, ContractionType.UN_BOUNDED_SPHERE)
+    gen = torch.Generator().manual_seed(92)
+    binary = torch.rand(spec.num_cells, generator=gen) < 0.2
+    d = torch.randn((100000, 3), generator=gen)
+    p = d / d.norm(dim=1, keepdim=True) * torch.exp(torch.rand((100000, 1), generator=gen) * 20.0)
+    hit_c = mr.occupancy_lookup_coords(binary, *p.T, spec)
+    hit_d = mr.occupancy_lookup_coords(binary.to(cuda_device), *p.to(cuda_device).T, spec)
+    assert torch.equal(hit_d.cpu(), hit_c) and 0.05 < float(hit_c.float().mean()) < 0.5
+    n, S = 256, 2048
+    o = torch.randn((n, 3), generator=gen) * 0.3
+    rd = torch.randn((n, 3), generator=gen)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    kw = dict(render_step_size=0.01, max_samples=S, capacity=n * 512, occ_spec=spec,
+              cone_angle=10.0 ** (4.0 / S) - 1.0)
+    jit = torch.rand(n, generator=gen)
+    t0, t1 = torch.full((n,), 0.2), torch.full((n,), 1e4)
+    cpu = mr.march_rays(o, rd, t0, t1, occ_binary=binary, jitter=jit, **kw)
+    dev = mr.march_rays(*(a.to(cuda_device) for a in (o, rd, t0, t1)),
+                        occ_binary=binary.to(cuda_device), jitter=jit.to(cuda_device), **kw)
+    assert int(cpu.num_valid) > 50 * n
+    for a, b in zip(dev, cpu):
+        assert torch.equal(a.cpu(), b)

@@ -445,26 +445,48 @@ def test_launcher_trains_neus_on_cpu(tmp_path):
 @pytest.mark.parametrize("what", ["learned_background", "progressive_eps", "stack_scales",
                                   "lambda_distortion_bg"])
 def test_later_slices_raise(what):
-    """What the port does not have yet raises NotImplementedError naming the
-    slice that brings it; ``stack_scales`` is ported, and on this config's
-    non-nested resolutions (16, 48) it raises ValueError ("nested"), as the
-    JAX package does; the progressive eps is ported, and on this config's CP
-    encoding it raises ValueError naming the otype (the JAX package asserts
-    when the eps is asked for)."""
+    """Options of later slices, now ported, on this config: the learned
+    background (slice 9) builds its NeRF field and its 256^3 grid in
+    contracted space, and ``lambda_distortion_bg`` without a background is
+    ignored, as in the JAX package; ``stack_scales`` on this config's
+    non-nested resolutions (16, 48) raises ValueError ("nested"), as the JAX
+    package does; the progressive eps on this config's CP encoding raises
+    ValueError naming the otype (the JAX package asserts when the eps is
+    asked for)."""
     cfg = _cfg()
-    error = NotImplementedError
     if what == "learned_background":
-        cfg["model"]["learned_background"] = True
-        match = "unbounded-scene"
-    elif what == "progressive_eps":  # ported in slice 7, for a ProgressiveBandHashGrid only
+        cfg["model"].update({
+            "learned_background": True, "num_samples_per_ray_bg": 64,
+            "geometry_bg": {"name": "volume-density", "radius": RADIUS, "feature_dim": 8,
+                            "xyz_encoding_config": {"otype": "HashGrid", "n_levels": 4,
+                                                    "n_features_per_level": 2,
+                                                    "log2_hashmap_size": 12,
+                                                    "base_resolution": 16,
+                                                    "per_level_scale": 1.5},
+                            "mlp_network_config": {"otype": "VanillaMLP", "n_neurons": 32,
+                                                   "n_hidden_layers": 1,
+                                                   "activation": "ReLU",
+                                                   "output_activation": "none"}},
+            "texture_bg": {"name": "volume-radiance", "input_feature_dim": 8,
+                           "dir_encoding_config": {"otype": "SphericalHarmonics", "degree": 4},
+                           "mlp_network_config": {"otype": "VanillaMLP", "n_neurons": 32,
+                                                  "n_hidden_layers": 1, "activation": "ReLU",
+                                                  "output_activation": "Sigmoid"}}})
+        model = t_reg.systems.make("neus-system", t_config(cfg), device="cpu").model
+        assert model.learned_background and model.occ_spec_bg.resolution == 256
+        assert model.occ_spec_bg.contraction_type.value == "un_bounded_sphere"
+        return
+    if what == "lambda_distortion_bg":
+        cfg["system"]["loss"]["lambda_distortion_bg"] = 0.01
+        assert not t_reg.systems.make("neus-system", t_config(cfg),
+                                      device="cpu").model.learned_background
+        return
+    if what == "progressive_eps":  # ported in slice 7, for a ProgressiveBandHashGrid only
         cfg["model"]["geometry"] = _geometry("finite_difference")
         cfg["model"]["geometry"]["finite_difference_eps"] = "progressive"
-        error, match = ValueError, "ProgressiveBandHashGrid encoding, got otype 'CP'"
-    elif what == "stack_scales":
-        cfg["model"]["geometry"]["xyz_encoding_config"]["stack_scales"] = True
-        error, match = ValueError, "nested"
+        match = "ProgressiveBandHashGrid encoding, got otype 'CP'"
     else:
-        cfg["system"]["loss"]["lambda_distortion_bg"] = 0.01
-        match = "learned background"
-    with pytest.raises(error, match=match):
+        cfg["model"]["geometry"]["xyz_encoding_config"]["stack_scales"] = True
+        match = "nested"
+    with pytest.raises(ValueError, match=match):
         t_reg.systems.make("neus-system", t_config(cfg), device="cpu")

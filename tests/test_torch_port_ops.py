@@ -81,8 +81,14 @@ def test_contraction_round_trip():
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=F32_TOL)
     back = t_con.uncontract_from_unisphere(u_t, 1.5, t_con.ContractionType.AABB)
     np.testing.assert_allclose(back.numpy(), x, atol=F32_TOL)
-    with pytest.raises(NotImplementedError):
-        t_con.contract_to_unisphere(_t(x), 1.5, t_con.ContractionType.UN_BOUNDED_SPHERE)
+    # the unbounded sphere: JAX's UN_BOUNDED_SPHERE branch, out to 20x the radius
+    x = x * rs.uniform(0.2, 20.0, (100, 1)).astype(np.float32)
+    unb = j_con.ContractionType.UN_BOUNDED_SPHERE
+    u_j = j_con.contract_to_unisphere(jnp.asarray(x), 1.5, unb)
+    u_t = t_con.contract_to_unisphere(_t(x), 1.5, t_con.ContractionType.UN_BOUNDED_SPHERE)
+    np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=F32_TOL)
+    back = t_con.uncontract_from_unisphere(u_t, 1.5, t_con.ContractionType.UN_BOUNDED_SPHERE)
+    np.testing.assert_allclose(back.numpy(), x, rtol=1e-3, atol=F32_TOL)
 
 
 @pytest.mark.parametrize("degree", [1, 2, 3, 4])
