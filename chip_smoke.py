@@ -5,8 +5,9 @@ hash-grid NeRF trained (and the repo's ``configs/nerf-synthetic.yaml``
 trained, tested and exported through the launcher), NeuS on the hash grid
 (the repo's ``configs/neus-synthetic.yaml`` through the launcher, and its
 progressive-band variant), the ``cp_big`` shapes, the gather / scatter
-probes, and the Blender and DTU configs on data read from disk
-(``data80/blender`` and a DTU-layout export).
+probes, the Blender and DTU configs on data read from disk
+(``data80/blender`` and a DTU-layout export), the unbounded configs, and the
+VM NeRF (``configs/nerf-vm-synthetic.yaml``); every mesh marches on the card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -165,7 +166,30 @@ lines are printed):
    (every cell of the 256^3 grid through the density network), a non-empty
    mesh and, for NeuS, the foreground SDF's range over the AABB and the
    share of a val view's pixels that the foreground covers;
-19. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
+19. slice 10, the VM encoding: VM1 / VM2 (``csrc/vm_{fwd,bwd}.cu``) at the
+   VM NeRF's width (C=16, planes 512^2 and 256^2, lines 2048, 2 scales), N =
+   262,144 and 262,107 uniform points with samples at u = 0 and 1, against
+   their plain versions (VM1 within 1e-5 x max|plain|, VM2's table gradients
+   within 1e-5 x max|ref| per table of a float64 sum, d x within 1e-4),
+   timed beside their bounds, the plain versions and the composed
+   yardsticks; then ``instant_nsr_pl_tpu_torch/configs/nerf-vm-synthetic.yaml``
+   trained as in 6 with VM1 / VM2 in place of K1 / K2 (every VM1 / VM2 launch
+   of the last step held against its plain version on its own operands),
+   the val view 3 dB above the untrained render, and its mesh at 128^3 with
+   the launch counters set to 0 just before it and read just after (VM1 in
+   the level grids, MT1 / MT2 marching on the card);
+20. marching tetrahedra on the card (``csrc/marching_tet.cu``): every export
+   and test mesh of phases 11 and 16-18 marches through MT1 / MT2 (their
+   launches counted around each phase, the export stage lines say "(card)");
+   then MT1 / MT2 against the numpy twin, which ran in processes of their own
+   (``--twin``) beside the card's phases, on a sphere SDF at 128^3, 256^3 and
+   512^3 and on the VM NeRF's level grid at 256^3: faces equal, vertices
+   within 1 ulp (the count that differ printed), the card's milliseconds
+   against the twin's seconds, MT1 / MT2 alone timed at 512^3 beside their
+   bounds, and that mesh, the run's largest, written by ``save_obj``
+   (``utils/obj_writer.cc``) and by Python's formatting: the same bytes, both
+   timed;
+21. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4;
    the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's K9,
@@ -192,7 +216,7 @@ lines are printed):
    K8 and HG2 ``parent_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
-20. the last line ``{"ok": true, "device": {...}}``.
+22. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
 C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
@@ -500,7 +524,7 @@ def capture_step_operands(run_step, label, check=None):
     the launch functions themselves, so the step's launch counts are
     unchanged, and the counts are restored after the check and the timing
     launches."""
-    from instant_nsr_pl_tpu_torch.ops import cp_mlp, cp_product, cp_stacked, hashgrid, sh_mlp
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp, cp_product, cp_stacked, hashgrid, sh_mlp, vm
 
     seen = {}
     originals = {}
@@ -545,6 +569,10 @@ def capture_step_operands(run_step, label, check=None):
         "hashgrid_jac_backward": (hashgrid, "hashgrid_jac_backward_launch",
                                   hashgrid.hashgrid_jac_backward,
                                   lambda a: a[1].reshape(-1, 3).shape[0]),
+        "vm_forward": (vm, "vm_forward_launch", vm.vm_forward,
+                       lambda a: a[1].reshape(-1, 3).shape[0]),
+        "vm_backward": (vm, "vm_backward_launch", vm.vm_backward,
+                        lambda a: a[1].reshape(-1, 3).shape[0]),
     }
     pack_fn = sh_mlp.pack_sh_mlp
 
@@ -1413,18 +1441,24 @@ def render_phase(device):
 
 def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
     """The bench NeRF (``kind`` "cp"), the stacked NeRF ("stacked": K13/K14
-    for K1/K2) or the hash NeRF ("hash": HG1/HG2 for K1/K2, the composed
-    encoding -> bf16 MLP) trained through NeRFSystem.train_step for
-    TRAIN_STEPS steps."""
+    for K1/K2), the hash NeRF ("hash": HG1/HG2 for K1/K2, the composed
+    encoding -> bf16 MLP) or the VM NeRF ("vm": VM1/VM2 for K1/K2, composed
+    likewise; the last step's VM1 / VM2 launches held against their plain
+    versions, then its mesh, ``vm_mesh_phase``) trained through
+    NeRFSystem.train_step for TRAIN_STEPS steps."""
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
     from instant_nsr_pl_tpu_torch.config import config_from_dict
-    from instant_nsr_pl_tpu_torch.models.network_utils import HashGridEncoding, named_leaves
-    from instant_nsr_pl_tpu_torch.ops import cp_mlp, hashgrid, sh_mlp
+    from instant_nsr_pl_tpu_torch.models.network_utils import (
+        HashGridEncoding,
+        VectorMatrixEncoding,
+        named_leaves,
+    )
+    from instant_nsr_pl_tpu_torch.ops import cp_mlp, hashgrid, sh_mlp, vm
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
     from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
 
-    tag = {"cp": "train", "stacked": "train-stacked", "hash": "train-hash"}[kind]
+    tag = {"cp": "train", "stacked": "train-stacked", "hash": "train-hash", "vm": "train-vm"}[kind]
     cfg = config_from_dict(bench_config(config))
     dm = datasets.make(cfg.dataset.name, cfg.dataset)
     dm.setup("fit")
@@ -1434,8 +1468,10 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
     state = system.init_state(seed=SEED)
     model, params = system.model, state["params"]
     ewn = model.geometry.encoding_with_network
-    if kind == "hash":
-        assert not ewn.fused and isinstance(ewn.encoding.encoding, HashGridEncoding)
+    if kind in ("hash", "vm"):
+        inner = ewn.encoding.encoding
+        assert not ewn.fused and isinstance(inner, VectorMatrixEncoding if kind == "vm"
+                                            else HashGridEncoding) and inner.grad_mode == "fast"
     else:
         assert ewn.fused and ewn.encoding.encoding.stack_scales == (kind == "stacked")
     n_rays = system.active_num_rays
@@ -1468,8 +1504,8 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
     state["optimizer"].zero_grad()
 
     # the main path: TRAIN_STEPS steps, launch counters read around each
-    density = {"cp": "cp_mlp", "stacked": "cp_mlp_stacked", "hash": "hashgrid"}[kind]
-    module = hashgrid if kind == "hash" else cp_mlp
+    density = {"cp": "cp_mlp", "stacked": "cp_mlp_stacked", "hash": "hashgrid", "vm": "vm"}[kind]
+    module = {"hash": hashgrid, "vm": vm}.get(kind, cp_mlp)
     counters = {f"{density}_forward": getattr(module, f"{density}_forward"),
                 f"{density}_backward": getattr(module, f"{density}_backward"),
                 "sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward}
@@ -1486,7 +1522,8 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
             t_warm = time.perf_counter()
         before = {k: c.launches for k, c in counters.items()}
         if i == TRAIN_STEPS - 1:
-            state, metrics = capture_step_operands(lambda: system.train_step(state), "")
+            state, metrics = capture_step_operands(
+                lambda: system.train_step(state), "", check=check_vm_step if kind == "vm" else None)
         else:
             state, metrics = system.train_step(state)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
@@ -1530,6 +1567,10 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
           f"{seen['ssim']:.4f}", flush=True)
     print(f"[{tag}] warm: {rays_per_s:.0f} rays/s, {warm_s / 100 * 1e3:.2f} ms per step over the "
           f"last 100 steps ({smi})", flush=True)
+    if kind == "vm":
+        VM_RUN.update(untrained=untrained["psnr"], trained=trained["psnr"], rays_per_s=rays_per_s,
+                      ms_per_step=warm_s / 100 * 1e3, loss=(first, last))
+        vm_mesh_phase(device, system, state, smi)
     return per_step[1], totals, rays_per_s, warm_s / 100
 
 
@@ -1791,7 +1832,7 @@ def neus_render_phase(device, system, state, val, smi):
                             np.full(3, -r, np.float32), np.full(3, r, np.float32), 64, N_FULL,
                             device)
     print(f"[{tag}] trained SDF on a 64^3 grid: min {vals.min():.4f}, max {vals.max():.4f}, "
-          f"{(vals < 0).mean():.4%} of the points below 0", flush=True)
+          f"{(vals < 0).float().mean():.4%} of the points below 0", flush=True)
     return launches, n_rays / view_s, n_rays / warm_s
 
 
@@ -2022,7 +2063,7 @@ def trainer_phase(device, system, state, smi):
     assert n_pred == system.n_images and pred == sorted(f"{i}.png" for i in range(n_pred)), pred
     assert launches["predict"]["cp_product_jac_forward"] >= n_pred * n_scales * view_chunks
 
-    # export, timed by stage: the level grid (K5), the host marching pass,
+    # export, timed by stage: the level grid (K5), marching (MT1 / MT2),
     # the vertex colours (K7 eval + K3) and the rest (the OBJ); the coarse
     # level grid's minimum and share below the level set
     model = system.model
@@ -2039,7 +2080,7 @@ def trainer_phase(device, system, state, smi):
             stage[key] += time.perf_counter() - t0
             if key == "level grid" and "level min" not in stage:
                 stage["level min"] = float(out.min())
-                stage["inside share"] = float((out < 0).mean())
+                stage["inside share"] = float((out < 0).float().mean())
             return out
         return wrapper
 
@@ -2059,7 +2100,7 @@ def trainer_phase(device, system, state, smi):
         rest = walls[phase] - stage["level grid"] - stage["marching"] - stage["vertex colours"]
         print(f"[{phase}] step {int(st['step'])}: {len(v)} vertices, {len(f)} faces; coarse level "
               f"grid min {stage['level min']:.4f}, {stage['inside share']:.4%} below 0; level "
-              f"grid {stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), "
+              f"grid {stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (card), "
               f"vertex colours {stage['vertex colours']:.3f} s, the rest (OBJ) {rest:.3f} s; "
               f"launches {k} ({smi})", flush=True)
         passes = 2 if len(f) else 1
@@ -2879,7 +2920,7 @@ def neus_hash_launcher_phase(device, smi):
     v, f = mesh["v_pos"], mesh["t_pos_idx"]
     rest = export_s - stage["level grid"] - stage["marching"] - stage["vertex colours"]
     print(f"[neus-hash] export {export_s:.2f} s: {len(v)} vertices, {len(f)} faces; level grid "
-          f"{stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), vertex "
+          f"{stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (card), vertex "
           f"colours {stage['vertex colours']:.3f} s, the rest (loading, OBJ) {rest:.3f} s; "
           f"launches {export_launches} ({smi})", flush=True)
     assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
@@ -3290,7 +3331,7 @@ def dataset_launcher_phase(device, smi, key):
           f"{max(w['peak'] for w in warmups) / 2**30:.2f} GiB "
           f"({warmups[0]['before'] / 2**30:.2f} GiB before the first) ({smi})", flush=True)
     print(f"[{key}] mesh export {stage['export']:.2f} s: {len(v)} vertices, {len(f)} faces; "
-          f"level grid {stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (host), "
+          f"level grid {stage['level grid']:.3f} s, marching {stage['marching']:.3f} s (card), "
           f"vertex colours {stage['vertex colours']:.3f} s, the rest (OBJ) {rest:.3f} s "
           f"({smi})", flush=True)
     if not nerf:
@@ -3324,6 +3365,423 @@ def dataset_launcher_phase(device, smi, key):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the VM encoding (VM1 / VM2), the VM NeRF at the JAX package's VM
+# width, and marching tetrahedra on the card (MT1 / MT2)
+# ---------------------------------------------------------------------------
+
+VM_CONFIG = os.path.join(CONFIGS, "nerf-vm-synthetic.yaml")
+VM_RUN = {}  # the VM NeRF's figures (train_phase, vm_mesh_phase)
+MARCHING_DIR = os.path.join(ROOT, "exp", "chip_smoke_marching")
+SPHERE_RES = (128, 256, 512)
+EXPORT_GRID_RES = 256  # the VM NeRF's level grid held against the numpy twin
+TWINS = []  # the numpy twins' processes (started early, joined in marching_phase)
+
+
+def vm_spec():
+    """The VM NeRF's encoding (``nerf-vm-synthetic.yaml``: scripts/ab_encodings.py:44-48)."""
+    from instant_nsr_pl_tpu_torch.ops.vm import VMSpec
+
+    return VMSpec.from_config(bench_config(VM_CONFIG)["model"]["geometry"]["xyz_encoding_config"])
+
+
+def vm_check(tag, params, x, ct, spec, with_dx=True):
+    """VM1 (``ct`` None) or VM2 against its plain version on the same CUDA
+    tensors: VM1 within 1e-5 x max|plain| (the share equal to the bit
+    printed), VM2's table gradients within 1e-5 x max|ref| per table of the
+    float64 sum of the plain updates, its d x within 1e-4 x max|plain|.
+    Returns the largest errors (forward, backward)."""
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    errs = [0.0, 0.0]
+    if ct is None:
+        got = vm.vm_forward_launch(params, x, spec)
+        torch.cuda.synchronize()
+        ref = vm.vm_encode(params, x, spec)
+        same = float((got == ref).float().mean())
+        err = float((got - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max())
+        print(f"[kernel] vm_forward {tag}: {same:.6%} of the entries equal the plain version's "
+              f"to the bit; max|kernel - plain| {err:.3e} (limit 1e-5*max|plain| = {tol:.3e})",
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"vm_forward {tag} disagrees with its plain version")
+        errs[0] = err
+        return errs
+    dparams, dx = vm.vm_backward_launch(params, x, ct, spec, with_dx=with_dx)
+    torch.cuda.synchronize()
+    ref, rdx = vm.vm_backward_plain(params, x, ct, spec, with_dx=with_dx,
+                                    accumulate=torch.float64)
+    worst = 0.0  # the largest error of a table over its max|ref|
+    for k in spec.keys():
+        e = float((dparams[k].double() - ref[k]).abs().max())
+        scale = float(ref[k].abs().max())
+        if not e <= 1e-5 * scale:
+            raise AssertionError(f"vm_backward {tag} {k}: {e:.3e} > 1e-5 x {scale:.3e}")
+        worst = max(worst, e / max(scale, 1e-30))
+        errs[1] = max(errs[1], e)
+    print(f"[kernel] vm_backward {tag}: table gradients within {worst:.3e} x max|ref| per table "
+          f"(limit 1e-5, float64 reference)", flush=True)
+    if with_dx and dx is not None:
+        errs[1] = max(errs[1], compare(f"vm_backward {tag} d x", dx, rdx, rel=1e-4))
+    return errs
+
+
+def check_vm_step(key, calls):
+    """``capture_step_operands``' check for a VM NeRF step: every VM1 / VM2
+    launch of the step held against its plain version on its own operands."""
+    if key not in ("vm_forward", "vm_backward"):
+        return
+    for i, (args, kwargs) in enumerate(calls):
+        if key == "vm_forward":
+            params, x, spec = args[:3]
+            vm_check(f"step launch {i} (N={x.shape[0]})", params, x, None, spec)
+        else:
+            params, x, dout, spec = args[:4]
+            with_dx = bool(args[4] if len(args) > 4 else kwargs.get("with_dx", False))
+            vm_check(f"step launch {i} (N={x.shape[0]})", params, x, dout, spec, with_dx)
+
+
+def _vm_taps(spec, x):
+    """Every table's (rows (T, N), weights (T, N)) for the plain yardsticks
+    and the bound's distinct rows."""
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    taps = {}
+    for s in range(spec.n_scales):
+        rp = spec.plane_res(s)
+        for k, axes in enumerate(vm.VMSpec.AXES):
+            taps[f"plane_{s}_{k}"] = vm._plane_taps(x, axes, rp)
+            taps[f"line_{s}_{k}"] = vm._line_taps(x, axes, spec.line_resolution)
+    return taps
+
+
+def vm_kernel_phase(device):
+    """VM1 (the VM encoding forward) and VM2 (its table gradients, and d x
+    on request) at the VM NeRF's width (C = 16, planes 512^2 and 256^2,
+    lines 2048, 2 scales: 96 features), N = 262,144 and 262,107 uniform
+    points with samples at u = 0 and 1 on every axis, against their plain
+    versions on the same CUDA tensors (``vm_check``); then timed beside
+    their bounds (bytes: x and the output or cotangent per sample, each
+    table row the points touch read once, VM2's whole gradient written once),
+    the plain versions and the composed yardsticks the port never calls
+    (VM1: ``index_select`` and the weighted sums on precomputed taps; VM2:
+    one ``index_add_`` per table on precomputed updates)."""
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    spec = vm_spec()
+    gen = torch.Generator().manual_seed(SEED + 19)
+    params = vm.vm_init(gen, spec, device)
+    x = torch.rand((N_FULL, 3), generator=gen)
+    x[:8] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5], [1.0, 0.25, 0.0],
+                          [0.5, 1.0, 1.0], [1 / 511, 0.5, 1 - 1 / 2047], [0.999999, 1e-7, 0.5],
+                          [0.5, 0.5, 0.5]])
+    x = x.to(device)
+    ct = torch.randn((N_FULL, spec.n_output_dims), generator=gen).to(device)
+    errs = {"vm_forward": [], "vm_backward": []}
+    for n in (N_RAGGED, N_FULL):
+        xn, ctn = x[:n], ct[:n].contiguous()
+        fe, _ = vm_check(f"N={n}", params, xn, None, spec)
+        _, be = vm_check(f"N={n}", params, xn, ctn, spec, with_dx=True)
+        _, be2 = vm_check(f"N={n} (no d x)", params, xn, ctn, spec, with_dx=False)
+        errs["vm_forward"].append(fe)
+        errs["vm_backward"] += [be, be2]
+    # through the autograd op (the training path: the same VM1 launch)
+    leaves = {k: t.clone().requires_grad_(True) for k, t in params.items()}
+    (vm.vm_encode_fast(leaves, x, spec) * ct).sum().backward()
+    torch.cuda.synchronize()
+    ref, _ = vm.vm_backward_plain(params, x, ct, spec, accumulate=torch.float64)
+    for k in spec.keys():
+        e = float((leaves[k].grad.double() - ref[k]).abs().max())
+        if not e <= 1e-5 * float(ref[k].abs().max()):
+            raise AssertionError(f"vm_encode_fast d {k}: {e:.3e}")
+
+    n = N_FULL
+    c = spec.n_components
+    taps = _vm_taps(spec, x)
+    distinct = sum(int(torch.unique(rows).numel()) for rows, _ in taps.values())
+    table_bytes = sum(t.numel() for t in params.values()) * 4
+    per_sample = 12 + spec.n_output_dims * 4
+    fwd_bytes = n * per_sample + distinct * c * 4
+    bwd_bytes = n * per_sample + distinct * c * 4 + table_bytes
+    flops = n * 3 * spec.n_scales * c * (2 * 6 + 1)  # 6 taps' multiply-adds and the product
+    fwd_bound, fwd_by = bound(fwd_bytes, 0, flops)
+    bwd_bound, bwd_by = bound(bwd_bytes, 0, 2 * flops)
+    ms = time_ms(lambda: vm.vm_forward_launch(params, x, spec))
+    ms_train = time_ms(lambda: vm.vm_encode_fast(leaves, x, spec))
+    dev = device_ms(lambda: vm.vm_forward_launch(params, x, spec))
+    plain_ms = time_ms(lambda: vm.vm_encode(params, x, spec), reps=5, inner=2)
+
+    def gathered():
+        return [vm._gather_weighted(params[k], *taps[k]) for k in spec.keys()]
+    composed_ms = time_ms(gathered, reps=5, inner=2)
+    bms = time_ms(lambda: vm.vm_backward_launch(params, x, ct, spec))
+    bms_dx = time_ms(lambda: vm.vm_backward_launch(params, x, ct, spec, with_dx=True))
+    bdev = device_ms(lambda: vm.vm_backward_launch(params, x, ct, spec))
+    bplain_ms = time_ms(lambda: vm.vm_backward_plain(params, x, ct, spec), reps=5, inner=2)
+    # precomputed updates per table (as the JAX backward forms them), one index_add_ each
+    ct2 = ct.reshape(n, 3 * spec.n_scales, c)
+    feats = {k: f for k, f in zip(spec.keys(), gathered())}
+    updates = []
+    for j in range(3 * spec.n_scales):
+        pk, lk = spec.keys()[2 * j], spec.keys()[2 * j + 1]
+        g = ct2[:, j]
+        for key, other in ((pk, feats[lk]), (lk, feats[pk])):
+            rows, w = taps[key]
+            updates.append((key, rows.reshape(-1), (w[..., None] * (g * other)[None]).reshape(-1, c)))
+    grads = {k: torch.zeros_like(t) for k, t in params.items()}
+
+    def scatter():
+        for key, rows, upd in updates:
+            grads[key].zero_()
+            grads[key].index_add_(0, rows, upd)
+    bcomposed_ms = time_ms(scatter)
+    print(f"[kernel] vm_forward: {ms:.4f} ms, {ms_train:.4f} ms through the autograd op (device "
+          f"{dev:.4f} ms; plain {plain_ms:.3f} ms; index_select and weighted sums on precomputed "
+          f"taps {composed_ms:.4f} ms; bound {fwd_bound:.4f} ms by {fwd_by}: {distinct} distinct "
+          f"rows of {sum(t.shape[0] for t in params.values())}) at N={n}", flush=True)
+    print(f"[kernel] vm_backward: {bms:.4f} ms, {bms_dx:.4f} ms with d x (device {bdev:.4f} ms, "
+          f"the zeroing included; plain {bplain_ms:.3f} ms; one index_add_ per table on "
+          f"precomputed updates {bcomposed_ms:.4f} ms; bound {bwd_bound:.4f} ms by {bwd_by}) at "
+          f"N={n}", flush=True)
+    note = ("no single PyTorch call forms the bilinear plane and linear line taps and their "
+            "products (or scatters all twelve tables' updates)")
+    common = {"route": "cuda", "launches": 0, "library_ms": None, "library_note": note, "n": n,
+              "distinct_rows": distinct}
+    return [
+        {**common, "name": "vm_forward", "source": "instant_nsr_pl_tpu_torch/csrc/vm_fwd.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/vm.py:136 (vm_encode, XLA; vm_encode_fast :166)",
+         "max_abs_err": max(errs["vm_forward"]), "ms": ms, "ms_train": ms_train,
+         "device_ms": dev, "plain_ms": plain_ms, "composed_ms": composed_ms,
+         "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "ptxas": ptxas_info("vm_fwd", f"vm_fwd_kernelILi{c}E")},
+        {**common, "name": "vm_backward", "source": "instant_nsr_pl_tpu_torch/csrc/vm_bwd.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/vm.py:176 (_vm_fast_bwd, XLA two-sort segment sum "
+                     "ops/segment.py:28)",
+         "max_abs_err": max(errs["vm_backward"]), "ms": bms, "ms_with_dx": bms_dx,
+         "device_ms": bdev, "plain_ms": bplain_ms, "composed_ms": bcomposed_ms,
+         "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "ptxas": ptxas_info("vm_bwd", f"vm_bwd_kernelILi{c}E")},
+    ]
+
+
+def mt_counters():
+    from instant_nsr_pl_tpu_torch.ops import isosurface
+
+    return {"marching_classify": isosurface.marching_classify,
+            "marching_emit": isosurface.marching_emit}
+
+
+def vm_mesh_phase(device, system, state, smi):
+    """The trained VM NeRF's mesh: its two-stage extraction at the config's
+    128^3 (VM1 in the level grids, MT1 / MT2 on the card, the counters set
+    to 0 just before and read just after), a non-empty mesh with valid
+    indices; then its level grid at EXPORT_GRID_RES^3 kept on the card for
+    ``marching_phase``."""
+    from instant_nsr_pl_tpu_torch.models.isosurface import _eval_level_grid
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    geo = system.model.geometry
+    counters = {**mt_counters(), "vm_forward": vm.vm_forward, "vm_backward": vm.vm_backward}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = geo.isosurface(state["params"]["geometry"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    v, f = mesh["v_pos"], mesh["t_pos_idx"]
+    print(f"[train-vm] mesh at {int(geo.config.isosurface.resolution)}^3 in {wall:.3f} s: "
+          f"{len(v)} vertices, {len(f)} faces; launches {launches} ({smi})", flush=True)
+    assert len(f) > 0 and f.min() >= 0 and f.max() < len(v), "empty or broken mesh"
+    assert launches["marching_classify"] >= 1 and launches["marching_emit"] >= 1, launches
+    assert launches["vm_forward"] >= 1 and launches["vm_backward"] == 0, launches
+    VM_RUN.update(vertices=len(v), faces=len(f), mesh_s=wall, mesh_launches=launches)
+    r = float(geo.radius)
+    lo, hi = np.full(3, -r, np.float32), np.full(3, r, np.float32)
+    with torch.no_grad():
+        grid = _eval_level_grid(geo, state["params"]["geometry"], lo, hi, EXPORT_GRID_RES,
+                                int(geo.config.isosurface.chunk), device)
+    EXPORT_GRIDS["vm_nerf_level"] = (grid, -float(geo.config.isosurface.threshold))
+
+
+EXPORT_GRIDS = {}  # name -> (the level grid on the card, iso)
+
+
+def sphere_grid(res):
+    """A sphere SDF of radius 0.6 about (0.05, -0.1, 0.02) on a res^3 grid
+    over [-1, 1]^3, float32 (the numpy twin's test field)."""
+    c = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    return np.sqrt((x - 0.05) ** 2 + (y + 0.1) ** 2 + (z - 0.02) ** 2).astype(np.float32) - 0.6
+
+
+def start_twin(name, values, iso):
+    """Save ``values`` and run the numpy twin on it in a process of its own
+    (``python3 chip_smoke.py --twin``, at a lower priority), beside the
+    card's kernel phases; its result and seconds land in
+    MARCHING_DIR/<name>-twin.npz."""
+    os.makedirs(MARCHING_DIR, exist_ok=True)
+    path = os.path.join(MARCHING_DIR, f"{name}.npy")
+    np.save(path, values)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--twin", path, repr(iso)],
+                            cwd=ROOT)
+    TWINS.append((name, proc))
+
+
+def run_twin(path, iso):
+    """The ``--twin`` mode: the numpy twin of MT1 / MT2 on a saved grid, timed."""
+    os.nice(10)  # the main process's host work first
+    sys.path.insert(0, ROOT)
+    from instant_nsr_pl_tpu_torch.ops.isosurface import marching_tetrahedra_numpy
+
+    values = np.load(path)
+    t0 = time.perf_counter()
+    verts, faces = marching_tetrahedra_numpy(values, iso)
+    seconds = time.perf_counter() - t0
+    np.savez(path[:-len(".npy")] + "-twin.npz", verts=verts, faces=faces, seconds=seconds)
+    return 0
+
+
+def stop_twins():
+    for _, proc in TWINS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _ulps(a, b):
+    """Units in the last place between float32 arrays a and b (elementwise)."""
+    ia = a.view(np.int32).astype(np.int64)
+    ib = b.view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return np.abs(ia - ib)
+
+
+def obj_writer_check(v, f, smi):
+    """The largest mesh of the run through ``utils/savers.py`` ``save_obj``
+    (``obj_writer.cc``), timed, against the same lines formatted by Python's
+    ``%`` as the writer did before (and as the JAX package's does): the same
+    bytes. Returns the seconds of both."""
+    from instant_nsr_pl_tpu_torch.utils.savers import save_obj
+
+    t0 = time.perf_counter()
+    path = save_obj(MARCHING_DIR, "largest.obj", v, f)
+    writer_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines = ["v %.6f %.6f %.6f" % tuple(p) for p in v.tolist()]
+    lines += ["f %d %d %d" % tuple(t) for t in (f + 1).tolist()]
+    python = ("\n".join(lines) + "\n").encode()
+    python_s = time.perf_counter() - t0
+    with open(path, "rb") as fh:
+        same = fh.read() == python
+    print(f"[obj] {len(v)} vertices, {len(f)} faces: save_obj {writer_s:.3f} s, the lines "
+          f"formatted by Python {python_s:.3f} s; the same bytes: {same} ({smi})", flush=True)
+    assert same, "save_obj's bytes differ from Python's formatting"
+    return {"vertices": len(v), "faces": len(f), "save_obj_s": writer_s, "python_s": python_s}
+
+
+def marching_phase(device, smi):
+    """MT1 / MT2 against the numpy twin on the sphere SDF at SPHERE_RES^3
+    (the twins ran in their own processes during the kernel phases) and on
+    the VM NeRF's level grid at EXPORT_GRID_RES^3 (its twin runs here, after
+    the training phases): faces equal, vertices equal to the bit or
+    within 1 ulp (the count of differing vertices printed); the card's
+    marching wall (synchronised, the nonzero / cumsum / unique steps
+    included) against the twin's seconds, and MT1 / MT2 alone timed at
+    512^3 beside their bounds. Returns the two kernel entries."""
+    from instant_nsr_pl_tpu_torch.ops import isosurface as iso_mod
+
+    grids = {f"sphere_{r}": (None, 0.0) for r in SPHERE_RES}
+    grids.update(EXPORT_GRIDS)
+    results = {}
+    for name, proc in TWINS:
+        rc = proc.wait(timeout=900)
+        assert rc == 0, f"the numpy twin of {name} exited {rc}"
+    counters = mt_counters()
+    timing = {}
+    for name, (grid, iso) in grids.items():
+        if grid is None:
+            grid = torch.from_numpy(np.load(os.path.join(MARCHING_DIR, f"{name}.npy"))).to(device)
+            twin = np.load(os.path.join(MARCHING_DIR, f"{name}-twin.npz"))
+        else:
+            t0 = time.perf_counter()
+            rv, rf = iso_mod.marching_tetrahedra_numpy(grid.cpu().numpy(), iso)
+            twin = {"verts": rv, "faces": rf, "seconds": time.perf_counter() - t0}
+        before = {k: c.launches for k, c in counters.items()}
+        for _ in range(2):  # the second call warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, f = iso_mod.marching_tetrahedra(grid, iso)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for c, b in zip(counters.values(), before.values()):
+            c.launches = b  # the comparison's launches are not a path's
+        v, f = v.cpu().numpy(), f.cpu().numpy()
+        rv, rf = twin["verts"], twin["faces"]
+        if f.shape != rf.shape or not np.array_equal(f, rf):
+            raise AssertionError(f"marching {name}: faces differ from the numpy twin's "
+                                 f"({f.shape} against {rf.shape})")
+        assert v.shape == rv.shape, (v.shape, rv.shape)
+        ulps = _ulps(v, rv)
+        differ = int((ulps.max(axis=1) > 0).sum()) if len(v) else 0
+        worst = int(ulps.max()) if len(v) else 0
+        print(f"[marching] {name} ({tuple(grid.shape)}, iso {iso}): {len(v)} vertices, {len(f)} "
+              f"faces; faces equal to the numpy twin's, {differ} vertices differ (at most {worst} "
+              f"ulp); card {wall * 1e3:.3f} ms warm (synchronised), numpy twin "
+              f"{float(twin['seconds']):.3f} s on the host ({smi})", flush=True)
+        if worst > 1:
+            raise AssertionError(f"marching {name}: vertices differ by {worst} ulp")
+        results[name] = {"vertices": len(v), "faces": len(f), "card_ms": wall * 1e3,
+                         "twin_s": float(twin["seconds"]), "vertices_differ": differ,
+                         "max_ulp": worst}
+        assert len(f) > 0, f"marching {name}: empty mesh"
+        if name == f"sphere_{SPHERE_RES[-1]}":
+            timing = {"grid": grid, "iso": iso, "verts": len(v), "faces": len(f)}
+            results["obj_writer"] = obj_writer_check(v, f, smi)
+        del grid
+    grid, iso = timing["grid"], timing["iso"]
+    counts = iso_mod.marching_classify(grid, iso)
+    active = int((counts > 0).sum())
+    keep = {k: c.launches for k, c in counters.items()}
+    ms1 = time_ms(lambda: iso_mod.marching_classify(grid, iso), reps=5, inner=3)
+    ms2 = time_ms(lambda: iso_mod.marching_emit(grid, iso, counts), reps=5, inner=3)
+    for k, c in counters.items():
+        c.launches = keep[k]
+    n_cells = grid.numel()
+    cubes = math.prod(d - 1 for d in grid.shape)
+    b1, b1_by = bound(n_cells * 4 + cubes, 0, 0)
+    # MT2: the active cubes' ids and first faces, their 8 corners, 24 B of keys
+    # and a flag per face; the weld's keys again and the vertices (12 B each)
+    b2, b2_by = bound(active * (16 + 32) + timing["faces"] * 25
+                      + timing["faces"] * 3 * 8 + timing["verts"] * 20, 0, 0)
+    twin_ms = results[f"sphere_{SPHERE_RES[-1]}"]["twin_s"] * 1e3
+    print(f"[marching] at {SPHERE_RES[-1]}^3 ({active} active cubes): mt_classify {ms1:.4f} ms "
+          f"(bound {b1:.4f} ms by {b1_by}), mt_emit with the weld and mt_verts {ms2:.4f} ms "
+          f"(bound {b2:.4f} ms by {b2_by}); numpy twin {twin_ms:.1f} ms ({smi})", flush=True)
+    note = "no PyTorch call marches tetrahedra"
+    common = {"route": "cuda", "launches": 0, "library_ms": None, "library_note": note,
+              "plain_ms": twin_ms, "plain_note": "the numpy twin on the host, the whole pass",
+              "max_abs_err": 0.0, "marching": results, "n": f"{SPHERE_RES[-1]}^3 sphere"}
+    return [
+        {**common, "name": "marching_classify",
+         "source": "instant_nsr_pl_tpu_torch/csrc/marching_tet.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/native/marching_tet.cc:95 (mt_run, C++; numpy "
+                     "twin ops/isosurface.py:95)",
+         "ms": ms1, "bound_ms": b1, "bound_by": b1_by, "active_cubes": active,
+         "ptxas": ptxas_info("marching_tet", "mt_classify_kernel")},
+        {**common, "name": "marching_emit",
+         "source": "instant_nsr_pl_tpu_torch/csrc/marching_tet.cu",
+         "replaces": "instant_nsr_pl_tpu/ops/native/marching_tet.cc:95 (mt_run, C++; numpy "
+                     "twin ops/isosurface.py:95)",
+         "ms": ms2, "bound_ms": b2, "bound_by": b2_by,
+         "ptxas": ptxas_info("marching_tet", "mt_emit_kernel"),
+         "ptxas_verts": ptxas_info("marching_tet", "mt_verts_kernel")},
+    ]
+
+
 def main(argv=None):
     import argparse
 
@@ -3331,11 +3789,22 @@ def main(argv=None):
     ap.add_argument("--parent", default=None,
                     help="another checkout of the repo (for example the parent commit from "
                          "git archive): the backward kernels' times of its design are added")
+    ap.add_argument("--twin", nargs=2, default=None, metavar=("GRID_NPY", "ISO"),
+                    help=argparse.SUPPRESS)  # the numpy twin of a saved grid (start_twin)
     args = ap.parse_args(argv)
+    if args.twin:  # a host process of the main run's: no card needed
+        return run_twin(args.twin[0], float(args.twin[1]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
         return 2
+    try:
+        return _main(args)
+    finally:
+        stop_twins()
+
+
+def _main(args):
     from instant_nsr_pl_tpu_torch.ops import cuda_build
 
     device = torch.device("cuda")
@@ -3354,9 +3823,26 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[build] {stem}: {line.strip()}", flush=True)
 
+    # the numpy twins of the sphere grids run on the host beside the card's phases
+    for res in SPHERE_RES:
+        start_twin(f"sphere_{res}", sphere_grid(res), 0.0)
+    mt = mt_counters()
+    mt_runs = {}
+
+    def mt_tally(label, fn, *a, **kw):
+        """``fn`` with MT1 / MT2's launches counted around it (every export
+        and test mesh marches on the card)."""
+        before = {k: c.launches for k, c in mt.items()}
+        out = fn(*a, **kw)
+        mt_runs[label] = {k: c.launches - before[k] for k, c in mt.items()}
+        print(f"[marching] {label}: launches {mt_runs[label]}", flush=True)
+        assert mt_runs[label]["marching_classify"] >= 1, f"{label}: no marching on the card"
+        return out
+
     entries = kernel_phase(device) + cp_kernel_phase(device) + stacked_kernel_phase(device)
     hash_entries = hash_kernel_phase(device)
     hash_jac_entries = hash_jac_kernel_phase(device)
+    vm_entries = vm_kernel_phase(device)
     cp_big_entries = cp_big_kernel_phase(device)
     probe_entries = probe_phase(device)
     render_launches, rays_per_s, warm_rays_per_s = render_phase(device)
@@ -3373,6 +3859,12 @@ def main(argv=None):
                                                                 kind="hash")
     print(f"[train-hash] rays/s: {hs_rays_per_s:.0f} warm, {hs_s_per_step:.4f} s per step "
           f"({smi})", flush=True)
+    torch.cuda.empty_cache()
+    vm_step, vm_run, vm_rays_per_s, vm_s_per_step = train_phase(device, smi, VM_CONFIG,
+                                                                kind="vm")
+    print(f"[train-vm] rays/s: {vm_rays_per_s:.0f} warm, {vm_s_per_step:.4f} s per step; val "
+          f"PSNR {VM_RUN['untrained']:.3f} -> {VM_RUN['trained']:.3f} dB; mesh "
+          f"{VM_RUN['vertices']} vertices ({smi})", flush=True)
     torch.cuda.empty_cache()
     cp_big_counts = cp_big_train_phase(device, smi)
     system, state, val, neus_step, neus_run, neus_rays_per_s = neus_train_phase(device, smi)
@@ -3395,30 +3887,35 @@ def main(argv=None):
     nr_view, nr_view_first, nr_view_warm = neus_render_phase(device, system, state, val, smi)
     print(f"[neus-raw] rays/s: {nr_rays_per_s:.0f} warm training; view {nr_view_first:.0f} "
           f"first, {nr_view_warm:.0f} warm ({smi})", flush=True)
-    nr_launches, _, _ = trainer_phase(device, system, state, smi)
-    sphere_extraction_phase(system.config.dataset.spheres, device)
+    nr_launches, _, _ = mt_tally("neus_raw_trainer", trainer_phase, device, system, state, smi)
+    mt_tally("sphere_sdf", sphere_extraction_phase, system.config.dataset.spheres, device)
     del system, state, val
     torch.cuda.empty_cache()
-    launcher_train, launcher_export = launcher_phase(device, smi)
+    launcher_train, launcher_export = mt_tally("nerf_launcher", launcher_phase, device, smi)
     torch.cuda.empty_cache()
-    nh_step, nh_run, nh_export, nh_rays_per_s = neus_hash_launcher_phase(device, smi)
+    nh_step, nh_run, nh_export, nh_rays_per_s = mt_tally("neus_hash_launcher",
+                                                         neus_hash_launcher_phase, device, smi)
     print(f"[neus-hash] rays/s: {nh_rays_per_s:.0f} warm training ({smi})", flush=True)
     torch.cuda.empty_cache()
-    band_run, _ = band_launcher_phase(device, smi)
+    band_run, _ = mt_tally("band_launcher", band_launcher_phase, device, smi)
     torch.cuda.empty_cache()
     # slice 8: the Blender loader on data80, the DTU loader on the port's export
-    ds_runs = {key: dataset_launcher_phase(device, smi, key)
+    ds_runs = {key: mt_tally(key, dataset_launcher_phase, device, smi, key)
                for key in ("blender_nerf", "blender_neus")}
     dtu_export_s = dtu_export_phase()
-    ds_runs["dtu_neus"] = dataset_launcher_phase(device, smi, "dtu_neus")
-    dtu_band_run, dtu_band_s = band_launcher_phase(
-        device, smi, os.path.join(ROOT, "configs", "neuralangelo-dtu-wmask.yaml"),
-        DTU_BAND_OVERRIDES, "chip_smoke_dtu_band", "dtu-band")
+    ds_runs["dtu_neus"] = mt_tally("dtu_neus", dataset_launcher_phase, device, smi, "dtu_neus")
+    dtu_band_run, dtu_band_s = mt_tally(
+        "dtu_band", band_launcher_phase, device, smi,
+        os.path.join(ROOT, "configs", "neuralangelo-dtu-wmask.yaml"), DTU_BAND_OVERRIDES,
+        "chip_smoke_dtu_band", "dtu-band")
     torch.cuda.empty_cache()
     # slice 9: unbounded scenes on the COLMAP export and on the DTU export
     colmap_export_s = colmap_export_phase()
     for key in ("colmap_nerf", "colmap_neus", "dtu_bg_neus"):
-        ds_runs[key] = dataset_launcher_phase(device, smi, key)
+        ds_runs[key] = mt_tally(key, dataset_launcher_phase, device, smi, key)
+    torch.cuda.empty_cache()
+    # slice 10: MT1 / MT2 against the numpy twin (sphere SDFs, the VM NeRF's level grid)
+    mt_entries = marching_phase(device, smi)
     summary = {"card": smi, "dtu_export_s": dtu_export_s, "dtu_band_s": dtu_band_s,
                "dtu_band_launches": dtu_band_run, "colmap_export_s": colmap_export_s, **ds_runs}
     os.makedirs(os.path.join(ROOT, "exp", "chip_smoke_datasets"), exist_ok=True)
@@ -3482,7 +3979,24 @@ def main(argv=None):
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']}: not launched on its main path "
                                  f"({e['launches_path']})")
+    # slice 10: VM1 / VM2 on the VM NeRF's training run; MT1 / MT2 on its
+    # mesh (the counts set to 0 just before it), and on every export of the run
+    for e in vm_entries:
+        e["launches"] = vm_run[e["name"]]
+        e["launches_path"] = "nerf_vm_train"
+        e["launches_nerf_vm_train_step"] = vm_step[e["name"]]
+        e["ms_ray_ordered"] = STEP_MS.get(e["name"], (None,))[0]
+    for e in mt_entries:
+        e["launches"] = VM_RUN["mesh_launches"][e["name"]]
+        e["launches_path"] = "nerf_vm_mesh"
+        for label, run in mt_runs.items():
+            e[f"launches_{label}"] = run[e["name"]]
+    for e in vm_entries + mt_entries:
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']}: not launched on its main path "
+                                 f"({e['launches_path']})")
     entries += hash_entries + hash_jac_entries + cp_big_entries + probe_entries
+    entries += vm_entries + mt_entries
     # slice 8: HG1-HG4, K3 and K4 on the Blender and DTU launcher runs (the
     # NeRF's --export; HG1 / HG2 on neuralangelo-dtu-wmask.yaml's run)
     for e in entries:

@@ -4,10 +4,12 @@ Port of ``instant_nsr_pl_tpu/models/isosurface.py`` (the reference's
 ``MarchingCubeHelper`` + ``BaseImplicitGeometry.isosurface``,
 models/geometry.py:32-112): a coarse pass over the full ``[-r, r]^3`` cube
 locates the surface, a fine pass re-extracts inside the 10%-padded bounding
-box of the coarse mesh. The level grid is built in numpy and evaluated on the
-geometry's device in fixed-size chunks under ``torch.no_grad`` (the expensive
-part: encoding + MLP per grid point, K1 or K5 on the card); the triangulation
-runs on the host (``ops/isosurface.py``).
+box of the coarse mesh. The grid points are built in numpy and evaluated on
+the geometry's device in fixed-size chunks under ``torch.no_grad`` (encoding +
+MLP per grid point, K1, K5, HG1 or VM1 on the card); the level grid stays on
+that device and is triangulated there (``ops/isosurface.py``: MT1 / MT2 on
+the card, the numpy twin on the CPU). Only the vertices and faces come back
+to the host.
 """
 
 from __future__ import annotations
@@ -25,13 +27,14 @@ def _eval_level_grid(geometry, params, vmin, vmax, resolution, chunk, device, st
     """Evaluate ``geometry.forward_level`` on a regular grid, in chunks of
     ``chunk`` points, or one chunk of the whole grid where it is smaller (the
     tail padded to a full chunk, as the JAX package pads it to compile
-    once). Returns (resolution,)*3 numpy float32, indexed values[x, y, z]."""
+    once). Returns a (resolution,)*3 float32 tensor on ``device``, indexed
+    values[x, y, z]."""
     axes = [np.linspace(vmin[i], vmax[i], resolution, dtype=np.float32) for i in range(3)]
     gx, gy, gz = np.meshgrid(*axes, indexing="ij")
     pts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
     n = pts.shape[0]
     chunk = min(chunk, n)
-    out = np.empty((n,), np.float32)
+    out = torch.empty((n,), dtype=torch.float32, device=device)
     t0 = last_beat = time.time()
     with torch.no_grad():
         for start in range(0, n, chunk):
@@ -40,7 +43,7 @@ def _eval_level_grid(geometry, params, vmin, vmax, resolution, chunk, device, st
             if block.shape[0] < chunk:
                 block = np.concatenate([block, np.zeros((chunk - block.shape[0], 3), np.float32)])
             vals = geometry.forward_level(params, torch.from_numpy(block).to(device), step=step)
-            out[start:end] = vals[: end - start].float().cpu().numpy()
+            out[start:end] = vals[: end - start].float()
             if time.time() - last_beat > 60.0:
                 print(f"[isosurface] {end}/{n} points ({time.time() - t0:.0f}s)", flush=True,
                       file=sys.stderr)
@@ -84,7 +87,12 @@ def _chunk_sweep(fn, points, chunk, device):
 
 
 def _extract(values, vmin, vmax, iso=0.0):
+    """Triangulate the level grid where it lives (a tensor on its device,
+    or a numpy array on the host); the mesh in world coordinates as numpy
+    (``v_pos`` (V, 3) float32, ``t_pos_idx`` (F, 3) int64)."""
     verts, faces = marching_tetrahedra(values, iso)
+    if torch.is_tensor(verts):
+        verts, faces = verts.cpu().numpy(), faces.cpu().numpy()
     res = np.asarray(values.shape, np.float32)
     scale = (np.asarray(vmax) - np.asarray(vmin)) / np.maximum(res - 1.0, 1.0)
     v_world = verts * scale[None, :] + np.asarray(vmin, np.float32)[None, :]

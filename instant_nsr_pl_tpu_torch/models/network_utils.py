@@ -1,8 +1,9 @@
 """Encoding / MLP factories (the reference's models/network_utils.py role).
 
-Port of ``instant_nsr_pl_tpu/models/network_utils.py`` for the encodings the
-NeRF and NeuS slices run: ``CP`` and ``HashGrid`` (each with its Jacobian
-path), ``ProgressiveBandHashGrid`` and ``SphericalHarmonics``. As in the JAX
+Port of ``instant_nsr_pl_tpu/models/network_utils.py``, every encoding of its
+factory: ``CP`` and ``HashGrid`` (each with its Jacobian path),
+``ProgressiveBandHashGrid``, ``VectorMatrix`` / ``VM``, ``VanillaFrequency``
+and ``SphericalHarmonics``. As in the JAX
 package, every module is a static Python object with ``init(generator,
 device) -> params`` and ``apply(params, x, step=None) -> out`` (``step``, a
 Python int, drives the progressive level mask), and parameters are nested dicts
@@ -50,6 +51,8 @@ from instant_nsr_pl_tpu_torch.ops.hashgrid import (
 )
 from instant_nsr_pl_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_apply_jvp, mlp_init
 from instant_nsr_pl_tpu_torch.ops.sh import sh_output_dim, spherical_harmonics_encoding
+from instant_nsr_pl_tpu_torch.ops.vm import VMSpec, vm_encode, vm_encode_fast, vm_init
+from instant_nsr_pl_tpu_torch.ops.vm import check_instantiated as check_vm_instantiated
 
 
 def named_leaves(tree, prefix=""):
@@ -84,11 +87,73 @@ def make_trainable(tree):
     return tree
 
 
-_LATER = {
-    "VanillaFrequency": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
-    "VectorMatrix": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
-    "VM": "ROADMAP queue 1 item 3 (VanillaFrequency and VM)",
-}
+class VanillaFrequency:
+    """sin / cos frequency bands ``2^i`` with the optional coarse-to-fine
+    cosine mask of ``n_masking_step`` (JAX ``models/network_utils.py:29-58``,
+    reference models/network_utils.py:14-37). The mask is a function of the
+    Python-int training ``step``; without a step, or with no masking, every
+    band is on. Plain PyTorch, as the JAX package computes it in XLA."""
+
+    def __init__(self, in_channels, config):
+        self.n_frequencies = int(config["n_frequencies"])
+        self.n_input_dims = in_channels
+        self.n_output_dims = in_channels * 2 * self.n_frequencies
+        self.n_masking_step = int(config.get("n_masking_step", 0))
+        self.freq_bands = tuple(2.0**i for i in range(self.n_frequencies))
+
+    def init(self, generator, device=None):
+        return {}
+
+    def mask(self, step, device=None):
+        """(n_frequencies,) float32: band i gets ``(1 - cos(pi * clip(step /
+        n_masking_step * n - i, 0, 1))) / 2``."""
+        n = self.n_frequencies
+        if self.n_masking_step <= 0 or step is None:
+            return torch.ones((n,), dtype=torch.float32, device=device)
+        t = torch.tensor(float(step), dtype=torch.float32) / float(self.n_masking_step) * n
+        x = torch.clamp(t - torch.arange(n, dtype=torch.float32), 0.0, 1.0)
+        return ((1.0 - torch.cos(math.pi * x)) / 2.0).to(device)
+
+    def apply(self, params, x, step=None):
+        mask = self.mask(step, x.device)
+        out = []
+        for i, freq in enumerate(self.freq_bands):
+            for fn in (torch.sin, torch.cos):
+                out.append(fn(freq * x) * mask[i])
+        return torch.cat(out, dim=-1)
+
+
+class VectorMatrixEncoding:
+    """TensoRF-style VM factorized encoding (``ops/vm.py``; JAX
+    ``models/network_utils.py:170-200``). ``grad_mode`` ('fast' by
+    default): 'fast' runs ``vm_encode_fast`` (VM1 forward and VM2 table
+    gradient on the card, their plain versions on the CPU), first order;
+    'autodiff' the composed ``vm_encode``, differentiable at any order (the
+    NeuS analytic gradient switches to it: VM has no Jacobian path). The JAX
+    package defaults to 'autodiff' off the TPU; both modes compute the same
+    function. Parameters: ``{"vm": {plane_{s}_{k}, line_{s}_{k}}}``."""
+
+    def __init__(self, in_channels, config):
+        if in_channels != 3:
+            raise ValueError("VM encoding is 3-D")
+        self.spec = VMSpec.from_config(config)
+        self.n_input_dims = 3
+        self.n_output_dims = self.spec.n_output_dims
+        self.grad_mode = str(config.get("grad_mode", "fast"))
+        if self.grad_mode not in ("fast", "autodiff"):
+            raise ValueError(f"VM grad_mode must be 'fast' or 'autodiff', got {self.grad_mode}")
+
+    def init(self, generator, device=None):
+        """The tables on ``device``; for the card, VM1 / VM2 must exist at
+        the spec's width (the 'fast' mode), else ValueError."""
+        if on_cuda(device) and self.grad_mode == "fast":
+            check_vm_instantiated(self.spec)
+        return {"vm": vm_init(generator, self.spec, device)}
+
+    def apply(self, params, x, step=None):
+        if self.grad_mode == "fast":
+            return vm_encode_fast(params["vm"], x, self.spec)
+        return vm_encode(params["vm"], x, self.spec)
 
 
 class CPEncoding:
@@ -348,10 +413,10 @@ def get_encoding(n_input_dims, config):
         enc = ProgressiveBandHashGrid(n_input_dims, config)
     elif otype == "SphericalHarmonics":
         enc = SphericalHarmonicsEncoding(n_input_dims, config)
-    elif otype in _LATER:
-        raise NotImplementedError(
-            f"encoding otype '{otype}' comes with {_LATER[otype]} of the port"
-        )
+    elif otype == "VanillaFrequency":
+        enc = VanillaFrequency(n_input_dims, config)
+    elif otype in ("VectorMatrix", "VM"):
+        enc = VectorMatrixEncoding(n_input_dims, config)
     else:
         raise ValueError(f"Unknown encoding otype '{otype}'")
     return CompositeEncoding(enc, include_xyz=bool(config.get("include_xyz", False)))

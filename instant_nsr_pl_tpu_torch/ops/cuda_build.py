@@ -8,7 +8,8 @@ hash of its sources and flags, so an edit rebuilds it, and its build's
 nvcc / ptxas output is kept beside it under the same name with ``.log``
 (:func:`build_log`), so a later process that reuses the library still reads
 its registers and spills. A missing ``nvcc`` or a failed build raises: there
-is no fallback.
+is no fallback. :func:`host_library` builds the port's host C++ sources (a plain
+C interface too) with g++ the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -182,3 +184,29 @@ def check_operands(name, tensors, shapes, device):
         if t.device != device or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f"{name}: operand {tuple(t.shape)} on {t.device} "
                              f"does not match {tuple(shape)} contiguous on {device}")
+
+
+_HOST_LIBS: dict[str, ctypes.CDLL] = {}
+_HOST_LOCK = threading.Lock()
+
+
+def host_library(src: Path, *flags: str) -> ctypes.CDLL:
+    """The g++ build of the host C++ source ``src`` with ``flags`` (built
+    once per hash of both into ``_build/``, loaded with ctypes). A missing
+    compiler or a failed build raises."""
+    with _HOST_LOCK:
+        lib = _HOST_LIBS.get(str(src))
+        if lib is None:
+            h = hashlib.sha256(src.read_bytes())
+            h.update(" ".join(flags).encode())
+            path = BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so"
+            if not path.exists():
+                BUILD.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                proc = subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", *flags,
+                                       str(src), "-o", str(tmp)], capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed to build {src.name}:\n{proc.stderr}")
+                os.replace(tmp, path)  # atomic: concurrent builders each write their own tmp
+            lib = _HOST_LIBS[str(src)] = ctypes.CDLL(str(path))
+    return lib

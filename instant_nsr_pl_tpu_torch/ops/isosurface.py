@@ -1,10 +1,16 @@
-"""Isosurface extraction via vectorized marching tetrahedra, on the host.
+"""Isosurface extraction via marching tetrahedra, on the card or the host.
 
-The port's own copy of ``instant_nsr_pl_tpu/ops/isosurface.py`` (numpy only;
-the port imports nothing of the JAX package), in place of the reference's
-torchmcubes / PyMCubes dependency (reference: models/geometry.py:32-112,
-requirements.txt:9). Mesh export is an offline path: the level grid is
-evaluated on the device (``models/isosurface.py``) and triangulated here.
+:func:`marching_tetrahedra` marches where the level grid lives: a CUDA tensor
+goes through ``csrc/marching_tet.cu`` (MT1 classifies the cubes, MT2 emits
+the faces and interpolates the vertices; the JAX package's native pass,
+``instant_nsr_pl_tpu/ops/native/marching_tet.cc``, is its counterpart), a
+numpy array or a CPU tensor through :func:`marching_tetrahedra_numpy`, the
+port's own copy of ``instant_nsr_pl_tpu/ops/isosurface.py`` (numpy only; the
+port imports nothing of the JAX package) and the kernels' plain version: the
+card returns the same vertices and faces, in the same order. Both replace the
+reference's torchmcubes / PyMCubes dependency (reference:
+models/geometry.py:32-112, requirements.txt:9). The level grid is evaluated
+on the model's device (``models/isosurface.py``) and stays there.
 
 Design (a clean-room implementation, no case tables copied):
 
@@ -19,13 +25,20 @@ Design (a clean-room implementation, no case tables copied):
 - vertices are welded by unique edge id so shared edges produce shared
   vertices (watertight within each marching domain).
 
-The JAX package's optional C++ version of the same algorithm
-(``ops/native``) is not ported: this numpy path is the only one.
+On the card the weld sorts the edge keys with ``torch.unique`` and the
+active cubes are compacted with ``torch.nonzero`` / ``torch.cumsum``;
+classification, emission, interpolation and orientation are the kernels'.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
+import torch
+
+from instant_nsr_pl_tpu_torch.ops import cuda_build
 
 # The 8 cube corners in (x, y, z) bit order: corner i has coords
 # ((i>>0)&1, (i>>1)&1, (i>>2)&1).
@@ -93,7 +106,23 @@ _TET_TABLE = _build_tet_table()
 
 
 def marching_tetrahedra(values, iso=0.0):
-    """Extract the iso-surface of a scalar grid.
+    """The iso-surface of a scalar grid ``values`` (Rx, Ry, Rz), indexed
+    values[x, y, z], where it lives: MT1 / MT2 for a CUDA tensor (vertices
+    (V, 3) float32 and faces (F, 3) int64 as tensors on its device), the
+    numpy twin for a numpy array (numpy out) or a CPU tensor (tensors out).
+    See :func:`marching_tetrahedra_numpy` for the conventions."""
+    if not torch.is_tensor(values):
+        return marching_tetrahedra_numpy(values, iso)
+    if values.device.type == "cuda":
+        return marching_tetrahedra_launch(values, iso)
+    if values.device.type == "cpu":
+        verts, faces = marching_tetrahedra_numpy(values.detach().numpy(), iso)
+        return torch.from_numpy(verts), torch.from_numpy(faces)
+    raise ValueError(f"marching_tetrahedra: unsupported device {values.device}")
+
+
+def marching_tetrahedra_numpy(values, iso=0.0):
+    """Extract the iso-surface of a scalar grid (the host twin of MT1 / MT2).
 
     Args:
       values: (Rx, Ry, Rz) float array, indexed values[x, y, z].
@@ -227,3 +256,94 @@ def marching_tetrahedra(values, iso=0.0):
     faces[flip] = faces[flip][:, ::-1]
 
     return verts.astype(np.float32), faces.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# the kernels (MT1, MT2)
+# ---------------------------------------------------------------------------
+
+
+def _grid_args(values):
+    rx, ry, rz = (int(d) for d in values.shape)
+    return values.data_ptr(), rx, ry, rz
+
+
+def _empty_mesh(device):
+    return (torch.zeros((0, 3), dtype=torch.float32, device=device),
+            torch.zeros((0, 3), dtype=torch.int64, device=device))
+
+
+def marching_tetrahedra_launch(values, iso=0.0):
+    """Marching tetrahedra of a CUDA grid: MT1 (:func:`marching_classify`),
+    then MT2 (:func:`marching_emit`). Returns (verts (V, 3) float32, faces
+    (F, 3) int64) on the grid's device, equal to
+    :func:`marching_tetrahedra_numpy`'s."""
+    if values.dim() != 3:
+        raise ValueError(f"marching_tetrahedra: a 3-D grid, got {tuple(values.shape)}")
+    values = values.float().contiguous()
+    if min(values.shape) < 2:
+        return _empty_mesh(values.device)
+    iso = float(np.float32(iso))
+    return marching_emit(values, iso, marching_classify(values, iso))
+
+
+def marching_classify(values, iso):
+    """MT1 (``mt_classify``): each cube's triangle count, (Rx-1)(Ry-1)(Rz-1)
+    uint8 in cube order (x-major), for a contiguous float32 CUDA grid."""
+    n_cubes = math.prod(int(d) - 1 for d in values.shape)
+    counts = torch.empty((n_cubes,), dtype=torch.uint8, device=values.device)
+    fn = cuda_build.entry("marching_tet", "mt_classify", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        rc = fn(*_grid_args(values), iso, counts.data_ptr(), stream)
+    cuda_build.check(rc, "marching_classify", "any grid")
+    marching_classify.launches += 1
+    return counts
+
+
+marching_classify.launches = 0
+
+
+def marching_emit(values, iso, counts):
+    """MT2 for MT1's ``counts``: the active cubes and their first faces
+    (``nonzero``, ``cumsum``), ``mt_emit`` (each face's three edge keys, in
+    its final orientation, and whether it is degenerate), the weld
+    (``unique``, sorted, with the inverse: the faces) and ``mt_verts`` (one
+    vertex per key). Counts one launch per call with a non-empty surface;
+    with none it launches nothing."""
+    device = values.device
+    cubes = torch.nonzero(counts).reshape(-1)
+    if cubes.numel() == 0:
+        return _empty_mesh(device)
+    tris = counts[cubes].long()
+    first = torch.cumsum(tris, 0) - tris
+    n_faces = int(first[-1] + tris[-1])
+    keys = torch.empty((n_faces, 3), dtype=torch.int64, device=device)
+    degenerate = torch.empty((n_faces,), dtype=torch.uint8, device=device)
+    emit = cuda_build.entry("marching_tet", "mt_emit", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    interp = cuda_build.entry("marching_tet", "mt_verts", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+    grid = _grid_args(values)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = emit(*grid, iso, cubes.data_ptr(), first.data_ptr(), cubes.numel(),
+                  keys.data_ptr(), degenerate.data_ptr(), stream)
+        cuda_build.check(rc, "marching_emit", "any grid")
+        uniq, faces = torch.unique(keys.reshape(-1), sorted=True, return_inverse=True)
+        verts = torch.empty((uniq.numel(), 3), dtype=torch.float32, device=device)
+        rc = interp(*grid, iso, uniq.data_ptr(), uniq.numel(), verts.data_ptr(), stream)
+    cuda_build.check(rc, "marching_emit", "any grid")
+    marching_emit.launches += 1
+    faces = faces.reshape(-1, 3)
+    if bool(degenerate.any()):
+        faces = faces[degenerate == 0]
+    return verts, faces
+
+
+marching_emit.launches = 0

@@ -26,16 +26,14 @@ PIL nor cv2, so the port carries its own:
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
 import struct
-import subprocess
-import threading
 import zlib
 from pathlib import Path
 
 import numpy as np
+
+from instant_nsr_pl_tpu_torch.ops import cuda_build
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # (bit depth, colour type) -> the mode PIL opens the file in
@@ -53,33 +51,16 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 
 _SRC = Path(__file__).with_name("png_unfilter.cc")
-_BUILD = Path(__file__).resolve().parents[1] / "_build"
-_LIB = None
-_LOCK = threading.Lock()
 
 
 def _unfilter_lib():
-    """The g++ build of ``png_unfilter.cc`` (built once per source hash)."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-            path = _BUILD / f"png_unfilter-{digest}.so"
-            if not path.exists():
-                _BUILD.mkdir(parents=True, exist_ok=True)
-                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(tmp)],
-                    capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"g++ failed to build {_SRC.name}:\n{proc.stderr}")
-                os.replace(tmp, path)  # atomic: concurrent builders each write their own tmp
-            lib = ctypes.CDLL(str(path))
-            lib.png_unfilter.restype = ctypes.c_int64
-            lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                                         ctypes.c_int64, ctypes.c_void_p]
-            _LIB = lib
-    return _LIB
+    """The g++ build of ``png_unfilter.cc`` (``ops/cuda_build.py``
+    ``host_library``)."""
+    lib = cuda_build.host_library(_SRC)
+    lib.png_unfilter.restype = ctypes.c_int64
+    lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_void_p]
+    return lib
 
 
 def _chunks(data, path):

@@ -9,18 +9,25 @@ nor ``PIL``, so PNGs go through a writer of this module's own (stdlib
 lookup tables equal to OpenCV's ``COLORMAP_JET`` and ``COLORMAP_MAGMA``.
 :func:`save_img_sequence` assembles an mp4 (``cv2``) or a gif (``PIL``) where
 that module imports, and otherwise says so on one line and leaves the PNG
-frames. Everything here runs on the host.
+frames. :func:`save_obj` formats its lines in ``obj_writer.cc`` (built with
+g++ at first use). Everything here runs on the host.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
+
+from instant_nsr_pl_tpu_torch.ops import cuda_build
+
+_OBJ_SRC = Path(__file__).with_name("obj_writer.cc")
 
 # OpenCV's COLORMAP_JET and COLORMAP_MAGMA, entry g = the RGB colour of grey
 # level g (cv2.applyColorMap on np.arange(256), BGR reversed)
@@ -224,21 +231,32 @@ def save_img_sequence(save_dir, filename, img_dir, matcher, save_format="mp4", f
     return path
 
 
+def _obj_lib():
+    """The g++ build of ``obj_writer.cc`` (``ops/cuda_build.py``
+    ``host_library``; a missing compiler raises)."""
+    lib = cuda_build.host_library(_OBJ_SRC, "-pthread")
+    lib.obj_write.restype = ctypes.c_int64
+    lib.obj_write.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
+    return lib
+
+
 def save_obj(save_dir, filename, v_pos, t_pos_idx, v_rgb=None):
     """Minimal OBJ writer with optional per-vertex colours (the reference uses
     trimesh, utils/mixins.py:211-222; colours follow the common
-    'v x y z r g b' extension)."""
+    'v x y z r g b' extension): 'v %.6f %.6f %.6f[ %.4f %.4f %.4f]' and
+    'f %d %d %d' (1-based) lines, byte for byte the JAX package's, formatted
+    by ``obj_writer.cc`` on several threads."""
     path = _ensure_dir(os.path.join(save_dir, filename))
-    v = np.asarray(v_pos, np.float32).tolist()
-    f = (np.asarray(t_pos_idx, np.int64) + 1).tolist()  # OBJ is 1-indexed
-    if v_rgb is None:
-        lines = ["v %.6f %.6f %.6f" % tuple(p) for p in v]
-    else:
-        c = np.asarray(v_rgb, np.float32).tolist()
-        lines = ["v %.6f %.6f %.6f %.4f %.4f %.4f" % (*p, *col) for p, col in zip(v, c)]
-    lines += ["f %d %d %d" % tuple(tri) for tri in f]
-    with open(path, "w") as fh:
-        fh.write("\n".join(lines) + "\n")
+    v = np.ascontiguousarray(v_pos, np.float32).reshape(-1, 3)
+    f = np.ascontiguousarray(t_pos_idx, np.int64).reshape(-1, 3)
+    c = None if v_rgb is None else np.ascontiguousarray(v_rgb, np.float32).reshape(-1, 3)
+    if c is not None and len(c) != len(v):
+        raise ValueError(f"save_obj: {len(c)} colours for {len(v)} vertices")
+    rc = _obj_lib().obj_write(os.fsencode(path), v.ctypes.data, None if c is None else c.ctypes.data,
+                              len(v), f.ctypes.data, len(f), min(os.cpu_count() or 1, 8))
+    if rc != 0:
+        raise OSError(f"save_obj: could not write {path}")
     return path
 
 

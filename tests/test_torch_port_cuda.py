@@ -2040,3 +2040,92 @@ def test_unbounded_occupancy_lookup_and_march_on_card_match_cpu(cuda_device):
     assert int(cpu.num_valid) > 50 * n
     for a, b in zip(dev, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# VM1 / VM2 (csrc/vm_{fwd,bwd}.cu) and MT1 / MT2 (csrc/marching_tet.cu)
+# ---------------------------------------------------------------------------
+
+
+def _vm_case(gen, spec, n):
+    from instant_nsr_pl_tpu_torch.ops import vm as t_vm
+
+    params = t_vm.vm_init(gen, spec)
+    params = {k: v + 0.3 * torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    x = torch.rand((n, 3), generator=gen)
+    x[:6] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5], [1.0, 0.25, 0.0],
+                          [0.5, 1.0, 1.0], [1 / 15, 0.5, 1.0]])
+    ct = torch.randn((n, spec.n_output_dims), generator=gen)
+    return params, x, ct
+
+
+@pytest.mark.parametrize("c,n_scales,n", [(4, 2, 1001), (16, 2, 4096), (8, 1, 33), (32, 3, 517),
+                                          (16, 2, 0)])
+def test_vm_kernels_match_plain(cuda_device, c, n_scales, n):
+    """VM1 equal to its plain version on the card and on the CPU to the bit;
+    VM2's table gradients within 1e-5 x max|ref| per table of the float64 sum
+    of the plain updates, its d x within 1e-4 x max|plain| (samples at u = 0
+    and 1 included); through the autograd op, d x only when x requires it."""
+    from instant_nsr_pl_tpu_torch.ops import vm as t_vm
+
+    spec = t_vm.VMSpec(n_components=c, plane_resolution=24, line_resolution=40,
+                       n_scales=n_scales)
+    gen = torch.Generator().manual_seed(c * 10 + n_scales)
+    params, x, ct = _vm_case(gen, spec, max(n, 6))
+    x, ct = x[:n], ct[:n]
+    pd = {k: v.to(cuda_device) for k, v in params.items()}
+    xd, ctd = x.to(cuda_device), ct.to(cuda_device)
+    before = t_vm.vm_forward.launches
+    got = t_vm.vm_forward(pd, xd, spec)
+    torch.cuda.synchronize()
+    assert t_vm.vm_forward.launches == before + (n > 0)
+    assert torch.equal(got, t_vm.vm_encode(pd, xd, spec))
+    assert torch.equal(got.cpu(), t_vm.vm_encode(params, x, spec))
+    dparams, dx = t_vm.vm_backward(pd, xd, ctd, spec, with_dx=True)
+    ref, rdx = t_vm.vm_backward_plain(params, x, ct, spec, with_dx=True, accumulate=torch.float64)
+    for k in spec.keys():
+        tol = 1e-5 * max(float(ref[k].abs().max()), 1e-30)
+        assert float((dparams[k].cpu().double() - ref[k]).abs().max()) <= tol, k
+    if n == 0:  # no launch: zero gradients, an empty d x
+        assert tuple(dx.shape) == (0, 3)
+        return
+    _close(dx, rdx, rel=1e-4)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in pd.items()}
+    (t_vm.vm_encode_fast(leaves, xd, spec) * ctd).sum().backward()
+    for k in spec.keys():
+        _close(leaves[k].grad, ref[k].float(), rel=1e-5)
+
+
+def _sphere_grid(res, radius=0.6, center=(0.05, -0.1, 0.02)):
+    c = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    return (np.sqrt((x - center[0]) ** 2 + (y - center[1]) ** 2 + (z - center[2]) ** 2)
+            - radius).astype(np.float32)
+
+
+@pytest.mark.parametrize("field", ["sphere", "random", "aniso", "quantized", "flat", "tiny"])
+def test_marching_kernels_match_numpy_twin(cuda_device, field):
+    """MT1 / MT2 against the numpy twin: the same faces and vertices, to the
+    bit, in the same order, on a sphere SDF, a random field (iso 0.1), an
+    anisotropic grid, a field with values on the iso level and on rounding
+    ties, a field without a surface and a 2-wide grid."""
+    from instant_nsr_pl_tpu_torch.ops import isosurface as t_iso
+
+    rs = np.random.RandomState(3)
+    values, iso = {
+        "sphere": (_sphere_grid(97), 0.0),
+        "random": (rs.randn(23, 19, 17).astype(np.float32), 0.1),
+        "aniso": (rs.rand(9, 40, 6).astype(np.float32), 0.5),
+        "quantized": ((np.round(_sphere_grid(64) * 8) / 8).astype(np.float32), 0.0),
+        "flat": (np.ones((8, 8, 8), np.float32), 0.0),
+        "tiny": (rs.randn(2, 5, 6).astype(np.float32), 0.0),
+    }[field]
+    rv, rf = t_iso.marching_tetrahedra_numpy(values, iso)
+    before = t_iso.marching_classify.launches, t_iso.marching_emit.launches
+    v, f = t_iso.marching_tetrahedra(torch.from_numpy(values).to(cuda_device), iso)
+    torch.cuda.synchronize()
+    assert (t_iso.marching_classify.launches, t_iso.marching_emit.launches) == (
+        before[0] + 1, before[1] + int(len(rf) > 0))
+    assert v.device.type == "cuda" and v.dtype == torch.float32 and f.dtype == torch.int64
+    np.testing.assert_array_equal(f.cpu().numpy(), rf)
+    np.testing.assert_array_equal(v.cpu().numpy(), rv)

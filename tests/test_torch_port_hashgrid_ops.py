@@ -287,9 +287,16 @@ def test_hashgrid_encoding_module():
                                  "start_step": 0, "update_steps": 4})  # ported in slice 7
     assert isinstance(band.encoding, t_nu.ProgressiveBandHashGrid) and band.has_jac
     assert torch.equal(band.apply(params, x), enc.apply(params, x))  # no step: no mask
-    for otype, item in (("VanillaFrequency", "item 3"), ("VM", "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_nu.get_encoding(3, {**cfg, "otype": otype})
+    # ported in slice 10: both build, at the JAX package's output widths
+    for otype, extra in (("VanillaFrequency", {"n_frequencies": 6, "n_masking_step": 10}),
+                         ("VM", {"n_components": 4, "plane_resolution": 16,
+                                 "line_resolution": 32, "n_scales": 2})):
+        other = {"otype": otype, "include_xyz": True, **extra}
+        t_other, j_other = t_nu.get_encoding(3, other), j_nu.get_encoding(3, other)
+        assert t_other.n_output_dims == j_other.n_output_dims
+        other_params = t_other.init(torch.Generator().manual_seed(0))
+        assert tuple(t_other.apply(other_params, x, step=4).shape) == (
+            x.shape[0], j_other.n_output_dims)
 
 
 def _bench():
