@@ -169,12 +169,16 @@ lines are printed):
 19. slice 10, the VM encoding: VM1 / VM2 (``csrc/vm_{fwd,bwd}.cu``) at the
    VM NeRF's width (C=16, planes 512^2 and 256^2, lines 2048, 2 scales), N =
    262,144 and 262,107 uniform points with samples at u = 0 and 1, against
-   their plain versions (VM1 within 1e-5 x max|plain|, VM2's table gradients
-   within 1e-5 x max|ref| per table of a float64 sum, d x within 1e-4),
-   timed beside their bounds, the plain versions and the composed
-   yardsticks; then ``instant_nsr_pl_tpu_torch/configs/nerf-vm-synthetic.yaml``
-   trained as in 6 with VM1 / VM2 in place of K1 / K2 (every VM1 / VM2 launch
-   of the last step held against its plain version on its own operands),
+   their plain versions (VM1 equal to the bit, VM2's table gradients within
+   1e-5 x max|ref| per table of a float64 sum, d x within 1e-4 and equal to
+   the bit in a second launch), timed beside their bounds, the plain
+   versions and the composed yardsticks; then
+   ``instant_nsr_pl_tpu_torch/configs/nerf-vm-synthetic.yaml`` trained as in
+   6 with VM1 / VM2 in place of K1 / K2 (every VM1 / VM2 launch of the last
+   step held against its plain version on its own operands and timed on
+   them, CUDA events and device ms, beside the bounds on those operands;
+   steps 81-90 under torch.profiler: the step's device ms, busy share and
+   device launches),
    the val view 3 dB above the untrained render, and its mesh at 128^3 with
    the launch counters set to 0 just before it and read just after (VM1 in
    the level grids, MT1 / MT2 marching on the card);
@@ -191,9 +195,9 @@ lines are printed):
    timed;
 21. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
-   K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4;
-   the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's K9,
-   K11, HG1 and HG3) also carry ptxas' registers and spills of the loaded
+   K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4,
+   VM2; the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's
+   K9, K11, HG1, HG3 and VM1) also carry ptxas' registers and spills of the loaded
    build (this run's, or the log an earlier build left beside its library in
    ``_build/``), their shared memory and blocks per SM (the launch plan;
    HG1-HG4's from their registers and shared memory; the tiled forwards for the
@@ -213,7 +217,8 @@ lines are printed):
    DIR`` (another checkout, e.g. the parent commit from ``git archive``),
    ``parent_ms`` / ``parent_ms_ray`` and ``parent_device_ms`` /
    ``parent_device_ms_ray`` (the tiled forwards also ``parent_ms_eval``, the forwards, K6,
-   K8 and HG2 ``parent_ms_step``: the same training step's operands, saved by this run
+   K8, HG2, HG4 and VM2 ``parent_ms_step``, VM1 / VM2 also
+   ``parent_device_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
 22. the last line ``{"ok": true, "device": {...}}``.
@@ -227,6 +232,7 @@ their plain versions, with the same limits.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -388,6 +394,9 @@ REDESIGNED_KERNELS = {
     # (one wave of 128-thread blocks): no plan
     "hashgrid_jac_forward": ("hashgrid_jac_fwd", "hashgrid_jac_fwd_kernelILi2ELi4E", None),
     "hashgrid_jac_backward": ("hashgrid_jac_bwd", "hashgrid_jac_bwd_kernelILi2E", None),
+    # VM1 / VM2 at the VM NeRF's 16 components (128-thread blocks): no plan
+    "vm_forward": ("vm_fwd", "vm_fwd_kernelILi16E", None),
+    "vm_backward": ("vm_bwd", "vm_bwd_kernelILi16ELb0E", None),
 }
 EVAL_MARKERS = {name: (stem, marker[:-len("ELb1E")] + "ELb0E", (*plan[:-1], False))
                 for name, (stem, marker, plan) in REDESIGNED_KERNELS.items()
@@ -396,6 +405,7 @@ EVAL_MARKERS = {name: (stem, marker[:-len("ELb1E")] + "ELb0E", (*plan[:-1], Fals
 # last step of a training run), the kernels' times on them, and the
 # forwards' operands as tools/bwd_bench.py --step-operands reads them
 STEP_MS = {}
+STEP_DEVICE_MS = {}  # VM1 / VM2: device ms on the step's own operands
 STEP_OPERANDS = {}
 # the packed K3 / K4 weights of a captured step with the parameters they
 # were packed from: (ws, mlp params, n_pre)
@@ -452,6 +462,16 @@ def _step_entry(name, calls):
         return {"kind": "raw", "launches": [[t.detach() if torch.is_tensor(t) else t for t in a]
                                             for a, _ in calls]}
     args, kwargs = calls[-1]
+    if name in ("vm_forward", "vm_backward"):
+        # (params, x, spec) or (params, x, dout, spec[, with_dx])
+        params, x, *rest = args
+        entry = {"kind": "vm_fwd" if name == "vm_forward" else "vm_bwd",
+                 "params": {k: t.detach() for k, t in params.items()}, "x": x.detach(),
+                 "spec": dataclasses.asdict(rest[-1] if name == "vm_forward" else rest[1])}
+        if name == "vm_backward":
+            entry["dout"] = rest[0].detach()
+            entry["with_dx"] = bool(rest[2] if len(rest) > 2 else kwargs.get("with_dx", False))
+        return entry
     if name == "sh_mlp_forward":
         ops, feats, dirs, spec, degree = args[:5]
         return {"kind": "sh", "ops": list(ops), "feats": feats.detach(), "dirs": dirs.detach(),
@@ -499,10 +519,11 @@ BENCH_KEY = {"cp_mlp_backward": "k2", "cp_mlp_stacked_backward": "k14",
              "sh_mlp_forward": "k3", "cp_product_forward": "k5",
              "cp_product_forward@cp_big": "k5_cp_big", "cp_jac_basis_forward": "k9",
              "cp_jac_basis_forward@cp_big": "k9_cp_big", "cp_jac_stacked_forward": "k11",
-             "hashgrid_jac_forward": "hg3", "hashgrid_jac_backward": "hg4"}
+             "hashgrid_jac_forward": "hg3", "hashgrid_jac_backward": "hg4",
+             "vm_forward": "vm1", "vm_backward": "vm2"}
 # the backwards whose every launch of a step is kept for the parent design's timing
 STEP_BACKWARDS = ("cp_product_jac_backward", "cp_product_backward", "hashgrid_backward",
-                  "hashgrid_jac_backward")
+                  "hashgrid_jac_backward", "vm_backward")
 # the launches a capture records in training mode only (a grid update's or a
 # rendered view's eval launches are not the step's forward)
 TRAIN_ONLY = ("cp_mlp_forward", "cp_mlp_stacked_forward", "sh_mlp_forward", "cp_product_forward",
@@ -610,6 +631,8 @@ def capture_step_operands(run_step, label, check=None):
         if check is not None:
             check(key, calls)
         ms = time_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
+        if name in ("vm_forward", "vm_backward"):
+            STEP_DEVICE_MS[key] = device_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
         counter.launches = count
         STEP_MS[key] = (ms, int(n_of(calls[-1][0])), [int(n_of(a)) for a, _ in calls])
         if key in BENCH_KEY and (name.endswith("forward") or name in STEP_BACKWARDS):
@@ -1439,6 +1462,29 @@ def render_phase(device):
     return launches, n_rays / view_s, n_rays / warm_s
 
 
+def step_profiler():
+    """Start torch.profiler over the training steps that follow; the returned
+    ``stop(steps)`` ends it and gives, per step, the device time of every
+    kernel and memset (as ``scripts/profile_torch_train.py`` counts it), the
+    wall, the device's busy share and the device launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+
+    def stop(steps):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.stop()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        return {"device_ms_per_step": busy / steps, "profiled_ms_per_step": wall * 1e3 / steps,
+                "busy_share": busy / (wall * 1e3), "device_launches_per_step": len(kernels) / steps}
+    return stop
+
+
 def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
     """The bench NeRF (``kind`` "cp"), the stacked NeRF ("stacked": K13/K14
     for K1/K2), the hash NeRF ("hash": HG1/HG2 for K1/K2, the composed
@@ -1516,10 +1562,13 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     t_warm = None
+    prof = None
     for i in range(TRAIN_STEPS):
         if i == warm_from:
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
+        if kind == "vm" and i == VM_PROFILED_STEPS.start:
+            prof = step_profiler()
         before = {k: c.launches for k, c in counters.items()}
         if i == TRAIN_STEPS - 1:
             state, metrics = capture_step_operands(
@@ -1532,6 +1581,9 @@ def train_phase(device, smi, config=BENCH_CONFIG, kind="cp"):
         if i % system.grid_update_every == 0 and delta[f"{density}_forward"] < 2:
             raise AssertionError(f"step {i}: the grid update did not run {density}: {delta}")
         per_step.append(delta)
+        if prof is not None and i == VM_PROFILED_STEPS.stop - 1:
+            VM_RUN.update(prof(len(VM_PROFILED_STEPS)))
+            prof = None
         losses.append(metrics["train/loss"])
         psnrs.append(metrics["train/psnr"])
         if i == 0:
@@ -3372,6 +3424,7 @@ def dataset_launcher_phase(device, smi, key):
 
 VM_CONFIG = os.path.join(CONFIGS, "nerf-vm-synthetic.yaml")
 VM_RUN = {}  # the VM NeRF's figures (train_phase, vm_mesh_phase)
+VM_PROFILED_STEPS = range(81, 91)  # warm steps without a grid update, before the timed 100
 MARCHING_DIR = os.path.join(ROOT, "exp", "chip_smoke_marching")
 SPHERE_RES = (128, 256, 512)
 EXPORT_GRID_RES = 256  # the VM NeRF's level grid held against the numpy twin
@@ -3387,9 +3440,9 @@ def vm_spec():
 
 def vm_check(tag, params, x, ct, spec, with_dx=True):
     """VM1 (``ct`` None) or VM2 against its plain version on the same CUDA
-    tensors: VM1 within 1e-5 x max|plain| (the share equal to the bit
-    printed), VM2's table gradients within 1e-5 x max|ref| per table of the
-    float64 sum of the plain updates, its d x within 1e-4 x max|plain|.
+    tensors: VM1 equal to it to the bit, VM2's table gradients within 1e-5 x
+    max|ref| per table of the float64 sum of the plain updates, its d x
+    within 1e-4 x max|plain| and equal to the bit in a second launch.
     Returns the largest errors (forward, backward)."""
     from instant_nsr_pl_tpu_torch.ops import vm
 
@@ -3400,11 +3453,10 @@ def vm_check(tag, params, x, ct, spec, with_dx=True):
         ref = vm.vm_encode(params, x, spec)
         same = float((got == ref).float().mean())
         err = float((got - ref).abs().max())
-        tol = 1e-5 * float(ref.abs().max())
         print(f"[kernel] vm_forward {tag}: {same:.6%} of the entries equal the plain version's "
-              f"to the bit; max|kernel - plain| {err:.3e} (limit 1e-5*max|plain| = {tol:.3e})",
+              f"to the bit; max|kernel - plain| {err:.3e} (limit: equal to the bit)",
               flush=True)
-        if not err <= tol:
+        if not torch.equal(got, ref):
             raise AssertionError(f"vm_forward {tag} disagrees with its plain version")
         errs[0] = err
         return errs
@@ -3424,6 +3476,9 @@ def vm_check(tag, params, x, ct, spec, with_dx=True):
           f"(limit 1e-5, float64 reference)", flush=True)
     if with_dx and dx is not None:
         errs[1] = max(errs[1], compare(f"vm_backward {tag} d x", dx, rdx, rel=1e-4))
+        _, dx2 = vm.vm_backward_launch(params, x, ct, spec, with_dx=True)
+        if not torch.equal(dx, dx2):
+            raise AssertionError(f"vm_backward {tag}: d x differs between two launches")
     return errs
 
 
@@ -3454,6 +3509,21 @@ def _vm_taps(spec, x):
             taps[f"plane_{s}_{k}"] = vm._plane_taps(x, axes, rp)
             taps[f"line_{s}_{k}"] = vm._line_taps(x, axes, spec.line_resolution)
     return taps
+
+
+def vm_bounds(spec, x):
+    """VM1's and VM2's bounds on the positions x: (ms, by) each, and the
+    distinct table rows x touches. Bytes: x and the output (VM1) or its
+    cotangent (VM2) per sample, each touched row read once, and for VM2 the
+    whole gradient written once; operations: the 6 taps' multiply-adds and
+    the product per component (VM2 twice that)."""
+    n, c = x.reshape(-1, 3).shape[0], spec.n_components
+    distinct = sum(int(torch.unique(rows).numel()) for rows, _ in _vm_taps(spec, x).values())
+    table_bytes = c * 4 * 3 * sum(spec.plane_res(s) ** 2 + spec.line_resolution
+                                  for s in range(spec.n_scales))
+    read = n * (12 + spec.n_output_dims * 4) + distinct * c * 4
+    flops = n * 3 * spec.n_scales * c * (2 * 6 + 1)
+    return bound(read, 0, flops), bound(read + table_bytes, 0, 2 * flops), distinct
 
 
 def vm_kernel_phase(device):
@@ -3499,14 +3569,7 @@ def vm_kernel_phase(device):
     n = N_FULL
     c = spec.n_components
     taps = _vm_taps(spec, x)
-    distinct = sum(int(torch.unique(rows).numel()) for rows, _ in taps.values())
-    table_bytes = sum(t.numel() for t in params.values()) * 4
-    per_sample = 12 + spec.n_output_dims * 4
-    fwd_bytes = n * per_sample + distinct * c * 4
-    bwd_bytes = n * per_sample + distinct * c * 4 + table_bytes
-    flops = n * 3 * spec.n_scales * c * (2 * 6 + 1)  # 6 taps' multiply-adds and the product
-    fwd_bound, fwd_by = bound(fwd_bytes, 0, flops)
-    bwd_bound, bwd_by = bound(bwd_bytes, 0, 2 * flops)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by), distinct = vm_bounds(spec, x)
     ms = time_ms(lambda: vm.vm_forward_launch(params, x, spec))
     ms_train = time_ms(lambda: vm.vm_encode_fast(leaves, x, spec))
     dev = device_ms(lambda: vm.vm_forward_launch(params, x, spec))
@@ -3561,7 +3624,7 @@ def vm_kernel_phase(device):
          "max_abs_err": max(errs["vm_backward"]), "ms": bms, "ms_with_dx": bms_dx,
          "device_ms": bdev, "plain_ms": bplain_ms, "composed_ms": bcomposed_ms,
          "bound_ms": bwd_bound, "bound_by": bwd_by,
-         "ptxas": ptxas_info("vm_bwd", f"vm_bwd_kernelILi{c}E")},
+         "ptxas": ptxas_info("vm_bwd", f"vm_bwd_kernelILi{c}ELb0E")},
     ]
 
 
@@ -3862,8 +3925,12 @@ def _main(args):
     torch.cuda.empty_cache()
     vm_step, vm_run, vm_rays_per_s, vm_s_per_step = train_phase(device, smi, VM_CONFIG,
                                                                 kind="vm")
-    print(f"[train-vm] rays/s: {vm_rays_per_s:.0f} warm, {vm_s_per_step:.4f} s per step; val "
-          f"PSNR {VM_RUN['untrained']:.3f} -> {VM_RUN['trained']:.3f} dB; mesh "
+    print(f"[train-vm] rays/s: {vm_rays_per_s:.0f} warm, {vm_s_per_step:.4f} s per step; steps "
+          f"{VM_PROFILED_STEPS.start}-{VM_PROFILED_STEPS.stop - 1} under torch.profiler: "
+          f"{VM_RUN['device_ms_per_step']:.3f} device ms a step, "
+          f"{VM_RUN['profiled_ms_per_step']:.2f} ms wall, busy {VM_RUN['busy_share']:.1%}, "
+          f"{VM_RUN['device_launches_per_step']:.0f} device launches a step; val PSNR "
+          f"{VM_RUN['untrained']:.3f} -> {VM_RUN['trained']:.3f} dB; mesh "
           f"{VM_RUN['vertices']} vertices ({smi})", flush=True)
     torch.cuda.empty_cache()
     cp_big_counts = cp_big_train_phase(device, smi)
@@ -3985,7 +4052,12 @@ def _main(args):
         e["launches"] = vm_run[e["name"]]
         e["launches_path"] = "nerf_vm_train"
         e["launches_nerf_vm_train_step"] = vm_step[e["name"]]
-        e["ms_ray_ordered"] = STEP_MS.get(e["name"], (None,))[0]
+        e["device_ms_ray_ordered"] = STEP_DEVICE_MS.get(e["name"])
+    step_x = STEP_OPERANDS["vm1"]["x"]
+    fwd_step, bwd_step, distinct_step = vm_bounds(vm_spec(), step_x)
+    for e, (ms, by) in zip(vm_entries, (fwd_step, bwd_step)):
+        e.update(bound_ms_ray_ordered=ms, bound_by_ray_ordered=by,
+                 distinct_rows_ray_ordered=distinct_step)
     for e in mt_entries:
         e["launches"] = VM_RUN["mesh_launches"][e["name"]]
         e["launches_path"] = "nerf_vm_mesh"
@@ -4057,8 +4129,10 @@ def _main(args):
                 "parent_ms_eval": parent.get(f"{key}_eval@uniform"),
             })
         if e["name"].endswith(("forward", "forward@cp_big")) or key.startswith(("k8", "k6", "hg2",
-                                                                                 "hg4")):
+                                                                                 "hg4", "vm")):
             e["parent_ms_step"] = parent.get(f"{key}@step")
+        if key.startswith("vm"):
+            e["parent_device_ms_step"] = parent_dev.get(f"{key}@step")
         print(f"[design] {e['name']}: {e['ms']:.4f} ms uniform (device {e.get('device_ms')}), "
               f"step operands {e['ms_ray_ordered']}, parent {e['parent_ms']} / ray "
               f"{e['parent_ms_ray']} / step {e.get('parent_ms_step')}, ptxas {e['ptxas']}, "

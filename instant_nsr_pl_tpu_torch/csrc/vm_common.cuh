@@ -1,11 +1,13 @@
 // Shared pieces of the VM encoding's kernels, VM1 (csrc/vm_fwd.cu) and VM2
-// (csrc/vm_bwd.cu): the table records and the taps of one plane and its line
-// (ops/vm.py _plane_taps / _line_taps).
+// (csrc/vm_bwd.cu): the table records, the taps of one plane and its line
+// (ops/vm.py _plane_taps / _line_taps) and the lane layout.
 //
-// Layout: a thread takes one sample and one plane j = 3 s + k (scale s,
-// plane k); a block is 32 consecutive samples x J = 3 S planes, warp j on
-// plane j, so each warp reads one plane's and one line's rows and writes (or
-// scatters) one C-float slice per sample.
+// Layout: a group of C / 4 lanes holds one sample's row of C floats, a
+// float4 a lane (a 64-byte row is 4 lanes at C = 16), so one warp load,
+// store or atomic moves 32 / (C / 4) whole rows in whole 32-byte sectors.
+// A warp works on one plane j = 3 s + k (scale s, plane k) at a time, so its
+// rows come from one plane and one line table; warps are numbered sample
+// tile first, plane second, so the card works on every plane at once.
 
 #pragma once
 
@@ -14,6 +16,14 @@
 namespace insr {
 
 constexpr int kVMMaxJ = 12;  // 3 planes x up to 4 scales (ops/vm.py MAX_SCALES)
+constexpr int kVMBlock = 128;  // threads a block: 4 warps, each on its own (tile, plane)
+
+// Lanes a sample's row takes, and samples a warp holds at once
+template <int C>
+struct VMLanes {
+  static constexpr int kLanes = C / 4;
+  static constexpr int kGroups = 32 / kLanes;
+};
 
 // Per plane j: its plane (R_j^2, C) and line (R_l, C) tables, row-major
 // float32, or their gradients, and the plane's resolution R_j. Passed by
@@ -42,6 +52,11 @@ __device__ __forceinline__ void vm_interp(float u, int res, int& i0, float& w1) 
   w1 = p - static_cast<float>(i);
 }
 
+// xs[d] for a d known only at run time, without indexing into local memory
+__device__ __forceinline__ float vm_pick(const float* xs, int d) {
+  return d == 0 ? xs[0] : (d == 1 ? xs[1] : xs[2]);
+}
+
 struct VMTaps {
   int prow[4];  // plane rows (ia0 ib0, ia0 ib1, ia1 ib0, ia1 ib1)
   float pw[4];
@@ -56,8 +71,8 @@ __device__ __forceinline__ VMTaps vm_taps(const float* __restrict__ xs, int k, i
   VMTaps t;
   vm_axes(k, t.a, t.b, t.c);
   int ia, ib;
-  vm_interp(xs[t.a], res, ia, t.wa);
-  vm_interp(xs[t.b], res, ib, t.wb);
+  vm_interp(vm_pick(xs, t.a), res, ia, t.wa);
+  vm_interp(vm_pick(xs, t.b), res, ib, t.wb);
   t.prow[0] = ia * res + ib;
   t.prow[1] = ia * res + ib + 1;
   t.prow[2] = (ia + 1) * res + ib;
@@ -68,7 +83,7 @@ __device__ __forceinline__ VMTaps vm_taps(const float* __restrict__ xs, int k, i
   t.pw[2] = t.wa * ub;
   t.pw[3] = t.wa * t.wb;
   float wl;
-  vm_interp(xs[t.c], line_res, t.lrow0, wl);
+  vm_interp(vm_pick(xs, t.c), line_res, t.lrow0, wl);
   t.lw[0] = 1.0f - wl;
   t.lw[1] = wl;
   return t;
@@ -90,16 +105,22 @@ __device__ __forceinline__ float4 mul4(float4 u, float4 v) {
   return make_float4(u.x * v.x, u.y * v.y, u.z * v.z, u.w * v.w);
 }
 
-// Four components [q, q + 4) of the plane and line features: the taps summed
-// in order, each product rounded before its sum (built with --fmad=false)
-__device__ __forceinline__ void vm_features(const float* __restrict__ plane,
-                                            const float* __restrict__ line, const VMTaps& t,
-                                            int C, int q, float4 (&prow)[4], float4 (&lrow)[2],
-                                            float4& pf, float4& lf) {
+// The float4 at component q of the 6 tap rows: all six loads in flight
+// before any arithmetic
+__device__ __forceinline__ void vm_rows(const float* __restrict__ plane,
+                                        const float* __restrict__ line, const VMTaps& t, int C,
+                                        int q, float4 (&prow)[4], float4 (&lrow)[2]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) prow[i] = ld4(plane + static_cast<long long>(t.prow[i]) * C + q);
   lrow[0] = ld4(line + static_cast<long long>(t.lrow0) * C + q);
   lrow[1] = ld4(line + static_cast<long long>(t.lrow0 + 1) * C + q);
+}
+
+// Four components [q, q + 4) of the plane and line features from the tap
+// rows: the taps summed in order, each product rounded before its sum (built
+// with --fmad=false)
+__device__ __forceinline__ void vm_features(const VMTaps& t, const float4 (&prow)[4],
+                                            const float4 (&lrow)[2], float4& pf, float4& lf) {
   pf = scale4(prow[0], t.pw[0]);
 #pragma unroll
   for (int i = 1; i < 4; ++i) pf = add4(pf, scale4(prow[i], t.pw[i]));

@@ -3,17 +3,19 @@
 // Replaces: instant_nsr_pl_tpu/ops/vm.py vm_encode (:136; vm_encode_fast's
 // forward, :166), which is XLA, not Pallas: per scale and plane it builds
 // (4, N) plane rows and (2, N) line rows with their weights, gathers the
-// (T, N, C) rows with jnp.take and sums them weighted. Here a thread takes one
-// sample and one plane j = 3 s + k: it computes the plane's 4 bilinear taps
-// and its line's 2 linear taps (vm_common.cuh), reads each tap's C-float row
-// as float4 vectors (a 64-byte row at C = 16), sums the taps in order with
-// each product rounded (the plain version ops/vm.py _gather_weighted, built
-// with --fmad=false: the output equals it to the bit) and writes P * L as
-// float4 stores into its slice of the (N, S * 3 * C) output.
+// (T, N, C) rows with jnp.take and sums them weighted.
 //
-// Block: 32 consecutive samples x J = 3 S planes (warp j on plane j), so a
-// warp's rows come from one plane and one line table and its 32 stores of C
-// floats fill whole 32-byte sectors.
+// Design: a warp takes kVMFwdSamples consecutive samples on one plane j = 3 s
+// + k, in passes of 32 / (C / 4) samples: a group of C / 4 lanes holds one
+// sample (vm_common.cuh), computes the plane's 4 bilinear taps and its line's
+// 2 linear taps, starts the six rows' loads of its float4 (one warp load
+// reads whole 64-byte rows at C = 16, 8 rows in 16 sectors), sums the taps in
+// order with each product rounded (the plain version ops/vm.py
+// _gather_weighted, built with --fmad=false: the output equals it to the bit)
+// and stores P * L: each group writes a whole C-float slice, whole sectors.
+// Warps run sample tile first and plane second, so the card works on all
+// planes at once; a warp's consecutive (ray-ordered) samples share rows, so
+// its later passes read them from L1.
 //
 // What bounds it on an H100: the compulsory bytes are x (12 B) and the
 // output (S * 3 * C * 4 = 384 B at the VM NeRF's width) per sample plus each
@@ -29,22 +31,35 @@
 
 namespace insr {
 
+// Consecutive samples a warp takes on its plane.
+constexpr int kVMFwdSamples = 32;
+
 template <int C>
-__global__ void vm_fwd_kernel(const float* __restrict__ x, long long n, VMTables tables,
-                              int J, int line_res, float* __restrict__ out) {
-  const int j = threadIdx.x >> 5;
-  const long long i = static_cast<long long>(blockIdx.x) * 32 + (threadIdx.x & 31);
-  if (i >= n) return;
-  const float xs[3] = {x[3 * i], x[3 * i + 1], x[3 * i + 2]};
-  const VMTaps t = vm_taps(xs, j % 3, tables.plane_res[j], line_res);
+__global__ void __launch_bounds__(kVMBlock)
+    vm_fwd_kernel(const float* __restrict__ x, long long n, VMTables tables, int J, int line_res,
+                  float* __restrict__ out) {
+  constexpr int L = VMLanes<C>::kLanes, G = VMLanes<C>::kGroups;
+  const long long task = static_cast<long long>(blockIdx.x) * (kVMBlock / 32) + (threadIdx.x >> 5);
+  const long long first = task / J * kVMFwdSamples;
+  const int j = static_cast<int>(task % J);
+  if (first >= n) return;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / L, q = (lane % L) * 4;
+  const int res = tables.plane_res[j];
   const float* plane = tables.plane[j];
   const float* line = tables.line[j];
-  float* dst = out + i * J * C + j * C;
-#pragma unroll
-  for (int q = 0; q < C; q += 4) {
+  // two passes' loads in flight; past the end a group reads the last sample
+  // and stores nothing
+#pragma unroll 2
+  for (int p = 0; p < kVMFwdSamples / G; ++p) {
+    const long long i = first + p * G + g;
+    const long long ii = i < n ? i : n - 1;
+    const float xs[3] = {x[3 * ii], x[3 * ii + 1], x[3 * ii + 2]};
+    const VMTaps t = vm_taps(xs, j % 3, res, line_res);
     float4 prow[4], lrow[2], pf, lf;
-    vm_features(plane, line, t, C, q, prow, lrow, pf, lf);
-    *reinterpret_cast<float4*>(dst + q) = mul4(pf, lf);
+    vm_rows(plane, line, t, C, q, prow, lrow);
+    vm_features(t, prow, lrow, pf, lf);
+    if (i < n) *reinterpret_cast<float4*>(out + i * J * C + j * C + q) = mul4(pf, lf);
   }
 }
 
@@ -52,8 +67,9 @@ template <int C>
 int launch_vm_fwd(const float* x, long long n, const VMTables& tables, int J, int line_res,
                   float* out, cudaStream_t stream) {
   if (n > 0) {
-    const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
-    vm_fwd_kernel<C><<<blocks, 32 * J, 0, stream>>>(x, n, tables, J, line_res, out);
+    const long long tasks = (n + kVMFwdSamples - 1) / kVMFwdSamples * J;
+    const unsigned blocks = static_cast<unsigned>((tasks + kVMBlock / 32 - 1) / (kVMBlock / 32));
+    vm_fwd_kernel<C><<<blocks, kVMBlock, 0, stream>>>(x, n, tables, J, line_res, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

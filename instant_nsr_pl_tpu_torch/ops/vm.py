@@ -20,8 +20,9 @@ packages: JAX weights carry across as copies (``utils/transplant.py``).
 versions (:func:`vm_encode`, :func:`vm_backward_plain`) on CPU tensors; there
 is no fallback from one to the other. The JAX fast path is XLA: it sums the
 table gradients with two sorts (``ops/segment.py``), because the TPU
-serialises scatters; VM2 adds float atomics into the zeroed gradient, and the
-plain backward one ``index_add_`` per table. ``x`` gets a gradient only when
+serialises scatters; VM2 merges equal rows of neighbouring (ray-ordered)
+samples and adds float atomics of whole rows into the zeroed gradient, and
+the plain backward one ``index_add_`` per table. ``x`` gets a gradient only when
 it requires one; its mask drops samples at exactly 0 or 1 on an axis, as the
 JAX backward does.
 
@@ -356,6 +357,9 @@ def vm_backward_launch(params, x, dout, spec: VMSpec, with_dx=False):
     flat = torch.empty((sum(sizes),), dtype=torch.float32, device=x.device)
     grads = dict(zip(keys, (g.view_as(params[k]) for k, g in zip(keys, flat.split(sizes)))))
     dx = torch.empty((n, 3), dtype=torch.float32, device=x.device) if with_dx else None
+    # the planes' terms of d x, summed per sample in plane order by the entry point
+    dx_part = (torch.empty((3 * spec.n_scales, n, 3), dtype=torch.float32, device=x.device)
+               if with_dx and n > 0 else None)
     if n == 0:
         flat.zero_()
         if with_dx:
@@ -364,7 +368,7 @@ def vm_backward_launch(params, x, dout, spec: VMSpec, with_dx=False):
         fn = cuda_build.entry("vm_bwd", "vm_bwd", [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.POINTER(_Tables),
             ctypes.POINTER(_Tables), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ])
         dplanes = [grads[k] for k in keys[0::2]]
         dlines = [grads[k] for k in keys[1::2]]
@@ -373,7 +377,8 @@ def vm_backward_launch(params, x, dout, spec: VMSpec, with_dx=False):
             rc = fn(xf.data_ptr(), n, ct.data_ptr(), _tables(spec, planes, lines),
                     _tables(spec, dplanes, dlines), 3 * spec.n_scales, spec.n_components,
                     spec.line_resolution, flat.data_ptr(), flat.numel() * 4,
-                    dx.data_ptr() if with_dx else None, stream)
+                    dx.data_ptr() if with_dx else None,
+                    dx_part.data_ptr() if with_dx else None, stream)
         cuda_build.check(rc, "vm_backward", f"n_components in {COMPONENTS}")
         vm_backward.launches += 1
     return grads, (dx.reshape(*x.shape[:-1], 3) if with_dx else None)

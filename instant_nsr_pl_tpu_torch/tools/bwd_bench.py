@@ -7,9 +7,10 @@ instantiation) with ``cp_big``'s K6, and HG2 (``csrc/hashgrid_bwd.cu``), and the
 K1 / K13 / ``cp_big``'s K1 (``csrc/cp_mlp_fwd.cu``, training and eval mode),
 K3 (``csrc/sh_mlp_fwd.cu``, training and eval mode), K5 / ``cp_big``'s K5
 (``csrc/cp_product_fwd.cu``), K9 / K11 / ``cp_big``'s K9
-(``csrc/cp_jac_basis_fwd.cu``; all three in training and eval mode) and HG1
-(``csrc/hashgrid_fwd.cu``) on the card, optionally from another checkout of
-the port and with phases cut out.
+(``csrc/cp_jac_basis_fwd.cu``; all three in training and eval mode), HG1
+(``csrc/hashgrid_fwd.cu``), HG3 / HG4 and VM1 / VM2 (``csrc/vm_{fwd,bwd}.cu``
+at the VM NeRF's width: ``vm1``, ``vm2``, ``vm2_dx``) on the card,
+optionally from another checkout of the port and with phases cut out.
 
     python instant_nsr_pl_tpu_torch/tools/bwd_bench.py [--root DIR]
         [--cuts] [--order uniform,ray] [--cases k10,hg2,...] [--merge-stats]
@@ -26,7 +27,7 @@ every design keeps, so two designs are timed by the same code. Each
 checkout's hash table comes from its own ``hashgrid_init`` (feature-major
 (F, T) before the table became row-major, (T, F) after; the same values).
 ``--step-operands FILE`` also times the forward kernels (K1, K13, K3, K5, K9,
-K11, HG1), K8, K6 and HG2 on a training step's own operands as
+K11, HG1, HG3, VM1), K8, K6, HG2, HG4 and VM2 on a training step's own operands as
 ``chip_smoke.py`` saved them
 (``torch.save``: per case, the launch's arguments as plain tensors and
 numbers), each case as ``<case>@step``; a (T, F) hash table is handed to a feature-major checkout
@@ -46,7 +47,10 @@ and the bench hash grid for HG2 (16
 levels, F=2, 2^19 rows), from seeded random weights; the residuals come from
 one training-mode forward. ``--merge-stats`` counts, on each order's
 positions, the row updates that a merge of equal rows would leave: HG2's per
-level within a warp of 32 samples, K10's per axis within runs of 16 and 64. ``--order uniform`` (the default) draws positions uniformly in
+level within a warp of 32 samples, K10's per axis within runs of 16 and 64,
+VM2's per table kind as its merge window leaves them with runs of 8, 16 and
+32 samples beside the distinct rows of each run (also on the VM NeRF step's
+own positions, with ``--step-operands``). ``--order uniform`` (the default) draws positions uniformly in
 [-0.05, 1.05]^3; ``--order ray`` packs 512 rays of 512 evenly spaced samples
 across the unit box each, as a bench training step packs its 262,144 slots
 (its ~4.6 M live samples overflow them, so the buffer holds the first few
@@ -70,7 +74,11 @@ with plain stores for it; K6's scatter, its scatter without the row merge,
 its atomics, or its table rows gathered past L1; HG2 without the merge of a
 block's warps; K5 and K9 with one gather step's loads in flight, K5 also at
 three blocks an SM, with plain stores or without its write-out, K9 without
-its residual write-out or its tensor-core products),
+its residual write-out or its tensor-core products; VM2 of the first
+design without its plane, line or all atomics or its d x products, and of
+the merge-window design without its plane or line scatter or both, without
+the merge, with runs of 8 or 32 samples or without its d x terms; VM1 with
+one pass's loads in flight or warps of 64 samples),
 all built at once with ``nvcc -Xptxas -v`` into a temporary directory. The edits
 are text replacements on the copy; a variant whose text is not in the
 root's source is reported as not applicable. The variants' outputs are
@@ -419,6 +427,73 @@ CUTS.update({
         "hashgrid_jac_fwd.cu", "  for (int k = 0; k < kJacOutputs; ++k) {",
         "  for (int k = 0; k < 1; ++k) {")]),
 })
+# VM2 (csrc/vm_bwd.cu) of the first design (a thread per sample and plane,
+# C / 4 float4 atomics per row): without the plane atomics, the line atomics
+# or any (the updates still formed: a store that never happens keeps them
+# live), and without the products of d x (with d x asked for)
+_VM_SINK = ("__device__ __forceinline__ float dot4(",
+            "__device__ __forceinline__ void sink4(float* p, float4 v) {\n"
+            "  if (v.x + v.y + v.z + v.w == 1.2345e-37f) *p = v.x;  // keeps the values live\n"
+            "}\n\n__device__ __forceinline__ float dot4(")
+_VM_PLANE_ATOMICS = (
+    "        atomic_add4(dplane + static_cast<long long>(t.prow[k]) * C + q, scale4(gl, t.pw[k]));",
+    "        sink4(dplane + static_cast<long long>(t.prow[k]) * C + q, scale4(gl, t.pw[k]));")
+_VM_LINE_ATOMICS = (
+    "      atomic_add4(dline + static_cast<long long>(t.lrow0) * C + q, scale4(gp, t.lw[0]));\n"
+    "      atomic_add4(dline + static_cast<long long>(t.lrow0 + 1) * C + q, scale4(gp, t.lw[1]));",
+    "      sink4(dline + static_cast<long long>(t.lrow0) * C + q, scale4(gp, t.lw[0]));\n"
+    "      sink4(dline + static_cast<long long>(t.lrow0 + 1) * C + q, scale4(gp, t.lw[1]));")
+CUTS.update({
+    "vm2_first_no_plane_atomics": ("vm_bwd", [("vm_bwd.cu", *_VM_SINK),
+                                              ("vm_bwd.cu", *_VM_PLANE_ATOMICS)]),
+    "vm2_first_no_line_atomics": ("vm_bwd", [("vm_bwd.cu", *_VM_SINK),
+                                             ("vm_bwd.cu", *_VM_LINE_ATOMICS)]),
+    "vm2_first_no_atomics": ("vm_bwd", [("vm_bwd.cu", *_VM_SINK), ("vm_bwd.cu", *_VM_PLANE_ATOMICS),
+                                        ("vm_bwd.cu", *_VM_LINE_ATOMICS)]),
+    "vm2_first_no_dx": ("vm_bwd", [(
+        "vm_bwd.cu", "      if (dx != nullptr) {\n#pragma unroll\n        for (int k = 0; k < 4; ++k) gp_tap",
+        "      if (false) {\n#pragma unroll\n        for (int k = 0; k < 4; ++k) gp_tap")]),
+})
+# VM2 of the merge-window design: without the plane or the line scatter
+# (window and atomics; the updates kept live) or both, without the merge
+# (every tap's update added at once), with runs of 8 or 32 samples, at 5 or
+# 6 blocks an SM (at most 102 or 85 registers instead of 127), and without
+# the d x terms (with d x asked for); VM1 with one pass's loads in
+# flight instead of two, and with warps of 64 samples
+_VM_WINDOW_SINK = (
+    "// The end of a run: every row still in the window is added.",
+    "template <int T>\n"
+    "__device__ __forceinline__ void sink_window(const float4 (&upd)[T], float* p) {\n"
+    "  float s = 0.0f;\n"
+    "  for (int k = 0; k < T; ++k) s += upd[k].x + upd[k].y + upd[k].z + upd[k].w;\n"
+    "  if (s == 1.2345e-37f) *p = s;  // keeps the values live\n"
+    "}\n\n// The end of a run: every row still in the window is added.")
+_VM_PLANE_WINDOW = [("vm_bwd.cu", "    merge_window<4>(prows, pupd, pprev, pacc, dplane, C, q);",
+                     "    sink_window<4>(pupd, dplane);"),
+                    ("vm_bwd.cu", "  flush_window<4>(pprev, pacc, dplane, C, q);", "")]
+_VM_LINE_WINDOW = [("vm_bwd.cu", "    merge_window<2>(lrows, lupd, lprev, lacc, dline, C, q);",
+                    "    sink_window<2>(lupd, dline);"),
+                   ("vm_bwd.cu", "  flush_window<2>(lprev, lacc, dline, C, q);", "")]
+_VM_RUN = "constexpr int kVMRun = 16;"
+CUTS.update({
+    "vm2_no_plane_scatter": ("vm_bwd", [("vm_bwd.cu", *_VM_WINDOW_SINK), *_VM_PLANE_WINDOW]),
+    "vm2_no_line_scatter": ("vm_bwd", [("vm_bwd.cu", *_VM_WINDOW_SINK), *_VM_LINE_WINDOW]),
+    "vm2_no_scatter": ("vm_bwd", [("vm_bwd.cu", *_VM_WINDOW_SINK), *_VM_PLANE_WINDOW,
+                                  *_VM_LINE_WINDOW]),
+    "vm2_no_merge": ("vm_bwd", [("vm_bwd.cu", "      if (rows[k] == prev[m]) {",
+                                 "      if (false) {")]),
+    "vm2_run8": ("vm_bwd", [("vm_bwd.cu", _VM_RUN, "constexpr int kVMRun = 8;")]),
+    "vm2_run32": ("vm_bwd", [("vm_bwd.cu", _VM_RUN, "constexpr int kVMRun = 32;")]),
+    "vm2_no_dx": ("vm_bwd", [("vm_bwd.cu", "    if constexpr (DX) {\n      float gp_tap",
+                              "    if constexpr (false) {\n      float gp_tap")]),
+    "vm2_blocks5": ("vm_bwd", [("vm_bwd.cu", "__launch_bounds__(kVMBlock)\n    vm_bwd_kernel",
+                                "__launch_bounds__(kVMBlock, 5)\n    vm_bwd_kernel")]),
+    "vm2_blocks6": ("vm_bwd", [("vm_bwd.cu", "__launch_bounds__(kVMBlock)\n    vm_bwd_kernel",
+                                "__launch_bounds__(kVMBlock, 6)\n    vm_bwd_kernel")]),
+    "vm1_one_pass_in_flight": ("vm_fwd", [("vm_fwd.cu", "#pragma unroll 2\n", "#pragma unroll 1\n")]),
+    "vm1_samples64": ("vm_fwd", [("vm_fwd.cu", "constexpr int kVMFwdSamples = 32;",
+                                  "constexpr int kVMFwdSamples = 64;")]),
+})
 # which timed case each source's variants run (the parent design's K8 and K6
 # have sources of their own, csrc/cp_product_jac_bwd.cu and
 # csrc/cp_product_bwd.cu; a stem a checkout does not have is left out)
@@ -435,13 +510,15 @@ CASES_OF = {"cp_mlp_bwd": ("k2", "k14", "k2_cp_big"), "sh_mlp_bwd": ("k4",),
             "sh_mlp_fwd": ("k3", "k3_eval"),
             "hashgrid_fwd": ("hg1", "hg1_chunked", "ft_to_tf"),
             "hashgrid_jac_fwd": ("hg3", "hg3_eval"),
-            "hashgrid_jac_bwd": ("hg4", "hg4_dx", "hg4_262k")}
+            "hashgrid_jac_bwd": ("hg4", "hg4_dx", "hg4_262k"),
+            "vm_fwd": ("vm1",), "vm_bwd": ("vm2", "vm2_dx")}
 # a variant's cases where they are not all of its source's
 CUT_CASES = {**{name: ("k10", "k12", "k10_cp_big") for name in CUTS if name.startswith("k10_tc")},
              "k8_no_scatter": ("k8", "k8_cp_big"), "k8_no_row_merge": ("k8", "k8_cp_big"),
              **{name: ("k6", "k6_cp_big") for name in CUTS if name.startswith("k6_")},
              "k3_no_hsave_stores": ("k3",), "k3_plain_stores": ("k3",),
-             "k9_no_residual_stores": ("k9", "k11", "k9_cp_big")}
+             "k9_no_residual_stores": ("k9", "k11", "k9_cp_big"),
+             "vm2_first_no_dx": ("vm2_dx",), "vm2_no_dx": ("vm2_dx",)}
 # the sources a case's operands also need (a backward's residuals come from
 # its forward)
 PARTNER = {"cp_mlp_bwd": ("cp_mlp_fwd",), "sh_mlp_bwd": ("sh_mlp_fwd",),
@@ -451,7 +528,7 @@ PARTNER = {"cp_mlp_bwd": ("cp_mlp_fwd",), "sh_mlp_bwd": ("sh_mlp_fwd",),
            "hashgrid_bwd": ("hashgrid_fwd",), "cp_mlp_fwd": ("cp_mlp_bwd",),
            "sh_mlp_fwd": (), "hashgrid_fwd": ("hashgrid_bwd",), "cp_product_fwd": (),
            "cp_jac_basis_fwd": (), "hashgrid_jac_fwd": ("hashgrid_jac_bwd", "hashgrid_fwd"),
-           "hashgrid_jac_bwd": ("hashgrid_jac_fwd",)}
+           "hashgrid_jac_bwd": ("hashgrid_jac_fwd",), "vm_fwd": (), "vm_bwd": ()}
 FWD_CASES = {*CASES_OF["cp_mlp_fwd"], *CASES_OF["sh_mlp_fwd"]}
 STENCIL_CASES = {"k6", "k6_cp_big", *CASES_OF["cp_product_fwd"]}
 
@@ -558,7 +635,7 @@ def cases(device, order, wanted=None):
     out = {}
     if wanted is not None and not wanted & ({"k2", "k14", "k2_cp_big", "k4"} | FWD_CASES):
         return {**jac_cases(device, order, wanted), **hash_cases(device, order, wanted),
-                **hash_jac_cases(device, order, wanted)}
+                **hash_jac_cases(device, order, wanted), **vm_cases(device, order, wanted)}
 
     def layers(gen, spec):
         return [{"w": l["w"].to(device),
@@ -620,6 +697,7 @@ def cases(device, order, wanted=None):
     out.update(jac_cases(device, order, wanted))
     out.update(hash_cases(device, order, wanted))
     out.update(hash_jac_cases(device, order, wanted))
+    out.update(vm_cases(device, order, wanted))
     return out
 
 
@@ -917,6 +995,51 @@ def hash_jac_cases(device, order, wanted=None):
     return out
 
 
+def vm_spec():
+    """The VM NeRF's encoding (``configs/nerf-vm-synthetic.yaml``: 16
+    components, planes 512^2 and 256^2, lines of 2048 rows, 2 scales), as
+    ``chip_smoke.py`` holds VM1 / VM2."""
+    from instant_nsr_pl_tpu_torch.ops.vm import VMSpec
+
+    return VMSpec(n_components=16, plane_resolution=512, line_resolution=2048, n_scales=2)
+
+
+def vm_operands(device, order, n=N, seed=SEED + 37):
+    """VM1 / VM2's arguments at ``vm_spec``: the tables of ``vm_init``,
+    positions in the unit box (uniform, or ray-ordered) and N(0, 1) output
+    cotangents (n, 96)."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    spec = vm_spec()
+    gen = torch.Generator().manual_seed(seed)
+    params = vm.vm_init(gen, spec, device)
+    x = (torch.rand((n, 3), generator=gen) if order == "uniform"
+         else positions(gen, order, n).clamp(0.0, 1.0)).to(device)
+    ct = torch.randn((n, spec.n_output_dims), generator=gen).to(device)
+    return params, x, ct, spec
+
+
+def vm_cases(device, order, wanted=None):
+    """VM1 (``vm1``), VM2's table gradients (``vm2``) and with the position
+    gradient (``vm2_dx``) at N = 262,144 (the VM NeRF's step capacity), each
+    through its public launch."""
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    keys = {*CASES_OF["vm_fwd"], *CASES_OF["vm_bwd"]}
+    if wanted is not None and not wanted & keys:
+        return {}
+    params, x, ct, spec = vm_operands(device, order)
+    shape = "C=16, planes 512 / 256, lines 2048, 2 scales"
+    return {
+        "vm1": (lambda: vm.vm_forward_launch(params, x, spec), shape),
+        "vm2": (lambda: vm.vm_backward_launch(params, x, ct, spec), shape),
+        "vm2_dx": (lambda: vm.vm_backward_launch(params, x, ct, spec, with_dx=True),
+                   shape + ", with d x"),
+    }
+
+
 def step_cases(path, device, wanted=None):
     """The forward kernels, K3, K8, K6 and HG2 on a training step's own operands,
     as ``chip_smoke.py`` saved them: per case, ``kind`` "prod_fwd", "jacb" or
@@ -926,7 +1049,9 @@ def step_cases(path, device, wanted=None):
     ``stacked``, ``train``), "hash" (``table`` (T, F), ``x``, ``spec`` the
     HashGridSpec fields, ``mask``), "hash_bwd" (HG2: ``table``, ``x``,
     ``dout``, ``spec``, ``mask``, ``with_dx``), "sh" (``ops``, ``feats``, ``dirs``,
-    ``mlp``, ``degree``, ``train``), "raw" (``launches``: each of the
+    ``mlp``, ``degree``, ``train``), "vm_fwd" / "vm_bwd" (VM1 / VM2:
+    ``params``, ``x``, ``spec`` the VMSpec fields; VM2 also ``dout``,
+    ``with_dx``), "raw" (``launches``: each of the
     step's K8 launches' arguments) or "prod" (``launches``: each of the
     step's K6 launches' (lines, u3, d prod, R); the residual vsave is made
     again by the checkout's K5 in training mode, equal to the bit to the
@@ -972,6 +1097,17 @@ def step_cases(path, device, wanted=None):
             out[key] = (lambda e=e, s=spec: sh_mlp.sh_mlp_launch(
                 tuple(e["ops"]), e["feats"], e["dirs"], s, int(e["degree"]), train=e["train"]),
                 f"N={e['feats'].shape[0]}, train={e['train']}")
+            continue
+        if e["kind"] in ("vm_fwd", "vm_bwd"):
+            from instant_nsr_pl_tpu_torch.ops import vm
+
+            spec = vm.VMSpec(**e["spec"])
+            if e["kind"] == "vm_fwd":
+                fn = lambda e=e, s=spec: vm.vm_forward_launch(e["params"], e["x"], s)
+            else:
+                fn = lambda e=e, s=spec: vm.vm_backward_launch(e["params"], e["x"], e["dout"], s,
+                                                               e["with_dx"])
+            out[key] = (fn, f"N={e['x'].reshape(-1, 3).shape[0]}")
             continue
         x = e["x"]
         if e["kind"] in ("hash", "hash_bwd", "hash_jac", "hash_jac_bwd"):
@@ -1022,6 +1158,112 @@ def _merged_rows(rows, group):
     return int(distinct.sum())  # the padding repeats a kept row: nothing new
 
 
+def vm_window_merge(rows, upd=None, run=16):
+    """A plain emulation of VM2's merge window (``csrc/vm_bwd.cu``) on one
+    table: ``rows`` (T, n) the T taps' rows of each sample (-1 for none),
+    ``upd`` (T, n, C) their updates or None. The samples are cut into runs of
+    ``run`` consecutive samples (a lane group's walk); along a run, a tap whose
+    row equals one of the previous sample's rows takes over that row's
+    running sum, and a previous row that no tap takes over is flushed: one
+    atomic of its sum. Returns the flushed (rows (M,), sums (M, C) or None), in
+    no particular order; their index_add_ is the table gradient."""
+    import torch
+
+    t, n = rows.shape
+    runs = -(-n // run)
+    pad = runs * run - n
+    r_all = torch.cat([rows, rows.new_full((t, pad), -1)], dim=1).reshape(t, runs, run)
+    u_all = None
+    if upd is not None:
+        u_all = torch.cat([upd, upd.new_zeros((t, pad, upd.shape[-1]))], dim=1)
+        u_all = u_all.reshape(t, runs, run, upd.shape[-1])
+    prev = rows.new_full((t, runs), -1)
+    acc = None if upd is None else upd.new_zeros((t, runs, upd.shape[-1]))
+    out_rows, out_sums = [], []
+
+    def flush(mask):
+        out_rows.append(prev[mask])
+        if acc is not None:
+            out_sums.append(acc[mask])
+
+    for s in range(run):
+        r = r_all[:, :, s]
+        match = r[:, None, :] == prev[None, :, :]  # (new tap, previous tap, run)
+        flush(~match.any(0) & (prev >= 0))
+        if acc is not None:
+            acc = u_all[:, :, s] + (match[..., None].to(acc.dtype) * acc[None]).sum(1)
+        prev = r
+    flush(prev >= 0)
+    return torch.cat(out_rows), (torch.cat(out_sums) if acc is not None else None)
+
+
+def vm_emulated_backward(params, x, ct, spec, run=16):
+    """VM2's table gradients as its merge window adds them, on the CPU: per
+    table the updates VM2 forms (``w_p * (g * lf)``, ``w_l * (g * pf)``, as
+    ``ops/vm.py`` ``vm_backward_plain`` forms them), merged along runs of
+    ``run`` samples by ``vm_window_merge`` and the flushed sums added with
+    ``index_add_`` in float64. Returns (gradients, atomics of row per
+    table)."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    xf = x.reshape(-1, 3).float()
+    n, c = xf.shape[0], spec.n_components
+    ct2 = ct.reshape(n, 3 * spec.n_scales, c).float()
+    grads, atomics = {}, {}
+    for s in range(spec.n_scales):
+        for k, axes in enumerate(vm.VMSpec.AXES):
+            pk, lk = f"plane_{s}_{k}", f"line_{s}_{k}"
+            prow, pw = vm._plane_taps(xf, axes, spec.plane_res(s))
+            lrow, lw = vm._line_taps(xf, axes, spec.line_resolution)
+            pf = vm._gather_weighted(params[pk], prow, pw)
+            lf = vm._gather_weighted(params[lk], lrow, lw)
+            g = ct2[:, 3 * s + k]
+            for key, rows, w, other in ((pk, prow, pw, lf), (lk, lrow, lw, pf)):
+                rows_out, sums = vm_window_merge(rows, w[..., None] * (g * other)[None], run)
+                grads[key] = torch.zeros(params[key].shape, dtype=torch.float64).index_add_(
+                    0, rows_out, sums.double())
+                atomics[key] = rows_out.numel()
+    return grads, atomics
+
+
+def vm_merge_stats(device, order, n=N, x=None):
+    """What VM2's merge window removes from this order's operands (or from
+    the positions ``x``, a step's own): per table kind, the row updates (4
+    per sample and plane, 2 per sample and line), the atomics the merge
+    window leaves with runs of 8, 16 and 32 samples, and the distinct rows
+    of each run of 16 and of each 32 samples (what any merge within them
+    could leave)."""
+    import torch
+
+    from instant_nsr_pl_tpu_torch.ops import vm
+
+    spec = vm_spec()
+    if x is None:
+        _, x, _, _ = vm_operands(device, order, n)
+    x = x.reshape(-1, 3).float()
+    n = x.shape[0]
+    out = {}
+    for s in range(spec.n_scales):
+        for k, axes in enumerate(vm.VMSpec.AXES):
+            for kind, (rows, _) in (("plane", vm._plane_taps(x, axes, spec.plane_res(s))),
+                                    ("line", vm._line_taps(x, axes, spec.line_resolution))):
+                key = f"{kind}_{spec.plane_res(s)}" if kind == "plane" else "line"
+                e = out.setdefault(key, {"updates": 0, "window_8": 0, "window_16": 0,
+                                         "window_32": 0, "distinct_16": 0, "distinct_32": 0})
+                e["updates"] += rows.numel()
+                for run in (8, 16, 32):
+                    e[f"window_{run}"] += int(vm_window_merge(rows, run=run)[0].numel())
+                for run in (16, 32):
+                    pad = -n % run
+                    r = torch.cat([rows, rows[:, -1:].expand(-1, pad)], dim=1)
+                    width = rows.shape[0] * run  # a run's taps
+                    r = r.reshape(rows.shape[0], -1, run).permute(1, 0, 2).reshape(-1, width)
+                    e[f"distinct_{run}"] += _merged_rows(r, width)
+    return out
+
+
 def merge_stats(device, order, n=N):
     """What merging equal rows would remove, from this order's operands:
     HG2's per-level (sample, corner) row updates within a warp of 32
@@ -1058,6 +1300,13 @@ def merge_stats(device, order, n=N):
             entry[f"distinct_{run}"] = _merged_rows(both.reshape(3 * (n // run), 2 * run), 2 * run)
         out["k10"][r] = entry
     return out
+
+
+def _print_vm_merge(order, stats):
+    for key, e in stats.items():
+        print(f"[merge] vm2 {order} {key}: {e['updates']} row updates; merge window "
+              f"{e['window_8']} / {e['window_16']} / {e['window_32']} (runs of 8 / 16 / 32); "
+              f"distinct {e['distinct_16']} / {e['distinct_32']} (16 / 32 samples)", flush=True)
 
 
 def _build(cuda_build, jobs):
@@ -1109,13 +1358,14 @@ def main(argv=None):
                          "k13_eval, k1_cp_big, k1_cp_big_eval, k3, k3_eval, hg1, hg1_chunked, "
                          "ft_to_tf, k5, k5_eval, k5_cp_big, k5_cp_big_eval, k9, k9_eval, k11, "
                          "k11_eval, k9_cp_big, k9_cp_big_eval, hg3, hg3_eval, hg4, hg4_dx, "
-                         "hg4_262k), only their sources' cuts and, with --step-operands, only "
+                         "hg4_262k, vm1, vm2, vm2_dx), only their sources' cuts and, with "
+                         "--step-operands, only "
                          "these cases of the step")
     ap.add_argument("--merge-stats", action="store_true",
                     help="also count the row updates a merge of equal rows would remove")
     ap.add_argument("--step-operands", default=None,
-                    help="also time the forward kernels (K1, K13, K3, K5, K9, K11, HG1, HG3), "
-                         "K8, K6, HG2 and HG4 on these saved training-step operands")
+                    help="also time the forward kernels (K1, K13, K3, K5, K9, K11, HG1, HG3, "
+                         "VM1), K8, K6, HG2, HG4 and VM2 on these saved training-step operands")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -1147,7 +1397,7 @@ def main(argv=None):
             extra = [s for s in ("cp_mlp_fwd", "hashgrid_fwd", "hashgrid_bwd", "sh_mlp_fwd",
                                  "cp_jac_basis_bwd", "cp_product_jac_bwd", "cp_product_bwd",
                                  "cp_product_fwd", "cp_jac_basis_fwd", "hashgrid_jac_fwd",
-                                 "hashgrid_jac_bwd")
+                                 "hashgrid_jac_bwd", "vm_fwd", "vm_bwd")
                      if (cuda_build.CSRC / f"{s}.cu").exists()]
             bwd_stems = list(dict.fromkeys([*bwd_stems, *extra]))
         stems = list(dict.fromkeys(s for b in bwd_stems for s in (b, *PARTNER[b])))
@@ -1190,6 +1440,8 @@ def main(argv=None):
                     print(f"[merge] k10 {order} R={r}: {e['updates']} row updates; window of two "
                           f"rows {e['window_16']} (runs of 16), {e['window_64']} (64); distinct "
                           f"{e['distinct_16']} / {e['distinct_64']}", flush=True)
+                stats["vm2"] = vm_merge_stats(device, order)
+                _print_vm_merge(order, stats["vm2"])
             # the stencil order is the finite-difference NeuS's: K5 and K6 cases only
             want = wanted if order != "stencil" else (wanted or set(STENCIL_CASES)) & STENCIL_CASES
             for key, (fn, shape) in (cases(device, order, want) if want != set() else {}).items():
@@ -1199,17 +1451,28 @@ def main(argv=None):
                 timed[key] = fn
                 _time(result, key, fn, shape, smi)
         if args.step_operands:
-            for key, (fn, shape) in step_cases(args.step_operands, device, wanted).items():
-                _time(result, f"{key}@step", fn, shape, smi)
+            steps = step_cases(args.step_operands, device, wanted)
+            for key, (fn, shape) in steps.items():
+                key = f"{key}@step"
+                timed[key] = fn
+                _time(result, key, fn, shape, smi)
+            if args.merge_stats and "vm1" in steps:
+                x = torch.load(args.step_operands, map_location=device,
+                               weights_only=True)["vm1"]["x"]
+                stats = {"vm2": vm_merge_stats(device, "step", x=x)}
+                result.setdefault("merge", {})["step"] = stats
+                _print_vm_merge("step", stats["vm2"])
         for name, stem in variants.items():
             saved = cuda_build._LIBS[stem]
             loaded.append(ctypes.CDLL(str(tmp / f"{name}.so")))  # kept alive: one id each
             cuda_build._LIBS[stem] = loaded[-1]
             cuda_build.PLANS.clear()  # a variant may fit more blocks per SM
             entry = {"ptxas": ptxas[name]}
-            for key in [f"{k}@{o}" for k in CUT_CASES.get(name, CASES_OF[stem]) for o in orders
-                        if (wanted is None or k in wanted)
-                        and (o != "stencil" or k in STENCIL_CASES)]:
+            cut_keys = [k for k in CUT_CASES.get(name, CASES_OF[stem])
+                        if wanted is None or k in wanted]
+            for key in [f"{k}@{o}" for k in cut_keys for o in orders
+                        if o != "stencil" or k in STENCIL_CASES] + [
+                            f"{k}@step" for k in cut_keys if f"{k}@step" in timed]:
                 fn = timed[key]
                 fn()
                 torch.cuda.synchronize()

@@ -2047,31 +2047,52 @@ def test_unbounded_occupancy_lookup_and_march_on_card_match_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _vm_case(gen, spec, n):
+def _vm_case(gen, spec, n, order="uniform"):
+    """Tables, n positions and cotangents. ``order`` "uniform": uniform
+    points; "ray": samples along straight rays in ray order, with a run of 70
+    samples on one point (whole warps' runs of VM2 in one cell, across a
+    run's and a tile's end) and samples on the planes' and lines' cell edges.
+    Both start with samples at u = 0 and 1."""
     from instant_nsr_pl_tpu_torch.ops import vm as t_vm
 
     params = t_vm.vm_init(gen, spec)
     params = {k: v + 0.3 * torch.randn(v.shape, generator=gen) for k, v in params.items()}
-    x = torch.rand((n, 3), generator=gen)
+    if order == "uniform":
+        x = torch.rand((n, 3), generator=gen)
+    else:
+        rays = -(-n // 48)
+        o = torch.rand((rays, 1, 3), generator=gen)
+        d = torch.nn.functional.normalize(torch.randn((rays, 1, 3), generator=gen), dim=-1)
+        t = torch.linspace(0.0, 0.5, 48)[None, :, None]
+        x = (o + t * d).clamp(0.0, 1.0).reshape(-1, 3)[:n].contiguous()
+        x[100:170] = torch.tensor([0.31, 0.62, 0.27])
+        edges = torch.tensor([3.0, 5.0, 7.0]) / torch.tensor(
+            [spec.plane_res(0) - 1, spec.plane_res(0) - 1, spec.line_resolution - 1])
+        x[20:30] = edges
     x[:6] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5], [1.0, 0.25, 0.0],
                           [0.5, 1.0, 1.0], [1 / 15, 0.5, 1.0]])
     ct = torch.randn((n, spec.n_output_dims), generator=gen)
     return params, x, ct
 
 
-@pytest.mark.parametrize("c,n_scales,n", [(4, 2, 1001), (16, 2, 4096), (8, 1, 33), (32, 3, 517),
-                                          (16, 2, 0)])
-def test_vm_kernels_match_plain(cuda_device, c, n_scales, n):
+@pytest.mark.parametrize("c,n_scales,n,order", [
+    (4, 2, 1001, "uniform"), (16, 2, 4096, "uniform"), (8, 1, 33, "uniform"),
+    (32, 3, 517, "uniform"), (16, 2, 0, "uniform"), (16, 2, 4096, "ray"), (16, 2, 389, "ray"),
+    (4, 4, 1001, "ray"), (8, 1, 515, "ray"), (32, 3, 257, "ray"), (16, 4, 130, "ray")])
+def test_vm_kernels_match_plain(cuda_device, c, n_scales, n, order):
     """VM1 equal to its plain version on the card and on the CPU to the bit;
     VM2's table gradients within 1e-5 x max|ref| per table of the float64 sum
     of the plain updates, its d x within 1e-4 x max|plain| (samples at u = 0
-    and 1 included); through the autograd op, d x only when x requires it."""
+    and 1 included) and equal to the bit in a second run; through the
+    autograd op, d x only when x requires it. On uniform points and on
+    ray-ordered samples (VM2's merge of equal rows), at N around VM2's runs
+    of 16 and tiles of 32 / (C / 4) runs."""
     from instant_nsr_pl_tpu_torch.ops import vm as t_vm
 
     spec = t_vm.VMSpec(n_components=c, plane_resolution=24, line_resolution=40,
                        n_scales=n_scales)
     gen = torch.Generator().manual_seed(c * 10 + n_scales)
-    params, x, ct = _vm_case(gen, spec, max(n, 6))
+    params, x, ct = _vm_case(gen, spec, max(n, 200), order)
     x, ct = x[:n], ct[:n]
     pd = {k: v.to(cuda_device) for k, v in params.items()}
     xd, ctd = x.to(cuda_device), ct.to(cuda_device)
@@ -2090,6 +2111,8 @@ def test_vm_kernels_match_plain(cuda_device, c, n_scales, n):
         assert tuple(dx.shape) == (0, 3)
         return
     _close(dx, rdx, rel=1e-4)
+    _, dx2 = t_vm.vm_backward(pd, xd, ctd, spec, with_dx=True)
+    assert torch.equal(dx, dx2)
     leaves = {k: v.clone().requires_grad_(True) for k, v in pd.items()}
     (t_vm.vm_encode_fast(leaves, xd, spec) * ctd).sum().backward()
     for k in spec.keys():
