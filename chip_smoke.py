@@ -185,14 +185,19 @@ lines are printed):
 20. marching tetrahedra on the card (``csrc/marching_tet.cu``): every export
    and test mesh of phases 11 and 16-18 marches through MT1 / MT2 (their
    launches counted around each phase, the export stage lines say "(card)");
-   then MT1 / MT2 against the numpy twin, which ran in processes of their own
-   (``--twin``) beside the card's phases, on a sphere SDF at 128^3, 256^3 and
-   512^3 and on the VM NeRF's level grid at 256^3: faces equal, vertices
-   within 1 ulp (the count that differ printed), the card's milliseconds
-   against the twin's seconds, MT1 / MT2 alone timed at 512^3 beside their
-   bounds, and that mesh, the run's largest, written by ``save_obj``
-   (``utils/obj_writer.cc``) and by Python's formatting: the same bytes, both
-   timed;
+   the ``neus-blender`` model of phase 16 exported again uncut, at the
+   config's 512^3, timed by stage, its fine level grid kept; then MT1 / MT2
+   against the numpy twin, which ran in processes of their own (``--twin``)
+   beside the card's phases, on a sphere SDF at 128^3, 256^3 and 512^3, on
+   that NeuS grid and on the VM NeRF's level grid at 256^3: faces equal,
+   vertices within 1 ulp (the count that differ printed), the card's warm
+   milliseconds against the twin's seconds, the device ms by kernel and the
+   pass's stages (an event after each), MT1 / MT2 alone timed at 512^3 beside
+   their bounds (this design's and the first design's), and that mesh, the
+   run's largest, written by ``save_obj`` (``utils/obj_writer.cc``) and by
+   Python's formatting: the same bytes, both timed; given ``--parent DIR``,
+   ``tools/mt_bench.py`` on the spheres and the NeuS grid from DIR and from
+   this checkout in turns (parent, change, change, parent);
 21. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4,
@@ -3361,6 +3366,7 @@ def dataset_launcher_phase(device, smi, key):
            "stages": dict(stage), "vertices": len(v), "faces": len(f),
            "launches": train_launches, "step": records[1]["delta"],
            "ms_per_step": warm_s / n_warm * 1e3, "fg_live_share": float(np.mean(fg_live)),
+           "run": run, "base_args": base,
            "bg_live_share": float(np.mean(bg_live)) if bg_live else None,
            "grid_warmups": warmups}
     load_line = "; ".join(f"{d['split']} {d['views']} views at {d['wh'][0]}x{d['wh'][1]} "
@@ -3429,6 +3435,7 @@ MARCHING_DIR = os.path.join(ROOT, "exp", "chip_smoke_marching")
 SPHERE_RES = (128, 256, 512)
 EXPORT_GRID_RES = 256  # the VM NeRF's level grid held against the numpy twin
 TWINS = []  # the numpy twins' processes (started early, joined in marching_phase)
+TWIN_ISO = {}  # their grids' iso levels
 
 
 def vm_spec():
@@ -3688,9 +3695,60 @@ def start_twin(name, values, iso):
     os.makedirs(MARCHING_DIR, exist_ok=True)
     path = os.path.join(MARCHING_DIR, f"{name}.npy")
     np.save(path, values)
+    with open(os.path.join(MARCHING_DIR, f"{name}.iso.json"), "w") as fh:
+        json.dump({"iso": iso}, fh)  # for tools/mt_bench.py --grids
+    TWIN_ISO[name] = iso
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--twin", path, repr(iso)],
                             cwd=ROOT)
     TWINS.append((name, proc))
+
+
+NEUS_FINE = "neus_blender_fine_512"  # the trained neus-blender's fine level grid
+NEUS_ISO_RES = 512  # configs/neus-blender.yaml isosurface.resolution
+
+
+def neus_fine_grid_phase(blender_neus, smi):
+    """The ``blender_neus`` run's model exported uncut: ``--export`` of its
+    checkpoint at the config's own ``isosurface.resolution`` (512), timed by
+    stage; the fine pass's level grid (the last marched) is saved and its
+    numpy twin started in a process of its own (``start_twin``), held in
+    ``marching_phase``. Returns the export's figures."""
+    import glob
+
+    import instant_nsr_pl_tpu_torch.models.isosurface as iso_model
+    from instant_nsr_pl_tpu_torch.tools.launch_timed import timed_export
+    from instant_nsr_pl_tpu_torch.utils.savers import load_obj
+
+    ckpt = os.path.join(blender_neus["run"], "ckpt", f"step={LAUNCHER_STEPS}.ckpt")
+    grids, stage = [], {}
+    march = iso_model.marching_tetrahedra
+
+    def keep(values, iso=0.0):
+        grids.append((values, float(iso)))
+        return march(values, iso)
+
+    iso_model.marching_tetrahedra = keep
+    try:
+        with timed_export(stage):
+            wall = _launcher_run(blender_neus["base_args"] + [
+                "--export", "--resume", ckpt,
+                f"model.geometry.isosurface.resolution={NEUS_ISO_RES}"])
+    finally:
+        iso_model.marching_tetrahedra = march
+    (obj,) = glob.glob(os.path.join(blender_neus["run"], "save", "*.obj"))
+    mesh = load_obj(obj)
+    values, iso = grids[-1]
+    assert tuple(values.shape) == (NEUS_ISO_RES,) * 3, values.shape
+    start_twin(NEUS_FINE, values.cpu().numpy(), iso)
+    rest = stage["export"] - stage["level grid"] - stage["marching"] - stage["vertex colours"]
+    out = {"export_s": wall, "stages": dict(stage), "rest_s": rest,
+           "vertices": len(mesh["v_pos"]), "faces": len(mesh["t_pos_idx"]), "iso": iso}
+    print(f"[blender_neus] --export at {NEUS_ISO_RES}^3 (uncut) {wall:.2f} s: {out['vertices']} "
+          f"vertices, {out['faces']} faces; level grid {stage['level grid']:.3f} s (2 grids), "
+          f"marching {stage['marching']:.3f} s (card, 2 passes), vertex colours "
+          f"{stage['vertex colours']:.3f} s, the rest (OBJ) {rest:.3f} s ({smi})", flush=True)
+    assert out["faces"] > 0
+    return out
 
 
 def run_twin(path, iso):
@@ -3746,23 +3804,46 @@ def obj_writer_check(v, f, smi):
     return {"vertices": len(v), "faces": len(f), "save_obj_s": writer_s, "python_s": python_s}
 
 
-def marching_phase(device, smi):
-    """MT1 / MT2 against the numpy twin on the sphere SDF at SPHERE_RES^3
-    (the twins ran in their own processes during the kernel phases) and on
-    the VM NeRF's level grid at EXPORT_GRID_RES^3 (its twin runs here, after
-    the training phases): faces equal, vertices equal to the bit or
-    within 1 ulp (the count of differing vertices printed); the card's
-    marching wall (synchronised, the nonzero / cumsum / unique steps
-    included) against the twin's seconds, and MT1 / MT2 alone timed at
-    512^3 beside their bounds. Returns the two kernel entries."""
-    from instant_nsr_pl_tpu_torch.ops import isosurface as iso_mod
+def mt_turns(parent, grids):
+    """``tools/mt_bench.py`` on ``grids`` from the parent checkout and from
+    this one in turns (parent, change, change, parent), each in a process of
+    its own. Returns {"parent": [result, result], "change": [...]}."""
+    runs = {"parent": [], "change": []}
+    for i, (label, root) in enumerate((("parent", parent), ("change", ROOT), ("change", ROOT),
+                                       ("parent", parent))):
+        out = os.path.join(MARCHING_DIR, f"turn{i}-{label}.json")
+        subprocess.run([sys.executable, os.path.join(ROOT, "instant_nsr_pl_tpu_torch", "tools",
+                                                     "mt_bench.py"),
+                        "--root", os.path.abspath(root), "--grids", ",".join(grids), "--out", out],
+                       check=True, timeout=900, cwd=ROOT)
+        with open(out) as fh:
+            runs[label].append(json.load(fh))
+    return runs
 
-    grids = {f"sphere_{r}": (None, 0.0) for r in SPHERE_RES}
-    grids.update(EXPORT_GRIDS)
-    results = {}
+
+def marching_phase(device, smi, parent=None):
+    """MT1 / MT2 against the numpy twin on the sphere SDF at SPHERE_RES^3 and
+    on the trained neus-blender's 512^3 fine level grid (those twins ran in
+    their own processes beside the card's phases) and on the VM NeRF's level
+    grid at EXPORT_GRID_RES^3 (its twin runs here): faces equal, vertices
+    equal to the bit or within 1 ulp (the count of differing vertices
+    printed); the card's marching wall (synchronised, warm) against the
+    twin's seconds, its device ms by kernel (torch.profiler) and its stages
+    (``tools/mt_bench.py`` ``stage_split``: an event after each stage); MT1
+    (classify and scan) and MT2 (the sync, emit, vertices) alone timed at
+    512^3 beside their bounds, re-counted for this design and the first
+    design's beside them; given ``parent``, ``tools/mt_bench.py`` from that
+    checkout and this one in turns. Returns the two kernel entries."""
+    from instant_nsr_pl_tpu_torch.ops import cuda_build
+    from instant_nsr_pl_tpu_torch.ops import isosurface as iso_mod
+    from instant_nsr_pl_tpu_torch.tools import mt_bench
+
     for name, proc in TWINS:
         rc = proc.wait(timeout=900)
         assert rc == 0, f"the numpy twin of {name} exited {rc}"
+    grids = {name: (None, TWIN_ISO[name]) for name, _ in TWINS}
+    grids.update(EXPORT_GRIDS)
+    results = {}
     counters = mt_counters()
     timing = {}
     for name, (grid, iso) in grids.items():
@@ -3774,12 +3855,17 @@ def marching_phase(device, smi):
             rv, rf = iso_mod.marching_tetrahedra_numpy(grid.cpu().numpy(), iso)
             twin = {"verts": rv, "faces": rf, "seconds": time.perf_counter() - t0}
         before = {k: c.launches for k, c in counters.items()}
-        for _ in range(2):  # the second call warm
+        walls = []
+        for _ in range(4):  # the first cold
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             v, f = iso_mod.marching_tetrahedra(grid, iso)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls[1:])
+        dev_ms, by_kernel = mt_bench.device_split(lambda: iso_mod.marching_tetrahedra(grid, iso))
+        dev_ms = dev_ms if by_kernel else None  # the profiler recorded no device activity
+        split, split_sum = mt_bench.stage_split(iso_mod, cuda_build, grid, iso, 5)
         for c, b in zip(counters.values(), before.values()):
             c.launches = b  # the comparison's launches are not a path's
         v, f = v.cpu().numpy(), f.cpu().numpy()
@@ -3793,11 +3879,18 @@ def marching_phase(device, smi):
         worst = int(ulps.max()) if len(v) else 0
         print(f"[marching] {name} ({tuple(grid.shape)}, iso {iso}): {len(v)} vertices, {len(f)} "
               f"faces; faces equal to the numpy twin's, {differ} vertices differ (at most {worst} "
-              f"ulp); card {wall * 1e3:.3f} ms warm (synchronised), numpy twin "
-              f"{float(twin['seconds']):.3f} s on the host ({smi})", flush=True)
+              f"ulp); card {wall * 1e3:.3f} ms warm (synchronised; cold {walls[0] * 1e3:.3f}), "
+              + (f"device {dev_ms:.4f} ms (" + ", ".join(
+                  f"{k[:40]} {t:.4f}" for k, t in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+                 + ")" if by_kernel else "device ms not measured (the profiler saw no kernel)")
+              + "; stages " + ", ".join(f"{k} {t:.4f}" for k, t in split.items())
+              + f" (sum {split_sum:.4f} ms); numpy twin {float(twin['seconds']):.3f} s on the "
+              f"host ({smi})", flush=True)
         if worst > 1:
             raise AssertionError(f"marching {name}: vertices differ by {worst} ulp")
         results[name] = {"vertices": len(v), "faces": len(f), "card_ms": wall * 1e3,
+                         "card_ms_cold": walls[0] * 1e3, "device_ms": dev_ms,
+                         "device_by_kernel": by_kernel, "stages_ms": split,
                          "twin_s": float(twin["seconds"]), "vertices_differ": differ,
                          "max_ulp": worst}
         assert len(f) > 0, f"marching {name}: empty mesh"
@@ -3806,42 +3899,86 @@ def marching_phase(device, smi):
             results["obj_writer"] = obj_writer_check(v, f, smi)
         del grid
     grid, iso = timing["grid"], timing["iso"]
-    counts = iso_mod.marching_classify(grid, iso)
-    active = int((counts > 0).sum())
+    classified = iso_mod.marching_classify(grid, iso)
+    active = int(classified.totals[0])
     keep = {k: c.launches for k, c in counters.items()}
     ms1 = time_ms(lambda: iso_mod.marching_classify(grid, iso), reps=5, inner=3)
-    ms2 = time_ms(lambda: iso_mod.marching_emit(grid, iso, counts), reps=5, inner=3)
+    ms2 = time_ms(lambda: iso_mod.marching_emit(grid, iso, classified), reps=5, inner=3)
     for k, c in counters.items():
         c.launches = keep[k]
     n_cells = grid.numel()
+    n_lines = grid.shape[0] * grid.shape[1]
+    n_tiles = -(-n_lines // iso_mod.LINES_PER_TILE)
     cubes = math.prod(d - 1 for d in grid.shape)
-    b1, b1_by = bound(n_cells * 4 + cubes, 0, 0)
-    # MT2: the active cubes' ids and first faces, their 8 corners, 24 B of keys
-    # and a flag per face; the weld's keys again and the vertices (12 B each)
-    b2, b2_by = bound(active * (16 + 32) + timing["faces"] * 25
-                      + timing["faces"] * 3 * 8 + timing["verts"] * 20, 0, 0)
+    faces, verts = timing["faces"], timing["verts"]
+    # MT1: the grid once; a byte per grid vertex, 8 B a line, 24 B a tile
+    # written; the scan reads the tiles' sums and writes 16 B a tile
+    b1, b1_by = bound(n_cells * 5 + n_lines * 8 + n_tiles * (24 + 24 + 16), 0, 0)
+    # MT2: the active cubes' corners, 24 B a face and 12 B a vertex
+    b2, b2_by = bound(active * 32 + faces * 24 + verts * 12, 0, 0)
+    # the whole pass: the grid once and the mesh
+    b_pass, _ = bound(n_cells * 4 + faces * 24 + verts * 12, 0, 0)
+    # the first design's bounds: its counts (a byte per cube) written; its
+    # MT2 the active cubes' ids and first faces, their 8 corners, 24 B of keys
+    # and a flag per face, the weld's keys again and the vertices (12 B each)
+    b1_old, _ = bound(n_cells * 4 + cubes, 0, 0)
+    b2_old, _ = bound(active * (16 + 32) + faces * 25 + faces * 3 * 8 + verts * 20, 0, 0)
     twin_ms = results[f"sphere_{SPHERE_RES[-1]}"]["twin_s"] * 1e3
-    print(f"[marching] at {SPHERE_RES[-1]}^3 ({active} active cubes): mt_classify {ms1:.4f} ms "
-          f"(bound {b1:.4f} ms by {b1_by}), mt_emit with the weld and mt_verts {ms2:.4f} ms "
-          f"(bound {b2:.4f} ms by {b2_by}); numpy twin {twin_ms:.1f} ms ({smi})", flush=True)
+    pass_ms = results[f"sphere_{SPHERE_RES[-1]}"]["card_ms"]
+    print(f"[marching] at {SPHERE_RES[-1]}^3 ({active} active cubes, {faces} faces, {verts} "
+          f"vertices): MT1 (mt_classify, mt_scan) {ms1:.4f} ms (bound {b1:.4f} ms by {b1_by}; "
+          f"{b1 / ms1:.0%}; the first design's bound {b1_old:.4f}), MT2 (the sync, mt_emit, "
+          f"mt_verts) {ms2:.4f} ms (bound {b2:.4f} ms by {b2_by}; {b2 / ms2:.0%}; the first "
+          f"design's bound {b2_old:.4f}); the pass {pass_ms:.4f} ms warm (bound {b_pass:.4f}); "
+          f"numpy twin {twin_ms:.1f} ms ({smi})", flush=True)
+    turns = None
+    if parent:
+        names = [n for n, _ in TWINS]
+        turns = mt_turns(parent, [os.path.join(MARCHING_DIR, f"{n}.npy") if n == NEUS_FINE else n
+                                  for n in names])
+        for name in names:
+            pw = [r["grids"][name]["warm_ms"] for r in turns["parent"]]
+            cw = [r["grids"][name]["warm_ms"] for r in turns["change"]]
+            pd = [r["grids"][name]["device_ms"] for r in turns["parent"]]
+            cd = [r["grids"][name]["device_ms"] for r in turns["change"]]
+            print(f"[marching] in turns, {name}: the pass warm, parent {pw[0]:.4f} / {pw[1]:.4f} "
+                  f"-> change {cw[0]:.4f} / {cw[1]:.4f} ms; device {pd[0]:.4f} / {pd[1]:.4f} -> "
+                  f"{cd[0]:.4f} / {cd[1]:.4f} ms; stages parent "
+                  f"{turns['parent'][0]['grids'][name]['stages_ms']}, change "
+                  f"{turns['change'][0]['grids'][name]['stages_ms']} ({smi})", flush=True)
+    big = f"sphere_{SPHERE_RES[-1]}"
+
+    def parent_stage(run, first):
+        stages = run["grids"][big]["stages_ms"]
+        return stages["mt_classify"] if first else sum(t for k, t in stages.items()
+                                                       if k != "mt_classify")
+
     note = "no PyTorch call marches tetrahedra"
     common = {"route": "cuda", "launches": 0, "library_ms": None, "library_note": note,
               "plain_ms": twin_ms, "plain_note": "the numpy twin on the host, the whole pass",
-              "max_abs_err": 0.0, "marching": results, "n": f"{SPHERE_RES[-1]}^3 sphere"}
+              "max_abs_err": 0.0, "marching": results, "n": f"{SPHERE_RES[-1]}^3 sphere",
+              "pass_ms": pass_ms, "pass_bound_ms": b_pass, "active_cubes": active,
+              "parent_turns": ({k: [r["grids"] for r in v] for k, v in turns.items()}
+                               if turns else None)}
     return [
         {**common, "name": "marching_classify",
          "source": "instant_nsr_pl_tpu_torch/csrc/marching_tet.cu",
          "replaces": "instant_nsr_pl_tpu/ops/native/marching_tet.cc:95 (mt_run, C++; numpy "
                      "twin ops/isosurface.py:95)",
-         "ms": ms1, "bound_ms": b1, "bound_by": b1_by, "active_cubes": active,
-         "ptxas": ptxas_info("marching_tet", "mt_classify_kernel")},
+         "ms": ms1, "bound_ms": b1, "bound_by": b1_by, "first_design_bound_ms": b1_old,
+         "parent_ms": [parent_stage(r, True) for r in turns["parent"]] if turns else None,
+         "ptxas": ptxas_info("marching_tet", "mt_classify_kernelIj"),
+         "ptxas_wide": ptxas_info("marching_tet", "mt_classify_kernelIm"),
+         "ptxas_scan": ptxas_info("marching_tet", "mt_scan_kernel")},
         {**common, "name": "marching_emit",
          "source": "instant_nsr_pl_tpu_torch/csrc/marching_tet.cu",
          "replaces": "instant_nsr_pl_tpu/ops/native/marching_tet.cc:95 (mt_run, C++; numpy "
                      "twin ops/isosurface.py:95)",
-         "ms": ms2, "bound_ms": b2, "bound_by": b2_by,
-         "ptxas": ptxas_info("marching_tet", "mt_emit_kernel"),
-         "ptxas_verts": ptxas_info("marching_tet", "mt_verts_kernel")},
+         "ms": ms2, "bound_ms": b2, "bound_by": b2_by, "first_design_bound_ms": b2_old,
+         "parent_ms": [parent_stage(r, False) for r in turns["parent"]] if turns else None,
+         "ptxas": ptxas_info("marching_tet", "mt_emit_kernelIj"),
+         "ptxas_wide": ptxas_info("marching_tet", "mt_emit_kernelIm"),
+         "ptxas_verts": ptxas_info("marching_tet", "mt_verts_kernelIj")},
     ]
 
 
@@ -3969,6 +4106,9 @@ def _main(args):
     # slice 8: the Blender loader on data80, the DTU loader on the port's export
     ds_runs = {key: mt_tally(key, dataset_launcher_phase, device, smi, key)
                for key in ("blender_nerf", "blender_neus")}
+    # slice 12: that NeuS exported uncut at 512^3, its fine level grid kept for marching_phase
+    ds_runs["blender_neus"]["export_512"] = mt_tally(
+        "blender_neus_export_512", neus_fine_grid_phase, ds_runs["blender_neus"], smi)
     dtu_export_s = dtu_export_phase()
     ds_runs["dtu_neus"] = mt_tally("dtu_neus", dataset_launcher_phase, device, smi, "dtu_neus")
     dtu_band_run, dtu_band_s = mt_tally(
@@ -3982,7 +4122,7 @@ def _main(args):
         ds_runs[key] = mt_tally(key, dataset_launcher_phase, device, smi, key)
     torch.cuda.empty_cache()
     # slice 10: MT1 / MT2 against the numpy twin (sphere SDFs, the VM NeRF's level grid)
-    mt_entries = marching_phase(device, smi)
+    mt_entries = marching_phase(device, smi, args.parent)
     summary = {"card": smi, "dtu_export_s": dtu_export_s, "dtu_band_s": dtu_band_s,
                "dtu_band_launches": dtu_band_run, "colmap_export_s": colmap_export_s, **ds_runs}
     os.makedirs(os.path.join(ROOT, "exp", "chip_smoke_datasets"), exist_ok=True)

@@ -49,9 +49,17 @@
 // what the hashed levels (50 MB, beyond L2) cost, so the number of sector
 // updates sets the time, and level 0 holds 1/16 of them.
 //
-// Atomics make the summation order across blocks change from run to run, so
-// the gradient agrees with the plain version's index_add_ to float32 rounding
-// of the sums (the tests allow 1e-5 x max|plain| per level), not to the bit.
+// Atomics make the summation order across blocks change from run to run. On
+// the dense (coarse) levels a row takes thousands of updates (9,326 on the
+// busiest level-2 row of 65,536 contracted points at nerf-colmap.yaml's
+// grid), and a float32 running sum in a random order strayed from the
+// float64 sum by more than 1e-5 x max|sum| of the level in 1 of 100 runs on
+// an H100 (tools/repeat_pytest.py). So the rows of the dense levels (the first rows
+// of the table, below `wide_rows`) add their run sums with float64 atomics
+// into a zeroed float64 scratch, which a second launch rounds into the
+// float32 gradient once: there the order no longer shows beyond the float32
+// partial sums of a warp's or block's runs. The hashed levels, whose rows
+// take a few updates each, keep the float32 vector atomics.
 // With dx requested the thread also reads its 8 rows again and sums dL/dx_d =
 // s * sum_c sign_cd * (prod of the other two axes' p) * (T[row_c] . ct_l) over
 // the levels in registers, in a fixed order.
@@ -74,7 +82,7 @@ __global__ void __launch_bounds__(kHashBlock)
     hashgrid_bwd_kernel(const float* __restrict__ x, long long n,
                         const float* __restrict__ ct, const float* __restrict__ table,
                         int n_levels, HashLevels levels, const float* __restrict__ mask,
-                        float* __restrict__ dtable, float* __restrict__ dx) {
+                        SplitRows dtable, float* __restrict__ dx) {
   // two buffers, so one barrier per level suffices
   __shared__ EdgeRuns<F> edges[2];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -134,6 +142,15 @@ __global__ void __launch_bounds__(kHashBlock)
   }
 }
 
+// The float64 scratch of the dense levels' rows rounded into the gradient.
+__global__ void __launch_bounds__(256)
+    narrow_rows_kernel(const double* __restrict__ wide, long long n, float* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = static_cast<float>(wide[i]);
+}
+
 // Grid of a grid-stride launch: enough blocks to fill every SM a few times.
 inline int hash_grid_for(long long n) {
   int dev = 0, sms = 1;
@@ -147,30 +164,41 @@ inline int hash_grid_for(long long n) {
 template <int F>
 int launch_hashgrid_bwd(const float* x, long long n, const float* ct, const float* table,
                         int n_levels, const HashLevels& levels, const float* mask, float* dtable,
-                        float* dx, cudaStream_t stream) {
+                        double* wide, uint32_t wide_rows, float* dx, cudaStream_t stream) {
   if (n > 0) {
     hashgrid_bwd_kernel<F><<<hash_grid_for(n), kHashBlock, 0, stream>>>(
-        x, n, ct, table, n_levels, levels, mask, dtable, dx);
+        x, n, ct, table, n_levels, levels, mask, SplitRows{dtable, wide, wide_rows}, dx);
+    if (wide_rows > 0) {
+      const long long m = static_cast<long long>(wide_rows) * F;
+      const long long blocks = (m + 255) / 256;
+      narrow_rows_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                           stream>>>(wide, m, dtable);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace insr
 
-// Returns cudaGetLastError() after the launch, or -1 when no instantiation
+// Returns cudaGetLastError() after the launches, or -1 when no instantiation
 // matches (F not in {1, 2, 4, 8}, or too many levels). table is the row-major
 // (total, F) f32 table and dtable its (total, F) f32 gradient, zeroed by the
-// caller (the kernel adds into it). dx is nullptr (no position gradient) or
-// (n, 3) float32, overwritten.
+// caller (the kernel adds into it); wide a (wide_rows, F) float64 scratch,
+// zeroed by the caller, for the table's first wide_rows rows (the dense
+// levels'), which the second launch writes into dtable. dx is nullptr (no
+// position gradient) or (n, 3) float32, overwritten.
 extern "C" int hashgrid_bwd(const float* x, long long n, const float* ct, const float* table,
                             int n_levels, int f, const insr::HashLevel* levels,
-                            const float* mask, float* dtable, float* dx, void* stream) {
+                            const float* mask, float* dtable, double* wide, long long wide_rows,
+                            float* dx, void* stream) {
   if (n_levels < 1 || n_levels > insr::kHashMaxLevels) return -1;
+  if (wide_rows < 0 || wide_rows > 0xfffffffeLL) return -1;
   insr::HashLevels lv{};
   for (int l = 0; l < n_levels; ++l) lv.l[l] = levels[l];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define INSR_HG_BWD(F_) \
-  return insr::launch_hashgrid_bwd<F_>(x, n, ct, table, n_levels, lv, mask, dtable, dx, st)
+  return insr::launch_hashgrid_bwd<F_>(x, n, ct, table, n_levels, lv, mask, dtable, wide, \
+                                       static_cast<uint32_t>(wide_rows), dx, st)
   switch (f) {
     case 1: INSR_HG_BWD(1);
     case 2: INSR_HG_BWD(2);

@@ -147,6 +147,26 @@ __device__ __forceinline__ void add_row(float* __restrict__ dtable, uint32_t row
   }
 }
 
+// Where HG2's sums go: rows below `wide_rows` (its dense levels, whose rows
+// take thousands of updates) into a (wide_rows, F) float64 scratch with
+// float64 atomics, the rest into the (T, F) float32 gradient.
+struct SplitRows {
+  float* dtable;
+  double* wide;
+  uint32_t wide_rows;
+};
+
+template <int F>
+__device__ __forceinline__ void add_row(const SplitRows& s, uint32_t row, const float (&v)[F]) {
+  if (row < s.wide_rows) {
+    double* p = s.wide + static_cast<long long>(row) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) atomicAdd(p + f, static_cast<double>(v[f]));
+  } else {
+    add_row<F>(s.dtable, row, v);
+  }
+}
+
 constexpr uint32_t kNoRow = 0xffffffffu;  // an idle lane's row, and an empty edge slot
 
 // Per corner, each warp's first run [0] and last run [1] of a level's equal
@@ -207,11 +227,11 @@ __device__ __forceinline__ bool scan_runs(int c, uint32_t row, float (&v)[F],
   return (tails >> lane) & 1u;
 }
 
-// scan_runs, then the lane's own run added with one vector atomic.
-template <int F>
+// scan_runs, then the lane's own run added with one atomic (a float32
+// vector atomic, or HG2's float64 ones on a dense level: SplitRows).
+template <int F, typename Sink>
 __device__ __forceinline__ void scatter_corner(int c, uint32_t row, float (&v)[F], bool active,
-                                               EdgeRuns<F>& edges,
-                                               float* __restrict__ dtable) {
+                                               EdgeRuns<F>& edges, Sink dtable) {
   if (scan_runs<F>(c, row, v, edges) && active) add_row<F>(dtable, row, v);
 }
 
@@ -222,9 +242,8 @@ __device__ __forceinline__ void scatter_corner(int c, uint32_t row, float (&v)[F
 // With kSkipZero a merged run whose sum is zero in every feature adds
 // nothing: the gradient starts at +0 and never holds -0, so adding +-0
 // leaves it as it is.
-template <int F, bool kSkipZero>
-__device__ __forceinline__ void merge_edges(const EdgeRuns<F>& edges,
-                                            float* __restrict__ dtable) {
+template <int F, bool kSkipZero, typename Sink>
+__device__ __forceinline__ void merge_edges(const EdgeRuns<F>& edges, Sink dtable) {
   if (threadIdx.x >= 8) return;
   const int c = threadIdx.x;
   uint32_t run_row = kNoRow;

@@ -554,12 +554,23 @@ def hashgrid_forward_launch(table, x, spec: HashGridSpec, level_mask=None):
     return out.reshape(*x.shape[:-1], spec.n_levels * f)
 
 
+def dense_rows(spec: HashGridSpec) -> int:
+    """The table rows up to the end of the last dense level: HG2 sums them
+    in float64 (their rows take thousands of updates, where a float32
+    running sum in the atomics' order strays past the tests' 1e-5), the
+    hashed levels' rows in float32."""
+    ends = [o + n for o, n, h in zip(spec.level_offsets, spec.level_sizes, spec.level_hashed)
+            if not h]
+    return max(ends, default=0)
+
+
 def hashgrid_backward_launch(table, x, dout, spec: HashGridSpec, level_mask=None,
                              with_dx=False):
     """Launch ``csrc/hashgrid_bwd.cu`` (HG2) for CUDA tensors; see
     :func:`hashgrid_backward` for the outputs. The kernel scatters into the
-    zeroed (T, F) gradient. With no samples it returns zeros and launches
-    nothing."""
+    zeroed (T, F) gradient, the dense levels' rows through a zeroed float64
+    scratch (:func:`dense_rows`). With no samples it returns zeros and
+    launches nothing."""
     xf, mask = _operands("hashgrid_backward", table, x, spec, level_mask)
     n = xf.shape[0]
     f = spec.n_features_per_level
@@ -574,13 +585,16 @@ def hashgrid_backward_launch(table, x, dout, spec: HashGridSpec, level_mask=None
     fn = cuda_build.entry("hashgrid_bwd", "hashgrid_bwd", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(_Level), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ])
+    rows = dense_rows(spec)
+    wide = torch.zeros((rows, f), dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(xf.data_ptr(), n, ct.data_ptr(), table.data_ptr(), spec.n_levels, f,
                 level_params(spec), mask.data_ptr() if mask is not None else None,
-                dtable.data_ptr(), dx.data_ptr() if with_dx else None, stream)
+                dtable.data_ptr(), wide.data_ptr(), rows, dx.data_ptr() if with_dx else None,
+                stream)
     cuda_build.check(rc, "hashgrid_backward", "n_features_per_level in {1, 2, 4, 8}")
     hashgrid_backward.launches += 1
     return dtable, (dx.reshape(*x.shape[:-1], 3) if with_dx else None)

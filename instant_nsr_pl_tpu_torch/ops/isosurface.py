@@ -25,15 +25,16 @@ Design (a clean-room implementation, no case tables copied):
 - vertices are welded by unique edge id so shared edges produce shared
   vertices (watertight within each marching domain).
 
-On the card the weld sorts the edge keys with ``torch.unique`` and the
-active cubes are compacted with ``torch.nonzero`` / ``torch.cumsum``;
-classification, emission, interpolation and orientation are the kernels'.
+On the card the kernels do all of it: MT1 classifies every grid line and
+scans the counts (no ``nonzero``, no sort), MT2 writes the faces and the
+vertices at the scanned offsets, and the host reads the totals once to size
+the mesh (``csrc/marching_tet.cu`` says how the weld ranks the edges).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -262,6 +263,24 @@ def marching_tetrahedra_numpy(values, iso=0.0):
 # the kernels (MT1, MT2)
 # ---------------------------------------------------------------------------
 
+LINES_PER_TILE = 32  # grid lines of an MT1 block, a tile (marching_tet.cu kTileLines)
+NARROW_POINTS = 2 ** 31  # grids of fewer points run with 32-bit offsets
+
+
+class Classified(NamedTuple):
+    """MT1's output for MT2: a byte per grid vertex (its mesh edges by rank,
+    bits 0-6; its cube active, bit 7), each line's faces, vertices and mask
+    of chunks with a non-zero byte, each tile's counts and first face and
+    vertex, the totals (active cubes, faces, vertices) on the card, and the
+    offset width."""
+
+    flags: torch.Tensor
+    line_info: torch.Tensor
+    tile_sums: torch.Tensor
+    tile_bases: torch.Tensor
+    totals: torch.Tensor
+    wide: bool
+
 
 def _grid_args(values):
     rx, ry, rz = (int(d) for d in values.shape)
@@ -273,76 +292,95 @@ def _empty_mesh(device):
             torch.zeros((0, 3), dtype=torch.int64, device=device))
 
 
-def marching_tetrahedra_launch(values, iso=0.0):
+def marching_tetrahedra_launch(values, iso=0.0, stages=None):
     """Marching tetrahedra of a CUDA grid: MT1 (:func:`marching_classify`),
     then MT2 (:func:`marching_emit`). Returns (verts (V, 3) float32, faces
     (F, 3) int64) on the grid's device, equal to
-    :func:`marching_tetrahedra_numpy`'s."""
+    :func:`marching_tetrahedra_numpy`'s. ``stages``, a callable, is called
+    with each stage's name after its work is queued (``tools/mt_bench.py``
+    records a CUDA event there)."""
     if values.dim() != 3:
         raise ValueError(f"marching_tetrahedra: a 3-D grid, got {tuple(values.shape)}")
     values = values.float().contiguous()
     if min(values.shape) < 2:
         return _empty_mesh(values.device)
     iso = float(np.float32(iso))
-    return marching_emit(values, iso, marching_classify(values, iso))
+    classified = marching_classify(values, iso, stages=stages)
+    return marching_emit(values, iso, classified, stages=stages)
 
 
-def marching_classify(values, iso):
-    """MT1 (``mt_classify``): each cube's triangle count, (Rx-1)(Ry-1)(Rz-1)
-    uint8 in cube order (x-major), for a contiguous float32 CUDA grid."""
-    n_cubes = math.prod(int(d) - 1 for d in values.shape)
-    counts = torch.empty((n_cubes,), dtype=torch.uint8, device=values.device)
-    fn = cuda_build.entry("marching_tet", "mt_classify", [
+def marching_classify(values, iso, wide=None, stages=None):
+    """MT1 for a contiguous float32 CUDA grid: ``mt_classify`` (the flags
+    and counts) and ``mt_scan`` (the tiles' first faces and vertices, the
+    totals). ``wide`` asks for 64-bit offsets (None: from 2^31 points on).
+    Returns a :class:`Classified`; nothing is read back."""
+    rx, ry, rz = (int(d) for d in values.shape)
+    wide = values.numel() >= NARROW_POINTS if wide is None else bool(wide)
+    n_lines = rx * ry
+    n_tiles = -(-n_lines // LINES_PER_TILE)
+    device = values.device
+    flags = torch.empty((values.numel(),), dtype=torch.uint8, device=device)
+    line_info = torch.empty((n_lines, 4), dtype=torch.int32, device=device)
+    tile_sums = torch.empty((n_tiles, 3), dtype=torch.int64, device=device)
+    tile_bases = torch.empty((n_tiles, 2), dtype=torch.int64, device=device)
+    totals = torch.empty((3,), dtype=torch.int64, device=device)
+    classify = cuda_build.entry("marching_tet", "mt_classify", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        rc = fn(*_grid_args(values), iso, counts.data_ptr(), stream)
-    cuda_build.check(rc, "marching_classify", "any grid")
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p])
+    scan = cuda_build.entry("marching_tet", "mt_scan", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = classify(*_grid_args(values), iso, int(wide), flags.data_ptr(),
+                      line_info.data_ptr(), tile_sums.data_ptr(), stream)
+        cuda_build.check(rc, "marching_classify", _SUPPORTED)
+        if stages:
+            stages("mt_classify")
+        rc = scan(tile_sums.data_ptr(), n_tiles, tile_bases.data_ptr(), totals.data_ptr(), stream)
+        cuda_build.check(rc, "marching_classify", _SUPPORTED)
+        if stages:
+            stages("mt_scan")
     marching_classify.launches += 1
-    return counts
+    return Classified(flags, line_info, tile_sums, tile_bases, totals, wide)
 
 
 marching_classify.launches = 0
+_SUPPORTED = ("axes of 2 to 2^24 - 1 points; 32-bit offsets below 2^31 points, 64-bit "
+              "offsets at any size")
 
 
-def marching_emit(values, iso, counts):
-    """MT2 for MT1's ``counts``: the active cubes and their first faces
-    (``nonzero``, ``cumsum``), ``mt_emit`` (each face's three edge keys, in
-    its final orientation, and whether it is degenerate), the weld
-    (``unique``, sorted, with the inverse: the faces) and ``mt_verts`` (one
-    vertex per key). Counts one launch per call with a non-empty surface;
-    with none it launches nothing."""
+def marching_emit(values, iso, classified, stages=None):
+    """MT2 for MT1's ``classified``: the pass's one host sync reads the
+    totals to size the mesh, then ``mt_emit`` writes the faces and
+    ``mt_verts`` the vertices at the offsets MT1 scanned. Counts one launch
+    per call with a non-empty surface; with none it launches nothing."""
     device = values.device
-    cubes = torch.nonzero(counts).reshape(-1)
-    if cubes.numel() == 0:
+    n_faces, n_verts = (int(n) for n in classified.totals[1:].tolist())
+    if stages:
+        stages("sync")
+    if n_faces == 0:
         return _empty_mesh(device)
-    tris = counts[cubes].long()
-    first = torch.cumsum(tris, 0) - tris
-    n_faces = int(first[-1] + tris[-1])
-    keys = torch.empty((n_faces, 3), dtype=torch.int64, device=device)
-    degenerate = torch.empty((n_faces,), dtype=torch.uint8, device=device)
-    emit = cuda_build.entry("marching_tet", "mt_emit", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p])
-    interp = cuda_build.entry("marching_tet", "mt_verts", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
-    grid = _grid_args(values)
+    faces = torch.empty((n_faces, 3), dtype=torch.int64, device=device)
+    verts = torch.empty((n_verts, 3), dtype=torch.float32, device=device)
+    args = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+    emit = cuda_build.entry("marching_tet", "mt_emit", args)
+    interp = cuda_build.entry("marching_tet", "mt_verts", args)
+    common = (*_grid_args(values), iso, int(classified.wide), classified.flags.data_ptr(),
+              classified.line_info.data_ptr(), classified.tile_bases.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = emit(*grid, iso, cubes.data_ptr(), first.data_ptr(), cubes.numel(),
-                  keys.data_ptr(), degenerate.data_ptr(), stream)
-        cuda_build.check(rc, "marching_emit", "any grid")
-        uniq, faces = torch.unique(keys.reshape(-1), sorted=True, return_inverse=True)
-        verts = torch.empty((uniq.numel(), 3), dtype=torch.float32, device=device)
-        rc = interp(*grid, iso, uniq.data_ptr(), uniq.numel(), verts.data_ptr(), stream)
-    cuda_build.check(rc, "marching_emit", "any grid")
+        rc = emit(*common, faces.data_ptr(), stream)
+        cuda_build.check(rc, "marching_emit", _SUPPORTED)
+        if stages:
+            stages("mt_emit")
+        rc = interp(*common, verts.data_ptr(), stream)
+        cuda_build.check(rc, "marching_emit", _SUPPORTED)
+        if stages:
+            stages("mt_verts")
     marching_emit.launches += 1
-    faces = faces.reshape(-1, 3)
-    if bool(degenerate.any()):
-        faces = faces[degenerate == 0]
     return verts, faces
 
 

@@ -2008,7 +2008,7 @@ def test_hash_kernels_on_contracted_points(cuda_device, name):
         idx_c, w_c = hg.level_corner_indices(spec, x.T.contiguous(), lv)
         assert torch.equal(idx_d.cpu(), idx_c) and torch.equal(w_d.cpu(), w_c), lv
     ct = torch.randn((x.shape[0], spec.n_output_dims), generator=gen).to(cuda_device)
-    _check_hash(spec, td, xd, ct, None)
+    _check_hash(spec, td, xd, ct, None, exact=True)
 
 
 def test_unbounded_occupancy_lookup_and_march_on_card_match_cpu(cuda_device):
@@ -2126,12 +2126,40 @@ def _sphere_grid(res, radius=0.6, center=(0.05, -0.1, 0.02)):
             - radius).astype(np.float32)
 
 
-@pytest.mark.parametrize("field", ["sphere", "random", "aniso", "quantized", "flat", "tiny"])
+def _nan_field():
+    """A sphere SDF with NaN corners: the four cubes around one crossed +z
+    edge each get a NaN corner off the edge (no vertex there), and a dozen
+    scattered NaNs (``test_torch_port_marching.py``'s field)."""
+    v = _sphere_grid(30)
+    inside = v < 0
+    xs, ys, zs = np.nonzero(inside[:, :, :-1] != inside[:, :, 1:])
+    pick = [(x, y, z) for x, y, z in zip(xs, ys, zs) if 2 <= x <= 27 and 2 <= y <= 27]
+    x, y, z = pick[len(pick) // 3]
+    for dx in (-1, 1):
+        for dy in (-1, 1):
+            v[x + dx, y + dy, z] = np.nan
+    v[tuple(np.random.RandomState(5).randint(0, 30, (12, 3)).T)] = np.nan
+    return v
+
+
+def _box_field():
+    """A sphere of radius 1.2 in [-1, 1]^3 on a 21 x 19 x 23 grid: the surface
+    cuts all six faces of the box."""
+    axes = [np.linspace(-1.0, 1.0, n, dtype=np.float32) for n in (21, 19, 23)]
+    x, y, z = np.meshgrid(*axes, indexing="ij")
+    return (np.sqrt(x ** 2 + y ** 2 + z ** 2) - 1.2).astype(np.float32)
+
+
+@pytest.mark.parametrize("field", ["sphere", "random", "aniso", "quantized", "flat", "tiny",
+                                   "nan", "box", "unaligned"])
 def test_marching_kernels_match_numpy_twin(cuda_device, field):
     """MT1 / MT2 against the numpy twin: the same faces and vertices, to the
     bit, in the same order, on a sphere SDF, a random field (iso 0.1), an
     anisotropic grid, a field with values on the iso level and on rounding
-    ties, a field without a surface and a 2-wide grid."""
+    ties, a field without a surface, a 2-wide grid, a field with NaN corners,
+    a surface that cuts all six faces of the box and a grid whose storage
+    starts 4 bytes past a 16-byte boundary (MT1 without its float4 loads);
+    the scanned totals are the mesh's sizes."""
     from instant_nsr_pl_tpu_torch.ops import isosurface as t_iso
 
     rs = np.random.RandomState(3)
@@ -2142,13 +2170,41 @@ def test_marching_kernels_match_numpy_twin(cuda_device, field):
         "quantized": ((np.round(_sphere_grid(64) * 8) / 8).astype(np.float32), 0.0),
         "flat": (np.ones((8, 8, 8), np.float32), 0.0),
         "tiny": (rs.randn(2, 5, 6).astype(np.float32), 0.0),
+        "nan": (_nan_field(), 0.0),
+        "box": (_box_field(), 0.0),
+        "unaligned": (_sphere_grid(64), 0.0),
     }[field]
     rv, rf = t_iso.marching_tetrahedra_numpy(values, iso)
     before = t_iso.marching_classify.launches, t_iso.marching_emit.launches
-    v, f = t_iso.marching_tetrahedra(torch.from_numpy(values).to(cuda_device), iso)
+    grid = torch.from_numpy(values).to(cuda_device)
+    if field == "unaligned":
+        flat = torch.cat([torch.zeros(1, device=cuda_device), grid.reshape(-1)])
+        grid = flat[1:].reshape(values.shape)
+        assert grid.is_contiguous() and grid.data_ptr() % 16 == 4
+    v, f = t_iso.marching_tetrahedra(grid, iso)
     torch.cuda.synchronize()
     assert (t_iso.marching_classify.launches, t_iso.marching_emit.launches) == (
         before[0] + 1, before[1] + int(len(rf) > 0))
     assert v.device.type == "cuda" and v.dtype == torch.float32 and f.dtype == torch.int64
     np.testing.assert_array_equal(f.cpu().numpy(), rf)
     np.testing.assert_array_equal(v.cpu().numpy(), rv)
+    totals = t_iso.marching_classify(grid, float(np.float32(iso))).totals.tolist()
+    assert totals[1:] == [len(rf), len(rv)]
+
+
+def test_marching_wide_offsets_match_narrow(cuda_device):
+    """The 64-bit instantiation of MT1 / MT2 (asked for with ``wide``) on
+    the 512^3 sphere, which the 32-bit one marches by default: the same
+    bytes, counts and scans, and the same mesh to the bit."""
+    from instant_nsr_pl_tpu_torch.ops import isosurface as t_iso
+
+    grid = torch.from_numpy(_sphere_grid(512)).to(cuda_device)
+    narrow = t_iso.marching_classify(grid, 0.0)
+    wide = t_iso.marching_classify(grid, 0.0, wide=True)
+    assert not narrow.wide and wide.wide
+    for a, b in zip(narrow[:5], wide[:5]):
+        assert torch.equal(a, b)
+    nv, nf = t_iso.marching_emit(grid, 0.0, narrow)
+    wv, wf = t_iso.marching_emit(grid, 0.0, wide)
+    torch.cuda.synchronize()
+    assert len(nf) > 2_000_000 and torch.equal(nf, wf) and torch.equal(nv, wv)

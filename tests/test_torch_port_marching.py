@@ -2,7 +2,9 @@
 the port's dispatch (``ops/isosurface.py`` ``marching_tetrahedra``: numpy
 arrays and CPU tensors go to the numpy twin, the plain version of MT1 / MT2,
 whose card tests are in ``test_torch_port_cuda.py``) against JAX
-``marching_tetrahedra`` on small fields (24^3 to 32^3) to the bit; the
+``marching_tetrahedra`` on small fields (19^3 to 32^3) to the bit; a plain
+emulation of the kernels' design (``tools/mt_bench.py``: the per-line
+classification, the tile scan, the weld by edge rank) against it too; the
 two-stage extraction with its level grid kept as a tensor on the model's
 device against the JAX package's extraction; and the OBJ writer
 (``utils/savers.py`` ``save_obj``, formatted in ``obj_writer.cc``) byte for
@@ -22,6 +24,7 @@ from instant_nsr_pl_tpu.utils.savers import save_obj as j_save_obj
 from instant_nsr_pl_tpu_torch.config import config_from_dict as t_config
 from instant_nsr_pl_tpu_torch.models import isosurface as t_iso_model
 from instant_nsr_pl_tpu_torch.ops import isosurface as t_iso
+from instant_nsr_pl_tpu_torch.tools import mt_bench
 from instant_nsr_pl_tpu_torch.utils.savers import save_obj as t_save_obj
 
 
@@ -32,11 +35,39 @@ def _sphere(res, radius=0.6, center=(0.05, -0.1, 0.02)):
             - radius).astype(np.float32)
 
 
+def _nan_field():
+    """A sphere SDF with NaN corners: the four cubes around one crossed +z
+    edge each get a NaN corner off the edge (the edge is crossed only inside
+    NaN cubes, so it gives no vertex), and a dozen scattered NaNs. Returns the
+    field and that edge's lower end."""
+    v = _sphere(30)
+    inside = v < 0
+    xs, ys, zs = np.nonzero(inside[:, :, :-1] != inside[:, :, 1:])
+    pick = [(x, y, z) for x, y, z in zip(xs, ys, zs) if 2 <= x <= 27 and 2 <= y <= 27]
+    x, y, z = pick[len(pick) // 3]
+    for dx in (-1, 1):
+        for dy in (-1, 1):
+            v[x + dx, y + dy, z] = np.nan
+    v[tuple(np.random.RandomState(5).randint(0, 30, (12, 3)).T)] = np.nan
+    return v, (x, y, z)
+
+
+def _box_field():
+    """A sphere of radius 1.2 about the centre of [-1, 1]^3 on a 21 x 19 x 23
+    grid: the surface cuts all six faces of the box, so mesh edges start on
+    the far faces, where no cube has its origin."""
+    axes = [np.linspace(-1.0, 1.0, n, dtype=np.float32) for n in (21, 19, 23)]
+    x, y, z = np.meshgrid(*axes, indexing="ij")
+    return (np.sqrt(x ** 2 + y ** 2 + z ** 2) - 1.2).astype(np.float32)
+
+
 FIELDS = {
     "sphere": lambda: (_sphere(32), 0.0),
     "random": lambda: (np.random.RandomState(0).randn(24, 27, 30).astype(np.float32), 0.1),
     "density": lambda: (-np.exp(4.0 * -np.abs(_sphere(28))).astype(np.float32) * 10.0, -5.0),
     "ties": lambda: ((np.round(_sphere(24) * 8) / 8).astype(np.float32), 0.0),
+    "nan": lambda: (_nan_field()[0], 0.0),
+    "box": lambda: (_box_field(), 0.0),
 }
 
 
@@ -56,6 +87,46 @@ def test_marching_twin_and_dispatch_match_jax(field):
         assert v.dtype == np.float32 and f.dtype == np.int64
         np.testing.assert_array_equal(v, jv)
         np.testing.assert_array_equal(f, jf)
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_marching_design_emulation_matches_jax(field):
+    """The kernels' design emulated in numpy (``tools/mt_bench.py``: MT1's
+    byte per grid vertex, per-line counts and chunk masks, the tile scan,
+    MT2's walk of each line over its marked chunks of 128 z, 4 z a lane, with
+    the running vertex counts of four lines, vertex ids from the edge rank)
+    against JAX ``marching_tetrahedra``: the
+    same vertices and faces to the bit, in the same order; the scanned totals
+    are the mesh's sizes, and no face of the twin is degenerate (so MT2 needs
+    no filter)."""
+    values, iso = FIELDS[field]()
+    jv, jf = j_marching(values, iso)
+    c = mt_bench.classify_emulated(values, iso)
+    ev, ef = mt_bench.emit_emulated(values, iso, c)
+    assert ev.dtype == np.float32 and ef.dtype == np.int64
+    np.testing.assert_array_equal(ev, jv)
+    np.testing.assert_array_equal(ef, jf)
+    assert (int(c["totals"][1]), int(c["totals"][2])) == (len(jf), len(jv))
+    assert ((jf[:, 0] != jf[:, 1]) & (jf[:, 1] != jf[:, 2]) & (jf[:, 0] != jf[:, 2])).all()
+    flags = c["flags"].reshape(values.shape)
+    if field == "nan":  # the edge crossed only inside NaN cubes is no mesh edge
+        x, y, z = _nan_field()[1]
+        assert (values[x, y, z] < iso) != (values[x, y, z + 1] < iso)
+        assert not np.isnan(values[x, y, z:z + 2]).any() and flags[x, y, z] & 1 == 0
+    if field == "box":  # mesh edges that start on each far face
+        assert all((f & 0x7F).any() for f in (flags[-1], flags[:, -1], flags[:, :, -1]))
+
+
+@pytest.mark.parametrize("lines_per_tile", [1, 3, 64])
+def test_marching_design_emulation_other_tiles(lines_per_tile):
+    """The emulation's line and tile bases with other tile sizes than the
+    kernels' 32 lines (a tile of one line, a ragged last tile, a tile larger
+    than a grid plane): the same mesh."""
+    values, iso = FIELDS["box"]()
+    jv, jf = j_marching(values, iso)
+    ev, ef = mt_bench.marching_emulated(values, iso, lines_per_tile)
+    np.testing.assert_array_equal(ev, jv)
+    np.testing.assert_array_equal(ef, jf)
 
 
 class _Sphere:
