@@ -105,10 +105,12 @@ lines are printed):
    width without kernels refused when its model is built;
 14. the probes P1a-P1g and P2 (``tools/microbench_gather.py``,
    ``csrc/gather_probes.cu``) at M=2^18 against numpy and their plain
-   versions; P1f and P1g with every index on one row, P1a unroll 8 on a
-   ragged 2,053 indices and P1e on a ragged row count against their plain
-   versions; then the probe script's own run at the JAX scripts' sizes
-   (each probe and its library call timed warm and with a cold L2) with the
+   versions; P1f and P1g with every index on one row, P1a unroll 8, P1b and
+   P1e on ragged counts against their plain versions; P2 a / b / c at one
+   chunk, five chunks, every index on one row, the first and last rows
+   only and rows of one 4-bank group (P2a / P2b to the bit against their
+   emulated order, P2c to the bit against numpy); then the probe script's own run at the JAX scripts' sizes (each
+   probe and its library call timed warm and with a cold L2) with the
    launch counters read around it;
 15. the hash NeRF (``instant_nsr_pl_tpu_torch/configs/nerf-hash-
    synthetic.yaml``, ``bench.py build_system("hash")``) trained as in 6, with
@@ -2534,9 +2536,9 @@ def probe_phase(device):
     """The probes P1a-P1g and P2 (``tools/microbench_gather.py``): each kernel
     at a reduced M (2^18 indices) against numpy and against its plain version
     on the CPU, and the edge cases of P1f / P1g (every index on one row), P1a
-    unroll 8 and P1e (a ragged count); then the probe script's own run at
-    the JAX scripts' sizes (its main path), the launch counters set to 0
-    just before it and read just after."""
+    unroll 8, P1b and P1e (a ragged count) and P2 (``check_p2_edges``); then
+    the probe script's own run at the JAX scripts' sizes (its main path), the
+    launch counters set to 0 just before it and read just after."""
     from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
 
     errs = mb.check_all(PROBE_CHECK_M, PROBE_CHECK_M, device, seed=SEED)
@@ -2544,8 +2546,10 @@ def probe_phase(device):
           f"within 1e-6 of their summed magnitudes): {errs}", flush=True)
     edges = mb.check_edges(device, seed=SEED)
     print(f"[probe] P1f and P1g with every index on one row, P1a unroll 8 on 2,053 indices, "
-          f"P1e on 37 rows: equal to their plain versions (the gathers to the bit, the "
-          f"scatters within 1e-6 of their summed magnitudes): {edges}", flush=True)
+          f"P1b on 25,577, P1e on 37 rows: equal to their plain versions (the gathers to the "
+          f"bit, the scatters within 1e-6 of their summed magnitudes); P2 a / b / c on "
+          f"{', '.join(mb.P2_EDGES)} (P2a / P2b equal to their emulated order, P2c to "
+          f"numpy): {edges}", flush=True)
     for name, err in edges.items():
         errs[name] = max(errs[name], err)
     mb.reset_launches()

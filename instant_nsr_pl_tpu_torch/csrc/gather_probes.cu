@@ -9,7 +9,7 @@
 //       per index; unroll 1 a thread per index, unroll 8 eight gathers in
 //       flight a lane, a warp's loads and stores coalesced (below)
 //   P1b :201 (bench_pallas_vector_gather, :191): the same gather, a block per
-//       8,192-index chunk
+//       8,192-index chunk, its warps in P1a unroll 8's coalesced steps (below)
 //   P1c :237 (bench_pallas_takealong_col, :225): whole 128-wide rows of a
 //       (2^19, 128) f32 table, a warp per row, 16-byte loads
 //   P1d :273 (bench_pallas_lane_gather, :261): out[r, c] = lut[idx[r, c]] of
@@ -25,11 +25,12 @@
 //       F) with feature j in columns j*512 .. j*512+511
 //   P2 scripts/microbench_pallas_gather.py:85 (make_pallas, :81, over
 //       kernel_a/b/c, :45-78): 2^20 random row reads of an (8192, 128) f32
-//       table in 4,096-index chunks, a block of 128 threads per chunk, each
-//       thread one column: (a) one accumulator per chunk, written to its 8
-//       output rows; (b) eight accumulators, row j summing the indices i = j
-//       mod 8; (c) every row stored to an 8-row shared scratch at i mod 8,
-//       whose last contents are the output.
+//       table in 4,096-index chunks: (a) one accumulator per chunk, written
+//       to its 8 output rows; (b) eight accumulators, row j summing the
+//       indices i = j mod 8; (c) every row stored to an 8-row scratch at i
+//       mod 8, whose last contents are the output. (a) and (b) stage the
+//       table in shared memory in column slabs (chunk_slab_sum); (c) reads
+//       only the rows its output keeps (chunk_last_rows). Notes below.
 //
 // What bounds them on an H100: memory. The gathers move their compulsory
 // bytes (indices, output, the table rows the indices touch) at best at the
@@ -105,8 +106,64 @@
 // within 1e-6 x the largest summed magnitude, not to the bit; every index on
 // one row serialises the atomics on one address and stays right.
 //
+// P1b: the same function as P1a, bound the same way (the L2's sector rate:
+// 4.19 M random table sectors at M = 2^22). A first design, a block per
+// 8,192-index chunk with one gather in flight a thread per iteration, plain
+// stores and no cache hints, took 0.0426 ms. Here the block keeps the TPU
+// kernel's 8,192-index chunk and its 8 warps walk 1,024 consecutive indices
+// each in P1a unroll 8's coalesced steps (gather_span): 0.0405 ms,
+// index_select 0.0432. Measured and dropped: the table in the distributed
+// shared memory of clusters of 16 blocks (16 x 232,432 bytes, 89% of the 4
+// MB table, the rest from L2), each random 8-byte row read from the SM that
+// holds it: 0.0692-0.0701 ms; the SM-to-SM network serves these reads
+// slower than L2 does.
+//
+// P2a / P2b: the compulsory bytes are the 4 MB indices, the 4 MB table once
+// and the 1 MB output (0.0028 ms at 3.35 TB/s), but every index reads a
+// whole 512-byte row: 512 MB of row reads. A first design (a block of 128
+// threads per chunk, a thread a column: 8 warps an SM, every row read from
+// L2, every thread reloading every index, P2a one chain of dependent adds)
+// took 0.1211-0.1216 / 0.1610-0.1611 ms, about 4 TB/s of L2 reads.
+// chunk_slab_sum moves the row reads into shared memory: a block stages one
+// 4-column slab of the table (rows x 16 B, 128 KB at 8,192 rows) once, the
+// grid is one wave of (32 slabs) x (ranges of chunks), one block an SM, and
+// 16 warps each walk their own chunks. A warp's lanes are (i mod 8, column):
+// lane 4 j + c adds column c of the rows of the indices i = j mod 8, so
+// P2b's eight accumulators are the eight lane groups, summed in the TPU
+// kernel's order, and P2a folds them at the chunk's end (xor 16, 8, 4: ((a0
+// + a4) + (a2 + a6)) + ((a1 + a5) + (a3 + a7)), the one change of order). A
+// warp step's 8 indices are one 32-byte sector, loaded with __ldg, the next
+// 8 steps' in flight; a chunk's 16 KB of indices is bulk-prefetched into L2
+// (cp.async.bulk.prefetch.L2) one chunk ahead by one of the 32 slabs'
+// blocks: 0.0716-0.0720 ms warm, 0.0781-0.0786 with a cold L2. What bounds
+// it is the shared-memory pipe: a step of a warp is two loads, one of the
+// indices (one wavefront) and one row read of 8 rows x 4 columns whose rows
+// fall on random 4-bank groups (row mod 8), as many wavefronts as the most
+// rows sharing a group, 2.60 a step on random rows
+// (tools/microbench_gather.py p2_row_wavefronts); on indices without
+// conflicts (row mod 8 = i mod 8) P2b takes 0.0596. No layout of the slab
+// spreads random rows better: a row's 4 words on one 4-bank group is 8 rows
+// into 8 groups; any other placement is 32 words into 32 banks, worse.
+// Measured and dropped: the indices as 256-index pieces, four in flight a
+// warp, by cp.async.bulk into a per-warp ring of mbarrier stages
+// (0.0796-0.0800 warm, 0.0832-0.0837 cold, 0.0549 conflict-free); that ring
+// with each piece multicast to a cluster of 4 or 8 blocks (0.1012-0.1027);
+// one index load per 4 steps handed on by shuffles (0.0830); plain loads
+// without the prefetch (0.0718-0.0721 warm, but 0.1325-0.1331 cold: 8
+// steps' loads in flight do not hide HBM's latency); the prefetch issued by
+// all 32 slabs' blocks (0.0777-0.0778 warm, 128 MB of redundant prefetches);
+// 16 steps' loads in flight (0.0771-0.0775).
+//
+// P2c: the TPU kernel stores every row of a chunk into scratch row i mod 8,
+// so only the chunk's last 8 rows survive; the store walk does not change
+// its output. chunk_last_rows reads those 8 indices and rows of each chunk
+// and nothing else: a warp an output row, a float4 a lane, streaming
+// stores; bound by its launch at the JAX script's size (2 MB of data):
+// 0.0027 ms (0.1988-0.1999 for the first design, which walked every row).
+//
 // Times: CUDA-event medians of tools/microbench_gather.py at M = 2^22 on an
-// NVIDIA H100 80GB HBM3 at 700 W, the card's work alone, warm (ms).
+// NVIDIA H100 80GB HBM3 at 700 W, the card's work alone, warm unless marked
+// cold (ms).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -126,11 +183,11 @@ inline int probe_grid(long long work, int per_block) {
 
 constexpr int kMaxDevices = 16;
 
-// *blocks = the blocks of `kernel` (kProbeBlock threads, smem bytes of
+// *blocks = the blocks of `kernel` (`threads` threads, smem bytes of
 // dynamic shared memory, allowed above 48 KB) resident on all SMs of the
 // current device at once, worked out once per device into cache
 inline cudaError_t resident_blocks(const void* kernel, int smem, int (&cache)[kMaxDevices],
-                                   int* blocks) {
+                                   int* blocks, int threads = kProbeBlock) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -139,7 +196,7 @@ inline cudaError_t resident_blocks(const void* kernel, int smem, int (&cache)[kM
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kProbeBlock, smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     }
     if (e != cudaSuccess) return e;
     cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
@@ -173,23 +230,16 @@ constexpr int kGatherUnroll = 8;  // gathers a lane keeps in flight
 constexpr int kGatherWarps = kProbeBlock / 32;
 constexpr int kGatherChunk = kGatherUnroll * 32;  // indices of a warp's step
 
-// unroll 8, on a persistent grid whose warps take equal contiguous spans of
-// the indices (ceil(m / warps) rounded up to 32), in steps of 256: lane l
-// takes j = step + u * 32 + l for u = 0..7, so that every index load (128
-// bytes) and every float2 store (256 bytes) of a warp is coalesced and a
-// lane's 8 gathers are in flight together. The next step's indices are
-// loaded before the current step is stored; the streamed indices and output
-// go through __ldcs / __stcs (evict first), which leaves the table's rows in
-// L2
-__global__ void __launch_bounds__(kProbeBlock)
-    scalar_gather8(const int* __restrict__ idx, long long m,
-                   const float2* __restrict__ table, float2* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) * kGatherWarps;
-  const long long warp = static_cast<long long>(blockIdx.x) * kGatherWarps + (threadIdx.x >> 5);
-  const long long span = ((m + warps - 1) / warps + 31) / 32 * 32;
-  const long long begin = warp * span;
-  const long long end = begin + span < m ? begin + span : m;
+// a warp's gathers of indices [begin, end) in steps of 256: lane l takes j =
+// step + u * 32 + l for u = 0..7, so that every index load (128 bytes) and
+// every float2 store (256 bytes) of a warp is coalesced and a lane's 8
+// gathers are in flight together. The next step's indices are loaded before
+// the current step is stored; the streamed indices and output go through
+// __ldcs / __stcs (evict first), which leaves the table's rows in L2
+__device__ __forceinline__ void gather_span(const int* __restrict__ idx,
+                                            const float2* __restrict__ table,
+                                            float2* __restrict__ out, long long begin,
+                                            long long end, int lane) {
   int ix[kGatherUnroll];
   auto load = [&](long long b) {
 #pragma unroll
@@ -212,16 +262,51 @@ __global__ void __launch_bounds__(kProbeBlock)
   }
 }
 
-constexpr int kVecChunk = 8192;
-
+// unroll 8, on a persistent grid whose warps take equal contiguous spans of
+// the indices (ceil(m / warps) rounded up to 32)
 __global__ void __launch_bounds__(kProbeBlock)
-    vector_gather(const int* __restrict__ idx, long long m,
-                  const float2* __restrict__ table, float2* __restrict__ out) {
-  const long long start = static_cast<long long>(blockIdx.x) * kVecChunk;
-  for (int k = threadIdx.x; k < kVecChunk; k += blockDim.x) {
-    const long long j = start + k;
-    if (j < m) out[j] = __ldg(table + idx[j]);
-  }
+    scalar_gather8(const int* __restrict__ idx, long long m,
+                   const float2* __restrict__ table, float2* __restrict__ out) {
+  const long long warps = static_cast<long long>(gridDim.x) * kGatherWarps;
+  const long long warp = static_cast<long long>(blockIdx.x) * kGatherWarps + (threadIdx.x >> 5);
+  const long long span = ((m + warps - 1) / warps + 31) / 32 * 32;
+  const long long begin = warp * span;
+  gather_span(idx, table, out, begin, begin + span < m ? begin + span : m, threadIdx.x & 31);
+}
+
+constexpr int kVecChunk = 8192;
+constexpr int kVecWarpSpan = kVecChunk / kGatherWarps;  // 1,024 indices: 4 steps of a warp
+
+// P1b: a block per 8,192-index chunk, its warp w on the chunk's indices
+// [1024 w, 1024 (w + 1))
+__global__ void __launch_bounds__(kProbeBlock)
+    vector_gather(const int* __restrict__ idx, long long m, const float2* __restrict__ table,
+                  float2* __restrict__ out) {
+  const long long begin = static_cast<long long>(blockIdx.x) * kVecChunk +
+                          (threadIdx.x >> 5) * kVecWarpSpan;
+  const long long end = begin + kVecWarpSpan < m ? begin + kVecWarpSpan : m;
+  gather_span(idx, table, out, begin, end, threadIdx.x & 31);
+}
+
+// -- asynchronous copies (PTX: cp.async of sm_80, the bulk prefetch of sm_90)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// starts bringing `bytes` (a multiple of 16, src 16-byte aligned) of global
+// memory into L2, without waiting
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src), "r"(bytes) : "memory");
 }
 
 // one warp per output row: lane l moves columns 4l .. 4l+3
@@ -358,36 +443,80 @@ __global__ void __launch_bounds__(kProbeBlock)
 
 constexpr int kP2Chunk = 4096;
 constexpr int kP2Cols = 128;
+constexpr int kP2MaxRows = 8192;
+constexpr int kP2SlabCols = 4;                      // columns of a block's slab
+constexpr int kP2Slabs = kP2Cols / kP2SlabCols;     // 32: blockIdx.x
+constexpr int kP2Warps = 16;                        // each walks its own chunks
+constexpr int kP2Unroll = 8;                        // steps whose index loads are in flight
 
-// VARIANT 0: one accumulator; 1: eight accumulators; 2: rows stored to an
-// 8-row shared scratch
-template <int VARIANT>
-__global__ void __launch_bounds__(kP2Cols)
-    chunk_row_sum(const int* __restrict__ idx, const float* __restrict__ table,
-                  float* __restrict__ out) {
-  const int c = threadIdx.x;
-  const int* ix = idx + static_cast<long long>(blockIdx.x) * kP2Chunk;
-  float* o = out + static_cast<long long>(blockIdx.x) * 8 * kP2Cols;
-  if constexpr (VARIANT == 0) {
-    float acc = 0.0f;
-    for (int i = 0; i < kP2Chunk; ++i) acc += __ldg(table + ix[i] * kP2Cols + c);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j * kP2Cols + c] = acc;
-  } else if constexpr (VARIANT == 1) {
-    float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int i = 0; i < kP2Chunk; i += 8) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += __ldg(table + ix[i + j] * kP2Cols + c);
+// P2a (fold) / P2b: block (s, y) stages column slab s of the table, rows x
+// 4 floats, in shared memory and sums the chunks of range y, chunk by chunk,
+// its warp w taking the range's chunks w, w + 16, ...; lane 4 j + c adds
+// column 4 s + c of the rows of the chunk's indices i = j mod 8, in the
+// order of i. A step of a warp is 8 consecutive indices (one 32-byte
+// sector, lane 4 j + c loading index j); the next 8 steps' indices are
+// loaded while the current 8 steps read the slab.
+__global__ void __launch_bounds__(kP2Warps * 32, 1)
+    chunk_slab_sum(const int* __restrict__ idx, int chunks, const float* __restrict__ table,
+                   int rows, float* __restrict__ out, int per_block, int fold) {
+  extern __shared__ float4 slab[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.x;
+  const int begin = blockIdx.y * per_block;
+  const int end = begin + per_block < chunks ? begin + per_block : chunks;
+  // a chunk's indices are prefetched into L2 once, by one of the 32 slabs'
+  // blocks (slab chunk mod 32), which run side by side in the one wave
+  auto prefetch = [&](long long chunk) {
+    if (lane == 0 && chunk < end && chunk % kP2Slabs == s) {
+      prefetch_l2(idx + chunk * kP2Chunk, kP2Chunk * 4);
     }
+  };
+  prefetch(begin + warp);
+  // the slab: 16 bytes of each row
+  const float4* t4 = reinterpret_cast<const float4*>(table) + s;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) cp_async16(slab + r, t4 + r * kP2Slabs);
+  cp_async_wait_all();
+  __syncthreads();
+  const float* sf = reinterpret_cast<const float*>(slab);
+  const int j = lane >> 2, c = lane & 3;
+  for (long long chunk = begin + warp; chunk < end; chunk += kP2Warps) {
+    prefetch(chunk + kP2Warps);  // the warp's next chunk, while this one is summed
+    const int* ci = idx + chunk * kP2Chunk + j;
+    int r[kP2Unroll];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[j * kP2Cols + c] = acc[j];
-  } else {
-    __shared__ float scratch[8 * kP2Cols];
-    volatile float* sv = scratch;
-    for (int i = 0; i < kP2Chunk; ++i) sv[(i % 8) * kP2Cols + c] = __ldg(table + ix[i] * kP2Cols + c);
+    for (int u = 0; u < kP2Unroll; ++u) r[u] = __ldg(ci + u * 8);
+    float acc = 0.0f;
+    for (int q = 0; q < kP2Chunk / 8; q += kP2Unroll) {
+      float v[kP2Unroll];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[j * kP2Cols + c] = sv[j * kP2Cols + c];
+      for (int u = 0; u < kP2Unroll; ++u) v[u] = sf[r[u] * kP2SlabCols + c];
+      if (q + kP2Unroll < kP2Chunk / 8) {
+#pragma unroll
+        for (int u = 0; u < kP2Unroll; ++u) r[u] = __ldg(ci + (q + kP2Unroll + u) * 8);
+      }
+#pragma unroll
+      for (int u = 0; u < kP2Unroll; ++u) acc += v[u];
+    }
+    if (fold) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 8);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+    }
+    __stcs(out + (chunk * 8 + j) * kP2Cols + s * kP2SlabCols + c, acc);
   }
+}
+
+// P2c: output row g = 8 k + t is the row of index 4088 + t of chunk k; a warp
+// a row, a float4 a lane
+__global__ void __launch_bounds__(kProbeBlock)
+    chunk_last_rows(const int* __restrict__ idx, long long out_rows,
+                    const float4* __restrict__ table, float4* __restrict__ out) {
+  const long long g = (static_cast<long long>(blockIdx.x) * kProbeBlock + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (g >= out_rows) return;
+  const int r = __ldg(idx + (g >> 3) * kP2Chunk + kP2Chunk - 8 + (g & 7));
+  __stcs(out + g * (kP2Cols / 4) + lane,
+         __ldg(table + static_cast<long long>(r) * (kP2Cols / 4) + lane));
 }
 
 }  // namespace insr
@@ -421,9 +550,11 @@ int probe_scalar_gather(const int* idx, long long m, const void* table, void* ou
 
 int probe_vector_gather(const int* idx, long long m, const void* table, void* out,
                         void* stream) {
-  insr::vector_gather<<<insr::probe_grid(m, insr::kVecChunk), insr::kProbeBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      idx, m, static_cast<const float2*>(table), static_cast<float2*>(out));
+  if (m > 0) {
+    insr::vector_gather<<<insr::probe_grid(m, insr::kVecChunk), insr::kProbeBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        idx, m, static_cast<const float2*>(table), static_cast<float2*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,18 +636,39 @@ int probe_onehot_grad(const int* idx, long long m, const void* wg, int table_row
   return static_cast<int>(cudaGetLastError());
 }
 
-int probe_chunk_row_sum(const int* idx, long long m, const float* table, float* out,
+// variant 0: P2a, 1: P2b (chunk_slab_sum), 2: P2c (chunk_last_rows); m a
+// multiple of 4,096, a (rows, 128) table with rows <= 8,192, idx and table
+// 16-byte aligned
+int probe_chunk_row_sum(const int* idx, long long m, const float* table, int rows, float* out,
                         int variant, void* stream) {
-  if (m % insr::kP2Chunk) return -1;
-  const int grid = static_cast<int>(m / insr::kP2Chunk);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (grid == 0) return 0;
-  switch (variant) {
-    case 0: insr::chunk_row_sum<0><<<grid, insr::kP2Cols, 0, st>>>(idx, table, out); break;
-    case 1: insr::chunk_row_sum<1><<<grid, insr::kP2Cols, 0, st>>>(idx, table, out); break;
-    case 2: insr::chunk_row_sum<2><<<grid, insr::kP2Cols, 0, st>>>(idx, table, out); break;
-    default: return -1;
+  if (m % insr::kP2Chunk || rows < 1 || rows > insr::kP2MaxRows || variant < 0 || variant > 2 ||
+      m / insr::kP2Chunk > 2147483647LL || reinterpret_cast<uintptr_t>(idx) % 16 ||
+      reinterpret_cast<uintptr_t>(table) % 16) {
+    return -1;
   }
+  const long long chunks = m / insr::kP2Chunk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chunks == 0) return 0;
+  if (variant == 2) {
+    insr::chunk_last_rows<<<static_cast<int>(chunks), insr::kProbeBlock, 0, st>>>(
+        idx, chunks * 8, reinterpret_cast<const float4*>(table), reinterpret_cast<float4*>(out));
+    return static_cast<int>(cudaGetLastError());
+  }
+  constexpr int kThreads = insr::kP2Warps * 32;
+  constexpr int kMaxSmem = insr::kP2MaxRows * 16;
+  static int cache[insr::kMaxDevices] = {};
+  int resident = 0;
+  const cudaError_t e = insr::resident_blocks(reinterpret_cast<const void*>(insr::chunk_slab_sum),
+                                              kMaxSmem, cache, &resident, kThreads);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // one wave: the 32 slabs times as many chunk ranges as resident blocks allow
+  long long ranges = resident / insr::kP2Slabs;
+  ranges = ranges < 1 ? 1 : (ranges > chunks ? chunks : ranges);
+  const long long per_block = (chunks + ranges - 1) / ranges;
+  const dim3 grid(insr::kP2Slabs, static_cast<unsigned>((chunks + per_block - 1) / per_block));
+  insr::chunk_slab_sum<<<grid, kThreads, rows * 16, st>>>(
+      idx, static_cast<int>(chunks), table, rows, out, static_cast<int>(per_block),
+      variant == 0 ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

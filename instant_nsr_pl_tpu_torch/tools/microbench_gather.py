@@ -3,6 +3,7 @@ P1a-P1g and P2, the CUDA counterparts of the JAX package's Pallas probes
 (``scripts/microbench_pallas.py``, ``scripts/microbench_pallas_gather.py``).
 
     python -m instant_nsr_pl_tpu_torch.tools.microbench_gather [--quick] [--only A,B]
+        [--experiments] [--parent DIR] [--out result.json]
 
 Each probe is a kernel of ``csrc/gather_probes.cu`` behind a wrapper here
 (launch count on the wrapper, the plain PyTorch version on CPU tensors). The
@@ -15,8 +16,16 @@ in L2), and for kernel and library call also cold, ``ms_cold`` (median of
 sizes: M = 2^22 indices for P1 (2^20 with ``--quick``) into a (2^19, 2)
 table, 2^20 row reads of an (8192, 128) table for P2. It prints ms and ns
 per index for each, the least time the card could take for the data it
-moved (``bound_ms``), and one JSON line ``{"probes": [...]}``. ``--only``
-runs the named probes alone (names as in that line). It needs a CUDA card.
+moved (``bound_ms``), and one JSON line ``{"probes": [...], "card": ...}``
+(also written to ``--out``). ``--only`` runs the named probes alone (names
+as in that line); ``--experiments`` adds the cost of P2's bank conflicts
+and P1b beside P1a unroll 8 (:func:`experiments`). It needs a CUDA card.
+
+``--parent DIR`` compares with another commit's designs: unpack its ``git
+archive`` into DIR (e.g. the git-ignored ``_parent/``); the module is then
+run from DIR and from this checkout in turns, parent, change, change,
+parent (:func:`turns`), and the JSON line is ``{"turns": {...}, "card":
+...}``.
 """
 
 from __future__ import annotations
@@ -24,8 +33,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import statistics
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,6 +51,7 @@ ONEHOT_B = 512
 P2_T = 8192  # scripts/microbench_pallas_gather.py:30-32
 P2_M = 1 << 20
 P2_CHUNK = 4096
+P2_SLAB_COLS = 4  # columns of a block's table slab (csrc/gather_probes.cu kP2SlabCols)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SOURCE = "instant_nsr_pl_tpu_torch/csrc/gather_probes.cu"
 P1 = "scripts/microbench_pallas.py"
@@ -98,12 +111,54 @@ def plain_onehot_grad(idx, wg, rows=T):
 
 
 def plain_chunk_row_sum(idx, table, variant):
+    if variant == 2:  # only the chunk's last 8 rows survive its store walk
+        return table[idx.view(-1, P2_CHUNK)[:, -8:].reshape(-1).long()]
     rows = table[idx.long()].view(-1, P2_CHUNK, 128)
     if variant == 0:
         return rows.sum(1, keepdim=True).expand(-1, 8, -1).reshape(-1, 128)
-    if variant == 1:
-        return rows.view(rows.shape[0], P2_CHUNK // 8, 8, 128).sum(1).reshape(-1, 128)
-    return rows[:, -8:].reshape(-1, 128)
+    return rows.view(rows.shape[0], P2_CHUNK // 8, 8, 128).sum(1).reshape(-1, 128)
+
+
+def chunk_row_sum_emulated(idx: np.ndarray, table: np.ndarray, variant: int) -> np.ndarray:
+    """P2a / P2b in the order of ``csrc/gather_probes.cu`` chunk_slab_sum,
+    in numpy float32: each 4-column slab s of the table (32 of them, a block
+    each) and, for each chunk, the lane groups (j, c) = (i mod 8, column): the
+    group j accumulator starts at 0 and adds row idx[i], i = j, j + 8, ...,
+    in the order of i (the TPU kernel's P2b order), one float32 add at a
+    time; P2a then folds the eight as the warp's xor 16, 8, 4 shuffles do,
+    ((a0 + a4) + (a2 + a6)) + ((a1 + a5) + (a3 + a7)), into each of the
+    chunk's 8 output rows. Columns do not mix, so the slabs are computed
+    side by side."""
+    table = np.asarray(table, np.float32)
+    steps = np.asarray(idx).reshape(-1, P2_CHUNK // 8, 8)  # (chunk, step, j)
+    out = np.empty((steps.shape[0], 8, table.shape[1]), np.float32)
+    for s in range(0, table.shape[1], P2_SLAB_COLS):
+        slab = table[:, s:s + P2_SLAB_COLS]
+        acc = np.zeros((steps.shape[0], 8, P2_SLAB_COLS), np.float32)
+        for k in range(steps.shape[1]):
+            acc += slab[steps[:, k]]
+        if variant == 0:
+            half = acc[:, :4] + acc[:, 4:]  # xor 16: j and j ^ 4
+            quarter = half[:, :2] + half[:, 2:]  # xor 8: j and j ^ 2
+            acc = np.broadcast_to(quarter[:, :1] + quarter[:, 1:], acc.shape)  # xor 4
+        out[:, :, s:s + P2_SLAB_COLS] = acc
+    return out.reshape(-1, table.shape[1])
+
+
+def p2_row_wavefronts(idx: np.ndarray) -> float:
+    """Shared-memory wavefronts of chunk_slab_sum's row reads per warp step,
+    on average over ``idx``: a step reads 8 rows (i mod 8 = 0..7) x 4
+    columns, a row's 4 words on the 4-bank group row mod 8, so a step takes
+    as many wavefronts as the most distinct rows that share a group (equal
+    rows are one broadcast)."""
+    steps = np.asarray(idx).reshape(-1, 8)
+    srt = np.sort(steps, axis=1)
+    first = np.ones(srt.shape, bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]  # each distinct row once
+    group = np.where(first, srt % 8, 8)  # 8: a repeated row, no group
+    counts = np.zeros((len(steps), 9), np.int64)
+    np.add.at(counts, (np.arange(len(steps))[:, None], group), 1)
+    return float(counts[:, :8].max(1).mean())
 
 
 def scalar_gather(idx, table, unroll=1):
@@ -228,21 +283,28 @@ onehot_grad.launches = 0
 
 
 def chunk_row_sum(idx, table, variant):
-    """P2: (M / 4096 * 8, 128) from M row reads of a (T, 128) table in
-    4,096-index chunks: variant 0 the chunk's sum in each of its 8 rows,
-    1 row j the sum over indices i = j mod 8, 2 the chunk's last 8 rows."""
+    """P2: (M / 4096 * 8, 128) from M row reads of a (T, 128) table (T <=
+    8,192) in 4,096-index chunks: variant 0 the chunk's sum in each of its 8
+    rows, 1 row j the sum over indices i = j mod 8, 2 the chunk's last 8
+    rows."""
     m = idx.numel()
     if idx.device.type == "cpu":
         return plain_chunk_row_sum(idx, table, variant)
     _check_index(idx, table)
+    if table.shape[1] != 128 or m % P2_CHUNK:
+        raise ValueError(f"chunk_row_sum: a (T, 128) table and a multiple of {P2_CHUNK} "
+                         f"indices, got {tuple(table.shape)} and {m}")
     out = torch.empty((m // P2_CHUNK * 8, 128), dtype=torch.float32, device=idx.device)
-    _launch("probe_chunk_row_sum", [_P, _L, _P, _P, _I], idx.data_ptr(), m,
-            table.data_ptr(), out.data_ptr(), variant)
+    _launch("probe_chunk_row_sum", [_P, _L, _P, _I, _P, _I], idx.data_ptr(), m,
+            table.data_ptr(), table.shape[0], out.data_ptr(), variant)
     chunk_row_sum.launches[variant] += 1
     return out
 
 
 chunk_row_sum.launches = {0: 0, 1: 0, 2: 0}
+
+
+P2_NAMES = ("P2a_one_accumulator", "P2b_eight_accumulators", "P2c_rows_to_scratch")
 
 
 def reset_launches():
@@ -332,6 +394,9 @@ def probe_specs(d: dict) -> dict:
     m2 = d["p2_idx"].numel()
     idx_l = d["idx"].long()
     p2_l = d["p2_idx"].long()
+    p2_last = d["p2_idx"].view(-1, P2_CHUNK)[:, -8:].reshape(-1)  # what P2c reads
+    last_uniq = int(torch.unique(p2_last).numel())
+    p2_out = m2 // P2_CHUNK * 8 * 512
     return {
         "P1a_scalar_gather_unroll1": (
             f"{P1}:156", lambda: scalar_gather(d["idx"], d["table"], 1),
@@ -368,17 +433,20 @@ def probe_specs(d: dict) -> dict:
             f"{P2}:85", lambda: chunk_row_sum(d["p2_idx"], d["p2_table"], 0),
             lambda: torch.index_select(d["p2_table"], 0, p2_l).view(-1, P2_CHUNK, 128).sum(1),
             "index_select(...).view(256, 4096, 128).sum(1)",
-            m2 * 4 + p2_uniq * 512 + m2 // P2_CHUNK * 8 * 512, m2, 1e-6),
+            m2 * 4 + p2_uniq * 512 + p2_out, m2, 1e-6),
         "P2b_eight_accumulators": (
             f"{P2}:85", lambda: chunk_row_sum(d["p2_idx"], d["p2_table"], 1),
-            lambda: torch.index_select(d["p2_table"], 0, p2_l).view(-1, P2_CHUNK, 128).sum(1),
-            "index_select(...).view(256, 4096, 128).sum(1)",
-            m2 * 4 + p2_uniq * 512 + m2 // P2_CHUNK * 8 * 512, m2, 1e-6),
+            lambda: torch.index_select(d["p2_table"], 0, p2_l).view(
+                -1, P2_CHUNK // 8, 8, 128).sum(1),
+            "index_select(...).view(256, 512, 8, 128).sum(1)",
+            m2 * 4 + p2_uniq * 512 + p2_out, m2, 1e-6),
+        # the bytes of what the output depends on: each chunk's last 8 indices
+        # and their distinct rows, and the output
         "P2c_rows_to_scratch": (
             f"{P2}:85", lambda: chunk_row_sum(d["p2_idx"], d["p2_table"], 2),
-            lambda: torch.index_select(d["p2_table"], 0, p2_l).view(-1, P2_CHUNK, 128).sum(1),
-            "index_select(...).view(256, 4096, 128).sum(1)",
-            m2 * 4 + p2_uniq * 512 + m2 // P2_CHUNK * 8 * 512, m2, 0.0),
+            lambda: torch.index_select(d["p2_table"], 0, p2_last),
+            "index_select(table, 0, last 8 indices of each chunk)",
+            p2_last.numel() * 4 + last_uniq * 512 + p2_out, m2, 0.0),
     }
 
 
@@ -412,8 +480,8 @@ def check(name: str, got: np.ndarray, x: dict, rel: float, ref=None) -> float:
     err = float(np.abs(got.astype(np.float64) - ref).max())
     tol = 0.0
     if rel:
-        mag = numpy_reference(name, {**x, "upd": np.abs(x["upd"]),
-                                     "p2_table": np.abs(x["p2_table"])})
+        mag = numpy_reference(name, {**x, **{k: np.abs(x[k]) for k in ("upd", "p2_table")
+                                             if k in x}})
         tol = rel * float(np.abs(mag).max()) + 1e-6
     if not (np.isfinite(err) and err <= tol):
         raise AssertionError(f"{name}: max|kernel - reference| = {err:.3e} beyond {tol:.3e}")
@@ -532,9 +600,78 @@ def check_edges(device, seed: int = 0) -> dict:
     table = torch.from_numpy(rs.randn(T, F).astype(np.float32))
     got = scalar_gather(gidx.to(device), table.to(device), 8)
     errs["P1a_scalar_gather_unroll8"] = float((got.cpu() - plain_gather(gidx, table)).abs().max())
-    for name in ("P1a_scalar_gather_unroll8", "P1e_sublane_gather"):
+    vidx = torch.from_numpy(rs.randint(0, T, 3 * 8192 + 1001).astype(np.int32))
+    got = vector_gather(vidx.to(device), table.to(device))
+    errs["P1b_vector_gather"] = float((got.cpu() - plain_gather(vidx, table)).abs().max())
+    for name in ("P1a_scalar_gather_unroll8", "P1e_sublane_gather", "P1b_vector_gather"):
         if not errs[name] == 0.0:
             raise AssertionError(f"{name}, ragged: max|kernel - plain| = {errs[name]:.3e}, not 0")
+    for name, err in check_p2_edges(device, seed).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def p2_edge_indices(kind: str, rs) -> np.ndarray:
+    """Indices of a P2 edge case: ``one_chunk`` (4,096 random), ``one_row``
+    (every index on one row: one broadcast a step), ``ends`` (rows 0 and
+    8,191 only), ``one_bank_group`` (rows of one 4-bank group, row mod 8 =
+    3: 8 wavefronts a step, the most) and ``five_chunks`` (random; ranges
+    that do not split evenly over the warps)."""
+    if kind == "one_chunk":
+        return rs.randint(0, P2_T, P2_CHUNK).astype(np.int32)
+    n = 5 * P2_CHUNK if kind == "five_chunks" else 2 * P2_CHUNK
+    if kind == "one_row":
+        return np.full(n, 4321, np.int32)
+    if kind == "ends":
+        return np.where(rs.rand(n) < 0.5, 0, P2_T - 1).astype(np.int32)
+    if kind == "one_bank_group":
+        return (rs.randint(0, P2_T // 8, n) * 8 + 3).astype(np.int32)
+    if kind != "five_chunks":
+        raise ValueError(f"unknown P2 edge case {kind!r}; known: {P2_EDGES}")
+    return rs.randint(0, P2_T, n).astype(np.int32)
+
+
+P2_EDGES = ("one_chunk", "one_row", "ends", "one_bank_group", "five_chunks")
+
+
+# the first-order error bound of a float32 sum along chunk_slab_sum's
+# longest chain (512 sequential adds of a lane group, 3 of the fold),
+# relative to the summed magnitude: what the kernel's order (and the TPU
+# kernel's) may differ from the float64 sum by where rounding errors do not
+# cancel, as on one row repeated 4,096 times (5.7e-6 there)
+P2_F32_SUM_BOUND = (P2_CHUNK // 8 + 3) * 2.0 ** -24
+
+
+def check_p2(idx: np.ndarray, table: np.ndarray, device, label="") -> dict:
+    """P2a / P2b / P2c on the card: P2a / P2b to the bit against
+    :func:`chunk_row_sum_emulated` (the kernel's order) and within
+    P2_F32_SUM_BOUND x the summed magnitude of the float64 sum, P2c to the
+    bit against numpy; returns the max abs error against numpy of each."""
+    x = {"p2_idx": idx, "p2_table": table}
+    di, dt = torch.from_numpy(idx).to(device), torch.from_numpy(table).to(device)
+    errs = {}
+    for variant, name in enumerate(P2_NAMES):
+        got = chunk_row_sum(di, dt, variant).cpu().numpy()
+        errs[name] = check(name, got, x, 0.0 if variant == 2 else P2_F32_SUM_BOUND)
+        if variant < 2:
+            want = chunk_row_sum_emulated(idx, table, variant)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{name}{label}: differs from the emulated order by "
+                    f"{np.abs(got.astype(np.float64) - want).max():.3e}")
+    return errs
+
+
+def check_p2_edges(device, seed: int = 0) -> dict:
+    """P2a / P2b / P2c on every case of :data:`P2_EDGES` (:func:`check_p2`);
+    returns the max abs error of each against numpy."""
+    rs = np.random.RandomState(seed)
+    table = rs.randn(P2_T, 128).astype(np.float32)
+    errs = dict.fromkeys(P2_NAMES, 0.0)
+    for kind in P2_EDGES:
+        for name, err in check_p2(p2_edge_indices(kind, rs), table, device,
+                                  f" ({kind})").items():
+            errs[name] = max(errs[name], err)
     return errs
 
 
@@ -574,7 +711,74 @@ def run(m_p1: int, m_p2: int, device, seed: int = 0, log=print, only=None) -> li
             "library_call": lib_name, "ns_per_index": ms * 1e6 / n_idx,
             "library_ns_per_index": lib_ms * 1e6 / n_idx, "m": n_idx,
         })
+        if name in P2_NAMES[:2]:
+            entries[-1]["smem_wavefronts_per_step"] = p2_row_wavefronts(x["p2_idx"])
     return entries
+
+
+def experiments(device, seed: int = 0, log=print) -> dict:
+    """The cost of P2's bank conflicts, timed warm at the JAX script's size
+    (ms): P2b on indices without conflicts (row mod 8 = i mod 8: one
+    wavefront a row read) and on the random ones, with the wavefronts a
+    step of each (each result to the bit against the emulated order); and
+    P1b beside P1a unroll 8 (each against table[idx])."""
+    x = make_inputs(1 << 22, P2_M, seed)
+    d = to_device(x, device)
+    rs = np.random.RandomState(seed + 1)
+    free = ((rs.randint(0, P2_T // 8, P2_M) * 8) + np.arange(P2_M) % 8).astype(np.int32)
+    check_p2(free, x["p2_table"], device, " (no bank conflicts)")
+    check_p2(x["p2_idx"], x["p2_table"], device, " (random)")
+    dfree = torch.from_numpy(free).to(device)
+    out = {
+        "P2b_eight_accumulators@no_bank_conflicts": time_ms(
+            lambda: chunk_row_sum(dfree, d["p2_table"], 1)),
+        "P2b_eight_accumulators@random": time_ms(
+            lambda: chunk_row_sum(d["p2_idx"], d["p2_table"], 1)),
+        "wavefronts_per_step@no_bank_conflicts": p2_row_wavefronts(free),
+        "wavefronts_per_step@random": p2_row_wavefronts(x["p2_idx"]),
+    }
+    ref = x["table"][x["idx"]]
+    for label, fn in (("P1b_vector_gather", lambda: vector_gather(d["idx"], d["table"])),
+                      ("P1a_scalar_gather_unroll8",
+                       lambda: scalar_gather(d["idx"], d["table"], 8))):
+        if not np.array_equal(fn().cpu().numpy(), ref):
+            raise AssertionError(f"{label}: differs from table[idx]")
+        out[label] = time_ms(fn)
+    for k, v in out.items():
+        log(f"[experiment] {k}: {v}")
+    return out
+
+
+def turns(parent, only=(), quick=False, log=print) -> dict:
+    """This checkout's probes against those of ``parent`` (the root of
+    another checkout) in turns on one card: parent, change, change, parent,
+    each a run of this module from that checkout (its own kernels, built
+    into its own ``_build/``, timed by its own copy of this script) with
+    the same ``--only`` / ``--quick``. Returns, for each probe, its
+    ``ms`` / ``ms_cold`` / ``library_ms`` / ``plain_ms`` / ``bound_ms`` of
+    each turn, as ``{name: {"parent_ms": [t1, t4], "change_ms": [t2, t3],
+    ...}}``."""
+    here = Path(__file__).resolve().parents[2]
+    cmd = [sys.executable, "-m", "instant_nsr_pl_tpu_torch.tools.microbench_gather"]
+    cmd += ["--only", ",".join(only)] if only else []
+    cmd += ["--quick"] if quick else []
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}  # each its own package
+    out = {}
+    for label, root in (("parent", parent), ("change", here), ("change", here),
+                        ("parent", parent)):
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"probes"')]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"the {label} run from {root} exited {proc.returncode}:\n"
+                               f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        probes = json.loads(lines[-1])["probes"]
+        for e in probes:
+            t = out.setdefault(e["name"], {})
+            for key in ("ms", "ms_cold", "library_ms", "plain_ms", "bound_ms"):
+                t.setdefault(f"{label}_{key}", []).append(e.get(key))
+        log(f"[turns] {label} from {root}: "
+            + ", ".join(f"{e['name']} {e['ms']:.4f} ms" for e in probes))
+    return out
 
 
 def main(argv=None) -> int:
@@ -583,6 +787,11 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated probe names to run (default: all), e.g. "
                          "P1e_sublane_gather,P1g_onehot_grad")
+    ap.add_argument("--experiments", action="store_true",
+                    help="also time P2's bank conflicts and P1b beside P1a unroll 8")
+    ap.add_argument("--parent", default=None,
+                    help="the root of another checkout: time its probes and these in turns")
+    ap.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = ap.parse_args(argv)
     only = [n for n in args.only.split(",") if n]
     if not torch.cuda.is_available():
@@ -590,14 +799,28 @@ def main(argv=None) -> int:
         return 2
     m_p1 = 1 << 20 if args.quick else 1 << 22
     device = torch.device("cuda")
-    cuda_build.build_all()
-    print(f"[probe] {torch.cuda.get_device_name(0)}; P1 M={m_p1} into ({T}, {F}) f32; "
-          f"P2 M={P2_M} rows of ({P2_T}, 128) f32", flush=True)
-    entries = run(m_p1, P2_M, device, log=lambda s: print(s, flush=True), only=only)
-    counts = launch_counts()
-    for e in entries:
-        e["launches"] = counts[e["name"]]
-    print(json.dumps({"probes": entries}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    log = lambda s: print(s, flush=True)  # noqa: E731
+    if args.parent:
+        result = {"turns": turns(args.parent, only, args.quick, log=log), "card": smi}
+    else:
+        cuda_build.build_all()
+        print(f"[probe] {torch.cuda.get_device_name(0)}; P1 M={m_p1} into ({T}, {F}) f32; "
+              f"P2 M={P2_M} rows of ({P2_T}, 128) f32", flush=True)
+        reset_launches()
+        entries = run(m_p1, P2_M, device, log=log, only=only)
+        counts = launch_counts()
+        for e in entries:
+            e["launches"] = counts[e["name"]]
+        result = {"probes": entries, "card": smi}
+        if args.experiments:
+            result["experiments"] = experiments(device, log=log)
+    line = json.dumps(result)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    print(line, flush=True)
     return 0
 
 

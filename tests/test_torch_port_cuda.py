@@ -709,9 +709,63 @@ def test_scatter_add_edges_match_plain(cuda_device, m, rows, kind):
     assert err <= tol, (err, tol)
 
 
+@pytest.mark.parametrize("m,rows,kind", _PROBE_EDGES)
+def test_vector_gather_edges_match_plain(cuda_device, m, rows, kind):
+    """P1b (a block per 8,192-index chunk, its warps in P1a unroll 8's
+    coalesced steps) at the edge cases of the P1a test, and on a ragged
+    3 x 8,192 + 1,001 indices: equal to table[idx] on the CPU to the bit;
+    one launch counted."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    for n in (m, 3 * 8192 + 1001):
+        idx, _ = _onehot_inputs(n, rows, kind, seed=n + rows)
+        table = np.random.RandomState(rows).randn(rows, 2).astype(np.float32)
+        before = mb.vector_gather.launches
+        got = mb.vector_gather(torch.from_numpy(idx).to(cuda_device),
+                               torch.from_numpy(table).to(cuda_device))
+        torch.cuda.synchronize()
+        assert mb.vector_gather.launches == before + 1
+        ref = mb.plain_gather(torch.from_numpy(idx), torch.from_numpy(table))
+        assert got.shape == ref.shape == (n, 2)
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("kind", ["one_chunk", "one_row", "ends", "one_bank_group",
+                                  "five_chunks", "2^20"])
+def test_chunk_row_sum_edges(cuda_device, kind):
+    """P2a / P2b (the table in shared-memory slabs, each chunk's indices
+    prefetched into L2 once) and P2c (only the rows its output keeps) at
+    one chunk, every index on one row, the first and last rows only, rows of
+    one 4-bank group (the most bank conflicts), five chunks, and 2^20 random
+    indices: P2a / P2b equal to the bit to the emulated order
+    (chunk_row_sum_emulated) and within 1e-6 x the summed magnitude of the
+    float64 sum on random rows (P2_F32_SUM_BOUND on repeated ones), P2c
+    equal to numpy to the bit; one launch each."""
+    from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
+
+    rs = np.random.RandomState(len(kind))
+    table = rs.randn(mb.P2_T, 128).astype(np.float32)
+    if kind == "2^20":
+        idx = rs.randint(0, mb.P2_T, 1 << 20).astype(np.int32)
+    else:
+        idx = mb.p2_edge_indices(kind, rs)
+    before = dict(mb.chunk_row_sum.launches)
+    errs = mb.check_p2(idx, table, cuda_device, f" ({kind})")
+    torch.cuda.synchronize()
+    assert mb.chunk_row_sum.launches == {k: v + 1 for k, v in before.items()}
+    assert errs["P2c_rows_to_scratch"] == 0.0
+    if kind in ("one_chunk", "one_bank_group", "five_chunks", "2^20"):  # random rows
+        x = {"p2_idx": idx, "p2_table": table}
+        for variant, name in enumerate(mb.P2_NAMES[:2]):
+            got = mb.chunk_row_sum(torch.from_numpy(idx).to(cuda_device),
+                                   torch.from_numpy(table).to(cuda_device), variant)
+            mb.check(name, got.cpu().numpy(), x, 1e-6)
+
+
 def test_probe_redesigns_repeat(cuda_device):
-    """P1g and P1e called twice on the same inputs: P1e equal to the bit both
-    times, P1g within its tolerance both times (atomics reorder its sums), two
+    """P1g, P1e, P1b and P2 a / b / c called twice on the same inputs: P1e,
+    P1b and P2 equal to the bit both times (P2a / P2b sum in a fixed order),
+    P1g within its tolerance both times (atomics reorder its sums), two
     launches each."""
     from instant_nsr_pl_tpu_torch.tools import microbench_gather as mb
 
@@ -720,15 +774,29 @@ def test_probe_redesigns_repeat(cuda_device):
     sidx = torch.from_numpy(rs.randint(0, 512, (2048, 128)).astype(np.int32)).to(cuda_device)
     table = torch.from_numpy(rs.randn(512, 128).astype(np.float32)).to(cuda_device)
     di, du = torch.from_numpy(idx).to(cuda_device), torch.from_numpy(upd).to(cuda_device)
-    g0, s0 = mb.onehot_grad.launches, mb.sublane_gather.launches
-    first = (mb.onehot_grad(di, du), mb.sublane_gather(sidx, table))
-    second = (mb.onehot_grad(di, du), mb.sublane_gather(sidx, table))
+    vtable = torch.from_numpy(rs.randn(1 << 19, 2).astype(np.float32)).to(cuda_device)
+    pidx = torch.from_numpy(rs.randint(0, mb.P2_T, 1 << 18).astype(np.int32)).to(cuda_device)
+    ptable = torch.from_numpy(rs.randn(mb.P2_T, 128).astype(np.float32)).to(cuda_device)
+    g0, s0, v0 = mb.onehot_grad.launches, mb.sublane_gather.launches, mb.vector_gather.launches
+    p0 = dict(mb.chunk_row_sum.launches)
+
+    def calls():
+        return (mb.onehot_grad(di, du), mb.sublane_gather(sidx, table),
+                mb.vector_gather(di, vtable), *(mb.chunk_row_sum(pidx, ptable, v)
+                                                for v in range(3)))
+
+    first, second = calls(), calls()
     torch.cuda.synchronize()
-    assert (mb.onehot_grad.launches, mb.sublane_gather.launches) == (g0 + 2, s0 + 2)
+    assert (mb.onehot_grad.launches, mb.sublane_gather.launches,
+            mb.vector_gather.launches) == (g0 + 2, s0 + 2, v0 + 2)
+    assert mb.chunk_row_sum.launches == {k: v + 2 for k, v in p0.items()}
     for got in (first[0], second[0]):
         _onehot_check(got, idx, upd, 1 << 19)
     ref = mb.plain_sublane_gather(sidx.cpu(), table.cpu())
     assert torch.equal(first[1].cpu(), ref) and torch.equal(second[1].cpu(), ref)
+    assert torch.equal(first[2].cpu(), mb.plain_gather(di.cpu(), vtable.cpu()))
+    for a, b in zip(first[2:], second[2:]):
+        assert torch.equal(a.cpu(), b.cpu())
 
 
 # -- the fused backward kernels K2 (and K14, cp_big) and K4 at every
