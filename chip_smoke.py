@@ -6,8 +6,9 @@ trained, tested and exported through the launcher), NeuS on the hash grid
 (the repo's ``configs/neus-synthetic.yaml`` through the launcher, and its
 progressive-band variant), the ``cp_big`` shapes, the gather / scatter
 probes, the Blender and DTU configs on data read from disk
-(``data80/blender`` and a DTU-layout export), the unbounded configs, and the
-VM NeRF (``configs/nerf-vm-synthetic.yaml``); every mesh marches on the card.
+(``data80/blender`` and a DTU-layout export), the unbounded configs (also on
+a JPEG capture), and the VM NeRF (``configs/nerf-vm-synthetic.yaml``); every
+mesh marches on the card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -185,7 +186,7 @@ lines are printed):
    the launch counters set to 0 just before it and read just after (VM1 in
    the level grids, MT1 / MT2 marching on the card);
 20. marching tetrahedra on the card (``csrc/marching_tet.cu``): every export
-   and test mesh of phases 11 and 16-18 marches through MT1 / MT2 (their
+   and test mesh of phases 11, 16-18 and 21 marches through MT1 / MT2 (their
    launches counted around each phase, the export stage lines say "(card)");
    the ``neus-blender`` model of phase 16 exported again uncut, at the
    config's 512^3, timed by stage, its fine level grid kept; then MT1 / MT2
@@ -200,7 +201,23 @@ lines are printed):
    Python's formatting: the same bytes, both timed; given ``--parent DIR``,
    ``tools/mt_bench.py`` on the spheres and the NeuS grid from DIR and from
    this checkout in turns (parent, change, change, parent);
-21. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
+21. slice 14, JPEG: every JPEG fixture of ``tests/fixtures/jpeg/`` through
+   ``read_jpeg`` (``utils/jpeg_decode.cc``, g++ on this host) against the
+   sha256, shape and mode of PIL's array (``digests.json``; the card has no
+   PIL), the decode rate in MP/s (the 1024x768 fixture, the capture
+   serially and on the loader's threads); the JPEG COLMAP capture there (24
+   views, JPEG images and masks) through ``datasets.make("colmap", ...)``,
+   its images, masks and directions against the JAX loader's digests, its
+   load seconds; ``configs/nerf-colmap.yaml`` on that capture through the
+   launcher as in 18 (``dataset.*``, the steps and the mesh resolution cut,
+   the model unmodified); and on that run's last training step's
+   compositing operands the per-ray sum's custom VJP (``ops/rendering.py``
+   ``segment_sum_sorted``) against autograd through the same forward: the
+   forward to the bit, the gradients within 1e-6 x max|grad|, both
+   segment-sum backwards timed
+   with CUDA events (back to back, and one call queued behind a spin kernel
+   for the device time);
+22. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4,
    VM2; the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's
@@ -228,7 +245,7 @@ lines are printed):
    ``parent_device_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
-22. the last line ``{"ok": true, "device": {...}}``.
+23. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
 C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
@@ -3428,6 +3445,192 @@ def dataset_launcher_phase(device, smi, key):
 
 
 # ---------------------------------------------------------------------------
+# slice 14: JPEG captures through the COLMAP loader, and the per-ray
+# compositing sum's custom VJP on a training step's operands
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+JPEG_DIGESTS = os.path.join(JPEG_FIXTURES, "digests.json")
+JPEG_CAPTURE = os.path.join(JPEG_FIXTURES, "colmap")  # 24 views, JPEG q90 4:2:0, JPEG masks
+# the loader settings of the digests (tests/test_torch_port_jpeg.py LOADER_CONFIG);
+# nerf-colmap.yaml's model unmodified, its mesh cut as the other COLMAP runs':
+# at the config's 256^3 the mesh has ~20 M faces, and reading its OBJ back
+# twice took ~250 s of the script's 1,200
+JPEG_OVERRIDES = [f"dataset.root_dir={JPEG_CAPTURE}", "dataset.img_downscale=2",
+                  "dataset.up_est_method=camera", f"dataset.n_test_traj_steps={DTU_TEST_VIEWS}",
+                  f"model.geometry.isosurface.resolution={ISO_CUT}"]
+DATASET_PATHS["jpeg_colmap_nerf"] = ("nerf-colmap.yaml", JPEG_OVERRIDES, "val", 2,
+                                     ("hashgrid_forward", "hashgrid_backward", "sh_mlp_forward",
+                                      "sh_mlp_backward"))
+
+
+def _sha256(a):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def jpeg_decode_check(smi):
+    """Every committed JPEG fixture through ``read_jpeg`` (``utils/
+    jpeg_decode.cc``, g++ on this host) against the digest of PIL's array
+    (sha256, shape, mode; ``tests/fixtures/jpeg/digests.json``, written with
+    PIL 12.1.0 / libjpeg-turbo 3.1.3). Then the decode rate in megapixels
+    per second: the largest fixture (median of 10 decodes), and the
+    capture's 24 images serially and on the loader's threads (median of 5
+    passes). Returns the figures."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from instant_nsr_pl_tpu_torch.datasets.colmap import DECODE_THREADS
+    from instant_nsr_pl_tpu_torch.utils.image_io import read_jpeg
+
+    with open(JPEG_DIGESTS) as fh:
+        want = json.load(fh)["pil"]
+    bad = []
+    for rel in sorted(want):
+        a, mode = read_jpeg(os.path.join(JPEG_FIXTURES, rel))
+        if {"sha256": _sha256(a), "shape": list(a.shape), "mode": mode} != want[rel]:
+            bad.append(rel)
+    assert not bad, f"JPEG decodes that differ from PIL's: {bad}"
+
+    def rate(paths, reps, threads=1):
+        mp = sum(math.prod(want[p]["shape"][:2]) for p in paths) / 1e6
+        full = [os.path.join(JPEG_FIXTURES, p) for p in paths]
+        walls = []
+        with ThreadPoolExecutor(threads) as pool:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                list(pool.map(read_jpeg, full))
+                walls.append(time.perf_counter() - t0)
+        return mp / statistics.median(walls)
+
+    large = max(want, key=lambda p: math.prod(want[p]["shape"][:2]))
+    capture = [p for p in sorted(want) if p.startswith("colmap/images/")]
+    out = {"fixtures": len(want), "largest": large, "largest_mp_per_s": rate([large], 10),
+           "capture_views": len(capture), "capture_mp_per_s": rate(capture, 5),
+           "capture_mp_per_s_threads": rate(capture, 5, DECODE_THREADS),
+           "threads": DECODE_THREADS}
+    print(f"[jpeg] {len(want)} fixtures decoded equal to PIL's digests (sha256, shape, mode); "
+          f"decode rate: {large} {out['largest_mp_per_s']:.1f} MP/s (median of 10), the "
+          f"capture's {len(capture)} images {out['capture_mp_per_s']:.1f} MP/s serially, "
+          f"{out['capture_mp_per_s_threads']:.1f} MP/s on {DECODE_THREADS} threads (host) "
+          f"({smi})", flush=True)
+    return out
+
+
+def jpeg_loader_check(smi):
+    """The JPEG capture through ``datasets.make("colmap", ...)`` at the
+    digests' settings: the train split's images, masks and directions
+    against the digests of the JAX loader's arrays; the load seconds."""
+    import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
+    from instant_nsr_pl_tpu_torch.config import config_from_dict
+    from instant_nsr_pl_tpu_torch.datasets.colmap import DECODE_THREADS, ColmapDatasetBase
+    from instant_nsr_pl_tpu_torch.registry import datasets
+
+    with open(JPEG_DIGESTS) as fh:
+        want = json.load(fh)["loader"]
+    cfg = dict(want["config"], root_dir=os.path.join(JPEG_FIXTURES, want["config"]["root_dir"]))
+    ColmapDatasetBase._cache.clear()
+    t0 = time.perf_counter()
+    dm = datasets.make("colmap", config_from_dict(cfg))
+    dm.setup("fit")
+    wall = time.perf_counter() - t0
+    ColmapDatasetBase._cache.clear()
+    ds = dm.train
+    for key, a in (("images", ds.all_images), ("masks", ds.all_fg_masks),
+                   ("directions", ds.directions)):
+        got = {"sha256": _sha256(np.asarray(a, np.float32)), "shape": list(np.shape(a))}
+        assert got == want[key], f"the JPEG capture's {key} differ from the JAX loader's: {got}"
+    out = {"wall": wall, **ds.load_seconds, "views": len(ds.all_images), "wh": list(ds.img_wh)}
+    print(f"[jpeg] COLMAP loader on the JPEG capture: images, masks and directions equal to the "
+          f"JAX loader's digests; {out['views']} views at {out['wh'][0]}x{out['wh'][1]} (and "
+          f"their JPEG masks) loaded in {wall:.3f} s: decode {out['decode']:.3f} s (batches on "
+          f"{DECODE_THREADS} threads), resize {out['resize']:.3f} s (host) ({smi})", flush=True)
+    return out
+
+
+def compositing_vjp_check(operands, smi):
+    """The per-ray compositing sum's custom VJP (``ops/rendering.py``
+    ``segment_sum_sorted``, one gather) against autograd through the same
+    float64 prefix-sum forward (``segment_sum_prefix``, the backward the
+    port had before) on a training step's captured operands (weights,
+    values, ray ends, valid mask, block size) and a seeded cotangent: the
+    forward to the bit, d weights and d values within 1e-6 x max|grad|;
+    then each segment-sum backward alone (the per-ray cotangent to the rows'
+    gradient) timed with CUDA events, back to back (the host's autograd
+    share included) and one call at a time queued behind a spin kernel
+    (device time: ``tools/microbench_gather.py`` ``time_ms``)."""
+    from instant_nsr_pl_tpu_torch.ops import rendering
+    from instant_nsr_pl_tpu_torch.tools.microbench_gather import time_ms as queued_ms
+
+    w0, v0, ends, valid, group = operands
+    gen = torch.Generator(device=w0.device).manual_seed(SEED)
+    ct = torch.randn((ends.shape[0], v0.shape[1]), generator=gen, device=w0.device)
+    fig = {"rows": w0.shape[0] // group, "rays": ends.shape[0], "d": v0.shape[1],
+           "group": group}
+    got = {}
+    for name, fn in (("vjp", rendering.segment_sum_sorted),
+                     ("autograd", rendering.segment_sum_prefix)):
+        w, v = w0.clone().requires_grad_(), v0.clone().requires_grad_()
+        src = torch.where(valid, w, torch.zeros_like(w))[:, None] * v
+        if group > 1:
+            src = src.reshape(-1, group, src.shape[1]).sum(dim=1)
+        out = fn(src, ends // group)
+        got[name] = (out.detach(), *torch.autograd.grad(out, (w, v), ct))
+        leaf = src.detach().requires_grad_()
+        seg = fn(leaf, ends // group)
+
+        def backward(seg=seg, leaf=leaf):
+            return torch.autograd.grad(seg, leaf, ct, retain_graph=True)
+
+        fig[f"{name}_ms"] = time_ms(backward)
+        fig[f"{name}_device_ms"] = queued_ms(backward, inner=1)
+    assert torch.equal(got["vjp"][0], got["autograd"][0]), "the forward changed"
+    for i, key in ((1, "d_weights"), (2, "d_values")):
+        ref = float(got["autograd"][i].abs().max())
+        fig[f"{key}_max_abs_diff"] = float((got["vjp"][i] - got["autograd"][i]).abs().max())
+        fig[f"{key}_max_abs"] = ref
+        assert fig[f"{key}_max_abs_diff"] <= 1e-6 * ref, (key, fig)
+    print(f"[compositing-vjp] a training step's operands ({fig['rows']} rows after blocks of "
+          f"{group}, {fig['rays']} rays, D = {fig['d']}): forward equal to the bit; largest "
+          f"difference d weights {fig['d_weights_max_abs_diff']:.3e} (max |grad| "
+          f"{fig['d_weights_max_abs']:.3e}), d values {fig['d_values_max_abs_diff']:.3e} (max "
+          f"{fig['d_values_max_abs']:.3e}); segment-sum backward: VJP {fig['vjp_ms']:.4f} ms "
+          f"(device {fig['vjp_device_ms']:.4f}), autograd {fig['autograd_ms']:.4f} ms (device "
+          f"{fig['autograd_device_ms']:.4f}) ({smi})", flush=True)
+    return fig
+
+
+def jpeg_phase(device, smi):
+    """Slice 14: the fixtures' decodes (``jpeg_decode_check``), the loader
+    on the JPEG capture (``jpeg_loader_check``), then
+    ``configs/nerf-colmap.yaml`` trained through the launcher on that
+    capture (``dataset_launcher_phase``: the loss falling, val 3 dB above
+    the untrained model, a non-empty mesh), its last training step's
+    compositing operands captured for ``compositing_vjp_check``. Returns
+    the figures."""
+    from instant_nsr_pl_tpu_torch.models import nerf as nerf_model
+
+    fig = {"decode": jpeg_decode_check(smi), "loader": jpeg_loader_check(smi)}
+    captured = []
+    accumulate = nerf_model.accumulate_along_rays
+
+    def capturing(weights, values, ends, valid=None, group=1):
+        if torch.is_grad_enabled() and weights.requires_grad:
+            captured[:] = [(weights.detach().clone(), values.detach().clone(), ends.clone(),
+                            valid.clone(), group)]
+        return accumulate(weights, values, ends, valid=valid, group=group)
+
+    nerf_model.accumulate_along_rays = capturing
+    try:
+        fig["run"] = dataset_launcher_phase(device, smi, "jpeg_colmap_nerf")
+    finally:
+        nerf_model.accumulate_along_rays = accumulate
+    assert captured, "no training step composited through accumulate_along_rays"
+    fig["vjp"] = compositing_vjp_check(captured[0], smi)
+    return fig
+
+
+# ---------------------------------------------------------------------------
 # slice 10: the VM encoding (VM1 / VM2), the VM NeRF at the JAX package's VM
 # width, and marching tetrahedra on the card (MT1 / MT2)
 # ---------------------------------------------------------------------------
@@ -4011,6 +4214,7 @@ def main(argv=None):
 def _main(args):
     from instant_nsr_pl_tpu_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {smi}", flush=True)
@@ -4125,10 +4329,15 @@ def _main(args):
     for key in ("colmap_nerf", "colmap_neus", "dtu_bg_neus"):
         ds_runs[key] = mt_tally(key, dataset_launcher_phase, device, smi, key)
     torch.cuda.empty_cache()
+    # slice 14: the JPEG fixtures and capture, nerf-colmap.yaml on that
+    # capture, the compositing VJP on its last training step
+    jpeg_run = mt_tally("jpeg_colmap_nerf", jpeg_phase, device, smi)
+    torch.cuda.empty_cache()
     # slice 10: MT1 / MT2 against the numpy twin (sphere SDFs, the VM NeRF's level grid)
     mt_entries = marching_phase(device, smi, args.parent)
     summary = {"card": smi, "dtu_export_s": dtu_export_s, "dtu_band_s": dtu_band_s,
-               "dtu_band_launches": dtu_band_run, "colmap_export_s": colmap_export_s, **ds_runs}
+               "dtu_band_launches": dtu_band_run, "colmap_export_s": colmap_export_s, **ds_runs,
+               "jpeg": jpeg_run}
     os.makedirs(os.path.join(ROOT, "exp", "chip_smoke_datasets"), exist_ok=True)
     with open(os.path.join(ROOT, "exp", "chip_smoke_datasets", "summary.json"), "w") as fh:
         json.dump(summary, fh, indent=1, default=str)
@@ -4284,6 +4493,8 @@ def _main(args):
               + (f"; eval: ptxas {e['ptxas_eval']}, {e['smem_bytes_eval']} B, "
                  f"{e['blocks_per_sm_eval']} blocks per SM, parent {e['parent_ms_eval']}"
                  if "ptxas_eval" in e else "") + f" ({smi})", flush=True)
+    print(f"[wall] {time.perf_counter() - t_start:.1f} s from the start to the result lines",
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,12 +12,16 @@ parsed once per ``root_dir`` and shared by the splits (the class-level
 ``_cache``, reference colmap.py:133-135); the val split is the training
 images, and the test split's frames are blank.
 
-Images are read with the port's PNG decoder and resized as Pillow's BICUBIC
-does in the image's own mode (``utils/image_io.py``; the card has no PIL);
-masks (``masks/``) are converted to luma first. Real COLMAP captures are
-mostly JPEG: the port has no JPEG decoder yet (ROADMAP.md queue 1, the JPEG
-item), so any image that is not a PNG raises a ValueError naming the file.
-``load_seconds`` holds the parse's decode and resize seconds.
+Images are read with the port's PNG or JPEG decoder, chosen by the file's
+first bytes, and resized as Pillow's BICUBIC does in the image's own mode
+(``utils/image_io.py`` ``read_image``, equal to ``PIL.Image.open`` to the
+bit; the card has no PIL); masks (``masks/``) are converted to luma first.
+Any other file, and any JPEG the decoder refuses (arithmetic-coded,
+lossless or 12-bit, CMYK, truncated), raises a ValueError naming the file;
+no other decoder is tried. The views are read in batches: a batch's
+decodes run on a few threads (the decoders release the GIL), then its
+resizes in order on the caller's. ``load_seconds`` holds the parse's decode
+and resize seconds.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import math
 import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -37,9 +42,9 @@ from instant_nsr_pl_tpu_torch.datasets.colmap_utils import (
 )
 from instant_nsr_pl_tpu_torch.ops.ray import get_ray_directions
 from instant_nsr_pl_tpu_torch.registry import datasets
-from instant_nsr_pl_tpu_torch.utils.image_io import read_png, resize_bicubic
+from instant_nsr_pl_tpu_torch.utils.image_io import read_image, resize_bicubic
 
-_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+DECODE_THREADS = min(8, os.cpu_count() or 1)
 VAL_NOTE = ("[colmap] note: the val split aliases the TRAINING images (reference behavior) "
             "— val metrics are train-set metrics")
 
@@ -186,14 +191,11 @@ def create_spheric_poses(cameras, n_steps=120):
     return np.stack(all_c2w)
 
 
-def _read_image(path, convert=None):
-    """``(array, mode)`` of a PNG (``read_png``); any other file raises."""
-    with open(path, "rb") as fh:
-        magic = fh.read(8)
-    if magic != _PNG_MAGIC:
-        raise ValueError(f"{path}: not a PNG; the port reads PNG images only (a JPEG decoder "
-                         "is queued in ROADMAP.md queue 1, the JPEG item)")
-    return read_png(path, convert=convert)
+def _read_view(image_path, mask_path):
+    """A view's image ``(array, mode)`` and its mask's luma (or None)."""
+    image = read_image(image_path)
+    mask = None if mask_path is None else read_image(mask_path, convert="L")[0]
+    return image, mask
 
 
 def _intrinsics(cam, factor):
@@ -228,7 +230,7 @@ def _load(config):
     imdata = read_images_binary(os.path.join(root, "sparse/0/images.bin"))
     mask_dir = os.path.join(root, "masks")
     has_mask = os.path.exists(mask_dir)
-    decode_s = resize_s = 0.0
+    views = []
     all_c2w, images, masks = [], [], []
     for d in imdata.values():
         R = qvec2rotmat(d.qvec)
@@ -236,23 +238,32 @@ def _load(config):
         c2w = np.concatenate([R.T, -R.T @ t], axis=1).astype(np.float32)
         c2w[:, 1:3] *= -1.0  # COLMAP -> OpenGL
         all_c2w.append(c2w)
-
-        t0 = time.perf_counter()
-        img, mode = _read_image(os.path.join(root, "images", d.name))
-        mask = None
+        mask_path = None
         if has_mask:
             cands = [os.path.join(mask_dir, d.name), os.path.join(mask_dir, d.name[3:])]
-            mask, _ = _read_image([p for p in cands if os.path.exists(p)][0], convert="L")
-        t1 = time.perf_counter()
-        if mode not in ("L", "LA", "RGB", "RGBA"):
-            raise ValueError(f"{d.name}: no bicubic resize of a {mode!r} image")
-        images.append(np.asarray(resize_bicubic(img, (w, h)), np.float32)[..., :3] / 255.0)
-        if mask is None:
-            masks.append(np.ones((h, w), np.float32))
-        else:
-            masks.append(np.asarray(resize_bicubic(mask, (w, h)), np.float32) / 255.0)
-        resize_s += time.perf_counter() - t1
-        decode_s += t1 - t0
+            mask_path = [p for p in cands if os.path.exists(p)][0]
+        views.append((d.name, os.path.join(root, "images", d.name), mask_path))
+
+    decode_s = resize_s = 0.0
+    step = 2 * DECODE_THREADS
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        # a batch's decodes on the threads, then its resizes in order: the two
+        # never share the cores (numpy's BLAS threads resize)
+        for i in range(0, len(views), step):
+            batch = views[i:i + step]
+            t0 = time.perf_counter()
+            decoded = list(pool.map(lambda v: _read_view(v[1], v[2]), batch))
+            t1 = time.perf_counter()
+            for (name, _, _), ((img, mode), mask) in zip(batch, decoded):
+                if mode not in ("L", "LA", "RGB", "RGBA"):
+                    raise ValueError(f"{name}: no bicubic resize of a {mode!r} image")
+                images.append(np.asarray(resize_bicubic(img, (w, h)), np.float32)[..., :3] / 255.0)
+                if mask is None:
+                    masks.append(np.ones((h, w), np.float32))
+                else:
+                    masks.append(np.asarray(resize_bicubic(mask, (w, h)), np.float32) / 255.0)
+            decode_s += t1 - t0
+            resize_s += time.perf_counter() - t1
 
     pts3d_map = read_points3d_binary(os.path.join(root, "sparse/0/points3D.bin"))
     pts3d = np.array([p.xyz for p in pts3d_map.values()], np.float32)

@@ -11,10 +11,11 @@ segment starts, replaces the JAX package's segmented associative scan (whose
 shape was chosen for the TPU). In float64 no sum loses precision across the
 segments it crosses, and the result is rounded to float32 once.
 
-Gradients are autograd's through these ops (nothing here works in place):
-the per-ray sum's backward hands each packed slot its ray's cotangent, the
-JAX custom VJP ``ct[row_rays]`` (JAX twin ``ops/rendering.py:73-81``), up to
-the float64 prefix sums' rounding.
+Gradients are autograd's through these ops (nothing here works in place),
+but for the per-ray sum: :class:`SegmentSumSorted` carries the JAX custom
+VJP (JAX twin ``ops/rendering.py:44-81``), which hands each packed row its
+ray's cotangent in one gather, where autograd would difference the float64
+prefix sums' scattered cotangents.
 """
 
 from __future__ import annotations
@@ -90,13 +91,57 @@ def render_weight_from_alpha(alpha, ray_indices, valid, group=1):
     return alpha * exclusive_cumprod_segments(alpha, ray_indices, valid, group=group)
 
 
+def segment_sum_prefix(src, ends):
+    """Per-ray sums of ray-sorted rows: ``src`` (G, D), ``ends`` (n_rays,)
+    the exclusive row offset where each ray's run ends (ray r owns rows
+    ``[ends[r - 1], ends[r])``) -> (n_rays, D): one float64 prefix sum along
+    the rows, differenced at each ray's ends and rounded to float32 once;
+    rays without rows get zero. The forward of :class:`SegmentSumSorted`;
+    called directly, autograd differentiates it (the backward it had before
+    the custom VJP, the reference the VJP is held to)."""
+    # (D, G) layout: the prefix sum runs along the innermost dimension.
+    # Along the outer one PyTorch's CUDA scan took 84.9 ms per 256x256 view
+    # on an H100, against 0.8 ms here (scripts/profile_torch_render.py)
+    c = torch.cumsum(src.T.contiguous().double(), dim=1)
+    c = torch.cat([c.new_zeros((c.shape[0], 1)), c], dim=1)
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    out = (c[:, ends] - c[:, starts]).T.float()
+    return torch.where((ends > starts)[:, None], out, torch.zeros_like(out))
+
+
+class SegmentSumSorted(torch.autograd.Function):
+    """:func:`segment_sum_prefix` with the JAX package's VJP
+    (``segment_sum_sorted``, ``_sss_bwd``): each row gets its ray's
+    cotangent, ``ct[row_rays]``, one gather with no host synchronisation
+    (the ray of row i is the count of ``ends`` <= i). Rows past
+    ``ends[-1]`` (padding) get the last ray's cotangent, as JAX's padding
+    rows (ray id n_rays - 1) do; callers zero them through their ``valid``
+    mask."""
+
+    @staticmethod
+    def forward(ctx, src, ends):
+        ctx.save_for_backward(ends)
+        ctx.rows = src.shape[0]
+        return segment_sum_prefix(src, ends)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (ends,) = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=ends.device, dtype=ends.dtype)
+        ray = torch.searchsorted(ends, rows, right=True).clamp_(max=ends.shape[0] - 1)
+        return ct[ray], None
+
+
+segment_sum_sorted = SegmentSumSorted.apply  # (src (G, D), ends (n_rays,)) -> (n_rays, D)
+
+
 def accumulate_along_rays(weights, values, ends, valid=None, group=1):
     """Per-ray sum of ``weights * values`` (CAP, D) -> (n_rays, D).
 
     ``ends``: ``PackedSamples.ray_ends``, the exclusive slot offset where
-    each ray's run of packed slots ends: a ray's sum is a difference of one
-    prefix sum at its slot range. ``group``: block size k of the
-    single-ray-per-aligned-block layout; blocks are summed first."""
+    each ray's run of packed slots ends (:func:`segment_sum_sorted`).
+    ``group``: block size k of the single-ray-per-aligned-block layout;
+    blocks are summed first. The mask and the block sum stay in autograd."""
     if valid is not None:
         weights = torch.where(valid, weights, torch.zeros_like(weights))
     src = weights[:, None] * values
@@ -107,14 +152,7 @@ def accumulate_along_rays(weights, values, ends, valid=None, group=1):
         g = cap // group
         src = src.reshape(g, group, d).sum(dim=1)
         ends = ends // group
-    # (D, G) layout: the prefix sum runs along the innermost dimension.
-    # Along the outer one PyTorch's CUDA scan took 84.9 ms per 256x256 view
-    # on an H100, against 0.8 ms here (scripts/profile_torch_render.py)
-    c = torch.cumsum(src.T.contiguous().double(), dim=1)
-    c = torch.cat([c.new_zeros((c.shape[0], 1)), c], dim=1)
-    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
-    out = (c[:, ends] - c[:, starts]).T.float()
-    return torch.where((ends > starts)[:, None], out, torch.zeros_like(out))
+    return segment_sum_sorted(src, ends)
 
 
 def distortion_loss(weights, midpoints, intervals, ray_indices, valid, n_rays, group=1):

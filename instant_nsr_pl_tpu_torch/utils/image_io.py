@@ -1,4 +1,5 @@
-"""Image input without PIL or cv2: a PNG decoder and Pillow's bicubic resize.
+"""Image input without PIL or cv2: PNG and JPEG decoders and Pillow's bicubic
+resize.
 
 The JAX package's loaders read images with ``PIL.Image.open``, resize them
 with ``Image.BICUBIC`` and take a mask's luma with ``convert("L")``
@@ -13,6 +14,24 @@ PIL nor cv2, so the port carries its own:
   scanlines are unfiltered by ``png_unfilter.cc``, built with g++ at first
   use into ``instant_nsr_pl_tpu_torch/_build/`` (a missing compiler raises).
 - :func:`png_size` reads (width, height) from IHDR alone.
+- :func:`read_jpeg` returns what ``np.asarray(PIL.Image.open(path))``
+  returns for a JPEG with PIL 12.1.0 / libjpeg-turbo 3.1.3 at their
+  defaults, bit for bit, with PIL's mode (``L`` for one component, ``RGB``
+  for three): Huffman-coded 8-bit baseline, extended-sequential and
+  progressive frames, restart intervals, 4:4:4 / 4:2:2 / 4:2:0 sampling,
+  YCbCr or Adobe RGB; libjpeg's accurate integer IDCT, fancy upsampling and
+  fixed-point colour conversion. EXIF orientation and ICC profiles are
+  ignored, as ``Image.open`` ignores them. Arithmetic-coded, lossless,
+  hierarchical and 12-bit files, other sampling factors, and 4-component
+  files raise a ``ValueError`` naming the file (PIL would open a CMYK / YCCK
+  file as ``CMYK``, which the JAX loader would read as RGB; the port
+  refuses it), as does truncated or corrupt entropy-coded data, where PIL
+  raises ``OSError``. The decode is ``jpeg_decode.cc``, built with g++ at
+  first use as ``png_unfilter.cc`` is; a call releases the GIL, so images
+  decode in parallel on threads.
+- :func:`jpeg_size` reads (width, height) from the frame header.
+- :func:`read_image` picks PNG or JPEG by the file's first bytes; any other
+  file raises a ``ValueError`` naming it.
 - :func:`resize_bicubic` is Pillow's ``Image.resize(size, Image.BICUBIC)``
   on uint8 L, LA, RGB and RGBA images (``libImaging/Resample.c``): the cubic
   with a = -0.5, its support widened by the downscale factor, coefficients
@@ -36,6 +55,7 @@ import numpy as np
 from instant_nsr_pl_tpu_torch.ops import cuda_build
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and the first marker (PIL's JpegImagePlugin._accept)
 # (bit depth, colour type) -> the mode PIL opens the file in
 # (PIL.PngImagePlugin._MODES)
 _MODES = {
@@ -51,6 +71,7 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 
 _SRC = Path(__file__).with_name("png_unfilter.cc")
+_JPEG_SRC = Path(__file__).with_name("jpeg_decode.cc")
 
 
 def _unfilter_lib():
@@ -218,6 +239,71 @@ def read_png(path, convert=None):
         lut = to_luma(np.pad(palette, ((0, 256 - len(palette)), (0, 0))), "RGB")
         return lut[array], "L"
     return to_luma(array, mode), "L"
+
+
+# -- JPEG --------------------------------------------------------------------
+
+def _jpeg_lib():
+    """The g++ build of ``jpeg_decode.cc`` (``ops/cuda_build.py``
+    ``host_library``)."""
+    lib = cuda_build.host_library(_JPEG_SRC)
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_char_p, ctypes.c_int64]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+    return lib
+
+
+def _jpeg_header(data, path):
+    """(width, height, components) from the frame header; raises on a file
+    the decoder refuses before its first scan."""
+    info = (ctypes.c_int64 * 3)()
+    err = ctypes.create_string_buffer(512)
+    if _jpeg_lib().jpeg_header(data, len(data), info, err, len(err)) != 0:
+        raise ValueError(f"{path}: {err.value.decode('latin-1')}")
+    return info[0], info[1], info[2]
+
+
+def jpeg_size(path):
+    """(width, height) of a JPEG from its frame header."""
+    with open(path, "rb") as f:
+        data = f.read()
+    w, h, _ = _jpeg_header(data, path)
+    return w, h
+
+
+def read_jpeg(path, convert=None):
+    """``(np.asarray(PIL.Image.open(path)), PIL's mode)`` of a JPEG; with
+    ``convert="L"``, ``Image.open(path).convert("L")`` and ``"L"``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:3] != JPEG_SIGNATURE:
+        raise ValueError(f"{path}: not a JPEG file (bad signature)")
+    w, h, c = _jpeg_header(data, path)
+    out = np.empty((h, w, 3) if c == 3 else (h, w), np.uint8)
+    err = ctypes.create_string_buffer(512)
+    if _jpeg_lib().jpeg_decode(data, len(data), out.ctypes.data, out.size, err, len(err)) != 0:
+        raise ValueError(f"{path}: {err.value.decode('latin-1')}")
+    mode = "RGB" if c == 3 else "L"
+    if convert is None:
+        return out, mode
+    if convert != "L":
+        raise ValueError(f"{path}: read_jpeg converts only to 'L', not {convert!r}")
+    return to_luma(out, mode), "L"
+
+
+def read_image(path, convert=None):
+    """``read_png`` or ``read_jpeg`` by the file's first bytes; any other
+    file raises a ``ValueError`` naming it."""
+    with open(path, "rb") as f:
+        magic = f.read(len(PNG_SIGNATURE))
+    if magic == PNG_SIGNATURE:
+        return read_png(path, convert=convert)
+    if magic[:3] == JPEG_SIGNATURE:
+        return read_jpeg(path, convert=convert)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file; the port reads only those two")
 
 
 def to_luma(array, mode):

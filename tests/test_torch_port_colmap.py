@@ -62,7 +62,10 @@ def _fresh_caches():
     t_colmap.ColmapDatasetBase._cache = {}
 
 
-def _scene(tmp_path, rgba=False, masks=False):
+def _scene(tmp_path, rgba=False, masks=False, jpeg=None):
+    """The fixture; ``jpeg`` (a PIL subsampling, 0 for 4:4:4 or 2 for
+    4:2:0) re-encodes its images and masks as ``.jpg`` files (quality 90),
+    renamed in ``images.bin``."""
     root = str(tmp_path / "scene")
     _write_colmap_model(root)
     rs = np.random.RandomState(9)
@@ -80,6 +83,17 @@ def _scene(tmp_path, rgba=False, masks=False):
         for n in names:
             Image.fromarray(rs.randint(0, 256, (24, 32, 3), np.uint8)).save(
                 os.path.join(root, "masks", n))
+    if jpeg is not None:
+        for sub in ("images", "masks") if masks else ("images",):
+            for n in names:
+                p = os.path.join(root, sub, n)
+                Image.open(p).save(p[:-4] + ".jpg", quality=90, subsampling=jpeg)
+                os.remove(p)
+        images_bin = os.path.join(root, "sparse/0/images.bin")
+        with open(images_bin, "rb") as fh:
+            data = fh.read()
+        with open(images_bin, "wb") as fh:
+            fh.write(data.replace(b".png\x00", b".jpg\x00"))
     return root
 
 
@@ -113,19 +127,26 @@ def test_colmap_readers_match_jax(tmp_path):
         np.testing.assert_array_equal(t_cu.qvec2rotmat(qq), j_cu.qvec2rotmat(qq))
 
 
-@pytest.mark.parametrize("center_m,up_m,downscale,rgba,masks", [
+@pytest.mark.parametrize("center_m,up_m,downscale,images,masks", [
     ("lookat", "camera", 1, False, False),
     ("camera", "ground", 3, True, False),
     ("lookat", "ground", 2, False, True),
     ("point", "ground", 1.5, True, True),
+    ("lookat", "camera", 2, "jpeg420", True),
+    ("camera", "ground", 1, "jpeg444", True),
 ])
-def test_colmap_loader_matches_jax(tmp_path, capsys, center_m, up_m, downscale, rgba, masks):
+def test_colmap_loader_matches_jax(tmp_path, capsys, center_m, up_m, downscale, images, masks):
     """The loader against the JAX package's on the fixture, for each centre
     and up estimator (RANSAC ground included), downscales that round
-    (``int(W / d + 0.5)``), RGBA images and RGB masks: poses, directions and
-    the test trajectory within 1e-6, images and masks equal to the bit, the
-    val split the training images with its note, the test frames blank."""
-    root = _scene(tmp_path, rgba, masks)
+    (``int(W / d + 0.5)``), RGB or RGBA PNG images (``images`` False /
+    True) or JPEG images at 4:2:0 / 4:4:4 (their masks JPEG too), and RGB
+    masks: poses, directions and the test trajectory within 1e-6, images
+    and masks equal to the bit, the val split the training images with its
+    note, the test frames blank."""
+    jpeg = {"jpeg420": 2, "jpeg444": 0}.get(images)
+    root = _scene(tmp_path, images is True, masks, jpeg)
+    if jpeg is not None:
+        assert all(n.endswith(".jpg") for n in os.listdir(os.path.join(root, "images")))
     cfg = {"name": "colmap", "root_dir": root, "img_downscale": downscale,
            "up_est_method": up_m, "center_est_method": center_m, "n_test_traj_steps": 5,
            "apply_mask": masks}
@@ -150,14 +171,14 @@ def test_colmap_loader_matches_jax(tmp_path, capsys, center_m, up_m, downscale, 
     assert t_dm.test.all_images.shape == (5, h, w, 3) and not t_dm.test.all_images.any()
 
 
-def test_colmap_refuses_images_that_are_not_png(tmp_path):
-    """A JPEG among the images: ValueError naming the file, no fallback."""
+def test_colmap_refuses_images_that_are_neither_png_nor_jpeg(tmp_path):
+    """A GIF among the images: ValueError naming the file, no fallback."""
     root = _scene(tmp_path)
     p = os.path.join(root, "images", "img_002.png")
-    Image.open(p).save(p, format="JPEG")
+    Image.open(p).convert("P").save(p, format="GIF")
     cfg = {"name": "colmap", "root_dir": root, "img_downscale": 1, "up_est_method": "ground",
            "center_est_method": "lookat", "apply_mask": False}
-    with pytest.raises(ValueError, match="img_002.png: not a PNG"):
+    with pytest.raises(ValueError, match="img_002.png: neither a PNG nor a JPEG"):
         t_reg.datasets.make("colmap", t_config(cfg)).setup("fit")
 
 
@@ -219,9 +240,9 @@ def test_colmap_export_backdrop(tmp_path):
 
 
 def test_colmap_modules_import_no_pil_cv2_jax():
-    """The loader's modules import no PIL, cv2, JAX or JAX package module,
-    and importing them loads none."""
-    new = ["datasets/colmap.py", "datasets/colmap_utils.py"]
+    """The loader's modules (the PNG / JPEG reader among them) import no
+    PIL, cv2, JAX or JAX package module, and importing them loads none."""
+    new = ["datasets/colmap.py", "datasets/colmap_utils.py", "utils/image_io.py"]
     forbidden = ("PIL", "cv2", "jax", "jaxlib", "instant_nsr_pl_tpu")
     for rel in new:
         for node in ast.walk(ast.parse((PORT / rel).read_text())):
@@ -230,6 +251,7 @@ def test_colmap_modules_import_no_pil_cv2_jax():
                      else [])
             assert not any(n.split(".")[0] in forbidden for n in names), (rel, names)
     code = ("import sys, instant_nsr_pl_tpu_torch.datasets.colmap\n"
+            "import instant_nsr_pl_tpu_torch.utils.image_io\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -7,7 +7,10 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 """
 
+import hashlib
+import json
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -2276,3 +2279,67 @@ def test_marching_wide_offsets_match_narrow(cuda_device):
     wv, wf = t_iso.marching_emit(grid, 0.0, wide)
     torch.cuda.synchronize()
     assert len(nf) > 2_000_000 and torch.equal(nf, wf) and torch.equal(nv, wv)
+
+
+# ---------------------------------------------------------------------------
+# slice 14: JPEG decoding on the card's host, the compositing VJP on the card
+# ---------------------------------------------------------------------------
+
+_JPEG_FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures" / "jpeg"
+_JPEG_DIGESTS = json.loads((_JPEG_FIXTURES / "digests.json").read_text())["pil"]
+
+
+@pytest.mark.parametrize("group", sorted({p.split("/")[0] for p in _JPEG_DIGESTS}))
+def test_jpeg_fixtures_match_pil_digests(group):
+    """``read_jpeg`` on the committed fixtures (a capture's folder as one
+    case) against the digests PIL gave when they were written: sha256,
+    shape and mode. Needs no card and no PIL, so it also holds the host
+    build of ``jpeg_decode.cc`` on the card's machine."""
+    from instant_nsr_pl_tpu_torch.utils.image_io import read_jpeg
+
+    names = [p for p in _JPEG_DIGESTS if p.split("/")[0] == group]
+    for name in names:
+        a, mode = read_jpeg(_JPEG_FIXTURES / name)
+        got = {"sha256": hashlib.sha256(a.tobytes()).hexdigest(), "shape": list(a.shape),
+               "mode": mode}
+        assert got == _JPEG_DIGESTS[name], name
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_compositing_backward_matches_autograd_on_card(cuda_device, group):
+    """``accumulate_along_rays``'s custom VJP (one gather) against autograd
+    through the same float64 prefix-sum forward, on CUDA tensors: the
+    forward to the bit, the gradients of weights and values within 1e-6 x
+    max|grad|, with invalid and padding slots and rays that own none."""
+    from instant_nsr_pl_tpu_torch.ops import rendering as t_rend
+
+    rs = np.random.RandomState(group)
+    n_rays, cap = 4096, 1 << 17
+    blocks = rs.randint(0, 5, n_rays)
+    ray_of_block = np.repeat(np.arange(n_rays), blocks)[: cap // group - 4]
+    live = len(ray_of_block) * group
+    ends = torch.from_numpy(np.cumsum(np.bincount(ray_of_block, minlength=n_rays) * group))
+    valid = torch.zeros(cap, dtype=torch.bool)
+    valid[:live] = torch.from_numpy(rs.rand(live) < 0.8)
+    weights = torch.from_numpy(rs.rand(cap).astype(np.float32))
+    values = torch.from_numpy(rs.randn(cap, 5).astype(np.float32))
+    ct = torch.from_numpy(rs.randn(n_rays, 5).astype(np.float32)).to(cuda_device)
+    ends, valid = ends.to(cuda_device), valid.to(cuda_device)
+
+    def grads(fn):
+        w = weights.to(cuda_device).requires_grad_()
+        v = values.to(cuda_device).requires_grad_()
+        src = torch.where(valid, w, torch.zeros_like(w))[:, None] * v
+        if group > 1:
+            src = src.reshape(-1, group, 5).sum(dim=1)
+        out = fn(src, ends // group)
+        return (out.detach(), *torch.autograd.grad(out, (w, v), ct))
+
+    new = grads(t_rend.segment_sum_sorted)
+    old = grads(t_rend.segment_sum_prefix)
+    got = t_rend.accumulate_along_rays(weights.to(cuda_device), values.to(cuda_device), ends,
+                                       valid=valid, group=group)
+    assert torch.equal(new[0], old[0]) and torch.equal(got, old[0])
+    for a, b in zip(new[1:], old[1:]):
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))

@@ -233,6 +233,95 @@ def test_render_weights_and_accumulate(group):
     np.testing.assert_allclose(got.numpy(), np.asarray(scatter), atol=F32_TOL)
 
 
+def _autograd_accumulate(weights, values, ends, valid=None, group=1):
+    """The per-ray sum before its custom VJP: float64 prefix sums
+    differenced under autograd (the forward ``segment_sum_sorted`` keeps)."""
+    if valid is not None:
+        weights = torch.where(valid, weights, torch.zeros_like(weights))
+    src = weights[:, None] * values
+    if group > 1:
+        src = src.reshape(-1, group, src.shape[1]).sum(dim=1)
+        ends = ends // group
+    c = torch.cumsum(src.T.contiguous().double(), dim=1)
+    c = torch.cat([c.new_zeros((c.shape[0], 1)), c], dim=1)
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    out = (c[:, ends] - c[:, starts]).T.float()
+    return torch.where((ends > starts)[:, None], out, torch.zeros_like(out))
+
+
+def _packed_rays(seed, n_rays, cap, group):
+    """A packed, ray-sorted buffer: rays of 0-3 k-blocks (some own none),
+    invalid slots inside runs, padding slots (ray n_rays - 1) past the last."""
+    rs = np.random.RandomState(seed)
+    blocks = rs.randint(0, 4, n_rays)
+    blocks[[0, n_rays // 2]] = 0  # the first ray and one in the middle own no slots
+    ray_of_block = np.repeat(np.arange(n_rays), blocks)[: cap // group - 2]
+    n_live = len(ray_of_block) * group
+    ray_indices = np.full(cap, n_rays - 1, np.int32)
+    ray_indices[:n_live] = np.repeat(ray_of_block, group)
+    valid = np.zeros(cap, bool)
+    valid[:n_live] = rs.rand(n_live) < 0.8
+    ends = np.cumsum(np.bincount(ray_of_block, minlength=n_rays) * group).astype(np.int32)
+    weights = rs.rand(cap).astype(np.float32)
+    vals = rs.randn(cap, 5).astype(np.float32)
+    ct = rs.randn(n_rays, 5).astype(np.float32)
+    return ray_indices, valid, ends, weights, vals, ct
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_accumulate_vjp_matches_jax(group):
+    """The per-ray sum's custom VJP (``segment_sum_sorted``): gradients with
+    respect to weights and values against ``jax.vjp`` of the JAX
+    ``accumulate_along_rays(..., ends=)``, within 1e-6 x max|grad|, with
+    invalid and padding slots and rays that own none; the forward equal to
+    the autograd formula it replaced to the bit."""
+    n_rays, cap = 48, 1024
+    ray_indices, valid, ends, weights, vals, ct = _packed_rays(3, n_rays, cap, group)
+    assert ends[-1] < cap and (np.diff(np.concatenate([[0], ends])) == 0).sum() >= 2
+
+    def jax_sum(w, v):
+        return j_rend.accumulate_along_rays(w, ray_indices, v, n_rays=n_rays, valid=valid,
+                                            group=group, ends=jnp.asarray(ends))
+
+    ref, vjp = jax.vjp(jax_sum, jnp.asarray(weights), jnp.asarray(vals))
+    ref_dw, ref_dv = (np.asarray(g) for g in vjp(jnp.asarray(ct)))
+    w = _t(weights).requires_grad_()
+    v = _t(vals).requires_grad_()
+    got = t_rend.accumulate_along_rays(w, v, _t(ends).long(), valid=_t(valid), group=group)
+    got.backward(_t(ct))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=F32_TOL)
+    for name, g, r in (("weights", w.grad, ref_dw), ("values", v.grad, ref_dv)):
+        tol = 1e-6 * np.abs(r).max()
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=tol, err_msg=name)
+    assert np.abs(ref_dv[~valid]).max() == 0  # the mask zeroes padding and invalid slots
+    old = _autograd_accumulate(_t(weights), _t(vals), _t(ends).long(), valid=_t(valid),
+                               group=group)
+    assert torch.equal(got.detach(), old)
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_segment_sum_sorted_backward_is_the_gather(group):
+    """The backward itself, without the mask: each row gets its ray's
+    cotangent exactly (``ct[row_rays]``, the JAX ``_sss_bwd``), padding rows
+    the last ray's; the autograd formula agrees up to its float64 rounding."""
+    n_rays, cap = 48, 1024
+    ray_indices, _, ends, _, vals, ct = _packed_rays(4, n_rays, cap, group)
+    rows = ray_indices.reshape(-1, group)[:, 0]
+    src = _t(vals[: cap // group]).requires_grad_()
+    t_rend.segment_sum_sorted(src, _t(ends // group).long()).backward(_t(ct))
+    np.testing.assert_array_equal(src.grad.numpy(), ct[rows])
+    _, jvjp = jax.vjp(lambda s: j_rend.segment_sum_sorted(s, jnp.asarray(rows),
+                                                          jnp.asarray(ends // group), n_rays),
+                      jnp.asarray(vals[: cap // group]))
+    np.testing.assert_array_equal(src.grad.numpy(), np.asarray(jvjp(jnp.asarray(ct))[0]))
+    old = _t(vals[: cap // group]).requires_grad_()
+    _autograd_accumulate(torch.ones(cap // group), old, _t(ends // group).long()).backward(
+        _t(ct))
+    live = ends[-1] // group
+    np.testing.assert_allclose(old.grad.numpy()[:live], ct[rows][:live], rtol=0,
+                               atol=1e-6 * np.abs(ct).max())
+
+
 # ---------------------------------------------------------------------------
 # the port's rules
 # ---------------------------------------------------------------------------
