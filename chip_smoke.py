@@ -7,8 +7,9 @@ trained, tested and exported through the launcher), NeuS on the hash grid
 progressive-band variant), the ``cp_big`` shapes, the gather / scatter
 probes, the Blender and DTU configs on data read from disk
 (``data80/blender`` and a DTU-layout export), the unbounded configs (also on
-a JPEG capture), and the VM NeRF (``configs/nerf-vm-synthetic.yaml``); every
-mesh marches on the card.
+a JPEG capture), the VM NeRF (``configs/nerf-vm-synthetic.yaml``), and
+``configs/nerf-blender.yaml`` trained data-parallel through the launcher's
+``--devices 2``; every mesh marches on the card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -216,8 +217,28 @@ lines are printed):
    forward to the bit, the gradients within 1e-6 x max|grad|, both
    segment-sum backwards timed
    with CUDA events (back to back, and one call queued behind a spin kernel
-   for the device time);
-22. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
+   for the device time); on the same step's ``render_weight_from_density``
+   operands the segmented prefix sum's backward (``SegmentedInclusiveCumsum``,
+   gathers only) against autograd through the same float64 forward, for the
+   weights and for the distortion loss on those samples: the forwards to the
+   bit, the gradients within 1e-6 x max|grad|, both backwards timed;
+22. slice 15, data parallel: ``configs/nerf-blender.yaml`` at full width on
+   ``data80/blender`` through the launcher with ``--devices 2`` (NCCL on two
+   cards, else both ranks on this card over gloo; the world size, backend
+   and card count printed) for DP_STEPS steps, each rank observed by
+   ``tools/dp_check.py`` ``observe``: HG1 / HG2 / K3 / K4 launched on every
+   step of every rank (the counts read in each rank and gathered to rank 0,
+   the emulation's launches left out), the ranks' batches different at every
+   step, the grid, parameters, AdamW moments, extra state and generator
+   equal to the bit across the ranks (sha256) after the first grid update
+   and at the end, step DP_EMULATE's mean gradients and parameter updates within
+   2.5e-2 of rank 0's single-rank emulation's largest per tensor (every
+   rank's batch rebuilt from the step's seed and equal to the one that rank
+   drew, its gradients averaged, then AdamW), the loss falling, the val
+   views 3 dB above the untrained model's, the warm per-rank step wall and
+   the gradient all-reduce's share (CUDA events), rank 0's mesh marched on
+   the card; then DP_WS1_STEPS steps at world size 1 over NCCL;
+23. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4,
    VM2; the forwards K1, K13, cp_big's K1, K3, K5, cp_big's K5, K9, cp_big's
@@ -245,7 +266,7 @@ lines are printed):
    ``parent_device_ms_step``: the same training step's operands, saved by this run
    under ``exp/chip_smoke/step_operands.pt``): that design's times from
    ``tools/bwd_bench.py --root DIR`` in this run;
-23. the last line ``{"ok": true, "device": {...}}``.
+24. the last line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds K13/K14 (the stacked fused density forward and backward:
 C=64, nested R=(129, 2049) on one 2049-row table of 128 stacked components,
@@ -2838,14 +2859,15 @@ def hash_jac_kernel_phase(device):
     ]
 
 
-def _launcher_run(argv):
-    """``instant_nsr_pl_tpu_torch.launch`` in this process; returns the
-    wall seconds (after the card's queue drains)."""
+def _launcher_run(argv, rank_hook=None):
+    """``instant_nsr_pl_tpu_torch.launch`` in this process (its ranks
+    spawned from it under ``--devices``); returns the wall seconds (after
+    the card's queue drains)."""
     from instant_nsr_pl_tpu_torch.launch import main as launch_main
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = launch_main(argv)
+    rc = launch_main(argv, rank_hook=rank_hook)
     torch.cuda.synchronize()
     assert rc == 0, rc
     return time.perf_counter() - t0
@@ -3606,8 +3628,9 @@ def jpeg_phase(device, smi):
     ``configs/nerf-colmap.yaml`` trained through the launcher on that
     capture (``dataset_launcher_phase``: the loss falling, val 3 dB above
     the untrained model, a non-empty mesh), its last training step's
-    compositing operands captured for ``compositing_vjp_check``. Returns
-    the figures."""
+    compositing operands captured for ``compositing_vjp_check`` and its
+    weights' operands for ``segmented_cumsum_check``. Returns the
+    figures."""
     from instant_nsr_pl_tpu_torch.models import nerf as nerf_model
 
     fig = {"decode": jpeg_decode_check(smi), "loader": jpeg_loader_check(smi)}
@@ -3620,13 +3643,214 @@ def jpeg_phase(device, smi):
                             valid.clone(), group)]
         return accumulate(weights, values, ends, valid=valid, group=group)
 
+    weights_of = nerf_model.render_weight_from_density
+    weights_captured = []
+
+    def capturing_weights(t_starts, t_ends, sigma, ray_indices, valid, group=1):
+        if torch.is_grad_enabled() and sigma.requires_grad:
+            weights_captured[:] = [(t_starts.detach().clone(), t_ends.detach().clone(),
+                                    sigma.detach().clone(), ray_indices.clone(),
+                                    valid.clone(), group)]
+        return weights_of(t_starts, t_ends, sigma, ray_indices, valid, group=group)
+
     nerf_model.accumulate_along_rays = capturing
+    nerf_model.render_weight_from_density = capturing_weights
     try:
         fig["run"] = dataset_launcher_phase(device, smi, "jpeg_colmap_nerf")
     finally:
         nerf_model.accumulate_along_rays = accumulate
+        nerf_model.render_weight_from_density = weights_of
     assert captured, "no training step composited through accumulate_along_rays"
+    assert weights_captured, "no training step through render_weight_from_density"
     fig["vjp"] = compositing_vjp_check(captured[0], smi)
+    fig["segmented_cumsum"] = segmented_cumsum_check(weights_captured[0], smi)
+    return fig
+
+
+def segmented_cumsum_check(operands, smi):
+    """Queue 3 item 11: the segmented prefix sum's backward
+    (``ops/rendering.py`` ``SegmentedInclusiveCumsum``: the cotangent's
+    segmented sum read from the right, gathers only) against autograd
+    through the same float64 forward (``segmented_inclusive_prefix``, whose
+    gathers' backward is PyTorch's float64 ``indexing_backward_kernel``) on
+    a training step's captured ``render_weight_from_density`` operands and
+    that step's distortion loss (midpoints and intervals of the same
+    samples): the forwards equal to the bit, d sigma, d weights and d
+    midpoints within 1e-6 x max|grad|, both paths computed with PyTorch's
+    deterministic algorithms on (its CUDA float cumsum otherwise adds in an
+    order that varies from run to run, which can move a float32 rounding);
+    each backward timed, with that mode off, with CUDA events back to back
+    and queued behind a spin kernel (device time)."""
+    import contextlib
+
+    from instant_nsr_pl_tpu_torch.ops import rendering
+    from instant_nsr_pl_tpu_torch.tools.microbench_gather import time_ms as queued_ms
+
+    ts, te, sigma0, ray_indices, valid, group = operands
+    gen = torch.Generator(device=sigma0.device).manual_seed(SEED)
+    ct = torch.randn(sigma0.shape, generator=gen, device=sigma0.device)
+    n_rays = int(ray_indices.max()) + 1
+    fig = {"samples": sigma0.shape[0], "live": int(valid.sum()), "group": group}
+    got = {}
+    custom = rendering._segmented_inclusive_cumsum
+
+    @contextlib.contextmanager
+    def deterministic():
+        torch.use_deterministic_algorithms(True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    try:
+        for name in ("custom", "autograd"):
+            rendering._segmented_inclusive_cumsum = (
+                custom if name == "custom"
+                else lambda flags, x: rendering.segmented_inclusive_prefix(flags, x)[0])
+            sigma = sigma0.clone().requires_grad_()
+            with deterministic():
+                w = rendering.render_weight_from_density(ts, te, sigma, ray_indices, valid,
+                                                         group)
+                (d_sigma,) = torch.autograd.grad(w, sigma, ct)
+                wl = w.detach().clone().requires_grad_()
+                mid = (0.5 * (ts + te)).requires_grad_()
+                loss = rendering.distortion_loss(wl, mid, te - ts, ray_indices, valid, n_rays,
+                                                 group=group)
+                got[name] = (w.detach(), d_sigma, loss.detach(),
+                             *torch.autograd.grad(loss, (wl, mid)))
+            w = rendering.render_weight_from_density(ts, te, sigma, ray_indices, valid, group)
+
+            def backward(w=w, sigma=sigma):
+                return torch.autograd.grad(w, sigma, ct, retain_graph=True)
+
+            fig[f"{name}_ms"] = time_ms(backward)
+            fig[f"{name}_device_ms"] = queued_ms(backward, inner=1)
+    finally:
+        rendering._segmented_inclusive_cumsum = custom
+    for i, key in ((0, "weights"), (2, "distortion")):
+        assert torch.equal(got["custom"][i], got["autograd"][i]), f"the {key} forward changed"
+    for i, key in ((1, "d_sigma"), (3, "d_weights"), (4, "d_midpoints")):
+        ref = float(got["autograd"][i].abs().max())
+        fig[f"{key}_max_abs_diff"] = float((got["custom"][i] - got["autograd"][i]).abs().max())
+        fig[f"{key}_max_abs"] = ref
+        assert ref > 0 and fig[f"{key}_max_abs_diff"] <= 1e-6 * ref, (key, fig)
+    print(f"[segmented-cumsum] a training step's operands ({fig['samples']} samples, "
+          f"{fig['live']} live, blocks of {group}): weights and distortion loss equal to the "
+          f"bit; largest difference d sigma {fig['d_sigma_max_abs_diff']:.3e} (max |grad| "
+          f"{fig['d_sigma_max_abs']:.3e}), d weights {fig['d_weights_max_abs_diff']:.3e} "
+          f"({fig['d_weights_max_abs']:.3e}), d midpoints {fig['d_midpoints_max_abs_diff']:.3e} "
+          f"({fig['d_midpoints_max_abs']:.3e}); the weights' backward: custom "
+          f"{fig['custom_ms']:.4f} ms (device {fig['custom_device_ms']:.4f}), autograd "
+          f"{fig['autograd_ms']:.4f} ms (device {fig['autograd_device_ms']:.4f}) ({smi})",
+          flush=True)
+    return fig
+
+
+# ---------------------------------------------------------------------------
+# slice 15: data-parallel training through the launcher's --devices
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 100  # of nerf-blender.yaml's 20,000
+DP_EMULATE = 30  # the step held against rank 0's single-rank emulation
+DP_WARM = 40  # the timed steps: DP_WARM to DP_STEPS - 1 (grid updates every 16 included)
+DP_WS1_STEPS = 12  # world size 1 over NCCL
+DP_KERNELS = ("hashgrid_forward", "hashgrid_backward", "sh_mlp_forward", "sh_mlp_backward")
+
+
+def dp_phase(device, smi, untrained_test):
+    """Slice 15: ``configs/nerf-blender.yaml`` at full width on
+    ``data80/blender`` (the Blender runs' overrides) through the port's
+    launcher with ``--devices 2``: over NCCL on two cards, else both ranks
+    on this card over gloo. The ranks are observed by
+    ``tools/dp_check.py`` ``observe`` around the system's own step: each
+    step's HG1 / HG2 / K3 / K4 launches on every rank; the ranks' batches
+    differ at every step; the grid, parameters and AdamW moments (and the
+    extra state and generator) equal to the bit across the ranks (sha256)
+    after the first grid update and at the end; step DP_EMULATE's mean
+    gradients and parameter updates within 2.5e-2 of rank 0's single-rank
+    emulation's largest per tensor (the card step checks' K4 limit), the
+    emulation's rebuilt batches the ones the ranks drew; the
+    warm per-rank step wall and the gradient all-reduce's share (CUDA
+    events). The loss falls; the val views (2) end at least 3 dB above the
+    untrained model's, and test/psnr is printed beside ``untrained_test``;
+    rank 0's mesh marches on the card. Then DP_WS1_STEPS steps at world size
+    1 over NCCL (``--devices 1 --backend nccl``, the test split cut to the
+    val views): NCCL's set-up and all-reduce on the card. Returns the
+    figures."""
+    import csv
+    import functools
+    import glob
+
+    from instant_nsr_pl_tpu_torch.tools import dp_check
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    config = os.path.join(ROOT, "configs", "nerf-blender.yaml")
+    untrained = _untrained_psnr(config, BLENDER_DATA, "val", 2, device)
+    print(f"[dp] world size 2, backend {backend}, {cards} visible card(s); untrained val "
+          f"PSNR over 2 views {untrained:.3f} dB ({smi})", flush=True)
+    fig = {"world": 2, "backend": backend, "cards": cards, "untrained_val": untrained}
+    exp = os.path.join(ROOT, "exp", "chip_smoke_dp")
+    shutil.rmtree(exp, ignore_errors=True)
+    base = ["--config", config, "tag=chip", *BLENDER_DATA]
+    runs = {}
+    for key, world, extra, steps in (
+            ("dp2", 2, ["--devices", "2"] + (["--backend", "gloo"] if backend == "gloo" else []),
+             DP_STEPS),
+            ("ws1", 1, ["--devices", "1", "--backend", "nccl", "dataset.test_split=val"],
+             DP_WS1_STEPS)):
+        report = os.path.join(exp, f"{key}.json")
+        hook = functools.partial(dp_check.observe, out=report,
+                                 emulate_at=DP_EMULATE if key == "dp2" else 2,
+                                 warm_from=DP_WARM if key == "dp2" else 4)
+        wall = _launcher_run(base + extra + [
+            "--exp_dir", os.path.join(exp, key), "--train", f"trainer.max_steps={steps}",
+            f"trainer.val_check_interval={steps}", "trainer.log_every_n_steps=20"],
+            rank_hook=hook)
+        records = dp_check.read_report(report)
+        assert len(records) == world, records
+        missing = dp_check.launches_each_step(records, DP_KERNELS)
+        assert not missing, f"{key}: steps without a kernel launch: {missing[:10]}"
+        for label in ("digests_first_update", "digests_end"):
+            assert dp_check.agree(records, label), (key, label, [r[label] for r in records])
+        same = dp_check.same_batches(records)
+        assert not same, f"{key}: ranks drew equal batches at steps {same[:10]}"
+        emu = records[0]["emulation"]
+        assert emu is not None and emu["grad_share"] <= emu["rel"], emu
+        assert dp_check.emulation_batches_match(records), (key, emu["batches"])
+        (run,) = glob.glob(os.path.join(exp, key, "*", "chip@*"))
+        with open(os.path.join(run, "csv_logs", "metrics.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        val = [float(r["val/psnr"]) for r in rows if r.get("val/psnr")]
+        test = [float(r["test/psnr"]) for r in rows if r.get("test/psnr")]
+        losses = [s["loss"] for s in records[0]["steps"]]
+        k = max(len(losses) // 5, 1)
+        first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+        runs[key] = {"wall_s": wall, "val": val[-1], "test": test[-1], "first": first,
+                     "last": last, "records": records}
+        warm = [r["warm"] for r in records]
+        per_rank = "; ".join(
+            f"rank {r['rank']} ({r['device']}) {w['ms_per_step']:.2f} ms a step, all-reduce "
+            f"{w['reduce_ms_per_step']:.3f} ms ({w['reduce_share']:.1%})"
+            for r, w in zip(records, warm))
+        print(f"[dp] {key}: {steps} steps + val + test + mesh through the launcher in "
+              f"{wall:.1f} s (world {world}, {records[0]['backend']}); warm steps "
+              f"{DP_WARM if key == 'dp2' else 4}-{steps - 1}: {per_rank}; loss, first {k} "
+              f"steps {first:.5f}, last {k} {last:.5f}; val PSNR {val[-1]:.3f} dB (untrained "
+              f"{untrained:.3f}), test/psnr {test[-1]:.3f} (untrained {untrained_test:.3f}); "
+              f"step {emu['step']} against rank 0's emulation: mean gradients within "
+              f"{emu['grad_share']:.3e}, updates within {emu['update_share']:.3e} of the "
+              f"largest (limit {emu['rel']}), its batches the ones the ranks drew, which "
+              f"differ at every step; digests agree after the first grid update and "
+              f"at the end ({records[0]['digests_end']['params'][:12]}...); launches "
+              f"{[r['launches_run'] for r in records]} ({smi})", flush=True)
+        assert np.isfinite(losses).all(), f"{key}: the loss went non-finite"
+        if key == "dp2":
+            assert last < first, f"{key}: the loss did not fall"
+            assert val[-1] >= untrained + 3.0, f"{key}: training gained less than 3 dB"
+            assert records[0]["launches_run"]["marching_classify"] >= 1, "no marching on the card"
+    fig["runs"] = runs
+    torch.cuda.empty_cache()
     return fig
 
 
@@ -4333,11 +4557,17 @@ def _main(args):
     # capture, the compositing VJP on its last training step
     jpeg_run = mt_tally("jpeg_colmap_nerf", jpeg_phase, device, smi)
     torch.cuda.empty_cache()
+    # slice 15: nerf-blender.yaml through the launcher with --devices 2 (and
+    # world size 1 over NCCL); the ranks' own launch counts
+    dp_run = dp_phase(device, smi, ds_runs["blender_nerf"]["untrained"])
     # slice 10: MT1 / MT2 against the numpy twin (sphere SDFs, the VM NeRF's level grid)
     mt_entries = marching_phase(device, smi, args.parent)
     summary = {"card": smi, "dtu_export_s": dtu_export_s, "dtu_band_s": dtu_band_s,
                "dtu_band_launches": dtu_band_run, "colmap_export_s": colmap_export_s, **ds_runs,
-               "jpeg": jpeg_run}
+               "jpeg": jpeg_run,
+               "dp": {k: v for k, v in dp_run.items() if k != "runs"}
+               | {"runs": {k: {f: x for f, x in r.items() if f != "records"}
+                           for k, r in dp_run["runs"].items()}}}
     os.makedirs(os.path.join(ROOT, "exp", "chip_smoke_datasets"), exist_ok=True)
     with open(os.path.join(ROOT, "exp", "chip_smoke_datasets", "summary.json"), "w") as fh:
         json.dump(summary, fh, indent=1, default=str)
@@ -4435,6 +4665,12 @@ def _main(args):
                 e[f"launches_{key}_export"] = ds_runs[key]["export_launches"][name]
         if name in dtu_band_run:
             e["launches_dtu_band_train"] = dtu_band_run[name]
+        # slice 15: each rank's launches in the data-parallel runs (training,
+        # val, test; MT1 / MT2 in rank 0's mesh)
+        for key, run in dp_run["runs"].items():
+            for r in run["records"]:
+                if name in r["launches_run"]:
+                    e[f"launches_{key}_rank{r['rank']}"] = r["launches_run"][name]
     # the redesigned kernels: ptxas' registers and spills, the launch plan
     # (shared memory, blocks per SM), the time on a training step's own
     # operands, and the parent design's times where a parent checkout is given

@@ -118,7 +118,8 @@ class NeRFModel:
         return {"grid": occupancy_grid_init(self.occ_spec, device)}
 
     # -- occupancy maintenance (reference models/nerf.py:45-55) -----------
-    def update_occupancy(self, params, occ, generator, warmup=False, phase=None, step=None):
+    def update_occupancy(self, params, occ, generator, warmup=False, phase=None, step=None,
+                         group=None):
         """One grid update (``ops/marching.py`` ``occupancy_grid_update``)
         with occupancy = density * step size, the reference's Taylor
         approximation of 1 - exp(-density * dt). The density comes from
@@ -134,7 +135,7 @@ class NeRFModel:
 
         grid = occupancy_grid_update(
             occ["grid"], self.occ_spec, occ_eval_fn, generator,
-            occ_thre=self.occ_thre, warmup=warmup, phase=phase,
+            occ_thre=self.occ_thre, warmup=warmup, phase=phase, group=group,
         )
         return {"grid": grid}
 

@@ -182,7 +182,8 @@ class NeuSModel:
         return float(min(np.float32(1.0), np.float32(step) / np.float32(self.cos_anneal_end)))
 
     # -- occupancy maintenance (reference models/neus.py:94-111) -----------
-    def update_occupancy(self, params, occ, generator, warmup=False, phase=None, step=None):
+    def update_occupancy(self, params, occ, generator, warmup=False, phase=None, step=None,
+                         group=None):
         """One grid update with the occupancy estimated from the SDF at
         training step ``step``: the alpha of a step-sized section at the
         cell's point, without the view term (``geometry.apply`` without
@@ -206,7 +207,7 @@ class NeuSModel:
 
         new = {"grid": occupancy_grid_update(
             occ["grid"], self.occ_spec, occ_eval_fn, generator,
-            occ_thre=self.occ_thre, warmup=warmup, phase=phase,
+            occ_thre=self.occ_thre, warmup=warmup, phase=phase, group=group,
         )}
         if self.learned_background:
             def occ_eval_fn_bg(x):
@@ -216,7 +217,7 @@ class NeuSModel:
 
             new["grid_bg"] = occupancy_grid_update(
                 occ["grid_bg"], self.occ_spec_bg, occ_eval_fn_bg, generator,
-                occ_thre=self.occ_thre_bg, warmup=warmup, phase=phase,
+                occ_thre=self.occ_thre_bg, warmup=warmup, phase=phase, group=group,
             )
         return new
 

@@ -131,6 +131,7 @@ def occupancy_grid_update(
     warmup: bool = False,
     sample_divisor: int = 8,
     phase=None,
+    group=None,
 ) -> OccupancyGridState:
     """One nerfacc-style grid update (JAX ``occupancy_grid_update``).
 
@@ -147,7 +148,11 @@ def occupancy_grid_update(
     drawn twice in the random mode keeps its last draw's value.
 
     ``draws`` (see :func:`occupancy_update_draws`) replaces the draws from
-    ``generator``."""
+    ``generator``. With ``group`` (a data-parallel run's
+    ``parallel.distributed.Group``, the JAX ``mesh``) the evaluations are
+    split in contiguous shards over the ranks and gathered back, so every
+    rank applies the identical update from its replicated generator's
+    draws."""
     res = spec.resolution
     n = spec.num_cells
     dev = state.occs.device
@@ -172,7 +177,10 @@ def occupancy_grid_update(
     unit = (coords + draws["jitter"].to(dev)) / res  # the contracted [0,1]^3 cube
     world = uncontract_from_unisphere(unit, spec.radius, spec.contraction_type)
     with torch.no_grad():
-        occ = occ_eval_fn(world).reshape(-1).float()
+        if group is not None:
+            occ = group.sharded_eval(lambda w: occ_eval_fn(w).reshape(-1).float(), world)
+        else:
+            occ = occ_eval_fn(world).reshape(-1).float()
     if warmup:
         occs = torch.maximum(state.occs * ema_decay, occ)
     elif slab:

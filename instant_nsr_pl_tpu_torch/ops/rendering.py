@@ -12,27 +12,64 @@ shape was chosen for the TPU). In float64 no sum loses precision across the
 segments it crosses, and the result is rounded to float32 once.
 
 Gradients are autograd's through these ops (nothing here works in place),
-but for the per-ray sum: :class:`SegmentSumSorted` carries the JAX custom
-VJP (JAX twin ``ops/rendering.py:44-81``), which hands each packed row its
-ray's cotangent in one gather, where autograd would difference the float64
-prefix sums' scattered cotangents.
+but for the two segmented sums: :class:`SegmentSumSorted` carries the JAX
+custom VJP (JAX twin ``ops/rendering.py:44-81``), which hands each packed
+row its ray's cotangent in one gather, and :class:`SegmentedInclusiveCumsum`
+(the transmittance and the distortion loss) differentiates by the same
+prefix difference read from the right; autograd would difference the float64
+prefix sums' scattered cotangents in both.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from instant_nsr_pl_tpu_torch.ops.activations import clip
 
 
-def _segmented_inclusive_cumsum(flags, x):
+def segmented_inclusive_prefix(flags, x):
     """Inclusive cumsum of ``x`` (N,) restarting wherever ``flags`` is True
-    (entries before the first flag form one segment from the start)."""
+    (entries before the first flag form one segment from the start): one
+    float64 prefix sum, less its value before each segment's start, rounded
+    to float32 once. Returns it with the segment starts and each entry's
+    segment number. The forward of :class:`SegmentedInclusiveCumsum`;
+    called directly, autograd differentiates it (the reference its backward
+    is held to)."""
     c = torch.cumsum(x.double(), dim=0)
     starts = torch.nonzero(flags).reshape(-1)
     base = torch.cat([c.new_zeros(1), (c - x.double())[starts]])
     seg = torch.cumsum(flags.long(), dim=0)
-    return (c - base[seg]).float()
+    return (c - base[seg]).float(), starts, seg
+
+
+class SegmentedInclusiveCumsum(torch.autograd.Function):
+    """:func:`segmented_inclusive_prefix` with the backward of a segmented
+    inclusive sum: the segmented inclusive sum of the cotangent read from
+    the right, ``dx_i = sum_{j >= i in i's segment} g_j``, by the same
+    float64 prefix difference, ``C[end(i)] - C[i]`` over the cotangent's
+    prefix ``C`` with a leading zero: two gathers. Autograd's backward of
+    the forward's gathers ``(c - x)[starts]`` and ``base[seg]`` is a float64
+    scatter (PyTorch's sorting ``indexing_backward_kernel`` on the card)."""
+
+    @staticmethod
+    def forward(ctx, flags, x):
+        out, starts, seg = segmented_inclusive_prefix(flags, x)
+        ctx.save_for_backward(starts, seg)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        starts, seg = ctx.saved_tensors
+        c = torch.cumsum(g.double(), dim=0)
+        c = torch.cat([c.new_zeros(1), c])
+        # segment s ends (exclusive) where segment s + 1 starts, the last at N
+        ends = torch.cat([starts, starts.new_full((1,), g.shape[0])])
+        return None, (c[ends[seg]] - c[:-1]).float()
+
+
+_segmented_inclusive_cumsum = SegmentedInclusiveCumsum.apply  # (flags (N,), x (N,)) -> (N,)
 
 
 def _segment_starts(ray_indices, valid):

@@ -27,6 +27,7 @@ import torch
 from instant_nsr_pl_tpu_torch.device import resolve_device
 from instant_nsr_pl_tpu_torch.models.network_utils import make_trainable
 from instant_nsr_pl_tpu_torch.ops.ray import get_rays
+from instant_nsr_pl_tpu_torch.parallel.data_parallel import DataParallelPlan
 from instant_nsr_pl_tpu_torch.registry import models
 from instant_nsr_pl_tpu_torch.systems.criterions import psnr, ssim
 from instant_nsr_pl_tpu_torch.systems.optimizers import make_optimizer
@@ -135,6 +136,7 @@ class BaseSystem:
         self.steps_per_epoch = None
         self._eval_capacity_scale = 1
         self.last_render_stats = None
+        self._plan = None  # the data-parallel plan (configure_parallel)
 
     def C(self, value, step):
         """Scheduled scalar of this system (epoch specs use its train split
@@ -182,7 +184,31 @@ class BaseSystem:
             from instant_nsr_pl_tpu_torch.utils.checkpoint import load_weights_only
 
             state = load_weights_only(weights, state)
-        return state
+        return self.replicate(state)
+
+    # -- parallelism ----------------------------------------------------------
+    def configure_parallel(self, group):
+        """Train and render over the ranks of ``group`` (a
+        ``parallel.distributed.Group``; the JAX ``configure_parallel(mesh)``):
+        ``train_step``, ``train_chunk`` and ``update_occupancy`` go through a
+        ``DataParallelPlan``, ``render_chunk`` shards each chunk's rays over
+        the ranks. Returns the plan."""
+        if self.eval_chunk_rays % group.size:
+            raise ValueError(f"eval_chunk_rays {self.eval_chunk_rays} must divide by the "
+                             f"world size {group.size}")
+        self._plan = DataParallelPlan(self, group)
+        return self._plan
+
+    @property
+    def plan(self):
+        """The data-parallel plan (``configure_parallel``); None on one
+        process."""
+        return self._plan
+
+    def replicate(self, state):
+        """Under a plan, rank 0's state on every rank (``DataParallelPlan.
+        replicate``); else ``state`` as it is."""
+        return self._plan.replicate(state) if self._plan is not None else state
 
     # -- sampling (reference systems/nerf.py:33-85) -------------------------
     def _sample_rays(self, data, generator, n):
@@ -229,7 +255,10 @@ class BaseSystem:
         """One grid update of the state (reference models/nerf.py:45-55 via
         nerfacc ``every_n_step``): every cell while warming up, else the slab
         of update ordinal (step // grid_update_every) mod 8, or the random
-        cells with ``grid_update_sampling: random``."""
+        cells with ``grid_update_sampling: random``. Under a plan, the
+        collective update (``DataParallelPlan.update_occupancy``)."""
+        if self._plan is not None:
+            return self._plan.update_occupancy(state, warmup)
         phase = None
         if not warmup and self.grid_update_sampling == "slab":
             phase = (state["step"] // self.grid_update_every) % 8
@@ -239,6 +268,17 @@ class BaseSystem:
         )
         return state
 
+    def draw_batch(self, generator, n_rays):
+        """A training batch of ``n_rays`` rays drawn from ``generator``: rays,
+        colours, foreground masks and the background (composited into the
+        colours where the dataset applies its masks)."""
+        rays_o, rays_d, rgb, fg_mask = self._sample_rays(self.data, generator, n_rays)
+        bg = self._background_color(generator, n_rays, train=True)
+        if self.apply_mask:
+            rgb = rgb * fg_mask[:, None] + bg.expand_as(rgb) * (1.0 - fg_mask[:, None])
+        return {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb, "fg_mask": fg_mask,
+                "background_color": bg}
+
     def train_step(self, state):
         """One training step, updating ``state`` in place (and returning it
         with the step's metrics): the grid update when ``step`` is a multiple
@@ -246,18 +286,16 @@ class BaseSystem:
         sample rays, forward, loss, backward and the optimizer update
         (reference on_train_batch_start -> training_step ordering,
         systems/base.py:54-57). Metrics are 0-d tensors or floats; reading
-        them waits for the device."""
+        them waits for the device. Under a plan, ``DataParallelPlan.
+        train_step``."""
+        if self._plan is not None:
+            return self._plan.train_step(state)
         step = state["step"]
         if step % self.grid_update_every == 0:
             self.update_occupancy(state, warmup=step < self.grid_warmup_steps)
         n_rays = self.active_num_rays
         gen = state["generator"]
-        rays_o, rays_d, rgb, fg_mask = self._sample_rays(self.data, gen, n_rays)
-        bg = self._background_color(gen, n_rays, train=True)
-        if self.apply_mask:
-            rgb = rgb * fg_mask[:, None] + bg.expand_as(rgb) * (1.0 - fg_mask[:, None])
-        batch = {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb, "fg_mask": fg_mask,
-                 "background_color": bg}
+        batch = self.draw_batch(gen, n_rays)
         optimizer = state["optimizer"]
         optimizer.zero_grad()
         loss, metrics = self.loss_fn(state["params"], state["occ"], batch, gen, step,
@@ -275,7 +313,7 @@ class BaseSystem:
     def train_chunk(self, state, n: int):
         """``n`` training steps; returns (state, the last step's metrics).
         The JAX package runs them as one compiled scan between grid updates;
-        the port runs them one by one."""
+        the port runs them one by one (under a plan too)."""
         metrics = None
         for _ in range(n):
             state, metrics = self.train_step(state)
@@ -285,7 +323,9 @@ class BaseSystem:
         """Bucketed dynamic ray batching (the reference's EMA ``n_rays <-
         0.9n + 0.1n * target/actual``, systems/nerf.py:93-95): the largest
         bucket whose expected live-sample count fits 90% of the packed
-        capacity. Called at log cadence."""
+        capacity. Called at log cadence. Under a plan ``live_samples`` is the
+        ranks' sum (the reduced metric) and the ray count and capacity are
+        the global ones, so every rank picks the same bucket."""
         if not self.dynamic_ray_sampling or live_samples <= 0:
             return self.active_num_rays
         per_ray = live_samples / self.active_num_rays
@@ -303,12 +343,29 @@ class BaseSystem:
 
     def render_chunk(self, state, rays_o, rays_d, capacity_scale: int = 1):
         """One fixed-size chunk on a white background at the state's step
-        (the JAX package's jitted ``make_render_chunk``)."""
+        (the JAX package's jitted ``make_render_chunk``). Under a plan the
+        chunk's rays are interleaved over the ranks (rank r renders rays r,
+        r + n, ...: image-adjacent rays have correlated sample counts), each
+        at ``min(cap, max(2 * cap // n, 1))`` samples (2x headroom over the
+        even split for the ranks' unequal loads), and ``all_gather`` gives
+        every rank the whole chunk in order."""
         bg = torch.ones(3, dtype=torch.float32, device=rays_o.device)
-        return self.forward_eval(
-            state["params"], state["occ"], rays_o, rays_d, bg, step=state.get("step", 0),
-            capacity=self.eval_capacity * capacity_scale,
-        )
+        capacity = self.eval_capacity * capacity_scale
+        plan = self._plan
+        if plan is None:
+            return self.forward_eval(state["params"], state["occ"], rays_o, rays_d, bg,
+                                     step=state.get("step", 0), capacity=capacity)
+        n, chunk = plan.n_dev, rays_o.shape[0]
+        out = self.forward_eval(state["params"], state["occ"], rays_o[plan.rank::n].contiguous(),
+                                rays_d[plan.rank::n].contiguous(), bg, step=state.get("step", 0),
+                                capacity=min(capacity, max(2 * capacity // n, 1)))
+        keys = sorted(out)
+        cols = [out[k].reshape(chunk // n, -1) for k in keys]
+        # one gather of every output as float32 columns, rank-major rows
+        rows = plan.group.all_gather(torch.cat([c.float() for c in cols], dim=1))
+        rows = rows.reshape(n, chunk // n, -1).transpose(0, 1).reshape(chunk, -1)
+        return {k: v.to(out[k].dtype).reshape((chunk,) + tuple(out[k].shape[1:]))
+                for k, v in zip(keys, rows.split([c.shape[1] for c in cols], dim=1))}
 
     def render_image(self, state, index: int, data=None):
         """Render a full image by fixed-size chunks; returns a dict of
@@ -354,6 +411,13 @@ class BaseSystem:
         group_size, prev_bad = max(chunk // 2, 1), None
         while True:
             bad = np.nonzero(~merged["rays_kept"][:, 0].astype(bool))[0]
+            if self._plan is not None:
+                # every rank holds the gathered chunks, so the ranks agree;
+                # deciding by a collective keeps a disagreement from leaving
+                # one rank in a retry render the others never join
+                if self._plan.group.all_reduce_max(len(bad)) != len(bad):
+                    raise RuntimeError(f"render_image: rank {self._plan.rank} counts "
+                                       f"{len(bad)} overflowed rays, another rank more")
             if len(bad) == 0:
                 break
             print(

@@ -8,6 +8,12 @@ cadences, checkpoints written before validation, resume, ``validate``,
 already saved, then the mesh export), ``predict`` and ``export``. Images and
 meshes go to ``<exp_dir>/save`` (``utils/savers.py``). TensorBoard logging is
 not ported (CSV and console logs only).
+
+In a data-parallel run (``--devices``, JAX ``trainer.py:72-344``) every rank
+trains and renders (the renders are collective); rank 0 owns the logs,
+checkpoints, saved views and the mesh (the torch DDP rank-zero contract).
+Rank 0 writes a checkpoint after checking that every rank's state equals its
+own to the bit, then the ranks meet at a barrier, so any rank may read it.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import time
 
 import numpy as np
 
+from instant_nsr_pl_tpu_torch.parallel.distributed import barrier, process_count, process_index
 from instant_nsr_pl_tpu_torch.systems.base import dataset_device_arrays
 from instant_nsr_pl_tpu_torch.utils import savers
 from instant_nsr_pl_tpu_torch.utils.checkpoint import (
@@ -48,9 +55,10 @@ class Trainer:
         self.ckpt_dir = os.path.join(exp_dir, "ckpt")
         os.makedirs(self.save_dir, exist_ok=True)
         os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.is_main = process_index() == 0
         if loggers is None:
-            loggers = [CSVLogger(os.path.join(exp_dir, "csv_logs")),
-                       ConsoleLogger(interval=self.log_every_n_steps)]
+            loggers = ([CSVLogger(os.path.join(exp_dir, "csv_logs")),
+                        ConsoleLogger(interval=self.log_every_n_steps)] if self.is_main else [])
         self.loggers = loggers
 
     def _log(self, metrics, step):
@@ -71,7 +79,7 @@ class Trainer:
         state = system.init_state(seed=int(self.config.get("seed", 42)))
         if resume:
             load = load_weights_only if resume_weights_only else load_checkpoint
-            state = load(resume, state)
+            state = system.replicate(load(resume, state))
         val_data = dataset_device_arrays(dm.val, system.device)
 
         for i in range(min(int(val_data["images"].shape[0]), self.num_sanity_val_steps)):
@@ -99,7 +107,7 @@ class Trainer:
             # render resumes at this step
             if self.ckpt_every and step % self.ckpt_every == 0:
                 ta = time.time()
-                self.save(state, step)
+                self.save(state, step, system)
                 aux_secs += time.time() - ta
             if self.val_check_interval and step % self.val_check_interval == 0:
                 ta = time.time()
@@ -109,7 +117,7 @@ class Trainer:
                 and self.max_steps % self.val_check_interval == 0):
             # resumed AT max_steps: run the final validation the loop skipped
             self._run_validation(system, state, val_data, start_step)
-        self.save(state, int(state["step"]))
+        self.save(state, int(state["step"]), system)
         wall = time.time() - fit_t0
         self._log({"train/fit_wall_secs": wall, "train/train_wall_secs": wall - aux_secs,
                    "train/fit_start_step": float(start_step)}, int(state["step"]))
@@ -122,9 +130,11 @@ class Trainer:
             res = system.evaluate_image(state, i, data=val_data)
             psnrs.append(res["psnr"])
             ssims.append(res["ssim"])
-            savers.save_image_grid(self.save_dir, f"it{step}-{i}.png",
-                                   system.image_grid_specs(res))
-            print(f"[val] view {i}: psnr={res['psnr']:.2f} ssim={res['ssim']:.4f}", flush=True)
+            if self.is_main:
+                savers.save_image_grid(self.save_dir, f"it{step}-{i}.png",
+                                       system.image_grid_specs(res))
+                print(f"[val] view {i}: psnr={res['psnr']:.2f} ssim={res['ssim']:.4f}",
+                      flush=True)
         self._log({"val/psnr": float(np.mean(psnrs)), "val/ssim": float(np.mean(ssims))}, step)
         return float(np.mean(psnrs))
 
@@ -140,8 +150,10 @@ class Trainer:
         """Render the test split: ``it{step}-test/{i}.png`` panels with a
         ``{i}.json`` metric sidecar each (a view that already has both, from
         a run restarted into the same trial, is read back, not rendered
-        again), the mean test/psnr and test/ssim logged, the frames assembled
-        into a sequence, then the mesh export. Returns the mean PSNR."""
+        again; single-process only: ranks that disagreed on a file would
+        leave the collective render), the mean test/psnr and test/ssim
+        logged, the frames assembled into a sequence, then the mesh export.
+        Returns the mean PSNR."""
         dm.setup("test")
         data = dataset_device_arrays(dm.test, system.device)
         step = int(state["step"])
@@ -149,7 +161,7 @@ class Trainer:
         for i in range(int(data["images"].shape[0])):
             png = os.path.join(self.save_dir, f"it{step}-test", f"{i}.png")
             sidecar = png[:-4] + ".json"
-            if os.path.exists(png) and os.path.exists(sidecar):
+            if process_count() == 1 and os.path.exists(png) and os.path.exists(sidecar):
                 with open(sidecar) as f:
                     cached = json.load(f)
                 psnrs.append(cached["psnr"])
@@ -159,11 +171,13 @@ class Trainer:
             res = system.evaluate_image(state, i, data=data)
             psnrs.append(res["psnr"])
             ssims.append(res["ssim"])
-            savers.save_image_grid(self.save_dir, f"it{step}-test/{i}.png",
-                                   system.image_grid_specs(res))
-            savers.save_json(self.save_dir, f"it{step}-test/{i}.json",
-                             {"psnr": float(res["psnr"]), "ssim": float(res["ssim"])})
-            print(f"[test] view {i}: psnr={res['psnr']:.2f} ssim={res['ssim']:.4f}", flush=True)
+            if self.is_main:
+                savers.save_image_grid(self.save_dir, f"it{step}-test/{i}.png",
+                                       system.image_grid_specs(res))
+                savers.save_json(self.save_dir, f"it{step}-test/{i}.json",
+                                 {"psnr": float(res["psnr"]), "ssim": float(res["ssim"])})
+                print(f"[test] view {i}: psnr={res['psnr']:.2f} ssim={res['ssim']:.4f}",
+                      flush=True)
         psnr = float(np.mean(psnrs))
         self._log({"test/psnr": psnr, "test/ssim": float(np.mean(ssims))}, step)
         self._save_sequence(f"it{step}-test")
@@ -180,12 +194,15 @@ class Trainer:
         n = int(data["images"].shape[0])
         for i in range(n):
             images = system.render_image(state, i, data=data)
-            savers.save_image_grid(self.save_dir, f"it{step}-predict/{i}.png",
-                                   [{"type": "rgb", "img": images["comp_rgb"]}])
+            if self.is_main:
+                savers.save_image_grid(self.save_dir, f"it{step}-predict/{i}.png",
+                                       [{"type": "rgb", "img": images["comp_rgb"]}])
         self._save_sequence(f"it{step}-predict")
         return n
 
     def _save_sequence(self, name):
+        if not self.is_main:
+            return
         savers.save_img_sequence(self.save_dir, name, os.path.join(self.save_dir, name),
                                  r"(\d+)\.png",
                                  save_format=self.config.trainer.get("video_format", "mp4"),
@@ -194,7 +211,9 @@ class Trainer:
     def export(self, system, state):
         """The mesh of ``state`` at its step (``model.export`` with the
         config's ``export`` section) to ``it{step}-{model.name}.obj``;
-        returns it."""
+        returns it (rank 0 alone exports; the other ranks return None)."""
+        if not self.is_main:
+            return None
         step = int(state["step"])
         mesh = system.model.export(state["params"], self.config.get("export", None) or {},
                                    step=step)
@@ -202,16 +221,24 @@ class Trainer:
                         mesh["v_pos"], mesh["t_pos_idx"], v_rgb=mesh.get("v_rgb"))
         return mesh
 
-    def save(self, state, step):
+    def save(self, state, step, system):
+        """The checkpoint of ``state``: under ``system``'s plan the ranks'
+        states are checked equal (``check_replicas``), rank 0 writes it and
+        every rank waits at a barrier. Returns its path on rank 0."""
         if self.save_top_k == 0:
             return None
-        path = save_checkpoint(os.path.join(self.ckpt_dir, f"step={step}.ckpt"), state)
-        if self.save_top_k > 0:
-            kept = sorted(
-                (f for f in os.listdir(self.ckpt_dir)
-                 if f.startswith("step=") and f.endswith(".ckpt")),
-                key=lambda f: int(f[len("step="):].split(".")[0]),
-            )
-            for old in kept[: -self.save_top_k]:
-                os.remove(os.path.join(self.ckpt_dir, old))
+        if system.plan is not None:
+            system.plan.check_replicas(state)
+        path = None
+        if self.is_main:
+            path = save_checkpoint(os.path.join(self.ckpt_dir, f"step={step}.ckpt"), state)
+            if self.save_top_k > 0:
+                kept = sorted(
+                    (f for f in os.listdir(self.ckpt_dir)
+                     if f.startswith("step=") and f.endswith(".ckpt")),
+                    key=lambda f: int(f[len("step="):].split(".")[0]),
+                )
+                for old in kept[: -self.save_top_k]:
+                    os.remove(os.path.join(self.ckpt_dir, old))
+        barrier()
         return path

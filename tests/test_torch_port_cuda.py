@@ -2343,3 +2343,56 @@ def test_compositing_backward_matches_autograd_on_card(cuda_device, group):
     for a, b in zip(new[1:], old[1:]):
         torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0,
                                    atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_segmented_cumsum_backward_matches_autograd_on_card(cuda_device, group, monkeypatch):
+    """The segmented prefix sum's backward (``SegmentedInclusiveCumsum``:
+    the cotangent's segmented sum read from the right, gathers only) against
+    autograd through the same float64 forward (``segmented_inclusive_prefix``,
+    whose gathers' backward is a float64 scatter) on CUDA tensors, through
+    ``render_weight_from_density`` and ``distortion_loss``: the forwards to
+    the bit, d sigma, d weights and d midpoints within 1e-6 x max|grad|,
+    with invalid slots, rays without samples and padding slots. Both run
+    with PyTorch's deterministic algorithms on: its CUDA float cumsum
+    otherwise adds in an order that varies from run to run."""
+    from instant_nsr_pl_tpu_torch.ops import rendering as t_rend
+
+    rs = np.random.RandomState(10 + group)
+    n_rays, cap = 4096, 1 << 17
+    blocks = rs.randint(0, 5, n_rays)
+    ray_of_block = np.repeat(np.arange(n_rays), blocks)[: cap // group - 4]
+    live = len(ray_of_block) * group
+    ray_indices = np.full(cap, n_rays - 1, np.int64)
+    ray_indices[:live] = np.repeat(ray_of_block, group)
+    valid = np.zeros(cap, bool)
+    valid[:live] = rs.rand(live) < 0.8
+    ts = np.sort(rs.uniform(0, 3, cap)).astype(np.float32)
+    te = (ts + rs.uniform(0.001, 0.02, cap)).astype(np.float32)
+    sigma = rs.exponential(20.0, cap).astype(np.float32)
+    ct = rs.randn(cap).astype(np.float32)
+    dev = cuda_device
+    ri, va, t0, t1 = (torch.from_numpy(a).to(dev) for a in (ray_indices, valid, ts, te))
+
+    def run():
+        s = torch.from_numpy(sigma).to(dev).requires_grad_()
+        w = t_rend.render_weight_from_density(t0, t1, s, ri, va, group=group)
+        (d_s,) = torch.autograd.grad(w, s, torch.from_numpy(ct).to(dev))
+        wl = w.detach().clone().requires_grad_()
+        m = (0.5 * (t0 + t1)).requires_grad_()
+        loss = t_rend.distortion_loss(wl, m, t1 - t0, ri, va, n_rays, group=group)
+        return (w.detach(), loss.detach(), d_s, *torch.autograd.grad(loss, (wl, m)))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        new = run()
+        monkeypatch.setattr(t_rend, "_segmented_inclusive_cumsum",
+                            lambda flags, x: t_rend.segmented_inclusive_prefix(flags, x)[0])
+        old = run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+    for a, b in zip(new[2:], old[2:]):
+        assert float(b.abs().max()) > 0
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))

@@ -322,6 +322,88 @@ def test_segment_sum_sorted_backward_is_the_gather(group):
                                atol=1e-6 * np.abs(ct).max())
 
 
+@pytest.mark.parametrize("group", [1, 8])
+def test_segmented_cumsum_vjp_matches_jax(group, monkeypatch):
+    """The segmented prefix sum's backward (``SegmentedInclusiveCumsum``: the
+    cotangent's segmented sum read from the right, gathers only) through the
+    weights from density and the distortion loss: gradients with respect to
+    sigma, the weights and the midpoints against ``jax.vjp`` of the JAX
+    ``render_weight_from_density`` and ``distortion_loss`` within 1e-5 x
+    max|grad| (JAX scans in float32, the port in float64), and against
+    autograd's backward of the same float64 prefix difference within 1e-6 x
+    max|grad|; the forwards equal to autograd's path to the bit."""
+    n_rays, cap = 48, 1024
+    ray_indices, valid, _, weights, _, _ = _packed_rays(5, n_rays, cap, group)
+    rs = np.random.RandomState(6)
+    ts = np.sort(rs.uniform(0, 3, cap)).astype(np.float32)
+    te = (ts + rs.uniform(0.001, 0.02, cap)).astype(np.float32)
+    sigma = rs.exponential(20.0, cap).astype(np.float32)
+    mid = (0.5 * (ts + te)).astype(np.float32)
+    ct_w = rs.randn(cap).astype(np.float32)
+    args = (_t(ray_indices).long(), _t(valid))
+
+    def j_weights(s):
+        return j_rend.render_weight_from_density(ts, te, s, ray_indices, valid, group=group)
+
+    def j_dist(w, m):
+        return j_rend.distortion_loss(w, m, te - ts, ray_indices, valid, n_rays, group=group)
+
+    ref_w, vjp_w = jax.vjp(jax.jit(j_weights), jnp.asarray(sigma))
+    (ref_ds,) = vjp_w(jnp.asarray(ct_w))
+    ref_l, vjp_l = jax.vjp(jax.jit(j_dist), jnp.asarray(weights), jnp.asarray(mid))
+    ref_dw, ref_dm = vjp_l(jnp.ones((), jnp.float32))
+
+    def port():
+        s = _t(sigma).requires_grad_()
+        w = t_rend.render_weight_from_density(_t(ts), _t(te), s, *args, group=group)
+        w.backward(_t(ct_w))
+        ww = _t(weights).requires_grad_()
+        m = _t(mid).requires_grad_()
+        loss = t_rend.distortion_loss(ww, m, _t(te - ts), *args, n_rays, group=group)
+        loss.backward()
+        return w.detach(), s.grad, loss.detach(), ww.grad, m.grad
+
+    got = port()
+    for name, g, r in (("d sigma", got[1], ref_ds), ("d weights", got[3], ref_dw),
+                       ("d midpoints", got[4], ref_dm)):
+        r = np.asarray(r)
+        assert np.abs(r).max() > 0, name
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-5 * np.abs(r).max(),
+                                   err_msg=name)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref_w), atol=F32_TOL)
+    assert float(got[2]) == pytest.approx(float(ref_l), rel=1e-5)
+    monkeypatch.setattr(t_rend, "_segmented_inclusive_cumsum",
+                        lambda flags, x: t_rend.segmented_inclusive_prefix(flags, x)[0])
+    old = port()
+    for k, (a, b) in enumerate(zip(got, old)):
+        if k in (0, 2):  # the forwards
+            assert torch.equal(a, b)
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-6 * float(b.abs().max()))
+
+
+def test_segmented_cumsum_backward_is_a_reverse_segmented_sum():
+    """The backward alone, on flags whose first segment starts after entry
+    0 and with one-entry segments: each entry gets the sum of the cotangent
+    from it to its segment's end (a float64 reference, rounded once), equal
+    to the bit."""
+    rs = np.random.RandomState(8)
+    n = 257
+    flags = rs.rand(n) < 0.2
+    flags[:3] = False
+    flags[[10, 11, 12, n - 1]] = True
+    x = _t(rs.randn(n).astype(np.float32)).requires_grad_()
+    g = rs.randn(n).astype(np.float32)
+    t_rend._segmented_inclusive_cumsum(_t(flags), x).backward(_t(g))
+    ends = np.append(np.nonzero(flags)[0], n)
+    seg = np.cumsum(flags)
+    ref = np.array([g[i:ends[seg[i]]].astype(np.float64).sum() for i in range(n)])
+    c = np.concatenate([[0.0], np.cumsum(g.astype(np.float64))])
+    np.testing.assert_array_equal(x.grad.numpy(), (c[ends[seg]] - c[:-1]).astype(np.float32))
+    np.testing.assert_allclose(x.grad.numpy(), ref, rtol=0, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the port's rules
 # ---------------------------------------------------------------------------
