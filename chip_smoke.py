@@ -226,8 +226,9 @@ lines are printed):
    ``data80/blender`` through the launcher with ``--devices 2`` (NCCL on two
    cards, else both ranks on this card over gloo; the world size, backend
    and card count printed) for DP_STEPS steps, each rank observed by
-   ``tools/dp_check.py`` ``observe``: HG1 / HG2 / K3 / K4 launched on every
-   step of every rank (the counts read in each rank and gathered to rank 0,
+   ``tools/dp_check.py`` ``observe``: HG1 / HG2 / HG5 / HG6 / K3 / K4
+   launched on every step of every rank (a rank's 131,072 samples divide the
+   dedup block of 8) (the counts read in each rank and gathered to rank 0,
    the emulation's launches left out), the ranks' batches different at every
    step, the grid, parameters, AdamW moments, extra state and generator
    equal to the bit across the ranks (sha256) after the first grid update
@@ -238,6 +239,19 @@ lines are printed):
    views 3 dB above the untrained model's, the warm per-rank step wall and
    the gradient all-reduce's share (CUDA events), rank 0's mesh marched on
    the card; then DP_WS1_STEPS steps at world size 1 over NCCL;
+22a. slice 16, the hash grid's tap dedup: the ``nerf-blender`` runs launch
+   HG5 / HG6 and the ``neus-blender`` and DTU / COLMAP NeuS runs HG7 / HG8
+   on every step (each step's launches counted), and their last step's
+   HG1-HG4 launches, which now carry the dedup spec, are held against the
+   dedup-aware plain versions; ``hash_lattice_phase`` then holds HG5-HG8
+   alone against their plain versions on 262,144 march-block samples and
+   on those captured steps' own operands (the lattice premise
+   ``lattice_cover_ok`` checked on both; forwards within 1e-5 x max|plain|,
+   HG7's features equal to HG5's, table gradients within 1e-5 x max|exact|
+   per level of a float64 sum, d x within 1e-4), times each (CUDA events and
+   device ms) beside its bound, its plain version and the whole encode
+   through the per-sample kernels, and prints its ptxas registers; the
+   ``[cut]`` line gives what reading OBJ files as blocks saved the run;
 23. one JSON line ``{"kernels": [...]}`` and the card's name and power limit.
    The entries of the redesigned kernels (the backwards K2, K14, cp_big's K2,
    K4, K6, cp_big's K6, K8, cp_big's K8, K10, K12, cp_big's K10, HG2, HG4,
@@ -537,7 +551,7 @@ def _step_entry(name, calls):
                  "mask": rest[0] if rest else kwargs.get("level_mask"),
                  "spec": {k: getattr(spec, k) for k in (
                      "n_levels", "n_features_per_level", "log2_hashmap_size", "base_resolution",
-                     "per_level_scale", "n_input_dims")}}
+                     "per_level_scale", "n_input_dims", "dedup_group", "dedup_step")}}
         if n_ct:
             entry["with_dx"] = bool(rest[1] if len(rest) > 1 else kwargs.get("with_dx", False))
             entry.update(zip(("dout",) if n_ct == 1 else ("ct_feat", "ct_jac"),
@@ -588,8 +602,8 @@ def capture_step_operands(run_step, label, check=None):
     timing (HG2's too). ``check(name, calls)``, if given, sees each kernel's recorded
     calls (``(args, kwargs)`` each) before they are timed. The recorders call
     the launch functions themselves, so the step's launch counts are
-    unchanged, and the counts are restored after the check and the timing
-    launches."""
+    unchanged, and the counts (HG5-HG8's too) are restored after the check
+    and the timing launches."""
     from instant_nsr_pl_tpu_torch.ops import cp_mlp, cp_product, cp_stacked, hashgrid, sh_mlp, vm
 
     seen = {}
@@ -672,13 +686,17 @@ def capture_step_operands(run_step, label, check=None):
         if key in STEP_MS:
             continue
         counter, n_of = targets[name][2], targets[name][3]
-        count = counter.launches  # check and timing launches are not the run's
+        # check and timing launches are not the run's: this kernel's, nor
+        # those of HG5-HG8, which HG1-HG4's launch functions run on a dedup spec
+        counts = {c: c.launches for c in (counter, *(getattr(hashgrid, k)
+                                                       for k in LATTICE_KERNELS))}
         if check is not None:
             check(key, calls)
         ms = time_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
         if name in ("vm_forward", "vm_backward"):
             STEP_DEVICE_MS[key] = device_ms(lambda: [originals[name](*a, **kw) for a, kw in calls])
-        counter.launches = count
+        for c, n in counts.items():
+            c.launches = n
         STEP_MS[key] = (ms, int(n_of(calls[-1][0])), [int(n_of(a)) for a, _ in calls])
         if key in BENCH_KEY and (name.endswith("forward") or name in STEP_BACKWARDS):
             STEP_OPERANDS[BENCH_KEY[key]] = _step_entry(name, calls)
@@ -1949,8 +1967,10 @@ def check_step_kernels(key, calls):
     (vsave and gdsave) equal to the bit, and K9's and K11's enc and jac within
     2e-2 * max|plain|; HG3's feat equal to HG1's to the bit and its jac within
     2e-2 * max|plain|, HG4 within the hash gradient limits
-    (``hash_grad_limits``); HG1 within 1e-5 * max|plain| and HG2 within the
-    hash gradient limits; K3 within 2e-2 * max|plain| (its hsave differing
+    (``hash_grad_limits``, against the float64 sum of the plain version's
+    updates); HG1 within 1e-5 * max|plain| and HG2 within the hash gradient
+    limits (HG5-HG8 with them on a dedup spec, whose launch is kept for
+    ``hash_lattice_phase``); K3 within 2e-2 * max|plain| (its hsave differing
     in at most 1e-3 of its entries, as in ``kernel_phase``) and K4 within
     2.5e-2 * max|plain| per gradient."""
     from instant_nsr_pl_tpu_torch.ops import cp_product as cpp
@@ -1964,6 +1984,10 @@ def check_step_kernels(key, calls):
             raise AssertionError(f"{tag}: {label} differs from the plain version's in "
                                  f"{frac:.2e} of its entries")
 
+    if key.startswith("hashgrid_"):
+        n_ct = {"hashgrid_backward": 1, "hashgrid_jac_backward": 2}.get(key.split("@")[0], 0)
+        if any(calls[-1][0][2 + n_ct].dedup_group_sizes):
+            LATTICE_STEP[key] = calls[-1]  # a dedup spec's last launch: hash_lattice_phase's
     for k, (args, kwargs) in enumerate(calls):
         if key.startswith("cp_product_backward"):
             got = cpp.cp_product_backward_launch(*args)
@@ -2005,7 +2029,7 @@ def check_step_kernels(key, calls):
         elif key.startswith("hashgrid_jac_backward"):
             got = hg.hashgrid_jac_backward_launch(*args, **kwargs)
             torch.cuda.synchronize()
-            ref = hg.hashgrid_jac_backward_plain(*args, **kwargs)
+            ref = hg.hashgrid_jac_backward_plain(*args, **kwargs, accumulate=torch.float64)
             spec = args[4]
             tag = f"{key} step launch {k} (N={args[1].reshape(-1, 3).shape[0]})"
             hash_grad_limits(tag, spec, got, ref)
@@ -2013,11 +2037,11 @@ def check_step_kernels(key, calls):
             got = hg.hashgrid_forward_launch(*args, **kwargs)
             torch.cuda.synchronize()
             tag = f"{key} step launch {k} (N={args[1].reshape(-1, 3).shape[0]})"
-            compare(tag, got, hg.hashgrid_encode(*args, **kwargs), rel=1e-5)
+            compare(tag, got, hg.hashgrid_forward_plain(*args, **kwargs), rel=1e-5)
         elif key.startswith("hashgrid_backward"):
             got = hg.hashgrid_backward_launch(*args, **kwargs)
             torch.cuda.synchronize()
-            ref = hg.hashgrid_backward_plain(*args, **kwargs)
+            ref = hg.hashgrid_backward_plain(*args, **kwargs, accumulate=torch.float64)
             tag = f"{key} step launch {k} (N={args[1].reshape(-1, 3).shape[0]})"
             hash_grad_limits(tag, args[3], got, ref)
         elif key.startswith("sh_mlp_forward"):
@@ -3141,18 +3165,20 @@ BLENDER_DATA = ["dataset.scene=procsphere", f"dataset.root_dir={DATA80}",
 # views of that split, and the kernels every step launches
 DATASET_PATHS = {
     "blender_nerf": ("nerf-blender.yaml", BLENDER_DATA, "test", 4,
-                     ("hashgrid_forward", "hashgrid_backward", "sh_mlp_forward",
-                      "sh_mlp_backward")),
+                     ("hashgrid_forward", "hashgrid_backward", "hashgrid_lattice_forward",
+                      "hashgrid_lattice_backward", "sh_mlp_forward", "sh_mlp_backward")),
     "blender_neus": ("neus-blender.yaml", BLENDER_DATA, "test", 4,
-                     ("hashgrid_jac_forward", "hashgrid_jac_backward", "sh_mlp_forward",
-                      "sh_mlp_backward")),
+                     ("hashgrid_jac_forward", "hashgrid_jac_backward",
+                      "hashgrid_lattice_jac_forward", "hashgrid_lattice_jac_backward",
+                      "sh_mlp_forward", "sh_mlp_backward")),
     "dtu_neus": ("neus-dtu-wmask.yaml",
                  [f"dataset.root_dir={os.path.join(DTU_EXPORT, 'dtu')}",
                   f"dataset.n_test_traj_steps={DTU_TEST_VIEWS}",
                   f"model.geometry.isosurface.resolution={ISO_CUT}"], "val", 2,
                  # the DTU configs' radiance head is a float32 VanillaMLP:
                  # not K3 / K4's bf16 head, in the JAX package as here
-                 ("hashgrid_jac_forward", "hashgrid_jac_backward")),
+                 ("hashgrid_jac_forward", "hashgrid_jac_backward",
+                  "hashgrid_lattice_jac_forward", "hashgrid_lattice_jac_backward")),
 }
 # slice 9: the unbounded-scene configs on a COLMAP export of the scene and on
 # the DTU export (neus-dtu.yaml: DTU without masks, with the background)
@@ -3318,6 +3344,280 @@ def _untrained_psnr(config, overrides, split, n_views, device):
     return float(np.mean(psnrs))
 
 
+# ---------------------------------------------------------------------------
+# slice 16: HG5-HG8, the hash grid's tap-dedup levels (27-point lattices)
+# ---------------------------------------------------------------------------
+
+LATTICE_KERNELS = ("hashgrid_lattice_forward", "hashgrid_lattice_backward",
+                   "hashgrid_lattice_jac_forward", "hashgrid_lattice_jac_backward")
+# "<kernel>@<label>" -> (args, kwargs) of a captured step's last HG1-HG4
+# launch on a dedup spec (check_step_kernels fills it)
+LATTICE_STEP = {}
+# the dedup configs: name, the dataset run whose step is captured, its kernels
+LATTICE_CONFIGS = (("nerf-blender", "blender_nerf", ("hashgrid_forward", "hashgrid_backward")),
+                   ("neus-blender", "blender_neus", ("hashgrid_jac_forward",
+                                                     "hashgrid_jac_backward")))
+
+
+def lattice_spec(name):
+    """configs/nerf-blender.yaml's (the bench hash grid) or neus-blender.yaml's
+    hash grid (base 32, scale 1.3195) with the dedup spec their models
+    configure: blocks of 8, the step render_step_size / 2r."""
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import BLENDER_DEDUP_STEP
+
+    base = hash_spec() if name == "nerf-blender" else dataclasses.replace(
+        hash_spec(), base_resolution=32, per_level_scale=1.3195079107728942)
+    return dataclasses.replace(base, dedup_group=8, dedup_step=BLENDER_DEDUP_STEP)
+
+
+def _lattice_bounds(spec, table, x, jac):
+    """The bounds of HG5 / HG6 (HG7 / HG8 with ``jac``) on positions x, as
+    {"fwd", "bwd", "bwd_dx": (ms, by)} and the distinct lattice rows,
+    counting the lattice
+    points this run's blocks need: on each axis the offsets where some
+    sample of the block has a non-zero tent or tent derivative (the others
+    weigh every sample by zeros). Bytes: x (12 B), the dedup levels' output
+    (or cotangent) columns (F * 4 B, four times with ``jac``) per sample and
+    level, and the distinct rows of the needed points (F * 4 B each: read by
+    the forward, written by the backward; with d x also read, and d x, 12 B
+    a sample, written). Operations
+    per sample and needed point: the three tents and their product (14), F
+    multiply-adds (2F); with ``jac`` the three derivatives, their three
+    products and 3F more multiply-adds (12 + 6F more)."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    xt = x.reshape(-1, 3).T.float()
+    n = xt.shape[1]
+    f = spec.n_features_per_level
+    rows = points = 0
+    offs = torch.arange(3, dtype=torch.float32, device=x.device)
+    for level, g in enumerate(spec.dedup_group_sizes):
+        if not g:
+            continue
+        idx, _, pos, a = hg.level_lattice_gather(table, xt, spec, level, g)
+        u = (pos - a.repeat_interleave(g, dim=1).float())[:, :, None] - offs  # (3, N, 3)
+        act = ((1.0 - u.abs()) > 0) | ((u >= -1.0) & (u < 1.0))
+        act = act.reshape(3, n // g, g, 3).any(dim=2)  # (3, B, 3): needed offsets per axis
+        off = hg.LATTICE27.to(x.device)
+        need = act[0][:, off[:, 0]] & act[1][:, off[:, 1]] & act[2][:, off[:, 2]]  # (B, 27)
+        points += g * int(need.sum())
+        rows += int(torch.unique(idx.T[need]).numel())
+    n_lat = sum(1 for g in spec.dedup_group_sizes if g)
+    cols = n * n_lat * f * 4 * (4 if jac else 1)
+    ops = points * (14 + 2 * f + ((12 + 6 * f) if jac else 0))
+    once = 12 * n + cols + rows * f * 4
+    return {"fwd": bound(once, 0, ops), "bwd": bound(once, 0, ops),
+            "bwd_dx": bound(once + rows * f * 4 + 12 * n, 0, ops)}, rows
+
+
+def _lattice_operands(name, spec, device):
+    """The aligned march blocks (N = 262,144: 512 rays of 512 uniform steps)
+    and the captured training step's own operands of ``name``'s dataset run:
+    a list of (tag, table, x, ct_f, ct_j or None, mask)."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import march_blocks
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(device)
+    x = march_blocks(gen, N_FULL).to(device)
+    ct_f = torch.randn((N_FULL, spec.n_output_dims), generator=gen).to(device)
+    ct_j = torch.randn((3, N_FULL, spec.n_output_dims), generator=gen).to(device)
+    out = [("march blocks", table, x, ct_f, ct_j, None)]
+    label, (fwd, bwd) = next((lb, k) for nm, lb, k in LATTICE_CONFIGS if nm == name)
+    b_args, b_kw = LATTICE_STEP[f"{bwd}@{label}"]
+    if bwd == "hashgrid_backward":  # (table, x, dout, spec, mask[, with_dx])
+        table, x, dout, step_spec = b_args[:4]
+        mask = b_args[4] if len(b_args) > 4 else b_kw.get("level_mask")
+        cts = (dout, None)
+    else:  # (table, x, ct_feat, ct_jac, spec, mask[, with_dx])
+        table, x, cf, cj, step_spec = b_args[:5]
+        mask = b_args[5] if len(b_args) > 5 else b_kw.get("level_mask")
+        cts = (cf, cj)
+    assert step_spec == spec, (step_spec, spec)
+    x = x.reshape(-1, 3)
+    out.append(("a training step's operands", table.detach(), x.detach(),
+                cts[0].reshape(x.shape[0], -1).detach(),
+                None if cts[1] is None else cts[1].reshape(3, x.shape[0], -1).detach(), mask))
+    return out
+
+
+def _per_sample_levels_ms(fn):
+    """``fn``'s time with the dedup launches of ``ops/hashgrid.py`` left out:
+    HG1-HG4 alone on a dedup spec's per-sample levels (a measurement only;
+    the outputs' dedup columns or rows are then not filled)."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    names = ("hashgrid_lattice_forward_launch", "hashgrid_lattice_jac_forward_launch",
+             "_lattice_backward")
+    saved = {k: getattr(hg, k) for k in names}
+    for k in names:
+        setattr(hg, k, lambda *a, **kw: None)
+    try:
+        return time_ms(fn)
+    finally:
+        for k, f in saved.items():
+            setattr(hg, k, f)
+
+
+def hash_lattice_phase(device, smi):
+    """HG5-HG8 (``csrc/hashgrid_lattice_{fwd,bwd}.cu``) at configs/nerf-blender.yaml's
+    (HG5 / HG6) and neus-blender.yaml's (HG7 / HG8) dedup specs, on aligned
+    march blocks (N = 262,144) and on the captured training step's own
+    operands of each config's dataset run: the premise (``lattice_cover_ok``)
+    holds; each kernel alone against its plain version (the dedup levels'
+    columns or rows; forwards within 1e-5 x max|plain|, HG7's features equal
+    to HG5's to the bit; table gradients within 1e-5 x max|exact| per level of
+    the plain version's float64 sum, d x within 1e-4 x max|plain|); then each
+    timed (CUDA events and device ms) beside its bound, its plain version,
+    and the whole encode through the per-sample kernels (the spec without
+    dedup: HG1-HG4 on every level) against the dedup encode (HG1 + HG5 ...).
+    Returns the four kernels' entries."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    t_start = time.perf_counter()
+    entries = []
+    for name, label, _ in LATTICE_CONFIGS:
+        spec = lattice_spec(name)
+        per_sample = dataclasses.replace(spec, dedup_group=0)
+        jac = name.startswith("neus")
+        n_lat = sum(1 for g in spec.dedup_group_sizes if g)
+        cols = slice(0, n_lat * spec.n_features_per_level)
+        fwd_name, bwd_name = LATTICE_KERNELS[2:] if jac else LATTICE_KERNELS[:2]
+        errs = {fwd_name: [], bwd_name: []}
+        figs = {fwd_name: {}, bwd_name: {}}
+        for tag, table, x, ct_f, ct_j, mask in _lattice_operands(name, spec, device):
+            ok = hg.lattice_cover_ok(spec, x)
+            print(f"[lattice] {name} {tag}: N={x.shape[0]}, dedup blocks "
+                  f"{spec.dedup_group_sizes[:n_lat]}, lattice premise "
+                  f"{'holds' if ok else 'FAILS'}", flush=True)
+            assert ok, f"{name} {tag}: the lattice premise fails"
+            cts = (ct_f, ct_j) if jac else (ct_f,)
+            if jac:
+                fwd = lambda: hg.hashgrid_lattice_jac_forward_launch(table, x, spec, mask)  # noqa: E731
+                bwd = lambda dx=False: hg.hashgrid_lattice_jac_backward_launch(  # noqa: E731
+                    table, x, *cts, spec, mask, with_dx=dx)
+                ref_f, ref_j = hg.hashgrid_jac_forward_plain(table, x, spec, mask,
+                                                             lattice_only=True)
+                feat, jac_out = fwd()
+                hg5 = hg.hashgrid_lattice_forward_launch(table, x, spec, mask)
+                torch.cuda.synchronize()
+                if not torch.equal(feat, hg5):
+                    raise AssertionError(f"{fwd_name} {tag}: features differ from HG5's")
+                e = [compare(f"{fwd_name} {name} {tag} feat", feat[:, cols], ref_f[:, cols],
+                             rel=1e-5),
+                     compare(f"{fwd_name} {name} {tag} jac", jac_out[..., cols],
+                             ref_j[..., cols], rel=1e-5)]
+                plain_f = lambda: hg.hashgrid_jac_forward_plain(  # noqa: E731
+                    table, x, spec, mask, lattice_only=True)
+                plain_b = hg.hashgrid_jac_backward_plain
+                enc = lambda sp: hg.hashgrid_jac_forward_launch(table, x, sp, mask)  # noqa: E731
+                enc_b = lambda sp: hg.hashgrid_jac_backward_launch(  # noqa: E731
+                    table, x, *cts, sp, mask)
+            else:
+                fwd = lambda: hg.hashgrid_lattice_forward_launch(table, x, spec, mask)  # noqa: E731
+                bwd = lambda dx=False: hg.hashgrid_lattice_backward_launch(  # noqa: E731
+                    table, x, *cts, spec, mask, with_dx=dx)
+                ref = hg.hashgrid_forward_plain(table, x, spec, mask, lattice_only=True)
+                got = fwd()
+                torch.cuda.synchronize()
+                same = float((got[:, cols] == ref[:, cols]).float().mean())
+                print(f"[lattice] {fwd_name} {name} {tag}: {same:.6%} of the dedup levels' "
+                      f"entries equal the plain version's to the bit", flush=True)
+                e = [compare(f"{fwd_name} {name} {tag}", got[:, cols], ref[:, cols], rel=1e-5)]
+                plain_f = lambda: hg.hashgrid_forward_plain(  # noqa: E731
+                    table, x, spec, mask, lattice_only=True)
+                plain_b = hg.hashgrid_backward_plain
+                enc = lambda sp: hg.hashgrid_forward_launch(table, x, sp, mask)  # noqa: E731
+                enc_b = lambda sp: hg.hashgrid_backward_launch(table, x, *cts, sp, mask)  # noqa: E731
+            errs[fwd_name].append(max(e))
+            dt, dx = bwd(True)
+            dt_only, _ = bwd()
+            torch.cuda.synchronize()
+            rt, rx = plain_b(table, x, *cts, spec, mask, with_dx=True, accumulate=torch.float64,
+                             lattice_only=True)
+            worst = 0.0
+            for lv in range(n_lat):
+                sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+                lim = 1e-5 * float(rt[sl].abs().max())
+                for got_t in (dt, dt_only):
+                    err = float((got_t[sl].double() - rt[sl]).abs().max())
+                    worst = max(worst, err / max(lim / 1e-5, 1e-30))
+                    if not err <= lim:
+                        raise AssertionError(f"{bwd_name} {name} {tag} level {lv}: {err:.3e} "
+                                             f"> {lim:.3e}")
+            print(f"[lattice] {bwd_name} {name} {tag}: d table per level within "
+                  f"{worst:.3e} x max|float64 sum| (limit 1e-5)", flush=True)
+            errs[bwd_name] += [compare(f"{bwd_name} {name} {tag} d table", dt.double(), rt,
+                                       rel=1e-5),
+                               compare(f"{bwd_name} {name} {tag} d x", dx, rx, rel=1e-4)]
+            # times: each kernel alone, its plain version, and the whole
+            # encode with the dedup spec against the per-sample spec
+            bounds, rows = _lattice_bounds(spec, table, x, jac)
+            key = "step" if tag.startswith("a training") else "blocks"
+            figs[fwd_name][key] = {
+                "ms": time_ms(fwd), "device_ms": device_ms(fwd),
+                "plain_ms": time_ms(plain_f, reps=3, inner=1), "bound_ms": bounds["fwd"][0],
+                "bound_by": bounds["fwd"][1],
+                "distinct_rows": rows, "encode_ms": time_ms(lambda: enc(spec)),
+                "per_sample_levels_ms": _per_sample_levels_ms(lambda: enc(spec)),
+                "per_sample_encode_ms": time_ms(lambda: enc(per_sample)), "n": x.shape[0]}
+            figs[bwd_name][key] = {
+                "ms": time_ms(bwd), "ms_with_dx": time_ms(lambda: bwd(True)),
+                "device_ms": device_ms(bwd),
+                "plain_ms": time_ms(lambda: plain_b(table, x, *cts, spec, mask,
+                                                    lattice_only=True), reps=3, inner=1),
+                "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
+                "bound_ms_with_dx": bounds["bwd_dx"][0], "distinct_rows": rows,
+                "encode_ms": time_ms(lambda: enc_b(spec)),
+                "per_sample_levels_ms": _per_sample_levels_ms(lambda: enc_b(spec)),
+                "per_sample_encode_ms": time_ms(lambda: enc_b(per_sample)), "n": x.shape[0]}
+            for kname in (fwd_name, bwd_name):
+                f_ = figs[kname][key]
+                print(f"[lattice] {kname} {name} {tag}: {f_['ms']:.4f} ms (device "
+                      f"{f_['device_ms']:.4f}; plain {f_['plain_ms']:.3f}; bound "
+                      f"{f_['bound_ms']:.4f} by {f_['bound_by']}, {rows} distinct rows of the "
+                      f"needed lattice points); "
+                      f"the whole {'forward' if 'forward' in kname else 'backward'} "
+                      f"{f_['encode_ms']:.4f} ms with the dedup spec (its per-sample levels' "
+                      f"HG{(3 if jac else 1) + ('backward' in kname)} alone "
+                      f"{f_['per_sample_levels_ms']:.4f}), "
+                      f"{f_['per_sample_encode_ms']:.4f} ms per sample ({smi})", flush=True)
+        for kname, src, marker, line in (
+                (fwd_name, "hashgrid_lattice_fwd", "hashgrid_lattice_fwd_kernelILi2ELi8ELb"
+                 + ("1E" if jac else "0E"), 370 if jac else 323),
+                (bwd_name, "hashgrid_lattice_bwd", "hashgrid_lattice_bwd_kernelILi2ELi8ELb"
+                 + ("1E" if jac else "0E"), 391 if jac else 333)):
+            blocks, step = figs[kname]["blocks"], figs[kname]["step"]
+            fn = {323: "_level_lattice_feat", 333: "_level_lattice_bwd",
+                  370: "_level_lattice_feat_jac", 391: "_level_lattice_jac_bwd"}[line]
+            entries.append({
+                "name": kname, "route": "cuda",
+                "source": f"instant_nsr_pl_tpu_torch/csrc/{src}.cu",
+                "replaces": f"instant_nsr_pl_tpu/ops/hashgrid.py:{line} ({fn}, XLA)",
+                "launches": 0, "max_abs_err": max(errs[kname]), "ms": blocks["ms"],
+                "plain_ms": blocks["plain_ms"], "bound_ms": blocks["bound_ms"],
+                "bound_by": blocks["bound_by"], "library_ms": None,
+                "library_note": "no single PyTorch call hashes and tent-weights a block's "
+                                "lattice; yardstick: the whole encode through the per-sample "
+                                "kernels (per_sample_encode_ms)",
+                "spec": name, "n": blocks["n"], "device_ms": blocks["device_ms"],
+                "ms_with_dx": blocks.get("ms_with_dx"),
+                "bound_ms_with_dx": blocks.get("bound_ms_with_dx"),
+                "distinct_rows": blocks["distinct_rows"],
+                "encode_ms": blocks["encode_ms"],
+                "per_sample_levels_ms": blocks["per_sample_levels_ms"],
+                "per_sample_encode_ms": blocks["per_sample_encode_ms"],
+                "ms_ray_ordered": step["ms"], "device_ms_ray_ordered": step["device_ms"],
+                "n_ray_ordered": step["n"], "bound_ms_ray_ordered": step["bound_ms"],
+                "encode_ms_ray_ordered": step["encode_ms"],
+                "per_sample_levels_ms_ray_ordered": step["per_sample_levels_ms"],
+                "per_sample_encode_ms_ray_ordered": step["per_sample_encode_ms"],
+                "ptxas": ptxas_info(src, marker)})
+            print(f"[lattice] {kname}: ptxas {entries[-1]['ptxas']}", flush=True)
+    print(f"[lattice] phase {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
+    return entries
+
+
 def dataset_launcher_phase(device, smi, key):
     """One of ``DATASET_PATHS`` through the port's launcher: ``--train
     trainer.max_steps=LAUNCHER_STEPS`` of the config's 20,000 (the automatic
@@ -3360,6 +3660,7 @@ def dataset_launcher_phase(device, smi, key):
                 "hashgrid_backward": hashgrid.hashgrid_backward,
                 "hashgrid_jac_forward": hashgrid.hashgrid_jac_forward,
                 "hashgrid_jac_backward": hashgrid.hashgrid_jac_backward,
+                **{k: getattr(hashgrid, k) for k in LATTICE_KERNELS},
                 "sh_mlp_forward": sh_mlp.sh_mlp_forward, "sh_mlp_backward": sh_mlp.sh_mlp_backward}
     n_warm = min(100, LAUNCHER_STEPS // 3)
     train_step, records, marks = _recording_steps(counters, LAUNCHER_STEPS - 1,
@@ -3754,7 +4055,8 @@ DP_STEPS = 100  # of nerf-blender.yaml's 20,000
 DP_EMULATE = 30  # the step held against rank 0's single-rank emulation
 DP_WARM = 40  # the timed steps: DP_WARM to DP_STEPS - 1 (grid updates every 16 included)
 DP_WS1_STEPS = 12  # world size 1 over NCCL
-DP_KERNELS = ("hashgrid_forward", "hashgrid_backward", "sh_mlp_forward", "sh_mlp_backward")
+DP_KERNELS = ("hashgrid_forward", "hashgrid_backward", "hashgrid_lattice_forward",
+              "hashgrid_lattice_backward", "sh_mlp_forward", "sh_mlp_backward")
 
 
 def dp_phase(device, smi, untrained_test):
@@ -4413,6 +4715,56 @@ def marching_phase(device, smi, parent=None):
     ]
 
 
+def time_load_obj():
+    """Time every ``utils/savers.py`` ``load_obj`` call of the run (the
+    phases import it at call time): returns the record that
+    :func:`load_obj_saving` reads."""
+    from instant_nsr_pl_tpu_torch.utils import savers
+
+    reader = savers.load_obj
+    stats = {"calls": 0, "s": 0.0, "files": set(), "reader": reader}
+
+    def timed(path):
+        t0 = time.perf_counter()
+        out = reader(path)
+        stats["s"] += time.perf_counter() - t0
+        stats["calls"] += 1
+        stats["files"].add(path)
+        return out
+
+    savers.load_obj = timed
+    return stats
+
+
+def load_obj_saving(stats):
+    """What reading OBJ files as whole blocks saved this run: the largest
+    OBJ still on disk read both ways, the line-by-line reader (the one
+    before slice 16) and the block reader, and the run's load_obj seconds
+    scaled by their ratio."""
+    from instant_nsr_pl_tpu_torch.utils import savers
+
+    files = [p for p in stats["files"] if os.path.exists(p)]
+    if not files:
+        print(f"[cut] load_obj: {stats['calls']} calls, {stats['s']:.2f} s", flush=True)
+        return
+    path = max(files, key=os.path.getsize)
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    t0 = time.perf_counter()
+    old = savers.load_obj_by_line(lines)
+    t_old = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new = stats["reader"](path)
+    t_new = time.perf_counter() - t0
+    for k in old:
+        assert np.array_equal(old[k], new[k]), k
+    print(f"[cut] load_obj: {stats['calls']} calls, {stats['s']:.2f} s in all (block reader); "
+          f"on the largest OBJ ({os.path.getsize(path) / 2**20:.1f} MiB, {len(lines)} lines) "
+          f"the line-by-line reader took {t_old:.2f} s, the block reader {t_new:.2f} s: the cut "
+          f"saved about {stats['s'] * (t_old / t_new - 1.0):.1f} s of this run (host)",
+          flush=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -4446,6 +4798,7 @@ def _main(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    load_obj_stats = time_load_obj()
     build_s = cuda_build.build_all()
     print(f"[build] {build_s:.1f} s for {sorted(cuda_build.BUILD_LOG) or 'cached libraries'}",
           flush=True)
@@ -4538,6 +4891,8 @@ def _main(args):
     # slice 8: the Blender loader on data80, the DTU loader on the port's export
     ds_runs = {key: mt_tally(key, dataset_launcher_phase, device, smi, key)
                for key in ("blender_nerf", "blender_neus")}
+    # slice 16: HG5-HG8 on those runs' dedup specs and captured steps
+    lattice_entries = hash_lattice_phase(device, smi)
     # slice 12: that NeuS exported uncut at 512^3, its fine level grid kept for marching_phase
     ds_runs["blender_neus"]["export_512"] = mt_tally(
         "blender_neus_export_512", neus_fine_grid_phase, ds_runs["blender_neus"], smi)
@@ -4650,8 +5005,15 @@ def _main(args):
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']}: not launched on its main path "
                                  f"({e['launches_path']})")
+    # slice 16: HG5 / HG6 on the nerf-blender run, HG7 / HG8 on neus-blender's
+    for e in lattice_entries:
+        key = "blender_neus" if "jac" in e["name"] else "blender_nerf"
+        e["launches"] = ds_runs[key]["launches"][e["name"]]
+        e["launches_path"] = f"{key}_train"
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']}: not launched on its main path ({key})")
     entries += hash_entries + hash_jac_entries + cp_big_entries + probe_entries
-    entries += vm_entries + mt_entries
+    entries += vm_entries + mt_entries + lattice_entries
     # slice 8: HG1-HG4, K3 and K4 on the Blender and DTU launcher runs (the
     # NeRF's --export; HG1 / HG2 on neuralangelo-dtu-wmask.yaml's run)
     for e in entries:
@@ -4729,6 +5091,7 @@ def _main(args):
               + (f"; eval: ptxas {e['ptxas_eval']}, {e['smem_bytes_eval']} B, "
                  f"{e['blocks_per_sm_eval']} blocks per SM, parent {e['parent_ms_eval']}"
                  if "ptxas_eval" in e else "") + f" ({smi})", flush=True)
+    load_obj_saving(load_obj_stats)
     print(f"[wall] {time.perf_counter() - t_start:.1f} s from the start to the result lines",
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -81,8 +81,9 @@ template <int F>
 __global__ void __launch_bounds__(kHashBlock)
     hashgrid_bwd_kernel(const float* __restrict__ x, long long n,
                         const float* __restrict__ ct, const float* __restrict__ table,
-                        int n_levels, HashLevels levels, const float* __restrict__ mask,
-                        SplitRows dtable, float* __restrict__ dx) {
+                        int n_levels, int first, HashLevels levels,
+                        const float* __restrict__ mask, SplitRows dtable,
+                        float* __restrict__ dx) {
   // two buffers, so one barrier per level suffices
   __shared__ EdgeRuns<F> edges[2];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -96,7 +97,7 @@ __global__ void __launch_bounds__(kHashBlock)
     const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
     const float* crow = ct + ii * n_levels * F;
     float dxa[3] = {0.0f, 0.0f, 0.0f};
-    for (int l = 0; l < n_levels; ++l, buf ^= 1) {
+    for (int l = first; l < n_levels; ++l, buf ^= 1) {  // the dedup levels are HG6's
       const HashLevel& lv = levels.l[l];
       const Taps t = level_taps(lv, x0, x1, x2);
       const float m = mask != nullptr ? mask[l] : 1.0f;
@@ -165,9 +166,10 @@ template <int F>
 int launch_hashgrid_bwd(const float* x, long long n, const float* ct, const float* table,
                         int n_levels, const HashLevels& levels, const float* mask, float* dtable,
                         double* wide, uint32_t wide_rows, float* dx, cudaStream_t stream) {
-  if (n > 0) {
+  const int first = lattice_levels(levels, n_levels);
+  if (n > 0 && first < n_levels) {
     hashgrid_bwd_kernel<F><<<hash_grid_for(n), kHashBlock, 0, stream>>>(
-        x, n, ct, table, n_levels, levels, mask, SplitRows{dtable, wide, wide_rows}, dx);
+        x, n, ct, table, n_levels, first, levels, mask, SplitRows{dtable, wide, wide_rows}, dx);
     if (wide_rows > 0) {
       const long long m = static_cast<long long>(wide_rows) * F;
       const long long blocks = (m + 255) / 256;

@@ -1,9 +1,10 @@
 // Per-level helpers of the multiresolution hash grid, shared by HG1
 // (csrc/hashgrid_fwd.cu), HG2 (csrc/hashgrid_bwd.cu), HG3
-// (csrc/hashgrid_jac_fwd.cu) and HG4 (csrc/hashgrid_jac_bwd.cu): the taps of a
-// level, the row loads, the corner partials of the Jacobian, the vector
-// atomics, and the merge of equal rows within a warp and across a block's
-// warps that HG2 and HG4 share (scan_runs, merge_edges).
+// (csrc/hashgrid_jac_fwd.cu), HG4 (csrc/hashgrid_jac_bwd.cu) and HG5-HG8
+// (csrc/hashgrid_lattice_{fwd,bwd}.cu): the taps of a level, the row loads,
+// the corner partials of the Jacobian, the vector atomics, the merge of equal
+// rows within a warp and across a block's warps that HG2 and HG4 share
+// (scan_runs, merge_edges), and the 27-point lattice of a dedup level.
 //
 // The level layout is the JAX package's (instant_nsr_pl_tpu/ops/hashgrid.py
 // HashGridSpec and _level_corner_indices, :44-222): per level a float32 scale
@@ -21,6 +22,7 @@
 // in the plain PyTorch version (ops/hashgrid.py).
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -30,17 +32,29 @@ namespace insr {
 constexpr int kHashMaxLevels = 32;
 constexpr int kHashBlock = 128;
 
+// g: the level's tap-dedup block size (0: per-sample taps). The dedup
+// levels are a prefix of the levels; HG1-HG4 skip them and HG5-HG8
+// (csrc/hashgrid_lattice_{fwd,bwd}.cu) read them from one 27-point lattice
+// per aligned block of g samples.
 struct HashLevel {
   float scale;
   uint32_t res;
   uint32_t size;
   uint32_t offset;
   int hashed;
+  int g;
 };
 
 struct HashLevels {
   HashLevel l[kHashMaxLevels];
 };
+
+// The number of leading dedup levels (g > 0): the first level HG1-HG4 run.
+inline int lattice_levels(const HashLevels& levels, int n_levels) {
+  int k = 0;
+  while (k < n_levels && levels.l[k].g > 0) ++k;
+  return k;
+}
 
 // The 8 corners of one sample in one level: global rows and weights, plus
 // frac for the position gradient.
@@ -263,6 +277,118 @@ __device__ __forceinline__ void merge_edges(const EdgeRuns<F>& edges, Sink dtabl
     for (int f = 0; f < F; ++f) acc[f] += edges.val[c][k >> 1][k & 1][f];
   }
   if (run_row != kNoRow && (!kSkipZero || nonzero(acc))) add_row<F>(dtable, run_row, acc);
+}
+
+// --- the 27-point lattice of a dedup level (HG5-HG8) -----------------------
+// An aligned block of g samples of one ray's uniform-step run spans less
+// than one cell of the level per axis, so every sample's 8 corners lie in
+// the 3x3x3 lattice anchored at a = floor(min over the block of pos); the
+// lattice point a + o (o in {0,1,2}^3, x fastest: j = o0 + 3 o1 + 9 o2)
+// weighs a sample by the tent product prod_d max(0, 1 - |t_d - o_d|), t =
+// pos - a (JAX ops/hashgrid.py _lattice_axis_tents / _lattice_w27,
+// :274-293), and its row is clamped as a corner's (the weight stays with
+// the unclamped point, so colliding clamped rows sum).
+
+__device__ __forceinline__ float lattice_tent(float t, int o) {
+  return fmaxf(0.0f, 1.0f - fabsf(t - static_cast<float>(o)));
+}
+
+// d tent / d t: +1 on [-1, 0), -1 on [0, 1), 0 elsewhere (right-continuous:
+// at an integer t the per-sample path's right difference; JAX
+// _lattice_axis_dtents, :296).
+__device__ __forceinline__ float lattice_dtent(float t, int o) {
+  const float u = t - static_cast<float>(o);
+  return (u >= -1.0f && u < 0.0f) ? 1.0f : ((u >= 0.0f && u < 1.0f) ? -1.0f : 0.0f);
+}
+
+// The global row of lattice point a + o of level lv.
+__device__ __forceinline__ uint32_t lattice_row(const HashLevel& lv, const int (&a)[3], int o0,
+                                                int o1, int o2) {
+  const int rmax = static_cast<int>(lv.res) - 1;
+  const int o[3] = {o0, o1, o2};
+  uint32_t cu[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int v = a[d] + o[d];
+    cu[d] = static_cast<uint32_t>(v < 0 ? 0 : (v > rmax ? rmax : v));
+  }
+  const uint32_t local = lv.hashed
+                             ? (cu[0] * 1u ^ cu[1] * 2654435761u ^ cu[2] * 805459861u) % lv.size
+                             : cu[0] + cu[1] * lv.res + cu[2] * lv.res * lv.res;
+  return local + lv.offset;
+}
+
+// The block's positions t = pos - a (G slots, the first g used) and its
+// anchor a, from samples i0 .. i0 + g - 1: pos = fmaf(x, s, 0.5) as the
+// per-sample taps round it.
+template <int G>
+__device__ __forceinline__ void lattice_block(const float* __restrict__ x, long long i0, int g,
+                                              float scale, float (&t)[G][3], int (&a)[3]) {
+  float mn[3] = {INFINITY, INFINITY, INFINITY};
+#pragma unroll
+  for (int s = 0; s < G; ++s) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      t[s][d] = s < g ? fmaf(x[3 * (i0 + s) + d], scale, 0.5f) : 0.0f;
+      if (s < g) mn[d] = fminf(mn[d], t[s][d]);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float af = floorf(mn[d]);
+    a[d] = static_cast<int>(af);
+#pragma unroll
+    for (int s = 0; s < G; ++s) t[s][d] = t[s][d] - af;
+  }
+}
+
+// Bit o of axis d's mask: some sample of the block has a non-zero tent or
+// tent derivative at lattice offset o on axis d. A lattice point outside the
+// three masks weighs every sample by exact zeros in the features, the
+// Jacobian, their updates and d x (every term holds a tent or a derivative
+// of that axis), so skipping it leaves every sum as it is: they start at
+// +0 and never hold -0, so adding a +-0 changes nothing.
+template <int G>
+__device__ __forceinline__ void lattice_masks(const float (&t)[G][3], int g, int (&mask)[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    mask[d] = 0;
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      if (s >= g) continue;
+#pragma unroll
+      for (int o = 0; o < 3; ++o) {
+        if (lattice_tent(t[s][d], o) != 0.0f || lattice_dtent(t[s][d], o) != 0.0f) {
+          mask[d] |= 1 << o;
+        }
+      }
+    }
+  }
+}
+
+// The tents of lattice offset (o0, o1, o2) at t, their product (w_x w_y) w_z
+// and, with dw, the product's gradient in grid units, (dw_d w_e1) w_e2 with
+// e1 < e2 the other axes (JAX _lattice_wd27, :316).
+struct LatticeWeights {
+  float w[3], dw[3], w27, wd[3];
+};
+
+template <bool kGrad>
+__device__ __forceinline__ LatticeWeights lattice_weights(const float (&t)[3], int o0, int o1,
+                                                          int o2) {
+  LatticeWeights r;
+  const int o[3] = {o0, o1, o2};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) r.w[d] = lattice_tent(t[d], o[d]);
+  r.w27 = (r.w[0] * r.w[1]) * r.w[2];
+  if constexpr (kGrad) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) r.dw[d] = lattice_dtent(t[d], o[d]);
+    r.wd[0] = (r.dw[0] * r.w[1]) * r.w[2];
+    r.wd[1] = (r.dw[1] * r.w[0]) * r.w[2];
+    r.wd[2] = (r.dw[2] * r.w[0]) * r.w[1];
+  }
+  return r;
 }
 
 }  // namespace insr

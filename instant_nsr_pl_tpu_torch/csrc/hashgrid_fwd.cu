@@ -11,7 +11,10 @@
 // contracts the sum and the plain version (ops/hashgrid.py _corner_sum)
 // computes it, then multiplies by the optional level mask: the output equals
 // the plain version's to the bit. Output (N, L*F) float32, level-major.
-// Nothing is saved for the backward: HG2 recomputes the taps.
+// Nothing is saved for the backward: HG2 recomputes the taps. The tap-dedup
+// levels of a spec (HashLevel::g > 0, a prefix of the levels) are HG5's
+// (csrc/hashgrid_lattice_fwd.cu): level groups made of them are not launched,
+// and such a level in a mixed group is stored as zeros for HG5 to overwrite.
 //
 // What bounds it on an H100: scattered reads of the table. The compulsory
 // bytes are x (12 B) and the output (L*F*4 = 128 B at the bench shape) per
@@ -59,18 +62,26 @@ __device__ __forceinline__ void store_vec(float* __restrict__ dst, const float (
   }
 }
 
+// Level group blockIdx.y + g0: the groups before g0 hold only dedup levels
+// (HG5's), and a dedup level of a later group is stored as zeros here and
+// overwritten by HG5, which runs after this kernel on the same stream.
 template <int F, int LG>
 __global__ void __launch_bounds__(kHashBlock)
     hashgrid_fwd_kernel(const float* __restrict__ x, long long n,
-                        const float* __restrict__ table, int n_levels, HashLevels levels,
+                        const float* __restrict__ table, int n_levels, int g0, HashLevels levels,
                         const float* __restrict__ mask, float* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int l0 = blockIdx.y * LG;
+  const int l0 = (blockIdx.y + g0) * LG;
   const float x0 = x[3 * i], x1 = x[3 * i + 1], x2 = x[3 * i + 2];
   float res[LG * F];
 #pragma unroll
   for (int q = 0; q < LG; ++q) {
+    if (levels.l[l0 + q].g > 0) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) res[q * F + f] = 0.0f;
+      continue;
+    }
     const Taps t = level_taps(levels.l[l0 + q], x0, x1, x2);
     float acc[F];
 #pragma unroll
@@ -91,10 +102,11 @@ template <int F, int LG>
 int launch_hashgrid_fwd(const float* x, long long n, const float* table, int n_levels,
                         const HashLevels& levels, const float* mask, float* out,
                         cudaStream_t stream) {
-  if (n > 0) {
-    const dim3 grid(static_cast<unsigned>((n + kHashBlock - 1) / kHashBlock), n_levels / LG);
-    hashgrid_fwd_kernel<F, LG><<<grid, kHashBlock, 0, stream>>>(x, n, table, n_levels, levels,
-                                                               mask, out);
+  const int g0 = lattice_levels(levels, n_levels) / LG;  // the first group with a HG1 level
+  if (n > 0 && g0 < n_levels / LG) {
+    const dim3 grid(static_cast<unsigned>((n + kHashBlock - 1) / kHashBlock), n_levels / LG - g0);
+    hashgrid_fwd_kernel<F, LG><<<grid, kHashBlock, 0, stream>>>(x, n, table, n_levels, g0,
+                                                               levels, mask, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

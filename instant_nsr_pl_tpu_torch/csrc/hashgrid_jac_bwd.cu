@@ -53,7 +53,9 @@
 // dx does not depend on the schedule, the same bits from run to run.
 // Float32 atomics make the table gradient's order change from run to run, so
 // it agrees with the plain version's index_add_ to float32 rounding of the
-// sums, not to the bit.
+// sums, not to the bit. The tap-dedup levels (HashLevel::g > 0, a prefix)
+// are HG8's (csrc/hashgrid_lattice_bwd.cu), which runs after this kernel and
+// adds its rows and d x terms.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -125,12 +127,13 @@ template <int F>
 __global__ void __launch_bounds__(kHashBlock)
     hashgrid_jac_bwd_kernel(const float* __restrict__ x, long long n,
                             const float* __restrict__ ct_f, const float* __restrict__ ct_j,
-                            const float* __restrict__ table, int n_levels, HashLevels levels,
-                            const float* __restrict__ mask, float* __restrict__ dtable,
-                            float* __restrict__ dx_part) {
+                            const float* __restrict__ table, int n_levels, int level0,
+                            HashLevels levels, const float* __restrict__ mask,
+                            float* __restrict__ dtable, float* __restrict__ dx_part) {
   // two buffers, so one barrier per level suffices
   __shared__ EdgeRuns<F> edges[2];
-  const int groups = (n_levels + kTileLevels - 1) / kTileLevels;
+  // levels level0 .. n_levels - 1 (the dedup levels before them are HG8's)
+  const int groups = (n_levels - level0 + kTileLevels - 1) / kTileLevels;
   const long long blocks = (n + kHashBlock - 1) / kHashBlock;
   const long long plane = n * n_levels * F;
   int buf = 0;
@@ -138,7 +141,7 @@ __global__ void __launch_bounds__(kHashBlock)
   // and level group t % groups
   for (long long t = blockIdx.x; t < blocks * groups; t += gridDim.x) {
     const long long i = t / groups * kHashBlock + threadIdx.x;
-    const int l0 = static_cast<int>(t % groups) * kTileLevels;
+    const int l0 = level0 + static_cast<int>(t % groups) * kTileLevels;
     const bool active = i < n;
     const long long ii = active ? i : n - 1;  // a valid address for idle lanes
     const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
@@ -226,11 +229,11 @@ __global__ void __launch_bounds__(kHashBlock)
 // d x = the levels' terms summed in level order from 0, whatever the
 // schedule that wrote them: the same bits from run to run.
 __global__ void hashgrid_dx_sum_kernel(const float* __restrict__ dx_part, long long n,
-                                       int n_levels, float* __restrict__ dx) {
+                                       int first, int n_levels, float* __restrict__ dx) {
   const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= 3 * n) return;
   float acc = 0.0f;
-  for (int l = 0; l < n_levels; ++l) acc = acc + dx_part[l * 3 * n + j];
+  for (int l = first; l < n_levels; ++l) acc = acc + dx_part[l * 3 * n + j];
   dx[j] = acc;
 }
 
@@ -255,16 +258,18 @@ int launch_hashgrid_jac_bwd(const float* x, long long n, const float* ct_f, cons
                             const float* table, int n_levels, const HashLevels& levels,
                             const float* mask, float* dtable, float* dx, float* dx_part,
                             cudaStream_t stream) {
-  if (n > 0) {
-    const long long tiles = (n_levels + kTileLevels - 1) / kTileLevels *
+  const int first = lattice_levels(levels, n_levels);
+  if (n > 0 && first < n_levels) {
+    const long long tiles = (n_levels - first + kTileLevels - 1) / kTileLevels *
                             ((n + kHashBlock - 1) / kHashBlock);
     hashgrid_jac_bwd_kernel<F><<<jac_bwd_grid<F>(tiles), kHashBlock, 0, stream>>>(
-        x, n, ct_f, ct_j, table, n_levels, levels, mask, dtable, dx != nullptr ? dx_part : nullptr);
+        x, n, ct_f, ct_j, table, n_levels, first, levels, mask, dtable,
+        dx != nullptr ? dx_part : nullptr);
     if (dx != nullptr) {
       const int rc = static_cast<int>(cudaGetLastError());
       if (rc != 0) return rc;
       hashgrid_dx_sum_kernel<<<static_cast<unsigned>((3 * n + 255) / 256), 256, 0, stream>>>(
-          dx_part, n, n_levels, dx);
+          dx_part, n, first, n_levels, dx);
     }
   }
   return static_cast<int>(cudaGetLastError());

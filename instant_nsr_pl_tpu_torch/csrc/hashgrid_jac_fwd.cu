@@ -23,7 +23,9 @@
 // then multiplies both by the optional level mask. Outputs: feat (N, L*F)
 // level-major, as HG1; jac (3, N, L*F) coordinate-major, the JAX layout that
 // CompositeEncoding.apply_with_jac extends by its xyz identity block. Nothing
-// is saved for the backward: HG4 recomputes the taps.
+// is saved for the backward: HG4 recomputes the taps. The tap-dedup levels
+// (HashLevel::g > 0, a prefix) are HG7's (csrc/hashgrid_lattice_fwd.cu), as
+// HG1 leaves them to HG5.
 //
 // What bounds it on an H100: the compulsory bytes are x (12 B), feat (L*F*4 B)
 // and jac (3*L*F*4 B) per sample plus the table once: at
@@ -68,9 +70,9 @@ constexpr int kJacOutputs = 4;
 template <int F, int LG>
 __global__ void __launch_bounds__(kHashBlock, F <= 2 ? kJacFwdBlocks : 1)
     hashgrid_jac_fwd_kernel(const float* __restrict__ x, long long n,
-                            const float* __restrict__ table, int n_levels, HashLevels levels,
-                            const float* __restrict__ mask, float* __restrict__ out,
-                            float* __restrict__ jac) {
+                            const float* __restrict__ table, int n_levels, int g0,
+                            HashLevels levels, const float* __restrict__ mask,
+                            float* __restrict__ out, float* __restrict__ jac) {
   constexpr int V = LG * F;  // floats of one output's level-group slice of a sample
   // per warp and output, its 32 samples' slices, staged for the write-out
   __shared__ __align__(16) float stage[kHashBlock / 32][kJacOutputs][32][V];
@@ -79,12 +81,20 @@ __global__ void __launch_bounds__(kHashBlock, F <= 2 ? kJacFwdBlocks : 1)
   if (base >= n) return;  // warp-uniform
   const long long i = base + lane;
   const long long ii = i < n ? i : n - 1;  // a ragged warp's idle lanes: a valid sample
-  const int l0 = blockIdx.y * LG;
+  const int l0 = (blockIdx.y + g0) * LG;
   const float x0 = x[3 * ii], x1 = x[3 * ii + 1], x2 = x[3 * ii + 2];
   float(&st)[kJacOutputs][32][V] = stage[warp];
 #pragma unroll
   for (int q = 0; q < LG; ++q) {
     const HashLevel& lv = levels.l[l0 + q];
+    if (lv.g > 0) {  // a dedup level: zeros here, HG7's values after
+#pragma unroll
+      for (int k = 0; k < kJacOutputs; ++k) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) st[k][lane][q * F + f] = 0.0f;
+      }
+      continue;
+    }
     const Taps t = level_taps(lv, x0, x1, x2);
     float v[8][F];  // the 8 corners' rows, all loads in flight before the sums
 #pragma unroll
@@ -146,9 +156,10 @@ template <int F, int LG>
 int launch_hashgrid_jac_fwd(const float* x, long long n, const float* table, int n_levels,
                             const HashLevels& levels, const float* mask, float* out, float* jac,
                             cudaStream_t stream) {
-  if (n > 0) {
-    const dim3 grid(static_cast<unsigned>((n + kHashBlock - 1) / kHashBlock), n_levels / LG);
-    hashgrid_jac_fwd_kernel<F, LG><<<grid, kHashBlock, 0, stream>>>(x, n, table, n_levels,
+  const int g0 = lattice_levels(levels, n_levels) / LG;  // the first group with a HG3 level
+  if (n > 0 && g0 < n_levels / LG) {
+    const dim3 grid(static_cast<unsigned>((n + kHashBlock - 1) / kHashBlock), n_levels / LG - g0);
+    hashgrid_jac_fwd_kernel<F, LG><<<grid, kHashBlock, 0, stream>>>(x, n, table, n_levels, g0,
                                                                    levels, mask, out, jac);
   }
   return static_cast<int>(cudaGetLastError());

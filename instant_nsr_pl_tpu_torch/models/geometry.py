@@ -201,17 +201,21 @@ class VolumeSDF:
         return torch.tensor(2.0 * self.radius, dtype=torch.float32) / grid_res
 
     def apply(self, params, points, step=None, with_grad=True, with_feature=True,
-              with_laplace=False):
+              with_laplace=False, grouped=False):
         """Returns (sdf, [grad,] [feature,] [laplace]), the reference's tuple
-        protocol (models/geometry.py:158-210), at training step ``step``."""
+        protocol (models/geometry.py:158-210), at training step ``step``.
+        ``grouped`` asserts aligned uniform-step blocks (the group-compacted
+        march): the analytic jac path then takes the encoding's dedup spec;
+        the finite-difference and autodiff paths stay per-sample (JAX
+        ``models/geometry.py:213-231``)."""
         points = points.reshape(-1, 3)
         grad = feature = laplace = None
         if with_grad and self.grad_type == "analytic" and self.use_jac:
             if self.contraction_type != ContractionType.AABB:
                 raise ValueError("analytic_jac supports AABB contraction only")
             pts = contract_to_unisphere(points, self.radius, self.contraction_type)
-            enc, jac = self.encoding.apply_with_jac(params["encoding"], pts,
-                                                    step=step)  # (N, E), (3, N, E)
+            enc, jac = self.encoding.apply_with_jac(params["encoding"], pts, step=step,
+                                                    grouped=grouped)  # (N, E), (3, N, E)
             scale = 0.5 / self.radius  # d pts / d points (AABB is linear)
             out, tout = self.network.apply_jvp(params["network"], enc, jac * scale)
             feature = out.float()

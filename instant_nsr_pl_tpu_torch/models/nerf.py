@@ -84,9 +84,9 @@ class NeRFModel:
         self.group_compact = bool(config.get("march_group_compact", True))
         # hash-grid per-group tap dedup (JAX models/nerf.py:87-106): with
         # aligned k-blocks guaranteed by the group-compacted march, the
-        # geometry's hash encoding keeps the dedup spec (its kernels compute
-        # per-sample taps, the same function); a stride > 1 means AABB and
-        # uniform steps
+        # geometry's hash encoding reads its coarse levels from one 27-point
+        # lattice per block (HG5 / HG6); a stride > 1 means AABB and uniform
+        # steps. model.hash_tap_dedup=false turns it off
         if (bool(config.get("hash_tap_dedup", True)) and self.group_compact
                 and self.grid_prune and self.occ_stride > 1):
             self.geometry.configure_dedup(self.occ_stride,

@@ -244,9 +244,11 @@ class HashGridEncoding:
     (the NeuS SDF's analytic gradient) runs ``hashgrid_encode_with_jac`` (HG3
     forward, HG4 backward) in either mode.
 
-    ``configure_dedup`` keeps the JAX package's per-group tap dedup spec
-    (set by the renderer when its march guarantees aligned blocks); the
-    port's kernels compute per-sample taps, the same function."""
+    ``configure_dedup`` keeps the per-group tap dedup spec (set by the
+    renderer when its march guarantees aligned blocks, as in the JAX
+    package): a ``grouped`` call of whole blocks then reads its coarse levels
+    from one 27-point lattice per block (HG5 / HG6, and HG7 / HG8 on the jac
+    path), the same function as the per-sample taps."""
 
     def __init__(self, in_channels, config):
         self.spec = HashGridSpec.from_config(config, n_input_dims=in_channels)
@@ -292,13 +294,15 @@ class HashGridEncoding:
         table = params["table"]
         return self._encode(table, x, self._mask(step, table.device), grouped)
 
-    def apply_with_jac(self, params, x, step=None):
+    def apply_with_jac(self, params, x, step=None, grouped=False):
         """(feat (..., L*F), jac (3, ..., L*F)): the features and their
         analytic position Jacobian from one set of taps
-        (``hashgrid_encode_with_jac``), per sample: the JAX package's tap
-        dedup computes the same function."""
+        (``hashgrid_encode_with_jac``), with the dedup spec for a ``grouped``
+        call of whole blocks (JAX ``models/network_utils.py:126-134,
+        165-170``)."""
         table = params["table"]
-        return hashgrid_encode_with_jac(table, x, self.spec, self._mask(step, table.device))
+        return hashgrid_encode_with_jac(table, x, self._spec_for(x, grouped),
+                                        self._mask(step, table.device))
 
 
 class ProgressiveBandHashGrid(HashGridEncoding):
@@ -389,10 +393,12 @@ class CompositeEncoding:
     def has_jac(self) -> bool:
         return hasattr(self.encoding, "apply_with_jac")
 
-    def apply_with_jac(self, params, x, step=None):
+    def apply_with_jac(self, params, x, step=None, grouped=False):
         """(feat (..., D), jac (3, ..., D)) including the identity block of
-        the prepended xyz channels (d(x * s + o)/dx = s * I)."""
-        enc, jac = self.encoding.apply_with_jac(params, x, step=step)
+        the prepended xyz channels (d(x * s + o)/dx = s * I); ``grouped`` as
+        in :meth:`apply`."""
+        kw = {"grouped": True} if grouped and self.dedup_spec is not None else {}
+        enc, jac = self.encoding.apply_with_jac(params, x, step=step, **kw)
         if not self.include_xyz:
             return enc, jac
         feat = torch.cat([x * self.xyz_scale + self.xyz_offset, enc], dim=-1)

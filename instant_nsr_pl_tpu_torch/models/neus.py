@@ -104,6 +104,13 @@ class NeuSModel:
         while self.num_samples_per_ray % self.occ_stride:
             self.occ_stride -= 1
         self.group_compact = bool(config.get("march_group_compact", True))
+        # hash-grid per-group tap dedup (JAX models/neus.py:91-107): the
+        # foreground is always AABB with uniform steps, so the march-group
+        # guarantee alone gates it; it serves the analytic jac path
+        if (bool(config.get("hash_tap_dedup", True)) and self.group_compact
+                and self.grid_prune and self.occ_stride > 1):
+            self.geometry.configure_dedup(self.occ_stride,
+                                          self.render_step_size / (2.0 * self.radius))
         self.occ_thre = float(config.get("grid_prune_occ_thre", 0.01))
         self.occ_spec = OccGridSpec(
             resolution=128, radius=self.radius, contraction_type=self.contraction_type
@@ -327,7 +334,7 @@ class NeuSModel:
             else:
                 sdf, sdf_grad, feature = geo.apply(
                     params["geometry"], positions, step=step, with_grad=True,
-                    with_feature=True)
+                    with_feature=True, grouped=grp > 1)
             # an EXACTLY zero gradient (padding samples with collapsed clipped
             # stencils) makes the norm's backward NaN even where masked:
             # substitute a safe unit vector

@@ -600,6 +600,27 @@ def stencil(u):
                                  ContractionType.AABB).contiguous()
 
 
+# the per-sample position step in [0, 1] coordinates of configs/nerf-blender.yaml
+# and neus-blender.yaml (radius 1.5, 1024 samples a ray): render_step_size / 2r
+BLENDER_DEDUP_STEP = 1.732 * 2.0 * 1.5 / 1024 / (2.0 * 1.5)
+
+
+def march_blocks(gen, n=N, step=BLENDER_DEDUP_STEP, per_ray=512):
+    """(n, 3) float32 positions as the group-compacted march packs them: rays
+    of ``per_ray`` samples (n a multiple of it) at uniform steps of ``step``
+    from a random start in [0.02, 0.98]^3, clipped to the unit box, so every
+    aligned block of up to ``per_ray`` samples is one ray's uniform run (the
+    tap dedup's premise)."""
+    import torch
+
+    n_rays = n // per_ray
+    x0 = torch.rand((n_rays, 3), generator=gen) * 0.96 + 0.02
+    d = torch.nn.functional.normalize(torch.randn((n_rays, 3), generator=gen), dim=-1)
+    i = torch.arange(per_ray, dtype=torch.float32)[None, :, None]
+    x = (x0[:, None, :] + d[:, None, :] * (i * step)).clamp(0.0, 1.0)
+    return x.reshape(-1, 3).contiguous()
+
+
 def positions(gen, order, n=N):
     """(n, 3) float32 positions: uniform, or n / 512 rays of 512 evenly
     spaced samples across the unit box (n a multiple of 512), or ("stencil")

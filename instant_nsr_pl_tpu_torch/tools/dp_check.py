@@ -37,6 +37,8 @@ import torch
 COUNTERS = {
     "hashgrid_forward": ("hashgrid", "hashgrid_forward"),
     "hashgrid_backward": ("hashgrid", "hashgrid_backward"),
+    "hashgrid_lattice_forward": ("hashgrid", "hashgrid_lattice_forward"),
+    "hashgrid_lattice_backward": ("hashgrid", "hashgrid_lattice_backward"),
     "sh_mlp_forward": ("sh_mlp", "sh_mlp_forward"),
     "sh_mlp_backward": ("sh_mlp", "sh_mlp_backward"),
     "marching_classify": ("isosurface", "marching_classify"),
@@ -190,7 +192,9 @@ def train_run(group, device, cfg, steps, chunks=None, seed=0, grid_res=None):
     ``chunks``) from ``init_state(seed)``; returns the losses and training
     PSNRs, the digest of this rank's batch at each step
     (:func:`batch_digest`), the final state's digests and whether the
-    geometry's hash encoding kept its tap-dedup spec. ``grid_res`` shrinks
+    geometry's hash encoding kept its tap-dedup spec (and so reads its coarse
+    levels from block lattices, HG5 / HG6, when a rank's capacity divides
+    the block size). ``grid_res`` shrinks
     the grids (:func:`small_grids`)."""
     from instant_nsr_pl_tpu_torch.parallel.distributed import state_digests
 

@@ -262,21 +262,54 @@ def save_obj(save_dir, filename, v_pos, t_pos_idx, v_rgb=None):
 
 def load_obj(path):
     """Minimal OBJ reader (vertices, optional vertex colours, faces
-    fan-triangulated), the reference's utils/obj.py role."""
-    verts, faces, colors = [], [], []
+    fan-triangulated), the reference's utils/obj.py role. Where every vertex
+    line has the same field count and every face is a plain triangle (what
+    :func:`save_obj` writes), each block of lines is parsed as one array;
+    other files line by line, with the same result."""
     with open(path) as fh:
-        for line in fh:
-            parts = line.strip().split()
-            if not parts:
-                continue
-            if parts[0] == "v":
-                verts.append([float(x) for x in parts[1:4]])
-                if len(parts) >= 7:
-                    colors.append([float(x) for x in parts[4:7]])
-            elif parts[0] == "f":
-                idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
-                for i in range(1, len(idx) - 1):
-                    faces.append([idx[0], idx[i], idx[i + 1]])
+        lines = fh.read().splitlines()
+    vl = [ln for ln in lines if ln[:2] == "v "]
+    fl = [ln for ln in lines if ln[:2] == "f "]
+    if any(ln[:1].isspace() or ln[1:2] == "\t" for ln in lines):
+        vl = fl = None  # indented or tab-separated lines: line by line
+    out = {}
+    width = len(vl[0].split()) - 1 if vl else 0
+    vals = (np.fromstring(" ".join(ln[2:] for ln in vl), dtype=np.float64, sep=" ")
+            if vl and width in (3, 6) else None)
+    if vals is not None and vals.size == width * len(vl):
+        vals = vals.reshape(-1, width).astype(np.float32)
+        out["v_pos"] = vals[:, :3]
+        if width == 6:
+            out["v_rgb"] = vals[:, 3:6]
+    if fl and not any("/" in ln for ln in fl):
+        idx = np.fromstring(" ".join(ln[2:] for ln in fl), dtype=np.int64, sep=" ")
+        if idx.size == 3 * len(fl):
+            out["t_pos_idx"] = idx.reshape(-1, 3) - 1
+    if vl is not None and "v_pos" not in out and not vl:
+        out["v_pos"] = np.zeros((0, 3), np.float32)
+    if fl is not None and "t_pos_idx" not in out and not fl:
+        out["t_pos_idx"] = np.zeros((0, 3), np.int64)
+    if "v_pos" in out and "t_pos_idx" in out:
+        return out
+    return load_obj_by_line(lines)
+
+
+def load_obj_by_line(lines):
+    """:func:`load_obj`'s reader for any file, one line at a time (its
+    ``lines``, as ``str.splitlines`` gives them)."""
+    verts, faces, colors = [], [], []
+    for line in lines:
+        parts = line.strip().split()
+        if not parts:
+            continue
+        if parts[0] == "v":
+            verts.append([float(x) for x in parts[1:4]])
+            if len(parts) >= 7:
+                colors.append([float(x) for x in parts[4:7]])
+        elif parts[0] == "f":
+            idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+            for i in range(1, len(idx) - 1):
+                faces.append([idx[0], idx[i], idx[i + 1]])
     out = {
         "v_pos": np.asarray(verts, np.float32).reshape(-1, 3),
         "t_pos_idx": np.asarray(faces, np.int64).reshape(-1, 3),

@@ -8,7 +8,12 @@ weights (with dynamic ray sampling the ray count adapts every 10 of them,
 as the trainer adapts it at its log cadence).
 
     python3 scripts/profile_torch_train.py [--model nerf|neus] [--config x.yaml]
-        [--out profile_train.json]
+        [--out profile_train.json] [key=value ...]
+
+Trailing ``key=value`` arguments override the config as the launcher's do,
+e.g. ``--config configs/nerf-blender.yaml dataset.scene=procsphere
+dataset.root_dir=data80/blender model.hash_tap_dedup=false`` (the hash grid's
+coarse levels through the per-sample kernels instead of the block lattices).
 
 Prints as JSON (and writes to ``--out`` when given), with the card's name
 and power limit:
@@ -23,7 +28,8 @@ and power limit:
   K12 or HG4, K4, the MLP's second-order graph and compositing), AdamW. Both add the grid update
   amortised over its cadence (one slab update every 16 steps);
 - for 10 whole steps under torch.profiler: wall, summed device kernel time,
-  the device's busy share (kernel time / wall) and the top device kernels.
+  the device's busy share (kernel time / wall), the top device kernels and
+  the hash grid's kernels by name.
 Needs a CUDA card; exits non-zero without one.
 """
 
@@ -160,6 +166,7 @@ def main():
                     help="a NeRF or NeuS config yaml to profile instead, e.g. "
                          "instant_nsr_pl_tpu_torch/configs/nerf-cp-stacked-synthetic.yaml")
     ap.add_argument("--out", default=None, help="also write the JSON result to this file")
+    ap.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
@@ -167,13 +174,13 @@ def main():
     import chip_smoke
     import instant_nsr_pl_tpu_torch.datasets  # noqa: F401  (register)
     import instant_nsr_pl_tpu_torch.systems  # noqa: F401  (register)
-    from instant_nsr_pl_tpu_torch.config import config_from_dict
+    from instant_nsr_pl_tpu_torch.config import load_config
     from instant_nsr_pl_tpu_torch.registry import datasets, systems
 
     torch.backends.cuda.matmul.allow_tf32 = False
     path = args.config or (chip_smoke.NEUS_CONFIG if args.model == "neus"
                            else chip_smoke.BENCH_CONFIG)
-    cfg = config_from_dict(chip_smoke.bench_config(path))
+    cfg = load_config(path, list(args.overrides))
     model_name = str(cfg.model.name)
     dm = datasets.make(cfg.dataset.name, cfg.dataset)
     dm.setup("fit")
@@ -221,6 +228,7 @@ def main():
     result = {
         "model": model_name,
         "config": os.path.relpath(path, ROOT),
+        "overrides": list(args.overrides),
         "card": chip_smoke.nvidia_smi_line(),
         "step": {"rays": n_rays, "capacity": capacity, "live_samples_median": statistics.median(live),
                  "stage_ms": stage_ms},
@@ -230,6 +238,10 @@ def main():
                               "device_busy_share": busy_us / 1e6 / wall,
                               "kernel_launches_per_step": len(kernels) / 10},
         "top_kernels_ms_per_step": [[name[:90], us / 1e4] for name, us in top],
+        # the hash grid's kernels (HG1-HG8 and their second passes), whether
+        # or not they rank among the top
+        "hash_kernels_ms_per_step": {name[:90]: us / 1e4 for name, us in sorted(by_name.items())
+                                     if "hashgrid" in name or "lattice" in name},
     }
     print(json.dumps(result, indent=1))
     if args.out:

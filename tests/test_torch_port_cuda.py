@@ -1240,6 +1240,156 @@ def test_hash_backward_no_samples(cuda_device, name, masked):
     assert hg.hashgrid_backward.launches == before
 
 
+# HG5-HG8 (csrc/hashgrid_lattice_{fwd,bwd}.cu: the tap-dedup levels' 27-point
+# lattices) at configs/nerf-blender.yaml's and neus-blender.yaml's dedup specs;
+# with group 6 (num_samples_per_ray: 768 makes the march's stride 6) every
+# dedup level's g is 6, which divides no power of two
+def _lattice_spec(name, group=8):
+    import dataclasses
+
+    from instant_nsr_pl_tpu_torch.ops.hashgrid import HashGridSpec
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import BLENDER_DEDUP_STEP
+
+    base = (_bench_hash() if name == "nerf-blender" else HashGridSpec(
+        base_resolution=32, per_level_scale=1.3195079107728942))
+    spec = dataclasses.replace(base, dedup_group=group, dedup_step=BLENDER_DEDUP_STEP)
+    if group == 6:
+        assert spec.dedup_group_sizes[:6] == (6,) * 5 + (0,)
+    else:
+        assert spec.dedup_group_sizes[:7] == ((8,) * 5 + (4, 4) if name == "nerf-blender"
+                                              else (8,) * 4 + (4, 4, 0))
+    return spec
+
+
+def _lattice_case(name, n, seed, masked, device, one_point=False, group=8):
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+    from instant_nsr_pl_tpu_torch.tools.bwd_bench import march_blocks
+
+    spec = _lattice_spec(name, group)
+    gen = torch.Generator().manual_seed(seed)
+    table = (hg.hashgrid_init(gen, spec) * 1e4).to(device)
+    x = (torch.tensor([[0.3, 0.71, 0.52]]).repeat(n, 1) if one_point
+         else march_blocks(gen, n, per_ray=512 if group == 8 else 768)).to(device)
+    assert hg.lattice_cover_ok(spec, x)
+    ct_f = torch.randn((n, spec.n_output_dims), generator=gen).to(device)
+    ct_j = torch.randn((3, n, spec.n_output_dims), generator=gen).to(device)
+    mask = (torch.tensor([1.0, 0.5, 1.0, 0.0, 1.0, 1.0, 0.5] + [1.0, 0.5] * 4 + [0.0]).to(device)
+            if masked else None)
+    return spec, table, x, ct_f, ct_j, mask
+
+
+def _lattice_columns(spec):
+    n_lat = sum(1 for g in spec.dedup_group_sizes if g)
+    return slice(0, n_lat * spec.n_features_per_level)
+
+
+def _check_lattice_grads(spec, table, x, ct_f, ct_j, mask, jac):
+    """HG6 (``jac`` False) or HG8 alone, with and without d x, and through
+    HG2 + HG6 / HG4 + HG8: the table gradient within 1e-5 x max|exact| per
+    level of the plain version's float64 sum, d x within 1e-4 x max|plain|."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    if jac:
+        cts = (ct_f, ct_j)
+        alone, full, plain = (hg.hashgrid_lattice_jac_backward_launch,
+                              hg.hashgrid_jac_backward_launch, hg.hashgrid_jac_backward_plain)
+    else:
+        cts = (ct_f,)
+        alone, full, plain = (hg.hashgrid_lattice_backward_launch, hg.hashgrid_backward_launch,
+                              hg.hashgrid_backward_plain)
+    for fn, lattice_only in ((alone, True), (full, False)):
+        dt, dx = fn(table, x, *cts, spec, mask, with_dx=True)
+        dt_only, no_dx = fn(table, x, *cts, spec, mask)
+        torch.cuda.synchronize()
+        assert no_dx is None
+        rt, rx = plain(table, x, *cts, spec, mask, with_dx=True, accumulate=torch.float64,
+                       lattice_only=lattice_only)
+        for lv in range(spec.n_levels):
+            sl = slice(spec.level_offsets[lv], spec.level_offsets[lv] + spec.level_sizes[lv])
+            _close(dt[sl].double(), rt[sl], rel=1e-5)
+            _close(dt_only[sl].double(), rt[sl], rel=1e-5)
+        _close(dx, rx, rel=1e-4)
+
+
+@pytest.mark.parametrize("group", [8, 6])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["nerf-blender", "neus-blender"])
+def test_hash_lattice_kernels_match_plain(cuda_device, name, masked, group):
+    """HG5 and HG7 on march blocks (128 rays of 512 uniform steps, or 85 of
+    768 at group 6): the dedup levels' columns within 1e-5 x max|plain| of
+    their plain versions (HG7's features equal to HG5's to the bit), and
+    through HG1 + HG5 / HG3 + HG7 the whole encode; HG6 and HG8 within the
+    hash gradient limits (``_check_lattice_grads``); each wrapper's launch
+    counted once a call; a spec without dedup levels launches none of
+    them."""
+    import dataclasses
+
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    n = 1 << 16 if group == 8 else 768 * 85
+    spec, table, x, ct_f, ct_j, mask = _lattice_case(name, n, 31, masked, cuda_device,
+                                                     group=group)
+    cols = _lattice_columns(spec)
+    counters = (hg.hashgrid_lattice_forward, hg.hashgrid_lattice_jac_forward,
+                hg.hashgrid_lattice_backward, hg.hashgrid_lattice_jac_backward)
+    before = [c.launches for c in counters]
+    out = hg.hashgrid_lattice_forward_launch(table, x, spec, mask)
+    feat, jac = hg.hashgrid_lattice_jac_forward_launch(table, x, spec, mask)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+    ref = hg.hashgrid_forward_plain(table, x, spec, mask, lattice_only=True)
+    ref_f, ref_j = hg.hashgrid_jac_forward_plain(table, x, spec, mask, lattice_only=True)
+    _close(out[:, cols], ref[:, cols], rel=1e-5)
+    assert torch.equal(feat, out)
+    _close(jac[..., cols], ref_j[..., cols], rel=1e-5)
+    full = hg.hashgrid_forward_launch(table, x, spec, mask)
+    full_f, full_j = hg.hashgrid_jac_forward_launch(table, x, spec, mask)
+    torch.cuda.synchronize()
+    _close(full, hg.hashgrid_forward_plain(table, x, spec, mask), rel=1e-5)
+    assert torch.equal(full_f, full)
+    _close(full_j, hg.hashgrid_jac_forward_plain(table, x, spec, mask)[1], rel=1e-5)
+    _check_lattice_grads(spec, table, x, ct_f, None, mask, jac=False)
+    _check_lattice_grads(spec, table, x, ct_f, ct_j, mask, jac=True)
+    plain_spec = dataclasses.replace(spec, dedup_group=0)
+    before = [c.launches for c in counters]
+    hg.hashgrid_forward_launch(table, x, plain_spec, mask)
+    hg.hashgrid_jac_backward_launch(table, x, ct_f, ct_j, plain_spec, mask, with_dx=True)
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("jac", [False, True])
+@pytest.mark.parametrize("name", ["nerf-blender", "neus-blender"])
+def test_hash_lattice_table_grad(cuda_device, name, jac):
+    """HG6 / HG8's table gradient where the atomics' order matters most:
+    32,768 samples on one point (every block's lattice on the same rows:
+    4,096 updates a row) and 65,536 march-block samples, each within 1e-5 x
+    max|exact| per level of the float64 sum (the dense dedup levels' rows
+    summed in float64 by the kernel); d x within 1e-4."""
+    for n, one_point in ((1 << 15, True), (1 << 16, False)):
+        spec, table, x, ct_f, ct_j, mask = _lattice_case(name, n, 32, False, cuda_device,
+                                                         one_point)
+        _check_lattice_grads(spec, table, x, ct_f, ct_j if jac else None, mask, jac)
+
+
+def test_hash_lattice_no_samples(cuda_device):
+    """N = 0: zero gradients, empty outputs, no launch."""
+    from instant_nsr_pl_tpu_torch.ops import hashgrid as hg
+
+    spec = _lattice_spec("nerf-blender")
+    table = (hg.hashgrid_init(torch.Generator().manual_seed(33), spec) * 1e4).to(cuda_device)
+    x = torch.zeros((0, 3), device=cuda_device)
+    ct = torch.zeros((0, spec.n_output_dims), device=cuda_device)
+    counters = (hg.hashgrid_lattice_forward, hg.hashgrid_lattice_jac_forward,
+                hg.hashgrid_lattice_backward, hg.hashgrid_lattice_jac_backward)
+    before = [c.launches for c in counters]
+    assert hg.hashgrid_forward_launch(table, x, spec).shape == (0, spec.n_output_dims)
+    dt, dx = hg.hashgrid_backward_launch(table, x, ct, spec, with_dx=True)
+    dt2, _ = hg.hashgrid_jac_backward_launch(table, x, ct, ct[None].expand(3, 0, -1), spec)
+    torch.cuda.synchronize()
+    assert not bool(dt.any()) and not bool(dt2.any()) and tuple(dx.shape) == (0, 3)
+    assert [c.launches for c in counters] == before
+
+
 # HG3 / HG4 (csrc/hashgrid_jac_{fwd,bwd}.cu: the hash encoding with its
 # position Jacobian, and its backward from both cotangents) at
 # configs/neus-synthetic.yaml's grid

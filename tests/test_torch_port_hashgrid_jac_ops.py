@@ -178,14 +178,16 @@ def _block_inputs(g=8, nblocks=48, step=0.01, seed=4):
 
 @pytest.mark.parametrize("case", ["forward", "backward"])
 def test_jac_matches_jax_dedup_spec(case):
-    """A JAX dedup spec (coarse levels read one 27-point lattice per aligned
-    block, tests/test_hashgrid_jac.py:132-165) against the port's per-sample
-    taps, which compute the same function: features within rtol 1e-5, the
+    """A dedup spec (coarse levels read one 27-point lattice per aligned
+    block, tests/test_hashgrid_jac.py:132-165) in both packages (the port's
+    plain HG7 / HG8 on those levels): features within rtol 1e-5, the
     Jacobian within rtol / atol 1e-4, the table gradient within 3e-3 and d x
     within rtol 1e-3 / 1e-4 of its largest value."""
     js, ts = _specs(JAC)
     jd = dataclasses.replace(js, dedup_group=8, dedup_step=0.01)
+    ts = dataclasses.replace(ts, dedup_group=8, dedup_step=0.01)
     assert any(jd.dedup_group_sizes) and not all(jd.dedup_group_sizes)
+    assert ts.dedup_group_sizes == jd.dedup_group_sizes
     x = _block_inputs()
     table, _, ct_f, ct_j = _inputs(js, x.shape[0], seed=5)
     if case == "forward":

@@ -194,3 +194,36 @@ def test_obj_writer_matches_jax_bytes(tmp_path, colours):
         with open(os.path.join(tmp_path, f"{name}-port.obj"), "rb") as a, \
                 open(os.path.join(tmp_path, f"{name}-jax.obj"), "rb") as b:
             assert a.read() == b.read(), name
+
+
+@pytest.mark.parametrize("colours", [False, True])
+def test_obj_reader_blocks_match_line_reader(tmp_path, colours):
+    """``load_obj`` parses what ``save_obj`` writes as whole blocks of lines;
+    it gives what the line-by-line reader (``load_obj_by_line``, the
+    reference) gives, NaN, infinities and an empty mesh included, and falls
+    back to that reader for polygons with texture indices and indented
+    lines."""
+    from instant_nsr_pl_tpu_torch.utils.savers import load_obj, load_obj_by_line
+
+    rs = np.random.RandomState(1)
+    n = 3000
+    v = (rs.randn(n, 3) * rs.choice([1e-8, 1.0, 1e6], (n, 3))).astype(np.float32)
+    v[:3] = [[np.nan, np.inf, -np.inf], [-np.nan, 3.4e38, -1e-9], [0.0, -0.0, 0.0]]
+    f = rs.randint(0, n, (2 * n, 3))
+    c = rs.rand(n, 3).astype(np.float32) if colours else None
+    odd = os.path.join(tmp_path, "odd.obj")
+    with open(odd, "w") as fh:
+        fh.write("# a quad with texture indices\nv 0 0 0\nv 1 0 0\n  v 1 1 0\nv 0 1 0\n"
+                 "vt 0 0\nf 1/1 2/2 3/3 4/4\n")
+    for name, (vv, ff, cc) in {"mesh": (v, f, c),
+                               "empty": (np.zeros((0, 3)), np.zeros((0, 3)), None)}.items():
+        path = t_save_obj(str(tmp_path), f"{name}.obj", vv, ff, cc)
+        for p in (path, odd):
+            with open(p) as fh:
+                ref = load_obj_by_line(fh.read().splitlines())
+            got = load_obj(p)
+            assert sorted(got) == sorted(ref), (name, p)
+            for k in ref:
+                assert got[k].dtype == ref[k].dtype, k
+                np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    assert load_obj(odd)["t_pos_idx"].tolist() == [[0, 1, 2], [0, 2, 3]]

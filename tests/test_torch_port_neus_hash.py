@@ -5,7 +5,8 @@ the radiance MLP width 32): ``VolumeSDF`` on the hash grid's jac path
 (``hashgrid_encode_with_jac``: the plain HG3 / HG4 here), with a
 ``ProgressiveBandHashGrid`` at a training step, the autodiff fallback and
 finite differences with the progressive eps; one ``NeuSSystem.loss_fn``
-forward and backward; a NeRF density head on a ``ProgressiveBandHashGrid``;
+forward and backward (the models' tap dedup on: the plain HG7 / HG8 on the
+coarse levels); a NeRF density head on a ``ProgressiveBandHashGrid``;
 and the repo's ``configs/neus-synthetic.yaml`` through the port's launcher
 on the CPU (train, test, export) with size overrides.
 
@@ -203,9 +204,10 @@ def test_neus_hash_loss_and_gradients_match_jax(encoding):
     """One NeuSSystem.loss_fn forward and backward on fixed rays at step 35
     (no stratified jitter, a fixed random background) with the same
     parameters and a grid occupied where the scene SDF is below one cell
-    diagonal, in both packages: the loss within 1e-3 relative, the sample
-    count, inv_s and the training PSNR, and every parameter gradient within
-    2.5e-2 of its largest reference value."""
+    diagonal, in both packages (each with the same tap-dedup spec, so the
+    coarse levels read block lattices): the loss within 1e-3 relative, the
+    sample count, inv_s and the training PSNR, and every parameter gradient
+    within 2.5e-2 of its largest reference value."""
     cfg = _cfg(encoding=HASH if encoding == "hash" else BAND)
     cfg["model"]["randomized"] = False
     j_sys = j_reg.systems.make("neus-system", j_config(copy.deepcopy(cfg)))
@@ -236,6 +238,10 @@ def test_neus_hash_loss_and_gradients_match_jax(encoding):
 
     t_sys = t_reg.systems.make("neus-system", t_config(copy.deepcopy(cfg)), device="cpu")
     t_sys.has_mask = False
+    # both NeuS models configure the same tap-dedup spec for their jac path
+    j_enc, t_enc = model.geometry.encoding.encoding, t_sys.model.geometry.encoding.encoding
+    assert j_enc.dedup_spec is not None and t_enc.dedup_spec is not None
+    assert t_enc.dedup_spec.dedup_group_sizes == j_enc.dedup_spec.dedup_group_sizes
     tp = _carry(params)
     occ = {"grid": occupancy_from_jax(j_occ["grid"], "cpu")}
     loss, metrics = t_sys.loss_fn(tp, occ, {k: torch.from_numpy(v) for k, v in batch.items()},
